@@ -5,9 +5,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the three hand-written CUDA kernels from
-``muscle_synergies_tpu_torch/csrc/`` and then, failing on the first
-assertion that does not hold:
+It builds the five hand-written CUDA kernels from
+``muscle_synergies_tpu_torch/csrc/`` (one ``nvcc`` per source, all
+started together) and then, failing on the first assertion that does
+not hold:
 
 1. prints the card and its power limit, and the build time;
 2. K3 ``sosfiltfilt``: 64 trials x 124,460 samples x 8 channels through
@@ -25,15 +26,39 @@ assertion that does not hold:
    2000 Hz (ranks 1-4, 1,024 fits), once with ``solver="cd"`` and once
    with ``solver="mu"``: every kernel's launch counter must rise, every
    VAF be finite and <= 1, the mean VAF rise from rank 1 to 4, and a
-   16-trial subset match ``impl="torch"`` to VAF 1e-3.
+   16-trial subset match ``impl="torch"`` to VAF 1e-3;
+6. K4 fixed iterations: 50 beta-MU iterations at 1024 x 200 x 8, rank
+   4, on strictly positive X, for beta = 1 (KL), 0 (Itakura-Saito) and
+   1.5 (the generic kind), kernel in float32 against the plain version
+   in float64; bar: max relative factor error <= 1e-3;
+7. K4 fits: 128 problems at tol 1e-4, max_iter 200, beta = 1 and 0,
+   against a plain float64 fit: |median stopping gap| <= 10 iterations
+   and the factor error at the kernel's own stop <= 2e-3;
+8. K5: 20 convolutive iterations at 1024 x 200 x 8, K = 4, D = 10,
+   against the plain version in float64 (bar 1e-3); then 128 fits at
+   tol 1e-4 against float64: |median gap| <= 10, error at the
+   kernel's own stop <= 2e-3;
+9. the KL main path: ``analyze_dataset(solver="mu",
+   beta_loss="kullback-leibler")`` on the 256 trials of phase 5 with
+   the default device and config: the K3 and K4 launch counters must
+   rise, every VAF be finite and <= 1, the mean VAF rise from rank 1 to
+   4, and a 16-trial subset match ``impl="torch"`` to VAF 1e-3;
+10. the time-varying main path: ``analyze_dataset_time_varying(
+    n_synergies=4, n_lags=10, n_inits=4)`` on the same 256 trials
+    (1,024 fits): the K3 and K5 counters must rise, every VAF be finite
+    and <= 1, and a 16-trial subset match ``impl="torch"`` to VAF 1e-3.
 
-It prints each stage's time, then one JSON line with every kernel's
-launches on the main path, its error against the plain version
+Each main path is driven with every launch counter set to 0 just before
+it and read just after.  The script prints each stage's time beside the
+card's name and power limit, then one JSON line with every kernel's
+launches on the main paths, its error against the plain version
 (absolute, and relative to the plain result's largest magnitude, which
-is what its ``tol`` bounds) and its time beside the plain version's,
-and last
-``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with
-code 2 and prints no result.
+is what its ``tol`` bounds), its time beside the plain version's, its
+bound (the larger of the bytes it must move over the card's memory rate
+and its operations over the peak rate of their type) and
+``library_ms`` (null: no single PyTorch call computes any of these
+functions), and last ``{"ok": true, "device": {...}}``.  Without a CUDA
+card it exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -48,6 +73,14 @@ import numpy as np
 FS = 2000.0  # Hz
 N_SAMPLES = 124_460  # one full trial of the reference capture
 N_CHANNELS = 8
+MAIN_TRIALS = 256
+SUBSET = 16
+
+# NVIDIA H100 SXM data sheet: HBM3 rate and dense peaks outside the
+# tensor cores, at the full 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
+NO_LIBRARY = "no single PyTorch call computes this"
 
 
 def log(msg: str) -> None:
@@ -69,6 +102,39 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float, kind: str = "f32"):
+    """The least time in ms the card could take, and what sets it."""
+    ops_ms = flops / PEAK_FLOPS[kind] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def nmf_flops(kernel: str, n: int, l: int, k: int, d: int = 1) -> int:
+    """Operations of one iteration of one fit as the kernels compute them
+    (a multiply-add counts 2; a divide, power, root or log counts 1)."""
+    if kernel == "mu_nmf":
+        return 4 * n * l * k + 4 * n * k * k + 4 * k * k * l + 2 * n * k + 2 * k * l
+    if kernel == "cd_nmf":
+        return 4 * n * l * k + 4 * n * k * k + 4 * k * k * l + 3 * n * k + 3 * k * l
+    if kernel == "beta_nmf_kl":  # two WH rebuilds, two numerators, quotients
+        return 8 * n * l * k + 2 * n * l + 3 * n * k + 3 * k * l
+    if kernel == "beta_nmf":  # KL's work plus two denominator projections
+        return 12 * n * l * k + 6 * n * l + 3 * n * k + 3 * k * l
+    if kernel == "cnmf":  # six passes of K*D*L*T multiply-adds
+        return 12 * k * d * l * n + 2 * k * d * l + 2 * k * n
+    raise ValueError(kernel)
+
+
+def fit_bound(kname: str, n_iter, n: int, l: int, k: int, nbytes: int,
+              d: int = 1) -> None:
+    """Log a fit's bound: the iterations its fits ran (data-dependent)
+    times the operations of one iteration, against the bytes it moves."""
+    iters = int(n_iter.sum())
+    ms, by = bound(iters * nmf_flops(kname, n, l, k, d), nbytes)
+    log(f"fit {kname}: {iters} iterations over {n_iter.numel()} fits "
+        f"(max {int(n_iter.max())}); bound {ms:.3f} ms ({by})")
 
 
 def synthetic_emg(n_trials: int, seed: int) -> np.ndarray:
@@ -102,6 +168,10 @@ def rel_err(a, b) -> float:
     return float((num / den).max())
 
 
+def abs_err(pairs) -> float:
+    return max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+
+
 def plain_snapshot(step, xs, w, h, counts):
     """Run ``step`` on each problem exactly ``counts[b]`` times."""
     w, h = w.clone(), h.clone()
@@ -113,6 +183,420 @@ def plain_snapshot(step, xs, w, h, counts):
     return w, h
 
 
+class Smoke:
+    """One run's card, its kernel records and its main-path launch counts."""
+
+    def __init__(self, dev, smi: str):
+        import torch
+
+        from muscle_synergies_tpu_torch.models.kernels import (
+            beta_cuda,
+            cd_cuda,
+            cnmf_cuda,
+            mu_cuda,
+        )
+        from muscle_synergies_tpu_torch.ops import filter_cuda
+
+        self.torch = torch
+        self.dev = dev
+        self.smi = smi
+        self.rng = np.random.default_rng(0)
+        self.kernels = {}
+        self.counters = {"sosfiltfilt": filter_cuda, "cd_nmf": cd_cuda,
+                         "mu_nmf": mu_cuda, "beta_nmf": beta_cuda,
+                         "cnmf": cnmf_cuda}
+        self.launches = {name: 0 for name in self.counters}
+
+    def stage(self, label: str, seconds: float) -> None:
+        log(f"stage {label}: {seconds:.3f} s  [{self.smi}]")
+
+    def record(self, name, replaces, errs, ms, plain_ms, flops, nbytes,
+               kind="f32", **extra):
+        bound_ms, bound_by = bound(flops, nbytes, kind)
+        log(f"{name}: bound {bound_ms:.4f} ms ({bound_by}); kernel at "
+            f"{bound_ms / ms:.1%} of it  [{self.smi}]")
+        self.kernels[name] = dict(
+            route="cuda", source=f"muscle_synergies_tpu_torch/csrc/{name}.cu",
+            replaces=replaces, max_abs_err=errs[0], max_rel_err=errs[1],
+            tol=errs[2], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, library_note=NO_LIBRARY,
+            **extra,
+        )
+
+    def main_path(self, label: str, fn):
+        """Drive one main path with every launch counter at 0 just before
+        it and read just after; returns its result and its counts."""
+        torch = self.torch
+        for mod in self.counters.values():
+            mod.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        self.stage(f"main {label}", time.perf_counter() - t0)
+        counts = {k: mod.launches for k, mod in self.counters.items()}
+        for k, v in counts.items():
+            self.launches[k] += v
+        log(f"main {label}: launches {counts}")
+        return out, counts
+
+    # ---- 2. K3 ----
+    def filter_phase(self, n_trials: int = 64):
+        from scipy import signal as sps
+
+        from muscle_synergies_tpu_torch.ops import filter_cuda, filters
+
+        torch, dev = self.torch, self.dev
+        sos = filters.sos_design(4, 4.0, FS)
+        raw = synthetic_emg(n_trials, seed=1)
+        # the filter's input on the main path: zero-centered, rectified EMG
+        x_host = np.abs(raw - raw.mean(axis=1, keepdims=True))
+        del raw
+        x = torch.from_numpy(x_host).to(dev)
+        padlen = filters.default_padlen(sos)
+        y = filter_cuda.sosfiltfilt_cuda(sos, x, padlen, "odd")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = sps.sosfiltfilt(sos, x_host.astype(np.float64), axis=1)
+        log(f"filter: scipy float64 reference on the host {time.perf_counter() - t0:.2f} s")
+        scale = float(np.abs(ref).max())
+        err_scipy = float(np.abs(y.cpu().numpy() - ref).max()) / scale
+        del ref
+        x64 = x[:4].double()
+        t0 = time.perf_counter()
+        y_plain64 = filter_cuda.sosfiltfilt_plain(sos, x64, padlen, "odd")
+        torch.cuda.synchronize()
+        log(f"filter: plain float64 on the card, 4 trials, {time.perf_counter() - t0:.2f} s")
+        err_plain = float((y[:4].double() - y_plain64).abs().max())
+        log(f"filter: kernel vs scipy {err_scipy:.3e} x max|y|, vs plain f64 "
+            f"{err_plain / scale:.3e} x max|y| (bar 5e-4)")
+        assert err_scipy <= 5e-4 and err_plain <= 5e-4 * scale, "filter disagrees"
+        ms = cuda_ms(lambda: filter_cuda.sosfiltfilt_cuda(sos, x, padlen, "odd"))
+        plain_ms = cuda_ms(lambda: filter_cuda.sosfiltfilt_plain(sos, x, padlen, "odd"),
+                           reps=1, warmup=0)
+        log(f"filter: {n_trials}x{x.shape[1]}x{N_CHANNELS} f32 kernel {ms:.3f} ms, "
+            f"plain f32 {plain_ms:.1f} ms")
+        # each sample of each column: two passes (forward, backward) over the
+        # padded signal, per second-order section 5 float64 multiply-adds
+        cols = n_trials * N_CHANNELS
+        flops = 2 * len(sos) * 10 * cols * (x.shape[1] + 2 * padlen)
+        self.record("sosfiltfilt", "muscle_synergies_tpu/ops/filter_pallas.py:508",
+                    (err_plain, err_plain / scale, 5e-4), ms, plain_ms, flops,
+                    2 * x.numel() * 4, kind="f64")
+
+    # ---- 3./4. K1 and K2 ----
+    def nmf_phases(self, b=1024, n=200, l=8, k=4, iters=50, fb=128):
+        from muscle_synergies_tpu_torch.models.hals import cd_pass
+        from muscle_synergies_tpu_torch.models.kernels import cd_cuda, mu_cuda
+        from muscle_synergies_tpu_torch.models.mu import mu_update
+
+        torch, dev, rng = self.torch, self.dev, self.rng
+        xs = torch.from_numpy(rng.random((b, n, l)).astype(np.float32)).to(dev)
+        w0 = torch.from_numpy(np.abs(rng.standard_normal((b, n, k))).astype(np.float32)).to(dev)
+        h0 = torch.from_numpy(np.abs(rng.standard_normal((b, k, l))).astype(np.float32)).to(dev)
+        x64, w64, h64 = xs.double(), w0.double(), h0.double()
+        fixed = {
+            "mu_nmf": (mu_cuda.mu_iterations_cuda, mu_cuda.mu_iterations_plain,
+                       "muscle_synergies_tpu/models/kernels/mu_pallas.py:269"),
+            "cd_nmf": (cd_cuda.cd_iterations_cuda, cd_cuda.cd_iterations_plain,
+                       "muscle_synergies_tpu/models/kernels/cd_pallas.py:168"),
+        }
+        nbytes = 4 * b * (n * l + 2 * (n * k + k * l))
+        for kname, (kern, plain, replaces) in fixed.items():
+            wk, hk = kern(xs, w0, h0, iters)
+            wp, hp = plain(x64, w64, h64, iters)
+            err = max(rel_err(wk, wp), rel_err(hk, hp))
+            ms = cuda_ms(lambda: kern(xs, w0, h0, iters))
+            plain_ms = cuda_ms(lambda: plain(xs, w0, h0, iters), reps=3)
+            log(f"{kname}: {iters} iterations at {b}x{n}x{l} k={k}: rel err {err:.3e} "
+                f"(bar 1e-3); kernel {ms:.3f} ms, plain f32 {plain_ms:.3f} ms")
+            assert err <= 1e-3, f"{kname} fixed iterations disagree"
+            self.record(kname, replaces, (abs_err([(wk, wp), (hk, hp)]), err, 1e-3),
+                        ms, plain_ms, b * iters * nmf_flops(kname, n, l, k), nbytes)
+
+        fx, fw, fh = xs[:fb], w0[:fb], h0[:fb]
+        fx64, fw64, fh64 = x64[:fb], w64[:fb], h64[:fb]
+
+        def cd_step(x_, w_, h_):
+            w_, _ = cd_pass(x_, w_, h_.transpose(-1, -2))
+            ht, _ = cd_pass(x_.transpose(-1, -2), h_.transpose(-1, -2), w_)
+            return w_, ht.transpose(-1, -2)
+
+        fits = {
+            "mu_nmf": (mu_cuda.fit_mu_cuda, mu_cuda.fit_mu_plain, mu_update),
+            "cd_nmf": (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain, cd_step),
+        }
+        for kname, (kern, plain, step) in fits.items():
+            t0 = time.perf_counter()
+            sk = kern(fx, fw, fh, max_iter=200, tol=1e-4)
+            torch.cuda.synchronize()
+            fit_ms = (time.perf_counter() - t0) * 1e3
+            sp = plain(fx64, fw64, fh64, max_iter=200, tol=1e-4)
+            gap = (sk.n_iter - sp.n_iter).cpu().numpy()
+            hk = sk.h if kname == "mu_nmf" else sk.ht.transpose(-1, -2)
+            wr, hr = plain_snapshot(step, fx64, fw64, fh64, sk.n_iter)
+            err = max(rel_err(sk.w, wr), rel_err(hk, hr))
+            log(f"{kname}: fit of {fb} at tol 1e-4: stopping gap median "
+                f"{np.median(gap):g} (min {gap.min()}, max {gap.max()}); factor err at "
+                f"the kernel's stop {err:.3e} (bar 1e-3); kernel wall {fit_ms:.2f} ms")
+            assert np.median(gap) == 0, f"{kname} fit stops elsewhere than float64"
+            assert err <= 1e-3, f"{kname} fit disagrees"
+
+    # ---- 6./7. K4 ----
+    def beta_phases(self, b=1024, n=200, l=8, k=4, iters=50, fb=128):
+        from muscle_synergies_tpu_torch.models.beta import mu_update_beta
+        from muscle_synergies_tpu_torch.models.kernels import beta_cuda
+
+        torch, dev, rng = self.torch, self.dev, self.rng
+        # strictly positive X: beta <= 0 refuses zeros
+        xs = torch.from_numpy(rng.random((b, n, l)).astype(np.float32) + 0.05).to(dev)
+        w0 = torch.from_numpy(np.abs(rng.standard_normal((b, n, k))).astype(np.float32)).to(dev)
+        h0 = torch.from_numpy(np.abs(rng.standard_normal((b, k, l))).astype(np.float32)).to(dev)
+        x64, w64, h64 = xs.double(), w0.double(), h0.double()
+        nbytes = 4 * b * (n * l + 2 * (n * k + k * l))
+        times = {}
+        for beta in (1.0, 0.0, 1.5):
+            t0 = time.perf_counter()
+            wk, hk = beta_cuda.beta_iterations_cuda(xs, w0, h0, iters, beta)
+            wp, hp = beta_cuda.beta_iterations_plain(x64, w64, h64, iters, beta)
+            err = max(rel_err(wk, wp), rel_err(hk, hp))
+            ms = cuda_ms(lambda: beta_cuda.beta_iterations_cuda(xs, w0, h0, iters, beta))
+            plain_ms = cuda_ms(lambda: beta_cuda.beta_iterations_plain(xs, w0, h0, iters,
+                                                                        beta), reps=3)
+            times[beta] = (ms, plain_ms, abs_err([(wk, wp), (hk, hp)]), err)
+            log(f"beta_nmf: {iters} iterations at {b}x{n}x{l} k={k}, beta={beta:g}: "
+                f"rel err {err:.3e} (bar 1e-3); kernel {ms:.3f} ms, plain f32 "
+                f"{plain_ms:.3f} ms")
+            self.stage(f"K4 fixed beta={beta:g}", time.perf_counter() - t0)
+            assert err <= 1e-3, f"beta_nmf fixed iterations disagree at beta={beta}"
+        # the main path runs KL: its row carries the KL numbers
+        ms, plain_ms, a_err, r_err = times[1.0]
+        self.record("beta_nmf",
+                    "muscle_synergies_tpu/models/kernels/beta_pallas.py:231",
+                    (a_err, r_err, 1e-3), ms, plain_ms,
+                    b * iters * nmf_flops("beta_nmf_kl", n, l, k), nbytes,
+                    also_replaces="muscle_synergies_tpu/models/kernels/beta_pallas.py:292",
+                    ms_by_beta={f"{bt:g}": v[0] for bt, v in times.items()})
+
+        fx, fw, fh = xs[:fb], w0[:fb], h0[:fb]
+        fx64, fw64, fh64 = x64[:fb], w64[:fb], h64[:fb]
+        for beta in (1.0, 0.0):
+            t0 = time.perf_counter()
+            sk = beta_cuda.fit_beta_cuda(fx, fw, fh, beta=beta, max_iter=200, tol=1e-4)
+            torch.cuda.synchronize()
+            fit_ms = (time.perf_counter() - t0) * 1e3
+            sp = beta_cuda.fit_beta_plain(fx64, fw64, fh64, beta=beta, max_iter=200,
+                                          tol=1e-4)
+            gap = (sk.n_iter - sp.n_iter).cpu().numpy()
+            wr, hr = plain_snapshot(lambda x_, w_, h_: mu_update_beta(x_, w_, h_, beta),
+                                    fx64, fw64, fh64, sk.n_iter)
+            err = max(rel_err(sk.w, wr), rel_err(sk.h, hr))
+            log(f"beta_nmf: fit of {fb} at tol 1e-4, beta={beta:g}: stopping gap "
+                f"median {np.median(gap):g} (min {gap.min()}, max {gap.max()}); "
+                f"n_iter median {float(sk.n_iter.float().median()):g}; factor err at "
+                f"the kernel's stop {err:.3e} (bar 2e-3); kernel wall {fit_ms:.2f} ms")
+            self.stage(f"K4 fits beta={beta:g}", time.perf_counter() - t0)
+            assert abs(np.median(gap)) <= 10, "beta_nmf fit stops far from float64"
+            assert err <= 2e-3, "beta_nmf fit disagrees"
+
+    # ---- 8. K5 ----
+    def cnmf_phases(self, b=1024, t=200, l=8, k=4, d=10, iters=20, fb=128):
+        from muscle_synergies_tpu_torch.models.cnmf import cnmf_update, init_cnmf
+        from muscle_synergies_tpu_torch.models.kernels import cnmf_cuda
+
+        torch, dev, rng = self.torch, self.dev, self.rng
+        x_host = rng.random((b, t, l))
+        c_host, s_host = init_cnmf(x_host, k, d, seed=5)
+        xs, c0, s0 = (torch.from_numpy(a.astype(np.float32)).to(dev)
+                      for a in (x_host, c_host, s_host))
+        x64, c64, s64 = xs.double(), c0.double(), s0.double()
+        t0 = time.perf_counter()
+        ck, sk = cnmf_cuda.cnmf_iterations_cuda(xs, c0, s0, iters)
+        cp, sp = cnmf_cuda.cnmf_iterations_plain(x64, c64, s64, iters)
+        err = max(rel_err(ck, cp), rel_err(sk, sp))
+        ms = cuda_ms(lambda: cnmf_cuda.cnmf_iterations_cuda(xs, c0, s0, iters))
+        plain_ms = cuda_ms(lambda: cnmf_cuda.cnmf_iterations_plain(xs, c0, s0, iters),
+                           reps=3)
+        log(f"cnmf: {iters} iterations at {b}x{t}x{l} K={k} D={d}: rel err {err:.3e} "
+            f"(bar 1e-3); kernel {ms:.3f} ms, plain f32 {plain_ms:.3f} ms")
+        self.stage("K5 fixed", time.perf_counter() - t0)
+        assert err <= 1e-3, "cnmf fixed iterations disagree"
+        self.record("cnmf", "muscle_synergies_tpu/models/kernels/cnmf_pallas.py:147",
+                    (abs_err([(ck, cp), (sk, sp)]), err, 1e-3), ms, plain_ms,
+                    b * iters * nmf_flops("cnmf", t, l, k, d),
+                    4 * b * (t * l + 2 * (t * k + k * d * l)))
+
+        fx, fc, fs = xs[:fb], c0[:fb], s0[:fb]
+        fx64, fc64, fs64 = x64[:fb], c64[:fb], s64[:fb]
+        t0 = time.perf_counter()
+        st = cnmf_cuda.fit_cnmf_cuda(fx, fc, fs, max_iter=1000, tol=1e-4)
+        torch.cuda.synchronize()
+        fit_ms = (time.perf_counter() - t0) * 1e3
+        sp = cnmf_cuda.fit_cnmf_plain(fx64, fc64, fs64, max_iter=1000, tol=1e-4)
+        gap = (st.n_iter - sp.n_iter).cpu().numpy()
+        cr, sr = plain_snapshot(cnmf_update, fx64, fc64, fs64, st.n_iter)
+        err = max(rel_err(st.c, cr), rel_err(st.s, sr))
+        log(f"cnmf: fit of {fb} at tol 1e-4: stopping gap median {np.median(gap):g} "
+            f"(min {gap.min()}, max {gap.max()}); n_iter median "
+            f"{float(st.n_iter.float().median()):g}; factor err at the kernel's stop "
+            f"{err:.3e} (bar 2e-3); kernel wall {fit_ms:.2f} ms")
+        self.stage("K5 fits", time.perf_counter() - t0)
+        assert abs(np.median(gap)) <= 10, "cnmf fit stops far from float64"
+        assert err <= 2e-3, "cnmf fit disagrees"
+
+    # ---- 5. the Frobenius main path ----
+    def frobenius_main(self, emg):
+        from muscle_synergies_tpu_torch import PipelineConfig, analyze_dataset
+
+        torch = self.torch
+        config = PipelineConfig()
+        torch.cuda.reset_peak_memory_stats()
+        results = {}
+        for solver in ("cd", "mu"):
+            results[solver], counts = self.main_path(
+                f"analyze_dataset solver={solver}",
+                lambda: analyze_dataset(emg, FS, ranks=(1, 2, 3, 4), config=config,
+                                        solver=solver, device="cuda",
+                                        dtype=torch.float32))
+            assert counts["sosfiltfilt"] > 0 and counts[f"{solver}_nmf"] > 0, \
+                f"a kernel of the {solver} path never ran"
+        log(f"main: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        for solver, res in results.items():
+            self.check_rank_sweep(solver, res)
+            self.subset_matches(solver, res.vaf_overall[:, :SUBSET], lambda: analyze_dataset(
+                emg[:SUBSET], FS, ranks=(1, 2, 3, 4), config=config, solver=solver,
+                device="cuda", dtype=torch.float32, impl="torch").vaf_overall)
+
+    def check_rank_sweep(self, label, res):
+        vaf = res.vaf_overall
+        b = vaf.shape[1]
+        assert vaf.shape == (4, b) and res.w.shape == (4, b, 200, 4)
+        assert res.h.shape == (4, b, 4, N_CHANNELS)
+        assert np.isfinite(vaf).all() and (vaf <= 1).all(), "bad VAF"
+        assert np.isfinite(res.w).all() and np.isfinite(res.h).all()
+        means = vaf.mean(axis=1)
+        log(f"main {label}: mean VAF by rank {np.round(means, 6).tolist()}, "
+            f"n_iter median by rank {np.median(res.n_iter, axis=1).tolist()}, "
+            f"converged {res.converged.mean(axis=1).tolist()}")
+        assert (np.diff(means) > 0).all(), "mean VAF does not rise with rank"
+
+    def subset_matches(self, label, vaf_kernel, plain_vaf):
+        t0 = time.perf_counter()
+        diff = float(np.abs(plain_vaf() - vaf_kernel).max())
+        log(f"main {label}: {SUBSET}-trial subset impl='torch' on the card "
+            f"({time.perf_counter() - t0:.1f} s): max VAF diff {diff:.3e} (bar 1e-3)")
+        assert diff <= 1e-3, f"{label}: kernel path and plain path disagree"
+
+    # ---- 9. the KL main path ----
+    def kl_main(self, emg):
+        from muscle_synergies_tpu_torch import analyze_dataset
+
+        kw = dict(ranks=(1, 2, 3, 4), solver="mu", beta_loss="kullback-leibler")
+        res, counts = self.main_path("analyze_dataset beta_loss=kullback-leibler",
+                                     lambda: analyze_dataset(emg, FS, **kw))
+        assert counts["sosfiltfilt"] > 0 and counts["beta_nmf"] > 0, \
+            "a kernel of the KL path never ran"
+        self.check_rank_sweep("kl", res)
+        self.subset_matches("kl", res.vaf_overall[:, :SUBSET], lambda: analyze_dataset(
+            emg[:SUBSET], FS, impl="torch", **kw).vaf_overall)
+
+    # ---- 10. the time-varying main path ----
+    def time_varying_main(self, emg):
+        from muscle_synergies_tpu_torch import analyze_dataset_time_varying
+
+        kw = dict(n_synergies=4, n_lags=10, n_inits=4)
+        res, counts = self.main_path("analyze_dataset_time_varying",
+                                     lambda: analyze_dataset_time_varying(emg, FS, **kw))
+        assert counts["sosfiltfilt"] > 0 and counts["cnmf"] > 0, \
+            "a kernel of the time-varying path never ran"
+        b = emg.shape[0]
+        assert res.c.shape == (b, 200, 4) and res.s.shape == (b, 4, 10, N_CHANNELS)
+        assert res.restart_errors.shape == (b, 4)
+        assert np.isfinite(res.vaf_overall).all() and (res.vaf_overall <= 1).all()
+        assert np.isfinite(res.c).all() and np.isfinite(res.s).all()
+        log(f"main time-varying: mean VAF {float(res.vaf_overall.mean()):.6f}, "
+            f"n_iter median {float(np.median(res.n_iter)):g} (max {res.n_iter.max()}), "
+            f"converged {float(res.converged.mean()):g}")
+        self.subset_matches("time-varying", res.vaf_overall[:SUBSET],
+                            lambda: analyze_dataset_time_varying(
+                                emg[:SUBSET], FS, impl="torch", **kw).vaf_overall)
+
+    def stage_breakdown(self, emg):
+        """Per-stage device times of the Frobenius path (preprocess, init,
+        fit, VAF)."""
+        from muscle_synergies_tpu_torch import PipelineConfig
+        from muscle_synergies_tpu_torch.dataset import preprocess_trials
+        from muscle_synergies_tpu_torch.models import batch as mb
+        from muscle_synergies_tpu_torch.models.cnmf import (
+            cnmf_reconstruct,
+            fit_cnmf_batch,
+            init_cnmf,
+            normalize_synergies,
+        )
+
+        torch, dev = self.torch, self.dev
+        config = PipelineConfig()
+
+        def stage(label, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            log(f"stage {label}: {(time.perf_counter() - t) * 1e3:.2f} ms  [{self.smi}]")
+            return out
+
+        xs = stage("host->device 1 GiB", lambda: torch.from_numpy(emg).to(dev))
+        xs = stage("preprocess (envelope, resample, normalize)",
+                   lambda: preprocess_trials(xs, FS, config))
+        ranks = (1, 2, 3, 4)
+
+        def grid_init():
+            ws, hs = [], []
+            for kk in ranks:
+                w, h = mb.init_batch(xs, kk)
+                ws.append(torch.nn.functional.pad(w, (0, 4 - kk)))
+                hs.append(torch.nn.functional.pad(h, (0, 0, 0, 4 - kk)))
+            return xs.repeat(4, 1, 1), torch.cat(ws), torch.cat(hs)
+
+        gx, gw, gh = stage("init (NNDSVDA, 4 ranks)", grid_init)
+        n, l = gx.shape[1:]
+        fits = {
+            "cd_nmf": lambda: mb.fit_cd_batch(gx, gw, gh, max_iter=config.max_iter,
+                                              tol=config.tol),
+            "mu_nmf": lambda: mb.fit_mu_batch(gx, gw, gh, max_iter=config.max_iter,
+                                              tol=config.tol),
+            "beta_nmf_kl": lambda: mb.fit_mu_beta_batch(
+                gx, gw, gh, beta=1.0, max_iter=config.max_iter, tol=config.tol),
+        }
+        states = {}
+        for kname, fit in fits.items():
+            states[kname] = stage(f"fit {kname} (kernel, 1024 fits)", fit)
+            fit_bound(kname, states[kname].n_iter, n, l, 4,
+                      4 * gx.shape[0] * (n * l + 2 * (n * 4 + 4 * l)))
+        st = states["cd_nmf"]
+        stage("vaf", lambda: mb.vaf_batch(gx, st.w, st.ht.transpose(-1, -2)))
+
+        # the time-varying path's own stages: 4 restarts of every trial
+        c0, s0 = stage("init cnmf on the host + copy (1024 restarts)",
+                       lambda: [torch.from_numpy(a).to(dev) for a in init_cnmf(
+                           np.repeat(xs.cpu().numpy(), 4, axis=0), 4, 10)])
+        gx = xs.repeat_interleave(4, dim=0)
+        st = stage("fit cnmf (kernel, 1024 fits)",
+                   lambda: fit_cnmf_batch(gx, c0, s0, max_iter=config.max_iter,
+                                          tol=config.tol))
+        fit_bound("cnmf", st.n_iter, n, l, 4,
+                  4 * gx.shape[0] * (n * l + 2 * (n * 4 + 4 * 10 * l)), d=10)
+
+        def tv_finish():
+            errs = st.previous_error.view(-1, 4)
+            best = torch.arange(errs.shape[0], device=dev) * 4 + errs.argmin(dim=1)
+            c, s = normalize_synergies(st.c[best], st.s[best])
+            err2 = ((xs - cnmf_reconstruct(c, s)) ** 2).sum(dim=(1, 2))
+            return 1.0 - err2 / (xs * xs).sum(dim=(1, 2))
+
+        stage("winners, normalize, vaf (time-varying)", tv_finish)
+
+
 def main() -> int:
     import torch
 
@@ -120,14 +604,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
 
-    from scipy import signal as sps
-
-    from muscle_synergies_tpu_torch import PipelineConfig, _build, analyze_dataset
-    from muscle_synergies_tpu_torch.models import batch as mb
-    from muscle_synergies_tpu_torch.models.hals import cd_pass
-    from muscle_synergies_tpu_torch.models.kernels import cd_cuda, mu_cuda
-    from muscle_synergies_tpu_torch.models.mu import mu_update
-    from muscle_synergies_tpu_torch.ops import filter_cuda, filters
+    from muscle_synergies_tpu_torch import (
+        _build,
+        analyze_dataset,
+        analyze_dataset_time_varying,
+    )
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -137,8 +618,9 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
+    run_t0 = time.perf_counter()
 
-    # ---- 1. build ----
+    # ---- 1. build: one nvcc per source, all started together ----
     t0 = time.perf_counter()
     reports = _build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(reports)}")
@@ -147,200 +629,37 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {kname}: {line.strip()}")
 
-    rng = np.random.default_rng(0)
-    kernels = {}
+    smoke = Smoke(dev, smi)
+    smoke.filter_phase()                                     # 2
+    smoke.nmf_phases()                                       # 3, 4
+    smoke.beta_phases()                                      # 6, 7
+    smoke.cnmf_phases()                                      # 8
 
-    # ---- 2. K3: zero-phase filter at 64 full trials ----
-    sos = filters.sos_design(4, 4.0, FS)
-    raw = synthetic_emg(64, seed=1)
-    # the filter's input on the main path: zero-centered, rectified EMG
-    x_host = np.abs(raw - raw.mean(axis=1, keepdims=True))
-    del raw
-    x = torch.from_numpy(x_host).to(dev)
-    padlen = filters.default_padlen(sos)
-    y = filter_cuda.sosfiltfilt_cuda(sos, x, padlen, "odd")
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = sps.sosfiltfilt(sos, x_host.astype(np.float64), axis=1)
-    log(f"filter: scipy float64 reference on the host {time.perf_counter() - t0:.2f} s")
-    scale = float(np.abs(ref).max())
-    err_scipy = float(np.abs(y.cpu().numpy() - ref).max()) / scale
-    del ref
-    x64 = x[:4].double()
-    t0 = time.perf_counter()
-    y_plain64 = filter_cuda.sosfiltfilt_plain(sos, x64, padlen, "odd")
-    torch.cuda.synchronize()
-    log(f"filter: plain float64 on the card, 4 trials, {time.perf_counter() - t0:.2f} s")
-    err_plain = float((y[:4].double() - y_plain64).abs().max())
-    log(f"filter: kernel vs scipy {err_scipy:.3e} x max|y|, vs plain f64 "
-        f"{err_plain / scale:.3e} x max|y| (bar 5e-4)")
-    assert err_scipy <= 5e-4 and err_plain <= 5e-4 * scale, "filter disagrees"
-    k3_ms = cuda_ms(lambda: filter_cuda.sosfiltfilt_cuda(sos, x, padlen, "odd"))
-    k3_plain_ms = cuda_ms(lambda: filter_cuda.sosfiltfilt_plain(sos, x, padlen, "odd"),
-                          reps=1, warmup=0)
-    log(f"filter: 64x{N_SAMPLES}x{N_CHANNELS} f32 kernel {k3_ms:.3f} ms, "
-        f"plain f32 {k3_plain_ms:.1f} ms")
-    kernels["sosfiltfilt"] = dict(
-        route="cuda", source="muscle_synergies_tpu_torch/csrc/sosfiltfilt.cu",
-        replaces="muscle_synergies_tpu/ops/filter_pallas.py:508",
-        max_abs_err=err_plain, max_rel_err=err_plain / scale, tol=5e-4,
-        ms=k3_ms, plain_ms=k3_plain_ms,
-    )
-    del x, y, x64, y_plain64, x_host
-
-    # ---- 3. K1b / K2b: 50 fixed iterations at 1024 x 200 x 8, rank 4 ----
-    b, n, l, k, iters = 1024, 200, 8, 4, 50
-    xs = torch.from_numpy(rng.random((b, n, l)).astype(np.float32)).to(dev)
-    w0 = torch.from_numpy(np.abs(rng.standard_normal((b, n, k))).astype(np.float32)).to(dev)
-    h0 = torch.from_numpy(np.abs(rng.standard_normal((b, k, l))).astype(np.float32)).to(dev)
-    x64, w64, h64 = xs.double(), w0.double(), h0.double()
-    fixed = {
-        "mu_nmf": (mu_cuda.mu_iterations_cuda, mu_cuda.mu_iterations_plain),
-        "cd_nmf": (cd_cuda.cd_iterations_cuda, cd_cuda.cd_iterations_plain),
-    }
-    for kname, (kern, plain) in fixed.items():
-        wk, hk = kern(xs, w0, h0, iters)
-        wp, hp = plain(x64, w64, h64, iters)
-        err = max(rel_err(wk, wp), rel_err(hk, hp))
-        abs_err = max(float((wk.double() - wp).abs().max()),
-                      float((hk.double() - hp).abs().max()))
-        ms = cuda_ms(lambda: kern(xs, w0, h0, iters))
-        plain_ms = cuda_ms(lambda: plain(xs, w0, h0, iters), reps=3)
-        log(f"{kname}: {iters} iterations at {b}x{n}x{l} k={k}: rel err {err:.3e} "
-            f"(bar 1e-3); kernel {ms:.3f} ms, plain f32 {plain_ms:.3f} ms")
-        assert err <= 1e-3, f"{kname} fixed iterations disagree"
-        kernels[kname] = dict(
-            route="cuda", source=f"muscle_synergies_tpu_torch/csrc/{kname}.cu",
-            replaces=("muscle_synergies_tpu/models/kernels/mu_pallas.py:269"
-                      if kname == "mu_nmf" else
-                      "muscle_synergies_tpu/models/kernels/cd_pallas.py:168"),
-            max_abs_err=abs_err, max_rel_err=err, tol=1e-3, ms=ms,
-            plain_ms=plain_ms,
-        )
-
-    # ---- 4. K1a / K2a: fits on 128 problems at tol 1e-4 vs float64 ----
-    fb = 128
-    fx, fw, fh = xs[:fb], w0[:fb], h0[:fb]
-    fx64, fw64, fh64 = x64[:fb], w64[:fb], h64[:fb]
-
-    def mu_step(x_, w_, h_):
-        return mu_update(x_, w_, h_)
-
-    def cd_step(x_, w_, h_):
-        w_, _ = cd_pass(x_, w_, h_.transpose(-1, -2))
-        ht, _ = cd_pass(x_.transpose(-1, -2), h_.transpose(-1, -2), w_)
-        return w_, ht.transpose(-1, -2)
-
-    fits = {
-        "mu_nmf": (mu_cuda.fit_mu_cuda, mu_cuda.fit_mu_plain, mu_step),
-        "cd_nmf": (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain, cd_step),
-    }
-    for kname, (kern, plain, step) in fits.items():
-        t0 = time.perf_counter()
-        sk = kern(fx, fw, fh, max_iter=200, tol=1e-4)
-        torch.cuda.synchronize()
-        fit_ms = (time.perf_counter() - t0) * 1e3
-        sp = plain(fx64, fw64, fh64, max_iter=200, tol=1e-4)
-        gap = (sk.n_iter - sp.n_iter).cpu().numpy()
-        hk = sk.h if kname == "mu_nmf" else sk.ht.transpose(-1, -2)
-        wr, hr = plain_snapshot(step, fx64, fw64, fh64, sk.n_iter)
-        err = max(rel_err(sk.w, wr), rel_err(hk, hr))
-        log(f"{kname}: fit of {fb} at tol 1e-4: stopping gap median "
-            f"{np.median(gap):g} (min {gap.min()}, max {gap.max()}); factor err at "
-            f"the kernel's stop {err:.3e} (bar 1e-3); kernel wall {fit_ms:.2f} ms")
-        assert np.median(gap) == 0, f"{kname} fit stops elsewhere than float64"
-        assert err <= 1e-3, f"{kname} fit disagrees"
-    del xs, w0, h0, x64, w64, h64
-
-    # ---- 5. the main path: analyze_dataset on 256 full trials ----
-    t0 = time.perf_counter()
-    emg = synthetic_emg(256, seed=2)
+    emg = synthetic_emg(MAIN_TRIALS, seed=2)
     log(f"main: synthetic data {emg.shape} float32 ({emg.nbytes / 2**30:.2f} GiB) "
         f"made in {time.perf_counter() - t0:.1f} s")
-    config = PipelineConfig()
     # first calls load cuSOLVER/cuBLAS and the kernels; keep that apart
     t0 = time.perf_counter()
-    for solver in ("cd", "mu"):
+    for solver, loss in (("cd", "frobenius"), ("mu", "frobenius"),
+                         ("mu", "kullback-leibler")):
         analyze_dataset(emg[:2, :4000], FS, ranks=(1, 2), solver=solver,
-                        max_iter=100, device="cuda", dtype=torch.float32)
-    log(f"stage cold start (first analyze_dataset calls, 2 small trials): "
-        f"{time.perf_counter() - t0:.3f} s  [{smi}]")
-    for mod in (filter_cuda, cd_cuda, mu_cuda):
-        mod.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    results = {}
-    for solver in ("cd", "mu"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        results[solver] = analyze_dataset(
-            emg, FS, ranks=(1, 2, 3, 4), config=config, solver=solver,
-            device="cuda", dtype=torch.float32,
-        )
-        log(f"stage main analyze_dataset solver={solver}: "
-            f"{time.perf_counter() - t0:.3f} s  [{smi}]")
-    launches = {"sosfiltfilt": filter_cuda.launches, "cd_nmf": cd_cuda.launches,
-                "mu_nmf": mu_cuda.launches}
-    log(f"main: launches {launches}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    assert all(v > 0 for v in launches.values()), "a kernel of the path never ran"
+                        beta_loss=loss, max_iter=100)
+    analyze_dataset_time_varying(emg[:2, :4000], FS, n_synergies=2, n_lags=5,
+                                 n_inits=2, max_iter=100)
+    smoke.stage("cold start (first calls of each path, 2 small trials)",
+                time.perf_counter() - t0)
+    smoke.frobenius_main(emg)                                # 5
+    smoke.kl_main(emg)                                       # 9
+    smoke.time_varying_main(emg)                             # 10
+    smoke.stage_breakdown(emg)
+    smoke.stage("whole script", time.perf_counter() - run_t0)
 
-    for solver, res in results.items():
-        vaf = res.vaf_overall
-        assert vaf.shape == (4, 256) and res.w.shape == (4, 256, 200, 4)
-        assert res.h.shape == (4, 256, 4, N_CHANNELS)
-        assert np.isfinite(vaf).all() and (vaf <= 1).all(), "bad VAF"
-        assert np.isfinite(res.w).all() and np.isfinite(res.h).all()
-        means = vaf.mean(axis=1)
-        log(f"main {solver}: mean VAF by rank {np.round(means, 6).tolist()}, "
-            f"n_iter median by rank {np.median(res.n_iter, axis=1).tolist()}, "
-            f"converged {res.converged.mean(axis=1).tolist()}")
-        assert (np.diff(means) > 0).all(), "mean VAF does not rise with rank"
-        t0 = time.perf_counter()
-        sub = analyze_dataset(
-            emg[:16], FS, ranks=(1, 2, 3, 4), config=config, solver=solver,
-            device="cuda", dtype=torch.float32, impl="torch",
-        )
-        diff = float(np.abs(sub.vaf_overall - vaf[:, :16]).max())
-        log(f"main {solver}: 16-trial subset impl='torch' on the card "
-            f"({time.perf_counter() - t0:.1f} s): max VAF diff {diff:.3e} (bar 1e-3)")
-        assert diff <= 1e-3, "kernel path and plain path disagree"
-
-    # stage breakdown of the same path (preprocess, init, fit, VAF)
-    from muscle_synergies_tpu_torch.dataset import preprocess_trials
-
-    def stage(label, fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        log(f"stage {label}: {(time.perf_counter() - t) * 1e3:.2f} ms  [{smi}]")
-        return out
-
-    xs = stage("host->device 1 GiB", lambda: torch.from_numpy(emg).to(dev))
-    xs = stage("preprocess (envelope, resample, normalize)",
-               lambda: preprocess_trials(xs, FS, config))
-    ranks = (1, 2, 3, 4)
-
-    def grid_init():
-        ws, hs = [], []
-        for kk in ranks:
-            w, h = mb.init_batch(xs, kk)
-            ws.append(torch.nn.functional.pad(w, (0, 4 - kk)))
-            hs.append(torch.nn.functional.pad(h, (0, 0, 0, 4 - kk)))
-        return xs.repeat(4, 1, 1), torch.cat(ws), torch.cat(hs)
-
-    gx, gw, gh = stage("init (NNDSVDA, 4 ranks)", grid_init)
-    st = stage("fit cd (kernel, 1024 fits)",
-               lambda: mb.fit_cd_batch(gx, gw, gh, max_iter=config.max_iter,
-                                       tol=config.tol, impl="cuda"))
-    stage("fit mu (kernel, 1024 fits)",
-          lambda: mb.fit_mu_batch(gx, gw, gh, max_iter=config.max_iter,
-                                  tol=config.tol, impl="cuda"))
-    stage("vaf", lambda: mb.vaf_batch(gx, st.w, st.ht.transpose(-1, -2)))
-
-    for kname, entry in kernels.items():
-        entry["launches"] = launches[kname]
-    print(json.dumps({"kernels": [{"name": k, **v} for k, v in kernels.items()]}))
+    for kname, entry in smoke.kernels.items():
+        entry["launches"] = smoke.launches[kname]
+    assert set(smoke.kernels) == set(smoke.launches)
+    assert all(v > 0 for v in smoke.launches.values()), smoke.launches
+    print(json.dumps({"kernels": [{"name": k, **v} for k, v in smoke.kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

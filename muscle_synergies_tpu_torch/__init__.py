@@ -1,32 +1,44 @@
 """PyTorch / CUDA port of muscle_synergies_tpu for NVIDIA Hopper cards.
 
-The dataset synergy path of the JAX package, with the same public
+The dataset synergy paths of the JAX package, with the same public
 names, layouts and result types: EMG trials go through the envelope
 pipeline (zero-center, rectify, zero-phase Butterworth lowpass,
-time-normalize, amplitude-normalize) and one batched CD or MU solve
-fits every ``(rank, trial)`` pair.  On a CUDA float32 tensor the
-zero-phase filter and the solvers run hand-written CUDA kernels
-(``csrc/``, built with ``nvcc`` at first use); elsewhere, plain PyTorch.
+time-normalize, amplitude-normalize), then one batched solve fits
+every ``(rank, trial)`` pair by CD, Frobenius MU or beta-divergence MU
+(:func:`analyze_dataset`), or every ``(trial, restart)`` pair by
+convolutive NMF (:func:`analyze_dataset_time_varying`).  The entry
+points run on the card by default, where the zero-phase filter and the
+solvers are hand-written CUDA kernels (``csrc/``, built with ``nvcc``
+at first use); with ``device="cpu"``, plain PyTorch.
 
     >>> import numpy as np
     >>> from muscle_synergies_tpu_torch import analyze_dataset
     >>> rng = np.random.default_rng(0)
     >>> trials = [rng.random((600, 4)) for _ in range(2)]
-    >>> result = analyze_dataset(trials, 1000.0, ranks=(1, 2), max_iter=50)
+    >>> result = analyze_dataset(trials, 1000.0, ranks=(1, 2), max_iter=50,
+    ...                          device="cpu")
     >>> result.vaf_overall.shape
     (2, 2)
 
 The package imports torch, numpy and scipy, never jax; pandas only
-inside :class:`DatasetResult`'s table helpers.
+inside the result classes' table helpers.
 """
 
-from .dataset import DatasetResult, analyze_dataset, preprocess_trials
+from .dataset import (
+    DatasetResult,
+    TimeVaryingDatasetResult,
+    analyze_dataset,
+    analyze_dataset_time_varying,
+    preprocess_trials,
+)
 from .utils.config import FilterSpec, PipelineConfig
 
 __all__ = [
     "DatasetResult",
     "FilterSpec",
     "PipelineConfig",
+    "TimeVaryingDatasetResult",
     "analyze_dataset",
+    "analyze_dataset_time_varying",
     "preprocess_trials",
 ]

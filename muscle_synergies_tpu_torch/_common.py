@@ -1,7 +1,9 @@
 """Shared helpers: tensor placement, implementation choice, precision.
 
 Every public entry point of the package takes ``device=`` and
-``dtype=``; :func:`as_tensor` is the one place that applies them.
+``dtype=``; :func:`as_tensor` is the one place that applies them, and
+:func:`entry_placement` resolves the dataset entry points' defaults
+(the card, float32).
 
 Precision: the batched solvers' plain versions, VAF and the NNDSVD
 initialization run float32 matrix products.  On an NVIDIA card those
@@ -39,6 +41,29 @@ def as_tensor(x, device=None, dtype: Optional[torch.dtype] = None) -> torch.Tens
     if dtype is None:
         dtype = torch.float32 if arr.dtype == np.float32 else torch.float64
     return torch.as_tensor(arr, dtype=dtype, device=device)
+
+
+def entry_placement(device, dtype: Optional[torch.dtype]):
+    """Where and in what type a dataset entry point computes.
+
+    The entry points default to ``device="cuda"``: on the card,
+    ``dtype=None`` means float32 (the JAX package's default without
+    x64), so NumPy trials reach the kernels.  Asking for the card on a
+    machine without one raises instead of running on the CPU; pass
+    ``device="cpu"`` for the plain versions, where ``dtype=None`` keeps
+    :func:`as_tensor`'s rule.
+    """
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the entry points run on the card by "
+                "default; pass device='cpu' to run the plain versions "
+                "on the CPU"
+            )
+        if dtype is None:
+            dtype = torch.float32
+    return device, dtype
 
 
 def resolve_impl(impl: str, x: torch.Tensor) -> str:

@@ -9,8 +9,9 @@ same inputs this way is how the tests hold the port to the reference.
   ``(..., k, L)``, e.g. an init drawn with ``jax.random``;
 - :func:`ht_from_h` / :func:`h_from_ht`: CD's ``ht`` layout
   ``(..., L, k)``;
-- :func:`mu_state` / :func:`cd_state`: a JAX ``MUState`` / ``CDState``
-  (any object with those fields);
+- :func:`mu_state` / :func:`cd_state` / :func:`beta_state` /
+  :func:`cnmf_state`: a JAX ``MUState`` / ``CDState`` / ``BetaState`` /
+  ``CNMFState`` (any object with those fields);
 - :func:`dataset_result`: a JAX ``DatasetResult``;
 - :func:`pipeline_config`: a ``PipelineConfig`` JSON string.
 """
@@ -24,6 +25,8 @@ import torch
 
 from ._common import as_tensor
 from .dataset import DatasetResult
+from .models.beta import BetaState
+from .models.cnmf import CNMFState
 from .models.hals import CDState
 from .models.mu import MUState
 from .utils.config import PipelineConfig
@@ -34,6 +37,8 @@ __all__ = [
     "h_from_ht",
     "mu_state",
     "cd_state",
+    "beta_state",
+    "cnmf_state",
     "dataset_result",
     "pipeline_config",
 ]
@@ -82,6 +87,22 @@ def cd_state(state, device=None, dtype: Optional[torch.dtype] = None) -> CDState
         ht=_field(state, "ht", device, dtype),
         n_iter=_field(state, "n_iter", device, torch.int32),
         violation_init=_field(state, "violation_init", device, dtype),
+        converged=_field(state, "converged", device, torch.bool),
+    )
+
+
+def beta_state(state, device=None, dtype: Optional[torch.dtype] = None) -> BetaState:
+    """A JAX ``BetaState`` as this package's :class:`BetaState`."""
+    return BetaState(*mu_state(state, device, dtype))
+
+
+def cnmf_state(state, device=None, dtype: Optional[torch.dtype] = None) -> CNMFState:
+    """A JAX ``CNMFState`` as this package's :class:`CNMFState`."""
+    return CNMFState(
+        c=_field(state, "c", device, dtype),
+        s=_field(state, "s", device, dtype),
+        n_iter=_field(state, "n_iter", device, torch.int32),
+        previous_error=_field(state, "previous_error", device, dtype),
         converged=_field(state, "converged", device, torch.bool),
     )
 

@@ -14,8 +14,10 @@
 //     reference.
 // Numerics follow models/hals.py (sklearn's _update_cdnmf_fast with
 // shuffle=False): gradient W H H^T - X H^T per component, the projected
-// gradient taken from the column *before* its update, a Newton step
-// grad / hess clipped at 0, the column left unchanged when hess == 0
+// gradient taken from the column *before* its update, the L2 penalty on
+// the Gram diagonal and the L1 penalty subtracted from X H^T (or W^T X),
+// a Newton step grad / hess clipped at 0, the column left unchanged when
+// hess == 0
 // (which keeps zero-padded rank components exactly 0), and sklearn's
 // stop: the summed |projected gradient| of iteration 1 is the reference,
 // and a fit stops once violation / violation_init <= tol (or the
@@ -31,7 +33,7 @@
 // One outer iteration, W pass then H pass.  Returns the summed
 // |projected gradient| of both passes to every thread when WITH_VIOL.
 template <int KMAX, bool WITH_VIOL>
-__device__ float cd_iteration(const NmfBlock& b) {
+__device__ float cd_iteration(const NmfBlock& b, const NmfPenalty& pen) {
   float part = 0.0f;
 
   // ---- W pass, H fixed ----
@@ -47,11 +49,13 @@ __device__ float cd_iteration(const NmfBlock& b) {
         float grad = 0.0f;
 #pragma unroll
         for (int j = 0; j < KMAX; ++j) {
-          if (j < b.k) grad += b.gram[j * b.k + s] * wr[j];
+          if (j < b.k) {
+            grad += (b.gram[j * b.k + s] + (j == s ? pen.l2_w : 0.0f)) * wr[j];
+          }
         }
-        grad -= xr[s];
+        grad -= xr[s] - pen.l1_w;
         if (WITH_VIOL) part += fabsf(wr[s] == 0.0f ? fminf(grad, 0.0f) : grad);
-        const float hess = b.gram[s * b.k + s];
+        const float hess = b.gram[s * b.k + s] + pen.l2_w;
         if (hess != 0.0f) wr[s] = fmaxf(wr[s] - grad / hess, 0.0f);
       }
     }
@@ -74,11 +78,13 @@ __device__ float cd_iteration(const NmfBlock& b) {
         float grad = 0.0f;
 #pragma unroll
         for (int j = 0; j < KMAX; ++j) {
-          if (j < b.k) grad += b.gram[j * b.k + s] * hr[j];
+          if (j < b.k) {
+            grad += (b.gram[j * b.k + s] + (j == s ? pen.l2_h : 0.0f)) * hr[j];
+          }
         }
-        grad -= b.cross[s * b.l + m];
+        grad -= b.cross[s * b.l + m] - pen.l1_h;
         if (WITH_VIOL) part += fabsf(hr[s] == 0.0f ? fminf(grad, 0.0f) : grad);
-        const float hess = b.gram[s * b.k + s];
+        const float hess = b.gram[s * b.k + s] + pen.l2_h;
         if (hess != 0.0f) hr[s] = fmaxf(hr[s] - grad / hess, 0.0f);
       }
     }
@@ -97,7 +103,7 @@ __global__ void __launch_bounds__(NMF_THREADS) cd_nmf_kernel(
     const float* __restrict__ h0, float* __restrict__ w,
     float* __restrict__ h, int* __restrict__ n_iter_out,
     float* __restrict__ viol_init_out, int* __restrict__ converged_out,
-    int n, int l, int k, int iters, float tol) {
+    int n, int l, int k, int iters, float tol, NmfPenalty pen) {
   extern __shared__ float smem[];
   const NmfBlock b = nmf_block(smem, n, l, k);
   const size_t fit = blockIdx.x;
@@ -107,7 +113,7 @@ __global__ void __launch_bounds__(NMF_THREADS) cd_nmf_kernel(
     float viol_init = 0.0f;
     bool converged = false;
     while (n_iter < iters && !converged) {
-      const float viol = cd_iteration<KMAX, true>(b);
+      const float viol = cd_iteration<KMAX, true>(b, pen);
       n_iter += 1;
       if (n_iter == 1) viol_init = viol;
       converged = viol_init == 0.0f || viol / viol_init <= tol;
@@ -118,7 +124,7 @@ __global__ void __launch_bounds__(NMF_THREADS) cd_nmf_kernel(
       converged_out[fit] = converged ? 1 : 0;
     }
   } else {
-    for (int t = 0; t < iters; ++t) cd_iteration<KMAX, false>(b);
+    for (int t = 0; t < iters; ++t) cd_iteration<KMAX, false>(b, pen);
   }
   nmf_store(b, w + fit * n * k, h + fit * k * l);
 }
@@ -127,39 +133,43 @@ template <int KMAX>
 static int cd_dispatch(bool with_stop, const float* x, const float* w0,
                        const float* h0, float* w, float* h, int* n_iter,
                        float* viol_init, int* converged, int batch, int n,
-                       int l, int k, int iters, float tol,
+                       int l, int k, int iters, float tol, NmfPenalty pen,
                        cudaStream_t stream) {
   const size_t smem = nmf_smem_floats(n, l, k) * sizeof(float);
   if (with_stop) {
     return nmf_launch(cd_nmf_kernel<KMAX, true>, batch, smem, stream, x, w0,
                       h0, w, h, n_iter, viol_init, converged, n, l, k, iters,
-                      tol);
+                      tol, pen);
   }
   return nmf_launch(cd_nmf_kernel<KMAX, false>, batch, smem, stream, x, w0,
                     h0, w, h, n_iter, viol_init, converged, n, l, k, iters,
-                    tol);
+                    tol, pen);
 }
 
 // x (B, N, L), w0/w (B, N, K), h0/h (B, K, L) float32; n_iter,
 // viol_init, converged (B,) written only when with_stop.  `iters` is
-// max_iter with the stop and the fixed iteration count without it.
-// Launches on `stream` and returns cudaGetLastError().
+// max_iter with the stop and the fixed iteration count without it;
+// l1_w .. l2_h are the penalties (0 for none).  Launches on `stream` and
+// returns cudaGetLastError().
 extern "C" int cd_nmf_f32(const float* x, const float* w0, const float* h0,
                           float* w, float* h, int* n_iter, float* viol_init,
                           int* converged, int batch, int n, int l, int k,
-                          int iters, float tol, int with_stop, void* stream) {
+                          int iters, float tol, float l1_w, float l2_w,
+                          float l1_h, float l2_h, int with_stop,
+                          void* stream) {
   if (batch < 1 || n < 1 || l < 1 || k < 1 || k > NMF_KMAX || iters < 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
+  const NmfPenalty pen = {l1_w, l2_w, l1_h, l2_h};
   if (k <= 4) {
     return cd_dispatch<4>(with_stop, x, w0, h0, w, h, n_iter, viol_init,
-                          converged, batch, n, l, k, iters, tol, s);
+                          converged, batch, n, l, k, iters, tol, pen, s);
   }
   if (k <= 8) {
     return cd_dispatch<8>(with_stop, x, w0, h0, w, h, n_iter, viol_init,
-                          converged, batch, n, l, k, iters, tol, s);
+                          converged, batch, n, l, k, iters, tol, pen, s);
   }
   return cd_dispatch<16>(with_stop, x, w0, h0, w, h, n_iter, viol_init,
-                         converged, batch, n, l, k, iters, tol, s);
+                         converged, batch, n, l, k, iters, tol, pen, s);
 }

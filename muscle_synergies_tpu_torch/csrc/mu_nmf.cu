@@ -13,7 +13,8 @@
 //   - the stopping rule runs inside the block (WITH_STOP), so a block
 //     simply ends when its fit converges: that is exactly the frozen-
 //     trial semantics of the batched reference.
-// Numerics follow models/mu.py: sklearn's update order, the float32-eps
+// Numerics follow models/mu.py: sklearn's update order, the L1/L2
+// penalties added to the denominators (l1 + l2 * factor), the float32-eps
 // denominator guard (den == 0 -> EPSILON), `inner_iter` repetitions
 // reusing X H^T / H H^T and W^T X / W^T W, and sklearn's stopping test
 // every `check_every` iterations, (prev_err - err) / err0 < tol, with
@@ -30,7 +31,8 @@
 #define EPSILON 1.1920929e-07f
 
 template <int KMAX>
-__device__ void mu_step(const NmfBlock& b, int inner_iter) {
+__device__ void mu_step(const NmfBlock& b, int inner_iter,
+                        const NmfPenalty& pen) {
   // ---- W: X H^T and H H^T are fixed while H is ----
   nmf_hht(b);
   for (int n = threadIdx.x; n < b.n; n += blockDim.x) {
@@ -47,6 +49,7 @@ __device__ void mu_step(const NmfBlock& b, int inner_iter) {
           for (int j = 0; j < KMAX; ++j) {
             if (j < b.k) den += wr[j] * b.gram[j * b.k + i];
           }
+          den = (den + pen.l1_w) + pen.l2_w * wr[i];
           den = den == 0.0f ? EPSILON : den;
           wn[i] = wr[i] * (xr[i] / den);
         }
@@ -78,6 +81,7 @@ __device__ void mu_step(const NmfBlock& b, int inner_iter) {
           for (int j = 0; j < KMAX; ++j) {
             if (j < b.k) den += b.gram[i * b.k + j] * hr[j];
           }
+          den = (den + pen.l1_h) + pen.l2_h * hr[i];
           den = den == 0.0f ? EPSILON : den;
           hn[i] = hr[i] * (b.cross[i * b.l + m] / den);
         }
@@ -116,7 +120,7 @@ __global__ void __launch_bounds__(NMF_THREADS) mu_nmf_kernel(
     float* __restrict__ h, int* __restrict__ n_iter_out,
     float* __restrict__ prev_err_out, int* __restrict__ converged_out,
     int n, int l, int k, int iters, float tol, int check_every,
-    int inner_iter) {
+    int inner_iter, NmfPenalty pen) {
   extern __shared__ float smem[];
   const NmfBlock b = nmf_block(smem, n, l, k);
   const size_t fit = blockIdx.x;
@@ -130,7 +134,7 @@ __global__ void __launch_bounds__(NMF_THREADS) mu_nmf_kernel(
     bool converged = false;
     while (n_iter < iters && !converged) {
       const int steps = min(check_every, iters - n_iter);
-      for (int t = 0; t < steps; ++t) mu_step<KMAX>(b, inner_iter);
+      for (int t = 0; t < steps; ++t) mu_step<KMAX>(b, inner_iter, pen);
       n_iter += steps;
       if (tol > 0.0f) {
         const float err = mu_error(b);
@@ -144,7 +148,7 @@ __global__ void __launch_bounds__(NMF_THREADS) mu_nmf_kernel(
       converged_out[fit] = converged ? 1 : 0;
     }
   } else {
-    for (int t = 0; t < iters; ++t) mu_step<KMAX>(b, inner_iter);
+    for (int t = 0; t < iters; ++t) mu_step<KMAX>(b, inner_iter, pen);
   }
   nmf_store(b, w + fit * n * k, h + fit * k * l);
 }
@@ -154,43 +158,46 @@ static int mu_dispatch(bool with_stop, const float* x, const float* w0,
                        const float* h0, float* w, float* h, int* n_iter,
                        float* prev_err, int* converged, int batch, int n,
                        int l, int k, int iters, float tol, int check_every,
-                       int inner_iter, cudaStream_t stream) {
+                       int inner_iter, NmfPenalty pen, cudaStream_t stream) {
   const size_t smem = nmf_smem_floats(n, l, k) * sizeof(float);
   if (with_stop) {
     return nmf_launch(mu_nmf_kernel<KMAX, true>, batch, smem, stream, x, w0,
                       h0, w, h, n_iter, prev_err, converged, n, l, k, iters,
-                      tol, check_every, inner_iter);
+                      tol, check_every, inner_iter, pen);
   }
   return nmf_launch(mu_nmf_kernel<KMAX, false>, batch, smem, stream, x, w0,
                     h0, w, h, n_iter, prev_err, converged, n, l, k, iters,
-                    tol, check_every, inner_iter);
+                    tol, check_every, inner_iter, pen);
 }
 
 // x (B, N, L), w0/w (B, N, K), h0/h (B, K, L) float32; n_iter,
 // prev_err, converged (B,) written only when with_stop.  `iters` is
-// max_iter with the stop and the fixed iteration count without it.
-// Launches on `stream` and returns cudaGetLastError().
+// max_iter with the stop and the fixed iteration count without it;
+// l1_w .. l2_h are the penalties (0 for none).  Launches on `stream` and
+// returns cudaGetLastError().
 extern "C" int mu_nmf_f32(const float* x, const float* w0, const float* h0,
                           float* w, float* h, int* n_iter, float* prev_err,
                           int* converged, int batch, int n, int l, int k,
                           int iters, float tol, int check_every,
-                          int inner_iter, int with_stop, void* stream) {
+                          int inner_iter, float l1_w, float l2_w, float l1_h,
+                          float l2_h, int with_stop, void* stream) {
   if (batch < 1 || n < 1 || l < 1 || k < 1 || k > NMF_KMAX || iters < 0 ||
       inner_iter < 1 || (with_stop && check_every < 1)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
+  const NmfPenalty pen = {l1_w, l2_w, l1_h, l2_h};
   if (k <= 4) {
     return mu_dispatch<4>(with_stop, x, w0, h0, w, h, n_iter, prev_err,
                           converged, batch, n, l, k, iters, tol, check_every,
-                          inner_iter, s);
+                          inner_iter, pen, s);
   }
   if (k <= 8) {
     return mu_dispatch<8>(with_stop, x, w0, h0, w, h, n_iter, prev_err,
                           converged, batch, n, l, k, iters, tol, check_every,
-                          inner_iter, s);
+                          inner_iter, pen, s);
   }
   return mu_dispatch<16>(with_stop, x, w0, h0, w, h, n_iter, prev_err,
                          converged, batch, n, l, k, iters, tol, check_every,
-                         inner_iter, s);
+                         inner_iter, pen, s);
 }

@@ -1,4 +1,5 @@
-// Shared pieces of the batched NMF kernels (cd_nmf.cu, mu_nmf.cu).
+// Shared pieces of the batched NMF kernels (cd_nmf.cu, mu_nmf.cu,
+// beta_nmf.cu; cnmf.cu takes the reductions and the launcher).
 //
 // One thread block owns one fit: X (N, L), W (N, K) and H (K, L) of its
 // trial live in shared memory for the whole solve, so device memory is
@@ -25,6 +26,12 @@ struct NmfBlock {
   float* gram;   // (k, k): H H^T in the W half-step, W^T W in the H half
   float* cross;  // (k, l): W^T X
   float* red;    // 33 floats of block-reduction scratch
+};
+
+// sklearn's dimension-scaled L1/L2 penalties of W and H (all 0 without
+// regularization, which leaves every update bit for bit unchanged).
+struct NmfPenalty {
+  float l1_w, l2_w, l1_h, l2_h;
 };
 
 __host__ __device__ inline int nmf_odd(int v) { return v | 1; }
@@ -92,6 +99,32 @@ __device__ inline float nmf_block_sum(const NmfBlock& b, float v) {
   }
   __syncthreads();
   const float total = b.red[32];
+  __syncthreads();
+  return total;
+}
+
+// Sum of `v` over the block in float64, returned to every thread;
+// `red` is 33 doubles of scratch.  The stopping statistics of the
+// beta and convolutive kernels use it.
+__device__ inline double nmf_block_sum_d(double* red, double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.0;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v += __shfl_xor_sync(0xffffffffu, v, off);
+    }
+    if (lane == 0) red[32] = v;
+  }
+  __syncthreads();
+  const double total = red[32];
   __syncthreads();
   return total;
 }

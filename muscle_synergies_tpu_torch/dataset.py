@@ -7,17 +7,22 @@ Port of the envelope path of :mod:`muscle_synergies_tpu.dataset`:
    rectify, zero-phase lowpass, time-normalize, amplitude-normalize);
    equal-length trials run as one batch, ragged ones as one batch per
    distinct length;
-2. factors for every rank are zero-padded to the largest rank; padded
-   components stay exactly zero, so each grid entry equals an
-   independent fit;
+2. :func:`analyze_dataset`: factors for every rank are zero-padded to
+   the largest rank; padded components stay exactly zero, so each grid
+   entry equals an independent fit;
 3. one batched solve fits all ``R x B`` problems with per-problem
-   convergence: on a CUDA float32 batch, one launch of the CD or MU
-   kernel.
+   convergence: on a CUDA float32 batch, one launch of the CD, MU or
+   beta-MU kernel;
+4. :func:`analyze_dataset_time_varying`: every trial's restarts of a
+   convolutive (time-varying) synergy fit join one batched solve, one
+   launch of the convolutive kernel on the card, and each trial keeps
+   its lowest-error restart.
 
-Not ported yet, and raising ``NotImplementedError``: the mesh-sharded
-solve, non-Frobenius losses and the moving-RMS envelope (ROADMAP,
-"Modules still to port": parallel, beta family, RMS path).  pandas is
-imported only by the :class:`DatasetResult` table helpers.
+The entry points run on the card unless the caller passes
+``device="cpu"``.  Not ported yet, and raising ``NotImplementedError``:
+the mesh-sharded solve and the moving-RMS envelope (ROADMAP, "Modules
+still to port": parallel, RMS path).  pandas is imported only by the
+result classes' table helpers.
 """
 
 from __future__ import annotations
@@ -28,13 +33,36 @@ from typing import List, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ._common import as_tensor
-from .models.batch import fit_cd_batch, fit_mu_batch, init_batch, vaf_batch
+from ._common import as_tensor, entry_placement
+from .models.batch import (
+    fit_cd_batch,
+    fit_mu_batch,
+    fit_mu_beta_batch,
+    init_batch,
+    vaf_batch,
+)
+from .models.beta import beta_loss_to_float
+from .models.cnmf import (
+    TimeVaryingSynergyResult,
+    cnmf_reconstruct,
+    fit_cnmf_batch,
+    init_cnmf,
+    normalize_synergies,
+)
+from .models.mu import EPSILON
 from .models.select import compute_regularization
 from .ops import batched as _b
 from .utils.config import PipelineConfig, torch_impl
 
-__all__ = ["DatasetResult", "analyze_dataset", "preprocess_trials"]
+__all__ = [
+    "DatasetResult",
+    "TimeVaryingDatasetResult",
+    "analyze_dataset",
+    "analyze_dataset_time_varying",
+    "preprocess_trials",
+]
+
+_MESH_TODO = "mesh= is not ported yet (ROADMAP, modules still to port: parallel)"
 
 
 def _channel_names(first) -> Optional[List[str]]:
@@ -92,7 +120,7 @@ def preprocess_trials(
     config: PipelineConfig = PipelineConfig(),
     dtype: Optional[torch.dtype] = None,
     mesh=None,
-    device=None,
+    device="cuda",
 ) -> torch.Tensor:
     """Run the configured preprocessing on every trial and stack them.
 
@@ -101,16 +129,16 @@ def preprocess_trials(
             or one ``(B, N, L)`` array or tensor of equal-length trials.
         config: its ``reduce_to`` must be set (it is what makes ragged
             trials stack into one ``(B, reduce_to, L)`` batch).
-        dtype, device: where and in what type to compute (``None`` keeps
-            the input's); the whole chain runs there, the zero-phase
-            filter through its CUDA kernel for CUDA float32 data.
+        dtype, device: where and in what type to compute: the card by
+            default, in float32 unless ``dtype`` says otherwise; pass
+            ``device="cpu"`` for the plain versions (``dtype=None`` then
+            keeps the input's).  The whole chain runs there, the
+            zero-phase filter through its CUDA kernel on the card.
         mesh: not ported (raises).
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP, modules still to port: "
-            "parallel)"
-        )
+        raise NotImplementedError(_MESH_TODO)
+    device, dtype = entry_placement(device, dtype)
     if config.use_rms:
         raise NotImplementedError(
             "use_rms=True is not ported yet (ROADMAP, modules still to port: "
@@ -281,12 +309,11 @@ def analyze_dataset(
     alpha_W: float = 0.0,
     alpha_H="same",
     l1_ratio: float = 0.0,
-    device=None,
+    device="cuda",
 ) -> DatasetResult:
     """Preprocess and factorize a whole multi-trial dataset at once.
 
-    The JAX package's ``analyze_dataset`` with the envelope pipeline and
-    the Frobenius loss.
+    The JAX package's ``analyze_dataset`` with the envelope pipeline.
 
     Args:
         trials: sequence of ``(N_i, L)`` arrays, tensors or DataFrames,
@@ -295,40 +322,43 @@ def analyze_dataset(
         ranks: rank or ranks to sweep.
         config: preprocessing + solver preset.
         solver: ``"cd"`` or ``"mu"``; defaults to ``config.solver``.
+        beta_loss: ``"frobenius"`` (the default, via
+            ``config.beta_loss``), ``"kullback-leibler"``,
+            ``"itakura-saito"`` or a float beta; other losses than
+            Frobenius need ``solver="mu"`` and ``inner_iter=1``.
         impl: batched-solver implementation, ``"auto"``, ``"torch"`` or
             ``"cuda"`` (the JAX names ``"xla"``/``"pallas"`` map onto
-            the last two); defaults to ``config.solver_impl``.  Nonzero
-            penalties always take ``"torch"`` under ``"auto"``.
+            the last two); defaults to ``config.solver_impl``.
         alpha_W / alpha_H / l1_ratio: sklearn's dimension-scaled
-            penalties.
-        dtype, device: where and in what type to run the whole pipeline,
-            e.g. ``device="cuda", dtype=torch.float32``; ``None`` keeps
-            the input's.
-        mesh, non-Frobenius ``beta_loss``: not ported (raise
-            ``NotImplementedError``).
+            penalties (the kernels take them too).
+        dtype, device: where and in what type to run the whole pipeline:
+            the card by default, in float32 unless ``dtype`` says
+            otherwise; ``device="cpu"`` runs the plain versions.
+        mesh: not ported (raises ``NotImplementedError``).
 
     Returns:
         :class:`DatasetResult` over the full ``(rank, trial)`` grid.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP, modules still to port: "
-            "parallel)"
-        )
+        raise NotImplementedError(_MESH_TODO)
     trials, subjects = _normalize_trials_subjects(trials, subjects)
     ranks = (ranks,) if isinstance(ranks, int) else tuple(ranks)
     solver = solver if solver is not None else config.solver
     if solver not in {"mu", "cd"}:
         raise ValueError(f"unknown solver: {solver!r}")
     beta_loss = beta_loss if beta_loss is not None else config.beta_loss
-    if beta_loss not in ("frobenius", 2, 2.0):
-        raise NotImplementedError(
-            f"beta_loss={beta_loss!r} is not ported yet (ROADMAP, modules "
-            "still to port: the beta family); use 'frobenius'"
+    beta = beta_loss_to_float(beta_loss)
+    if beta != 2.0 and solver != "mu":
+        raise ValueError(
+            f"beta_loss={beta_loss!r} requires solver='mu', got {solver!r}"
+        )
+    inner_iter = inner_iter if inner_iter is not None else config.inner_iter
+    if beta != 2.0 and inner_iter != 1:
+        raise ValueError(
+            "inner_iter > 1 is only available for the Frobenius objective"
         )
     max_iter = max_iter if max_iter is not None else config.max_iter
     tol = tol if tol is not None else config.tol
-    inner_iter = inner_iter if inner_iter is not None else config.inner_iter
     if inner_iter != 1 and solver != "mu":
         raise ValueError("inner_iter > 1 is only meaningful for solver='mu'")
     impl = torch_impl(impl if impl is not None else config.solver_impl)
@@ -336,6 +366,12 @@ def analyze_dataset(
     channel_names = _channel_names(trials[0]) if len(trials) else None
     xs = preprocess_trials(trials, sampling_frequency, config, dtype=dtype,
                            device=device)
+    if beta <= 0 and bool((xs == 0).any()):
+        raise ValueError(
+            "When beta_loss <= 0 and X contains zeros, the solver may "
+            "diverge. Please add small values to X, or use a positive "
+            "beta_loss."
+        )
     b, n, l = xs.shape
     k_max = max(ranks)
     l1_w, l2_w, l1_h, l2_h = compute_regularization(
@@ -354,8 +390,14 @@ def analyze_dataset(
     grid_h = torch.cat(h_blocks)
     regs = dict(l1_reg_w=l1_w, l2_reg_w=l2_w, l1_reg_h=l1_h, l2_reg_h=l2_h)
     if solver == "mu":
-        state = fit_mu_batch(grid_x, grid_w, grid_h, max_iter=max_iter,
-                             tol=tol, impl=impl, inner_iter=inner_iter, **regs)
+        if beta != 2.0:
+            state = fit_mu_beta_batch(grid_x, grid_w, grid_h, beta=beta,
+                                      max_iter=max_iter, tol=tol, impl=impl,
+                                      **regs)
+        else:
+            state = fit_mu_batch(grid_x, grid_w, grid_h, max_iter=max_iter,
+                                 tol=tol, impl=impl, inner_iter=inner_iter,
+                                 **regs)
         h_final = state.h
     else:
         state = fit_cd_batch(grid_x, grid_w, grid_h, max_iter=max_iter,
@@ -363,18 +405,206 @@ def analyze_dataset(
         h_final = state.ht.transpose(-1, -2)
     overall, per_channel = vaf_batch(grid_x, state.w, h_final)
     r = len(ranks)
-
-    def host(t):
-        return t.detach().cpu().numpy()
-
     return DatasetResult(
         ranks=ranks,
-        w=host(state.w).reshape(r, b, n, k_max),
-        h=host(h_final).reshape(r, b, k_max, l),
-        vaf_overall=host(overall).reshape(r, b),
-        vaf_per_channel=host(per_channel).reshape(r, b, l),
-        n_iter=host(state.n_iter).reshape(r, b),
-        converged=host(state.converged).reshape(r, b),
+        w=_host(state.w).reshape(r, b, n, k_max),
+        h=_host(h_final).reshape(r, b, k_max, l),
+        vaf_overall=_host(overall).reshape(r, b),
+        vaf_per_channel=_host(per_channel).reshape(r, b, l),
+        n_iter=_host(state.n_iter).reshape(r, b),
+        converged=_host(state.converged).reshape(r, b),
+        channel_names=channel_names,
+        subjects=subjects,
+    )
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+@dataclass
+class TimeVaryingDatasetResult:
+    """Best-restart time-varying synergies for every trial of a dataset.
+
+    Attributes (NumPy arrays, as in the JAX package):
+        n_lags: temporal extent ``D`` of each synergy, in samples.
+        c: ``(B, T, K)`` winning activation trains (rescaled by
+            :func:`~muscle_synergies_tpu_torch.models.cnmf.normalize_synergies`).
+        s: ``(B, K, D, L)`` winning synergies, unit Frobenius norm.
+        vaf_overall: ``(B,)`` total VAF of each reconstruction.
+        vaf_per_channel: ``(B, L)``.
+        n_iter: ``(B,)`` iterations used by each winning restart.
+        converged: ``(B,)`` convergence flags of the winners.
+        restart_errors: ``(B, n_inits)`` final Frobenius errors of all
+            restarts (the winner is each row's argmin).
+        channel_names / subjects: as on :class:`DatasetResult`.
+    """
+
+    n_lags: int
+    c: np.ndarray
+    s: np.ndarray
+    vaf_overall: np.ndarray
+    vaf_per_channel: np.ndarray
+    n_iter: np.ndarray
+    converged: np.ndarray
+    restart_errors: np.ndarray
+    channel_names: Optional[List[str]] = None
+    subjects: Optional[List] = None
+
+    def synergies(self, trial: int):
+        """``{k: (n_lags, L) DataFrame}`` patterns of one trial."""
+        import pandas
+
+        cols = self.channel_names or range(self.s.shape[-1])
+        return {
+            k: pandas.DataFrame(self.s[trial, k], columns=list(cols))
+            for k in range(self.s.shape[1])
+        }
+
+    def activations(self, trial: int):
+        """``(T, K)`` recruitment trains of one trial, as a DataFrame."""
+        import pandas
+
+        k = self.c.shape[-1]
+        return pandas.DataFrame(
+            self.c[trial], columns=[f"synergy {i}" for i in range(k)]
+        )
+
+    def vaf_table(self):
+        """Per-trial overall VAF Series (subject/trial MultiIndex when
+        labeled)."""
+        import pandas
+
+        b = self.vaf_overall.shape[0]
+        if self.subjects is not None:
+            index = pandas.MultiIndex.from_arrays(
+                [self.subjects, range(b)], names=["subject", "trial"]
+            )
+        else:
+            index = pandas.RangeIndex(b, name="trial")
+        return pandas.Series(self.vaf_overall, index=index, name="vaf")
+
+    def subject_table(self, statistic: str = "mean"):
+        """Per-subject VAF aggregated over trials."""
+        if self.subjects is None:
+            raise ValueError(
+                "no subject labels: pass subjects= (or a {subject: trials} "
+                "mapping) to analyze_dataset_time_varying"
+            )
+        return self.vaf_table().groupby(level="subject", sort=False).agg(
+            statistic
+        )
+
+    def to_trial_result(self, trial: int) -> TimeVaryingSynergyResult:
+        """One trial repackaged as a
+        :class:`~muscle_synergies_tpu_torch.models.cnmf.TimeVaryingSynergyResult`."""
+        import pandas
+
+        cols = list(self.channel_names or range(self.s.shape[-1]))
+        return TimeVaryingSynergyResult(
+            synergies=self.synergies(trial),
+            activations=self.activations(trial),
+            vaf=float(self.vaf_overall[trial]),
+            vaf_per_muscle=pandas.Series(
+                self.vaf_per_channel[trial], index=cols
+            ),
+            n_iter=int(self.n_iter[trial]),
+            restart_errors=self.restart_errors[trial],
+        )
+
+
+def analyze_dataset_time_varying(
+    trials: Union[Sequence, Mapping],
+    sampling_frequency: float,
+    n_synergies: int,
+    n_lags: int,
+    config: PipelineConfig = PipelineConfig(),
+    mesh=None,
+    max_iter: Optional[int] = None,
+    tol: Optional[float] = None,
+    n_inits: int = 4,
+    seed: int = 0,
+    dtype: Optional[torch.dtype] = None,
+    subjects: Optional[Sequence] = None,
+    impl: Optional[str] = None,
+    device="cuda",
+) -> TimeVaryingDatasetResult:
+    """Preprocess a dataset and extract time-varying synergies per trial.
+
+    The JAX package's ``analyze_dataset_time_varying``: all ``B``
+    trials' ``n_inits`` random restarts join one ``(B * n_inits)``
+    batched convolutive fit (trial-major, restarts contiguous, restart
+    ``i`` of the grid seeded ``seed + i`` by :func:`init_cnmf`), and
+    each trial's lowest-error restart is returned with unit-norm
+    synergies.  The JAX function's ``precision=`` has no counterpart:
+    the port always computes in full precision (TF32 is off).
+
+    Args:
+        trials / sampling_frequency / config / subjects: as on
+            :func:`analyze_dataset`.
+        n_synergies: number of time-varying synergies ``K`` per trial.
+        n_lags: temporal extent ``D`` of each synergy, in samples of the
+            time-normalized trials.
+        max_iter / tol: sklearn-style stopping; default to the config's.
+        n_inits: random restarts per trial, solved in the same batch.
+        impl: ``"auto"``, ``"torch"`` or ``"cuda"`` for the batched fit
+            (the JAX names ``"xla"``/``"pallas"`` map onto the last
+            two); defaults to ``config.solver_impl``.
+        dtype, device: as on :func:`analyze_dataset`: the card by
+            default, in float32; ``device="cpu"`` runs the plain
+            versions.
+        mesh: not ported (raises ``NotImplementedError``).
+
+    Returns:
+        :class:`TimeVaryingDatasetResult` over all trials.
+    """
+    if mesh is not None:
+        raise NotImplementedError(_MESH_TODO)
+    trials, subjects = _normalize_trials_subjects(trials, subjects)
+    if n_synergies < 1:
+        raise ValueError(f"n_synergies must be >= 1, got {n_synergies}")
+    if n_inits < 1:
+        raise ValueError(f"n_inits must be >= 1, got {n_inits}")
+    max_iter = max_iter if max_iter is not None else config.max_iter
+    tol = tol if tol is not None else config.tol
+    impl = torch_impl(impl if impl is not None else config.solver_impl)
+
+    channel_names = _channel_names(trials[0]) if len(trials) else None
+    xs = preprocess_trials(trials, sampling_frequency, config, dtype=dtype,
+                           device=device)
+    b, t, l = xs.shape
+    if not 1 <= n_lags <= t:
+        raise ValueError(
+            f"n_lags must be in [1, n_samples={t}], got {n_lags}"
+        )
+
+    # the restart grid: trial-major, restarts contiguous, factors drawn
+    # on the host exactly as the JAX package draws them
+    c0, s0 = init_cnmf(np.repeat(_host(xs), n_inits, axis=0), n_synergies,
+                       n_lags, seed=seed)
+    state = fit_cnmf_batch(
+        xs.repeat_interleave(n_inits, dim=0), as_tensor(c0, xs.device),
+        as_tensor(s0, xs.device), max_iter=max_iter, tol=tol, impl=impl,
+    )
+
+    errors = _host(state.previous_error).reshape(b, n_inits)
+    best = np.arange(b) * n_inits + np.argmin(errors, axis=1)
+    best_dev = torch.as_tensor(best, device=xs.device)
+    c_best, s_best = normalize_synergies(state.c[best_dev], state.s[best_dev])
+    err2 = ((xs - cnmf_reconstruct(c_best, s_best)) ** 2).sum(dim=1)  # (B, L)
+    tot2 = (xs * xs).sum(dim=1)
+    per_channel = 1.0 - err2 / torch.where(tot2 == 0, 1.0, tot2)
+    overall = 1.0 - err2.sum(dim=-1) / tot2.sum(dim=-1).clamp(min=EPSILON)
+
+    return TimeVaryingDatasetResult(
+        n_lags=n_lags,
+        c=_host(c_best),
+        s=_host(s_best),
+        vaf_overall=_host(overall),
+        vaf_per_channel=_host(per_channel),
+        n_iter=_host(state.n_iter)[best],
+        converged=_host(state.converged)[best],
+        restart_errors=errors,
         channel_names=channel_names,
         subjects=subjects,
     )

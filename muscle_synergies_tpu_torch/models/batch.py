@@ -1,18 +1,17 @@
 """Batched NMF: a whole dataset's fits in one solve.
 
 Port of :mod:`muscle_synergies_tpu.models.batch` (the Frobenius MU and
-CD paths).  Every function takes a ``(B, N, L)`` stack of problems with
+CD paths and the beta-divergence MU path).  Every function takes a ``(B, N, L)`` stack of problems with
 factors W ``(B, N, k)`` and H ``(B, k, L)``.  ``impl`` picks the
 implementation:
 
 - ``"cuda"``: the hand-written kernels (:mod:`.kernels`), one thread
-  block per fit, the whole solve one launch; CUDA float32 only, and no
-  L1/L2 penalties (as the JAX package's Pallas kernels);
-- ``"torch"``: the plain PyTorch versions (:mod:`.mu`, :mod:`.hals`)
-  on any device and dtype;
-- ``"auto"``: the kernel for a CUDA problem (which must be float32),
-  the plain version for a CPU one, and always the plain version when a
-  penalty is nonzero (as the JAX package's ``auto`` takes XLA then).
+  block per fit, the whole solve one launch, L1/L2 penalties included;
+  CUDA float32 only;
+- ``"torch"``: the plain PyTorch versions (:mod:`.mu`, :mod:`.hals`,
+  :mod:`.beta`) on any device and dtype;
+- ``"auto"`` (the default): the kernel for a CUDA problem (which must
+  be float32), the plain version for a CPU one.
 
 Ragged trials are zero-padded (:func:`pad_and_stack`): padded rows of X
 are zero and the matching rows of W start at zero, which both solvers
@@ -31,7 +30,8 @@ import torch
 from .._common import as_tensor, resolve_impl
 from .hals import CDState, fit_cd
 from .init import initialize_nmf
-from .kernels import cd_cuda, mu_cuda
+from .beta import BetaState, fit_mu_beta
+from .kernels import beta_cuda, cd_cuda, mu_cuda
 from .mu import MUState, fit_mu
 
 __all__ = [
@@ -41,6 +41,8 @@ __all__ = [
     "fit_mu_batch",
     "cd_iterations_batch",
     "fit_cd_batch",
+    "beta_mu_iterations_batch",
+    "fit_mu_beta_batch",
     "vaf_batch",
 ]
 
@@ -92,25 +94,14 @@ def init_batch(
     return w, h
 
 
-def _resolve(impl: str, xs: torch.Tensor, regs=()) -> str:
-    has_penalty = any(r != 0.0 for r in regs)
-    if impl == "cuda" and has_penalty:
-        raise ValueError(
-            "L1/L2 regularization is not supported by impl='cuda'; "
-            "use impl='torch'"
-        )
-    impl = resolve_impl(impl, xs)
-    return "torch" if has_penalty else impl
-
-
-def mu_iterations_batch(xs, w, h, n_iters: int, impl: str = "torch",
+def mu_iterations_batch(xs, w, h, n_iters: int, impl: str = "auto",
                         inner_iter: int = 1):
     """Run ``n_iters`` MU iterations of every problem (no stopping).
 
     The throughput primitive; ``impl="cuda"`` is kernel K1 with its
     stopping rule compiled out.
     """
-    if _resolve(impl, xs) == "cuda":
+    if resolve_impl(impl, xs) == "cuda":
         return mu_cuda.mu_iterations_cuda(xs, w, h, n_iters, inner_iter)
     return mu_cuda.mu_iterations_plain(xs, w, h, n_iters, inner_iter)
 
@@ -122,7 +113,7 @@ def fit_mu_batch(
     max_iter: int = 200,
     tol: float = 1e-4,
     check_every: int = 10,
-    impl: str = "torch",
+    impl: str = "auto",
     inner_iter: int = 1,
     l1_reg_w: float = 0.0,
     l2_reg_w: float = 0.0,
@@ -130,25 +121,20 @@ def fit_mu_batch(
     l2_reg_h: float = 0.0,
 ) -> MUState:
     """MU-NMF over a ``(B, N, L)`` batch with per-problem convergence."""
-    regs = (l1_reg_w, l2_reg_w, l1_reg_h, l2_reg_h)
-    if _resolve(impl, xs, regs) == "cuda":
-        return mu_cuda.fit_mu_cuda(xs, w0, h0, max_iter=max_iter, tol=tol,
-                                   check_every=check_every,
-                                   inner_iter=inner_iter)
-    return fit_mu(xs, w0, h0, max_iter=max_iter, tol=tol,
-                  check_every=check_every, l1_reg_w=l1_reg_w,
-                  l2_reg_w=l2_reg_w, l1_reg_h=l1_reg_h, l2_reg_h=l2_reg_h,
-                  inner_iter=inner_iter)
+    fit = mu_cuda.fit_mu_cuda if resolve_impl(impl, xs) == "cuda" else fit_mu
+    return fit(xs, w0, h0, max_iter=max_iter, tol=tol, check_every=check_every,
+               inner_iter=inner_iter, l1_reg_w=l1_reg_w, l2_reg_w=l2_reg_w,
+               l1_reg_h=l1_reg_h, l2_reg_h=l2_reg_h)
 
 
-def cd_iterations_batch(xs, w, h, n_iters: int, impl: str = "torch"):
+def cd_iterations_batch(xs, w, h, n_iters: int, impl: str = "auto"):
     """Run ``n_iters`` CD/HALS outer iterations of every problem (no stopping).
 
     One iteration is a cyclic pass over W's components then H's
     (sklearn's ``shuffle=False`` order); ``impl="cuda"`` is kernel K2
     with its stopping rule compiled out.
     """
-    if _resolve(impl, xs) == "cuda":
+    if resolve_impl(impl, xs) == "cuda":
         return cd_cuda.cd_iterations_cuda(xs, w, h, n_iters)
     return cd_cuda.cd_iterations_plain(xs, w, h, n_iters)
 
@@ -159,18 +145,56 @@ def fit_cd_batch(
     h0,
     max_iter: int = 200,
     tol: float = 1e-4,
-    impl: str = "torch",
+    impl: str = "auto",
     l1_reg_w: float = 0.0,
     l2_reg_w: float = 0.0,
     l1_reg_h: float = 0.0,
     l2_reg_h: float = 0.0,
 ) -> CDState:
     """Coordinate-descent NMF over a ``(B, N, L)`` batch, per-problem stop."""
-    regs = (l1_reg_w, l2_reg_w, l1_reg_h, l2_reg_h)
-    if _resolve(impl, xs, regs) == "cuda":
-        return cd_cuda.fit_cd_cuda(xs, w0, h0, max_iter=max_iter, tol=tol)
-    return fit_cd(xs, w0, h0, max_iter=max_iter, tol=tol, l1_reg_w=l1_reg_w,
-                  l2_reg_w=l2_reg_w, l1_reg_h=l1_reg_h, l2_reg_h=l2_reg_h)
+    fit = cd_cuda.fit_cd_cuda if resolve_impl(impl, xs) == "cuda" else fit_cd
+    return fit(xs, w0, h0, max_iter=max_iter, tol=tol, l1_reg_w=l1_reg_w,
+               l2_reg_w=l2_reg_w, l1_reg_h=l1_reg_h, l2_reg_h=l2_reg_h)
+
+
+def beta_mu_iterations_batch(xs, w, h, n_iters: int, beta: float = 1.0,
+                             impl: str = "auto"):
+    """Run ``n_iters`` beta-MU iterations of every problem (no stopping).
+
+    The beta-divergence counterpart of :func:`mu_iterations_batch`, for
+    any float ``beta``; ``impl="cuda"`` is kernel K4 with its stopping
+    rule compiled out.
+    """
+    if resolve_impl(impl, xs) == "cuda":
+        return beta_cuda.beta_iterations_cuda(xs, w, h, n_iters, beta)
+    return beta_cuda.beta_iterations_plain(xs, w, h, n_iters, beta)
+
+
+def fit_mu_beta_batch(
+    xs,
+    w0,
+    h0,
+    beta: float = 1.0,
+    max_iter: int = 200,
+    tol: float = 1e-4,
+    check_every: int = 10,
+    impl: str = "auto",
+    l1_reg_w: float = 0.0,
+    l2_reg_w: float = 0.0,
+    l1_reg_h: float = 0.0,
+    l2_reg_h: float = 0.0,
+) -> BetaState:
+    """Beta-divergence MU over a ``(B, N, L)`` batch, per-problem stop.
+
+    ``impl="cuda"`` is kernel K4 with sklearn's stop inside each block;
+    ``"torch"`` is
+    :func:`~muscle_synergies_tpu_torch.models.beta.fit_mu_beta`.
+    """
+    cuda = resolve_impl(impl, xs) == "cuda"
+    fit = beta_cuda.fit_beta_cuda if cuda else fit_mu_beta
+    return fit(xs, w0, h0, beta=beta, max_iter=max_iter, tol=tol,
+               check_every=check_every, l1_reg_w=l1_reg_w, l2_reg_w=l2_reg_w,
+               l1_reg_h=l1_reg_h, l2_reg_h=l2_reg_h)
 
 
 def vaf_batch(xs, ws, hs):

@@ -1,0 +1,119 @@
+"""Wrapper of the batched beta-divergence MU kernel (``csrc/beta_nmf.cu``).
+
+Replaces the TPU kernels ``beta_mu_iterations_pallas`` and
+``kl_mu_iterations_pallas``
+(``muscle_synergies_tpu/models/kernels/beta_pallas.py``) and their
+chunked fit driver (``models/batch.py:_fit_beta_batch_pallas``).  One
+CUDA source serves both entry points: the stopping rule is a template
+switch, compiled out for the fixed-iteration one, and the kernel is
+specialised for KL (beta = 1) and Itakura-Saito (beta = 0), with every
+other beta taken at run time.  One thread block runs one fit with its
+X, W, H and weight planes in shared memory; see the source.
+
+:func:`beta_iterations_cuda` and :func:`fit_beta_cuda` take contiguous
+CUDA float32 tensors in the JAX layouts, X ``(B, N, L)``, W
+``(B, N, k)``, H ``(B, k, L)``, and raise on anything else;
+:func:`fit_beta_cuda` takes sklearn's L1/L2 penalties as the kernel
+does.  Their
+plain versions are :func:`beta_iterations_plain` and
+:func:`fit_beta_plain` (the batched
+:mod:`muscle_synergies_tpu_torch.models.beta` functions).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..._build import load
+from ..beta import BetaState, _gamma, fit_mu_beta, mu_update_beta
+from .mu_cuda import check_shapes
+from .mu_cuda import smem_bytes as mu_smem_bytes
+
+__all__ = [
+    "beta_iterations_cuda",
+    "fit_beta_cuda",
+    "beta_iterations_plain",
+    "fit_beta_plain",
+    "launches",
+]
+
+launches = 0  # kernel launches since the last reset
+
+
+def smem_bytes(n: int, l: int, k: int) -> int:
+    """Shared memory of one fit (csrc/beta_nmf.cu ``beta_smem_floats``)."""
+    floats = mu_smem_bytes(n, l, k) // 4 + 2 * n * (l | 1) + 2 * k * l
+    floats += floats & 1
+    return 4 * (floats + 2 * 33)
+
+
+def _lib():
+    fn = load("beta_nmf").beta_nmf_f32
+    fn.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+        + [ctypes.c_double] + [ctypes.c_int] + [ctypes.c_float] * 4
+        + [ctypes.c_int] + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(xs, w0, h0, beta, iters, tol, check_every, with_stop,
+            regs=(0.0, 0.0, 0.0, 0.0)):
+    global launches
+    check_shapes("beta_nmf", xs, w0, h0, smem_bytes)
+    xs, w0, h0 = xs.contiguous(), w0.contiguous(), h0.contiguous()
+    b, n, l = xs.shape
+    k = w0.shape[-1]
+    w, h = torch.empty_like(w0), torch.empty_like(h0)
+    n_iter = torch.zeros(b, dtype=torch.int32, device=xs.device)
+    prev_err = torch.zeros(b, dtype=torch.float32, device=xs.device)
+    converged = torch.zeros(b, dtype=torch.int32, device=xs.device)
+    err = _lib()(
+        xs.data_ptr(), w0.data_ptr(), h0.data_ptr(), w.data_ptr(),
+        h.data_ptr(), n_iter.data_ptr(), prev_err.data_ptr(),
+        converged.data_ptr(), b, n, l, k, int(iters), float(beta),
+        _gamma(float(beta)), float(tol), int(check_every),
+        *map(float, regs), int(with_stop),
+        torch.cuda.current_stream(xs.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"beta_nmf kernel launch failed: CUDA error {err}")
+    launches += 1
+    return w, h, n_iter, prev_err, converged.bool()
+
+
+def beta_iterations_cuda(xs, w, h, n_iters: int, beta: float = 1.0):
+    """``n_iters`` beta-MU updates of every fit, no stopping (K4b)."""
+    w, h, *_ = _launch(xs, w, h, beta, n_iters, 0.0, 1, False)
+    return w, h
+
+
+def fit_beta_cuda(
+    xs, w0, h0, beta: float = 1.0, max_iter: int = 200, tol: float = 1e-4,
+    check_every: int = 10, l1_reg_w: float = 0.0, l2_reg_w: float = 0.0,
+    l1_reg_h: float = 0.0, l2_reg_h: float = 0.0,
+) -> BetaState:
+    """Beta-MU of every fit to sklearn's stop, converged fits frozen (K4a)."""
+    return BetaState(*_launch(xs, w0, h0, beta, max_iter, tol, check_every,
+                              True, (l1_reg_w, l2_reg_w, l1_reg_h, l2_reg_h)))
+
+
+def beta_iterations_plain(xs, w, h, n_iters: int, beta: float = 1.0):
+    """Plain version of :func:`beta_iterations_cuda`."""
+    for _ in range(n_iters):
+        w, h = mu_update_beta(xs, w, h, beta)
+    return w, h
+
+
+def fit_beta_plain(
+    xs, w0, h0, beta: float = 1.0, max_iter: int = 200, tol: float = 1e-4,
+    check_every: int = 10, l1_reg_w: float = 0.0, l2_reg_w: float = 0.0,
+    l1_reg_h: float = 0.0, l2_reg_h: float = 0.0,
+) -> BetaState:
+    """Plain version of :func:`fit_beta_cuda`."""
+    return fit_mu_beta(xs, w0, h0, beta=beta, max_iter=max_iter, tol=tol,
+                       check_every=check_every, l1_reg_w=l1_reg_w,
+                       l2_reg_w=l2_reg_w, l1_reg_h=l1_reg_h, l2_reg_h=l2_reg_h)

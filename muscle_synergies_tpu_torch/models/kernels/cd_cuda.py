@@ -9,7 +9,8 @@ out for the fixed-iteration entry point.
 float32 tensors in the JAX layouts, X ``(B, N, L)``, W ``(B, N, k)``,
 H ``(B, k, L)``, and raise on anything else; :func:`fit_cd_cuda`
 returns a :class:`~muscle_synergies_tpu_torch.models.hals.CDState`
-whose ``ht`` is ``(B, L, k)``.  Their plain versions are
+whose ``ht`` is ``(B, L, k)`` and takes sklearn's L1/L2 penalties as
+the kernel does.  Their plain versions are
 :func:`cd_iterations_plain` and :func:`fit_cd_plain`.
 """
 
@@ -37,14 +38,14 @@ launches = 0  # kernel launches since the last reset
 def _lib():
     fn = load("cd_nmf").cd_nmf_f32
     fn.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] * 5
         + [ctypes.c_int] + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(xs, w0, h0, iters, tol, with_stop):
+def _launch(xs, w0, h0, iters, tol, with_stop, regs=(0.0, 0.0, 0.0, 0.0)):
     global launches
     check_shapes("cd_nmf", xs, w0, h0)
     xs, w0, h0 = xs.contiguous(), w0.contiguous(), h0.contiguous()
@@ -58,7 +59,8 @@ def _launch(xs, w0, h0, iters, tol, with_stop):
         xs.data_ptr(), w0.data_ptr(), h0.data_ptr(), w.data_ptr(),
         h.data_ptr(), n_iter.data_ptr(), viol_init.data_ptr(),
         converged.data_ptr(), b, n, l, k, int(iters), float(tol),
-        int(with_stop), torch.cuda.current_stream(xs.device).cuda_stream,
+        *map(float, regs), int(with_stop),
+        torch.cuda.current_stream(xs.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"cd_nmf kernel launch failed: CUDA error {err}")
@@ -72,9 +74,14 @@ def cd_iterations_cuda(xs, w, h, n_iters: int):
     return w, h
 
 
-def fit_cd_cuda(xs, w0, h0, max_iter: int = 200, tol: float = 1e-4) -> CDState:
+def fit_cd_cuda(
+    xs, w0, h0, max_iter: int = 200, tol: float = 1e-4, l1_reg_w: float = 0.0,
+    l2_reg_w: float = 0.0, l1_reg_h: float = 0.0, l2_reg_h: float = 0.0,
+) -> CDState:
     """CD-NMF of every fit to sklearn's stop, converged fits frozen (K2a)."""
-    w, h, n_iter, viol_init, converged = _launch(xs, w0, h0, max_iter, tol, True)
+    w, h, n_iter, viol_init, converged = _launch(
+        xs, w0, h0, max_iter, tol, True, (l1_reg_w, l2_reg_w, l1_reg_h, l2_reg_h)
+    )
     return CDState(w, h.transpose(-1, -2), n_iter, viol_init, converged)
 
 
@@ -88,6 +95,10 @@ def cd_iterations_plain(xs, w, h, n_iters: int):
     return w, ht.transpose(-1, -2)
 
 
-def fit_cd_plain(xs, w0, h0, max_iter: int = 200, tol: float = 1e-4) -> CDState:
+def fit_cd_plain(
+    xs, w0, h0, max_iter: int = 200, tol: float = 1e-4, l1_reg_w: float = 0.0,
+    l2_reg_w: float = 0.0, l1_reg_h: float = 0.0, l2_reg_h: float = 0.0,
+) -> CDState:
     """Plain version of :func:`fit_cd_cuda`."""
-    return fit_cd(xs, w0, h0, max_iter=max_iter, tol=tol)
+    return fit_cd(xs, w0, h0, max_iter=max_iter, tol=tol, l1_reg_w=l1_reg_w,
+                  l2_reg_w=l2_reg_w, l1_reg_h=l1_reg_h, l2_reg_h=l2_reg_h)

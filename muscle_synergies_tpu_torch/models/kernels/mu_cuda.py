@@ -8,7 +8,8 @@ with its X, W and H in shared memory; see the source for the design.
 
 :func:`mu_iterations_cuda` and :func:`fit_mu_cuda` take contiguous CUDA
 float32 tensors in the JAX layouts, X ``(B, N, L)``, W ``(B, N, k)``,
-H ``(B, k, L)``, and raise on anything else.  Their plain versions are
+H ``(B, k, L)``, and raise on anything else; :func:`fit_mu_cuda` takes
+sklearn's L1/L2 penalties as the kernel does.  Their plain versions are
 :func:`mu_iterations_plain` and :func:`fit_mu_plain` (the batched
 :mod:`muscle_synergies_tpu_torch.models.mu` functions).
 """
@@ -41,8 +42,9 @@ def smem_bytes(n: int, l: int, k: int) -> int:
     return 4 * (n * ((l | 1) + (k | 1)) + 2 * k * l + k * k + 33)
 
 
-def check_shapes(name: str, xs, w, h) -> None:
-    """Raise unless the problem fits the kernels' bounds."""
+def check_shapes(name: str, xs, w, h, smem_bytes=smem_bytes) -> None:
+    """Raise unless the problem fits the kernel's bounds (``smem_bytes``
+    is the kernel's shared memory per fit)."""
     check_cuda_f32(name, xs, w, h)
     if xs.ndim != 3 or w.ndim != 3 or h.ndim != 3:
         raise ValueError(f"{name}: expected 3-D X, W, H")
@@ -67,13 +69,15 @@ def _lib():
     fn = load("mu_nmf").mu_nmf_f32
     fn.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 2 + [ctypes.c_float] * 4 + [ctypes.c_int]
+        + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(xs, w0, h0, iters, tol, check_every, inner_iter, with_stop):
+def _launch(xs, w0, h0, iters, tol, check_every, inner_iter, with_stop,
+            regs=(0.0, 0.0, 0.0, 0.0)):
     global launches
     check_shapes("mu_nmf", xs, w0, h0)
     xs, w0, h0 = xs.contiguous(), w0.contiguous(), h0.contiguous()
@@ -87,7 +91,7 @@ def _launch(xs, w0, h0, iters, tol, check_every, inner_iter, with_stop):
         xs.data_ptr(), w0.data_ptr(), h0.data_ptr(), w.data_ptr(),
         h.data_ptr(), n_iter.data_ptr(), prev_err.data_ptr(),
         converged.data_ptr(), b, n, l, k, int(iters), float(tol),
-        int(check_every), int(inner_iter), int(with_stop),
+        int(check_every), int(inner_iter), *map(float, regs), int(with_stop),
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
     if err != 0:
@@ -104,11 +108,13 @@ def mu_iterations_cuda(xs, w, h, n_iters: int, inner_iter: int = 1):
 
 def fit_mu_cuda(
     xs, w0, h0, max_iter: int = 200, tol: float = 1e-4, check_every: int = 10,
-    inner_iter: int = 1,
+    inner_iter: int = 1, l1_reg_w: float = 0.0, l2_reg_w: float = 0.0,
+    l1_reg_h: float = 0.0, l2_reg_h: float = 0.0,
 ) -> MUState:
     """MU-NMF of every fit to sklearn's stop, converged fits frozen (K1a)."""
     return MUState(*_launch(xs, w0, h0, max_iter, tol, check_every,
-                            inner_iter, True))
+                            inner_iter, True,
+                            (l1_reg_w, l2_reg_w, l1_reg_h, l2_reg_h)))
 
 
 def mu_iterations_plain(xs, w, h, n_iters: int, inner_iter: int = 1):
@@ -120,8 +126,11 @@ def mu_iterations_plain(xs, w, h, n_iters: int, inner_iter: int = 1):
 
 def fit_mu_plain(
     xs, w0, h0, max_iter: int = 200, tol: float = 1e-4, check_every: int = 10,
-    inner_iter: int = 1,
+    inner_iter: int = 1, l1_reg_w: float = 0.0, l2_reg_w: float = 0.0,
+    l1_reg_h: float = 0.0, l2_reg_h: float = 0.0,
 ) -> MUState:
     """Plain version of :func:`fit_mu_cuda`."""
     return fit_mu(xs, w0, h0, max_iter=max_iter, tol=tol,
-                  check_every=check_every, inner_iter=inner_iter)
+                  check_every=check_every, inner_iter=inner_iter,
+                  l1_reg_w=l1_reg_w, l2_reg_w=l2_reg_w, l1_reg_h=l1_reg_h,
+                  l2_reg_h=l2_reg_h)

@@ -26,7 +26,8 @@ import torch
 # sklearn's EPSILON: np.finfo(np.float32).eps, independent of dtype.
 EPSILON = 1.1920929e-07
 
-__all__ = ["EPSILON", "mu_update", "frobenius_error", "fit_mu", "MUState"]
+__all__ = ["EPSILON", "mu_update", "frobenius_error", "fit_mu", "fit_chunked",
+           "MUState"]
 
 
 def frobenius_error(x: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -113,16 +114,38 @@ def fit_mu(
         :class:`MUState` with final factors, iterations done, the error
         at the last convergence check and the convergence flags.
     """
+    regs = (l1_reg_w, l2_reg_w, l1_reg_h, l2_reg_h)
+    return MUState(*fit_chunked(
+        x, w0, h0, lambda xa, wa, ha: mu_update(xa, wa, ha, *regs, inner_iter),
+        frobenius_error, max_iter, tol, check_every,
+    ))
+
+
+def fit_chunked(x, w0, h0, step, error, max_iter: int, tol: float,
+                check_every: int):
+    """sklearn's multiplicative-update loop, each fit stopping on its own.
+
+    ``step(x, w, h)`` is one update and ``error(x, w, h)`` the
+    per-problem stopping statistic.  Updates run in chunks of
+    ``check_every``, the last one cut at ``max_iter``; after each chunk
+    (when ``tol > 0``) a fit converges if ``(previous - current) /
+    initial < tol`` at an exact multiple of ``check_every``, and is
+    frozen from then on.  The statistic at ``max_iter`` is stored
+    without a test.
+
+    Returns:
+        ``(w, h, n_iter, previous_error, converged)``, without the
+        batch dimension for a 2-D ``x``.
+    """
     single = x.ndim == 2
     if single:
         x, w0, h0 = x[None], w0[None], h0[None]
     b = x.shape[0]
     w, h = w0.clone(), h0.clone()
-    err0 = frobenius_error(x, w, h)
+    err0 = error(x, w, h)
     prev = err0.clone()
     n_iter = torch.zeros(b, dtype=torch.int32, device=x.device)
     converged = torch.zeros(b, dtype=torch.bool, device=x.device)
-    regs = (l1_reg_w, l2_reg_w, l1_reg_h, l2_reg_h)
     done = 0  # iterations run by every fit still going (they move together)
     while done < max_iter:
         active = (~converged).nonzero().flatten()
@@ -131,16 +154,16 @@ def fit_mu(
         xa, wa, ha = x[active], w[active], h[active]
         steps = min(check_every, max_iter - done)
         for _ in range(steps):
-            wa, ha = mu_update(xa, wa, ha, *regs, inner_iter)
+            wa, ha = step(xa, wa, ha)
         done += steps
         w[active], h[active] = wa, ha
         n_iter[active] = done
         if tol > 0:
-            err = frobenius_error(xa, wa, ha)
+            err = error(xa, wa, ha)
             newly = (prev[active] - err) / err0[active] < tol
             converged[active] = newly & (done % check_every == 0)
             prev[active] = err
-    state = MUState(w, h, n_iter, prev, converged)
+    out = (w, h, n_iter, prev, converged)
     if single:
-        return MUState(*(t[0] for t in state))
-    return state
+        return tuple(t[0] for t in out)
+    return out

@@ -37,6 +37,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FS = 1000.0
 RANKS = (1, 2, 3)
 FIT = dict(max_iter=500, tol=1e-4)
+CPU = dict(device="cpu")  # the port's entry points default to the card
 
 
 def _emg(n_trials, n_samples, seed):
@@ -59,7 +60,7 @@ TRIALS = _emg(6, 1500, seed=41)
 def both(request):
     solver = request.param
     jres = mst.analyze_dataset(TRIALS, FS, ranks=RANKS, solver=solver, **FIT)
-    tres = mt.analyze_dataset(TRIALS, FS, ranks=RANKS, solver=solver, **FIT)
+    tres = mt.analyze_dataset(TRIALS, FS, ranks=RANKS, solver=solver, **FIT, **CPU)
     return solver, jres, tres
 
 
@@ -85,10 +86,10 @@ def test_slice_iterations_and_convergence_match_jax(both):
 def test_ragged_trials_match_jax():
     trials = [TRIALS[0], TRIALS[1][:1100], TRIALS[2][:1100], TRIALS[3][:1300]]
     jres = mst.analyze_dataset(trials, FS, ranks=(2,), solver="mu", **FIT)
-    tres = mt.analyze_dataset(trials, FS, ranks=(2,), solver="mu", **FIT)
+    tres = mt.analyze_dataset(trials, FS, ranks=(2,), solver="mu", **FIT, **CPU)
     np.testing.assert_allclose(tres.vaf_overall, jres.vaf_overall, rtol=0, atol=1e-8)
     np.testing.assert_array_equal(tres.n_iter, jres.n_iter)
-    pre = mt.preprocess_trials(trials, FS).numpy()
+    pre = mt.preprocess_trials(trials, FS, **CPU).numpy()
     np.testing.assert_allclose(pre, np.asarray(j_preprocess_trials(trials, FS)),
                                rtol=0, atol=1e-9)
 
@@ -97,7 +98,7 @@ def test_batch_array_input_and_penalties_match_jax():
     xs = np.stack(TRIALS[:3])
     kw = dict(ranks=(2,), solver="cd", alpha_W=0.01, l1_ratio=0.5, **FIT)
     jres = mst.analyze_dataset(xs, FS, **kw)
-    tres = mt.analyze_dataset(xs, FS, **kw)
+    tres = mt.analyze_dataset(xs, FS, **kw, **CPU)
     np.testing.assert_allclose(tres.vaf_overall, jres.vaf_overall, rtol=0, atol=1e-8)
     np.testing.assert_array_equal(tres.n_iter, jres.n_iter)
 
@@ -105,7 +106,7 @@ def test_batch_array_input_and_penalties_match_jax():
 def test_subject_tables_match_jax():
     mapping = {"s1": TRIALS[:3], "s2": TRIALS[3:]}
     jres = mst.analyze_dataset(mapping, FS, ranks=(1, 2), solver="mu", **FIT)
-    tres = mt.analyze_dataset(mapping, FS, ranks=(1, 2), solver="mu", **FIT)
+    tres = mt.analyze_dataset(mapping, FS, ranks=(1, 2), solver="mu", **FIT, **CPU)
     assert tres.subjects == jres.subjects
     np.testing.assert_allclose(tres.subject_table().to_numpy(),
                                jres.subject_table().to_numpy(), rtol=0, atol=1e-8)
@@ -121,13 +122,11 @@ def test_subject_tables_match_jax():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.analyze_dataset(TRIALS[:2], FS, mesh=object())
+        mt.analyze_dataset(TRIALS[:2], FS, mesh=object(), **CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.analyze_dataset(TRIALS[:2], FS, solver="mu", beta_loss="kullback-leibler")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.preprocess_trials(TRIALS[:2], FS, mt.PipelineConfig(use_rms=True))
+        mt.preprocess_trials(TRIALS[:2], FS, mt.PipelineConfig(use_rms=True), **CPU)
     with pytest.raises(ValueError, match="solver"):
-        mt.analyze_dataset(TRIALS[:2], FS, solver="als")
+        mt.analyze_dataset(TRIALS[:2], FS, solver="als", **CPU)
 
 
 def test_pipeline_config_json_round_trips_between_packages():
@@ -173,9 +172,15 @@ def test_port_imports_neither_jax_nor_pandas():
         "import sys, numpy as np\n"
         "import muscle_synergies_tpu_torch as m\n"
         "rng = np.random.default_rng(0)\n"
-        "r = m.analyze_dataset([rng.random((400, 4)) for _ in range(3)], 1000.0,\n"
-        "                      ranks=(1, 2), max_iter=30)\n"
+        "trials = [rng.random((400, 4)) for _ in range(3)]\n"
+        "r = m.analyze_dataset(trials, 1000.0, ranks=(1, 2), max_iter=30, device='cpu')\n"
         "assert r.vaf_overall.shape == (2, 3)\n"
+        "r = m.analyze_dataset(trials, 1000.0, ranks=(1, 2), max_iter=30, solver='mu',\n"
+        "                      beta_loss='kullback-leibler', device='cpu')\n"
+        "assert r.vaf_overall.shape == (2, 3)\n"
+        "r = m.analyze_dataset_time_varying(trials, 1000.0, n_synergies=2, n_lags=5,\n"
+        "                                   n_inits=2, max_iter=30, device='cpu')\n"
+        "assert r.vaf_overall.shape == (3,) and r.restart_errors.shape == (3, 2)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'pandas'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

@@ -12,7 +12,10 @@ Bars: the filter within 1e-6 x max|y| of the plain float64 version (the
 kernel keeps its state in float64; measured ~6e-8 on the card), solver
 iterates within 1e-3 relative of float64 (``bench.py --check``'s bar;
 measured 2e-6 for MU and 3e-4 for CD after 50 iterations at 1024 x 200
-x 8).
+x 8), the beta and convolutive fits within 10 iterations of where the
+float64 fit stops (``BENCH_CHECK.json``'s bar for those kernels).  The
+same bars hold with sklearn's L1/L2 penalties, which the MU, CD and
+beta kernels take.
 """
 
 import numpy as np
@@ -20,8 +23,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from muscle_synergies_tpu_torch import analyze_dataset  # noqa: E402
-from muscle_synergies_tpu_torch.models.kernels import cd_cuda, mu_cuda  # noqa: E402
+from muscle_synergies_tpu_torch import analyze_dataset, analyze_dataset_time_varying  # noqa: E402
+from muscle_synergies_tpu_torch.models import cnmf  # noqa: E402
+from muscle_synergies_tpu_torch.models.kernels import (  # noqa: E402
+    beta_cuda,
+    cd_cuda,
+    cnmf_cuda,
+    mu_cuda,
+)
 from muscle_synergies_tpu_torch.ops import filter_cuda, filters  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -100,24 +109,138 @@ def test_padded_rank_components_stay_zero(cuda):
     assert (st.w[..., 2:] == 0).all() and (st.h[:, 2:] == 0).all()
     st = cd_cuda.fit_cd_cuda(x, w, h, max_iter=100)
     assert (st.w[..., 2:] == 0).all() and (st.ht[..., 2:] == 0).all()
+    for beta in (1.0, 0.0, 0.5, 1.5, 3.0):
+        st = beta_cuda.fit_beta_cuda(x + 0.01, w, h, beta=beta, max_iter=100)
+        assert (st.w[..., 2:] == 0).all() and (st.h[:, 2:] == 0).all()
+        assert (st.w[..., :2] > 0).any()
+
+
+# one beta per kernel kind (KL, IS, generic) and per damping branch
+@pytest.mark.parametrize("beta", [1.0, 0.0, 0.5, 1.5, 3.0])
+def test_beta_fixed_iterations_match_plain_float64(cuda, beta):
+    x, w, h = _problem(cuda)
+    x = x + 0.05  # strictly positive, as beta <= 0 needs
+    wk, hk = beta_cuda.beta_iterations_cuda(x, w, h, 50, beta)
+    wp, hp = beta_cuda.beta_iterations_plain(x.double(), w.double(), h.double(),
+                                             50, beta)
+    assert _rel(wk, wp) < 1e-3 and _rel(hk, hp) < 1e-3
+
+
+@pytest.mark.parametrize("beta", [1.0, 0.0])
+def test_beta_fits_stop_where_float64_stops(cuda, beta):
+    x, w, h = _problem(cuda, b=128)
+    x = x + 0.05
+    sk = beta_cuda.fit_beta_cuda(x, w, h, beta=beta, max_iter=200, tol=1e-4)
+    sp = beta_cuda.fit_beta_plain(x.double(), w.double(), h.double(), beta=beta,
+                                  max_iter=200, tol=1e-4)
+    gap = (sk.n_iter - sp.n_iter).cpu().numpy()
+    assert abs(np.median(gap)) <= 10
+    assert (sk.converged == sp.converged).float().mean() > 0.9
+    assert torch.allclose(sk.previous_error.double(), sp.previous_error, rtol=1e-2)
+
+
+REGS = dict(l1_reg_w=0.05, l2_reg_w=0.1, l1_reg_h=0.2, l2_reg_h=0.3)
+# (kernel fit, plain fit, extra arguments, stopping-gap bar) per kernel
+# and beta kind; the Frobenius kernels stop where float64 does
+PENALIZED = {
+    "mu": (mu_cuda.fit_mu_cuda, mu_cuda.fit_mu_plain, {}, 0),
+    "cd": (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain, {}, 0),
+    "kl": (beta_cuda.fit_beta_cuda, beta_cuda.fit_beta_plain, dict(beta=1.0), 10),
+    "is": (beta_cuda.fit_beta_cuda, beta_cuda.fit_beta_plain, dict(beta=0.0), 10),
+    "beta1.5": (beta_cuda.fit_beta_cuda, beta_cuda.fit_beta_plain,
+                dict(beta=1.5), 10),
+}
+
+
+@pytest.mark.parametrize("kind", list(PENALIZED))
+def test_penalized_fits_match_plain_float64(cuda, kind):
+    kern, plain, extra, gap_bar = PENALIZED[kind]
+    x, w, h = _problem(cuda, b=128)
+    x = x + 0.05
+    args64 = (x.double(), w.double(), h.double())
+    # tol < 0 never stops: 50 penalized iterations on both sides
+    sk = kern(x, w, h, max_iter=50, tol=-1.0, **extra, **REGS)
+    sp = plain(*args64, max_iter=50, tol=-1.0, **extra, **REGS)
+    assert _rel(sk.w, sp.w) < 1e-3 and _rel(sk[1], sp[1]) < 1e-3
+    unpenalized = kern(x, w, h, max_iter=50, tol=-1.0, **extra)
+    assert _rel(unpenalized.w, sp.w) > 1e-2  # the penalties took effect
+    sk = kern(x, w, h, max_iter=200, tol=1e-4, **extra, **REGS)
+    sp = plain(*args64, max_iter=200, tol=1e-4, **extra, **REGS)
+    gap = (sk.n_iter - sp.n_iter).cpu().numpy()
+    assert abs(np.median(gap)) <= gap_bar
+
+
+@pytest.mark.parametrize("solver, loss", [("cd", "frobenius"), ("mu", "frobenius"),
+                                          ("mu", "kullback-leibler")])
+def test_auto_takes_the_kernel_with_penalties(cuda, solver, loss):
+    rng = np.random.default_rng(4)
+    trials = np.abs(rng.standard_normal((4, 4000, 8))).astype(np.float32)
+    mod = {"cd": cd_cuda, "mu": mu_cuda, "kullback-leibler": beta_cuda}[
+        loss if loss != "frobenius" else solver]
+    kw = dict(ranks=(1, 2), solver=solver, beta_loss=loss, max_iter=500,
+              alpha_W=0.01, alpha_H=0.02, l1_ratio=0.5)
+    before = mod.launches
+    res = analyze_dataset(trials, 2000.0, **kw)
+    assert mod.launches == before + 1
+    plain = analyze_dataset(trials, 2000.0, impl="torch", **kw)
+    assert mod.launches == before + 1
+    assert np.abs(plain.vaf_overall - res.vaf_overall).max() < 1e-3
+
+
+def _cnmf_problem(cuda, b=256, t=200, l=8, k=4, d=10):
+    x = torch.rand(b, t, l, generator=torch.Generator().manual_seed(1), dtype=torch.float64)
+    c0, s0 = cnmf.init_cnmf(x.numpy(), k, d, seed=3)
+    return (x.float().to(cuda), torch.as_tensor(c0).float().to(cuda),
+            torch.as_tensor(s0).float().to(cuda))
+
+
+def test_cnmf_fixed_iterations_match_plain_float64(cuda):
+    x, c, s = _cnmf_problem(cuda)
+    ck, sk = cnmf_cuda.cnmf_iterations_cuda(x, c, s, 20)
+    cp, sp = cnmf_cuda.cnmf_iterations_plain(x.double(), c.double(), s.double(), 20)
+    assert _rel(ck, cp) < 1e-3 and _rel(sk, sp) < 1e-3
+    # short trials, lags near T: the look-ahead sums meet the trial's end
+    c1, s1 = cnmf_cuda.cnmf_iterations_cuda(x[:4, :12], c[:4, :12], s[:4, :, :6], 5)
+    c2, s2 = cnmf_cuda.cnmf_iterations_plain(x[:4, :12].double(), c[:4, :12].double(),
+                                             s[:4, :, :6].double(), 5)
+    assert _rel(c1, c2) < 1e-3 and _rel(s1, s2) < 1e-3
+
+
+def test_cnmf_fits_stop_where_float64_stops(cuda):
+    x, c, s = _cnmf_problem(cuda, b=128)
+    sk = cnmf_cuda.fit_cnmf_cuda(x, c, s, max_iter=1000, tol=1e-4)
+    sp = cnmf_cuda.fit_cnmf_plain(x.double(), c.double(), s.double(), max_iter=1000,
+                                  tol=1e-4)
+    gap = (sk.n_iter - sp.n_iter).cpu().numpy()
+    assert abs(np.median(gap)) <= 10
+    assert (sk.n_iter % 10 == 0).all()
+    st = cnmf_cuda.fit_cnmf_cuda(x[:8], c[:8], s[:8], max_iter=95, tol=1e-9)
+    assert (st.n_iter == 100).all()  # no tail chunk: the count overshoots
 
 
 def test_main_path_runs_through_every_kernel(cuda):
     rng = np.random.default_rng(3)
     trials = np.abs(rng.standard_normal((6, 4000, 8))).astype(np.float32)
-    for mod in (filter_cuda, cd_cuda, mu_cuda):
+    mods = (filter_cuda, cd_cuda, mu_cuda, beta_cuda, cnmf_cuda)
+    for mod in mods:
         mod.launches = 0
     results = {}
-    for solver in ("cd", "mu"):
-        results[solver] = analyze_dataset(trials, 2000.0, ranks=(1, 2, 3),
-                                          solver=solver, max_iter=2000,
-                                          device=cuda, dtype=torch.float32)
-    assert (filter_cuda.launches, cd_cuda.launches, mu_cuda.launches) == (2, 1, 1)
-    for solver, res in results.items():
+    for solver, loss in (("cd", "frobenius"), ("mu", "frobenius"),
+                         ("mu", "kullback-leibler")):
+        # the default device is the card, where dtype=None means float32
+        results[solver, loss] = analyze_dataset(
+            trials, 2000.0, ranks=(1, 2, 3), solver=solver, beta_loss=loss,
+            max_iter=2000)
+    tv = analyze_dataset_time_varying(trials, 2000.0, n_synergies=2, n_lags=5,
+                                      n_inits=2, max_iter=500)
+    assert tuple(m.launches for m in mods) == (4, 1, 1, 1, 1)
+    for (solver, loss), res in results.items():
         plain = analyze_dataset(trials, 2000.0, ranks=(1, 2, 3), solver=solver,
-                                max_iter=2000, device=cuda, dtype=torch.float32,
-                                impl="torch")
+                                beta_loss=loss, max_iter=2000, impl="torch")
         assert np.abs(plain.vaf_overall - res.vaf_overall).max() < 1e-3
+    plain = analyze_dataset_time_varying(trials, 2000.0, n_synergies=2, n_lags=5,
+                                         n_inits=2, max_iter=500, impl="torch")
+    assert np.abs(plain.vaf_overall - tv.vaf_overall).max() < 1e-3
 
 
 def test_wrappers_refuse_what_the_kernels_cannot_run(cuda):
@@ -134,3 +257,12 @@ def test_wrappers_refuse_what_the_kernels_cannot_run(cuda):
     with pytest.raises(TypeError, match="float32"):
         analyze_dataset(x.cpu().numpy(), 1000.0, ranks=(1,),
                         device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        beta_cuda.fit_beta_cuda(x.double(), w.double(), h.double())
+    xc, c, s = _cnmf_problem(cuda, b=2, t=20, d=5)
+    with pytest.raises(ValueError, match="lags"):
+        cnmf_cuda.fit_cnmf_cuda(xc[:, :4], c[:, :4], s)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros(1, 5000, 16, device=cuda)
+        cnmf_cuda.cnmf_iterations_cuda(big, torch.zeros(1, 5000, 8, device=cuda),
+                                       torch.zeros(1, 8, 10, 16, device=cuda), 1)

@@ -144,14 +144,18 @@ def test_penalized_fits_match_jax_xla(solver):
         js = jbatch.fit_mu_batch(*args, max_iter=200, tol=1e-4, **regs)
         ts = tbatch.fit_mu_batch(*_t(X, W0, H0), max_iter=200, tol=1e-4,
                                  impl="auto", **regs)
+        ps = mu_cuda.fit_mu_plain(*_t(X, W0, H0), max_iter=200, tol=1e-4, **regs)
         th, jh = ts.h, js.h
     else:
         js = jbatch.fit_cd_batch(*args, max_iter=200, tol=1e-4, **regs)
         ts = tbatch.fit_cd_batch(*_t(X, W0, H0), max_iter=200, tol=1e-4,
                                  impl="auto", **regs)
+        ps = cd_cuda.fit_cd_plain(*_t(X, W0, H0), max_iter=200, tol=1e-4, **regs)
         th, jh = ts.ht, js.ht
     np.testing.assert_array_equal(ts.n_iter.numpy(), np.asarray(js.n_iter))
     assert _rel(ts.w, js.w) < 1e-8 and _rel(th, jh) < 1e-8
+    # the kernel's plain version takes the penalties the kernel takes
+    assert all(torch.equal(a, b) for a, b in zip(ps, ts))
 
 
 def test_single_problem_solvers_match_jax():
@@ -211,7 +215,7 @@ def test_kernel_wrappers_plain_versions_and_refusals():
         tbatch.fit_mu_batch(x, w, h, impl="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         cd_cuda.fit_cd_cuda(x, w, h)
-    with pytest.raises(ValueError, match="regularization"):
+    with pytest.raises(ValueError, match="CUDA"):
         tbatch.fit_cd_batch(x, w, h, impl="cuda", l1_reg_w=0.1)
     with pytest.raises(ValueError, match="impl"):
         tbatch.cd_iterations_batch(x, w, h, 2, impl="pallas")
