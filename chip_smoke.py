@@ -5,10 +5,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the five hand-written CUDA kernels from
+It builds the six hand-written CUDA kernels from the five sources in
 ``muscle_synergies_tpu_torch/csrc/`` (one ``nvcc`` per source, all
-started together) and then, failing on the first assertion that does
-not hold:
+started together; K3 and K6 share ``sosfiltfilt.cu``) and then, failing
+on the first assertion that does not hold:
 
 1. prints the card and its power limit, and the build time;
 2. K3 ``sosfiltfilt``: 64 trials x 124,460 samples x 8 channels through
@@ -46,7 +46,36 @@ not hold:
 10. the time-varying main path: ``analyze_dataset_time_varying(
     n_synergies=4, n_lags=10, n_inits=4)`` on the same 256 trials
     (1,024 fits): the K3 and K5 counters must rise, every VAF be finite
-    and <= 1, and a 16-trial subset match ``impl="torch"`` to VAF 1e-3.
+    and <= 1, and a 16-trial subset match ``impl="torch"`` to VAF 1e-3;
+11. K6 ``sosfilt`` (the causal cascade from given states): 64 trials x
+    124,460 x 8 through the kernel from ``zi = sosfilt_zi * x[0]`` per
+    column, against ``scipy.signal.sosfilt`` in float64 (all 64) and
+    the plain version in float64 on the card (4 trials x 20,000
+    samples: it takes one Python step per sample); then those 4 whole
+    trials cut into 8,192-row chunks, carrying ``zf`` from chunk to
+    chunk, against one whole-signal launch; bar: max abs error <= 5e-4
+    * max|y| in each case;
+12. the causal main path: ``analyze_dataset`` with
+    ``FilterSpec(zero_lag=False)`` and ``solver="mu"`` on the 256 trials
+    of phase 5: the K6 and K1 counters must rise and K3's stay at 0,
+    with the VAF checks of phase 5 (``impl`` picks only the solver, so
+    K6 still filters the subset's trials);
+13. the RMS main path: ``analyze_dataset`` with ``use_rms=True`` and
+    ``solver="cd"`` on 256 ragged trials (lengths drawn from 100,000 to
+    124,460 samples by a numpy seed): K2's counter must rise; 4 trials'
+    moving RMS on the card match ``np.convolve(x**2, ones(w)/w,
+    "same")`` in float64 to 1e-5 relative; the VAF checks of phase 5,
+    the subset against ``impl="torch"`` at ``max_iter=2,000`` on both
+    sides (the plain CD loop at the default 100,000 would take minutes);
+    then ``preprocess_trials`` under the causal envelope on the same
+    ragged trials: one K6 launch for the padded batch, and 4 of its rows
+    within 1e-5 x max of the same trials preprocessed one at a time;
+14. the per-capture API, no pandas: ``NMFModel(n_components=4)`` on one
+    preprocessed 200 x 8 trial (``fit_transform`` through K2, one launch;
+    ``transform``, plain), ``rank_sweep_batch`` over ranks 1-8 on it (one
+    K2 launch); on a 20,000 x 8 frame, over one block's shared memory,
+    ``fit_transform`` must raise before any launch, and with
+    ``impl="torch"`` runs the plain fit on the card (no counter moves).
 
 Each main path is driven with every launch counter set to 0 just before
 it and read just after.  The script prints each stage's time beside the
@@ -75,6 +104,7 @@ N_SAMPLES = 124_460  # one full trial of the reference capture
 N_CHANNELS = 8
 MAIN_TRIALS = 256
 SUBSET = 16
+RAGGED_MIN = 100_000  # the RMS path's shortest ragged trial
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and dense peaks outside the
 # tensor cores, at the full 700 W power limit
@@ -202,21 +232,26 @@ class Smoke:
         self.smi = smi
         self.rng = np.random.default_rng(0)
         self.kernels = {}
-        self.counters = {"sosfiltfilt": filter_cuda, "cd_nmf": cd_cuda,
-                         "mu_nmf": mu_cuda, "beta_nmf": beta_cuda,
-                         "cnmf": cnmf_cuda}
+        # each kernel's launch counter: (module, attribute)
+        self.counters = {"sosfiltfilt": (filter_cuda, "launches"),
+                         "sosfilt": (filter_cuda, "sosfilt_launches"),
+                         "cd_nmf": (cd_cuda, "launches"),
+                         "mu_nmf": (mu_cuda, "launches"),
+                         "beta_nmf": (beta_cuda, "launches"),
+                         "cnmf": (cnmf_cuda, "launches")}
         self.launches = {name: 0 for name in self.counters}
 
     def stage(self, label: str, seconds: float) -> None:
         log(f"stage {label}: {seconds:.3f} s  [{self.smi}]")
 
     def record(self, name, replaces, errs, ms, plain_ms, flops, nbytes,
-               kind="f32", **extra):
+               kind="f32", source=None, **extra):
         bound_ms, bound_by = bound(flops, nbytes, kind)
         log(f"{name}: bound {bound_ms:.4f} ms ({bound_by}); kernel at "
             f"{bound_ms / ms:.1%} of it  [{self.smi}]")
         self.kernels[name] = dict(
-            route="cuda", source=f"muscle_synergies_tpu_torch/csrc/{name}.cu",
+            route="cuda",
+            source=f"muscle_synergies_tpu_torch/csrc/{source or name}.cu",
             replaces=replaces, max_abs_err=errs[0], max_rel_err=errs[1],
             tol=errs[2], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=None, library_note=NO_LIBRARY,
@@ -227,14 +262,14 @@ class Smoke:
         """Drive one main path with every launch counter at 0 just before
         it and read just after; returns its result and its counts."""
         torch = self.torch
-        for mod in self.counters.values():
-            mod.launches = 0
+        for mod, attr in self.counters.values():
+            setattr(mod, attr, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         self.stage(f"main {label}", time.perf_counter() - t0)
-        counts = {k: mod.launches for k, mod in self.counters.items()}
+        counts = {k: getattr(mod, attr) for k, (mod, attr) in self.counters.items()}
         for k, v in counts.items():
             self.launches[k] += v
         log(f"main {label}: launches {counts}")
@@ -521,6 +556,207 @@ class Smoke:
                             lambda: analyze_dataset_time_varying(
                                 emg[:SUBSET], FS, impl="torch", **kw).vaf_overall)
 
+    # ---- 11. K6 ----
+    def causal_filter_phase(self, n_trials: int = 64, plain_n: int = 20_000,
+                            chunk: int = 8192):
+        from scipy import signal as sps
+
+        from muscle_synergies_tpu_torch.ops import filter_cuda, filters
+
+        torch, dev = self.torch, self.dev
+        sos = filters.sos_design(4, 4.0, FS)
+        raw = synthetic_emg(n_trials, seed=3)
+        # the causal envelope's input: zero-centered, rectified EMG
+        x_host = np.abs(raw - raw.mean(axis=1, keepdims=True))
+        del raw
+        # zi = sosfilt_zi * x[0] for every column: (B, S, 2, C)
+        zi_host = (filters.sosfilt_zi(sos)[None, :, :, None]
+                   * x_host[:, 0].astype(np.float64)[:, None, None, :])
+        x = torch.from_numpy(x_host).to(dev)
+        zi = torch.from_numpy(zi_host).to(dev)
+        y, _ = filter_cuda.sosfilt_cuda(sos, x, zi)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref, _ = sps.sosfilt(sos, x_host.astype(np.float64), axis=1,
+                             zi=zi_host.transpose(1, 0, 2, 3))
+        log(f"causal filter: scipy float64 reference on the host "
+            f"{time.perf_counter() - t0:.2f} s")
+        scale = float(np.abs(ref).max())
+        err_scipy = float(np.abs(y.cpu().numpy() - ref).max()) / scale
+        del ref, y
+        # the plain version takes one Python step per sample: 4 x 20,000
+        xs4, zi4 = x[:4, :plain_n], zi[:4]
+        y4, _ = filter_cuda.sosfilt_cuda(sos, xs4, zi4)
+        t0 = time.perf_counter()
+        y4_plain, _ = filter_cuda.sosfilt_plain(sos, xs4.double(), zi4)
+        torch.cuda.synchronize()
+        log(f"causal filter: plain float64 on the card, 4 x {plain_n} samples, "
+            f"{time.perf_counter() - t0:.2f} s")
+        err_plain = float((y4.double() - y4_plain).abs().max())
+        # streaming: the 4 whole trials in chunks, each chunk's zf the
+        # next one's zi, against one whole-signal launch
+        whole, _ = filter_cuda.sosfilt_cuda(sos, x[:4], zi[:4])
+        state, parts = zi[:4], []
+        for start in range(0, x.shape[1], chunk):
+            part, state = filter_cuda.sosfilt_cuda(sos, x[:4, start:start + chunk],
+                                                   state)
+            parts.append(part)
+        scale4 = float(whole.abs().max())
+        err_stream = float((torch.cat(parts, dim=1) - whole).abs().max()) / scale4
+        log(f"causal filter: kernel vs scipy {err_scipy:.3e} x max|y|, vs plain f64 "
+            f"{err_plain / scale:.3e} x max|y|, {len(parts)} chunks of {chunk} with "
+            f"carried zf vs one launch {err_stream:.3e} x max|y| (bar 5e-4)")
+        assert err_scipy <= 5e-4 and err_plain <= 5e-4 * scale, "causal filter disagrees"
+        assert err_stream <= 5e-4, "chunked causal filtering disagrees"
+        ms = cuda_ms(lambda: filter_cuda.sosfilt_cuda(sos, x, zi))
+        plain_ms = cuda_ms(lambda: filter_cuda.sosfilt_plain(sos, xs4, zi4),
+                           reps=1, warmup=0)
+        log(f"causal filter: {n_trials}x{x.shape[1]}x{N_CHANNELS} f32 kernel "
+            f"{ms:.3f} ms; plain f32 at 4x{plain_n}x{N_CHANNELS} {plain_ms:.1f} ms")
+        # per sample, column and section 5 float64 multiply-adds; x read
+        # and y written once, zi read and zf written in float64
+        cols = n_trials * N_CHANNELS
+        state_bytes = 2 * len(sos) * 2 * cols * 8
+        self.record("sosfilt", "muscle_synergies_tpu/ops/filter_pallas.py:488",
+                    (err_plain, err_plain / scale, 5e-4), ms, plain_ms,
+                    len(sos) * 10 * cols * x.shape[1],
+                    2 * x.numel() * 4 + state_bytes, kind="f64",
+                    source="sosfiltfilt", plain_at=f"4x{plain_n}x{N_CHANNELS}",
+                    rel_err_vs_scipy=err_scipy, rel_err_chunked=err_stream)
+
+    # ---- 12. the causal main path ----
+    def causal_main(self, emg):
+        from muscle_synergies_tpu_torch import FilterSpec, PipelineConfig, analyze_dataset
+
+        kw = dict(ranks=(1, 2, 3, 4), solver="mu",
+                  config=PipelineConfig(envelope=FilterSpec(zero_lag=False)))
+        res, counts = self.main_path("analyze_dataset causal envelope",
+                                     lambda: analyze_dataset(emg, FS, **kw))
+        # equal-length trials: one K6 launch, and no zero-phase filter
+        assert counts["sosfilt"] == 1 and counts["mu_nmf"] > 0, counts
+        assert counts["sosfiltfilt"] == 0, counts
+        self.check_rank_sweep("causal", res)
+        self.subset_matches("causal", res.vaf_overall[:, :SUBSET], lambda: analyze_dataset(
+            emg[:SUBSET], FS, impl="torch", **kw).vaf_overall)
+
+    # ---- 13. the RMS main path ----
+    def rms_main(self, emg):
+        from muscle_synergies_tpu_torch import (
+            FilterSpec,
+            PipelineConfig,
+            analyze_dataset,
+            preprocess_trials,
+        )
+        from muscle_synergies_tpu_torch.models.batch import pad_and_stack
+        from muscle_synergies_tpu_torch.ops import batched
+        from muscle_synergies_tpu_torch.ops.emg import rms_window
+
+        torch = self.torch
+        lengths = np.random.default_rng(4).integers(RAGGED_MIN, N_SAMPLES + 1,
+                                                   size=emg.shape[0])
+        trials = [emg[b, :n] for b, n in enumerate(lengths)]
+        config = PipelineConfig(use_rms=True)
+        kw = dict(ranks=(1, 2, 3, 4), solver="cd", config=config)
+        res, counts = self.main_path("analyze_dataset rms envelope, ragged",
+                                     lambda: analyze_dataset(trials, FS, **kw))
+        assert counts["cd_nmf"] > 0, counts
+        assert counts["sosfiltfilt"] == counts["sosfilt"] == 0, counts
+        self.check_rank_sweep("rms", res)
+
+        window = rms_window(config.rms_window_s, FS)
+        data, mask = (torch.from_numpy(a).to(self.dev) for a in pad_and_stack(trials[:4]))
+        centred = batched.zero_center_batch(data, mask)
+        env = batched.moving_rms_batch(centred, window, mask).cpu().numpy()
+        centred = centred.cpu().numpy().astype(np.float64)
+        box = np.ones(window) / window
+        worst = 0.0
+        for b, n in enumerate(lengths[:4]):
+            ref = np.stack([np.sqrt(np.convolve(centred[b, :n, c] ** 2, box, "same"))
+                            for c in range(N_CHANNELS)], axis=1)
+            worst = max(worst, float(np.abs(env[b, :n] - ref).max() / np.abs(ref).max()))
+        log(f"rms: 4 ragged trials, window {window}: moving RMS on the card vs "
+            f"np.convolve in float64 {worst:.3e} relative (bar 1e-5)")
+        assert worst <= 1e-5, "moving RMS disagrees"
+        capped = dict(kw, max_iter=2000)
+        self.subset_matches(
+            "rms (max_iter 2,000 on both sides)",
+            analyze_dataset(trials[:SUBSET], FS, **capped).vaf_overall,
+            lambda: analyze_dataset(trials[:SUBSET], FS, impl="torch",
+                                    **capped).vaf_overall)
+
+        # the causal envelope is exact under the padding too: the ragged
+        # trials filter as one padded batch, one K6 launch
+        causal = PipelineConfig(envelope=FilterSpec(zero_lag=False))
+        pre, counts = self.main_path("preprocess_trials causal envelope, ragged",
+                                     lambda: preprocess_trials(trials, FS, causal))
+        assert counts["sosfilt"] == 1 and sum(counts.values()) == 1, counts
+        pre = pre.cpu().numpy()
+        alone = np.stack([preprocess_trials([t], FS, causal)[0].cpu().numpy()
+                          for t in trials[:4]])
+        gap = float(np.abs(pre[:4] - alone).max() / np.abs(alone).max())
+        log(f"causal, ragged: padded batch vs each trial alone {gap:.3e} x max "
+            f"(bar 1e-5)")
+        assert pre.shape == (len(trials), 200, N_CHANNELS) and np.isfinite(pre).all()
+        assert gap <= 1e-5, "the padded causal batch disagrees"
+
+    # ---- 14. the per-capture API ----
+    def per_capture_api(self, emg):
+        from muscle_synergies_tpu_torch import NMFModel, PipelineConfig, preprocess_trials
+        from muscle_synergies_tpu_torch.models.batch import rank_sweep_batch
+
+        torch = self.torch
+        frame = preprocess_trials(emg[:1], FS, PipelineConfig())[0]  # (200, 8)
+
+        def fit_and_transform():
+            model = NMFModel(n_components=4)
+            return model, model.fit_transform(frame), model.transform(frame)
+
+        (model, w, w_t), counts = self.main_path(
+            "NMFModel 200x8 fit_transform + transform", fit_and_transform)
+        # the shape rule sends this frame through K2; transform is plain
+        assert counts["cd_nmf"] == 1 and sum(counts.values()) == 1, counts
+        assert w.shape == w_t.shape == (200, 4) and np.isfinite(w).all()
+        assert np.isfinite(w_t).all() and (w_t >= 0).all()
+        ref = NMFModel(n_components=4, device="cpu", dtype=torch.float64)
+        ref.fit_transform(frame.cpu().double())
+        gap = abs(model.reconstruction_err_ - ref.reconstruction_err_) / ref.reconstruction_err_
+        log(f"NMFModel 200x8: n_iter {model.n_iter_} (float64 on the host "
+            f"{ref.n_iter_}), reconstruction error {model.reconstruction_err_:.6f} "
+            f"vs {ref.reconstruction_err_:.6f}, relative gap {gap:.2e} (bar 1e-3)")
+        assert gap <= 1e-3, "NMFModel on the card disagrees with float64"
+
+        (states, vafs), counts = self.main_path(
+            "rank_sweep_batch ranks 1-8, 200x8",
+            lambda: rank_sweep_batch(frame, range(1, 9), solver="cd"))
+        assert counts["cd_nmf"] == 1 and sum(counts.values()) == 1, counts
+        vafs = vafs.cpu().numpy()
+        _, plain = rank_sweep_batch(frame, range(1, 9), solver="cd", impl="torch")
+        diff = float(np.abs(plain.cpu().numpy() - vafs).max())
+        log(f"rank_sweep_batch: VAF by rank {np.round(vafs, 6).tolist()}; plain "
+            f"on the card max VAF diff {diff:.2e} (bar 1e-3)")
+        assert np.isfinite(vafs).all() and (vafs <= 1).all() and diff <= 1e-3
+        assert (np.diff(vafs) > -1e-6).all(), "VAF falls with rank"
+
+        big = torch.from_numpy(np.abs(emg[0, :20_000])).to(self.dev)
+
+        def plain_route():
+            # over one block's shared memory: the kernel route refuses
+            # before any launch; impl="torch" is the plain fit on the card
+            try:
+                NMFModel(n_components=4).fit_transform(big)
+            except ValueError as exc:
+                assert "impl='torch'" in str(exc), exc
+            else:
+                raise AssertionError("a 20,000 x 8 fit took the kernel route")
+            m = NMFModel(n_components=4, impl="torch")
+            return m, m.fit_transform(big)
+
+        (m_big, w_big), counts = self.main_path(
+            "NMFModel 20,000x8 fit_transform (impl='torch')", plain_route)
+        assert sum(counts.values()) == 0, counts
+        assert w_big.shape == (big.shape[0], 4) and np.isfinite(w_big).all()
+        log(f"NMFModel 20,000x8: plain fit on the card, n_iter {m_big.n_iter_}")
+
     def stage_breakdown(self, emg):
         """Per-stage device times of the Frobenius path (preprocess, init,
         fit, VAF)."""
@@ -546,6 +782,22 @@ class Smoke:
             return out
 
         xs = stage("host->device 1 GiB", lambda: torch.from_numpy(emg).to(dev))
+        from muscle_synergies_tpu_torch import FilterSpec
+        from muscle_synergies_tpu_torch.ops import filter_cuda, filters
+
+        stage("preprocess causal (K6 inside)", lambda: preprocess_trials(
+            xs, FS, PipelineConfig(envelope=FilterSpec(zero_lag=False))))
+        stage("preprocess rms (equal lengths)",
+              lambda: preprocess_trials(xs, FS, PipelineConfig(use_rms=True)))
+        rect = (xs - xs.mean(dim=1, keepdim=True)).abs()
+        sos = filters.sos_design(4, 4.0, FS)
+        ms = cuda_ms(lambda: filter_cuda.sosfilt_cuda(sos, rect))
+        cols = rect.shape[0] * N_CHANNELS
+        ms_b, by = bound(len(sos) * 10 * cols * rect.shape[1],
+                         2 * rect.numel() * 4 + 2 * len(sos) * 2 * cols * 8, "f64")
+        log(f"stage K6 at {tuple(rect.shape)}: {ms:.3f} ms, bound {ms_b:.4f} ms "
+            f"({by})  [{self.smi}]")
+        del rect
         xs = stage("preprocess (envelope, resample, normalize)",
                    lambda: preprocess_trials(xs, FS, config))
         ranks = (1, 2, 3, 4)
@@ -605,6 +857,8 @@ def main() -> int:
         return 2
 
     from muscle_synergies_tpu_torch import (
+        FilterSpec,
+        PipelineConfig,
         _build,
         analyze_dataset,
         analyze_dataset_time_varying,
@@ -634,6 +888,9 @@ def main() -> int:
     smoke.nmf_phases()                                       # 3, 4
     smoke.beta_phases()                                      # 6, 7
     smoke.cnmf_phases()                                      # 8
+    t0 = time.perf_counter()
+    smoke.causal_filter_phase()                              # 11
+    smoke.stage("phase 11 (K6 alone)", time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     emg = synthetic_emg(MAIN_TRIALS, seed=2)
@@ -645,6 +902,10 @@ def main() -> int:
                          ("mu", "kullback-leibler")):
         analyze_dataset(emg[:2, :4000], FS, ranks=(1, 2), solver=solver,
                         beta_loss=loss, max_iter=100)
+    for config in (PipelineConfig(envelope=FilterSpec(zero_lag=False)),
+                   PipelineConfig(use_rms=True)):
+        analyze_dataset(emg[:2, :4000], FS, ranks=(1, 2), config=config,
+                        max_iter=100)
     analyze_dataset_time_varying(emg[:2, :4000], FS, n_synergies=2, n_lags=5,
                                  n_inits=2, max_iter=100)
     smoke.stage("cold start (first calls of each path, 2 small trials)",
@@ -652,6 +913,12 @@ def main() -> int:
     smoke.frobenius_main(emg)                                # 5
     smoke.kl_main(emg)                                       # 9
     smoke.time_varying_main(emg)                             # 10
+    for label, phase in (("12 (causal main path)", smoke.causal_main),
+                         ("13 (RMS main path)", smoke.rms_main),
+                         ("14 (per-capture API)", smoke.per_capture_api)):
+        t0 = time.perf_counter()
+        phase(emg)                                           # 12, 13, 14
+        smoke.stage(f"phase {label}", time.perf_counter() - t0)
     smoke.stage_breakdown(emg)
     smoke.stage("whole script", time.perf_counter() - run_t0)
 

@@ -2,14 +2,17 @@
 
 The dataset synergy paths of the JAX package, with the same public
 names, layouts and result types: EMG trials go through the envelope
-pipeline (zero-center, rectify, zero-phase Butterworth lowpass,
-time-normalize, amplitude-normalize), then one batched solve fits
-every ``(rank, trial)`` pair by CD, Frobenius MU or beta-divergence MU
+pipeline (zero-center, then rectify and a zero-phase or causal
+Butterworth lowpass, or a moving RMS; time-normalize,
+amplitude-normalize), then one batched solve fits every
+``(rank, trial)`` pair by CD, Frobenius MU or beta-divergence MU
 (:func:`analyze_dataset`), or every ``(trial, restart)`` pair by
-convolutive NMF (:func:`analyze_dataset_time_varying`).  The entry
-points run on the card by default, where the zero-phase filter and the
-solvers are hand-written CUDA kernels (``csrc/``, built with ``nvcc``
-at first use); with ``device="cpu"``, plain PyTorch.
+convolutive NMF (:func:`analyze_dataset_time_varying`).  The
+per-capture API is :mod:`.analysis` (pandas-level transforms),
+:class:`NMFModel` and :func:`find_synergies`.  The entry points run on
+the card by default, where the filters and the solvers are hand-written
+CUDA kernels (``csrc/``, built with ``nvcc`` at first use); with
+``device="cpu"``, plain PyTorch.
 
     >>> import numpy as np
     >>> from muscle_synergies_tpu_torch import analyze_dataset
@@ -21,9 +24,11 @@ at first use); with ``device="cpu"``, plain PyTorch.
     (2, 2)
 
 The package imports torch, numpy and scipy, never jax; pandas only
-inside the result classes' table helpers.
+inside the functions that take or return DataFrames (the result
+classes' table helpers, :mod:`.analysis`, :func:`find_synergies`).
 """
 
+from . import analysis
 from .dataset import (
     DatasetResult,
     TimeVaryingDatasetResult,
@@ -31,14 +36,19 @@ from .dataset import (
     analyze_dataset_time_varying,
     preprocess_trials,
 )
+from .models.select import NMFModel, SynergyRunResult, find_synergies
 from .utils.config import FilterSpec, PipelineConfig
 
 __all__ = [
     "DatasetResult",
     "FilterSpec",
+    "NMFModel",
     "PipelineConfig",
+    "SynergyRunResult",
     "TimeVaryingDatasetResult",
+    "analysis",
     "analyze_dataset",
     "analyze_dataset_time_varying",
+    "find_synergies",
     "preprocess_trials",
 ]

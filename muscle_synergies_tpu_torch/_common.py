@@ -43,6 +43,13 @@ def as_tensor(x, device=None, dtype: Optional[torch.dtype] = None) -> torch.Tens
     return torch.as_tensor(arr, dtype=dtype, device=device)
 
 
+def to_numpy(x) -> np.ndarray:
+    """A tensor (on any device) or array-like as a NumPy array on the host."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 def entry_placement(device, dtype: Optional[torch.dtype]):
     """Where and in what type a dataset entry point computes.
 

@@ -13,6 +13,8 @@ same inputs this way is how the tests hold the port to the reference.
   :func:`cnmf_state`: a JAX ``MUState`` / ``CDState`` / ``BetaState`` /
   ``CNMFState`` (any object with those fields);
 - :func:`dataset_result`: a JAX ``DatasetResult``;
+- :func:`nmf_model`: a fitted JAX ``NMFModel`` (its settings and fitted
+  attributes), so that ``transform`` runs on either side;
 - :func:`pipeline_config`: a ``PipelineConfig`` JSON string.
 """
 
@@ -29,6 +31,7 @@ from .models.beta import BetaState
 from .models.cnmf import CNMFState
 from .models.hals import CDState
 from .models.mu import MUState
+from .models.select import NMFModel
 from .utils.config import PipelineConfig
 
 __all__ = [
@@ -40,6 +43,7 @@ __all__ = [
     "beta_state",
     "cnmf_state",
     "dataset_result",
+    "nmf_model",
     "pipeline_config",
 ]
 
@@ -123,6 +127,33 @@ def dataset_result(result) -> DatasetResult:
         subjects=list(subjects) if subjects is not None else None,
         sampling_frequency=getattr(result, "sampling_frequency", None),
     )
+
+
+_NMF_SETTINGS = ("n_components", "solver", "beta_loss", "init", "tol", "max_iter",
+                 "random_state", "alpha_W", "alpha_H", "l1_ratio", "svd_method",
+                 "inner_iter", "verbose")
+
+
+def nmf_model(model, device="cuda", dtype: Optional[torch.dtype] = None) -> NMFModel:
+    """A fitted JAX ``NMFModel`` as this package's :class:`NMFModel`.
+
+    Carries the constructor settings (the legacy ``alpha=`` /
+    ``regularization=`` too) and the fitted ``components_``,
+    ``n_components_``, ``n_iter_`` and ``reconstruction_err_`` as NumPy
+    arrays and numbers; ``device`` / ``dtype`` are where the port's
+    model then runs.
+    """
+    kwargs = {name: getattr(model, name) for name in _NMF_SETTINGS}
+    legacy = getattr(model, "_legacy_alpha", None)
+    if legacy is not None:
+        kwargs["alpha"], kwargs["regularization"] = legacy
+    out = NMFModel(**kwargs, device=device, dtype=dtype)
+    if hasattr(model, "components_"):
+        out.components_ = np.array(model.components_)
+        out.n_components_ = int(model.n_components_)
+        out.n_iter_ = int(model.n_iter_)
+        out.reconstruction_err_ = float(model.reconstruction_err_)
+    return out
 
 
 def pipeline_config(text: str) -> PipelineConfig:

@@ -1,7 +1,10 @@
-// Zero-phase second-order-section filtering (scipy.signal.sosfiltfilt)
-// of float32 signals, one thread per signal column.
+// Second-order-section filtering of float32 signals, one thread per
+// signal column.  Two entry points share the cascade:
+//   sosfiltfilt_f32  zero-phase (scipy.signal.sosfiltfilt), K3 below;
+//   sosfilt_f32      one causal pass from given states (scipy.signal.sosfilt
+//                    with zi, returning zf), K6 at the end of the file.
 //
-// Replaces the TPU kernel `sosfiltfilt_pallas`
+// K3 replaces the TPU kernel `sosfiltfilt_pallas`
 // (muscle_synergies_tpu/ops/filter_pallas.py: _build_filtfilt, body
 // _filtfilt_kernel).  The Pallas kernel cut time into chunks laid across
 // the 128-wide lanes and composed the chunks' entry states with a
@@ -179,6 +182,112 @@ extern "C" int sosfiltfilt_f32(float* ext, float* out, const double* coef,
     case 6: launch<6>(blocks, s, ext, out, coef, n_ext, n_out, padlen, n_cols, channels); break;
     case 7: launch<7>(blocks, s, ext, out, coef, n_ext, n_out, padlen, n_cols, channels); break;
     default: launch<8>(blocks, s, ext, out, coef, n_ext, n_out, padlen, n_cols, channels); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// K6: the causal cascade from given per-section states.
+//
+// Replaces the TPU kernel `cascade_pallas`
+// (muscle_synergies_tpu/ops/filter_pallas.py: _make_apply, body
+// _cascade_kernel), which computes ops.filters.sosfilt with zi.  The
+// Pallas kernel laid time chunks across the lanes and composed their
+// entry states by log-doubling, to fill a TPU core's 1,024 lanes; here
+// the B*C columns of a batch are the parallelism, one thread each, and
+// time runs sequentially in registers with the same double-buffered
+// TILE-sample loads and the same float64 state as K3's passes.
+//
+// Layout.  There is no edge extension, so nothing has to be copied
+// before the pass: column col = trial * channels + channel is read in
+// place from x (B, n, channels) and written to y in the same layout.
+// At each time step a warp's 32 columns cover 32 / channels trials,
+// each a run of `channels` neighbouring floats; at 8 channels that is
+// four full 32-byte sectors, as many as one 128-byte line of a
+// time-major fold.  zi and zf are (n_sections, 2, n_cols) float64 here;
+// the Python wrapper hands zf back in the samples' float32, so a stream
+// of chunks through it continues from states rounded to float32.
+//
+// What bounds it on this card: as K3, the recurrence's dependency chain
+// and each column's load latency, with B*C/32 warps; the bytes it must
+// move are one read of x and one write of y.
+template <int NS>
+__global__ void __launch_bounds__(THREADS) sosfilt_kernel(
+    const float* __restrict__ x, float* __restrict__ y,
+    const double* __restrict__ coef, const double* __restrict__ zi,
+    double* __restrict__ zf, int n, int n_cols, int channels) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= n_cols) return;
+  double c[NS][COEFS], s1[NS], s2[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+#pragma unroll
+    for (int j = 0; j < COEFS; ++j) c[s][j] = coef[s * COEFS + j];
+    s1[s] = zi[(size_t)(2 * s) * n_cols + col];
+    s2[s] = zi[(size_t)(2 * s + 1) * n_cols + col];
+  }
+  const int trial = col / channels;
+  const int chan = col - trial * channels;
+  const size_t base = (size_t)trial * n * channels + chan;
+  const float* p = x + base;
+  float* o = y + base;
+  const size_t stride = (size_t)channels;
+  float cur[TILE], nxt[TILE];
+#pragma unroll
+  for (int i = 0; i < TILE; ++i) {
+    if (i < n) cur[i] = p[(size_t)i * stride];
+  }
+  for (int t0 = 0; t0 < n; t0 += TILE) {
+    const int next = t0 + TILE;
+#pragma unroll
+    for (int i = 0; i < TILE; ++i) {
+      if (next + i < n) nxt[i] = p[(size_t)(next + i) * stride];
+    }
+    const int valid = min(TILE, n - t0);
+    cascade_tile<NS>(cur, valid, c, s1, s2);
+#pragma unroll
+    for (int i = 0; i < TILE; ++i) {
+      if (i < valid) o[(size_t)(t0 + i) * stride] = cur[i];
+      cur[i] = nxt[i];
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    zf[(size_t)(2 * s) * n_cols + col] = s1[s];
+    zf[(size_t)(2 * s + 1) * n_cols + col] = s2[s];
+  }
+}
+
+template <int NS>
+static void launch_causal(int blocks, cudaStream_t stream, const float* x,
+                          float* y, const double* coef, const double* zi,
+                          double* zf, int n, int n_cols, int channels) {
+  sosfilt_kernel<NS><<<blocks, THREADS, 0, stream>>>(x, y, coef, zi, zf, n,
+                                                     n_cols, channels);
+}
+
+// x, y: (n_cols / channels, n, channels) float32, distinct buffers;
+// coef: (n_sections, 7) float64 as for sosfiltfilt_f32 (its zi_unit
+// columns are unused); zi, zf: (n_sections, 2, n_cols) float64, all on
+// the device.  Launches on `stream` and returns cudaGetLastError().
+extern "C" int sosfilt_f32(const float* x, float* y, const double* coef,
+                           const double* zi, double* zf, int n_sections,
+                           int n, int n_cols, int channels, void* stream) {
+  if (n_sections < 1 || n_sections > MAX_SECTIONS || n < 1 || n_cols < 1 ||
+      channels < 1 || n_cols % channels != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int blocks = (n_cols + THREADS - 1) / THREADS;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (n_sections) {
+    case 1: launch_causal<1>(blocks, s, x, y, coef, zi, zf, n, n_cols, channels); break;
+    case 2: launch_causal<2>(blocks, s, x, y, coef, zi, zf, n, n_cols, channels); break;
+    case 3: launch_causal<3>(blocks, s, x, y, coef, zi, zf, n, n_cols, channels); break;
+    case 4: launch_causal<4>(blocks, s, x, y, coef, zi, zf, n, n_cols, channels); break;
+    case 5: launch_causal<5>(blocks, s, x, y, coef, zi, zf, n, n_cols, channels); break;
+    case 6: launch_causal<6>(blocks, s, x, y, coef, zi, zf, n, n_cols, channels); break;
+    case 7: launch_causal<7>(blocks, s, x, y, coef, zi, zf, n, n_cols, channels); break;
+    default: launch_causal<8>(blocks, s, x, y, coef, zi, zf, n, n_cols, channels); break;
   }
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,16 @@
 """Whole-dataset synergy analysis: many trials, many ranks, one solve.
 
-Port of the envelope path of :mod:`muscle_synergies_tpu.dataset`:
+Port of :mod:`muscle_synergies_tpu.dataset`'s local paths:
 
 1. every trial is preprocessed through a
-   :class:`~muscle_synergies_tpu_torch.utils.PipelineConfig` (zero-center,
-   rectify, zero-phase lowpass, time-normalize, amplitude-normalize);
-   equal-length trials run as one batch, ragged ones as one batch per
-   distinct length;
+   :class:`~muscle_synergies_tpu_torch.utils.PipelineConfig`: zero-center,
+   then either rectify and lowpass (zero-phase, or causal with
+   ``FilterSpec(zero_lag=False)``) or a moving RMS (``use_rms=True``),
+   then time-normalize and amplitude-normalize.  The causal filter and
+   the moving RMS are exact under trailing zero padding, so ragged
+   trials run as one padded batch with a mask (one filter launch on the
+   card); the zero-phase filter runs ragged trials as one batch per
+   distinct length, one launch each;
 2. :func:`analyze_dataset`: factors for every rank are zero-padded to
    the largest rank; padded components stay exactly zero, so each grid
    entry equals an independent fit;
@@ -20,9 +24,8 @@ Port of the envelope path of :mod:`muscle_synergies_tpu.dataset`:
 
 The entry points run on the card unless the caller passes
 ``device="cpu"``.  Not ported yet, and raising ``NotImplementedError``:
-the mesh-sharded solve and the moving-RMS envelope (ROADMAP, "Modules
-still to port": parallel, RMS path).  pandas is imported only by the
-result classes' table helpers.
+the mesh-sharded solve (ROADMAP, "Modules still to port": parallel).
+pandas is imported only by the result classes' table helpers.
 """
 
 from __future__ import annotations
@@ -33,12 +36,13 @@ from typing import List, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ._common import as_tensor, entry_placement
+from ._common import as_tensor, entry_placement, to_numpy
 from .models.batch import (
     fit_cd_batch,
     fit_mu_batch,
     fit_mu_beta_batch,
     init_batch,
+    pad_and_stack,
     vaf_batch,
 )
 from .models.beta import beta_loss_to_float
@@ -52,6 +56,7 @@ from .models.cnmf import (
 from .models.mu import EPSILON
 from .models.select import compute_regularization
 from .ops import batched as _b
+from .ops.emg import rms_window
 from .utils.config import PipelineConfig, torch_impl
 
 __all__ = [
@@ -133,17 +138,13 @@ def preprocess_trials(
             default, in float32 unless ``dtype`` says otherwise; pass
             ``device="cpu"`` for the plain versions (``dtype=None`` then
             keeps the input's).  The whole chain runs there, the
-            zero-phase filter through its CUDA kernel on the card.
+            zero-phase and causal filters through their CUDA kernels
+            (K3, K6) on the card.
         mesh: not ported (raises).
     """
     if mesh is not None:
         raise NotImplementedError(_MESH_TODO)
     device, dtype = entry_placement(device, dtype)
-    if config.use_rms:
-        raise NotImplementedError(
-            "use_rms=True is not ported yet (ROADMAP, modules still to port: "
-            "the RMS path)"
-        )
     if config.reduce_to is None:
         raise ValueError(
             "preprocess_trials needs config.reduce_to so trials share a "
@@ -151,33 +152,47 @@ def preprocess_trials(
         )
     spec = config.envelope
 
-    def run(xs):
-        xs = _b.linear_envelope_batch(
-            xs, critical_freqs=spec.cutoff(),
-            sampling_frequency=sampling_frequency, order=spec.order,
-            filter_type=spec.filter_type, zero_lag=spec.zero_lag,
-            cheby_param=spec.cheby_param, zero_center_=config.zero_center,
-        )
+    def run(xs, mask=None):
+        # zero-center over each trial's valid samples, then the envelope
+        if config.zero_center:
+            xs = _b.zero_center_batch(xs, mask)
+        if config.use_rms:
+            window = rms_window(config.rms_window_s, sampling_frequency)
+            xs = _b.moving_rms_batch(xs, window, mask)
+        else:
+            xs = _b.linear_envelope_batch(
+                xs, critical_freqs=spec.cutoff(),
+                sampling_frequency=sampling_frequency, order=spec.order,
+                mask=mask, filter_type=spec.filter_type, zero_lag=spec.zero_lag,
+                cheby_param=spec.cheby_param, zero_center_=False,
+            )
         # after resampling onto reduce_to points every row is valid
-        xs = _b.time_normalize_batch(xs, config.reduce_to)
+        xs = _b.time_normalize_batch(xs, config.reduce_to, mask)
         if config.amplitude_normalize:
             xs = _b.normalize_batch(xs.abs())
         return xs
 
     if getattr(trials, "ndim", None) == 3:  # already one equal-length batch
         return run(as_tensor(trials, device, dtype))
-    arrays = [_as_array(t) for t in trials]
+    arrays = [to_numpy(_as_array(t)) for t in trials]
     by_length: dict = {}
     for idx, a in enumerate(arrays):
         by_length.setdefault(a.shape[0], []).append(idx)
-    slots: list = [None] * len(arrays)
-    for indices in by_length.values():
-        group = run(torch.stack(
-            [as_tensor(arrays[i], device, dtype) for i in indices]
-        ))
-        for j, i in enumerate(indices):
-            slots[i] = group[j]
-    return torch.stack(slots)
+    if len(by_length) > 1 and spec.zero_lag and not config.use_rms:
+        # the zero-phase filter's odd reflection must touch each trial's
+        # true last sample: one batch, and one filter launch, per length
+        slots: list = [None] * len(arrays)
+        for indices in by_length.values():
+            group = run(as_tensor(np.stack([arrays[i] for i in indices]),
+                                  device, dtype))
+            for j, i in enumerate(indices):
+                slots[i] = group[j]
+        return torch.stack(slots)
+    # the causal filter and the moving RMS are exact under trailing zero
+    # padding: ragged trials run as one padded batch with a mask
+    data, mask = pad_and_stack(arrays)
+    xs = as_tensor(data, device, dtype)
+    return run(xs, as_tensor(mask, xs.device, xs.dtype) if len(by_length) > 1 else None)
 
 
 @dataclass
@@ -407,19 +422,15 @@ def analyze_dataset(
     r = len(ranks)
     return DatasetResult(
         ranks=ranks,
-        w=_host(state.w).reshape(r, b, n, k_max),
-        h=_host(h_final).reshape(r, b, k_max, l),
-        vaf_overall=_host(overall).reshape(r, b),
-        vaf_per_channel=_host(per_channel).reshape(r, b, l),
-        n_iter=_host(state.n_iter).reshape(r, b),
-        converged=_host(state.converged).reshape(r, b),
+        w=to_numpy(state.w).reshape(r, b, n, k_max),
+        h=to_numpy(h_final).reshape(r, b, k_max, l),
+        vaf_overall=to_numpy(overall).reshape(r, b),
+        vaf_per_channel=to_numpy(per_channel).reshape(r, b, l),
+        n_iter=to_numpy(state.n_iter).reshape(r, b),
+        converged=to_numpy(state.converged).reshape(r, b),
         channel_names=channel_names,
         subjects=subjects,
     )
-
-
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
 
 
 @dataclass
@@ -580,14 +591,14 @@ def analyze_dataset_time_varying(
 
     # the restart grid: trial-major, restarts contiguous, factors drawn
     # on the host exactly as the JAX package draws them
-    c0, s0 = init_cnmf(np.repeat(_host(xs), n_inits, axis=0), n_synergies,
+    c0, s0 = init_cnmf(np.repeat(to_numpy(xs), n_inits, axis=0), n_synergies,
                        n_lags, seed=seed)
     state = fit_cnmf_batch(
         xs.repeat_interleave(n_inits, dim=0), as_tensor(c0, xs.device),
         as_tensor(s0, xs.device), max_iter=max_iter, tol=tol, impl=impl,
     )
 
-    errors = _host(state.previous_error).reshape(b, n_inits)
+    errors = to_numpy(state.previous_error).reshape(b, n_inits)
     best = np.arange(b) * n_inits + np.argmin(errors, axis=1)
     best_dev = torch.as_tensor(best, device=xs.device)
     c_best, s_best = normalize_synergies(state.c[best_dev], state.s[best_dev])
@@ -598,12 +609,12 @@ def analyze_dataset_time_varying(
 
     return TimeVaryingDatasetResult(
         n_lags=n_lags,
-        c=_host(c_best),
-        s=_host(s_best),
-        vaf_overall=_host(overall),
-        vaf_per_channel=_host(per_channel),
-        n_iter=_host(state.n_iter)[best],
-        converged=_host(state.converged)[best],
+        c=to_numpy(c_best),
+        s=to_numpy(s_best),
+        vaf_overall=to_numpy(overall),
+        vaf_per_channel=to_numpy(per_channel),
+        n_iter=to_numpy(state.n_iter)[best],
+        converged=to_numpy(state.converged)[best],
         restart_errors=errors,
         channel_names=channel_names,
         subjects=subjects,

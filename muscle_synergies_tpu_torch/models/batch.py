@@ -1,9 +1,9 @@
 """Batched NMF: a whole dataset's fits in one solve.
 
 Port of :mod:`muscle_synergies_tpu.models.batch` (the Frobenius MU and
-CD paths and the beta-divergence MU path).  Every function takes a ``(B, N, L)`` stack of problems with
-factors W ``(B, N, k)`` and H ``(B, k, L)``.  ``impl`` picks the
-implementation:
+CD paths, the beta-divergence MU path and :func:`rank_sweep_batch`).
+Every function takes a ``(B, N, L)`` stack of problems with factors W
+``(B, N, k)`` and H ``(B, k, L)``.  ``impl`` picks the implementation:
 
 - ``"cuda"``: the hand-written kernels (:mod:`.kernels`), one thread
   block per fit, the whole solve one launch, L1/L2 penalties included;
@@ -27,10 +27,10 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .._common import as_tensor, resolve_impl
+from .._common import as_tensor, entry_placement, resolve_impl
+from .beta import BetaState, beta_loss_to_float, fit_mu_beta
 from .hals import CDState, fit_cd
 from .init import initialize_nmf
-from .beta import BetaState, fit_mu_beta
 from .kernels import beta_cuda, cd_cuda, mu_cuda
 from .mu import MUState, fit_mu
 
@@ -43,6 +43,7 @@ __all__ = [
     "fit_cd_batch",
     "beta_mu_iterations_batch",
     "fit_mu_beta_batch",
+    "rank_sweep_batch",
     "vaf_batch",
 ]
 
@@ -51,6 +52,9 @@ def pad_and_stack(
     trials: Sequence[np.ndarray], pad_to: Optional[int] = None
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Stack ragged ``(N_i, L)`` trials into ``(B, N_max, L)`` + mask.
+
+    The package's one padding step, on the host (NumPy in, NumPy out);
+    callers place the result with ``as_tensor``.
 
     Returns:
         ``(batch, mask)`` where ``mask[b, n]`` is 1.0 for real samples
@@ -195,6 +199,85 @@ def fit_mu_beta_batch(
     return fit(xs, w0, h0, beta=beta, max_iter=max_iter, tol=tol,
                check_every=check_every, l1_reg_w=l1_reg_w, l2_reg_w=l2_reg_w,
                l1_reg_h=l1_reg_h, l2_reg_h=l2_reg_h)
+
+
+def rank_sweep_batch(
+    x,
+    ranks: Sequence[int],
+    init: Optional[str] = None,
+    solver: str = "mu",
+    max_iter: int = 200,
+    tol: float = 1e-4,
+    seed: int = 0,
+    svd_method: str = "exact",
+    beta_loss="frobenius",
+    inner_iter: int = 1,
+    l1_reg_w: float = 0.0,
+    l2_reg_w: float = 0.0,
+    l1_reg_h: float = 0.0,
+    l2_reg_h: float = 0.0,
+    impl: str = "auto",
+    device="cuda",
+    dtype: Optional[torch.dtype] = None,
+):
+    """Factorize one ``(N, L)`` trial at several ranks in one batched fit.
+
+    Factors for every rank are zero-padded to ``max(ranks)``; the padded
+    components stay exactly zero under every solver, with or without
+    the L1/L2 penalties, so entry ``i`` equals an independent
+    rank-``ranks[i]`` fit.  ``beta_loss != 'frobenius'`` requires
+    ``solver='mu'``; so does ``inner_iter > 1``.
+
+    Runs on the card unless ``device="cpu"`` (float32 there unless
+    ``dtype`` says otherwise), where ``impl="auto"`` makes the whole
+    sweep one launch of K2 (CD), K1 (MU) or K4 (beta-MU).  Those kernels
+    hold a whole fit in one thread block's shared memory: a
+    time-normalised 200 x 8 trial fits, a 20,000 x 8 one does not, and
+    then the kernel's wrapper raises before any launch; pass
+    ``impl="torch"`` for the plain fit on the card, or ``device="cpu"``.
+
+    Returns:
+        ``(states, vafs)``: the stacked solver states (leading axis =
+        rank index; slice each rank's factors as ``w[i][:, :ranks[i]]``)
+        and the overall VAF per rank.
+    """
+    x = as_tensor(x, *entry_placement(device, dtype))
+    ranks = list(ranks)
+    beta = beta_loss_to_float(beta_loss)
+    if beta != 2.0 and solver != "mu":
+        raise ValueError(
+            f"beta_loss={beta_loss!r} requires solver='mu', got {solver!r}"
+        )
+    if inner_iter != 1 and (solver != "mu" or beta != 2.0):
+        raise ValueError(
+            "inner_iter > 1 is only available for the Frobenius MU solver"
+        )
+    if solver not in ("mu", "cd"):
+        raise ValueError(f"unknown solver: {solver!r}")
+    k_max = max(ranks)
+    w_stack, h_stack = [], []
+    for k in ranks:
+        w0, h0 = initialize_nmf(x, k, init=init, seed=seed, svd_method=svd_method)
+        w_stack.append(torch.nn.functional.pad(w0.to(x.dtype), (0, k_max - k)))
+        h_stack.append(torch.nn.functional.pad(h0.to(x.dtype), (0, 0, 0, k_max - k)))
+    w0s, h0s = torch.stack(w_stack), torch.stack(h_stack)
+    xs = x.expand((len(ranks),) + tuple(x.shape)).contiguous()
+    regs = dict(l1_reg_w=l1_reg_w, l2_reg_w=l2_reg_w,
+                l1_reg_h=l1_reg_h, l2_reg_h=l2_reg_h)
+    if beta != 2.0:
+        states = fit_mu_beta_batch(xs, w0s, h0s, beta=beta, max_iter=max_iter,
+                                   tol=tol, impl=impl, **regs)
+        h_final = states.h
+    elif solver == "mu":
+        states = fit_mu_batch(xs, w0s, h0s, max_iter=max_iter, tol=tol,
+                              impl=impl, inner_iter=inner_iter, **regs)
+        h_final = states.h
+    else:
+        states = fit_cd_batch(xs, w0s, h0s, max_iter=max_iter, tol=tol,
+                              impl=impl, **regs)
+        h_final = states.ht.transpose(-1, -2)
+    vafs, _ = vaf_batch(xs, states.w, h_final)
+    return states, vafs
 
 
 def vaf_batch(xs, ws, hs):

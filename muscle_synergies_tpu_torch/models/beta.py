@@ -133,8 +133,12 @@ def mu_update_beta(
     l2_reg_w: float = 0.0,
     l1_reg_h: float = 0.0,
     l2_reg_h: float = 0.0,
+    update_h: bool = True,
 ):
-    """One sklearn-order MU iteration for general beta (W then H)."""
+    """One sklearn-order MU iteration for general beta (W then H).
+
+    ``update_h=False`` freezes H (sklearn's ``transform`` path).
+    """
     gamma = _gamma(beta)
 
     # ---- W update ----
@@ -156,6 +160,8 @@ def mu_update_beta(
     w = w * delta
     if beta < 1.0:
         w = torch.where(w < F64_EPS, 0.0, w)
+    if not update_h:
+        return w, h
 
     # ---- H update ----
     wt = w.transpose(-1, -2)
@@ -203,16 +209,19 @@ def fit_mu_beta(
     l2_reg_w: float = 0.0,
     l1_reg_h: float = 0.0,
     l2_reg_h: float = 0.0,
+    update_h: bool = True,
 ) -> BetaState:
     """Beta-MU to convergence with sklearn's exact stopping rule, per problem.
 
     Checks come only at multiples of ``check_every``; a last partial
     chunk runs up to ``max_iter`` and stores its divergence untested.
+    ``update_h=False`` keeps H fixed at ``h0`` (the caller is
+    ``NMFModel.transform``).
     """
     regs = (l1_reg_w, l2_reg_w, l1_reg_h, l2_reg_h)
     return BetaState(*fit_chunked(
         x, w0, h0,
-        lambda xa, wa, ha: mu_update_beta(xa, wa, ha, beta, *regs),
+        lambda xa, wa, ha: mu_update_beta(xa, wa, ha, beta, *regs, update_h),
         lambda xa, wa, ha: beta_divergence(xa, wa, ha, beta),
         max_iter, tol, check_every,
     ))

@@ -84,11 +84,14 @@ def fit_cd(
     l2_reg_w: float = 0.0,
     l1_reg_h: float = 0.0,
     l2_reg_h: float = 0.0,
+    update_h: bool = True,
 ) -> CDState:
     """Run coordinate-descent NMF to convergence, per problem.
 
     ``x`` is ``(N, L)`` or ``(B, N, L)``.  Returns a :class:`CDState`;
     read the factors as ``state.w`` and ``state.ht`` transposed.
+    ``update_h=False`` keeps H fixed at ``h0`` and stops on W's
+    violation alone (the caller is ``NMFModel.transform``).
     """
     single = x.ndim == 2
     if single:
@@ -104,9 +107,11 @@ def fit_cd(
         if active.numel() == 0:
             break
         wa, viol = cd_pass(x[active], w[active], ht[active], l1_reg_w, l2_reg_w)
-        hta, viol_h = cd_pass(xt[active], ht[active], wa, l1_reg_h, l2_reg_h)
-        viol = viol + viol_h
-        w[active], ht[active] = wa, hta
+        if update_h:
+            hta, viol_h = cd_pass(xt[active], ht[active], wa, l1_reg_h, l2_reg_h)
+            viol = viol + viol_h
+            ht[active] = hta
+        w[active] = wa
         n_iter[active] = it
         if it == 1:
             viol_init = viol.clone()

@@ -16,7 +16,10 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+
+from .rsvd import initialize_nmf_sklearn
 
 __all__ = ["initialize_nmf", "nndsvd"]
 
@@ -113,14 +116,26 @@ def initialize_nmf(
     """Initial ``(W, H)`` for NMF, following sklearn's dispatch rules.
 
     ``init=None`` resolves to ``"nndsvda"`` when ``k <= min(N, L)`` and
-    ``"random"`` otherwise.  Only ``svd_method="exact"`` is ported; the
-    JAX package's ``"randomized"`` sklearn bit-replica is on the
-    ROADMAP (with ``find_synergies``).
+    ``"random"`` otherwise.  ``svd_method="exact"`` (the default) runs
+    ``torch.linalg.svd`` where ``x`` lies; ``"randomized"`` runs the
+    host-side sklearn bit-replica (:mod:`.rsvd`, randomized SVD seeded
+    by ``np.random.RandomState(seed)``) on each problem and places the
+    factors back on ``x``'s device in its dtype, so they equal the JAX
+    package's and sklearn's with ``random_state=seed``.
     """
+    if svd_method == "randomized":
+        host = x.detach().cpu().numpy()
+        pairs = [initialize_nmf_sklearn(a, n_components, init=init, eps=eps,
+                                        random_state=seed)
+                 for a in host.reshape((-1,) + host.shape[-2:])]
+        lead = host.shape[:-2]
+        w = np.stack([p[0] for p in pairs]).reshape(lead + pairs[0][0].shape)
+        h = np.stack([p[1] for p in pairs]).reshape(lead + pairs[0][1].shape)
+        return (torch.as_tensor(w, dtype=x.dtype, device=x.device),
+                torch.as_tensor(h, dtype=x.dtype, device=x.device))
     if svd_method != "exact":
-        raise NotImplementedError(
-            f"svd_method={svd_method!r} is not ported yet (ROADMAP, modules "
-            "still to port: NMFModel / find_synergies); use 'exact'"
+        raise ValueError(
+            f"svd_method must be 'exact' or 'randomized', got {svd_method!r}"
         )
     n, l = x.shape[-2:]
     if init is not None and init != "random" and n_components > min(n, l):

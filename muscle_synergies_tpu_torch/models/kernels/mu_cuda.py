@@ -61,7 +61,7 @@ def check_shapes(name: str, xs, w, h, smem_bytes=smem_bytes) -> None:
         raise ValueError(
             f"{name}: one fit of {n}x{l} at rank {k} needs "
             f"{smem_bytes(n, l, k)} bytes of shared memory, over {SMEM_LIMIT}; "
-            "use impl='torch'"
+            "pass impl='torch' for the plain fit on the card, or device='cpu'"
         )
 
 

@@ -49,12 +49,14 @@ def mu_update(
     l1_reg_h: float = 0.0,
     l2_reg_h: float = 0.0,
     inner_iter: int = 1,
+    update_h: bool = True,
 ):
     """One multiplicative update of W then H (sklearn's order).
 
     ``inner_iter > 1`` repeats each factor's update reusing ``X H^T`` /
     ``H H^T`` (and ``W^T X`` / ``W^T W``): the accelerated MU of Gillis
     & Glineur 2012.  ``inner_iter=1`` is exactly sklearn's update.
+    ``update_h=False`` freezes H (sklearn's ``transform`` path).
     """
     ht = h.transpose(-1, -2)
     xht = x @ ht
@@ -66,6 +68,8 @@ def mu_update(
         if l2_reg_w > 0:
             den = den + l2_reg_w * w
         w = w * (xht / _guard(den))
+    if not update_h:
+        return w, h
     wt = w.transpose(-1, -2)
     wtx = wt @ x
     wtw = wt @ w
@@ -99,6 +103,7 @@ def fit_mu(
     l1_reg_h: float = 0.0,
     l2_reg_h: float = 0.0,
     inner_iter: int = 1,
+    update_h: bool = True,
 ) -> MUState:
     """Run MU-NMF to convergence, per problem.
 
@@ -109,6 +114,8 @@ def fit_mu(
         tol: relative Frobenius improvement threshold; ``tol <= 0``
             disables the check (always runs ``max_iter``).
         check_every: cadence of the convergence test (sklearn uses 10).
+        update_h: ``False`` keeps H fixed at ``h0`` (the caller is
+            ``NMFModel.transform``).
 
     Returns:
         :class:`MUState` with final factors, iterations done, the error
@@ -116,7 +123,8 @@ def fit_mu(
     """
     regs = (l1_reg_w, l2_reg_w, l1_reg_h, l2_reg_h)
     return MUState(*fit_chunked(
-        x, w0, h0, lambda xa, wa, ha: mu_update(xa, wa, ha, *regs, inner_iter),
+        x, w0, h0,
+        lambda xa, wa, ha: mu_update(xa, wa, ha, *regs, inner_iter, update_h),
         frobenius_error, max_iter, tol, check_every,
     ))
 

@@ -1,14 +1,108 @@
-"""Synergy-selection helpers (the slice's part of ``models/select.py``).
+"""User-facing NMF model, VAF-based rank selection and synergy runs.
 
-Only :func:`compute_regularization` is ported so far; ``NMFModel`` and
-``find_synergies`` are on the ROADMAP (modules still to port).
+Port of :mod:`muscle_synergies_tpu.models.select`:
+
+- :class:`NMFModel` plays the role of ``sklearn.decomposition.NMF``
+  (attributes ``components_``, ``n_iter_``, ``reconstruction_err_``),
+  with the JAX package's solvers, penalties, legacy ``alpha=`` and
+  ``inner_iter``;
+- :func:`find_synergies` mirrors the reference API: one rank or a
+  ``n_components..max_components`` sweep, VAF per rank, and a
+  :class:`SynergyRunResult`; ``sweep="batched"`` solves every rank in
+  one batched fit (:func:`~.batch.rank_sweep_batch`);
+- :func:`compute_regularization`, sklearn's penalty scaling.
+
+Like every entry point of the package, :class:`NMFModel` and
+:func:`find_synergies` run on the card unless given ``device="cpu"``;
+their results are NumPy arrays, as in the JAX package.  ``impl`` picks
+the fit, as on the batched solvers: ``"auto"`` (the default) runs a
+CUDA frame as a batch of one, or of all swept ranks, through
+``fit_*_batch``, one launch of K2 (CD), K1 (MU) or K4 (beta-MU), and a
+CPU frame through the plain PyTorch fit; ``"torch"`` runs the plain fit
+wherever the frame is.  The kernels hold a whole fit in one thread
+block's shared memory: a time-normalised 200 x 8 frame fits, a 20,000 x
+8 one does not, and on the card the kernel's wrapper then raises before
+any launch, naming ``impl="torch"`` and ``device="cpu"``.
+:meth:`NMFModel.transform` (H frozen) is plain PyTorch on the device
+asked for: no kernel has a frozen-factor entry yet.
+
+pandas is imported only when :func:`find_synergies` runs (the machine
+with the card may have none); :class:`NMFModel` needs no pandas.
 """
 
 from __future__ import annotations
 
-from typing import Union
+import warnings
+from dataclasses import dataclass
+from typing import Any, Mapping, Optional, Union
 
-__all__ = ["compute_regularization"]
+import numpy as np
+import torch
+
+from .._common import IMPLS, as_tensor, entry_placement, resolve_impl, to_numpy
+from .batch import (
+    fit_cd_batch,
+    fit_mu_batch,
+    fit_mu_beta_batch,
+    rank_sweep_batch,
+)
+from .beta import beta_divergence, beta_loss_to_float, fit_mu_beta
+from .hals import fit_cd
+from .init import initialize_nmf
+from .mu import fit_mu
+
+__all__ = ["NMFModel", "SynergyRunResult", "find_synergies", "compute_regularization"]
+
+_PERSIST_TODO = (
+    "save/load are not ported yet (ROADMAP, modules still to port: item 7, "
+    "persistence and serving)"
+)
+
+
+def _warn_if_unconverged(n_iter: int, max_iter: int, tol: float) -> None:
+    """sklearn's ConvergenceWarning when a fit exhausts ``max_iter``."""
+    if n_iter == max_iter and tol > 0:
+        try:
+            from sklearn.exceptions import ConvergenceWarning as _Warn
+        except ImportError:  # sklearn is optional at run time
+            _Warn = UserWarning
+        warnings.warn(
+            f"Maximum number of iterations {max_iter} reached. Increase "
+            "it to improve convergence.",
+            _Warn,
+            stacklevel=3,
+        )
+
+
+# Sentinel distinguishing "regularization not passed" (sklearn 0.24's
+# default was 'both') from an explicit regularization=None (which that
+# version treated as no regularization at all).
+_UNSET = object()
+_REGULARIZATIONS = (None, "both", "components", "transformation")
+
+
+def _check_regularization(regularization) -> None:
+    if regularization is not _UNSET and regularization not in _REGULARIZATIONS:
+        raise ValueError(
+            f"invalid regularization: {regularization!r} (expected "
+            "'both', 'components', 'transformation' or None)"
+        )
+
+
+def _legacy_regularization(alpha: float, regularization, l1_ratio: float):
+    """sklearn <= 0.24's unscaled penalties (the reference's pinned API),
+    gated per factor by the ``regularization`` selector (``None`` = no
+    penalties)."""
+    on_w = regularization in ("both", "transformation")
+    on_h = regularization in ("both", "components")
+    l1 = alpha * l1_ratio
+    l2 = alpha * (1.0 - l1_ratio)
+    return (
+        l1 if on_w else 0.0,
+        l2 if on_w else 0.0,
+        l1 if on_h else 0.0,
+        l2 if on_h else 0.0,
+    )
 
 
 def compute_regularization(
@@ -27,3 +121,431 @@ def compute_regularization(
     l2_reg_w = l * alpha_w * (1.0 - l1_ratio)
     l2_reg_h = n * alpha_h * (1.0 - l1_ratio)
     return l1_reg_w, l2_reg_w, l1_reg_h, l2_reg_h
+
+
+def _matrix(x, device, dtype) -> torch.Tensor:
+    """``x`` (array, DataFrame or tensor) as a tensor where the model runs."""
+    device, dtype = entry_placement(device, dtype)
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x, dtype=float)
+    return as_tensor(x, device, dtype)
+
+
+def _check_beta_solver(beta: float, beta_loss, solver: str) -> None:
+    if beta != 2.0 and solver != "mu":
+        # sklearn: only the MU solver handles general beta
+        raise ValueError(
+            f"Invalid beta_loss parameter: solver {solver!r} does "
+            f"not handle beta_loss = {beta_loss!r}"
+        )
+
+
+def _check_data(x: torch.Tensor, beta: float) -> None:
+    """sklearn's ``check_array`` and non-negativity refusals."""
+    if not bool(torch.isfinite(x).all()):
+        raise ValueError("Input X contains NaN or infinity.")
+    if bool((x < 0).any()):
+        raise ValueError("Negative values in data passed to NMF")
+    if beta <= 0 and bool((x == 0).any()):
+        # zero entries make WH -> 0 poles of the beta <= 0 divergence
+        raise ValueError(
+            "When beta_loss <= 0 and X contains zeros, the solver may "
+            "diverge. Please add small values to X, or use a positive "
+            "beta_loss."
+        )
+
+
+class NMFModel:
+    """Non-negative matrix factorization ``X ~ W @ H``.
+
+    The JAX package's ``NMFModel``: ``solver`` is ``"cd"`` (sklearn's
+    default) or ``"mu"``; ``beta_loss`` is ``"frobenius"`` (default),
+    ``"kullback-leibler"``, ``"itakura-saito"`` or a float beta, any
+    other loss than Frobenius needing ``solver="mu"``.  Sparsity comes
+    from ``alpha_W`` / ``alpha_H`` / ``l1_ratio`` with sklearn's
+    dimension-scaled penalties, or the legacy sklearn <= 0.24 spelling
+    ``alpha=`` + ``regularization=``.  ``inner_iter > 1`` (Frobenius MU
+    only) is the accelerated MU of Gillis & Glineur 2012.
+    ``svd_method="randomized"`` makes the NNDSVD-family inits equal to
+    sklearn's (host-side randomized SVD seeded by ``random_state``).
+    ``verbose`` is accepted and ignored.
+
+    ``device`` / ``dtype``: where the fit runs, the card by default (in
+    float32 there unless ``dtype`` says otherwise); ``device="cpu"``
+    runs the plain PyTorch fits.  ``impl``: ``"auto"``, ``"torch"`` or
+    ``"cuda"``, the kernel or the plain fit (module docstring).
+
+    After :meth:`fit_transform`:
+
+    Attributes:
+        components_: ``(k, L)`` factor H (NumPy).
+        n_components_: the rank used.
+        n_iter_: iterations run by the solver.
+        reconstruction_err_: the square-rooted beta divergence of the
+            fitted loss (``||X - WH||_F`` for Frobenius).
+    """
+
+    def __init__(
+        self,
+        n_components: Optional[int] = None,
+        *,
+        solver: str = "cd",
+        beta_loss: Union[str, float] = "frobenius",
+        init: Optional[str] = None,
+        tol: float = 1e-4,
+        max_iter: int = 200,
+        random_state: Optional[int] = None,
+        alpha_W: float = 0.0,
+        alpha_H: Union[float, str] = "same",
+        l1_ratio: float = 0.0,
+        svd_method: str = "exact",
+        alpha: Optional[float] = None,
+        regularization=_UNSET,
+        inner_iter: int = 1,
+        verbose: int = 0,
+        impl: str = "auto",
+        device="cuda",
+        dtype: Optional[torch.dtype] = None,
+    ):
+        _check_regularization(regularization)
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        # sklearn <= 0.24 applied a single `alpha` unscaled, per
+        # `regularization` ('both' by default; an explicit None meant no
+        # penalties); resolved in fit_transform
+        self._legacy_alpha = None
+        if alpha is not None:
+            reg = "both" if regularization is _UNSET else regularization
+            self._legacy_alpha = (float(alpha), reg)
+        if inner_iter < 1:
+            raise ValueError(f"inner_iter must be >= 1, got {inner_iter}")
+        self.n_components = n_components
+        self.solver = solver
+        self.beta_loss = beta_loss
+        self.init = init
+        self.tol = tol
+        self.max_iter = max_iter
+        self.random_state = random_state
+        self.alpha_W = alpha_W
+        self.alpha_H = alpha_H
+        self.l1_ratio = l1_ratio
+        self.svd_method = svd_method
+        self.inner_iter = inner_iter
+        self.verbose = verbose
+        self.impl = impl
+        self.device = device
+        self.dtype = dtype
+
+    def _penalties(self, n: int, l: int):
+        if self._legacy_alpha is not None:
+            return _legacy_regularization(*self._legacy_alpha, self.l1_ratio)
+        return compute_regularization(self.alpha_W, self.alpha_H, self.l1_ratio,
+                                      n, l)
+
+    def fit_transform(self, x, w=None, h=None) -> np.ndarray:
+        """Factorize ``x`` and return ``W``.
+
+        Passing both ``w`` and ``h`` uses them as the starting point
+        (sklearn's ``init='custom'``).
+        """
+        beta = beta_loss_to_float(self.beta_loss)
+        x = _matrix(x, self.device, self.dtype)
+        if x.ndim != 2:
+            raise ValueError(f"expected a 2-D matrix, got shape {tuple(x.shape)}")
+        if x.numel() == 0:
+            raise ValueError("empty matrix passed to NMF")
+        _check_data(x, beta)
+        n, l = x.shape
+        k = self.n_components if self.n_components is not None else l
+
+        if w is not None and h is not None:
+            w0, h0 = as_tensor(w, x.device, x.dtype), as_tensor(h, x.device, x.dtype)
+        elif w is not None or h is not None:
+            raise ValueError("provide both w and h for a custom init, or neither")
+        elif self.init == "custom":
+            raise ValueError(
+                "init='custom' requires passing both w and h to fit_transform"
+            )
+        else:
+            w0, h0 = initialize_nmf(x, k, init=self.init,
+                                    seed=self.random_state or 0,
+                                    svd_method=self.svd_method)
+        w0, h0 = w0.to(x.dtype), h0.to(x.dtype)
+        l1_w, l2_w, l1_h, l2_h = self._penalties(n, l)
+        _check_beta_solver(beta, self.beta_loss, self.solver)
+        if self.inner_iter != 1 and (self.solver != "mu" or beta != 2.0):
+            raise ValueError(
+                "inner_iter > 1 is only available for the Frobenius MU solver"
+            )
+        if self.solver not in ("mu", "cd"):
+            raise ValueError(f"unknown solver: {self.solver!r}")
+        regs = dict(l1_reg_w=l1_w, l2_reg_w=l2_w, l1_reg_h=l1_h, l2_reg_h=l2_h)
+        fit = dict(max_iter=self.max_iter, tol=float(self.tol), **regs)
+        if beta != 2.0:
+            plain, batched = fit_mu_beta, fit_mu_beta_batch
+            fit["beta"] = beta
+        elif self.solver == "mu":
+            plain, batched = fit_mu, fit_mu_batch
+            fit["inner_iter"] = self.inner_iter
+        else:
+            plain, batched = fit_cd, fit_cd_batch
+        if resolve_impl(self.impl, x) == "cuda":
+            # a batch of one: one launch of K4, K1 or K2
+            state = batched(x[None], w0[None], h0[None], impl="cuda", **fit)
+            state = type(state)(*(t[0] for t in state))
+        else:
+            state = plain(x, w0, h0, **fit)
+        w_final = state.w
+        h_final = state.ht.T if self.solver == "cd" and beta == 2.0 else state.h
+
+        self.n_components_ = k
+        self.n_iter_ = int(state.n_iter)
+        self.components_ = to_numpy(h_final)
+        # sklearn: the square-rooted beta divergence of the fitted loss
+        self.reconstruction_err_ = float(
+            beta_divergence(x, w_final, h_final, beta, square_root=True)
+        )
+        _warn_if_unconverged(self.n_iter_, self.max_iter, self.tol)
+        return to_numpy(w_final)
+
+    def fit(self, x, **kwargs) -> "NMFModel":
+        self.fit_transform(x, **kwargs)
+        return self
+
+    def transform(self, x) -> np.ndarray:
+        """Project ``x`` onto the learned components (W with H fixed).
+
+        Uses the fitted solver with frozen H, like sklearn's
+        ``transform`` (``_fit_transform(X, H=components_,
+        update_H=False)``): MU starts W at the average fill, CD at zero,
+        and the W-side penalties apply.  Plain PyTorch on the model's
+        device.
+        """
+        if not hasattr(self, "components_"):
+            raise ValueError("this NMFModel instance is not fitted yet")
+        x = _matrix(x, self.device, self.dtype)
+        h = as_tensor(np.asarray(self.components_), x.device, x.dtype)
+        k = h.shape[0]
+        l1_w, l2_w, _, _ = self._penalties(*x.shape)
+        beta = beta_loss_to_float(self.beta_loss)
+        # a hand-built model with an incompatible (solver, beta_loss)
+        # pair must not transform with the MU solver
+        _check_beta_solver(beta, self.beta_loss, self.solver)
+        fit = dict(max_iter=self.max_iter, tol=float(self.tol), l1_reg_w=l1_w,
+                   l2_reg_w=l2_w, update_h=False)
+        if beta != 2.0 or self.solver == "mu":
+            # sklearn seeds the multiplicative solver with the average
+            # fill (zeros would be absorbing states for MU)
+            avg = (x.mean().clamp(min=0.0) / k).sqrt()
+            w0 = torch.full((x.shape[0], k), float(avg), dtype=x.dtype,
+                            device=x.device)
+            if beta != 2.0:
+                state = fit_mu_beta(x, w0, h, beta=beta, **fit)
+            else:
+                state = fit_mu(x, w0, h, **fit)
+        else:
+            w0 = torch.zeros((x.shape[0], k), dtype=x.dtype, device=x.device)
+            state = fit_cd(x, w0, h, **fit)
+        _warn_if_unconverged(int(state.n_iter), self.max_iter, self.tol)
+        return to_numpy(state.w)
+
+    def inverse_transform(self, w) -> np.ndarray:
+        return np.asarray(w) @ self.components_
+
+    def save(self, path):
+        """Not ported yet: raises ``NotImplementedError``."""
+        raise NotImplementedError(_PERSIST_TODO)
+
+    @classmethod
+    def load(cls, path) -> "NMFModel":
+        """Not ported yet: raises ``NotImplementedError``."""
+        raise NotImplementedError(_PERSIST_TODO)
+
+
+@dataclass
+class SynergyRunResult:
+    """Result of one or several synergy factorization runs.
+
+    Attributes:
+        vaf_values: a pandas DataFrame with one row per rank: first
+            column ``"All signals"``, then per-muscle VAF; the index is
+            the rank when a sweep was run.
+        components: ``(k, num_muscles)`` DataFrame (single run) or a
+            dict mapping rank to DataFrame.
+        model: the fitted :class:`NMFModel` (or dict of them).
+    """
+
+    vaf_values: Any
+    components: Union[Any, Mapping[int, Any]]
+    model: Union[NMFModel, Mapping[int, NMFModel]]
+
+    def save(self, path):
+        """Not ported yet: raises ``NotImplementedError``."""
+        raise NotImplementedError(_PERSIST_TODO)
+
+    @classmethod
+    def load(cls, path) -> "SynergyRunResult":
+        """Not ported yet: raises ``NotImplementedError``."""
+        raise NotImplementedError(_PERSIST_TODO)
+
+
+def find_synergies(
+    processed_emg_df,
+    n_components: int,
+    max_components: Optional[int] = None,
+    *,
+    max_iter: int = 100_000,
+    tol: float = 1e-6,
+    sweep: str = "loop",
+    device="cuda",
+    dtype: Optional[torch.dtype] = None,
+    **nmf_kwargs,
+) -> SynergyRunResult:
+    """Extract spatial muscle synergies by non-negative factorization.
+
+    Mirrors the reference API: the processed EMG DataFrame
+    (``(num_measurements, num_muscles)``, non-negative) is factorized at
+    rank ``n_components``, or at every rank from ``n_components`` to
+    ``max_components``, and each run's VAF is reported.
+
+    ``sweep="loop"`` fits one rank at a time (the reference's loop);
+    ``"batched"`` solves every rank in one zero-rank-padded batch
+    (:func:`~.batch.rank_sweep_batch`, one kernel launch on the card),
+    with the same penalties and ``inner_iter``; custom inits need
+    ``sweep="loop"``.  ``device`` / ``dtype`` / ``impl`` are
+    :class:`NMFModel`'s.  Needs pandas.
+
+    Raises:
+        ValueError: when the EMG frame is empty, or the rank range does
+            not satisfy ``1 <= n_components <= max_components <=
+            num_muscles``.
+    """
+    import pandas
+
+    from ..analysis import vaf as _vaf
+
+    if processed_emg_df.empty:
+        raise ValueError("empty EMG DataFrame")
+    num_features = len(processed_emg_df.columns)
+    if n_components < 1 or n_components > num_features:
+        raise ValueError("invalid number of components")
+    if max_components is not None:
+        if max_components < n_components or max_components > num_features:
+            raise ValueError("invalid number of components")
+    if sweep not in ("loop", "batched"):
+        raise ValueError(f"unknown sweep mode: {sweep!r}")
+    if sweep == "batched" and max_components is not None:
+        return _sweep_batched(
+            processed_emg_df, range(n_components, max_components + 1),
+            max_iter=max_iter, tol=tol, device=device, dtype=dtype, **nmf_kwargs,
+        )
+
+    def single_run(k: int) -> SynergyRunResult:
+        model = NMFModel(n_components=k, max_iter=max_iter, tol=tol,
+                         device=device, dtype=dtype, **nmf_kwargs)
+        transformed = model.fit_transform(processed_emg_df)
+        vaf_values = _vaf(processed_emg_df, components=model.components_,
+                          transformed_signal=transformed, device=device)
+        comps = pandas.DataFrame(model.components_,
+                                 columns=processed_emg_df.columns)
+        return SynergyRunResult(vaf_values, comps, model)
+
+    if max_components is None:
+        return single_run(n_components)
+    runs = {k: single_run(k) for k in range(n_components, max_components + 1)}
+    vaf_values = pandas.concat([r.vaf_values for r in runs.values()])
+    vaf_values.set_index(np.array(tuple(runs)), inplace=True)
+    return SynergyRunResult(
+        vaf_values,
+        {k: r.components for k, r in runs.items()},
+        {k: r.model for k, r in runs.items()},
+    )
+
+
+def _sweep_batched(
+    processed_emg_df,
+    ranks,
+    *,
+    max_iter: int,
+    tol: float,
+    device,
+    dtype,
+    solver: str = "cd",
+    beta_loss: Union[str, float] = "frobenius",
+    init: Optional[str] = None,
+    random_state: Optional[int] = None,
+    svd_method: str = "exact",
+    alpha_W: float = 0.0,
+    alpha_H: Union[float, str] = "same",
+    l1_ratio: float = 0.0,
+    alpha: Optional[float] = None,
+    regularization=_UNSET,
+    inner_iter: int = 1,
+    verbose: int = 0,
+    impl: str = "auto",
+    **unsupported,
+) -> SynergyRunResult:
+    """A rank sweep as one zero-rank-padded batched solve.
+
+    Every rank's problem is one entry of an ``(R, N, L)`` batch with
+    factors zero-padded to ``max(ranks)``; padded components stay
+    exactly zero, so entry ``i`` equals the independent rank-``ranks[i]``
+    fit: on the card with ``impl="auto"``, one kernel launch.
+    """
+    import pandas
+
+    from ..analysis import vaf as _vaf
+
+    if unsupported:
+        raise ValueError(
+            "sweep='batched' does not support "
+            f"{sorted(unsupported)}; use the default sweep='loop'"
+        )
+    _check_regularization(regularization)
+    beta = beta_loss_to_float(beta_loss)
+    x = _matrix(processed_emg_df, device, dtype)
+    _check_data(x, beta)
+    ranks = list(ranks)
+    if alpha is not None:
+        reg = "both" if regularization is _UNSET else regularization
+        l1_w, l2_w, l1_h, l2_h = _legacy_regularization(alpha, reg, l1_ratio)
+    else:
+        l1_w, l2_w, l1_h, l2_h = compute_regularization(
+            alpha_W, alpha_H, l1_ratio, *x.shape
+        )
+    states, _ = rank_sweep_batch(
+        x, ranks, init=init, solver=solver, max_iter=max_iter, tol=float(tol),
+        seed=random_state or 0, svd_method=svd_method, beta_loss=beta_loss,
+        inner_iter=inner_iter, l1_reg_w=l1_w, l2_reg_w=l2_w, l1_reg_h=l1_h,
+        l2_reg_h=l2_h, impl=impl, device=x.device, dtype=x.dtype,
+    )
+    w_all = states.w
+    h_all = states.h if solver == "mu" else states.ht.transpose(-1, -2)
+
+    n_iters = to_numpy(states.n_iter)
+    vaf_rows, comps, models = [], {}, {}
+    for i, k in enumerate(ranks):
+        w, h = w_all[i][:, :k], h_all[i][:k, :]
+        h_np = to_numpy(h)
+        vaf_rows.append(_vaf(processed_emg_df, components=h_np,
+                             transformed_signal=to_numpy(w), device=device))
+        comps[k] = pandas.DataFrame(h_np, columns=processed_emg_df.columns)
+        model = NMFModel(
+            n_components=k, solver=solver, beta_loss=beta_loss, init=init,
+            tol=tol, max_iter=max_iter, random_state=random_state,
+            svd_method=svd_method, alpha_W=alpha_W, alpha_H=alpha_H,
+            l1_ratio=l1_ratio, alpha=alpha, regularization=regularization,
+            inner_iter=inner_iter, impl=impl, device=device, dtype=dtype,
+        )
+        model.n_components_ = k
+        model.n_iter_ = int(n_iters[i])
+        model.components_ = h_np
+        model.reconstruction_err_ = float(
+            beta_divergence(x, w, h, beta, square_root=True)
+        )
+        _warn_if_unconverged(model.n_iter_, max_iter, tol)
+        models[k] = model
+
+    vaf_values = pandas.concat(vaf_rows)
+    vaf_values.set_index(np.array(ranks), inplace=True)
+    return SynergyRunResult(vaf_values, comps, models)

@@ -2,16 +2,21 @@
 
 from .batched import (
     linear_envelope_batch,
+    moving_rms_batch,
     normalize_batch,
     time_normalize_batch,
     zero_center_batch,
 )
 from .emg import (
     digital_filter,
+    fft_spectrum,
     linear_envelope,
+    moving_rms,
     normalize,
     rectify,
+    subsample,
     time_normalize,
+    vaf,
     zero_center,
 )
 from .filters import default_padlen, sos_design, sosfilt, sosfilt_zi, sosfiltfilt
@@ -19,8 +24,11 @@ from .filters import default_padlen, sos_design, sosfilt, sosfilt_zi, sosfiltfil
 __all__ = [
     "default_padlen",
     "digital_filter",
+    "fft_spectrum",
     "linear_envelope",
     "linear_envelope_batch",
+    "moving_rms",
+    "moving_rms_batch",
     "normalize",
     "normalize_batch",
     "rectify",
@@ -28,8 +36,10 @@ __all__ = [
     "sosfilt",
     "sosfilt_zi",
     "sosfiltfilt",
+    "subsample",
     "time_normalize",
     "time_normalize_batch",
+    "vaf",
     "zero_center",
     "zero_center_batch",
 ]

@@ -1,13 +1,18 @@
 """Masked, batched preprocessing over padded ``(B, N, L)`` trial stacks.
 
-Port of :mod:`muscle_synergies_tpu.ops.batched` for the envelope path:
-:func:`zero_center_batch`, :func:`time_normalize_batch`,
-:func:`normalize_batch` and :func:`linear_envelope_batch`.  The batch
-dimension is written out (the JAX package vmaps); ragged batches arrive
-zero-padded with a ``(B, N)`` validity mask and every transform here is
-exact under that padding:
+Port of :mod:`muscle_synergies_tpu.ops.batched`:
+:func:`zero_center_batch`, :func:`moving_rms_batch`,
+:func:`time_normalize_batch`, :func:`normalize_batch` and
+:func:`linear_envelope_batch`.  The batch dimension is written out (the
+JAX package vmaps); ragged batches arrive zero-padded with a ``(B, N)``
+validity mask (:func:`muscle_synergies_tpu_torch.models.batch.pad_and_stack`)
+and every transform here is exact under that padding:
 
 - ``zero_center``: means over valid samples only;
+- ``moving_rms``: the zero padding is the reference's zero-padded
+  window edge, so each trial equals its own RMS (output re-masked);
+- the causal envelope (``zero_lag=False``) of zero-centred trials: a
+  causal pass never reads the samples after the one it writes;
 - ``time_normalize``: each trial's valid span maps onto [0, 1] using
   its own length;
 - ``normalize``: padded zeros never win a max-abs.
@@ -25,10 +30,11 @@ from typing import Optional, Sequence, Union
 import torch
 
 from .._common import as_tensor
-from .emg import linear_envelope, unit_grid
+from .emg import linear_envelope, unit_grid, windowed_rms
 
 __all__ = [
     "zero_center_batch",
+    "moving_rms_batch",
     "time_normalize_batch",
     "normalize_batch",
     "linear_envelope_batch",
@@ -52,6 +58,39 @@ def zero_center_batch(xs, mask=None, device=None, dtype: Optional[torch.dtype] =
         min=1.0
     )[:, None, None]
     return (xs - means) * m
+
+
+def moving_rms_batch(xs, window: int, mask=None, device=None,
+                     dtype: Optional[torch.dtype] = None):
+    """Reference-exact moving RMS over a padded ``(B, N, L)`` batch.
+
+    The padding is zeros, which is exactly the reference's zero-padded
+    window edge, so every trial's valid span equals its own
+    :func:`~.emg.moving_rms`; the output is re-masked.
+
+    Raises:
+        ValueError: when ``window`` exceeds any trial's true length
+            (from ``mask``), or the batch's length without one.  The
+            JAX package can only poison such trials with NaN while it
+            traces; PyTorch runs eagerly, so here the check always
+            raises.
+    """
+    xs = as_tensor(xs, device, dtype)
+    if mask is not None:
+        mask = as_tensor(mask, xs.device, xs.dtype)
+        shortest = int(mask.sum(dim=1).min())
+        if shortest < window:
+            raise ValueError(
+                f"window ({window} samples) is longer than the shortest "
+                f"trial ({shortest} valid samples)"
+            )
+    elif window > xs.shape[1]:
+        raise ValueError(
+            f"window ({window} samples) is longer than the signal "
+            f"({xs.shape[1]} samples)"
+        )
+    out = windowed_rms(xs, window)
+    return out if mask is None else out * mask[..., None]
 
 
 def time_normalize_batch(
@@ -111,10 +150,13 @@ def linear_envelope_batch(
 ):
     """Linear envelope of every trial of a ``(B, N, L)`` batch.
 
-    The whole batch is one filter call: the zero-phase lowpass folds the
-    trials onto columns (``(N, B*L)``), which is what the CUDA kernel
-    runs over.  ``kwargs`` are :func:`~.emg.linear_envelope`'s.  Exact
-    for equal-length trials; the mask only re-zeroes padding.
+    The whole batch is one filter call: the lowpass runs over the
+    trials' ``B*L`` columns, which is what the CUDA kernels (K3 for the
+    zero-phase filter, K6 for the causal one) run over.  ``kwargs`` are
+    :func:`~.emg.linear_envelope`'s.  Exact for equal-length trials, and
+    for ragged ones under the causal filter once they are zero-centred
+    with the mask (:func:`zero_center_batch`, then ``zero_center_=False``
+    here); the mask re-zeroes the padding.
     """
     xs = as_tensor(xs, device, dtype)
     out = linear_envelope(

@@ -1,9 +1,10 @@
 """EMG preprocessing on ``(num_samples, num_channels)`` tensors.
 
-Port of :mod:`muscle_synergies_tpu.ops.emg` (the slice's transforms):
-:func:`zero_center`, :func:`rectify`, :func:`digital_filter`,
-:func:`linear_envelope`, :func:`normalize` and :func:`time_normalize`.
-Time runs along axis 0.
+Port of :mod:`muscle_synergies_tpu.ops.emg`: :func:`zero_center`,
+:func:`rectify`, :func:`digital_filter`, :func:`linear_envelope`,
+:func:`moving_rms`, :func:`normalize`, :func:`subsample`,
+:func:`time_normalize`, :func:`fft_spectrum` and :func:`vaf`.  Time
+runs along axis 0.
 
 Grids: ``time_normalize`` resamples onto ``linspace(0, 1, reduce_to)``.
 ``torch.linspace`` and ``jnp.linspace`` differ by up to 1 ulp in
@@ -28,8 +29,14 @@ __all__ = [
     "rectify",
     "digital_filter",
     "linear_envelope",
+    "moving_rms",
+    "rms_window",
+    "windowed_rms",
     "normalize",
+    "subsample",
     "time_normalize",
+    "fft_spectrum",
+    "vaf",
     "interp",
     "unit_grid",
 ]
@@ -72,9 +79,11 @@ def digital_filter(
     """Butterworth/Chebyshev filtering of a ``(N, C)`` block.
 
     ``zero_lag=True`` filters forward and backward (scipy
-    ``sosfiltfilt``, through the CUDA kernel for a CUDA float32 tensor);
-    otherwise one causal pass (plain torch).  An
-    ``(B, N, C)`` batch is filtered along axis 1.
+    ``sosfiltfilt``); otherwise one causal pass (scipy ``sosfilt`` from
+    zero states).  An ``(B, N, C)`` batch is filtered along axis 1 in
+    one call, which for a CUDA float32 tensor is one launch of the
+    filter's kernel (K3 or K6).  ``padtype`` applies to ``zero_lag``
+    only.
     """
     sos = sos_design(
         order, critical_freqs, sampling_frequency, filter_type=filter_type,
@@ -83,8 +92,6 @@ def digital_filter(
     x = as_tensor(x, device, dtype)
     if zero_lag:
         return sosfiltfilt(sos, x, padtype=padtype)
-    if x.ndim == 3:
-        return torch.stack([sosfilt(sos, xi) for xi in x])
     return sosfilt(sos, x)
 
 
@@ -114,6 +121,117 @@ def linear_envelope(
         filter_type=filter_type, band_type="lowpass", zero_lag=zero_lag,
         cheby_param=cheby_param,
     )
+
+
+def rms_window(window_size: Union[int, float],
+               sampling_frequency: Optional[float] = None) -> int:
+    """The RMS window in samples: ``round(size * fs)`` for seconds."""
+    if sampling_frequency is not None:
+        window = int(round(window_size * sampling_frequency))
+    else:
+        window = int(window_size)
+    if window < 1:
+        raise ValueError(f"window must contain at least one sample, got {window}")
+    return window
+
+
+def windowed_rms(x: torch.Tensor, window: int) -> torch.Tensor:
+    """Moving RMS along dim -2 of a ``(..., N, C)`` tensor (no checks).
+
+    Output ``i`` averages the squares of samples ``i - window // 2``
+    through ``i + (window - 1) // 2``, zero outside the signal and
+    divided by the full window, which is
+    ``np.convolve(x**2, ones(w) / w, "same")``.  The windowed sums are
+    differences of one running sum taken in float64: a running sum in
+    float32 grows to the whole signal's energy, and a quiet tail after a
+    large transient would then read 0.  Float64 keeps 53 bits, more than
+    the JAX package's compensated float32 (hi, lo) scan, so the result
+    is at least as accurate.
+    """
+    n = x.shape[-2]
+    running = torch.cumsum(x * x, dim=-2, dtype=torch.float64)
+    running = torch.cat([torch.zeros_like(running[..., :1, :]), running], dim=-2)
+    idx = torch.arange(n, device=x.device)
+    lo = (idx - window // 2).clamp(0, n)
+    hi = (idx + (window - 1) // 2 + 1).clamp(0, n)
+    mean_sq = (running.index_select(-2, hi) - running.index_select(-2, lo)) / window
+    # rounding can leave tiny negatives where the true sum is ~0
+    return mean_sq.clamp(min=0.0).sqrt().to(x.dtype)
+
+
+def moving_rms(
+    x,
+    window_size: Union[int, float],
+    sampling_frequency: Optional[float] = None,
+    device=None,
+    dtype: Optional[torch.dtype] = None,
+):
+    """Moving-window RMS of a ``(N, C)`` block, stride 1, same length.
+
+    The reference's semantics (square, average over a ``"same"``-placed
+    window with zero-padded edges, square root; see
+    :func:`windowed_rms`).
+
+    Args:
+        window_size: window in samples, or in seconds when
+            ``sampling_frequency`` is given (``round(size * fs)``).
+
+    Raises:
+        ValueError: for an empty window, or one longer than the signal
+            (``np.convolve`` would return the window's length).
+    """
+    window = rms_window(window_size, sampling_frequency)
+    x = as_tensor(x, device, dtype)
+    if window > x.shape[0]:
+        raise ValueError(
+            f"window ({window} samples) is longer than the signal "
+            f"({x.shape[0]} samples)"
+        )
+    squeeze = x.ndim == 1
+    out = windowed_rms(x[:, None] if squeeze else x, window)
+    return out[:, 0] if squeeze else out
+
+
+def subsample(x, keep_every: Optional[int] = None, device=None,
+              dtype: Optional[torch.dtype] = None):
+    """Keep every ``keep_every``-th sample along the time axis.
+
+    The reference's documented decimation (its code head-slices, which
+    its own docstring contradicts; the JAX package keeps decimation).
+    """
+    x = as_tensor(x, device, dtype)
+    return x if keep_every is None else x[::keep_every]
+
+
+def fft_spectrum(x, sampling_frequency: float, device=None,
+                 dtype: Optional[torch.dtype] = None):
+    """Amplitude spectrum at strictly positive frequencies.
+
+    Returns:
+        ``(freqs, amplitudes)``: a NumPy array of frequencies in the
+        units of ``sampling_frequency`` and ``|FFT|`` per channel.
+    """
+    x = as_tensor(x, device, dtype)
+    freqs = np.fft.fftfreq(x.shape[0], d=1.0 / sampling_frequency)
+    positive = freqs > 0
+    spectrum = torch.fft.fft(x, dim=0).abs()
+    index = torch.as_tensor(np.flatnonzero(positive), device=x.device)
+    return freqs[positive], spectrum.index_select(0, index)
+
+
+def vaf(x, reconstruction, device=None, dtype: Optional[torch.dtype] = None):
+    """Variance accounted for by ``reconstruction`` of ``x``.
+
+    ``VAF = 1 - ||x - x_r||^2 / ||x||^2`` (Frobenius).
+
+    Returns:
+        ``(overall, per_channel)``: a scalar and an ``(L,)`` vector for
+        an ``(N, L)`` signal.
+    """
+    x = as_tensor(x, device, dtype)
+    err = x - as_tensor(reconstruction, x.device, x.dtype)
+    e2, x2 = err * err, x * x
+    return 1.0 - e2.sum() / x2.sum(), 1.0 - e2.sum(dim=0) / x2.sum(dim=0)
 
 
 def normalize(x, axis: int = 0, device=None, dtype: Optional[torch.dtype] = None):

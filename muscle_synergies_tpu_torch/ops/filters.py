@@ -6,17 +6,21 @@ sections in float64.  The application stage is :func:`sosfiltfilt`,
 with scipy's ``sosfiltfilt`` semantics exactly: the signal is extended
 by ``padlen`` samples at both ends (odd reflection by default), each
 pass starts from the steady-state ``zi`` scaled by its input's first
-sample, and the backward pass runs over the forward output reversed.
+sample, and the backward pass runs over the forward output reversed;
+and :func:`sosfilt`, one causal pass from given states with scipy's
+``sosfilt`` semantics, optionally returning the final states.
 
-Two implementations sit behind ``impl``, both in :mod:`.filter_cuda`:
+Two implementations sit behind ``impl`` of each, all in
+:mod:`.filter_cuda`:
 
-- ``"cuda"``: the hand-written kernel (float32 CUDA tensors; one thread
-  per signal column);
-- ``"torch"``: its plain version, a loop over time vectorized over
+- ``"cuda"``: the hand-written kernels (float32 CUDA tensors; one
+  thread per signal column), K3 for ``sosfiltfilt`` and K6 for
+  ``sosfilt``;
+- ``"torch"``: their plain versions, a loop over time vectorized over
   columns (:func:`_cascade`), on any device and dtype.
 
 ``"auto"`` (the default) takes the kernel for a CUDA float32 tensor and
-the plain version otherwise.
+the plain version for a CPU tensor.
 
 Time runs along axis 0 of an ``(N,)`` or ``(N, C)`` signal and along
 axis 1 of an ``(B, N, C)`` batch of trials.
@@ -24,7 +28,7 @@ axis 1 of an ``(B, N, C)`` batch of trials.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -182,13 +186,19 @@ def fold_extend(x: torch.Tensor, padlen: int, padtype: Optional[str]) -> torch.T
     return ext.reshape(n + 2 * padlen, b * c)
 
 
-def _cascade(sos: np.ndarray, x: torch.Tensor, zi: torch.Tensor) -> torch.Tensor:
+def _cascade(
+    sos: np.ndarray, x: torch.Tensor, zi: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """Causal SOS cascade over dim 0 of ``x`` (N, C) from states ``zi``.
 
     The plain recurrence, one time step at a time, vectorized over the
     columns: ``sos`` is normalized (``a0 == 1``), ``zi`` is
     ``(n_sections, 2, C)``.  Same transposed direct form II update as
-    the JAX package's scan and the CUDA kernel.
+    the JAX package's scan and the CUDA kernels.
+
+    Returns:
+        ``(y, zf)``: the output ``(N, C)`` and the final states
+        ``(n_sections, 2, C)``.
     """
     rows = sos.tolist()
     b0 = [r[0] for r in rows]
@@ -209,43 +219,74 @@ def _cascade(sos: np.ndarray, x: torch.Tensor, zi: torch.Tensor) -> torch.Tensor
             )
             v = out
         y[t] = v
-    return y
+    return y, torch.stack([torch.stack(s1), torch.stack(s2)], dim=1)
 
 
 def sosfilt(
     sos: np.ndarray,
     x,
     zi=None,
+    return_zf: bool = False,
+    impl: str = "auto",
     device=None,
     dtype: Optional[torch.dtype] = None,
-) -> torch.Tensor:
+):
     """Causal SOS filtering along the time axis (scipy ``sosfilt``).
 
-    The plain version only (the JAX package has no kernel for it).
+    The JAX package's ``sosfilt``; its TPU kernel is ``cascade_pallas``,
+    whose counterpart here is the CUDA kernel K6
+    (:func:`~.filter_cuda.sosfilt_cuda`).  A whole ``(B, N, C)`` batch is
+    one launch.  Carrying ``zf`` from one call into the next call's
+    ``zi`` filters a signal in chunks (streaming): exactly as in one pass
+    in float64; in float32 the states are rounded to float32 between
+    calls, which on the card keeps the chunks within about 1e-6 x
+    max|y| of one launch.
 
     Args:
-        x: ``(N,)`` or ``(N, C)`` signal, time major.
-        zi: optional initial states, ``(n_sections, 2)`` (broadcast over
-            channels) or ``(n_sections, 2, C)``.
+        x: ``(N,)`` or ``(N, C)`` signal (time major), or a ``(B, N, C)``
+            batch of trials filtered along axis 1.
+        zi: optional initial states: ``(n_sections, 2)`` (broadcast over
+            channels and trials), ``(n_sections, 2, C)`` for an
+            ``(N, C)`` signal, or ``(B, n_sections, 2, C)`` for a batch.
+        return_zf: also return the final states, shaped as a full
+            ``zi`` (``(n_sections, 2)`` for a 1-D signal), in ``x``'s
+            dtype.
+        impl: ``"auto"``, ``"torch"`` or ``"cuda"`` (see the module
+            docstring).
+        device, dtype: where and in what type to compute; ``None`` keeps
+            the input's.
     """
     x = as_tensor(x, device, dtype)
-    squeeze = x.ndim == 1
-    x2 = x[:, None] if squeeze else x
+    if x.ndim not in (1, 2, 3):
+        raise ValueError(f"expected a 1-D, 2-D or 3-D input, got shape {tuple(x.shape)}")
     sos_np = _normalize_sos(sos)
-    n_sections, c = sos_np.shape[0], x2.shape[1]
-    if zi is None:
-        zi_t = torch.zeros((n_sections, 2, c), dtype=x2.dtype, device=x2.device)
-    else:
-        zi_t = as_tensor(zi, x2.device, x2.dtype)
+    impl = resolve_impl(impl, x)
+    x3 = x.reshape(1, -1, 1) if x.ndim == 1 else (x[None] if x.ndim == 2 else x)
+    b, _, c = x3.shape
+    n_sections = sos_np.shape[0]
+    zi_t = None
+    if zi is not None:
+        zi_t = as_tensor(zi, x3.device, x3.dtype)
+        full = (n_sections, 2, c) if x.ndim < 3 else (b, n_sections, 2, c)
         if zi_t.shape == (n_sections, 2):
-            zi_t = zi_t[:, :, None].expand(n_sections, 2, c)
-        elif zi_t.shape != (n_sections, 2, c):
+            zi_t = zi_t[None, :, :, None].expand(b, n_sections, 2, c)
+        elif zi_t.shape == full:
+            zi_t = zi_t.reshape(b, n_sections, 2, c)
+        else:
             raise ValueError(
-                f"zi must have shape ({n_sections}, 2) or "
-                f"({n_sections}, 2, {c}), got {tuple(zi_t.shape)}"
+                f"zi must have shape ({n_sections}, 2) or {full}, "
+                f"got {tuple(zi_t.shape)}"
             )
-    y = _cascade(sos_np, x2, zi_t)
-    return y[:, 0] if squeeze else y
+    from . import filter_cuda
+
+    run = filter_cuda.sosfilt_cuda if impl == "cuda" else filter_cuda.sosfilt_plain
+    y, zf = run(sos_np, x3, zi_t)
+    zf = zf.to(x.dtype)
+    if x.ndim == 1:
+        y, zf = y.reshape(-1), zf[0, :, :, 0]
+    elif x.ndim == 2:
+        y, zf = y[0], zf[0]
+    return (y, zf) if return_zf else y
 
 
 def sosfiltfilt(

@@ -65,8 +65,8 @@ class PipelineConfig:
     Attributes:
         envelope: low-pass filter for the linear envelope (used when
             ``use_rms`` is False).
-        use_rms / rms_window_s: moving-RMS smoothing instead of the
-            filtered envelope (not ported yet: ROADMAP, the RMS path).
+        use_rms / rms_window_s: moving-RMS smoothing over a window of
+            ``rms_window_s`` seconds instead of the filtered envelope.
         reduce_to: time-normalization target length (None to skip).
         amplitude_normalize: divide channels by their max abs value.
         min_rank / max_rank: VAF rank-sweep range.
@@ -95,30 +95,51 @@ class PipelineConfig:
     inner_iter: int = 1
 
     # -- execution ---------------------------------------------------------
-    def preprocess(self, x, sampling_frequency: float, device=None, dtype=None):
-        """Apply the configured preprocessing chain to ``(N, L)`` data."""
-        from .._common import as_tensor
+    def preprocess(self, x, sampling_frequency: float, device="cuda", dtype=None):
+        """Apply the configured preprocessing chain to ``(N, L)`` data.
+
+        Runs on the card unless ``device="cpu"``, in float32 there unless
+        ``dtype`` says otherwise (``dtype=None`` on the CPU keeps the
+        input's).
+        """
+        from .._common import as_tensor, entry_placement
         from ..ops import emg as _emg
 
+        x = as_tensor(x, *entry_placement(device, dtype))
         if self.use_rms:
-            raise NotImplementedError(
-                "use_rms=True is not ported yet (ROADMAP, modules still to "
-                "port: the RMS path)"
+            if self.zero_center:
+                x = _emg.zero_center(x)
+            x = _emg.moving_rms(x, self.rms_window_s,
+                                sampling_frequency=sampling_frequency)
+        else:
+            x = _emg.linear_envelope(
+                x, critical_freqs=self.envelope.cutoff(),
+                sampling_frequency=sampling_frequency, order=self.envelope.order,
+                filter_type=self.envelope.filter_type,
+                zero_lag=self.envelope.zero_lag,
+                cheby_param=self.envelope.cheby_param,
+                zero_center_=self.zero_center,
             )
-        x = as_tensor(x, device, dtype)
-        x = _emg.linear_envelope(
-            x, critical_freqs=self.envelope.cutoff(),
-            sampling_frequency=sampling_frequency, order=self.envelope.order,
-            filter_type=self.envelope.filter_type,
-            zero_lag=self.envelope.zero_lag,
-            cheby_param=self.envelope.cheby_param,
-            zero_center_=self.zero_center,
-        )
         if self.reduce_to is not None:
             x = _emg.time_normalize(x, self.reduce_to)
         if self.amplitude_normalize:
             x = _emg.normalize(x.abs())
         return x
+
+    def find_synergies(self, processed_emg_df, **overrides):
+        """Run the configured rank sweep on an already-processed frame.
+
+        :func:`~muscle_synergies_tpu_torch.models.select.find_synergies`
+        from ``min_rank`` to ``max_rank`` with this config's solver
+        settings; ``overrides`` (``device=``, ``sweep=``, ...) win.
+        """
+        from ..models.select import find_synergies
+
+        kwargs = dict(max_iter=self.max_iter, tol=self.tol, solver=self.solver,
+                      beta_loss=self.beta_loss)
+        kwargs.update(overrides)
+        return find_synergies(processed_emg_df, self.min_rank, self.max_rank,
+                              **kwargs)
 
     # -- serialization -----------------------------------------------------
     def to_json(self) -> str:

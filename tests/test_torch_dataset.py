@@ -32,6 +32,7 @@ from muscle_synergies_tpu_torch.models.batch import (  # noqa: E402
     fit_cd_batch,
     fit_mu_batch,
 )
+from muscle_synergies_tpu_torch.ops import filter_cuda  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FS = 1000.0
@@ -124,7 +125,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.analyze_dataset(TRIALS[:2], FS, mesh=object(), **CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.preprocess_trials(TRIALS[:2], FS, mt.PipelineConfig(use_rms=True), **CPU)
+        mt.NMFModel(2, **CPU).save("model.npz")
     with pytest.raises(ValueError, match="solver"):
         mt.analyze_dataset(TRIALS[:2], FS, solver="als", **CPU)
 
@@ -191,3 +192,58 @@ def test_port_imports_neither_jax_nor_pandas():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+CAUSAL = dict(envelope=dict(zero_lag=False))
+CONFIGS = {"rms": dict(use_rms=True), "causal": CAUSAL}
+
+
+def _configs(name):
+    kw = dict(CONFIGS[name])
+    if "envelope" in kw:
+        return (JConfig(envelope=JFilterSpec(**kw["envelope"])),
+                mt.PipelineConfig(envelope=mt.FilterSpec(**kw["envelope"])))
+    return JConfig(**kw), mt.PipelineConfig(**kw)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_preprocess_rms_and_causal_envelopes_match_jax(name, ragged, monkeypatch):
+    jcfg, tcfg = _configs(name)
+    trials = TRIALS[:4]
+    if ragged:
+        trials = [TRIALS[0], TRIALS[1][:1100], TRIALS[2][:1300], TRIALS[3][:1100]]
+    calls = []
+    plain = filter_cuda.sosfilt_plain
+    monkeypatch.setattr(filter_cuda, "sosfilt_plain",
+                        lambda *a: calls.append(a[1].shape) or plain(*a))
+    mine = mt.preprocess_trials(trials, FS, tcfg, **CPU).numpy()
+    # the causal envelope filters ragged trials as one padded batch
+    assert len(calls) == (1 if name == "causal" else 0)
+    ref = np.asarray(j_preprocess_trials(trials, FS, jcfg))
+    assert mine.shape == ref.shape == (4, 200, 8)
+    np.testing.assert_allclose(mine, ref, rtol=0, atol=1e-9)
+    if not ragged:  # one (B, N, L) array is the same batch
+        batch = mt.preprocess_trials(np.stack(trials), FS, tcfg, **CPU).numpy()
+        np.testing.assert_allclose(batch, ref, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_pipeline_config_preprocess_matches_jax(name):
+    jcfg, tcfg = _configs(name)
+    mine = tcfg.preprocess(TRIALS[4], FS, **CPU).numpy()
+    np.testing.assert_allclose(mine, np.asarray(jcfg.preprocess(TRIALS[4], FS)),
+                               rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("name, solver", [("rms", "cd"), ("causal", "mu")])
+def test_analyze_dataset_under_rms_and_causal_configs_matches_jax(name, solver):
+    jcfg, tcfg = _configs(name)
+    trials = _emg(4, 2000, seed=43)
+    kw = dict(ranks=RANKS, solver=solver, **FIT)
+    jres = mst.analyze_dataset(trials, FS, config=jcfg, **kw)
+    tres = mt.analyze_dataset(trials, FS, config=tcfg, **kw, **CPU)
+    np.testing.assert_allclose(tres.vaf_overall, jres.vaf_overall, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(tres.h, jres.h, rtol=0, atol=1e-6)
+    first = 1 if solver == "cd" else 0  # see the module docstring
+    np.testing.assert_array_equal(tres.n_iter[first:], jres.n_iter[first:])

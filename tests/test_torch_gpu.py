@@ -8,8 +8,9 @@ with a CUDA card, from the repository root::
 (``--noconftest`` because ``tests/conftest.py`` imports jax, which a
 machine for the port need not have.)
 
-Bars: the filter within 1e-6 x max|y| of the plain float64 version (the
-kernel keeps its state in float64; measured ~6e-8 on the card), solver
+Bars: the filters (zero-phase K3, causal K6) within 1e-6 x max|y| of
+the plain float64 version (the kernels keep their state in float64;
+measured ~6e-8 on the card), solver
 iterates within 1e-3 relative of float64 (``bench.py --check``'s bar;
 measured 2e-6 for MU and 3e-4 for CD after 50 iterations at 1024 x 200
 x 8), the beta and convolutive fits within 10 iterations of where the
@@ -23,8 +24,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from muscle_synergies_tpu_torch import analyze_dataset, analyze_dataset_time_varying  # noqa: E402
+from muscle_synergies_tpu_torch import (  # noqa: E402
+    FilterSpec,
+    NMFModel,
+    PipelineConfig,
+    analyze_dataset,
+    analyze_dataset_time_varying,
+)
 from muscle_synergies_tpu_torch.models import cnmf  # noqa: E402
+from muscle_synergies_tpu_torch.models.batch import rank_sweep_batch  # noqa: E402
 from muscle_synergies_tpu_torch.models.kernels import (  # noqa: E402
     beta_cuda,
     cd_cuda,
@@ -62,6 +70,91 @@ def test_filter_kernel_matches_plain(cuda, padtype, design):
     torch.cuda.synchronize()
     assert _rel(y, ref) < 1e-6
     assert torch.equal(filters.sosfiltfilt(sos, x, padtype=padtype), y)
+
+
+@pytest.mark.parametrize(
+    "design",
+    [dict(order=4, critical_freqs=4.0), dict(order=3, critical_freqs=40.0),
+     dict(order=4, critical_freqs=[20.0, 300.0], band_type="bandpass")],
+)
+def test_causal_filter_kernel_matches_plain(cuda, design):
+    sos = filters.sos_design(sampling_frequency=1000.0, **design)
+    g = torch.Generator().manual_seed(2)
+    x = torch.rand(5, 3001, 8, generator=g).to(cuda)
+    zi = torch.randn(5, len(sos), 2, 8, generator=g).to(cuda)
+    for states in (None, zi):
+        y, zf = filter_cuda.sosfilt_cuda(sos, x, states)
+        ref, ref_zf = filter_cuda.sosfilt_plain(
+            sos, x.double(), None if states is None else states.double())
+        torch.cuda.synchronize()
+        assert _rel(y, ref) < 1e-6 and _rel(zf, ref_zf) < 1e-6
+        assert zf.shape == (5, len(sos), 2, 8) and zf.dtype == torch.float32
+    # "auto" launches the kernel; chunks with carried states equal one pass
+    assert torch.equal(filters.sosfilt(sos, x, zi=zi), y)
+    state, parts = zi, []
+    for start in range(0, 3001, 700):
+        part, state = filters.sosfilt(sos, x[:, start:start + 700], zi=state,
+                                      return_zf=True)
+        parts.append(part)
+    assert _rel(torch.cat(parts, dim=1), y) < 1e-6
+    one, zf1 = filters.sosfilt(sos, x[0, :, 0], zi=zi[0, :, :, 0], return_zf=True)
+    assert torch.equal(one, y[0, :, 0]) and zf1.shape == (len(sos), 2)
+
+
+def test_causal_and_rms_paths_launch_their_kernels(cuda):
+    rng = np.random.default_rng(5)
+    trials = list(np.abs(rng.standard_normal((4, 4000, 8))).astype(np.float32))
+    trials[3] = trials[3][:3000]  # two distinct lengths
+    causal = PipelineConfig(envelope=FilterSpec(zero_lag=False))
+    filter_cuda.launches = filter_cuda.sosfilt_launches = 0
+    res = analyze_dataset(trials, 2000.0, ranks=(1, 2), config=causal, solver="mu",
+                          max_iter=500)
+    # ragged trials filter as one padded batch: one causal launch, no
+    # zero-phase one
+    assert (filter_cuda.sosfilt_launches, filter_cuda.launches) == (1, 0)
+    plain = analyze_dataset(trials, 2000.0, ranks=(1, 2), config=causal, solver="mu",
+                            max_iter=500, impl="torch")
+    assert np.abs(plain.vaf_overall - res.vaf_overall).max() < 1e-3
+    cd_cuda.launches = filter_cuda.sosfilt_launches = 0
+    rms = PipelineConfig(use_rms=True)
+    res = analyze_dataset(trials, 2000.0, ranks=(1, 2), config=rms, max_iter=500)
+    # no filter kernel on the RMS path; the ragged batch is one K2 launch
+    assert cd_cuda.launches == 1
+    assert filter_cuda.sosfilt_launches == filter_cuda.launches == 0
+    cpu = analyze_dataset(trials, 2000.0, ranks=(1, 2), config=rms, max_iter=500,
+                          device="cpu", dtype=torch.float64)
+    assert np.abs(cpu.vaf_overall - res.vaf_overall).max() < 1e-3
+
+
+def test_nmf_model_route_follows_the_shape(cuda):
+    rng = np.random.default_rng(6)
+    small = np.abs(rng.standard_normal((200, 8))).astype(np.float32)
+    big = np.abs(rng.standard_normal((20_000, 8))).astype(np.float32)
+    for mod in (cd_cuda, mu_cuda, beta_cuda):
+        mod.launches = 0
+    kinds = (dict(), dict(solver="mu"), dict(solver="mu", beta_loss="kullback-leibler"))
+    for kw, mod in zip(kinds, (cd_cuda, mu_cuda, beta_cuda)):
+        model = NMFModel(n_components=4, max_iter=300, **kw)
+        w = model.fit_transform(small)
+        assert mod.launches == 1
+        ref = NMFModel(n_components=4, max_iter=300, device="cpu",
+                       dtype=torch.float64, **kw)
+        ref.fit_transform(small.astype(np.float64))
+        assert abs(model.reconstruction_err_ - ref.reconstruction_err_) < (
+            1e-3 * ref.reconstruction_err_)
+        model.transform(small)  # frozen H: plain, no kernel
+        assert mod.launches == 1 and w.shape == (200, 4)
+    before = (cd_cuda.launches, mu_cuda.launches, beta_cuda.launches)
+    # over one block's shared memory: the kernel route refuses before any
+    # launch, and impl="torch" runs the plain fit on the card
+    with pytest.raises(ValueError, match="impl='torch'"):
+        NMFModel(n_components=4, max_iter=50).fit_transform(big)
+    w = NMFModel(n_components=4, max_iter=50, impl="torch").fit_transform(big)
+    assert w.shape == (20_000, 4) and np.isfinite(w).all()
+    assert (cd_cuda.launches, mu_cuda.launches, beta_cuda.launches) == before
+    states, vafs = rank_sweep_batch(torch.as_tensor(small, device=cuda), range(1, 9),
+                                    solver="cd")
+    assert cd_cuda.launches == before[0] + 1 and vafs.shape == (8,)
 
 
 def _problem(cuda, b=256, n=200, l=8, k=4, seed=0):
@@ -224,6 +317,7 @@ def test_main_path_runs_through_every_kernel(cuda):
     mods = (filter_cuda, cd_cuda, mu_cuda, beta_cuda, cnmf_cuda)
     for mod in mods:
         mod.launches = 0
+    filter_cuda.sosfilt_launches = 0
     results = {}
     for solver, loss in (("cd", "frobenius"), ("mu", "frobenius"),
                          ("mu", "kullback-leibler")):
@@ -234,6 +328,7 @@ def test_main_path_runs_through_every_kernel(cuda):
     tv = analyze_dataset_time_varying(trials, 2000.0, n_synergies=2, n_lags=5,
                                       n_inits=2, max_iter=500)
     assert tuple(m.launches for m in mods) == (4, 1, 1, 1, 1)
+    assert filter_cuda.sosfilt_launches == 0  # the default envelope is zero-phase
     for (solver, loss), res in results.items():
         plain = analyze_dataset(trials, 2000.0, ranks=(1, 2, 3), solver=solver,
                                 beta_loss=loss, max_iter=2000, impl="torch")
@@ -254,6 +349,11 @@ def test_wrappers_refuse_what_the_kernels_cannot_run(cuda):
         with pytest.raises(TypeError, match="float32"):
             filters.sosfiltfilt(filters.sos_design(4, 4.0, 1000.0), x.double(),
                                 impl=impl)
+        with pytest.raises(TypeError, match="float32"):
+            filters.sosfilt(filters.sos_design(4, 4.0, 1000.0), x.double(), impl=impl)
+    with pytest.raises(ValueError, match="zi must have shape"):
+        filter_cuda.sosfilt_cuda(filters.sos_design(4, 4.0, 1000.0), x,
+                                 torch.zeros(4, 2, 2, 3, device=cuda))
     with pytest.raises(TypeError, match="float32"):
         analyze_dataset(x.cpu().numpy(), 1000.0, ranks=(1,),
                         device=cuda, dtype=torch.float64)

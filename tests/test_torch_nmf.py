@@ -87,8 +87,8 @@ def test_init_errors():
         tinit.initialize_nmf(x, 9, init="nndsvda")
     with pytest.raises(ValueError, match="Invalid init"):
         tinit.initialize_nmf(x, 2, init="svd")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tinit.initialize_nmf(x, 2, svd_method="randomized")
+    with pytest.raises(ValueError, match="svd_method"):
+        tinit.initialize_nmf(x, 2, svd_method="lanczos")
 
 
 def test_mask_zeroes_padded_rows():
