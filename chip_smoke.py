@@ -5,10 +5,12 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the six hand-written CUDA kernels from the five sources in
+It builds the seven hand-written CUDA kernels from the five sources in
 ``muscle_synergies_tpu_torch/csrc/`` (one ``nvcc`` per source, all
-started together; K3 and K6 share ``sosfiltfilt.cu``) and then, failing
-on the first assertion that does not hold:
+started together; K3 and K6 share ``sosfiltfilt.cu``; K2 has a warp
+entry, one warp per fit, for frames of at most 224 x 16 at rank 8, and
+a block entry, one block per fit, above that) and then, failing on the
+first assertion that does not hold:
 
 1. prints the card and its power limit, and the build time;
 2. K3 ``sosfiltfilt``: 64 trials x 124,460 samples x 8 channels through
@@ -16,11 +18,13 @@ on the first assertion that does not hold:
    and the plain version in float64 on the card (4 of them);
    bar: max abs error <= 5e-4 * max|y|;
 3. K1/K2 fixed iterations (stop compiled out): 50 MU / CD iterations at
-   1024 x 200 x 8, rank 4, kernel in float32 against the plain version
-   in float64; bar: max relative factor error <= 1e-3;
-4. K1/K2 fits against a plain float64 fit on 128 of those problems at
-   tol 1e-4: the median stopping gap must be 0, and the factor error at
-   the kernel's own stopping iteration <= 1e-3;
+   1024 x 200 x 8, rank 4 (K1, K2's warp entry) and at 16 x 2,000 x 8
+   (K2's block entry), kernel in float32 against the plain version in
+   float64; bar: max relative factor error <= 1e-3;
+4. K1/K2 fits against a plain float64 fit on 128 of the 200 x 8
+   problems (K1, K2's warp entry) and the 16 problems of 2,000 x 8
+   (K2's block entry) at tol 1e-4: the median stopping gap must be 0,
+   and the factor error at the kernel's own stopping iteration <= 1e-3;
 5. the main path, ``analyze_dataset`` under the default
    ``PipelineConfig`` on 256 synthetic float32 trials of 124,460 x 8 at
    2000 Hz (ranks 1-4, 1,024 fits), once with ``solver="cd"`` and once
@@ -71,14 +75,18 @@ on the first assertion that does not hold:
     ragged trials: one K6 launch for the padded batch, and 4 of its rows
     within 1e-5 x max of the same trials preprocessed one at a time;
 14. the per-capture API, no pandas: ``NMFModel(n_components=4)`` on one
-    preprocessed 200 x 8 trial (``fit_transform`` through K2, one launch;
-    ``transform``, plain), ``rank_sweep_batch`` over ranks 1-8 on it (one
-    K2 launch); on a 20,000 x 8 frame, over one block's shared memory,
+    preprocessed 200 x 8 trial (``fit_transform`` through K2's warp
+    entry, one launch; ``transform``, plain), ``rank_sweep_batch`` over
+    ranks 1-8 on it (one launch of the warp entry); the same trial
+    resampled to 2,000 x 8 (one launch of K2's block entry, within 1e-3
+    of float64 in reconstruction error); on a 20,000 x 8 frame, over one
+    block's shared memory,
     ``fit_transform`` must raise before any launch, and with
     ``impl="torch"`` runs the plain fit on the card (no counter moves).
 
 Each main path is driven with every launch counter set to 0 just before
-it and read just after.  The script prints each stage's time beside the
+it and read just after; the CD, RMS-CD and ``rank_sweep_batch`` paths
+must take K2's warp entry.  The script prints each stage's time beside the
 card's name and power limit, then one JSON line with every kernel's
 launches on the main paths, its error against the plain version
 (absolute, and relative to the plain result's largest magnitude, which
@@ -236,6 +244,7 @@ class Smoke:
         self.counters = {"sosfiltfilt": (filter_cuda, "launches"),
                          "sosfilt": (filter_cuda, "sosfilt_launches"),
                          "cd_nmf": (cd_cuda, "launches"),
+                         "cd_nmf_warp": (cd_cuda, "warp_launches"),
                          "mu_nmf": (mu_cuda, "launches"),
                          "beta_nmf": (beta_cuda, "launches"),
                          "cnmf": (cnmf_cuda, "launches")}
@@ -319,38 +328,53 @@ class Smoke:
                     (err_plain, err_plain / scale, 5e-4), ms, plain_ms, flops,
                     2 * x.numel() * 4, kind="f64")
 
-    # ---- 3./4. K1 and K2 ----
-    def nmf_phases(self, b=1024, n=200, l=8, k=4, iters=50, fb=128):
+    # ---- 3./4. K1 and K2 (both entries) ----
+    def nmf_phases(self, b=1024, n=200, l=8, k=4, iters=50, fb=128, big_b=16,
+                   big_n=2000):
         from muscle_synergies_tpu_torch.models.hals import cd_pass
         from muscle_synergies_tpu_torch.models.kernels import cd_cuda, mu_cuda
         from muscle_synergies_tpu_torch.models.mu import mu_update
 
         torch, dev, rng = self.torch, self.dev, self.rng
-        xs = torch.from_numpy(rng.random((b, n, l)).astype(np.float32)).to(dev)
-        w0 = torch.from_numpy(np.abs(rng.standard_normal((b, n, k))).astype(np.float32)).to(dev)
-        h0 = torch.from_numpy(np.abs(rng.standard_normal((b, k, l))).astype(np.float32)).to(dev)
-        x64, w64, h64 = xs.double(), w0.double(), h0.double()
+
+        def problem(b_, n_):
+            return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+                rng.random((b_, n_, l)), np.abs(rng.standard_normal((b_, n_, k))),
+                np.abs(rng.standard_normal((b_, k, l))))]
+
+        main, big = problem(b, n), problem(big_b, big_n)
+        # K2's warp entry takes the main paths' frames, its block entry
+        # the larger ones
+        assert cd_cuda.route(n, l, k) == "warp" and cd_cuda.route(big_n, l, k) == "block"
+        cd_replaces = "muscle_synergies_tpu/models/kernels/cd_pallas.py:168"
         fixed = {
             "mu_nmf": (mu_cuda.mu_iterations_cuda, mu_cuda.mu_iterations_plain,
-                       "muscle_synergies_tpu/models/kernels/mu_pallas.py:269"),
+                       "muscle_synergies_tpu/models/kernels/mu_pallas.py:269", main,
+                       (mu_cuda, "launches")),
+            "cd_nmf_warp": (cd_cuda.cd_iterations_cuda, cd_cuda.cd_iterations_plain,
+                            cd_replaces, main, (cd_cuda, "warp_launches")),
             "cd_nmf": (cd_cuda.cd_iterations_cuda, cd_cuda.cd_iterations_plain,
-                       "muscle_synergies_tpu/models/kernels/cd_pallas.py:168"),
+                       cd_replaces, big, (cd_cuda, "launches")),
         }
-        nbytes = 4 * b * (n * l + 2 * (n * k + k * l))
-        for kname, (kern, plain, replaces) in fixed.items():
+        for kname, (kern, plain, replaces, data, (mod, attr)) in fixed.items():
+            xs, w0, h0 = data
+            bb, nn = xs.shape[:2]
+            before = getattr(mod, attr)
             wk, hk = kern(xs, w0, h0, iters)
-            wp, hp = plain(x64, w64, h64, iters)
+            assert getattr(mod, attr) == before + 1, f"{kname} took another entry"
+            wp, hp = plain(xs.double(), w0.double(), h0.double(), iters)
             err = max(rel_err(wk, wp), rel_err(hk, hp))
             ms = cuda_ms(lambda: kern(xs, w0, h0, iters))
             plain_ms = cuda_ms(lambda: plain(xs, w0, h0, iters), reps=3)
-            log(f"{kname}: {iters} iterations at {b}x{n}x{l} k={k}: rel err {err:.3e} "
+            log(f"{kname}: {iters} iterations at {bb}x{nn}x{l} k={k}: rel err {err:.3e} "
                 f"(bar 1e-3); kernel {ms:.3f} ms, plain f32 {plain_ms:.3f} ms")
             assert err <= 1e-3, f"{kname} fixed iterations disagree"
+            extra = {"also_replaces": "muscle_synergies_tpu/models/kernels/cd_pallas.py:248"
+                     } if kname.startswith("cd") else {}
             self.record(kname, replaces, (abs_err([(wk, wp), (hk, hp)]), err, 1e-3),
-                        ms, plain_ms, b * iters * nmf_flops(kname, n, l, k), nbytes)
-
-        fx, fw, fh = xs[:fb], w0[:fb], h0[:fb]
-        fx64, fw64, fh64 = x64[:fb], w64[:fb], h64[:fb]
+                        ms, plain_ms, bb * iters * nmf_flops(kname[:6], nn, l, k),
+                        4 * bb * (nn * l + 2 * (nn * k + k * l)),
+                        source=kname[:6], shape=f"{bb}x{nn}x{l}, k={k}", **extra)
 
         def cd_step(x_, w_, h_):
             w_, _ = cd_pass(x_, w_, h_.transpose(-1, -2))
@@ -358,10 +382,14 @@ class Smoke:
             return w_, ht.transpose(-1, -2)
 
         fits = {
-            "mu_nmf": (mu_cuda.fit_mu_cuda, mu_cuda.fit_mu_plain, mu_update),
-            "cd_nmf": (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain, cd_step),
+            "mu_nmf": (mu_cuda.fit_mu_cuda, mu_cuda.fit_mu_plain, mu_update,
+                       [a[:fb] for a in main]),
+            "cd_nmf_warp": (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain, cd_step,
+                            [a[:fb] for a in main]),
+            "cd_nmf": (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain, cd_step, big),
         }
-        for kname, (kern, plain, step) in fits.items():
+        for kname, (kern, plain, step, (fx, fw, fh)) in fits.items():
+            fx64, fw64, fh64 = fx.double(), fw.double(), fh.double()
             t0 = time.perf_counter()
             sk = kern(fx, fw, fh, max_iter=200, tol=1e-4)
             torch.cuda.synchronize()
@@ -371,9 +399,10 @@ class Smoke:
             hk = sk.h if kname == "mu_nmf" else sk.ht.transpose(-1, -2)
             wr, hr = plain_snapshot(step, fx64, fw64, fh64, sk.n_iter)
             err = max(rel_err(sk.w, wr), rel_err(hk, hr))
-            log(f"{kname}: fit of {fb} at tol 1e-4: stopping gap median "
-                f"{np.median(gap):g} (min {gap.min()}, max {gap.max()}); factor err at "
-                f"the kernel's stop {err:.3e} (bar 1e-3); kernel wall {fit_ms:.2f} ms")
+            log(f"{kname}: fit of {fx.shape[0]}x{fx.shape[1]}x{l} at tol 1e-4: stopping "
+                f"gap median {np.median(gap):g} (min {gap.min()}, max {gap.max()}); "
+                f"factor err at the kernel's stop {err:.3e} (bar 1e-3); kernel wall "
+                f"{fit_ms:.2f} ms")
             assert np.median(gap) == 0, f"{kname} fit stops elsewhere than float64"
             assert err <= 1e-3, f"{kname} fit disagrees"
 
@@ -493,8 +522,11 @@ class Smoke:
                 lambda: analyze_dataset(emg, FS, ranks=(1, 2, 3, 4), config=config,
                                         solver=solver, device="cuda",
                                         dtype=torch.float32))
-            assert counts["sosfiltfilt"] > 0 and counts[f"{solver}_nmf"] > 0, \
+            # the 200 x 8 CD fits take K2's warp entry
+            kname = "cd_nmf_warp" if solver == "cd" else "mu_nmf"
+            assert counts["sosfiltfilt"] > 0 and counts[kname] > 0, \
                 f"a kernel of the {solver} path never ran"
+            assert counts["cd_nmf"] == 0, counts
         log(f"main: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         for solver, res in results.items():
             self.check_rank_sweep(solver, res)
@@ -659,7 +691,7 @@ class Smoke:
         kw = dict(ranks=(1, 2, 3, 4), solver="cd", config=config)
         res, counts = self.main_path("analyze_dataset rms envelope, ragged",
                                      lambda: analyze_dataset(trials, FS, **kw))
-        assert counts["cd_nmf"] > 0, counts
+        assert counts["cd_nmf_warp"] > 0 and counts["cd_nmf"] == 0, counts
         assert counts["sosfiltfilt"] == counts["sosfilt"] == 0, counts
         self.check_rank_sweep("rms", res)
 
@@ -713,8 +745,9 @@ class Smoke:
 
         (model, w, w_t), counts = self.main_path(
             "NMFModel 200x8 fit_transform + transform", fit_and_transform)
-        # the shape rule sends this frame through K2; transform is plain
-        assert counts["cd_nmf"] == 1 and sum(counts.values()) == 1, counts
+        # the shape rule sends this frame through K2's warp entry;
+        # transform is plain
+        assert counts["cd_nmf_warp"] == 1 and sum(counts.values()) == 1, counts
         assert w.shape == w_t.shape == (200, 4) and np.isfinite(w).all()
         assert np.isfinite(w_t).all() and (w_t >= 0).all()
         ref = NMFModel(n_components=4, device="cpu", dtype=torch.float64)
@@ -728,7 +761,7 @@ class Smoke:
         (states, vafs), counts = self.main_path(
             "rank_sweep_batch ranks 1-8, 200x8",
             lambda: rank_sweep_batch(frame, range(1, 9), solver="cd"))
-        assert counts["cd_nmf"] == 1 and sum(counts.values()) == 1, counts
+        assert counts["cd_nmf_warp"] == 1 and sum(counts.values()) == 1, counts
         vafs = vafs.cpu().numpy()
         _, plain = rank_sweep_batch(frame, range(1, 9), solver="cd", impl="torch")
         diff = float(np.abs(plain.cpu().numpy() - vafs).max())
@@ -736,6 +769,25 @@ class Smoke:
             f"on the card max VAF diff {diff:.2e} (bar 1e-3)")
         assert np.isfinite(vafs).all() and (vafs <= 1).all() and diff <= 1e-3
         assert (np.diff(vafs) > -1e-6).all(), "VAF falls with rank"
+
+        # a frame over the warp entry's rows (the envelope resampled to
+        # 2,000 samples, not 200) takes K2's block entry
+        frame2k = preprocess_trials(emg[:1], FS, PipelineConfig(reduce_to=2000))[0]
+
+        def fit_2000():
+            model = NMFModel(n_components=4)
+            return model, model.fit_transform(frame2k)
+
+        (model, w), counts = self.main_path("NMFModel 2,000x8 fit_transform", fit_2000)
+        assert counts["cd_nmf"] == 1 and sum(counts.values()) == 1, counts
+        assert w.shape == (2000, 4) and np.isfinite(w).all()
+        ref = NMFModel(n_components=4, device="cpu", dtype=torch.float64)
+        ref.fit_transform(frame2k.cpu().double())
+        gap = abs(model.reconstruction_err_ - ref.reconstruction_err_) / ref.reconstruction_err_
+        log(f"NMFModel 2,000x8 (block entry): n_iter {model.n_iter_} (float64 on the "
+            f"host {ref.n_iter_}), relative gap in reconstruction error {gap:.2e} "
+            f"(bar 1e-3)")
+        assert gap <= 1e-3, "NMFModel 2,000x8 on the card disagrees with float64"
 
         big = torch.from_numpy(np.abs(emg[0, :20_000])).to(self.dev)
 
@@ -756,6 +808,21 @@ class Smoke:
         assert sum(counts.values()) == 0, counts
         assert w_big.shape == (big.shape[0], 4) and np.isfinite(w_big).all()
         log(f"NMFModel 20,000x8: plain fit on the card, n_iter {m_big.n_iter_}")
+
+    def lone_fit(self, kname, n_iter, fit):
+        """Time the path's longest fit alone on the card: the latency of
+        one fit's iteration, which sets the path's tail."""
+        torch = self.torch
+        i = int(n_iter.argmax())
+        idx = torch.tensor([i], device=n_iter.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lone = fit(idx)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        iters = int(lone.n_iter[0])
+        log(f"stage {kname} longest fit alone ({iters} iterations): {ms:.2f} ms, "
+            f"{ms / iters * 1e3:.3f} us an iteration  [{self.smi}]")
 
     def stage_breakdown(self, emg):
         """Per-stage device times of the Frobenius path (preprocess, init,
@@ -825,8 +892,12 @@ class Smoke:
             states[kname] = stage(f"fit {kname} (kernel, 1024 fits)", fit)
             fit_bound(kname, states[kname].n_iter, n, l, 4,
                       4 * gx.shape[0] * (n * l + 2 * (n * 4 + 4 * l)))
+            medians = states[kname].n_iter.view(len(ranks), -1).float().median(dim=1)
+            log(f"fit {kname}: n_iter median by rank {medians.values.tolist()}")
         st = states["cd_nmf"]
         stage("vaf", lambda: mb.vaf_batch(gx, st.w, st.ht.transpose(-1, -2)))
+        self.lone_fit("cd_nmf", st.n_iter, lambda i: mb.fit_cd_batch(
+            gx[i], gw[i], gh[i], max_iter=config.max_iter, tol=config.tol))
 
         # the time-varying path's own stages: 4 restarts of every trial
         c0, s0 = stage("init cnmf on the host + copy (1024 restarts)",
@@ -838,6 +909,8 @@ class Smoke:
                                           tol=config.tol))
         fit_bound("cnmf", st.n_iter, n, l, 4,
                   4 * gx.shape[0] * (n * l + 2 * (n * 4 + 4 * 10 * l)), d=10)
+        self.lone_fit("cnmf", st.n_iter, lambda i: fit_cnmf_batch(
+            gx[i], c0[i], s0[i], max_iter=config.max_iter, tol=config.tol))
 
         def tv_finish():
             errs = st.previous_error.view(-1, 4)

@@ -1,34 +1,57 @@
-// Batched HALS / coordinate-descent NMF, one thread block per fit.
+// Batched HALS / coordinate-descent NMF: a warp-per-fit entry for the
+// time-normalised frames of the main paths, and a block-per-fit entry
+// for larger frames.
 //
 // Replaces the TPU kernels `cd_iterations_pallas` and `fit_cd_pallas`
 // (muscle_synergies_tpu/models/kernels/cd_pallas.py: _cd_kernel,
-// _fit_cd_kernel, _cd_iteration).  As in mu_nmf.cu, each fit is a
-// thread block with X, W and H in shared memory for the whole solve:
-//   - W pass: H H^T first; then one thread per row of W runs the cyclic
-//     component loop on its row in registers (the rows are independent
-//     given H H^T and X H^T);
-//   - H pass: W^T W and W^T X as block reductions, then one thread per
-//     column of H runs the cyclic component loop on its column;
-//   - the stopping rule runs inside the block (WITH_STOP): a block ends
-//     when its fit converges, the frozen-trial semantics of the batched
-//     reference.
+// _fit_cd_kernel, _cd_iteration).  Both entries compute the same
+// iteration:
+//   - W pass: H H^T first; then the cyclic component loop on each row of
+//     W in registers (the rows are independent given H H^T and X H^T);
+//   - H pass: W^T W and W^T X, then the cyclic component loop on each
+//     column of H;
+//   - the stopping rule inside the fit (WITH_STOP): a fit ends when it
+//     converges, the frozen-trial semantics of the batched reference.
 // Numerics follow models/hals.py (sklearn's _update_cdnmf_fast with
 // shuffle=False): gradient W H H^T - X H^T per component, the projected
 // gradient taken from the column *before* its update, the L2 penalty on
 // the Gram diagonal and the L1 penalty subtracted from X H^T (or W^T X),
 // a Newton step grad / hess clipped at 0, the column left unchanged when
-// hess == 0
-// (which keeps zero-padded rank components exactly 0), and sklearn's
-// stop: the summed |projected gradient| of iteration 1 is the reference,
-// and a fit stops once violation / violation_init <= tol (or the
-// reference is 0).
+// hess == 0 (which keeps zero-padded rank components exactly 0), and
+// sklearn's stop: the summed |projected gradient| of iteration 1 is the
+// reference, and a fit stops once violation / violation_init <= tol (or
+// the reference is 0).  The two entries sum in different orders, so
+// their float32 results differ by rounding.
 //
-// What bounds it on this card: about 36 KFLOP per fit and iteration in
-// float32 on CUDA cores, one divide per coordinate, and the
-// __syncthreads between the passes; device memory is touched only at
-// the start and the end of the solve.
+// Block entry (cd_nmf_f32, any frame whose X, W and H fit one block's
+// shared memory): one block of 128 threads per fit, everything in
+// shared memory.  What bounds it: a fit is ~36 KFLOP an iteration at
+// 200 x 8, rank 4, and the block spends its iteration on a chain of
+// seven __syncthreads (H H^T, the W pass, W^T W and W^T X as 48 warp
+// reductions over 4 warps, the H pass on 8 of 128 threads, a 3-barrier
+// block sum for the violation), so the CD path's rank-1 fits, which run
+// all 100,000 iterations, ran at 7.6 us an iteration alone on an H100
+// (scripts/torch_ab_parent_kernels.py).
+//
+// Warp entry (cd_nmf_warp_f32, N <= CD_WARP_NMAX, L <= CD_WARP_LMAX,
+// k <= CD_WARP_KMAX): one warp per fit, CD_WARP_FITS fits per block, no
+// __syncthreads on the iteration path.  Lane i owns rows i, i + 32, ...
+// (7 a lane at N = 200, the last partly masked) with their X and W in
+// registers; H, H H^T, W^T W and W^T X sit in a per-warp shared slab
+// read as broadcasts, and three __syncwarp order the passes.  Inside an
+// iteration nothing branches on the fit's N, L or k: every loop runs
+// over the padded extents, whose exact zeros change no sum.  W^T W and
+// W^T X are each lane's partial sums over its rows, combined by a
+// reduce-scatter by recursive halving (31 shuffles for 32 values, one
+// value per lane at the end), and the violation is a warp sum.  What
+// bounds it: the dependent chain of one iteration (the cyclic loops,
+// five shuffle rounds per group of 32 values) and, across the ~1,000
+// fits of a main path, the SM's issue rate; device memory is touched
+// only at the start and the end of the solve.
 
 #include "nmf_common.cuh"
+
+// ---------------------------- block entry ----------------------------
 
 // One outer iteration, W pass then H pass.  Returns the summed
 // |projected gradient| of both passes to every thread when WITH_VIOL.
@@ -172,4 +195,273 @@ extern "C" int cd_nmf_f32(const float* x, const float* w0, const float* h0,
   }
   return cd_dispatch<16>(with_stop, x, w0, h0, w, h, n_iter, viol_init,
                          converged, batch, n, l, k, iters, tol, pen, s);
+}
+
+// ---------------------------- warp entry -----------------------------
+
+#define CD_WARP_FITS 4   // fits (warps) per block
+#define CD_WARP_ROWS 7   // rows a lane owns
+#define CD_WARP_NMAX (32 * CD_WARP_ROWS)
+#define CD_WARP_LMAX 16
+#define CD_WARP_KMAX 8
+#define CD_FULL_MASK 0xffffffffu
+
+// One fit's small matrices, row strides KMAX and LMAX, zero-padded.
+template <int KMAX, int LMAX>
+struct __align__(16) CdWarpSlab {
+  float h[KMAX * LMAX];    // H
+  float hht[KMAX * KMAX];  // H H^T
+  float wtw[KMAX * KMAX];  // W^T W
+  float wtx[KMAX * LMAX];  // W^T X
+};
+
+// Reduce-scatter by recursive halving: after the steps O = 16, 8, .., 1
+// lane i holds in a[0] the warp's sum of a[i].  Each step sends half of
+// what is left to the partner lane, 31 shuffles in all.
+template <int O>
+__device__ __forceinline__ void cd_warp_halve(float (&a)[32], int lane) {
+  const bool up = (lane & O) != 0;
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    const float send = up ? a[i] : a[i + O];
+    const float keep = up ? a[i + O] : a[i];
+    a[i] = keep + __shfl_xor_sync(CD_FULL_MASK, send, O);
+  }
+  if constexpr (O > 1) cd_warp_halve<O / 2>(a, lane);
+}
+
+// sklearn's cyclic component loop on one row of W (or column of H):
+// for each component s in order, the gradient sum_j G[j, s] v[j] - c[s]
+// with the penalties, its projected value added to `part`, and the
+// Newton step clipped at 0 unless the Hessian G[s, s] + l2 is 0.  G is
+// in shared memory (KMAX x KMAX), v and c in registers.
+template <int KMAX, bool WITH_VIOL>
+__device__ __forceinline__ void cd_warp_cyclic(float (&v)[KMAX], const float* g,
+                                               const float (&c)[KMAX], float l1,
+                                               float l2, float& part) {
+#pragma unroll
+  for (int s = 0; s < KMAX; ++s) {
+    float grad = 0.0f;
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) {
+      grad += (g[j * KMAX + s] + (j == s ? l2 : 0.0f)) * v[j];
+    }
+    grad -= c[s] - l1;
+    if (WITH_VIOL) part += fabsf(v[s] == 0.0f ? fminf(grad, 0.0f) : grad);
+    const float hess = g[s * KMAX + s] + l2;
+    const float step = fmaxf(v[s] - grad / hess, 0.0f);
+    v[s] = hess != 0.0f ? step : v[s];
+  }
+}
+
+// One outer iteration of one fit on one warp, W pass then H pass.
+// Returns the summed |projected gradient| to every lane when WITH_VIOL.
+//
+// Every loop runs over KMAX components, LMAX columns and all the lane's
+// rows, with no branch on the fit's own k, L or N: the padding (masked
+// rows, columns past L, components past k) holds exact zeros in X, W
+// and H, so it adds exact zeros to every sum, its gradient is the L1
+// penalty (>= 0) on a zero entry, and so it stays 0 and adds 0 to the
+// violation.  The real components sum in the block entry's order, and
+// the compiler schedules the rows' loops together.
+template <int KMAX, int LMAX, bool WITH_VIOL>
+__device__ __forceinline__ float cd_warp_iteration(
+    CdWarpSlab<KMAX, LMAX>& sl, float (&xr)[CD_WARP_ROWS][LMAX],
+    float (&wr)[CD_WARP_ROWS][KMAX], int lane, const NmfPenalty& pen) {
+  float part = 0.0f;
+
+  // ---- H H^T, K*K sums over L ----
+  for (int q = lane; q < KMAX * KMAX; q += 32) {
+    const float* hi = sl.h + (q / KMAX) * LMAX;
+    const float* hj = sl.h + (q % KMAX) * LMAX;
+    float s = 0.0f;
+#pragma unroll
+    for (int m = 0; m < LMAX; ++m) s += hi[m] * hj[m];
+    sl.hht[q] = s;
+  }
+  __syncwarp();
+
+  // ---- W pass on the lane's rows, H fixed ----
+#pragma unroll
+  for (int r = 0; r < CD_WARP_ROWS; ++r) {
+    float xh[KMAX];
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) xh[i] = 0.0f;
+#pragma unroll
+    for (int m = 0; m < LMAX; ++m) {
+#pragma unroll
+      for (int i = 0; i < KMAX; ++i) xh[i] += xr[r][m] * sl.h[i * LMAX + m];
+    }
+    cd_warp_cyclic<KMAX, WITH_VIOL>(wr[r], sl.hht, xh, pen.l1_w, pen.l2_w, part);
+  }
+
+  // ---- W^T W and W^T X: partial sums over the lane's rows, then a
+  // reduce-scatter per group of 32 entries ----
+  constexpr int NWW = KMAX * KMAX;
+  constexpr int NV = NWW + KMAX * LMAX;
+#pragma unroll
+  for (int g = 0; g < (NV + 31) / 32; ++g) {
+    float a[32];
+#pragma unroll
+    for (int v = 0; v < 32; ++v) {
+      const int q = 32 * g + v;
+      float s = 0.0f;
+      if (q < NWW) {
+#pragma unroll
+        for (int r = 0; r < CD_WARP_ROWS; ++r) s += wr[r][q / KMAX] * wr[r][q % KMAX];
+      } else if (q < NV) {
+        const int u = q - NWW;
+#pragma unroll
+        for (int r = 0; r < CD_WARP_ROWS; ++r) s += wr[r][u / LMAX] * xr[r][u % LMAX];
+      }
+      a[v] = s;
+    }
+    cd_warp_halve<16>(a, lane);
+    const int q = 32 * g + lane;
+    if (q < NWW) {
+      sl.wtw[q] = a[0];
+    } else if (q < NV) {
+      sl.wtx[q - NWW] = a[0];
+    }
+  }
+  __syncwarp();
+
+  // ---- H pass on the LMAX columns, W fixed ----
+  if (lane < LMAX) {
+    float hc[KMAX], cc[KMAX];
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) {
+      hc[i] = sl.h[i * LMAX + lane];
+      cc[i] = sl.wtx[i * LMAX + lane];
+    }
+    cd_warp_cyclic<KMAX, WITH_VIOL>(hc, sl.wtw, cc, pen.l1_h, pen.l2_h, part);
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) sl.h[i * LMAX + lane] = hc[i];
+  }
+  __syncwarp();
+  return WITH_VIOL ? nmf_warp_sum(part) : 0.0f;
+}
+
+template <int KMAX, int LMAX, bool WITH_STOP>
+__global__ void __launch_bounds__(32 * CD_WARP_FITS) cd_warp_kernel(
+    const float* __restrict__ x, const float* __restrict__ w0,
+    const float* __restrict__ h0, float* __restrict__ w,
+    float* __restrict__ h, int* __restrict__ n_iter_out,
+    float* __restrict__ viol_init_out, int* __restrict__ converged_out,
+    int batch, int n, int l, int k, int iters, float tol, NmfPenalty pen) {
+  __shared__ CdWarpSlab<KMAX, LMAX> slabs[CD_WARP_FITS];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t fit = (size_t)blockIdx.x * CD_WARP_FITS + warp;
+  if (fit >= (size_t)batch) return;  // whole warps only: no block barrier
+  CdWarpSlab<KMAX, LMAX>& sl = slabs[warp];
+  const float* xf = x + fit * n * l;
+  const float* wf = w0 + fit * n * k;
+  const float* hf = h0 + fit * k * l;
+
+  float xr[CD_WARP_ROWS][LMAX], wr[CD_WARP_ROWS][KMAX];
+#pragma unroll
+  for (int r = 0; r < CD_WARP_ROWS; ++r) {
+    const int row = lane + 32 * r;
+#pragma unroll
+    for (int m = 0; m < LMAX; ++m) {
+      xr[r][m] = row < n && m < l ? xf[row * l + m] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) {
+      wr[r][i] = row < n && i < k ? wf[row * k + i] : 0.0f;
+    }
+  }
+  for (int q = lane; q < KMAX * LMAX; q += 32) {
+    const int i = q / LMAX, m = q % LMAX;
+    sl.h[q] = i < k && m < l ? hf[i * l + m] : 0.0f;
+  }
+  __syncwarp();
+
+  if (WITH_STOP) {
+    int n_iter = 0;
+    float viol_init = 0.0f;
+    bool converged = false;
+    while (n_iter < iters && !converged) {
+      const float viol =
+          cd_warp_iteration<KMAX, LMAX, true>(sl, xr, wr, lane, pen);
+      n_iter += 1;
+      if (n_iter == 1) viol_init = viol;
+      converged = viol_init == 0.0f || viol / viol_init <= tol;
+    }
+    if (lane == 0) {
+      n_iter_out[fit] = n_iter;
+      viol_init_out[fit] = viol_init;
+      converged_out[fit] = converged ? 1 : 0;
+    }
+  } else {
+    for (int t = 0; t < iters; ++t) {
+      cd_warp_iteration<KMAX, LMAX, false>(sl, xr, wr, lane, pen);
+    }
+  }
+
+  float* wo = w + fit * n * k;
+#pragma unroll
+  for (int r = 0; r < CD_WARP_ROWS; ++r) {
+    const int row = lane + 32 * r;
+    if (row < n) {
+#pragma unroll
+      for (int i = 0; i < KMAX; ++i) {
+        if (i < k) wo[row * k + i] = wr[r][i];
+      }
+    }
+  }
+  float* ho = h + fit * k * l;
+  for (int q = lane; q < k * l; q += 32) ho[q] = sl.h[(q / l) * LMAX + q % l];
+}
+
+template <int KMAX, int LMAX>
+static int cd_warp_dispatch(bool with_stop, const float* x, const float* w0,
+                            const float* h0, float* w, float* h, int* n_iter,
+                            float* viol_init, int* converged, int batch, int n,
+                            int l, int k, int iters, float tol, NmfPenalty pen,
+                            cudaStream_t stream) {
+  const int blocks = (batch + CD_WARP_FITS - 1) / CD_WARP_FITS;
+  if (with_stop) {
+    cd_warp_kernel<KMAX, LMAX, true><<<blocks, 32 * CD_WARP_FITS, 0, stream>>>(
+        x, w0, h0, w, h, n_iter, viol_init, converged, batch, n, l, k, iters,
+        tol, pen);
+  } else {
+    cd_warp_kernel<KMAX, LMAX, false><<<blocks, 32 * CD_WARP_FITS, 0, stream>>>(
+        x, w0, h0, w, h, n_iter, viol_init, converged, batch, n, l, k, iters,
+        tol, pen);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The warp entry: cd_nmf_f32's arguments and results, for frames with
+// n <= CD_WARP_NMAX, l <= CD_WARP_LMAX and k <= CD_WARP_KMAX (mirrored
+// by models/kernels/cd_cuda.py: warp_entry); anything else is refused.
+extern "C" int cd_nmf_warp_f32(const float* x, const float* w0,
+                               const float* h0, float* w, float* h,
+                               int* n_iter, float* viol_init, int* converged,
+                               int batch, int n, int l, int k, int iters,
+                               float tol, float l1_w, float l2_w, float l1_h,
+                               float l2_h, int with_stop, void* stream) {
+  if (batch < 1 || n < 1 || l < 1 || k < 1 || n > CD_WARP_NMAX ||
+      l > CD_WARP_LMAX || k > CD_WARP_KMAX || iters < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const NmfPenalty pen = {l1_w, l2_w, l1_h, l2_h};
+  const bool st = with_stop != 0;
+  if (k <= 4) {
+    return l <= 8 ? cd_warp_dispatch<4, 8>(st, x, w0, h0, w, h, n_iter,
+                                           viol_init, converged, batch, n, l,
+                                           k, iters, tol, pen, s)
+                  : cd_warp_dispatch<4, 16>(st, x, w0, h0, w, h, n_iter,
+                                            viol_init, converged, batch, n, l,
+                                            k, iters, tol, pen, s);
+  }
+  return l <= 8 ? cd_warp_dispatch<8, 8>(st, x, w0, h0, w, h, n_iter,
+                                         viol_init, converged, batch, n, l, k,
+                                         iters, tol, pen, s)
+                : cd_warp_dispatch<8, 16>(st, x, w0, h0, w, h, n_iter,
+                                          viol_init, converged, batch, n, l, k,
+                                          iters, tol, pen, s);
 }

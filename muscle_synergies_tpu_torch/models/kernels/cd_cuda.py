@@ -5,6 +5,15 @@ Replaces the TPU kernels ``cd_iterations_pallas`` and ``fit_cd_pallas``
 source serves both: the stopping rule is a template switch, compiled
 out for the fixed-iteration entry point.
 
+The source has two entries, picked by :func:`route` from the frame's
+shape: the warp entry (one warp per fit, X and W rows in registers) for
+frames of at most ``WARP_NMAX`` x ``WARP_LMAX`` at rank ``WARP_KMAX``,
+which covers every time-normalised 200 x 8 frame of the main paths at
+ranks 1-8; the block entry (one block per fit, the fit in shared
+memory) above that; and a refusal before any launch for a frame over
+one block's shared memory.  ``warp_launches`` and ``launches`` count
+the two entries' launches.
+
 :func:`cd_iterations_cuda` and :func:`fit_cd_cuda` take contiguous CUDA
 float32 tensors in the JAX layouts, X ``(B, N, L)``, W ``(B, N, k)``,
 H ``(B, k, L)``, and raise on anything else; :func:`fit_cd_cuda`
@@ -22,7 +31,7 @@ import torch
 
 from ..._build import load
 from ..hals import CDState, cd_pass, fit_cd
-from .mu_cuda import check_shapes
+from .mu_cuda import check_fits, check_shapes
 
 __all__ = [
     "cd_iterations_cuda",
@@ -30,13 +39,29 @@ __all__ = [
     "cd_iterations_plain",
     "fit_cd_plain",
     "launches",
+    "route",
+    "warp_launches",
 ]
 
-launches = 0  # kernel launches since the last reset
+launches = 0  # block-entry launches since the last reset
+warp_launches = 0  # warp-entry launches since the last reset
+# csrc/cd_nmf.cu: CD_WARP_NMAX, CD_WARP_LMAX, CD_WARP_KMAX
+WARP_NMAX, WARP_LMAX, WARP_KMAX = 224, 16, 8
 
 
-def _lib():
-    fn = load("cd_nmf").cd_nmf_f32
+def route(n: int, l: int, k: int) -> str:
+    """K2's entry for fits of ``(n, l)`` frames at rank ``k``: ``"warp"``
+    or ``"block"``; raises ``ValueError`` (naming ``impl='torch'``) when
+    one fit exceeds one block's shared memory."""
+    check_fits("cd_nmf", n, l, k)
+    if n <= WARP_NMAX and l <= WARP_LMAX and k <= WARP_KMAX:
+        return "warp"
+    return "block"
+
+
+def _lib(entry: str):
+    lib = load("cd_nmf")
+    fn = lib.cd_nmf_warp_f32 if entry == "warp" else lib.cd_nmf_f32
     fn.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] * 5
         + [ctypes.c_int] + [ctypes.c_void_p]
@@ -46,16 +71,17 @@ def _lib():
 
 
 def _launch(xs, w0, h0, iters, tol, with_stop, regs=(0.0, 0.0, 0.0, 0.0)):
-    global launches
+    global launches, warp_launches
     check_shapes("cd_nmf", xs, w0, h0)
     xs, w0, h0 = xs.contiguous(), w0.contiguous(), h0.contiguous()
     b, n, l = xs.shape
     k = w0.shape[-1]
+    entry = route(n, l, k)
     w, h = torch.empty_like(w0), torch.empty_like(h0)
     n_iter = torch.zeros(b, dtype=torch.int32, device=xs.device)
     viol_init = torch.zeros(b, dtype=torch.float32, device=xs.device)
     converged = torch.zeros(b, dtype=torch.int32, device=xs.device)
-    err = _lib()(
+    err = _lib(entry)(
         xs.data_ptr(), w0.data_ptr(), h0.data_ptr(), w.data_ptr(),
         h.data_ptr(), n_iter.data_ptr(), viol_init.data_ptr(),
         converged.data_ptr(), b, n, l, k, int(iters), float(tol),
@@ -63,8 +89,11 @@ def _launch(xs, w0, h0, iters, tol, with_stop, regs=(0.0, 0.0, 0.0, 0.0)):
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"cd_nmf kernel launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"cd_nmf {entry} entry launch failed: CUDA error {err}")
+    if entry == "warp":
+        warp_launches += 1
+    else:
+        launches += 1
     return w, h, n_iter, viol_init, converged.bool()
 
 

@@ -5,8 +5,9 @@ Replaces the TPU kernel ``cnmf_iterations_pallas``
 chunked fit driver (``models/cnmf.py:_fit_cnmf_batch_pallas``).  One
 CUDA source serves both entry points: the stopping rule is a template
 switch, compiled out for the fixed-iteration one.  One thread block
-runs one fit with X, C, S and the reconstruction in shared memory; see
-the source.
+runs one fit with X, C, S and the reconstruction in shared memory,
+register-tiled so that one shared-memory load feeds 8 or more
+multiply-adds; see the source.
 
 :func:`cnmf_iterations_cuda` and :func:`fit_cnmf_cuda` take contiguous
 CUDA float32 tensors in the JAX layouts, X ``(B, T, L)``, C
@@ -39,10 +40,18 @@ launches = 0  # kernel launches since the last reset
 
 
 def smem_bytes(t: int, l: int, k: int, d: int) -> int:
-    """Shared memory of one fit (csrc/cnmf.cu ``cnmf_smem_floats``):
-    X and its reconstruction ``(T, L)``, C ``(T, K)`` with odd row
-    strides, S ``(K, D, L)`` and 33 doubles of reduction scratch."""
-    floats = 2 * t * (l | 1) + t * (k | 1) + k * d * l
+    """Shared memory of one fit (csrc/cnmf.cu ``cnmf_smem_floats``): X
+    and its reconstruction ``(T, Lp)`` with ``Lp`` = L rounded up to a
+    power of two of at least 8, C transposed ``(K, T)`` rounded up to 4
+    floats, S ``(K, D, Lp)``, the S update's partial sums (16 floats per
+    (k, d) pair and time slice after the first) and 33 doubles."""
+    lp = 8
+    while lp < l:
+        lp *= 2
+    pairs = k * d
+    groups = min(4, max(1, 128 // pairs))  # csrc/cnmf.cu cnmf_groups
+    floats = 2 * t * lp + (k * t + 3) // 4 * 4 + pairs * lp
+    floats += 16 * (groups - 1) * pairs
     floats += floats & 1
     return 4 * (floats + 2 * 33)
 

@@ -42,6 +42,19 @@ def smem_bytes(n: int, l: int, k: int) -> int:
     return 4 * (n * ((l | 1) + (k | 1)) + 2 * k * l + k * k + 33)
 
 
+def check_fits(name: str, n: int, l: int, k: int, smem_bytes=smem_bytes) -> None:
+    """Raise unless an ``(n, l)`` fit at rank ``k`` fits one block
+    (``smem_bytes`` is the kernel's shared memory per fit)."""
+    if not 1 <= k <= KMAX:
+        raise ValueError(f"{name}: rank {k} outside the kernel's 1..{KMAX}")
+    if smem_bytes(n, l, k) > SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: one fit of {n}x{l} at rank {k} needs "
+            f"{smem_bytes(n, l, k)} bytes of shared memory, over {SMEM_LIMIT}; "
+            "pass impl='torch' for the plain fit on the card, or device='cpu'"
+        )
+
+
 def check_shapes(name: str, xs, w, h, smem_bytes=smem_bytes) -> None:
     """Raise unless the problem fits the kernel's bounds (``smem_bytes``
     is the kernel's shared memory per fit)."""
@@ -55,14 +68,7 @@ def check_shapes(name: str, xs, w, h, smem_bytes=smem_bytes) -> None:
             f"{name}: shapes X {tuple(xs.shape)}, W {tuple(w.shape)}, "
             f"H {tuple(h.shape)} do not match"
         )
-    if not 1 <= k <= KMAX:
-        raise ValueError(f"{name}: rank {k} outside the kernel's 1..{KMAX}")
-    if smem_bytes(n, l, k) > SMEM_LIMIT:
-        raise ValueError(
-            f"{name}: one fit of {n}x{l} at rank {k} needs "
-            f"{smem_bytes(n, l, k)} bytes of shared memory, over {SMEM_LIMIT}; "
-            "pass impl='torch' for the plain fit on the card, or device='cpu'"
-        )
+    check_fits(name, n, l, k, smem_bytes)
 
 
 def _lib():

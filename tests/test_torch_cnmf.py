@@ -224,7 +224,27 @@ def test_kernel_wrapper_refusals_and_bounds():
         tcnmf.cnmf_iterations_batch(x, c, s, 2, impl="pallas")
     st = cnmf_cuda.fit_cnmf_plain(x, c, s, max_iter=30)
     assert torch.equal(st.c, tcnmf.fit_cnmf_batch(x, c, s, max_iter=30).c)
-    # csrc/cnmf.cu's layout: X and X^ (T, 9), C (T, 5), S, 33 doubles
-    assert cnmf_cuda.smem_bytes(200, 8, 4, 10) == 4 * (3600 + 1000 + 320 + 66)
-    assert cnmf_cuda.smem_bytes(200, 8, 4, 10) < 48 * 1024
+    # csrc/cnmf.cu's layout: X and X^ (T, 8), C^T (4, T), S (4, 10, 8),
+    # the S update's partial sums of 2 of its 3 time slices (16 floats
+    # per lag pair), 33 doubles
+    assert cnmf_cuda.smem_bytes(200, 8, 4, 10) == 4 * (3200 + 800 + 320 + 1280 + 66)
+    # at most 28 KB: 8 blocks of the time-varying path on one SM
+    assert cnmf_cuda.smem_bytes(200, 8, 4, 10) <= 227 * 1024 // 8
     assert cnmf_cuda.smem_bytes(4000, 16, 8, 20) > 227 * 1024
+
+
+@pytest.mark.parametrize("shape, floats", [
+    ((200, 16, 8, 200), 2 * 200 * 16 + 1600 + 1600 * 16),  # one time slice
+    ((37, 1, 1, 1), 2 * 37 * 8 + 40 + 8 + 16 * 3),  # L padded to 8, C^T to 4
+    ((200, 12, 2, 16), 2 * 200 * 16 + 400 + 32 * 16 + 16 * 3 * 32),
+])
+def test_kernel_shared_memory_layout(shape, floats):
+    """cnmf_cuda.smem_bytes mirrors csrc/cnmf.cu's cnmf_smem_floats."""
+    assert cnmf_cuda.smem_bytes(*shape) == 4 * (floats + 66)
+
+
+def test_kernel_refusal_threshold():
+    """The wrapper refuses a fit over one block's 227 KB: at L = 8, K = 4,
+    D = 10 the longest trial is 2,822 samples."""
+    assert cnmf_cuda.smem_bytes(2822, 8, 4, 10) <= cnmf_cuda.SMEM_LIMIT
+    assert cnmf_cuda.smem_bytes(2823, 8, 4, 10) > cnmf_cuda.SMEM_LIMIT

@@ -115,11 +115,12 @@ def test_causal_and_rms_paths_launch_their_kernels(cuda):
     plain = analyze_dataset(trials, 2000.0, ranks=(1, 2), config=causal, solver="mu",
                             max_iter=500, impl="torch")
     assert np.abs(plain.vaf_overall - res.vaf_overall).max() < 1e-3
-    cd_cuda.launches = filter_cuda.sosfilt_launches = 0
+    cd_cuda.launches = cd_cuda.warp_launches = filter_cuda.sosfilt_launches = 0
     rms = PipelineConfig(use_rms=True)
     res = analyze_dataset(trials, 2000.0, ranks=(1, 2), config=rms, max_iter=500)
-    # no filter kernel on the RMS path; the ragged batch is one K2 launch
-    assert cd_cuda.launches == 1
+    # no filter kernel on the RMS path; the ragged batch is one launch of
+    # K2's warp entry
+    assert (cd_cuda.warp_launches, cd_cuda.launches) == (1, 0)
     assert filter_cuda.sosfilt_launches == filter_cuda.launches == 0
     cpu = analyze_dataset(trials, 2000.0, ranks=(1, 2), config=rms, max_iter=500,
                           device="cpu", dtype=torch.float64)
@@ -132,29 +133,34 @@ def test_nmf_model_route_follows_the_shape(cuda):
     big = np.abs(rng.standard_normal((20_000, 8))).astype(np.float32)
     for mod in (cd_cuda, mu_cuda, beta_cuda):
         mod.launches = 0
+    cd_cuda.warp_launches = 0
     kinds = (dict(), dict(solver="mu"), dict(solver="mu", beta_loss="kullback-leibler"))
-    for kw, mod in zip(kinds, (cd_cuda, mu_cuda, beta_cuda)):
+    # a 200 x 8 CD fit takes K2's warp entry
+    counters = ((cd_cuda, "warp_launches"), (mu_cuda, "launches"), (beta_cuda, "launches"))
+    for kw, (mod, attr) in zip(kinds, counters):
         model = NMFModel(n_components=4, max_iter=300, **kw)
         w = model.fit_transform(small)
-        assert mod.launches == 1
+        assert getattr(mod, attr) == 1
         ref = NMFModel(n_components=4, max_iter=300, device="cpu",
                        dtype=torch.float64, **kw)
         ref.fit_transform(small.astype(np.float64))
         assert abs(model.reconstruction_err_ - ref.reconstruction_err_) < (
             1e-3 * ref.reconstruction_err_)
         model.transform(small)  # frozen H: plain, no kernel
-        assert mod.launches == 1 and w.shape == (200, 4)
-    before = (cd_cuda.launches, mu_cuda.launches, beta_cuda.launches)
+        assert getattr(mod, attr) == 1 and w.shape == (200, 4)
+    assert cd_cuda.launches == 0
+    before = (cd_cuda.warp_launches, mu_cuda.launches, beta_cuda.launches)
     # over one block's shared memory: the kernel route refuses before any
     # launch, and impl="torch" runs the plain fit on the card
     with pytest.raises(ValueError, match="impl='torch'"):
         NMFModel(n_components=4, max_iter=50).fit_transform(big)
     w = NMFModel(n_components=4, max_iter=50, impl="torch").fit_transform(big)
     assert w.shape == (20_000, 4) and np.isfinite(w).all()
-    assert (cd_cuda.launches, mu_cuda.launches, beta_cuda.launches) == before
+    assert (cd_cuda.warp_launches, mu_cuda.launches, beta_cuda.launches) == before
+    assert cd_cuda.launches == 0
     states, vafs = rank_sweep_batch(torch.as_tensor(small, device=cuda), range(1, 9),
                                     solver="cd")
-    assert cd_cuda.launches == before[0] + 1 and vafs.shape == (8,)
+    assert cd_cuda.warp_launches == before[0] + 1 and vafs.shape == (8,)
 
 
 def _problem(cuda, b=256, n=200, l=8, k=4, seed=0):
@@ -200,12 +206,72 @@ def test_padded_rank_components_stay_zero(cuda):
     h[:, 2:] = 0
     st = mu_cuda.fit_mu_cuda(x, w, h, max_iter=100)
     assert (st.w[..., 2:] == 0).all() and (st.h[:, 2:] == 0).all()
-    st = cd_cuda.fit_cd_cuda(x, w, h, max_iter=100)
-    assert (st.w[..., 2:] == 0).all() and (st.ht[..., 2:] == 0).all()
+    # K2's warp entry at 200 x 8, its block entry at 300 x 8, with and
+    # without penalties
+    xb, wb, hb = _problem(cuda, b=8, n=300)
+    wb[..., 2:] = 0
+    hb[:, 2:] = 0
+    for args, entry in (((x, w, h), "warp"), ((xb, wb, hb), "block")):
+        assert cd_cuda.route(*args[0].shape[1:], 4) == entry
+        for regs in ({}, REGS):
+            st = cd_cuda.fit_cd_cuda(*args, max_iter=100, **regs)
+            assert (st.w[..., 2:] == 0).all() and (st.ht[..., 2:] == 0).all()
+            assert (st.w[..., :2] > 0).any()
     for beta in (1.0, 0.0, 0.5, 1.5, 3.0):
         st = beta_cuda.fit_beta_cuda(x + 0.01, w, h, beta=beta, max_iter=100)
         assert (st.w[..., 2:] == 0).all() and (st.h[:, 2:] == 0).all()
         assert (st.w[..., :2] > 0).any()
+
+
+@pytest.mark.parametrize("l", [1, 8, 16])
+@pytest.mark.parametrize("k", [1, 4, 5, 8])
+@pytest.mark.parametrize("n", [1, 31, 33, 200, cd_cuda.WARP_NMAX])
+def test_cd_warp_entry_matches_plain_float64(cuda, n, k, l):
+    """K2's warp entry (rows strided over the lanes, the last row of a
+    lane masked when 32 does not divide N) against float64, with and
+    without the penalties.
+
+    Unpenalized CD from a random start is ill-conditioned where k >
+    min(N, L) (and near it): there the plain float32 version itself ends
+    up to ~1 away from float64 after 20 iterations, so the kernel is held
+    to 1e-3 or to ten times the plain float32 version's own distance,
+    whichever is larger.  With the penalties every shape is
+    well-conditioned and the bar is 1e-3."""
+    assert cd_cuda.route(n, l, k) == "warp"
+    x, w, h = _problem(cuda, b=16, n=n, l=l, k=k, seed=n + 10 * k + 100 * l)
+    args64 = (x.double(), w.double(), h.double())
+    before = (cd_cuda.warp_launches, cd_cuda.launches)
+    wk, hk = cd_cuda.cd_iterations_cuda(x, w, h, 20)
+    wp, hp = cd_cuda.cd_iterations_plain(*args64, 20)
+    w32, h32 = cd_cuda.cd_iterations_plain(x, w, h, 20)
+    bar = max(1e-3, 10 * max(_rel(w32, wp), _rel(h32, hp)))
+    assert _rel(wk, wp) < bar and _rel(hk, hp) < bar
+    sk = cd_cuda.fit_cd_cuda(x, w, h, max_iter=20, tol=-1.0, **REGS)
+    sp = cd_cuda.fit_cd_plain(*args64, max_iter=20, tol=-1.0, **REGS)
+    assert _rel(sk.w, sp.w) < 1e-3 and _rel(sk.ht, sp.ht) < 1e-3
+    assert torch.allclose(sk.violation_init.double(), sp.violation_init, rtol=1e-3)
+    assert (cd_cuda.warp_launches, cd_cuda.launches) == (before[0] + 2, before[1])
+
+
+@pytest.mark.parametrize("n, k", [(33, 1), (200, 4), (200, 8), (cd_cuda.WARP_NMAX, 5),
+                                  (cd_cuda.WARP_NMAX + 1, 4), (2000, 4)])
+def test_cd_entries_stop_where_float64_stops(cuda, n, k):
+    """Both K2 entries, each side of the warp limit: the median stopping
+    gap against a float64 fit is 0."""
+    entry = "warp" if n <= cd_cuda.WARP_NMAX else "block"
+    assert cd_cuda.route(n, 8, k) == entry
+    x, w, h = _problem(cuda, b=64 if n < 1000 else 16, n=n, k=k, seed=n + k)
+    counter = "warp_launches" if entry == "warp" else "launches"
+    before = getattr(cd_cuda, counter)
+    sk = cd_cuda.fit_cd_cuda(x, w, h, max_iter=200, tol=1e-4)
+    sp = cd_cuda.fit_cd_plain(x.double(), w.double(), h.double(), max_iter=200, tol=1e-4)
+    assert getattr(cd_cuda, counter) == before + 1
+    gap = (sk.n_iter - sp.n_iter).cpu().numpy()
+    assert np.median(gap) == 0
+    if entry == "block":
+        wk, hk = cd_cuda.cd_iterations_cuda(x, w, h, 50)
+        wp, hp = cd_cuda.cd_iterations_plain(x.double(), w.double(), h.double(), 50)
+        assert _rel(wk, wp) < 1e-3 and _rel(hk, hp) < 1e-3
 
 
 # one beta per kernel kind (KL, IS, generic) and per damping branch
@@ -268,15 +334,16 @@ def test_penalized_fits_match_plain_float64(cuda, kind):
 def test_auto_takes_the_kernel_with_penalties(cuda, solver, loss):
     rng = np.random.default_rng(4)
     trials = np.abs(rng.standard_normal((4, 4000, 8))).astype(np.float32)
-    mod = {"cd": cd_cuda, "mu": mu_cuda, "kullback-leibler": beta_cuda}[
+    mod, attr = {"cd": (cd_cuda, "warp_launches"), "mu": (mu_cuda, "launches"),
+                 "kullback-leibler": (beta_cuda, "launches")}[
         loss if loss != "frobenius" else solver]
     kw = dict(ranks=(1, 2), solver=solver, beta_loss=loss, max_iter=500,
               alpha_W=0.01, alpha_H=0.02, l1_ratio=0.5)
-    before = mod.launches
+    before = getattr(mod, attr)
     res = analyze_dataset(trials, 2000.0, **kw)
-    assert mod.launches == before + 1
+    assert getattr(mod, attr) == before + 1
     plain = analyze_dataset(trials, 2000.0, impl="torch", **kw)
-    assert mod.launches == before + 1
+    assert getattr(mod, attr) == before + 1
     assert np.abs(plain.vaf_overall - res.vaf_overall).max() < 1e-3
 
 
@@ -299,6 +366,21 @@ def test_cnmf_fixed_iterations_match_plain_float64(cuda):
     assert _rel(c1, c2) < 1e-3 and _rel(s1, s2) < 1e-3
 
 
+@pytest.mark.parametrize("l", [1, 8, 16])
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("d", [1, 10, "T"])
+def test_cnmf_shapes_match_plain_float64(cuda, d, k, l):
+    """K5's register tiles, swizzled rows and time-split S update at
+    T = 37 and 200 (neither a multiple of the 128 threads), one lag to T
+    lags (one time slice of the S update when K*D > 64)."""
+    for t in (37, 200):
+        dd = t if d == "T" else d
+        x, c, s = _cnmf_problem(cuda, b=4, t=t, l=l, k=k, d=dd)
+        ck, sk = cnmf_cuda.cnmf_iterations_cuda(x, c, s, 10)
+        cp, sp = cnmf_cuda.cnmf_iterations_plain(x.double(), c.double(), s.double(), 10)
+        assert _rel(ck, cp) < 1e-3 and _rel(sk, sp) < 1e-3, (t, dd)
+
+
 def test_cnmf_fits_stop_where_float64_stops(cuda):
     x, c, s = _cnmf_problem(cuda, b=128)
     sk = cnmf_cuda.fit_cnmf_cuda(x, c, s, max_iter=1000, tol=1e-4)
@@ -317,7 +399,7 @@ def test_main_path_runs_through_every_kernel(cuda):
     mods = (filter_cuda, cd_cuda, mu_cuda, beta_cuda, cnmf_cuda)
     for mod in mods:
         mod.launches = 0
-    filter_cuda.sosfilt_launches = 0
+    filter_cuda.sosfilt_launches = cd_cuda.warp_launches = 0
     results = {}
     for solver, loss in (("cd", "frobenius"), ("mu", "frobenius"),
                          ("mu", "kullback-leibler")):
@@ -327,7 +409,9 @@ def test_main_path_runs_through_every_kernel(cuda):
             max_iter=2000)
     tv = analyze_dataset_time_varying(trials, 2000.0, n_synergies=2, n_lags=5,
                                       n_inits=2, max_iter=500)
-    assert tuple(m.launches for m in mods) == (4, 1, 1, 1, 1)
+    # the 200 x 8 CD fits take K2's warp entry, not its block entry
+    assert tuple(m.launches for m in mods) == (4, 0, 1, 1, 1)
+    assert cd_cuda.warp_launches == 1
     assert filter_cuda.sosfilt_launches == 0  # the default envelope is zero-phase
     for (solver, loss), res in results.items():
         plain = analyze_dataset(trials, 2000.0, ranks=(1, 2, 3), solver=solver,

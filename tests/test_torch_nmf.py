@@ -225,3 +225,24 @@ def test_kernel_shape_bounds():
     assert mu_cuda.smem_bytes(200, 8, 4) == 4 * (200 * (9 + 5) + 64 + 16 + 33)
     assert mu_cuda.smem_bytes(200, 8, 4) < 48 * 1024
     assert mu_cuda.smem_bytes(4000, 64, 16) > mu_cuda.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+def test_cd_kernel_takes_the_warp_entry_at_200x8(k):
+    """Every rank of rank_sweep_batch over 1-8 on a time-normalised frame
+    fits K2's warp entry (csrc/cd_nmf.cu CD_WARP_NMAX/LMAX/KMAX)."""
+    assert cd_cuda.route(200, 8, k) == "warp"
+
+
+def test_cd_kernel_routes_around_the_warp_limits():
+    n, l, k = cd_cuda.WARP_NMAX, cd_cuda.WARP_LMAX, cd_cuda.WARP_KMAX
+    assert (n, l, k) == (224, 16, 8)
+    assert cd_cuda.route(n, l, k) == "warp"
+    assert cd_cuda.route(n + 1, 8, 4) == "block"
+    assert cd_cuda.route(200, l + 1, 4) == "block"
+    assert cd_cuda.route(200, 8, k + 1) == "block"
+    assert cd_cuda.route(2000, 8, 4) == "block"
+    with pytest.raises(ValueError, match="impl='torch'"):
+        cd_cuda.route(20_000, 8, 4)
+    with pytest.raises(ValueError, match="rank"):
+        cd_cuda.route(200, 8, 17)
