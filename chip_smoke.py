@@ -5,12 +5,12 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the seven hand-written CUDA kernels from the five sources in
+It builds the nine hand-written CUDA kernels from the five sources in
 ``muscle_synergies_tpu_torch/csrc/`` (one ``nvcc`` per source, all
-started together; K3 and K6 share ``sosfiltfilt.cu``; K2 has a warp
-entry, one warp per fit, for frames of at most 224 x 16 at rank 8, and
-a block entry, one block per fit, above that) and then, failing on the
-first assertion that does not hold:
+started together; K3 and K6 share ``sosfiltfilt.cu``; K1, K2 and K4
+each have a warp entry, one warp per fit, for frames of at most 224 x
+16 at rank 8, and a block entry, one block per fit, above that) and
+then, failing on the first assertion that does not hold:
 
 1. prints the card and its power limit, and the build time;
 2. K3 ``sosfiltfilt``: 64 trials x 124,460 samples x 8 channels through
@@ -18,13 +18,13 @@ first assertion that does not hold:
    and the plain version in float64 on the card (4 of them);
    bar: max abs error <= 5e-4 * max|y|;
 3. K1/K2 fixed iterations (stop compiled out): 50 MU / CD iterations at
-   1024 x 200 x 8, rank 4 (K1, K2's warp entry) and at 16 x 2,000 x 8
-   (K2's block entry), kernel in float32 against the plain version in
-   float64; bar: max relative factor error <= 1e-3;
+   1024 x 200 x 8, rank 4 (K1's and K2's warp entries) and at 16 x 2,000
+   x 8 (their block entries), kernel in float32 against the plain
+   version in float64; bar: max relative factor error <= 1e-3;
 4. K1/K2 fits against a plain float64 fit on 128 of the 200 x 8
-   problems (K1, K2's warp entry) and the 16 problems of 2,000 x 8
-   (K2's block entry) at tol 1e-4: the median stopping gap must be 0,
-   and the factor error at the kernel's own stopping iteration <= 1e-3;
+   problems (the warp entries) and the 16 problems of 2,000 x 8 (the
+   block entries) at tol 1e-4: the median stopping gap must be 0, and
+   the factor error at the kernel's own stopping iteration <= 1e-3;
 5. the main path, ``analyze_dataset`` under the default
    ``PipelineConfig`` on 256 synthetic float32 trials of 124,460 x 8 at
    2000 Hz (ranks 1-4, 1,024 fits), once with ``solver="cd"`` and once
@@ -32,12 +32,15 @@ first assertion that does not hold:
    VAF be finite and <= 1, the mean VAF rise from rank 1 to 4, and a
    16-trial subset match ``impl="torch"`` to VAF 1e-3;
 6. K4 fixed iterations: 50 beta-MU iterations at 1024 x 200 x 8, rank
-   4, on strictly positive X, for beta = 1 (KL), 0 (Itakura-Saito) and
-   1.5 (the generic kind), kernel in float32 against the plain version
-   in float64; bar: max relative factor error <= 1e-3;
-7. K4 fits: 128 problems at tol 1e-4, max_iter 200, beta = 1 and 0,
-   against a plain float64 fit: |median stopping gap| <= 10 iterations
-   and the factor error at the kernel's own stop <= 2e-3;
+   4, on strictly positive X, for beta = 1 (KL) and 0 (Itakura-Saito) on
+   the warp entry and 1.5 (the generic kind) on the block entry, and 50
+   KL iterations at 16 x 2,000 x 8 on the block entry, kernel in float32
+   against the plain version in float64; bar: max relative factor error
+   <= 1e-3;
+7. K4 fits: 128 problems at tol 1e-4, max_iter 200, beta = 1 and 0
+   (warp entry), and the 16 problems of 2,000 x 8 at beta = 1 (block
+   entry), against a plain float64 fit: |median stopping gap| <= 10
+   iterations and the factor error at the kernel's own stop <= 2e-3;
 8. K5: 20 convolutive iterations at 1024 x 200 x 8, K = 4, D = 10,
    against the plain version in float64 (bar 1e-3); then 128 fits at
    tol 1e-4 against float64: |median gap| <= 10, error at the
@@ -78,15 +81,17 @@ first assertion that does not hold:
     preprocessed 200 x 8 trial (``fit_transform`` through K2's warp
     entry, one launch; ``transform``, plain), ``rank_sweep_batch`` over
     ranks 1-8 on it (one launch of the warp entry); the same trial
-    resampled to 2,000 x 8 (one launch of K2's block entry, within 1e-3
-    of float64 in reconstruction error); on a 20,000 x 8 frame, over one
-    block's shared memory,
-    ``fit_transform`` must raise before any launch, and with
-    ``impl="torch"`` runs the plain fit on the card (no counter moves).
+    resampled to 2,000 x 8 through ``NMFModel`` with the CD, MU and KL
+    solvers (one launch each of K2's, K1's and K4's block entries, each
+    within 1e-3 of float64 in reconstruction error); on a 20,000 x 8
+    frame, over one block's shared memory, ``fit_transform`` must raise
+    before any launch, and with ``impl="torch"`` runs the plain fit on
+    the card (no counter moves).
 
 Each main path is driven with every launch counter set to 0 just before
 it and read just after; the CD, RMS-CD and ``rank_sweep_batch`` paths
-must take K2's warp entry.  The script prints each stage's time beside the
+must take K2's warp entry, the MU and causal paths K1's and the KL path
+K4's, never a block entry.  The script prints each stage's time beside the
 card's name and power limit, then one JSON line with every kernel's
 launches on the main paths, its error against the plain version
 (absolute, and relative to the plain result's largest magnitude, which
@@ -246,7 +251,9 @@ class Smoke:
                          "cd_nmf": (cd_cuda, "launches"),
                          "cd_nmf_warp": (cd_cuda, "warp_launches"),
                          "mu_nmf": (mu_cuda, "launches"),
+                         "mu_nmf_warp": (mu_cuda, "warp_launches"),
                          "beta_nmf": (beta_cuda, "launches"),
+                         "beta_nmf_warp": (beta_cuda, "warp_launches"),
                          "cnmf": (cnmf_cuda, "launches")}
         self.launches = {name: 0 for name in self.counters}
 
@@ -343,14 +350,17 @@ class Smoke:
                 np.abs(rng.standard_normal((b_, k, l))))]
 
         main, big = problem(b, n), problem(big_b, big_n)
-        # K2's warp entry takes the main paths' frames, its block entry
+        # the warp entries take the main paths' frames, the block entries
         # the larger ones
-        assert cd_cuda.route(n, l, k) == "warp" and cd_cuda.route(big_n, l, k) == "block"
+        for mod in (cd_cuda, mu_cuda):
+            assert mod.route(n, l, k) == "warp" and mod.route(big_n, l, k) == "block"
         cd_replaces = "muscle_synergies_tpu/models/kernels/cd_pallas.py:168"
+        mu_replaces = "muscle_synergies_tpu/models/kernels/mu_pallas.py:269"
         fixed = {
+            "mu_nmf_warp": (mu_cuda.mu_iterations_cuda, mu_cuda.mu_iterations_plain,
+                            mu_replaces, main, (mu_cuda, "warp_launches")),
             "mu_nmf": (mu_cuda.mu_iterations_cuda, mu_cuda.mu_iterations_plain,
-                       "muscle_synergies_tpu/models/kernels/mu_pallas.py:269", main,
-                       (mu_cuda, "launches")),
+                       mu_replaces, big, (mu_cuda, "launches")),
             "cd_nmf_warp": (cd_cuda.cd_iterations_cuda, cd_cuda.cd_iterations_plain,
                             cd_replaces, main, (cd_cuda, "warp_launches")),
             "cd_nmf": (cd_cuda.cd_iterations_cuda, cd_cuda.cd_iterations_plain,
@@ -369,8 +379,8 @@ class Smoke:
             log(f"{kname}: {iters} iterations at {bb}x{nn}x{l} k={k}: rel err {err:.3e} "
                 f"(bar 1e-3); kernel {ms:.3f} ms, plain f32 {plain_ms:.3f} ms")
             assert err <= 1e-3, f"{kname} fixed iterations disagree"
-            extra = {"also_replaces": "muscle_synergies_tpu/models/kernels/cd_pallas.py:248"
-                     } if kname.startswith("cd") else {}
+            extra = {"also_replaces": "muscle_synergies_tpu/models/kernels/" + (
+                "cd_pallas.py:248" if kname.startswith("cd") else "mu_pallas.py:205")}
             self.record(kname, replaces, (abs_err([(wk, wp), (hk, hp)]), err, 1e-3),
                         ms, plain_ms, bb * iters * nmf_flops(kname[:6], nn, l, k),
                         4 * bb * (nn * l + 2 * (nn * k + k * l)),
@@ -382,8 +392,9 @@ class Smoke:
             return w_, ht.transpose(-1, -2)
 
         fits = {
-            "mu_nmf": (mu_cuda.fit_mu_cuda, mu_cuda.fit_mu_plain, mu_update,
-                       [a[:fb] for a in main]),
+            "mu_nmf_warp": (mu_cuda.fit_mu_cuda, mu_cuda.fit_mu_plain, mu_update,
+                            [a[:fb] for a in main]),
+            "mu_nmf": (mu_cuda.fit_mu_cuda, mu_cuda.fit_mu_plain, mu_update, big),
             "cd_nmf_warp": (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain, cd_step,
                             [a[:fb] for a in main]),
             "cd_nmf": (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain, cd_step, big),
@@ -396,7 +407,7 @@ class Smoke:
             fit_ms = (time.perf_counter() - t0) * 1e3
             sp = plain(fx64, fw64, fh64, max_iter=200, tol=1e-4)
             gap = (sk.n_iter - sp.n_iter).cpu().numpy()
-            hk = sk.h if kname == "mu_nmf" else sk.ht.transpose(-1, -2)
+            hk = sk.h if kname.startswith("mu") else sk.ht.transpose(-1, -2)
             wr, hr = plain_snapshot(step, fx64, fw64, fh64, sk.n_iter)
             err = max(rel_err(sk.w, wr), rel_err(hk, hr))
             log(f"{kname}: fit of {fx.shape[0]}x{fx.shape[1]}x{l} at tol 1e-4: stopping "
@@ -406,45 +417,68 @@ class Smoke:
             assert np.median(gap) == 0, f"{kname} fit stops elsewhere than float64"
             assert err <= 1e-3, f"{kname} fit disagrees"
 
-    # ---- 6./7. K4 ----
-    def beta_phases(self, b=1024, n=200, l=8, k=4, iters=50, fb=128):
+    # ---- 6./7. K4 (both entries) ----
+    def beta_phases(self, b=1024, n=200, l=8, k=4, iters=50, fb=128, big_b=16,
+                    big_n=2000):
         from muscle_synergies_tpu_torch.models.beta import mu_update_beta
         from muscle_synergies_tpu_torch.models.kernels import beta_cuda
 
         torch, dev, rng = self.torch, self.dev, self.rng
-        # strictly positive X: beta <= 0 refuses zeros
-        xs = torch.from_numpy(rng.random((b, n, l)).astype(np.float32) + 0.05).to(dev)
-        w0 = torch.from_numpy(np.abs(rng.standard_normal((b, n, k))).astype(np.float32)).to(dev)
-        h0 = torch.from_numpy(np.abs(rng.standard_normal((b, k, l))).astype(np.float32)).to(dev)
-        x64, w64, h64 = xs.double(), w0.double(), h0.double()
-        nbytes = 4 * b * (n * l + 2 * (n * k + k * l))
-        times = {}
-        for beta in (1.0, 0.0, 1.5):
+
+        def problem(b_, n_):
+            # strictly positive X: beta <= 0 refuses zeros
+            return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+                rng.random((b_, n_, l)) + 0.05,
+                np.abs(rng.standard_normal((b_, n_, k))),
+                np.abs(rng.standard_normal((b_, k, l))))]
+
+        main, big = problem(b, n), problem(big_b, big_n)
+
+        def fixed(data, beta, counter):
+            xs, w0, h0 = data
             t0 = time.perf_counter()
+            before = getattr(beta_cuda, counter)
             wk, hk = beta_cuda.beta_iterations_cuda(xs, w0, h0, iters, beta)
-            wp, hp = beta_cuda.beta_iterations_plain(x64, w64, h64, iters, beta)
+            assert getattr(beta_cuda, counter) == before + 1, "beta_nmf took another entry"
+            wp, hp = beta_cuda.beta_iterations_plain(xs.double(), w0.double(), h0.double(),
+                                                     iters, beta)
             err = max(rel_err(wk, wp), rel_err(hk, hp))
             ms = cuda_ms(lambda: beta_cuda.beta_iterations_cuda(xs, w0, h0, iters, beta))
             plain_ms = cuda_ms(lambda: beta_cuda.beta_iterations_plain(xs, w0, h0, iters,
                                                                         beta), reps=3)
-            times[beta] = (ms, plain_ms, abs_err([(wk, wp), (hk, hp)]), err)
-            log(f"beta_nmf: {iters} iterations at {b}x{n}x{l} k={k}, beta={beta:g}: "
-                f"rel err {err:.3e} (bar 1e-3); kernel {ms:.3f} ms, plain f32 "
-                f"{plain_ms:.3f} ms")
-            self.stage(f"K4 fixed beta={beta:g}", time.perf_counter() - t0)
+            log(f"beta_nmf ({counter}): {iters} iterations at {xs.shape[0]}x{xs.shape[1]}x"
+                f"{l} k={k}, beta={beta:g}: rel err {err:.3e} (bar 1e-3); kernel "
+                f"{ms:.3f} ms, plain f32 {plain_ms:.3f} ms")
+            self.stage(f"K4 fixed beta={beta:g} {xs.shape[0]}x{xs.shape[1]}",
+                       time.perf_counter() - t0)
             assert err <= 1e-3, f"beta_nmf fixed iterations disagree at beta={beta}"
-        # the main path runs KL: its row carries the KL numbers
-        ms, plain_ms, a_err, r_err = times[1.0]
-        self.record("beta_nmf",
-                    "muscle_synergies_tpu/models/kernels/beta_pallas.py:231",
-                    (a_err, r_err, 1e-3), ms, plain_ms,
-                    b * iters * nmf_flops("beta_nmf_kl", n, l, k), nbytes,
-                    also_replaces="muscle_synergies_tpu/models/kernels/beta_pallas.py:292",
-                    ms_by_beta={f"{bt:g}": v[0] for bt, v in times.items()})
+            return ms, plain_ms, abs_err([(wk, wp), (hk, hp)]), err
 
-        fx, fw, fh = xs[:fb], w0[:fb], h0[:fb]
-        fx64, fw64, fh64 = x64[:fb], w64[:fb], h64[:fb]
-        for beta in (1.0, 0.0):
+        # the warp entry takes KL and IS at the main paths' frames, the
+        # block entry a run-time beta and KL's larger frames
+        assert beta_cuda.route(n, l, k, 1.0) == beta_cuda.route(n, l, k, 0.0) == "warp"
+        assert beta_cuda.route(n, l, k, 1.5) == beta_cuda.route(big_n, l, k, 1.0) == "block"
+        times = {beta: fixed(main, beta, "warp_launches") for beta in (1.0, 0.0)}
+        generic = fixed(main, 1.5, "launches")
+        replaces = "muscle_synergies_tpu/models/kernels/beta_pallas.py:231"
+        also = "muscle_synergies_tpu/models/kernels/beta_pallas.py:292"
+        # the main path runs KL: the warp entry's row carries the KL numbers
+        ms, plain_ms, a_err, r_err = times[1.0]
+        self.record("beta_nmf_warp", replaces, (a_err, r_err, 1e-3), ms, plain_ms,
+                    b * iters * nmf_flops("beta_nmf_kl", n, l, k),
+                    4 * b * (n * l + 2 * (n * k + k * l)), source="beta_nmf",
+                    also_replaces=also, shape=f"{b}x{n}x{l}, k={k}",
+                    ms_by_beta={f"{bt:g}": v[0] for bt, v in times.items()})
+        ms, plain_ms, a_err, r_err = fixed(big, 1.0, "launches")
+        self.record("beta_nmf", replaces, (a_err, r_err, 1e-3), ms, plain_ms,
+                    big_b * iters * nmf_flops("beta_nmf_kl", big_n, l, k),
+                    4 * big_b * (big_n * l + 2 * (big_n * k + k * l)),
+                    also_replaces=also, shape=f"{big_b}x{big_n}x{l}, k={k}, KL",
+                    ms_beta_1_5_at_main_shape=generic[0])
+
+        for beta, (fx, fw, fh) in ((1.0, [a[:fb] for a in main]),
+                                   (0.0, [a[:fb] for a in main]), (1.0, big)):
+            fx64, fw64, fh64 = fx.double(), fw.double(), fh.double()
             t0 = time.perf_counter()
             sk = beta_cuda.fit_beta_cuda(fx, fw, fh, beta=beta, max_iter=200, tol=1e-4)
             torch.cuda.synchronize()
@@ -455,11 +489,12 @@ class Smoke:
             wr, hr = plain_snapshot(lambda x_, w_, h_: mu_update_beta(x_, w_, h_, beta),
                                     fx64, fw64, fh64, sk.n_iter)
             err = max(rel_err(sk.w, wr), rel_err(sk.h, hr))
-            log(f"beta_nmf: fit of {fb} at tol 1e-4, beta={beta:g}: stopping gap "
+            shape = f"{fx.shape[0]}x{fx.shape[1]}x{l}"
+            log(f"beta_nmf: fit of {shape} at tol 1e-4, beta={beta:g}: stopping gap "
                 f"median {np.median(gap):g} (min {gap.min()}, max {gap.max()}); "
                 f"n_iter median {float(sk.n_iter.float().median()):g}; factor err at "
                 f"the kernel's stop {err:.3e} (bar 2e-3); kernel wall {fit_ms:.2f} ms")
-            self.stage(f"K4 fits beta={beta:g}", time.perf_counter() - t0)
+            self.stage(f"K4 fits beta={beta:g} {shape}", time.perf_counter() - t0)
             assert abs(np.median(gap)) <= 10, "beta_nmf fit stops far from float64"
             assert err <= 2e-3, "beta_nmf fit disagrees"
 
@@ -522,11 +557,11 @@ class Smoke:
                 lambda: analyze_dataset(emg, FS, ranks=(1, 2, 3, 4), config=config,
                                         solver=solver, device="cuda",
                                         dtype=torch.float32))
-            # the 200 x 8 CD fits take K2's warp entry
-            kname = "cd_nmf_warp" if solver == "cd" else "mu_nmf"
+            # the 200 x 8 fits take the warp entries, never a block entry
+            kname = "cd_nmf_warp" if solver == "cd" else "mu_nmf_warp"
             assert counts["sosfiltfilt"] > 0 and counts[kname] > 0, \
                 f"a kernel of the {solver} path never ran"
-            assert counts["cd_nmf"] == 0, counts
+            assert counts["cd_nmf"] == counts["mu_nmf"] == 0, counts
         log(f"main: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         for solver, res in results.items():
             self.check_rank_sweep(solver, res)
@@ -561,8 +596,9 @@ class Smoke:
         kw = dict(ranks=(1, 2, 3, 4), solver="mu", beta_loss="kullback-leibler")
         res, counts = self.main_path("analyze_dataset beta_loss=kullback-leibler",
                                      lambda: analyze_dataset(emg, FS, **kw))
-        assert counts["sosfiltfilt"] > 0 and counts["beta_nmf"] > 0, \
+        assert counts["sosfiltfilt"] > 0 and counts["beta_nmf_warp"] > 0, \
             "a kernel of the KL path never ran"
+        assert counts["beta_nmf"] == 0, counts
         self.check_rank_sweep("kl", res)
         self.subset_matches("kl", res.vaf_overall[:, :SUBSET], lambda: analyze_dataset(
             emg[:SUBSET], FS, impl="torch", **kw).vaf_overall)
@@ -665,7 +701,8 @@ class Smoke:
         res, counts = self.main_path("analyze_dataset causal envelope",
                                      lambda: analyze_dataset(emg, FS, **kw))
         # equal-length trials: one K6 launch, and no zero-phase filter
-        assert counts["sosfilt"] == 1 and counts["mu_nmf"] > 0, counts
+        assert counts["sosfilt"] == 1 and counts["mu_nmf_warp"] > 0, counts
+        assert counts["mu_nmf"] == 0, counts
         assert counts["sosfiltfilt"] == 0, counts
         self.check_rank_sweep("causal", res)
         self.subset_matches("causal", res.vaf_overall[:, :SUBSET], lambda: analyze_dataset(
@@ -770,24 +807,28 @@ class Smoke:
         assert np.isfinite(vafs).all() and (vafs <= 1).all() and diff <= 1e-3
         assert (np.diff(vafs) > -1e-6).all(), "VAF falls with rank"
 
-        # a frame over the warp entry's rows (the envelope resampled to
-        # 2,000 samples, not 200) takes K2's block entry
+        # a frame over the warp entries' rows (the envelope resampled to
+        # 2,000 samples, not 200) takes the block entries: K2's, K1's, K4's
         frame2k = preprocess_trials(emg[:1], FS, PipelineConfig(reduce_to=2000))[0]
+        for kname, kw in (("cd_nmf", {}), ("mu_nmf", dict(solver="mu")),
+                          ("beta_nmf", dict(solver="mu", beta_loss="kullback-leibler"))):
 
-        def fit_2000():
-            model = NMFModel(n_components=4)
-            return model, model.fit_transform(frame2k)
+            def fit_2000():
+                model = NMFModel(n_components=4, **kw)
+                return model, model.fit_transform(frame2k)
 
-        (model, w), counts = self.main_path("NMFModel 2,000x8 fit_transform", fit_2000)
-        assert counts["cd_nmf"] == 1 and sum(counts.values()) == 1, counts
-        assert w.shape == (2000, 4) and np.isfinite(w).all()
-        ref = NMFModel(n_components=4, device="cpu", dtype=torch.float64)
-        ref.fit_transform(frame2k.cpu().double())
-        gap = abs(model.reconstruction_err_ - ref.reconstruction_err_) / ref.reconstruction_err_
-        log(f"NMFModel 2,000x8 (block entry): n_iter {model.n_iter_} (float64 on the "
-            f"host {ref.n_iter_}), relative gap in reconstruction error {gap:.2e} "
-            f"(bar 1e-3)")
-        assert gap <= 1e-3, "NMFModel 2,000x8 on the card disagrees with float64"
+            (model, w), counts = self.main_path(f"NMFModel 2,000x8 fit_transform {kw}",
+                                                fit_2000)
+            assert counts[kname] == 1 and sum(counts.values()) == 1, counts
+            assert w.shape == (2000, 4) and np.isfinite(w).all()
+            ref = NMFModel(n_components=4, device="cpu", dtype=torch.float64, **kw)
+            ref.fit_transform(frame2k.cpu().double())
+            gap = (abs(model.reconstruction_err_ - ref.reconstruction_err_)
+                   / ref.reconstruction_err_)
+            log(f"NMFModel 2,000x8 {kw} (block entry): n_iter {model.n_iter_} (float64 "
+                f"on the host {ref.n_iter_}), relative gap in reconstruction error "
+                f"{gap:.2e} (bar 1e-3)")
+            assert gap <= 1e-3, f"NMFModel 2,000x8 {kw} on the card disagrees with float64"
 
         big = torch.from_numpy(np.abs(emg[0, :20_000])).to(self.dev)
 
@@ -879,25 +920,26 @@ class Smoke:
 
         gx, gw, gh = stage("init (NNDSVDA, 4 ranks)", grid_init)
         n, l = gx.shape[1:]
+        stop = dict(max_iter=config.max_iter, tol=config.tol)
         fits = {
-            "cd_nmf": lambda: mb.fit_cd_batch(gx, gw, gh, max_iter=config.max_iter,
-                                              tol=config.tol),
-            "mu_nmf": lambda: mb.fit_mu_batch(gx, gw, gh, max_iter=config.max_iter,
-                                              tol=config.tol),
-            "beta_nmf_kl": lambda: mb.fit_mu_beta_batch(
-                gx, gw, gh, beta=1.0, max_iter=config.max_iter, tol=config.tol),
+            "cd_nmf": lambda x, w, h: mb.fit_cd_batch(x, w, h, **stop),
+            "mu_nmf": lambda x, w, h: mb.fit_mu_batch(x, w, h, **stop),
+            "beta_nmf_kl": lambda x, w, h: mb.fit_mu_beta_batch(x, w, h, beta=1.0,
+                                                                **stop),
         }
         states = {}
         for kname, fit in fits.items():
-            states[kname] = stage(f"fit {kname} (kernel, 1024 fits)", fit)
+            states[kname] = stage(f"fit {kname} (kernel, 1024 fits)",
+                                  lambda: fit(gx, gw, gh))
             fit_bound(kname, states[kname].n_iter, n, l, 4,
                       4 * gx.shape[0] * (n * l + 2 * (n * 4 + 4 * l)))
             medians = states[kname].n_iter.view(len(ranks), -1).float().median(dim=1)
             log(f"fit {kname}: n_iter median by rank {medians.values.tolist()}")
         st = states["cd_nmf"]
         stage("vaf", lambda: mb.vaf_batch(gx, st.w, st.ht.transpose(-1, -2)))
-        self.lone_fit("cd_nmf", st.n_iter, lambda i: mb.fit_cd_batch(
-            gx[i], gw[i], gh[i], max_iter=config.max_iter, tol=config.tol))
+        for kname, fit in fits.items():
+            self.lone_fit(kname, states[kname].n_iter,
+                          lambda i: fit(gx[i], gw[i], gh[i]))
 
         # the time-varying path's own stages: 4 restarts of every trial
         c0, s0 = stage("init cnmf on the host + copy (1024 restarts)",
@@ -953,7 +995,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(reports)}")
     for kname, report in reports.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Function properties" in line:
                 log(f"  ptxas {kname}: {line.strip()}")
 
     smoke = Smoke(dev, smi)

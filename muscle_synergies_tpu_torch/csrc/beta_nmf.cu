@@ -1,28 +1,27 @@
-// Batched beta-divergence multiplicative-update NMF, one thread block
-// per fit.
+// Batched beta-divergence multiplicative-update NMF: a warp-per-fit
+// entry for the time-normalised frames of the main paths, and a
+// block-per-fit entry for larger frames.
 //
 // Replaces the TPU kernels `beta_mu_iterations_pallas` and
 // `kl_mu_iterations_pallas` (muscle_synergies_tpu/models/kernels/
 // beta_pallas.py: _beta_step, _num_den_weights, _damp) and the chunked
 // driver around them (models/batch.py: _fit_beta_batch_pallas).  The
-// Pallas kernel laid 128 trials across the vector lanes; here each fit
-// is a thread block with X, W, H and the per-entry weight planes in
-// shared memory (about 26 KB at N=200, L=8, K=4) for the whole solve:
-//   - W half-step: one thread per row of W rebuilds its row of WH,
-//     forms the numerator weight X * max(WH, eps)^(beta-2) and the
-//     denominator weight WH^(beta-1) entry by entry in registers, and
-//     updates the row (KL's denominator is the row sums of H);
-//   - H half-step: the weights of the fresh WH go to shared memory,
-//     W^T (weights) are block reductions over the rows (one warp per
-//     entry), then one thread per entry of H updates it (KL's
-//     denominator is the column sums of W, 0 -> 1 as in sklearn);
+// Pallas kernel laid 128 trials across the vector lanes.  Both entries
+// here compute the same iteration:
+//   - W half-step: each row of W rebuilds its row of WH, forms the
+//     numerator weight X * max(WH, eps)^(beta-2) and the denominator
+//     weight WH^(beta-1) entry by entry in registers, and updates the
+//     row (KL's denominator is the row sums of H);
+//   - H half-step: the weights of the fresh WH, W^T (weights), then
+//     each entry of H is updated (KL's denominator is the column sums of
+//     W, 0 -> 1 as in sklearn);
 //   - the L1/L2 penalties added to the denominators (l1 + l2 * factor),
 //     the den == 0 -> EPSILON guard, sklearn's delta^gamma damping and
 //     the float64-eps flushes of W (beta < 1) and H (beta <= 1);
-//   - the stopping rule runs inside the block (WITH_STOP): sklearn's
+//   - the stopping rule inside the fit (WITH_STOP): sklearn's
 //     square-rooted beta divergence, summed in float64, every
 //     `check_every` iterations, the last partial chunk up to max_iter
-//     storing its divergence without a test.  A converged block simply
+//     storing its divergence without a test.  A converged fit simply
 //     ends, which is the frozen-trial semantics of the batched driver.
 // KIND specialises the weights: KL (beta = 1) needs one quotient per
 // entry and no denominator weight, IS (beta = 0) one reciprocal for
@@ -31,11 +30,39 @@
 // stay exactly 0: their numerators are 0 and their denominators are
 // guarded, so delta is 0.
 //
-// What bounds it on this card: about 51 KFLOP (KL) to 77 KFLOP (other
-// betas) per fit and iteration in float32 on CUDA cores, plus one
-// divide or power per entry of WH, against shared-memory bandwidth and
-// the __syncthreads between the half-steps; device memory is touched
-// only at the start and the end of the solve.
+// Block entry (beta_nmf_f32, any frame whose X, W, H and two weight
+// planes fit one block's shared memory, about 26 KB at N=200, L=8,
+// K=4): one block of 128 threads per fit.  What bounds it: about 51
+// KFLOP (KL) to 77 KFLOP (other betas) per fit and iteration on CUDA
+// cores plus one divide or power per entry of WH, spent on a chain of
+// five __syncthreads (KL's row sums, the W half-step, the weight planes,
+// W^T (weights) as warp reductions shared by 4 warps, the H update) and,
+// every 10 iterations, a float64 divergence with a 3-barrier block sum.
+//
+// Warp entry (beta_nmf_warp_f32, N <= NMF_WARP_NMAX; KL at L <=
+// NMF_WARP_LMAX and k <= NMF_WARP_KMAX, IS at L <= 8 and k <= 4): K2's
+// warp layout (nmf_common.cuh).
+// One warp per fit with no __syncthreads; lane i owns rows i, i + 32,
+// ... with their X and W in registers.  In the H half-step each lane
+// rebuilds the fresh WH of its rows in registers, and W^T (weights)
+// (KL: W^T (X / WH) and the column sums of W) are the lanes' partial
+// sums combined by butterflies in the block entry's order, so no weight
+// plane is stored and the iterates are the block entry's bit for bit;
+// one lane per entry of H updates it.  Every loop runs over the padded
+// extents: a padded entry has X = 0 and WH = 0, so its numerator weight
+// is 0 and every weight it adds is multiplied by a zero of W or H.  The
+// divergence counts only the frame's own N x L entries (a padded entry
+// would add -1 to IS's constant), a mask applied once per
+// `check_every`, outside the iteration; it sums in float64 in another
+// order than the block entry, which moves it by ~1e-16.  A run-time
+// beta stays on the block entry: with its two powf per entry out of
+// line (inlined, they made the source take ~19 minutes to build) a warp
+// took 4.47 ms for 50 iterations at 1024 x 200 x 8 against the block
+// entry's 2.51 ms (chip_smoke.py, H100); for beta < 0 a padded entry's
+// numerator weight, 0 * eps^(beta-2), would also overflow to NaN.  What
+// bounds it: the dependent chain of one iteration (the quotients, five
+// shuffle rounds per group of 32 sums), so a lone fit's latency, which
+// sets the KL path's tail.
 
 #include "nmf_common.cuh"
 
@@ -47,30 +74,36 @@ enum BetaKind { BETA_KL = 0, BETA_IS = 1, BETA_GENERIC = 2 };
 struct BetaBlock {
   NmfBlock m;    // x, w, h; gram holds the KL row sums of H
   float* num;    // (n, ldx) numerator weights of the H half-step
-  float* den;    // (n, ldx) denominator weights of the H half-step
+  float* den;    // (n, ldx) denominator weights of the H half-step (not KL)
   float* nd;     // (2, k, l): W^T num, then W^T den (KL: column sums of W)
   double* red;   // 33 doubles of float64 reduction scratch
   float beta, gamma;
   NmfPenalty pen;
 };
 
-__host__ __device__ inline size_t beta_smem_floats(int n, int l, int k) {
-  size_t f = nmf_smem_floats(n, l, k) + 2 * (size_t)n * nmf_odd(l) +
+// KL stores no denominator plane, so a frame of 2,000 x 8 at rank 4
+// fits one block's shared memory for KL (185 KB) but not for the other
+// kinds (257 KB).
+__host__ __device__ inline size_t beta_smem_floats(int n, int l, int k,
+                                                   bool kl) {
+  size_t f = nmf_smem_floats(n, l, k) + (kl ? 1 : 2) * (size_t)n * nmf_odd(l) +
              2 * (size_t)k * l;
   f += f & 1;  // 8-byte alignment of the double scratch
   return f + 2 * 33;
 }
 
+template <int KIND>
 __device__ inline BetaBlock beta_block(float* smem, int n, int l, int k,
                                        float beta, float gamma,
                                        NmfPenalty pen) {
+  const bool kl = KIND == BETA_KL;
   BetaBlock b;
   b.m = nmf_block(smem, n, l, k);
   float* rest = smem + nmf_smem_floats(n, l, k);
   b.num = rest;
   b.den = b.num + (size_t)n * b.m.ldx;
-  b.nd = b.den + (size_t)n * b.m.ldx;
-  b.red = (double*)(smem + beta_smem_floats(n, l, k) - 2 * 33);
+  b.nd = b.den + (kl ? 0 : (size_t)n * b.m.ldx);
+  b.red = (double*)(smem + beta_smem_floats(n, l, k, kl) - 2 * 33);
   b.beta = beta;
   b.gamma = gamma;
   b.pen = pen;
@@ -115,6 +148,8 @@ template <int KIND>
 __device__ inline bool beta_flush_h(float beta) {
   return KIND != BETA_GENERIC || beta <= 1.0f;
 }
+
+// ---------------------------- block entry ----------------------------
 
 template <int KIND, int KMAX>
 __device__ void beta_step(const BetaBlock& bb) {
@@ -222,14 +257,45 @@ __device__ void beta_step(const BetaBlock& bb) {
   __syncthreads();
 }
 
+// One entry's terms of sklearn's beta divergence added to `part` in
+// float64 (an entry with x <= EPSILON leaves the data terms; the IS
+// constant counts the entry all the same).  Out of line: the warp entry
+// calls it at every one of its unrolled entries, where the inlined
+// double log and pow made the source take minutes to build.
+template <int KIND>
+__device__ __noinline__ double beta_entry_divergence(double part, double x,
+                                                     double wh, double beta) {
+  const bool in = x > (double)EPSILON;
+  const double whc = fmax(wh, (double)EPSILON);
+  if (KIND == BETA_GENERIC && beta == 2.0) {
+    part += (x - wh) * (x - wh);
+  } else if (KIND == BETA_KL) {
+    part += wh;
+    if (in) part += x * log(x / whc) - x;
+  } else if (KIND == BETA_IS) {
+    part -= 1.0;
+    if (in) part += x / whc - log(x / whc);
+  } else {
+    part += (beta - 1.0) * pow(wh, beta);
+    if (in) part += pow(x, beta) - beta * x * pow(whc, beta - 1.0);
+  }
+  return part;
+}
+
+// The square root sklearn takes of the summed divergence.
+template <int KIND>
+__device__ inline double beta_divergence_root(double res, double beta) {
+  if (KIND == BETA_GENERIC && beta == 2.0) return sqrt(res);
+  if (KIND == BETA_GENERIC) res /= beta * (beta - 1.0);
+  return sqrt(2.0 * fmax(res, 0.0));
+}
+
 // sklearn's square-rooted beta divergence of the block's fit, summed in
-// float64 (entries with x <= EPSILON leave the data terms; the IS
-// constant counts every entry), returned to every thread.
+// float64 over every entry, returned to every thread.
 template <int KIND>
 __device__ double beta_divergence(const BetaBlock& bb) {
   const NmfBlock& b = bb.m;
   const double beta = bb.beta;
-  const bool frobenius = KIND == BETA_GENERIC && beta == 2.0;
   double part = 0.0;
   for (int q = threadIdx.x; q < b.n * b.l; q += blockDim.x) {
     const int n = q / b.l;
@@ -238,26 +304,9 @@ __device__ double beta_divergence(const BetaBlock& bb) {
     for (int j = 0; j < b.k; ++j) {
       wh += (double)b.w[n * b.ldw + j] * (double)b.h[j * b.l + m];
     }
-    const double x = b.x[n * b.ldx + m];
-    const bool in = x > (double)EPSILON;
-    const double whc = fmax(wh, (double)EPSILON);
-    if (frobenius) {
-      part += (x - wh) * (x - wh);
-    } else if (KIND == BETA_KL) {
-      part += wh;
-      if (in) part += x * log(x / whc) - x;
-    } else if (KIND == BETA_IS) {
-      part -= 1.0;
-      if (in) part += x / whc - log(x / whc);
-    } else {
-      part += (beta - 1.0) * pow(wh, beta);
-      if (in) part += pow(x, beta) - beta * x * pow(whc, beta - 1.0);
-    }
+    part = beta_entry_divergence<KIND>(part, b.x[n * b.ldx + m], wh, beta);
   }
-  double res = nmf_block_sum_d(bb.red, part);
-  if (frobenius) return sqrt(res);
-  if (KIND == BETA_GENERIC) res /= beta * (beta - 1.0);
-  return sqrt(2.0 * fmax(res, 0.0));
+  return beta_divergence_root<KIND>(nmf_block_sum_d(bb.red, part), beta);
 }
 
 template <int KIND, int KMAX, bool WITH_STOP>
@@ -269,7 +318,7 @@ __global__ void __launch_bounds__(NMF_THREADS) beta_nmf_kernel(
     int n, int l, int k, int iters, float beta, float gamma, double tol,
     int check_every, NmfPenalty pen) {
   extern __shared__ float smem[];
-  const BetaBlock bb = beta_block(smem, n, l, k, beta, gamma, pen);
+  const BetaBlock bb = beta_block<KIND>(smem, n, l, k, beta, gamma, pen);
   const size_t fit = blockIdx.x;
   nmf_load(bb.m, x + fit * n * l, w0 + fit * n * k, h0 + fit * k * l);
   if (WITH_STOP) {
@@ -307,7 +356,7 @@ static int beta_dispatch(bool with_stop, const float* x, const float* w0,
                          int l, int k, int iters, float beta, float gamma,
                          double tol, int check_every, NmfPenalty pen,
                          cudaStream_t stream) {
-  const size_t smem = beta_smem_floats(n, l, k) * sizeof(float);
+  const size_t smem = beta_smem_floats(n, l, k, KIND == BETA_KL) * sizeof(float);
   if (with_stop) {
     return nmf_launch(beta_nmf_kernel<KIND, KMAX, true>, batch, smem, stream,
                       x, w0, h0, w, h, n_iter, prev_err, converged, n, l, k,
@@ -375,4 +424,290 @@ extern "C" int beta_nmf_f32(const float* x, const float* w0, const float* h0,
                                        prev_err, converged, batch, n, l, k,
                                        iters, beta, gamma, tol, check_every,
                                        pen, s);
+}
+
+// ---------------------------- warp entry -----------------------------
+
+// IS is compiled for the main paths' shape only (rank <= 4, L <= 8):
+// its two weight planes double the unrolled H half-step, which bounds
+// how many instantiations nvcc builds in reasonable time.
+#define BETA_WARP_IS_LMAX 8
+#define BETA_WARP_IS_KMAX 4
+
+// One fit's slab: H, W^T (numerator weights), and W^T (denominator
+// weights) or, for KL, the column sums of W; row strides LMAX.
+template <int KIND, int KMAX, int LMAX>
+struct __align__(16) BetaWarpSlab {
+  float h[KMAX * LMAX];
+  float num[KMAX * LMAX];
+  float den[KIND == BETA_KL ? KMAX : KMAX * LMAX];
+};
+
+// W^T (numerator weights) and W^T (denominator weights) (KL: the column
+// sums of W) of the fresh WH into the slab.  Each group of 32 sums holds
+// 32 / LMAX components at every column: the lane rebuilds WH and the
+// group's weight entry by entry over its rows (the rows a lane of the
+// block entry's reduction walks, in its order), then butterflies add
+// the lanes' partial sums as the block entry adds them.
+template <int KIND, int KMAX, int LMAX>
+__device__ __forceinline__ void beta_warp_wt_weights(
+    BetaWarpSlab<KIND, KMAX, LMAX>& sl, const float (&xr)[NMF_WARP_ROWS][LMAX],
+    const float (&wr)[NMF_WARP_ROWS][KMAX], float beta) {
+  constexpr int IPG = 32 / LMAX;  // components a group of 32 sums holds
+  constexpr int PLANES = KIND == BETA_KL ? 1 : 2;
+#pragma unroll
+  for (int p = 0; p < PLANES; ++p) {
+#pragma unroll
+    for (int g = 0; g < KMAX / IPG; ++g) {
+      float a[32];
+#pragma unroll
+      for (int v = 0; v < 32; ++v) a[v] = 0.0f;
+#pragma unroll
+      for (int r = 0; r < NMF_WARP_ROWS; ++r) {
+#pragma unroll
+        for (int m = 0; m < LMAX; ++m) {
+          float wh = 0.0f;
+#pragma unroll
+          for (int j = 0; j < KMAX; ++j) wh += wr[r][j] * sl.h[j * LMAX + m];
+          float num, den;
+          beta_weights<KIND>(xr[r][m], wh, beta, &num, &den);
+          const float wt = p == 0 ? num : den;
+#pragma unroll
+          for (int i = 0; i < IPG; ++i) a[i * LMAX + m] += wr[r][g * IPG + i] * wt;
+        }
+      }
+      nmf_warp_allsum(a);
+      float* out = (p == 0 ? sl.num : sl.den) + 32 * g;
+#pragma unroll
+      for (int v = 0; v < 32; ++v) out[v] = a[v];
+    }
+  }
+  if (KIND == BETA_KL) {
+    float a[KMAX];
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) {
+      a[i] = 0.0f;
+#pragma unroll
+      for (int r = 0; r < NMF_WARP_ROWS; ++r) a[i] += wr[r][i];
+    }
+    nmf_warp_allsum(a);
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) sl.den[i] = a[i];
+  }
+}
+
+// One beta-MU iteration of one fit on one warp, W half-step then H
+// half-step; two __syncwarp order the passes through the slab.
+template <int KIND, int KMAX, int LMAX>
+__device__ __forceinline__ void beta_warp_step(
+    BetaWarpSlab<KIND, KMAX, LMAX>& sl, const float (&xr)[NMF_WARP_ROWS][LMAX],
+    float (&wr)[NMF_WARP_ROWS][KMAX], int lane, float beta, float gamma,
+    const NmfPenalty& pen) {
+  // ---- W: the lane's rows, weights in registers ----
+  float hsum[KMAX];  // KL's denominator: the row sums of H
+  if (KIND == BETA_KL) {
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) {
+      float s = 0.0f;
+#pragma unroll
+      for (int m = 0; m < LMAX; ++m) s += sl.h[i * LMAX + m];
+      hsum[i] = s;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < NMF_WARP_ROWS; ++r) {
+    float num[KMAX], den[KMAX];
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) {
+      num[i] = 0.0f;
+      den[i] = 0.0f;
+    }
+#pragma unroll
+    for (int m = 0; m < LMAX; ++m) {
+      float wh = 0.0f;
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) wh += wr[r][j] * sl.h[j * LMAX + m];
+      float a, d;
+      beta_weights<KIND>(xr[r][m], wh, beta, &a, &d);
+#pragma unroll
+      for (int i = 0; i < KMAX; ++i) {
+        const float hv = sl.h[i * LMAX + m];
+        num[i] += a * hv;
+        if (KIND != BETA_KL) den[i] += d * hv;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) {
+      float dd = KIND == BETA_KL ? hsum[i] : den[i];
+      dd = (dd + pen.l1_w) + pen.l2_w * wr[r][i];
+      dd = dd == 0.0f ? EPSILON : dd;
+      float v = wr[r][i] * beta_damp<KIND>(num[i] / dd, gamma);
+      if (beta_flush_w<KIND>(beta) && v < F64_EPS) v = 0.0f;
+      wr[r][i] = v;
+    }
+  }
+
+  // ---- H: W^T (weights of the fresh WH), then one lane per entry ----
+  beta_warp_wt_weights(sl, xr, wr, beta);
+  __syncwarp();
+  for (int q = lane; q < KMAX * LMAX; q += 32) {
+    float dd;
+    if (KIND == BETA_KL) {
+      const float ws = sl.den[q / LMAX];
+      dd = ws == 0.0f ? 1.0f : ws;
+    } else {
+      dd = sl.den[q];
+    }
+    const float hv = sl.h[q];
+    dd = (dd + pen.l1_h) + pen.l2_h * hv;
+    dd = dd == 0.0f ? EPSILON : dd;
+    float v = hv * beta_damp<KIND>(sl.num[q] / dd, gamma);
+    if (beta_flush_h<KIND>(beta) && v < F64_EPS) v = 0.0f;
+    sl.h[q] = v;
+  }
+  __syncwarp();
+}
+
+// sklearn's square-rooted beta divergence of the warp's fit over the
+// frame's own n x l entries (the padding left out), summed in float64,
+// returned to every lane.
+template <int KIND, int KMAX, int LMAX>
+__device__ double beta_warp_divergence(const BetaWarpSlab<KIND, KMAX, LMAX>& sl,
+                                       const float (&xr)[NMF_WARP_ROWS][LMAX],
+                                       const float (&wr)[NMF_WARP_ROWS][KMAX],
+                                       int lane, int n, int l, float beta) {
+  double part = 0.0;
+#pragma unroll
+  for (int r = 0; r < NMF_WARP_ROWS; ++r) {
+    if (lane + 32 * r >= n) continue;
+#pragma unroll
+    for (int m = 0; m < LMAX; ++m) {
+      if (m >= l) continue;
+      double wh = 0.0;
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) wh += (double)wr[r][j] * (double)sl.h[j * LMAX + m];
+      part = beta_entry_divergence<KIND>(part, xr[r][m], wh, beta);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    part += __shfl_xor_sync(NMF_FULL_MASK, part, off);
+  }
+  return beta_divergence_root<KIND>(part, beta);
+}
+
+template <int KIND, int KMAX, int LMAX, bool WITH_STOP>
+__global__ void __launch_bounds__(32 * NMF_WARP_FITS) beta_warp_kernel(
+    const float* __restrict__ x, const float* __restrict__ w0,
+    const float* __restrict__ h0, float* __restrict__ w,
+    float* __restrict__ h, int* __restrict__ n_iter_out,
+    float* __restrict__ prev_err_out, int* __restrict__ converged_out,
+    int batch, int n, int l, int k, int iters, float beta, float gamma,
+    double tol, int check_every, NmfPenalty pen) {
+  __shared__ BetaWarpSlab<KIND, KMAX, LMAX> slabs[NMF_WARP_FITS];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t fit = (size_t)blockIdx.x * NMF_WARP_FITS + warp;
+  if (fit >= (size_t)batch) return;  // whole warps only: no block barrier
+  BetaWarpSlab<KIND, KMAX, LMAX>& sl = slabs[warp];
+  float xr[NMF_WARP_ROWS][LMAX], wr[NMF_WARP_ROWS][KMAX];
+  nmf_warp_load<KMAX, LMAX>(x + fit * n * l, w0 + fit * n * k,
+                            h0 + fit * k * l, n, l, k, lane, xr, wr, sl.h);
+  if (WITH_STOP) {
+    // sklearn's loop: chunks of check_every updates, the counter
+    // stopping at max_iter (= iters), a test only at exact multiples
+    const double err0 = beta_warp_divergence(sl, xr, wr, lane, n, l, beta);
+    double prev_err = err0;
+    int n_iter = 0;
+    bool converged = false;
+    while (n_iter < iters && !converged) {
+      const int steps = min(check_every, iters - n_iter);
+      for (int t = 0; t < steps; ++t) {
+        beta_warp_step(sl, xr, wr, lane, beta, gamma, pen);
+      }
+      n_iter += steps;
+      if (tol > 0.0) {
+        const double err = beta_warp_divergence(sl, xr, wr, lane, n, l, beta);
+        converged = (prev_err - err) / err0 < tol && n_iter % check_every == 0;
+        prev_err = err;
+      }
+    }
+    if (lane == 0) {
+      n_iter_out[fit] = n_iter;
+      prev_err_out[fit] = (float)prev_err;
+      converged_out[fit] = converged ? 1 : 0;
+    }
+  } else {
+    for (int t = 0; t < iters; ++t) beta_warp_step(sl, xr, wr, lane, beta, gamma, pen);
+  }
+  nmf_warp_store<KMAX, LMAX>(w + fit * n * k, h + fit * k * l, n, l, k, lane,
+                             wr, sl.h);
+}
+
+template <int KIND, int KMAX, int LMAX>
+static int beta_warp_dispatch(bool with_stop, const float* x, const float* w0,
+                              const float* h0, float* w, float* h, int* n_iter,
+                              float* prev_err, int* converged, int batch, int n,
+                              int l, int k, int iters, float beta, float gamma,
+                              double tol, int check_every, NmfPenalty pen,
+                              cudaStream_t stream) {
+  const int blocks = (batch + NMF_WARP_FITS - 1) / NMF_WARP_FITS;
+  if (with_stop) {
+    beta_warp_kernel<KIND, KMAX, LMAX, true>
+        <<<blocks, 32 * NMF_WARP_FITS, 0, stream>>>(
+            x, w0, h0, w, h, n_iter, prev_err, converged, batch, n, l, k,
+            iters, beta, gamma, tol, check_every, pen);
+  } else {
+    beta_warp_kernel<KIND, KMAX, LMAX, false>
+        <<<blocks, 32 * NMF_WARP_FITS, 0, stream>>>(
+            x, w0, h0, w, h, n_iter, prev_err, converged, batch, n, l, k,
+            iters, beta, gamma, tol, check_every, pen);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The warp entry: beta_nmf_f32's arguments and results, for frames with
+// n <= NMF_WARP_NMAX at beta = 1 (l <= NMF_WARP_LMAX, k <= NMF_WARP_KMAX)
+// or beta = 0 (l <= BETA_WARP_IS_LMAX, k <= BETA_WARP_IS_KMAX)
+// (models/kernels/beta_cuda.py: route); anything else is refused.
+extern "C" int beta_nmf_warp_f32(const float* x, const float* w0,
+                                 const float* h0, float* w, float* h,
+                                 int* n_iter, float* prev_err, int* converged,
+                                 int batch, int n, int l, int k, int iters,
+                                 float beta, float gamma, double tol,
+                                 int check_every, float l1_w, float l2_w,
+                                 float l1_h, float l2_h, int with_stop,
+                                 void* stream) {
+  const bool kl = beta == 1.0f;
+  if (batch < 1 || n < 1 || l < 1 || k < 1 || n > NMF_WARP_NMAX ||
+      !(kl || beta == 0.0f) || l > (kl ? NMF_WARP_LMAX : BETA_WARP_IS_LMAX) ||
+      k > (kl ? NMF_WARP_KMAX : BETA_WARP_IS_KMAX) || iters < 0 ||
+      !(gamma > 0.0f) || (with_stop && check_every < 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const NmfPenalty pen = {l1_w, l2_w, l1_h, l2_h};
+  const bool st = with_stop != 0;
+  if (!kl) {
+    return beta_warp_dispatch<BETA_IS, 4, 8>(st, x, w0, h0, w, h, n_iter,
+                                             prev_err, converged, batch, n, l,
+                                             k, iters, beta, gamma, tol,
+                                             check_every, pen, s);
+  }
+  if (k <= 4) {
+    return l <= 8 ? beta_warp_dispatch<BETA_KL, 4, 8>(
+                        st, x, w0, h0, w, h, n_iter, prev_err, converged,
+                        batch, n, l, k, iters, beta, gamma, tol, check_every,
+                        pen, s)
+                  : beta_warp_dispatch<BETA_KL, 4, 16>(
+                        st, x, w0, h0, w, h, n_iter, prev_err, converged,
+                        batch, n, l, k, iters, beta, gamma, tol, check_every,
+                        pen, s);
+  }
+  return l <= 8 ? beta_warp_dispatch<BETA_KL, 8, 8>(
+                      st, x, w0, h0, w, h, n_iter, prev_err, converged, batch,
+                      n, l, k, iters, beta, gamma, tol, check_every, pen, s)
+                : beta_warp_dispatch<BETA_KL, 8, 16>(
+                      st, x, w0, h0, w, h, n_iter, prev_err, converged, batch,
+                      n, l, k, iters, beta, gamma, tol, check_every, pen, s);
 }

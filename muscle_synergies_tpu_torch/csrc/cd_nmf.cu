@@ -33,8 +33,8 @@
 // all 100,000 iterations, ran at 7.6 us an iteration alone on an H100
 // (scripts/torch_ab_parent_kernels.py).
 //
-// Warp entry (cd_nmf_warp_f32, N <= CD_WARP_NMAX, L <= CD_WARP_LMAX,
-// k <= CD_WARP_KMAX): one warp per fit, CD_WARP_FITS fits per block, no
+// Warp entry (cd_nmf_warp_f32, N <= NMF_WARP_NMAX, L <= NMF_WARP_LMAX,
+// k <= NMF_WARP_KMAX): one warp per fit, NMF_WARP_FITS fits per block, no
 // __syncthreads on the iteration path.  Lane i owns rows i, i + 32, ...
 // (7 a lane at N = 200, the last partly masked) with their X and W in
 // registers; H, H H^T, W^T W and W^T X sit in a per-warp shared slab
@@ -199,37 +199,6 @@ extern "C" int cd_nmf_f32(const float* x, const float* w0, const float* h0,
 
 // ---------------------------- warp entry -----------------------------
 
-#define CD_WARP_FITS 4   // fits (warps) per block
-#define CD_WARP_ROWS 7   // rows a lane owns
-#define CD_WARP_NMAX (32 * CD_WARP_ROWS)
-#define CD_WARP_LMAX 16
-#define CD_WARP_KMAX 8
-#define CD_FULL_MASK 0xffffffffu
-
-// One fit's small matrices, row strides KMAX and LMAX, zero-padded.
-template <int KMAX, int LMAX>
-struct __align__(16) CdWarpSlab {
-  float h[KMAX * LMAX];    // H
-  float hht[KMAX * KMAX];  // H H^T
-  float wtw[KMAX * KMAX];  // W^T W
-  float wtx[KMAX * LMAX];  // W^T X
-};
-
-// Reduce-scatter by recursive halving: after the steps O = 16, 8, .., 1
-// lane i holds in a[0] the warp's sum of a[i].  Each step sends half of
-// what is left to the partner lane, 31 shuffles in all.
-template <int O>
-__device__ __forceinline__ void cd_warp_halve(float (&a)[32], int lane) {
-  const bool up = (lane & O) != 0;
-#pragma unroll
-  for (int i = 0; i < O; ++i) {
-    const float send = up ? a[i] : a[i + O];
-    const float keep = up ? a[i + O] : a[i];
-    a[i] = keep + __shfl_xor_sync(CD_FULL_MASK, send, O);
-  }
-  if constexpr (O > 1) cd_warp_halve<O / 2>(a, lane);
-}
-
 // sklearn's cyclic component loop on one row of W (or column of H):
 // for each component s in order, the gradient sum_j G[j, s] v[j] - c[s]
 // with the penalties, its projected value added to `part`, and the
@@ -266,64 +235,25 @@ __device__ __forceinline__ void cd_warp_cyclic(float (&v)[KMAX], const float* g,
 // the compiler schedules the rows' loops together.
 template <int KMAX, int LMAX, bool WITH_VIOL>
 __device__ __forceinline__ float cd_warp_iteration(
-    CdWarpSlab<KMAX, LMAX>& sl, float (&xr)[CD_WARP_ROWS][LMAX],
-    float (&wr)[CD_WARP_ROWS][KMAX], int lane, const NmfPenalty& pen) {
+    NmfWarpSlab<KMAX, LMAX>& sl, float (&xr)[NMF_WARP_ROWS][LMAX],
+    float (&wr)[NMF_WARP_ROWS][KMAX], int lane, const NmfPenalty& pen) {
   float part = 0.0f;
 
   // ---- H H^T, K*K sums over L ----
-  for (int q = lane; q < KMAX * KMAX; q += 32) {
-    const float* hi = sl.h + (q / KMAX) * LMAX;
-    const float* hj = sl.h + (q % KMAX) * LMAX;
-    float s = 0.0f;
-#pragma unroll
-    for (int m = 0; m < LMAX; ++m) s += hi[m] * hj[m];
-    sl.hht[q] = s;
-  }
+  nmf_warp_hht(sl, lane);
   __syncwarp();
 
   // ---- W pass on the lane's rows, H fixed ----
 #pragma unroll
-  for (int r = 0; r < CD_WARP_ROWS; ++r) {
+  for (int r = 0; r < NMF_WARP_ROWS; ++r) {
     float xh[KMAX];
-#pragma unroll
-    for (int i = 0; i < KMAX; ++i) xh[i] = 0.0f;
-#pragma unroll
-    for (int m = 0; m < LMAX; ++m) {
-#pragma unroll
-      for (int i = 0; i < KMAX; ++i) xh[i] += xr[r][m] * sl.h[i * LMAX + m];
-    }
+    nmf_warp_xht_row(sl, xr[r], xh);
     cd_warp_cyclic<KMAX, WITH_VIOL>(wr[r], sl.hht, xh, pen.l1_w, pen.l2_w, part);
   }
 
   // ---- W^T W and W^T X: partial sums over the lane's rows, then a
   // reduce-scatter per group of 32 entries ----
-  constexpr int NWW = KMAX * KMAX;
-  constexpr int NV = NWW + KMAX * LMAX;
-#pragma unroll
-  for (int g = 0; g < (NV + 31) / 32; ++g) {
-    float a[32];
-#pragma unroll
-    for (int v = 0; v < 32; ++v) {
-      const int q = 32 * g + v;
-      float s = 0.0f;
-      if (q < NWW) {
-#pragma unroll
-        for (int r = 0; r < CD_WARP_ROWS; ++r) s += wr[r][q / KMAX] * wr[r][q % KMAX];
-      } else if (q < NV) {
-        const int u = q - NWW;
-#pragma unroll
-        for (int r = 0; r < CD_WARP_ROWS; ++r) s += wr[r][u / LMAX] * xr[r][u % LMAX];
-      }
-      a[v] = s;
-    }
-    cd_warp_halve<16>(a, lane);
-    const int q = 32 * g + lane;
-    if (q < NWW) {
-      sl.wtw[q] = a[0];
-    } else if (q < NV) {
-      sl.wtx[q - NWW] = a[0];
-    }
-  }
+  nmf_warp_wtw_wtx(sl, xr, wr, lane);
   __syncwarp();
 
   // ---- H pass on the LMAX columns, W fixed ----
@@ -343,40 +273,21 @@ __device__ __forceinline__ float cd_warp_iteration(
 }
 
 template <int KMAX, int LMAX, bool WITH_STOP>
-__global__ void __launch_bounds__(32 * CD_WARP_FITS) cd_warp_kernel(
+__global__ void __launch_bounds__(32 * NMF_WARP_FITS) cd_warp_kernel(
     const float* __restrict__ x, const float* __restrict__ w0,
     const float* __restrict__ h0, float* __restrict__ w,
     float* __restrict__ h, int* __restrict__ n_iter_out,
     float* __restrict__ viol_init_out, int* __restrict__ converged_out,
     int batch, int n, int l, int k, int iters, float tol, NmfPenalty pen) {
-  __shared__ CdWarpSlab<KMAX, LMAX> slabs[CD_WARP_FITS];
+  __shared__ NmfWarpSlab<KMAX, LMAX> slabs[NMF_WARP_FITS];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const size_t fit = (size_t)blockIdx.x * CD_WARP_FITS + warp;
+  const size_t fit = (size_t)blockIdx.x * NMF_WARP_FITS + warp;
   if (fit >= (size_t)batch) return;  // whole warps only: no block barrier
-  CdWarpSlab<KMAX, LMAX>& sl = slabs[warp];
-  const float* xf = x + fit * n * l;
-  const float* wf = w0 + fit * n * k;
-  const float* hf = h0 + fit * k * l;
-
-  float xr[CD_WARP_ROWS][LMAX], wr[CD_WARP_ROWS][KMAX];
-#pragma unroll
-  for (int r = 0; r < CD_WARP_ROWS; ++r) {
-    const int row = lane + 32 * r;
-#pragma unroll
-    for (int m = 0; m < LMAX; ++m) {
-      xr[r][m] = row < n && m < l ? xf[row * l + m] : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < KMAX; ++i) {
-      wr[r][i] = row < n && i < k ? wf[row * k + i] : 0.0f;
-    }
-  }
-  for (int q = lane; q < KMAX * LMAX; q += 32) {
-    const int i = q / LMAX, m = q % LMAX;
-    sl.h[q] = i < k && m < l ? hf[i * l + m] : 0.0f;
-  }
-  __syncwarp();
+  NmfWarpSlab<KMAX, LMAX>& sl = slabs[warp];
+  float xr[NMF_WARP_ROWS][LMAX], wr[NMF_WARP_ROWS][KMAX];
+  nmf_warp_load<KMAX, LMAX>(x + fit * n * l, w0 + fit * n * k,
+                            h0 + fit * k * l, n, l, k, lane, xr, wr, sl.h);
 
   if (WITH_STOP) {
     int n_iter = 0;
@@ -400,19 +311,8 @@ __global__ void __launch_bounds__(32 * CD_WARP_FITS) cd_warp_kernel(
     }
   }
 
-  float* wo = w + fit * n * k;
-#pragma unroll
-  for (int r = 0; r < CD_WARP_ROWS; ++r) {
-    const int row = lane + 32 * r;
-    if (row < n) {
-#pragma unroll
-      for (int i = 0; i < KMAX; ++i) {
-        if (i < k) wo[row * k + i] = wr[r][i];
-      }
-    }
-  }
-  float* ho = h + fit * k * l;
-  for (int q = lane; q < k * l; q += 32) ho[q] = sl.h[(q / l) * LMAX + q % l];
+  nmf_warp_store<KMAX, LMAX>(w + fit * n * k, h + fit * k * l, n, l, k, lane,
+                             wr, sl.h);
 }
 
 template <int KMAX, int LMAX>
@@ -421,13 +321,13 @@ static int cd_warp_dispatch(bool with_stop, const float* x, const float* w0,
                             float* viol_init, int* converged, int batch, int n,
                             int l, int k, int iters, float tol, NmfPenalty pen,
                             cudaStream_t stream) {
-  const int blocks = (batch + CD_WARP_FITS - 1) / CD_WARP_FITS;
+  const int blocks = (batch + NMF_WARP_FITS - 1) / NMF_WARP_FITS;
   if (with_stop) {
-    cd_warp_kernel<KMAX, LMAX, true><<<blocks, 32 * CD_WARP_FITS, 0, stream>>>(
+    cd_warp_kernel<KMAX, LMAX, true><<<blocks, 32 * NMF_WARP_FITS, 0, stream>>>(
         x, w0, h0, w, h, n_iter, viol_init, converged, batch, n, l, k, iters,
         tol, pen);
   } else {
-    cd_warp_kernel<KMAX, LMAX, false><<<blocks, 32 * CD_WARP_FITS, 0, stream>>>(
+    cd_warp_kernel<KMAX, LMAX, false><<<blocks, 32 * NMF_WARP_FITS, 0, stream>>>(
         x, w0, h0, w, h, n_iter, viol_init, converged, batch, n, l, k, iters,
         tol, pen);
   }
@@ -435,16 +335,16 @@ static int cd_warp_dispatch(bool with_stop, const float* x, const float* w0,
 }
 
 // The warp entry: cd_nmf_f32's arguments and results, for frames with
-// n <= CD_WARP_NMAX, l <= CD_WARP_LMAX and k <= CD_WARP_KMAX (mirrored
-// by models/kernels/cd_cuda.py: warp_entry); anything else is refused.
+// n <= NMF_WARP_NMAX, l <= NMF_WARP_LMAX and k <= NMF_WARP_KMAX
+// (models/kernels/cd_cuda.py: route); anything else is refused.
 extern "C" int cd_nmf_warp_f32(const float* x, const float* w0,
                                const float* h0, float* w, float* h,
                                int* n_iter, float* viol_init, int* converged,
                                int batch, int n, int l, int k, int iters,
                                float tol, float l1_w, float l2_w, float l1_h,
                                float l2_h, int with_stop, void* stream) {
-  if (batch < 1 || n < 1 || l < 1 || k < 1 || n > CD_WARP_NMAX ||
-      l > CD_WARP_LMAX || k > CD_WARP_KMAX || iters < 0) {
+  if (batch < 1 || n < 1 || l < 1 || k < 1 || n > NMF_WARP_NMAX ||
+      l > NMF_WARP_LMAX || k > NMF_WARP_KMAX || iters < 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;

@@ -1,34 +1,59 @@
-// Batched Frobenius multiplicative-update NMF, one thread block per fit.
+// Batched Frobenius multiplicative-update NMF: a warp-per-fit entry for
+// the time-normalised frames of the main paths, and a block-per-fit
+// entry for larger frames.
 //
 // Replaces the TPU kernels `mu_iterations_pallas` and `fit_mu_pallas`
 // (muscle_synergies_tpu/models/kernels/mu_pallas.py: _mu_kernel,
 // _fit_mu_kernel, _mu_step, _lane_error).  The Pallas kernels laid 128
 // trials across the vector lanes and unrolled the tiny per-trial
-// products as lane-parallel FMAs.  Here each fit is a thread block with
-// its X, W and H in shared memory (about 13 KB at N=200, L=8, K=4):
-//   - W half-step: H H^T (K*K) first, then one thread per row of W
-//     computes its row of X H^T in registers and updates the row;
-//   - H half-step: W^T W and W^T X are block reductions over the rows
-//     (one warp per entry), then one thread per column of H updates it;
-//   - the stopping rule runs inside the block (WITH_STOP), so a block
-//     simply ends when its fit converges: that is exactly the frozen-
-//     trial semantics of the batched reference.
+// products as lane-parallel FMAs.  Both entries here compute the same
+// iteration:
+//   - W half-step: H H^T (K*K) first, then each row of W computes its
+//     row of X H^T in registers and updates the row;
+//   - H half-step: W^T W and W^T X, then each column of H is updated;
+//   - the stopping rule runs inside the fit (WITH_STOP), so a fit simply
+//     ends when it converges: that is exactly the frozen-trial semantics
+//     of the batched reference.
 // Numerics follow models/mu.py: sklearn's update order, the L1/L2
 // penalties added to the denominators (l1 + l2 * factor), the float32-eps
 // denominator guard (den == 0 -> EPSILON), `inner_iter` repetitions
 // reusing X H^T / H H^T and W^T X / W^T W, and sklearn's stopping test
-// every `check_every` iterations, (prev_err - err) / err0 < tol, with
-// tol <= 0 disabling it.  Zero-padded rank components stay exactly 0:
-// their numerator is 0 and their denominator becomes EPSILON.
+// every `check_every` iterations on ||X - WH||_F in float32,
+// (prev_err - err) / err0 < tol, with tol <= 0 disabling it.  Zero-padded
+// rank components stay exactly 0: their numerator is 0 and their
+// denominator becomes EPSILON.
 //
-// What bounds it on this card: about 38 KFLOP per fit and iteration in
-// float32 on CUDA cores, against shared-memory bandwidth and the
-// __syncthreads between the half-steps; device memory is touched only
-// at the start and the end of the solve.
+// Block entry (mu_nmf_f32, any frame whose X, W and H fit one block's
+// shared memory): one block of 128 threads per fit with X, W and H in
+// shared memory (about 13 KB at N=200, L=8, K=4).  What bounds it: about
+// 38 KFLOP per fit and iteration on CUDA cores, spent on a chain of four
+// __syncthreads (H H^T, the W half-step, W^T W and W^T X as 48 warp
+// reductions over 4 warps, the H half-step on 8 of 128 threads) and,
+// every 10 iterations, a rebuild of WH from shared memory with a
+// 3-barrier block sum; device memory is touched only at the start and
+// the end of the solve.
+//
+// Warp entry (mu_nmf_warp_f32, N <= NMF_WARP_NMAX, L <= NMF_WARP_LMAX,
+// k <= NMF_WARP_KMAX): K2's warp layout (nmf_common.cuh).  One warp per
+// fit with no __syncthreads; lane i owns rows i, i + 32, ... with their
+// X and W in registers, forms X H^T for them and updates them against
+// H H^T from the slab; lanes 0..LMAX-1 update H's columns.  W^T W, W^T X
+// and the Frobenius error are the lanes' partial sums over their rows,
+// combined by butterflies that add them in the block entry's order, so
+// the warp entry computes the block entry's iterates and stopping
+// statistic bit for bit, and a fit stops at the same iteration on
+// either entry.  Every loop runs over the padded extents, whose exact
+// zeros stay zero under MU (numerator 0, guarded denominator nonzero)
+// and change no sum.  What bounds it: the dependent chain of one
+// iteration (the divides, five shuffle rounds per group of 32 sums), so
+// a lone fit's latency, which sets a main path's tail; across the
+// ~1,000 fits of a path, the SMs' issue rate.
 
 #include "nmf_common.cuh"
 
 #define EPSILON 1.1920929e-07f
+
+// ---------------------------- block entry ----------------------------
 
 template <int KMAX>
 __device__ void mu_step(const NmfBlock& b, int inner_iter,
@@ -200,4 +225,200 @@ extern "C" int mu_nmf_f32(const float* x, const float* w0, const float* h0,
   return mu_dispatch<16>(with_stop, x, w0, h0, w, h, n_iter, prev_err,
                          converged, batch, n, l, k, iters, tol, check_every,
                          inner_iter, pen, s);
+}
+
+// ---------------------------- warp entry -----------------------------
+
+// sklearn's multiplicative update of one row of W (or column of H),
+// `inner_iter` times against the same numerator c and Gram matrix G
+// (KMAX x KMAX in the slab): den_i = sum_j v_j G[j, i] (W) or
+// sum_j G[i, j] v_j (H), plus l1 + l2 v_i, guarded at 0.
+template <int KMAX, bool ROWS_OF_W>
+__device__ __forceinline__ void mu_warp_update(float (&v)[KMAX], const float* g,
+                                               const float (&c)[KMAX], float l1,
+                                               float l2, int inner_iter) {
+  for (int it = 0; it < inner_iter; ++it) {
+    float vn[KMAX];
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) {
+      float den = 0.0f;
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) {
+        den += v[j] * g[ROWS_OF_W ? j * KMAX + i : i * KMAX + j];
+      }
+      den = (den + l1) + l2 * v[i];
+      den = den == 0.0f ? EPSILON : den;
+      vn[i] = v[i] * (c[i] / den);
+    }
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) v[i] = vn[i];
+  }
+}
+
+// One MU iteration of one fit on one warp, W half-step then H half-step;
+// three __syncwarp order the passes through the slab.
+template <int KMAX, int LMAX>
+__device__ __forceinline__ void mu_warp_step(
+    NmfWarpSlab<KMAX, LMAX>& sl, const float (&xr)[NMF_WARP_ROWS][LMAX],
+    float (&wr)[NMF_WARP_ROWS][KMAX], int lane, int inner_iter,
+    const NmfPenalty& pen) {
+  // ---- W: X H^T and H H^T are fixed while H is ----
+  nmf_warp_hht(sl, lane);
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < NMF_WARP_ROWS; ++r) {
+    float xh[KMAX];
+    nmf_warp_xht_row(sl, xr[r], xh);
+    mu_warp_update<KMAX, true>(wr[r], sl.hht, xh, pen.l1_w, pen.l2_w, inner_iter);
+  }
+
+  // ---- H: W^T X and W^T W are fixed while W is ----
+  nmf_warp_wtw_wtx<KMAX, LMAX, true>(sl, xr, wr, lane);
+  __syncwarp();
+  if (lane < LMAX) {
+    float hc[KMAX], cc[KMAX];
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) {
+      hc[i] = sl.h[i * LMAX + lane];
+      cc[i] = sl.wtx[i * LMAX + lane];
+    }
+    mu_warp_update<KMAX, false>(hc, sl.wtw, cc, pen.l1_h, pen.l2_h, inner_iter);
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) sl.h[i * LMAX + lane] = hc[i];
+  }
+  __syncwarp();
+}
+
+// ||X - W H||_F of the warp's fit, returned to every lane, summed in
+// the block entry's order (mu_error over 128 threads): block thread
+// 32 w + i walks rows 32 w + i, + 128, ..., which are this lane's rows
+// r = w, w + 4 (padding adds exact zeros), then each of the 4 warps'
+// sums is a butterfly and the block adds them as (T0 + T2) + (T1 + T3).
+template <int KMAX, int LMAX>
+__device__ __forceinline__ float mu_warp_error(
+    const NmfWarpSlab<KMAX, LMAX>& sl, const float (&xr)[NMF_WARP_ROWS][LMAX],
+    const float (&wr)[NMF_WARP_ROWS][KMAX]) {
+  constexpr int WARPS = NMF_THREADS / 32;
+  float part[WARPS];
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    part[w] = 0.0f;
+#pragma unroll
+    for (int r = w; r < NMF_WARP_ROWS; r += WARPS) {
+#pragma unroll
+      for (int m = 0; m < LMAX; ++m) {
+        float rec = 0.0f;
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j) rec += wr[r][j] * sl.h[j * LMAX + m];
+        const float d = xr[r][m] - rec;
+        part[w] += d * d;
+      }
+    }
+  }
+  nmf_warp_allsum(part);
+  static_assert(WARPS == 4, "the block entry's final sum is over 4 warps");
+  return sqrtf((part[0] + part[2]) + (part[1] + part[3]));
+}
+
+template <int KMAX, int LMAX, bool WITH_STOP>
+__global__ void __launch_bounds__(32 * NMF_WARP_FITS) mu_warp_kernel(
+    const float* __restrict__ x, const float* __restrict__ w0,
+    const float* __restrict__ h0, float* __restrict__ w,
+    float* __restrict__ h, int* __restrict__ n_iter_out,
+    float* __restrict__ prev_err_out, int* __restrict__ converged_out,
+    int batch, int n, int l, int k, int iters, float tol, int check_every,
+    int inner_iter, NmfPenalty pen) {
+  __shared__ NmfWarpSlab<KMAX, LMAX> slabs[NMF_WARP_FITS];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t fit = (size_t)blockIdx.x * NMF_WARP_FITS + warp;
+  if (fit >= (size_t)batch) return;  // whole warps only: no block barrier
+  NmfWarpSlab<KMAX, LMAX>& sl = slabs[warp];
+  float xr[NMF_WARP_ROWS][LMAX], wr[NMF_WARP_ROWS][KMAX];
+  nmf_warp_load<KMAX, LMAX>(x + fit * n * l, w0 + fit * n * k,
+                            h0 + fit * k * l, n, l, k, lane, xr, wr, sl.h);
+  if (WITH_STOP) {
+    // sklearn's loop: chunks of check_every updates, the counter
+    // stopping at max_iter (= iters), a test only at exact multiples
+    const float err0 = mu_warp_error(sl, xr, wr);
+    float prev_err = err0;
+    int n_iter = 0;
+    bool converged = false;
+    while (n_iter < iters && !converged) {
+      const int steps = min(check_every, iters - n_iter);
+      for (int t = 0; t < steps; ++t) mu_warp_step(sl, xr, wr, lane, inner_iter, pen);
+      n_iter += steps;
+      if (tol > 0.0f) {
+        const float err = mu_warp_error(sl, xr, wr);
+        converged = (prev_err - err) / err0 < tol && n_iter % check_every == 0;
+        prev_err = err;
+      }
+    }
+    if (lane == 0) {
+      n_iter_out[fit] = n_iter;
+      prev_err_out[fit] = prev_err;
+      converged_out[fit] = converged ? 1 : 0;
+    }
+  } else {
+    for (int t = 0; t < iters; ++t) mu_warp_step(sl, xr, wr, lane, inner_iter, pen);
+  }
+  nmf_warp_store<KMAX, LMAX>(w + fit * n * k, h + fit * k * l, n, l, k, lane,
+                             wr, sl.h);
+}
+
+template <int KMAX, int LMAX>
+static int mu_warp_dispatch(bool with_stop, const float* x, const float* w0,
+                            const float* h0, float* w, float* h, int* n_iter,
+                            float* prev_err, int* converged, int batch, int n,
+                            int l, int k, int iters, float tol, int check_every,
+                            int inner_iter, NmfPenalty pen, cudaStream_t stream) {
+  const int blocks = (batch + NMF_WARP_FITS - 1) / NMF_WARP_FITS;
+  if (with_stop) {
+    mu_warp_kernel<KMAX, LMAX, true><<<blocks, 32 * NMF_WARP_FITS, 0, stream>>>(
+        x, w0, h0, w, h, n_iter, prev_err, converged, batch, n, l, k, iters,
+        tol, check_every, inner_iter, pen);
+  } else {
+    mu_warp_kernel<KMAX, LMAX, false><<<blocks, 32 * NMF_WARP_FITS, 0, stream>>>(
+        x, w0, h0, w, h, n_iter, prev_err, converged, batch, n, l, k, iters,
+        tol, check_every, inner_iter, pen);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The warp entry: mu_nmf_f32's arguments and results, for frames with
+// n <= NMF_WARP_NMAX, l <= NMF_WARP_LMAX and k <= NMF_WARP_KMAX
+// (models/kernels/mu_cuda.py: route); anything else is refused.
+extern "C" int mu_nmf_warp_f32(const float* x, const float* w0,
+                               const float* h0, float* w, float* h,
+                               int* n_iter, float* prev_err, int* converged,
+                               int batch, int n, int l, int k, int iters,
+                               float tol, int check_every, int inner_iter,
+                               float l1_w, float l2_w, float l1_h, float l2_h,
+                               int with_stop, void* stream) {
+  if (batch < 1 || n < 1 || l < 1 || k < 1 || n > NMF_WARP_NMAX ||
+      l > NMF_WARP_LMAX || k > NMF_WARP_KMAX || iters < 0 || inner_iter < 1 ||
+      (with_stop && check_every < 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const NmfPenalty pen = {l1_w, l2_w, l1_h, l2_h};
+  const bool st = with_stop != 0;
+  if (k <= 4) {
+    return l <= 8 ? mu_warp_dispatch<4, 8>(st, x, w0, h0, w, h, n_iter,
+                                           prev_err, converged, batch, n, l,
+                                           k, iters, tol, check_every,
+                                           inner_iter, pen, s)
+                  : mu_warp_dispatch<4, 16>(st, x, w0, h0, w, h, n_iter,
+                                            prev_err, converged, batch, n, l,
+                                            k, iters, tol, check_every,
+                                            inner_iter, pen, s);
+  }
+  return l <= 8 ? mu_warp_dispatch<8, 8>(st, x, w0, h0, w, h, n_iter,
+                                         prev_err, converged, batch, n, l, k,
+                                         iters, tol, check_every, inner_iter,
+                                         pen, s)
+                : mu_warp_dispatch<8, 16>(st, x, w0, h0, w, h, n_iter,
+                                          prev_err, converged, batch, n, l, k,
+                                          iters, tol, check_every, inner_iter,
+                                          pen, s);
 }

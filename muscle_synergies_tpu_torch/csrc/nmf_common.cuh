@@ -189,6 +189,188 @@ __device__ inline void nmf_xht_row(const NmfBlock& b, int n, float* xr) {
   }
 }
 
+// ---- the warp entries (cd_nmf.cu, mu_nmf.cu, beta_nmf.cu) ----
+//
+// One warp per fit, NMF_WARP_FITS fits a block, no __syncthreads on the
+// iteration path.  Lane i owns rows i, i + 32, ... (NMF_WARP_ROWS of
+// them) with their X and W in registers; the fit's small matrices sit in
+// a per-warp shared slab read as broadcasts.  Every loop runs over the
+// padded extents (KMAX components, LMAX columns, all the lane's rows),
+// whose exact zeros change no sum, so nothing branches on the fit's own
+// N, L or k inside an iteration.  The limits are mirrored by
+// models/kernels/mu_cuda.py: WARP_NMAX, WARP_LMAX, WARP_KMAX.
+
+#define NMF_WARP_FITS 4   // fits (warps) per block
+#define NMF_WARP_ROWS 7   // rows a lane owns
+#define NMF_WARP_NMAX (32 * NMF_WARP_ROWS)
+#define NMF_WARP_LMAX 16
+#define NMF_WARP_KMAX 8
+#define NMF_FULL_MASK 0xffffffffu
+
+// Reduce-scatter by recursive halving: after the steps O = 16, 8, .., 1
+// lane i holds in a[0] the warp's sum of a[i].  Each step sends half of
+// what is left to the partner lane, 31 shuffles in all.
+template <int O>
+__device__ __forceinline__ void nmf_warp_halve(float (&a)[32], int lane) {
+  const bool up = (lane & O) != 0;
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    const float send = up ? a[i] : a[i + O];
+    const float keep = up ? a[i + O] : a[i];
+    a[i] = keep + __shfl_xor_sync(NMF_FULL_MASK, send, O);
+  }
+  if constexpr (O > 1) nmf_warp_halve<O / 2>(a, lane);
+}
+
+// One fit's small matrices (K2's and K1's warp entries), row strides
+// KMAX and LMAX, zero-padded.
+template <int KMAX, int LMAX>
+struct __align__(16) NmfWarpSlab {
+  float h[KMAX * LMAX];    // H
+  float hht[KMAX * KMAX];  // H H^T
+  float wtw[KMAX * KMAX];  // W^T W
+  float wtx[KMAX * LMAX];  // W^T X
+};
+
+// slab.hht <- H H^T, K*K sums over L, one lane per entry.
+template <int KMAX, int LMAX>
+__device__ __forceinline__ void nmf_warp_hht(NmfWarpSlab<KMAX, LMAX>& sl,
+                                             int lane) {
+  for (int q = lane; q < KMAX * KMAX; q += 32) {
+    const float* hi = sl.h + (q / KMAX) * LMAX;
+    const float* hj = sl.h + (q % KMAX) * LMAX;
+    float s = 0.0f;
+#pragma unroll
+    for (int m = 0; m < LMAX; ++m) s += hi[m] * hj[m];
+    sl.hht[q] = s;
+  }
+}
+
+// One row of X H^T from the row of X in registers and the slab's H.
+template <int KMAX, int LMAX>
+__device__ __forceinline__ void nmf_warp_xht_row(
+    const NmfWarpSlab<KMAX, LMAX>& sl, const float (&xrow)[LMAX],
+    float (&xh)[KMAX]) {
+#pragma unroll
+  for (int i = 0; i < KMAX; ++i) xh[i] = 0.0f;
+#pragma unroll
+  for (int m = 0; m < LMAX; ++m) {
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) xh[i] += xrow[m] * sl.h[i * LMAX + m];
+  }
+}
+
+// Every lane's a[v] summed over the warp, for every v, each by the
+// butterfly of nmf_warp_sum: every lane ends with every sum, and each sum
+// associates exactly as the block entries' one-warp-per-entry reductions
+// (nmf_wtw_wtx, beta_step) associate theirs.
+template <int NV>
+__device__ __forceinline__ void nmf_warp_allsum(float (&a)[NV]) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) a[v] += __shfl_xor_sync(NMF_FULL_MASK, a[v], off);
+  }
+}
+
+// slab.wtw <- W^T W and slab.wtx <- W^T X: each lane's partial sums over
+// its rows, then per group of 32 entries either a reduce-scatter (K2: 31
+// shuffles, one sum per lane) or, with BLOCK_ORDER (K1), butterflies
+// that add the partial sums in the block entry's order (160 shuffles),
+// so that the warp entry computes the block entry's iterates bit for
+// bit.  A lane's rows i, i + 32, ... are the rows a lane of the block
+// entry's reduction walks, in the same order.
+template <int KMAX, int LMAX, bool BLOCK_ORDER = false>
+__device__ __forceinline__ void nmf_warp_wtw_wtx(
+    NmfWarpSlab<KMAX, LMAX>& sl, const float (&xr)[NMF_WARP_ROWS][LMAX],
+    const float (&wr)[NMF_WARP_ROWS][KMAX], int lane) {
+  constexpr int NWW = KMAX * KMAX;
+  constexpr int NV = NWW + KMAX * LMAX;
+#pragma unroll
+  for (int g = 0; g < (NV + 31) / 32; ++g) {
+    float a[32];
+#pragma unroll
+    for (int v = 0; v < 32; ++v) {
+      const int q = 32 * g + v;
+      float s = 0.0f;
+      if (q < NWW) {
+#pragma unroll
+        for (int r = 0; r < NMF_WARP_ROWS; ++r) s += wr[r][q / KMAX] * wr[r][q % KMAX];
+      } else if (q < NV) {
+        const int u = q - NWW;
+#pragma unroll
+        for (int r = 0; r < NMF_WARP_ROWS; ++r) s += wr[r][u / LMAX] * xr[r][u % LMAX];
+      }
+      a[v] = s;
+    }
+    if constexpr (BLOCK_ORDER) {
+      nmf_warp_allsum(a);
+#pragma unroll
+      for (int v = 0; v < 32; ++v) {
+        const int q = 32 * g + v;
+        if (q < NWW) {
+          sl.wtw[q] = a[v];
+        } else if (q < NV) {
+          sl.wtx[q - NWW] = a[v];
+        }
+      }
+    } else {
+      nmf_warp_halve<16>(a, lane);
+      const int q = 32 * g + lane;
+      if (q < NWW) {
+        sl.wtw[q] = a[0];
+      } else if (q < NV) {
+        sl.wtx[q - NWW] = a[0];
+      }
+    }
+  }
+}
+
+// Load one fit's X and W rows (lane's rows, zero-padded to LMAX columns
+// and KMAX components, rows past n zero) into registers and H into the
+// slab's (KMAX, LMAX) plane `hs`; ends with a __syncwarp.
+template <int KMAX, int LMAX>
+__device__ __forceinline__ void nmf_warp_load(
+    const float* xf, const float* wf, const float* hf, int n, int l, int k,
+    int lane, float (&xr)[NMF_WARP_ROWS][LMAX],
+    float (&wr)[NMF_WARP_ROWS][KMAX], float* hs) {
+#pragma unroll
+  for (int r = 0; r < NMF_WARP_ROWS; ++r) {
+    const int row = lane + 32 * r;
+#pragma unroll
+    for (int m = 0; m < LMAX; ++m) {
+      xr[r][m] = row < n && m < l ? xf[row * l + m] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) {
+      wr[r][i] = row < n && i < k ? wf[row * k + i] : 0.0f;
+    }
+  }
+  for (int q = lane; q < KMAX * LMAX; q += 32) {
+    const int i = q / LMAX, m = q % LMAX;
+    hs[q] = i < k && m < l ? hf[i * l + m] : 0.0f;
+  }
+  __syncwarp();
+}
+
+// Store the lane's rows of W and the slab's H back, unpadded.
+template <int KMAX, int LMAX>
+__device__ __forceinline__ void nmf_warp_store(
+    float* wo, float* ho, int n, int l, int k, int lane,
+    const float (&wr)[NMF_WARP_ROWS][KMAX], const float* hs) {
+#pragma unroll
+  for (int r = 0; r < NMF_WARP_ROWS; ++r) {
+    const int row = lane + 32 * r;
+    if (row < n) {
+#pragma unroll
+      for (int i = 0; i < KMAX; ++i) {
+        if (i < k) wo[row * k + i] = wr[r][i];
+      }
+    }
+  }
+  for (int q = lane; q < k * l; q += 32) ho[q] = hs[(q / l) * LMAX + q % l];
+}
+
 // Launch `kernel` with one block per fit, raising the dynamic shared
 // memory limit first when the fit needs more than the default 48 KB.
 template <typename Kernel, typename... Args>

@@ -7,8 +7,18 @@ chunked fit driver (``models/batch.py:_fit_beta_batch_pallas``).  One
 CUDA source serves both entry points: the stopping rule is a template
 switch, compiled out for the fixed-iteration one, and the kernel is
 specialised for KL (beta = 1) and Itakura-Saito (beta = 0), with every
-other beta taken at run time.  One thread block runs one fit with its
-X, W, H and weight planes in shared memory; see the source.
+other beta taken at run time.
+
+The source has two entries, picked by :func:`route`: the warp entry
+(one warp per fit, X and W rows in registers) for KL frames within the
+warp limits of :mod:`.mu_cuda` and for Itakura-Saito frames within
+``IS_WARP_LMAX`` columns at rank ``IS_WARP_KMAX`` (the main paths' 200
+x 8 at ranks 1-4); the block entry (one block per fit, X, W, H and the
+weight planes in shared memory; KL stores one plane, the other kinds
+two) for the rest, a run-time beta included (its warp entry was slower
+than the block entry); and a refusal before any launch for a frame over
+one block's shared memory.
+``warp_launches`` and ``launches`` count the two entries' launches.
 
 :func:`beta_iterations_cuda` and :func:`fit_beta_cuda` take contiguous
 CUDA float32 tensors in the JAX layouts, X ``(B, N, L)``, W
@@ -28,7 +38,7 @@ import torch
 
 from ..._build import load
 from ..beta import BetaState, _gamma, fit_mu_beta, mu_update_beta
-from .mu_cuda import check_shapes
+from .mu_cuda import check_fits, check_shapes, warp_fits
 from .mu_cuda import smem_bytes as mu_smem_bytes
 
 __all__ = [
@@ -37,20 +47,37 @@ __all__ = [
     "beta_iterations_plain",
     "fit_beta_plain",
     "launches",
+    "route",
+    "warp_launches",
 ]
 
-launches = 0  # kernel launches since the last reset
+launches = 0  # block-entry launches since the last reset
+warp_launches = 0  # warp-entry launches since the last reset
+# csrc/beta_nmf.cu: BETA_WARP_IS_LMAX, BETA_WARP_IS_KMAX
+IS_WARP_LMAX, IS_WARP_KMAX = 8, 4
 
 
-def smem_bytes(n: int, l: int, k: int) -> int:
-    """Shared memory of one fit (csrc/beta_nmf.cu ``beta_smem_floats``)."""
-    floats = mu_smem_bytes(n, l, k) // 4 + 2 * n * (l | 1) + 2 * k * l
+def smem_bytes(n: int, l: int, k: int, kl: bool = False) -> int:
+    """Shared memory of one fit of the block entry (csrc/beta_nmf.cu
+    ``beta_smem_floats``); KL (``kl=True``) stores no denominator plane."""
+    floats = mu_smem_bytes(n, l, k) // 4 + (1 if kl else 2) * n * (l | 1) + 2 * k * l
     floats += floats & 1
     return 4 * (floats + 2 * 33)
 
 
-def _lib():
-    fn = load("beta_nmf").beta_nmf_f32
+def route(n: int, l: int, k: int, beta: float = 1.0) -> str:
+    """K4's entry for fits of ``(n, l)`` frames at rank ``k`` and
+    ``beta``: ``"warp"`` or ``"block"``; raises ``ValueError`` (naming
+    ``impl='torch'``) when one fit exceeds one block's shared memory."""
+    kl = beta == 1.0
+    check_fits("beta_nmf", n, l, k, lambda *shape: smem_bytes(*shape, kl=kl))
+    is_ = beta == 0.0 and l <= IS_WARP_LMAX and k <= IS_WARP_KMAX
+    return "warp" if warp_fits(n, l, k) and (kl or is_) else "block"
+
+
+def _lib(entry: str):
+    lib = load("beta_nmf")
+    fn = lib.beta_nmf_warp_f32 if entry == "warp" else lib.beta_nmf_f32
     fn.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
         + [ctypes.c_double] + [ctypes.c_int] + [ctypes.c_float] * 4
@@ -62,16 +89,18 @@ def _lib():
 
 def _launch(xs, w0, h0, beta, iters, tol, check_every, with_stop,
             regs=(0.0, 0.0, 0.0, 0.0)):
-    global launches
-    check_shapes("beta_nmf", xs, w0, h0, smem_bytes)
+    global launches, warp_launches
+    check_shapes("beta_nmf", xs, w0, h0,
+                 lambda *shape: smem_bytes(*shape, kl=float(beta) == 1.0))
     xs, w0, h0 = xs.contiguous(), w0.contiguous(), h0.contiguous()
     b, n, l = xs.shape
     k = w0.shape[-1]
+    entry = route(n, l, k, float(beta))
     w, h = torch.empty_like(w0), torch.empty_like(h0)
     n_iter = torch.zeros(b, dtype=torch.int32, device=xs.device)
     prev_err = torch.zeros(b, dtype=torch.float32, device=xs.device)
     converged = torch.zeros(b, dtype=torch.int32, device=xs.device)
-    err = _lib()(
+    err = _lib(entry)(
         xs.data_ptr(), w0.data_ptr(), h0.data_ptr(), w.data_ptr(),
         h.data_ptr(), n_iter.data_ptr(), prev_err.data_ptr(),
         converged.data_ptr(), b, n, l, k, int(iters), float(beta),
@@ -80,8 +109,11 @@ def _launch(xs, w0, h0, beta, iters, tol, check_every, with_stop,
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"beta_nmf kernel launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"beta_nmf {entry} entry launch failed: CUDA error {err}")
+    if entry == "warp":
+        warp_launches += 1
+    else:
+        launches += 1
     return w, h, n_iter, prev_err, converged.bool()
 
 

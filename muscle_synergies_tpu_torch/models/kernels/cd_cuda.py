@@ -31,7 +31,14 @@ import torch
 
 from ..._build import load
 from ..hals import CDState, cd_pass, fit_cd
-from .mu_cuda import check_fits, check_shapes
+from .mu_cuda import (  # noqa: F401 (the warp limits, shared with K1 and K4)
+    WARP_KMAX,
+    WARP_LMAX,
+    WARP_NMAX,
+    check_fits,
+    check_shapes,
+    warp_fits,
+)
 
 __all__ = [
     "cd_iterations_cuda",
@@ -45,8 +52,6 @@ __all__ = [
 
 launches = 0  # block-entry launches since the last reset
 warp_launches = 0  # warp-entry launches since the last reset
-# csrc/cd_nmf.cu: CD_WARP_NMAX, CD_WARP_LMAX, CD_WARP_KMAX
-WARP_NMAX, WARP_LMAX, WARP_KMAX = 224, 16, 8
 
 
 def route(n: int, l: int, k: int) -> str:
@@ -54,9 +59,7 @@ def route(n: int, l: int, k: int) -> str:
     or ``"block"``; raises ``ValueError`` (naming ``impl='torch'``) when
     one fit exceeds one block's shared memory."""
     check_fits("cd_nmf", n, l, k)
-    if n <= WARP_NMAX and l <= WARP_LMAX and k <= WARP_KMAX:
-        return "warp"
-    return "block"
+    return "warp" if warp_fits(n, l, k) else "block"
 
 
 def _lib(entry: str):

@@ -3,8 +3,17 @@
 Replaces the TPU kernels ``mu_iterations_pallas`` and ``fit_mu_pallas``
 (``muscle_synergies_tpu/models/kernels/mu_pallas.py``).  One CUDA
 source serves both: the stopping rule is a template switch, compiled
-out for the fixed-iteration entry point.  One thread block runs one fit
-with its X, W and H in shared memory; see the source for the design.
+out for the fixed-iteration entry point.
+
+The source has two entries, picked by :func:`route` from the frame's
+shape: the warp entry (one warp per fit, X and W rows in registers) for
+frames of at most ``WARP_NMAX`` x ``WARP_LMAX`` at rank ``WARP_KMAX``,
+which covers every time-normalised 200 x 8 frame of the main paths at
+ranks 1-8; the block entry (one block per fit, the fit in shared
+memory) above that; and a refusal before any launch for a frame over
+one block's shared memory.  ``warp_launches`` and ``launches`` count
+the two entries' launches.  The warp limits are those of every warp
+entry (K1, K2 and K4; ``csrc/nmf_common.cuh``).
 
 :func:`mu_iterations_cuda` and :func:`fit_mu_cuda` take contiguous CUDA
 float32 tensors in the JAX layouts, X ``(B, N, L)``, W ``(B, N, k)``,
@@ -30,10 +39,15 @@ __all__ = [
     "mu_iterations_plain",
     "fit_mu_plain",
     "launches",
+    "route",
+    "warp_launches",
 ]
 
-launches = 0  # kernel launches since the last reset
+launches = 0  # block-entry launches since the last reset
+warp_launches = 0  # warp-entry launches since the last reset
 KMAX = 16  # csrc/nmf_common.cuh NMF_KMAX
+# csrc/nmf_common.cuh: NMF_WARP_NMAX, NMF_WARP_LMAX, NMF_WARP_KMAX
+WARP_NMAX, WARP_LMAX, WARP_KMAX = 224, 16, 8
 SMEM_LIMIT = 227 * 1024  # bytes of shared memory one block may use on sm_90
 
 
@@ -71,8 +85,23 @@ def check_shapes(name: str, xs, w, h, smem_bytes=smem_bytes) -> None:
     check_fits(name, n, l, k, smem_bytes)
 
 
-def _lib():
-    fn = load("mu_nmf").mu_nmf_f32
+def warp_fits(n: int, l: int, k: int) -> bool:
+    """Whether an ``(n, l)`` frame at rank ``k`` is within the warp
+    entries' limits (one warp's registers hold its rows)."""
+    return n <= WARP_NMAX and l <= WARP_LMAX and k <= WARP_KMAX
+
+
+def route(n: int, l: int, k: int) -> str:
+    """K1's entry for fits of ``(n, l)`` frames at rank ``k``: ``"warp"``
+    or ``"block"``; raises ``ValueError`` (naming ``impl='torch'``) when
+    one fit exceeds one block's shared memory."""
+    check_fits("mu_nmf", n, l, k)
+    return "warp" if warp_fits(n, l, k) else "block"
+
+
+def _lib(entry: str):
+    lib = load("mu_nmf")
+    fn = lib.mu_nmf_warp_f32 if entry == "warp" else lib.mu_nmf_f32
     fn.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
         + [ctypes.c_int] * 2 + [ctypes.c_float] * 4 + [ctypes.c_int]
@@ -84,16 +113,17 @@ def _lib():
 
 def _launch(xs, w0, h0, iters, tol, check_every, inner_iter, with_stop,
             regs=(0.0, 0.0, 0.0, 0.0)):
-    global launches
+    global launches, warp_launches
     check_shapes("mu_nmf", xs, w0, h0)
     xs, w0, h0 = xs.contiguous(), w0.contiguous(), h0.contiguous()
     b, n, l = xs.shape
     k = w0.shape[-1]
+    entry = route(n, l, k)
     w, h = torch.empty_like(w0), torch.empty_like(h0)
     n_iter = torch.zeros(b, dtype=torch.int32, device=xs.device)
     prev_err = torch.zeros(b, dtype=torch.float32, device=xs.device)
     converged = torch.zeros(b, dtype=torch.int32, device=xs.device)
-    err = _lib()(
+    err = _lib(entry)(
         xs.data_ptr(), w0.data_ptr(), h0.data_ptr(), w.data_ptr(),
         h.data_ptr(), n_iter.data_ptr(), prev_err.data_ptr(),
         converged.data_ptr(), b, n, l, k, int(iters), float(tol),
@@ -101,8 +131,11 @@ def _launch(xs, w0, h0, iters, tol, check_every, inner_iter, with_stop,
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"mu_nmf kernel launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"mu_nmf {entry} entry launch failed: CUDA error {err}")
+    if entry == "warp":
+        warp_launches += 1
+    else:
+        launches += 1
     return w, h, n_iter, prev_err, converged.bool()
 
 

@@ -28,6 +28,7 @@ from muscle_synergies_tpu_torch.models import beta as tbeta  # noqa: E402
 from muscle_synergies_tpu_torch.models.kernels import beta_cuda  # noqa: E402
 
 from test_torch_dataset import FS, TRIALS  # noqa: E402
+from test_torch_nmf import pad_frames  # noqa: E402
 
 RNG = np.random.default_rng(53)
 B, N, L, K = 4, 24, 4, 2
@@ -225,3 +226,82 @@ def test_beta_loss_names():
     assert tbeta.beta_loss_to_float(2) == 2.0
     assert [tbeta._gamma(b) for b in (0.0, 1.5, 3.0)] == [0.5, 1.0, 0.5]
     assert tbeta.F64_EPS == jbeta.F64_EPS
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+def test_beta_kernel_takes_the_warp_entry_at_200x8(k):
+    """Every rank of a 1-8 KL sweep on a time-normalised frame fits K4's
+    warp entry, Itakura-Saito ranks 1-4; a run-time beta keeps the block
+    entry."""
+    assert beta_cuda.route(200, 8, k) == "warp"
+    is_entry = "warp" if k <= beta_cuda.IS_WARP_KMAX else "block"
+    assert beta_cuda.route(200, 8, k, beta=0.0) == is_entry
+    assert beta_cuda.route(200, 8, k, beta=1.5) == "block"
+
+
+@pytest.mark.parametrize("n, l, k, beta, entry", [
+    (224, 16, 8, 1.0, "warp"), (225, 8, 4, 1.0, "block"), (200, 17, 4, 1.0, "block"),
+    (200, 8, 9, 1.0, "block"), (2000, 8, 4, 1.0, "block"), (200, 8, 4, -0.5, "block"),
+    (224, 8, 4, 0.0, "warp"), (200, 9, 4, 0.0, "block"), (200, 8, 5, 0.0, "block"),
+    (200, 8, 4, 1.5, "block"),
+])
+def test_beta_kernel_routes_around_the_warp_limits(n, l, k, beta, entry):
+    """Above the warp limits (for IS, above 8 columns or rank 4), for a
+    run-time beta, and for beta < 0 (where a padded entry's weight
+    0 * eps^(beta - 2) would overflow to NaN), the block entry."""
+    assert (beta_cuda.IS_WARP_LMAX, beta_cuda.IS_WARP_KMAX) == (8, 4)
+    assert beta_cuda.route(n, l, k, beta) == entry
+
+
+def test_beta_kernel_route_refuses_over_one_block():
+    with pytest.raises(ValueError, match="impl='torch'"):
+        beta_cuda.route(20_000, 8, 4)
+    # KL's block entry stores no denominator plane: 2,000 x 8 fits one
+    # block for KL, not for the kinds that need both weight planes
+    assert beta_cuda.smem_bytes(2000, 8, 4, kl=True) <= 227 * 1024
+    with pytest.raises(ValueError, match="impl='torch'"):
+        beta_cuda.route(2000, 8, 4, beta=1.5)
+    with pytest.raises(ValueError, match="rank"):
+        beta_cuda.route(200, 8, 17)
+
+
+PAD_RNG = np.random.default_rng(73)
+PAD_X = PAD_RNG.random((2, 200, 6)) + 0.05
+PAD_W0 = PAD_RNG.random((2, 200, 2)) + 0.1
+PAD_H0 = PAD_RNG.random((2, 2, 6)) + 0.1
+
+
+# KL, the kind of K4's warp entry on the main path, and run-time betas > 0,
+# whose padding is exact too (they run on the block entry; IS is below)
+@pytest.mark.parametrize("beta", [1.0, 0.5, 1.5, 3.0])
+def test_padded_beta_fit_matches_the_unpadded_jax_fit(beta):
+    """The premise of K4's warp entry: a 200 x 6 rank-2 fit zero-padded
+    to 224 x 8 at rank 4 runs the same iterations, stops at the same
+    iteration and keeps its padding exactly 0."""
+    js = jbatch.fit_mu_beta_batch(jnp.asarray(PAD_X), jnp.asarray(PAD_W0),
+                                  jnp.asarray(PAD_H0), beta=beta, max_iter=200,
+                                  tol=1e-4)
+    st = tbatch.fit_mu_beta_batch(*_t(*pad_frames(PAD_X, PAD_W0, PAD_H0)), beta=beta,
+                                  max_iter=200, tol=1e-4)
+    np.testing.assert_array_equal(st.n_iter.numpy(), np.asarray(js.n_iter))
+    assert _rel(st.w[:, :200, :2], js.w) < 1e-10 and _rel(st.h[:, :2, :6], js.h) < 1e-10
+    assert (st.w[:, 200:] == 0).all() and (st.w[..., 2:] == 0).all()
+    assert (st.h[:, 2:] == 0).all() and (st.h[..., 6:] == 0).all()
+
+
+def test_padded_is_iterations_match_and_its_divergence_needs_the_mask():
+    """Itakura-Saito: the padded updates are exact (fixed iterations match
+    the unpadded JAX fit), but sklearn's IS constant counts every entry,
+    so the padded frame's divergence falls short of the real one by the
+    count of padded entries; K4's warp entry sums only real entries."""
+    js = jbatch.fit_mu_beta_batch(jnp.asarray(PAD_X), jnp.asarray(PAD_W0),
+                                  jnp.asarray(PAD_H0), beta=0.0, max_iter=60, tol=0.0)
+    padded = _t(*pad_frames(PAD_X, PAD_W0, PAD_H0))
+    st = tbatch.fit_mu_beta_batch(*padded, beta=0.0, max_iter=60, tol=0.0)
+    assert (st.n_iter == 60).all()
+    assert _rel(st.w[:, :200, :2], js.w) < 1e-10 and _rel(st.h[:, :2, :6], js.h) < 1e-10
+    assert (st.w[:, 200:] == 0).all() and (st.h[:, 2:] == 0).all()
+    real = tbeta.beta_divergence(*_t(PAD_X, PAD_W0, PAD_H0), 0.0, square_root=False)
+    pad = tbeta.beta_divergence(*padded, 0.0, square_root=False)
+    n_pad = 224 * 8 - 200 * 6
+    np.testing.assert_allclose((real - pad).numpy(), n_pad, rtol=1e-10)

@@ -32,7 +32,9 @@ from muscle_synergies_tpu_torch import (  # noqa: E402
     analyze_dataset_time_varying,
 )
 from muscle_synergies_tpu_torch.models import cnmf  # noqa: E402
+from muscle_synergies_tpu_torch.models.beta import mu_update_beta  # noqa: E402
 from muscle_synergies_tpu_torch.models.batch import rank_sweep_batch  # noqa: E402
+from muscle_synergies_tpu_torch.models.mu import mu_update  # noqa: E402
 from muscle_synergies_tpu_torch.models.kernels import (  # noqa: E402
     beta_cuda,
     cd_cuda,
@@ -132,11 +134,11 @@ def test_nmf_model_route_follows_the_shape(cuda):
     small = np.abs(rng.standard_normal((200, 8))).astype(np.float32)
     big = np.abs(rng.standard_normal((20_000, 8))).astype(np.float32)
     for mod in (cd_cuda, mu_cuda, beta_cuda):
-        mod.launches = 0
-    cd_cuda.warp_launches = 0
+        mod.launches = mod.warp_launches = 0
     kinds = (dict(), dict(solver="mu"), dict(solver="mu", beta_loss="kullback-leibler"))
-    # a 200 x 8 CD fit takes K2's warp entry
-    counters = ((cd_cuda, "warp_launches"), (mu_cuda, "launches"), (beta_cuda, "launches"))
+    # a 200 x 8 fit takes the warp entry of K2, K1 or K4
+    counters = ((cd_cuda, "warp_launches"), (mu_cuda, "warp_launches"),
+                (beta_cuda, "warp_launches"))
     for kw, (mod, attr) in zip(kinds, counters):
         model = NMFModel(n_components=4, max_iter=300, **kw)
         w = model.fit_transform(small)
@@ -148,16 +150,16 @@ def test_nmf_model_route_follows_the_shape(cuda):
             1e-3 * ref.reconstruction_err_)
         model.transform(small)  # frozen H: plain, no kernel
         assert getattr(mod, attr) == 1 and w.shape == (200, 4)
-    assert cd_cuda.launches == 0
-    before = (cd_cuda.warp_launches, mu_cuda.launches, beta_cuda.launches)
+    assert cd_cuda.launches == mu_cuda.launches == beta_cuda.launches == 0
+    before = (cd_cuda.warp_launches, mu_cuda.warp_launches, beta_cuda.warp_launches)
     # over one block's shared memory: the kernel route refuses before any
     # launch, and impl="torch" runs the plain fit on the card
     with pytest.raises(ValueError, match="impl='torch'"):
         NMFModel(n_components=4, max_iter=50).fit_transform(big)
     w = NMFModel(n_components=4, max_iter=50, impl="torch").fit_transform(big)
     assert w.shape == (20_000, 4) and np.isfinite(w).all()
-    assert (cd_cuda.warp_launches, mu_cuda.launches, beta_cuda.launches) == before
-    assert cd_cuda.launches == 0
+    assert (cd_cuda.warp_launches, mu_cuda.warp_launches, beta_cuda.warp_launches) == before
+    assert cd_cuda.launches == mu_cuda.launches == beta_cuda.launches == 0
     states, vafs = rank_sweep_batch(torch.as_tensor(small, device=cuda), range(1, 9),
                                     solver="cd")
     assert cd_cuda.warp_launches == before[0] + 1 and vafs.shape == (8,)
@@ -334,8 +336,8 @@ def test_penalized_fits_match_plain_float64(cuda, kind):
 def test_auto_takes_the_kernel_with_penalties(cuda, solver, loss):
     rng = np.random.default_rng(4)
     trials = np.abs(rng.standard_normal((4, 4000, 8))).astype(np.float32)
-    mod, attr = {"cd": (cd_cuda, "warp_launches"), "mu": (mu_cuda, "launches"),
-                 "kullback-leibler": (beta_cuda, "launches")}[
+    mod, attr = {"cd": (cd_cuda, "warp_launches"), "mu": (mu_cuda, "warp_launches"),
+                 "kullback-leibler": (beta_cuda, "warp_launches")}[
         loss if loss != "frobenius" else solver]
     kw = dict(ranks=(1, 2), solver=solver, beta_loss=loss, max_iter=500,
               alpha_W=0.01, alpha_H=0.02, l1_ratio=0.5)
@@ -399,7 +401,9 @@ def test_main_path_runs_through_every_kernel(cuda):
     mods = (filter_cuda, cd_cuda, mu_cuda, beta_cuda, cnmf_cuda)
     for mod in mods:
         mod.launches = 0
-    filter_cuda.sosfilt_launches = cd_cuda.warp_launches = 0
+    filter_cuda.sosfilt_launches = 0
+    for mod in (cd_cuda, mu_cuda, beta_cuda):
+        mod.warp_launches = 0
     results = {}
     for solver, loss in (("cd", "frobenius"), ("mu", "frobenius"),
                          ("mu", "kullback-leibler")):
@@ -409,9 +413,10 @@ def test_main_path_runs_through_every_kernel(cuda):
             max_iter=2000)
     tv = analyze_dataset_time_varying(trials, 2000.0, n_synergies=2, n_lags=5,
                                       n_inits=2, max_iter=500)
-    # the 200 x 8 CD fits take K2's warp entry, not its block entry
-    assert tuple(m.launches for m in mods) == (4, 0, 1, 1, 1)
-    assert cd_cuda.warp_launches == 1
+    # the 200 x 8 fits take the warp entries of K2, K1 and K4, never a
+    # block entry
+    assert tuple(m.launches for m in mods) == (4, 0, 0, 0, 1)
+    assert cd_cuda.warp_launches == mu_cuda.warp_launches == beta_cuda.warp_launches == 1
     assert filter_cuda.sosfilt_launches == 0  # the default envelope is zero-phase
     for (solver, loss), res in results.items():
         plain = analyze_dataset(trials, 2000.0, ranks=(1, 2, 3), solver=solver,
@@ -450,3 +455,128 @@ def test_wrappers_refuse_what_the_kernels_cannot_run(cuda):
         big = torch.zeros(1, 5000, 16, device=cuda)
         cnmf_cuda.cnmf_iterations_cuda(big, torch.zeros(1, 5000, 8, device=cuda),
                                        torch.zeros(1, 8, 10, 16, device=cuda), 1)
+
+
+def _warp_bar(kern_plain, x, w, h, iters, **kw):
+    """1e-3, or ten times the plain float32 version's own distance from
+    float64 where a shape is ill-conditioned, whichever is larger."""
+    ref = kern_plain(x.double(), w.double(), h.double(), iters, **kw)
+    f32 = kern_plain(x, w, h, iters, **kw)
+    return ref, max(1e-3, 10 * max(_rel(f32[0], ref[0]), _rel(f32[1], ref[1])))
+
+
+@pytest.mark.parametrize("l", [1, 8, 16])
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("n", [1, 31, 33, 200, mu_cuda.WARP_NMAX])
+def test_mu_warp_entry_matches_plain_float64(cuda, n, k, l):
+    """K1's warp entry (rows strided over the lanes, the last row of a
+    lane masked when 32 does not divide N) against float64: fixed
+    iterations with the stop off, with the penalties, and with
+    inner_iter=3."""
+    assert mu_cuda.route(n, l, k) == "warp"
+    x, w, h = _problem(cuda, b=16, n=n, l=l, k=k, seed=n + 10 * k + 100 * l)
+    before = (mu_cuda.warp_launches, mu_cuda.launches)
+    wk, hk = mu_cuda.mu_iterations_cuda(x, w, h, 20)
+    (wp, hp), bar = _warp_bar(mu_cuda.mu_iterations_plain, x, w, h, 20)
+    assert _rel(wk, wp) < bar and _rel(hk, hp) < bar
+    wk, hk = mu_cuda.mu_iterations_cuda(x, w, h, 10, inner_iter=3)
+    (wp, hp), bar = _warp_bar(mu_cuda.mu_iterations_plain, x, w, h, 10, inner_iter=3)
+    assert _rel(wk, wp) < bar and _rel(hk, hp) < bar
+    sk = mu_cuda.fit_mu_cuda(x, w, h, max_iter=20, tol=-1.0, **REGS)
+    sp = mu_cuda.fit_mu_plain(x.double(), w.double(), h.double(), max_iter=20,
+                              tol=-1.0, **REGS)
+    assert _rel(sk.w, sp.w) < 1e-3 and _rel(sk.h, sp.h) < 1e-3
+    assert (mu_cuda.warp_launches, mu_cuda.launches) == (before[0] + 3, before[1])
+
+
+@pytest.mark.parametrize("l", [1, 8, 16])
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("n", [1, 31, 33, 200, mu_cuda.WARP_NMAX])
+def test_beta_warp_entry_matches_plain_float64(cuda, n, k, l):
+    """K4's warp entry against float64 for each kind it takes (KL at
+    every shape; IS at L <= 8, rank <= 4, the block entry above; a
+    run-time beta always on the block entry), with the stop off, and with
+    the penalties."""
+    x, w, h = _problem(cuda, b=16, n=n, l=l, k=k, seed=n + 10 * k + 100 * l)
+    x = x + 0.05  # strictly positive, as beta <= 0 needs
+    for beta in (1.0, 0.0, 1.5):
+        warp = beta == 1.0 or (beta == 0.0 and l <= 8 and k <= 4)
+        assert beta_cuda.route(n, l, k, beta) == ("warp" if warp else "block")
+        before = (beta_cuda.warp_launches, beta_cuda.launches)
+        wk, hk = beta_cuda.beta_iterations_cuda(x, w, h, 20, beta)
+        (wp, hp), bar = _warp_bar(beta_cuda.beta_iterations_plain, x, w, h, 20,
+                                  beta=beta)
+        assert _rel(wk, wp) < bar and _rel(hk, hp) < bar, beta
+        sk = beta_cuda.fit_beta_cuda(x, w, h, beta=beta, max_iter=20, tol=-1.0, **REGS)
+        sp = beta_cuda.fit_beta_plain(x.double(), w.double(), h.double(), beta=beta,
+                                      max_iter=20, tol=-1.0, **REGS)
+        assert _rel(sk.w, sp.w) < 1e-3 and _rel(sk.h, sp.h) < 1e-3, beta
+        after = (before[0] + 2, before[1]) if warp else (before[0], before[1] + 2)
+        assert (beta_cuda.warp_launches, beta_cuda.launches) == after
+
+
+# both entries, each side of the warp limit, and the block entry at the
+# 2,000 x 8 frame of the per-capture API (KL only: the other kinds' two
+# weight planes exceed one block there)
+@pytest.mark.parametrize("n, k", [(33, 1), (200, 4), (200, 8), (mu_cuda.WARP_NMAX, 5),
+                                  (mu_cuda.WARP_NMAX + 1, 4), (2000, 4)])
+def test_mu_and_beta_entries_stop_where_float64_stops(cuda, n, k):
+    """BENCH_CHECK.json's bars: MU median stopping gap 0 and factor error
+    at the kernel's stop 1e-3; beta |median gap| <= 10 and 2e-3."""
+    x, w, h = _problem(cuda, b=64 if n < 1000 else 16, n=n, k=k, seed=n + k)
+    x = x + 0.05
+    args64 = (x.double(), w.double(), h.double())
+    cases = [(mu_cuda, mu_cuda.fit_mu_cuda, mu_cuda.fit_mu_plain, {}, 0, 1e-3,
+              mu_update)]
+    for beta in ((1.0, 0.0) if n < 1000 else (1.0,)):
+        cases.append((beta_cuda, beta_cuda.fit_beta_cuda, beta_cuda.fit_beta_plain,
+                      dict(beta=beta), 10, 2e-3,
+                      lambda x_, w_, h_, b=beta: mu_update_beta(x_, w_, h_, b)))
+    for mod, kern, plain, kw, gap_bar, err_bar, step in cases:
+        warp = n <= mu_cuda.WARP_NMAX and (kw.get("beta", 1.0) == 1.0 or k <= 4)
+        assert mod.route(n, 8, k, **kw) == ("warp" if warp else "block")
+        counter = "warp_launches" if warp else "launches"
+        before = getattr(mod, counter)
+        sk = kern(x, w, h, max_iter=200, tol=1e-4, **kw)
+        assert getattr(mod, counter) == before + 1
+        sp = plain(*args64, max_iter=200, tol=1e-4, **kw)
+        gap = (sk.n_iter - sp.n_iter).cpu().numpy()
+        assert abs(np.median(gap)) <= gap_bar, (kw, gap)
+        # float64 updates run to each kernel fit's own stop
+        w64, h64 = args64[1].clone(), args64[2].clone()
+        for i in range(int(sk.n_iter.max())):
+            idx = (sk.n_iter > i).nonzero().flatten()
+            w64[idx], h64[idx] = step(args64[0][idx], w64[idx], h64[idx])
+        assert _rel(sk.w, w64) < err_bar and _rel(sk.h, h64) < err_bar, kw
+
+
+def test_warp_entries_compute_the_block_entries_fits_bit_for_bit(cuda, monkeypatch):
+    """The warp entries add every sum in the block entries' order, so on
+    the main paths' frames they reach the same factors and stop at the
+    same iteration as the block entries they replace there."""
+    x, w, h = _problem(cuda, b=64, seed=9)
+    x = x + 0.05
+    for mod, fit, kw in ((mu_cuda, mu_cuda.fit_mu_cuda, {}),
+                         (beta_cuda, beta_cuda.fit_beta_cuda, dict(beta=1.0)),
+                         (beta_cuda, beta_cuda.fit_beta_cuda, dict(beta=0.0))):
+        warp = fit(x, w, h, max_iter=300, tol=1e-5, **kw)
+        with monkeypatch.context() as m:
+            m.setattr(mod, "route", lambda *shape, **_: "block")
+            before = mod.launches
+            block = fit(x, w, h, max_iter=300, tol=1e-5, **kw)
+            assert mod.launches == before + 1
+        assert torch.equal(warp.n_iter, block.n_iter), kw
+        assert torch.equal(warp.w, block.w) and torch.equal(warp.h, block.h), kw
+
+
+def test_negative_beta_takes_the_block_entry(cuda):
+    """For beta < 0 a padded entry's weight overflows, so the route keeps
+    every frame on the block entry."""
+    x, w, h = _problem(cuda, b=16)
+    x = x + 0.05
+    assert beta_cuda.route(200, 8, 4, -0.5) == "block"
+    before = (beta_cuda.warp_launches, beta_cuda.launches)
+    wk, hk = beta_cuda.beta_iterations_cuda(x, w, h, 20, -0.5)
+    wp, hp = beta_cuda.beta_iterations_plain(x.double(), w.double(), h.double(), 20, -0.5)
+    assert _rel(wk, wp) < 1e-3 and _rel(hk, hp) < 1e-3
+    assert (beta_cuda.warp_launches, beta_cuda.launches) == (before[0], before[1] + 1)

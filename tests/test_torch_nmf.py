@@ -246,3 +246,53 @@ def test_cd_kernel_routes_around_the_warp_limits():
         cd_cuda.route(20_000, 8, 4)
     with pytest.raises(ValueError, match="rank"):
         cd_cuda.route(200, 8, 17)
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+def test_mu_kernel_takes_the_warp_entry_at_200x8(k):
+    """Every rank of a 1-8 sweep on a time-normalised frame fits K1's warp
+    entry (csrc/nmf_common.cuh NMF_WARP_NMAX/LMAX/KMAX)."""
+    assert mu_cuda.route(200, 8, k) == "warp"
+
+
+@pytest.mark.parametrize("n, l, k, entry", [
+    (224, 16, 8, "warp"), (225, 8, 4, "block"), (200, 17, 4, "block"),
+    (200, 8, 9, "block"), (2000, 8, 4, "block"),
+])
+def test_mu_kernel_routes_around_the_warp_limits(n, l, k, entry):
+    assert (mu_cuda.WARP_NMAX, mu_cuda.WARP_LMAX, mu_cuda.WARP_KMAX) == (224, 16, 8)
+    assert (cd_cuda.WARP_NMAX, cd_cuda.WARP_LMAX, cd_cuda.WARP_KMAX) == (224, 16, 8)
+    assert mu_cuda.route(n, l, k) == entry
+
+
+def test_mu_kernel_route_refuses_over_one_block():
+    with pytest.raises(ValueError, match="impl='torch'"):
+        mu_cuda.route(20_000, 8, 4)
+    with pytest.raises(ValueError, match="rank"):
+        mu_cuda.route(200, 8, 17)
+
+
+def pad_frames(x, w0, h0, n=224, l=8, k=4):
+    """Zero-pad X, W and H to ``n`` rows, ``l`` columns and rank ``k``,
+    as the warp entries pad a fit inside their registers."""
+    b, n0, l0 = x.shape
+    k0 = w0.shape[-1]
+    xp, wp, hp = np.zeros((b, n, l)), np.zeros((b, n, k)), np.zeros((b, k, l))
+    xp[:, :n0, :l0], wp[:, :n0, :k0], hp[:, :k0, :l0] = x, w0, h0
+    return xp, wp, hp
+
+
+def test_padded_mu_fit_matches_the_unpadded_jax_fit():
+    """The premise of K1's warp entry: a 200 x 6 rank-2 fit zero-padded
+    to 224 x 8 at rank 4 runs the same MU iterations, stops at the same
+    iteration and keeps its padding exactly 0."""
+    rng = np.random.default_rng(71)
+    x, w0, h0 = rng.random((2, 200, 6)), rng.random((2, 200, 2)), rng.random((2, 2, 6))
+    js = jbatch.fit_mu_batch(jnp.asarray(x), jnp.asarray(w0), jnp.asarray(h0),
+                             max_iter=200, tol=1e-4)
+    st = tbatch.fit_mu_batch(*_t(*pad_frames(x, w0, h0)), max_iter=200, tol=1e-4)
+    np.testing.assert_array_equal(st.n_iter.numpy(), np.asarray(js.n_iter))
+    assert _rel(st.w[:, :200, :2], js.w) < 1e-10 and _rel(st.h[:, :2, :6], js.h) < 1e-10
+    assert _rel(st.previous_error, js.previous_error) < 1e-10
+    assert (st.w[:, 200:] == 0).all() and (st.w[..., 2:] == 0).all()
+    assert (st.h[:, 2:] == 0).all() and (st.h[..., 6:] == 0).all()
