@@ -16,7 +16,8 @@ then, failing on the first assertion that does not hold:
 2. K3 ``sosfiltfilt``: 64 trials x 124,460 samples x 8 channels through
    the kernel against ``scipy.signal.sosfiltfilt`` in float64 (all 64)
    and the plain version in float64 on the card (4 of them);
-   bar: max abs error <= 5e-4 * max|y|;
+   bar: max abs error <= 5e-4 * max|y|; then timed at 64 and at 256
+   trials (the 64 four times over);
 3. K1/K2 fixed iterations (stop compiled out): 50 MU / CD iterations at
    1024 x 200 x 8, rank 4 (K1's and K2's warp entries) and at 16 x 2,000
    x 8 (their block entries), kernel in float32 against the plain
@@ -61,7 +62,7 @@ then, failing on the first assertion that does not hold:
     samples: it takes one Python step per sample); then those 4 whole
     trials cut into 8,192-row chunks, carrying ``zf`` from chunk to
     chunk, against one whole-signal launch; bar: max abs error <= 5e-4
-    * max|y| in each case;
+    * max|y| in each case; then timed at 64 and at 256 trials;
 12. the causal main path: ``analyze_dataset`` with
     ``FilterSpec(zero_lag=False)`` and ``solver="mu"`` on the 256 trials
     of phase 5: the K6 and K1 counters must rise and K3's stay at 0,
@@ -74,9 +75,11 @@ then, failing on the first assertion that does not hold:
     "same")`` in float64 to 1e-5 relative; the VAF checks of phase 5,
     the subset against ``impl="torch"`` at ``max_iter=2,000`` on both
     sides (the plain CD loop at the default 100,000 would take minutes);
-    then ``preprocess_trials`` under the causal envelope on the same
-    ragged trials: one K6 launch for the padded batch, and 4 of its rows
-    within 1e-5 x max of the same trials preprocessed one at a time;
+    then ``preprocess_trials`` under the causal and under the default
+    zero-phase envelope on the same ragged trials: one K6 launch, or one
+    K3 launch (each trial filtered over its own length), for the padded
+    batch, and 4 of its rows within 1e-5 x max of the same trials
+    preprocessed one at a time;
 14. the per-capture API, no pandas: ``NMFModel(n_components=4)`` on one
     preprocessed 200 x 8 trial (``fit_transform`` through K2's warp
     entry, one launch; ``transform``, plain), ``rank_sweep_batch`` over
@@ -327,13 +330,23 @@ class Smoke:
                            reps=1, warmup=0)
         log(f"filter: {n_trials}x{x.shape[1]}x{N_CHANNELS} f32 kernel {ms:.3f} ms, "
             f"plain f32 {plain_ms:.1f} ms")
+
         # each sample of each column: two passes (forward, backward) over the
         # padded signal, per second-order section 5 float64 multiply-adds
-        cols = n_trials * N_CHANNELS
-        flops = 2 * len(sos) * 10 * cols * (x.shape[1] + 2 * padlen)
+        def work(xb):
+            cols = xb.shape[0] * N_CHANNELS
+            return 2 * len(sos) * 10 * cols * (xb.shape[1] + 2 * padlen), 2 * xb.numel() * 4
+
+        x4 = x.repeat(4, 1, 1)  # 256 trials
+        ms4 = cuda_ms(lambda: filter_cuda.sosfiltfilt_cuda(sos, x4, padlen, "odd"))
+        bound4, _ = bound(*work(x4), kind="f64")
+        log(f"filter: {x4.shape[0]}x{x.shape[1]}x{N_CHANNELS} f32 kernel {ms4:.3f} ms, "
+            f"bound {bound4:.4f} ms  [{self.smi}]")
+        del x4
         self.record("sosfiltfilt", "muscle_synergies_tpu/ops/filter_pallas.py:508",
-                    (err_plain, err_plain / scale, 5e-4), ms, plain_ms, flops,
-                    2 * x.numel() * 4, kind="f64")
+                    (err_plain, err_plain / scale, 5e-4), ms, plain_ms, *work(x),
+                    kind="f64", ms_256_trials=ms4, bound_ms_256_trials=bound4,
+                    chunk=filter_cuda.CHUNK)
 
     # ---- 3./4. K1 and K2 (both entries) ----
     def nmf_phases(self, b=1024, n=200, l=8, k=4, iters=50, fb=128, big_b=16,
@@ -681,16 +694,27 @@ class Smoke:
                            reps=1, warmup=0)
         log(f"causal filter: {n_trials}x{x.shape[1]}x{N_CHANNELS} f32 kernel "
             f"{ms:.3f} ms; plain f32 at 4x{plain_n}x{N_CHANNELS} {plain_ms:.1f} ms")
+
         # per sample, column and section 5 float64 multiply-adds; x read
         # and y written once, zi read and zf written in float64
-        cols = n_trials * N_CHANNELS
-        state_bytes = 2 * len(sos) * 2 * cols * 8
+        def work(xb):
+            cols = xb.shape[0] * N_CHANNELS
+            state_bytes = 2 * len(sos) * 2 * cols * 8
+            return len(sos) * 10 * cols * xb.shape[1], 2 * xb.numel() * 4 + state_bytes
+
+        x4, zi_4 = x.repeat(4, 1, 1), zi.repeat(4, 1, 1, 1)  # 256 trials
+        ms4 = cuda_ms(lambda: filter_cuda.sosfilt_cuda(sos, x4, zi_4))
+        bound4, _ = bound(*work(x4), kind="f64")
+        log(f"causal filter: {x4.shape[0]}x{x.shape[1]}x{N_CHANNELS} f32 kernel "
+            f"{ms4:.3f} ms, bound {bound4:.4f} ms  [{self.smi}]")
+        del x4
         self.record("sosfilt", "muscle_synergies_tpu/ops/filter_pallas.py:488",
-                    (err_plain, err_plain / scale, 5e-4), ms, plain_ms,
-                    len(sos) * 10 * cols * x.shape[1],
-                    2 * x.numel() * 4 + state_bytes, kind="f64",
-                    source="sosfiltfilt", plain_at=f"4x{plain_n}x{N_CHANNELS}",
-                    rel_err_vs_scipy=err_scipy, rel_err_chunked=err_stream)
+                    (err_plain, err_plain / scale, 5e-4), ms, plain_ms, *work(x),
+                    kind="f64", source="sosfiltfilt",
+                    plain_at=f"4x{plain_n}x{N_CHANNELS}",
+                    rel_err_vs_scipy=err_scipy, rel_err_chunked=err_stream,
+                    ms_256_trials=ms4, bound_ms_256_trials=bound4,
+                    chunk=filter_cuda.CHUNK)
 
     # ---- 12. the causal main path ----
     def causal_main(self, emg):
@@ -767,6 +791,21 @@ class Smoke:
             f"(bar 1e-5)")
         assert pre.shape == (len(trials), 200, N_CHANNELS) and np.isfinite(pre).all()
         assert gap <= 1e-5, "the padded causal batch disagrees"
+
+        # the zero-phase envelope takes each trial's own length: the ragged
+        # trials filter as one padded batch, one K3 launch
+        zero_phase = PipelineConfig()
+        pre, counts = self.main_path("preprocess_trials zero-phase envelope, ragged",
+                                     lambda: preprocess_trials(trials, FS, zero_phase))
+        assert counts["sosfiltfilt"] == 1 and sum(counts.values()) == 1, counts
+        pre = pre.cpu().numpy()
+        alone = np.stack([preprocess_trials([t], FS, zero_phase)[0].cpu().numpy()
+                          for t in trials[:4]])
+        gap = float(np.abs(pre[:4] - alone).max() / np.abs(alone).max())
+        log(f"zero-phase, ragged: padded batch vs each trial alone {gap:.3e} x max "
+            f"(bar 1e-5)")
+        assert pre.shape == (len(trials), 200, N_CHANNELS) and np.isfinite(pre).all()
+        assert gap <= 1e-5, "the padded zero-phase batch disagrees"
 
     # ---- 14. the per-capture API ----
     def per_capture_api(self, emg):

@@ -28,7 +28,18 @@ inside the functions that take or return DataFrames (the result
 classes' table helpers, :mod:`.analysis`, :func:`find_synergies`).
 """
 
-from . import analysis
+from . import analysis, dataset, models, ops, utils
+from .analysis import (
+    digital_filter,
+    fft_spectrum,
+    linear_envelope,
+    normalize,
+    rms,
+    subsample,
+    time_normalize,
+    vaf,
+    zero_center,
+)
 from .dataset import (
     DatasetResult,
     TimeVaryingDatasetResult,
@@ -36,6 +47,7 @@ from .dataset import (
     analyze_dataset_time_varying,
     preprocess_trials,
 )
+from .models.cnmf import TimeVaryingSynergyResult
 from .models.select import NMFModel, SynergyRunResult, find_synergies
 from .utils.config import FilterSpec, PipelineConfig
 
@@ -46,9 +58,23 @@ __all__ = [
     "PipelineConfig",
     "SynergyRunResult",
     "TimeVaryingDatasetResult",
+    "TimeVaryingSynergyResult",
     "analysis",
     "analyze_dataset",
     "analyze_dataset_time_varying",
+    "dataset",
+    "digital_filter",
+    "fft_spectrum",
     "find_synergies",
+    "linear_envelope",
+    "models",
+    "normalize",
+    "ops",
     "preprocess_trials",
+    "rms",
+    "subsample",
+    "time_normalize",
+    "utils",
+    "vaf",
+    "zero_center",
 ]

@@ -11,12 +11,15 @@ may use TF32 (about three decimal digits), which would perturb the
 stopping statistics the way the TPU's bf16 matrix unit did for the JAX
 package.  The package therefore turns TF32 off for both the matmul and
 the cuDNN paths when it is imported; the hand-written kernels never
-touch tensor cores at all.
+touch tensor cores at all.  A function that takes the JAX package's
+``precision=`` runs its products under :func:`matmul_precision`, which
+allows TF32 for those products only.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -25,6 +28,11 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 IMPLS = ("auto", "torch", "cuda")
+
+# the names jax.lax.Precision and its string forms take, by what they
+# give a float32 product here: full float32, or TF32 allowed
+_FULL_PRECISION = ("default", "highest", "float32")
+_TF32_PRECISION = ("high", "tensorfloat32", "bfloat16")
 
 
 def as_tensor(x, device=None, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -107,3 +115,47 @@ def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
             raise TypeError(f"{name}: takes float32 only, got {t.dtype}")
         if t.device != device:
             raise ValueError(f"{name}: tensors on {t.device} and {device}")
+
+
+def allows_tf32(precision) -> bool:
+    """Whether a JAX-style matmul ``precision`` allows TF32 on the card.
+
+    Takes ``None``, the names JAX takes in any case (``"default"``,
+    ``"high"``, ``"highest"``, ``"bfloat16"``, ``"tensorfloat32"``,
+    ``"float32"``), or an object whose ``.name`` is one of them (a
+    ``jax.lax.Precision``).  ``None``, ``"default"``, ``"highest"`` and
+    ``"float32"`` mean full float32, the package's default;
+    ``"high"``, ``"tensorfloat32"`` and ``"bfloat16"`` allow TF32.
+
+    Raises:
+        ValueError: for anything else.
+    """
+    if precision is None:
+        return False
+    name = getattr(precision, "name", precision)
+    key = name.lower() if isinstance(name, str) else None
+    if key in _FULL_PRECISION:
+        return False
+    if key in _TF32_PRECISION:
+        return True
+    raise ValueError(
+        f"precision must be None, one of {_FULL_PRECISION + _TF32_PRECISION} "
+        f"(any case), or a jax.lax.Precision; got {precision!r}"
+    )
+
+
+@contextlib.contextmanager
+def matmul_precision(precision) -> Iterator[None]:
+    """Run the CUDA float32 matrix products inside at ``precision``.
+
+    Sets ``torch.backends.cuda.matmul.allow_tf32`` to
+    :func:`allows_tf32`'s answer for the block and restores the caller's
+    setting on the way out.  CPU products and other dtypes are unaffected.
+    """
+    tf32 = allows_tf32(precision)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

@@ -6,11 +6,11 @@ Port of :mod:`muscle_synergies_tpu.dataset`'s local paths:
    :class:`~muscle_synergies_tpu_torch.utils.PipelineConfig`: zero-center,
    then either rectify and lowpass (zero-phase, or causal with
    ``FilterSpec(zero_lag=False)``) or a moving RMS (``use_rms=True``),
-   then time-normalize and amplitude-normalize.  The causal filter and
-   the moving RMS are exact under trailing zero padding, so ragged
-   trials run as one padded batch with a mask (one filter launch on the
-   card); the zero-phase filter runs ragged trials as one batch per
-   distinct length, one launch each;
+   then time-normalize and amplitude-normalize.  Ragged trials run as
+   one padded batch with a mask: the causal filter and the moving RMS
+   are exact under trailing zero padding, and the zero-phase filter
+   takes each trial's length (its odd reflection must touch the trial's
+   true last sample), so each is one filter launch on the card;
 2. :func:`analyze_dataset`: factors for every rank are zero-padded to
    the largest rank; padded components stay exactly zero, so each grid
    entry equals an independent fit;
@@ -139,7 +139,8 @@ def preprocess_trials(
             ``device="cpu"`` for the plain versions (``dtype=None`` then
             keeps the input's).  The whole chain runs there, the
             zero-phase and causal filters through their CUDA kernels
-            (K3, K6) on the card.
+            (K3, K6) on the card, one launch for all trials, ragged or
+            not.
         mesh: not ported (raises).
     """
     if mesh is not None:
@@ -159,6 +160,13 @@ def preprocess_trials(
         if config.use_rms:
             window = rms_window(config.rms_window_s, sampling_frequency)
             xs = _b.moving_rms_batch(xs, window, mask)
+        elif mask is not None and spec.zero_lag:
+            # each trial filtered over its own length: one K3 launch
+            xs = _b._ragged_zero_phase_envelope(
+                xs, mask, critical_freqs=spec.cutoff(),
+                sampling_frequency=sampling_frequency, order=spec.order,
+                filter_type=spec.filter_type, cheby_param=spec.cheby_param,
+            )
         else:
             xs = _b.linear_envelope_batch(
                 xs, critical_freqs=spec.cutoff(),
@@ -175,24 +183,11 @@ def preprocess_trials(
     if getattr(trials, "ndim", None) == 3:  # already one equal-length batch
         return run(as_tensor(trials, device, dtype))
     arrays = [to_numpy(_as_array(t)) for t in trials]
-    by_length: dict = {}
-    for idx, a in enumerate(arrays):
-        by_length.setdefault(a.shape[0], []).append(idx)
-    if len(by_length) > 1 and spec.zero_lag and not config.use_rms:
-        # the zero-phase filter's odd reflection must touch each trial's
-        # true last sample: one batch, and one filter launch, per length
-        slots: list = [None] * len(arrays)
-        for indices in by_length.values():
-            group = run(as_tensor(np.stack([arrays[i] for i in indices]),
-                                  device, dtype))
-            for j, i in enumerate(indices):
-                slots[i] = group[j]
-        return torch.stack(slots)
-    # the causal filter and the moving RMS are exact under trailing zero
-    # padding: ragged trials run as one padded batch with a mask
+    ragged = len({a.shape[0] for a in arrays}) > 1
+    # ragged trials run as one padded batch with a mask
     data, mask = pad_and_stack(arrays)
     xs = as_tensor(data, device, dtype)
-    return run(xs, as_tensor(mask, xs.device, xs.dtype) if len(by_length) > 1 else None)
+    return run(xs, as_tensor(mask, xs.device, xs.dtype) if ragged else None)
 
 
 @dataclass
@@ -538,6 +533,7 @@ def analyze_dataset_time_varying(
     dtype: Optional[torch.dtype] = None,
     subjects: Optional[Sequence] = None,
     impl: Optional[str] = None,
+    precision=None,
     device="cuda",
 ) -> TimeVaryingDatasetResult:
     """Preprocess a dataset and extract time-varying synergies per trial.
@@ -547,8 +543,7 @@ def analyze_dataset_time_varying(
     batched convolutive fit (trial-major, restarts contiguous, restart
     ``i`` of the grid seeded ``seed + i`` by :func:`init_cnmf`), and
     each trial's lowest-error restart is returned with unit-norm
-    synergies.  The JAX function's ``precision=`` has no counterpart:
-    the port always computes in full precision (TF32 is off).
+    synergies.
 
     Args:
         trials / sampling_frequency / config / subjects: as on
@@ -561,6 +556,10 @@ def analyze_dataset_time_varying(
         impl: ``"auto"``, ``"torch"`` or ``"cuda"`` for the batched fit
             (the JAX names ``"xla"``/``"pallas"`` map onto the last
             two); defaults to ``config.solver_impl``.
+        precision: matmul precision of the plain fit's contractions, as
+            the JAX package takes it (``None`` or ``"highest"``: full
+            float32; ``"high"``: TF32 allowed); the kernel K5 computes in
+            float32 whatever it says.
         dtype, device: as on :func:`analyze_dataset`: the card by
             default, in float32; ``device="cpu"`` runs the plain
             versions.
@@ -596,6 +595,7 @@ def analyze_dataset_time_varying(
     state = fit_cnmf_batch(
         xs.repeat_interleave(n_inits, dim=0), as_tensor(c0, xs.device),
         as_tensor(s0, xs.device), max_iter=max_iter, tol=tol, impl=impl,
+        precision=precision,
     )
 
     errors = to_numpy(state.previous_error).reshape(b, n_inits)

@@ -27,7 +27,8 @@ from .cnmf import (
 from .hals import CDState, cd_pass, fit_cd
 from .init import initialize_nmf, nndsvd
 from .mu import EPSILON, MUState, fit_mu, frobenius_error, mu_update
-from .select import compute_regularization
+from .rsvd import initialize_nmf_sklearn, randomized_svd
+from .select import NMFModel, SynergyRunResult, compute_regularization, find_synergies
 
 __all__ = [
     "BetaState",
@@ -35,6 +36,8 @@ __all__ = [
     "CNMFState",
     "EPSILON",
     "MUState",
+    "NMFModel",
+    "SynergyRunResult",
     "TimeVaryingSynergyResult",
     "beta",
     "beta_divergence",
@@ -54,15 +57,18 @@ __all__ = [
     "fit_mu_batch",
     "fit_mu_beta",
     "fit_mu_beta_batch",
+    "find_synergies",
     "frobenius_error",
     "init_batch",
     "init_cnmf",
     "initialize_nmf",
+    "initialize_nmf_sklearn",
     "mu_iterations_batch",
     "mu_update",
     "mu_update_beta",
     "nndsvd",
     "normalize_synergies",
     "pad_and_stack",
+    "randomized_svd",
     "vaf_batch",
 ]

@@ -18,6 +18,10 @@ are zero and the matching rows of W start at zero, which both solvers
 preserve.  Rank sweeps zero-pad factors to the largest rank; padded
 components stay exactly zero under both solvers and both
 implementations.
+
+``block_b=`` is accepted wherever the JAX package takes it and ignored:
+it is the Pallas kernels' tile of trials per Mosaic block, and the CUDA
+kernels pick their own layout.
 """
 
 from __future__ import annotations
@@ -32,11 +36,12 @@ from .beta import BetaState, beta_loss_to_float, fit_mu_beta
 from .hals import CDState, fit_cd
 from .init import initialize_nmf
 from .kernels import beta_cuda, cd_cuda, mu_cuda
-from .mu import MUState, fit_mu
+from .mu import MUState, fit_mu, mu_update
 
 __all__ = [
     "pad_and_stack",
     "init_batch",
+    "mu_update_batch",
     "mu_iterations_batch",
     "fit_mu_batch",
     "cd_iterations_batch",
@@ -98,12 +103,25 @@ def init_batch(
     return w, h
 
 
+def mu_update_batch(xs, w, h, inner_iter: int = 1):
+    """One MU iteration over a ``(B, N, L)`` batch (batched matmuls).
+
+    The JAX package's ``mu_update_batch``, in its order: ``X H^T`` and
+    ``H H^T`` first, zero denominators replaced by ``EPSILON``, and
+    ``inner_iter > 1`` repeating each factor's update with the fixed
+    factor's cross products reused.  That is
+    :func:`~muscle_synergies_tpu_torch.models.mu.mu_update` without
+    penalties, which it calls.
+    """
+    return mu_update(xs, w, h, inner_iter=inner_iter)
+
+
 def mu_iterations_batch(xs, w, h, n_iters: int, impl: str = "auto",
-                        inner_iter: int = 1):
+                        block_b: Optional[int] = None, inner_iter: int = 1):
     """Run ``n_iters`` MU iterations of every problem (no stopping).
 
     The throughput primitive; ``impl="cuda"`` is kernel K1 with its
-    stopping rule compiled out.
+    stopping rule compiled out.  ``block_b`` is ignored (a Mosaic tile).
     """
     if resolve_impl(impl, xs) == "cuda":
         return mu_cuda.mu_iterations_cuda(xs, w, h, n_iters, inner_iter)
@@ -118,25 +136,31 @@ def fit_mu_batch(
     tol: float = 1e-4,
     check_every: int = 10,
     impl: str = "auto",
+    block_b: Optional[int] = None,
     inner_iter: int = 1,
     l1_reg_w: float = 0.0,
     l2_reg_w: float = 0.0,
     l1_reg_h: float = 0.0,
     l2_reg_h: float = 0.0,
 ) -> MUState:
-    """MU-NMF over a ``(B, N, L)`` batch with per-problem convergence."""
+    """MU-NMF over a ``(B, N, L)`` batch with per-problem convergence.
+
+    ``block_b`` is ignored (a Mosaic tile).
+    """
     fit = mu_cuda.fit_mu_cuda if resolve_impl(impl, xs) == "cuda" else fit_mu
     return fit(xs, w0, h0, max_iter=max_iter, tol=tol, check_every=check_every,
                inner_iter=inner_iter, l1_reg_w=l1_reg_w, l2_reg_w=l2_reg_w,
                l1_reg_h=l1_reg_h, l2_reg_h=l2_reg_h)
 
 
-def cd_iterations_batch(xs, w, h, n_iters: int, impl: str = "auto"):
+def cd_iterations_batch(xs, w, h, n_iters: int, impl: str = "auto",
+                        block_b: Optional[int] = None):
     """Run ``n_iters`` CD/HALS outer iterations of every problem (no stopping).
 
     One iteration is a cyclic pass over W's components then H's
     (sklearn's ``shuffle=False`` order); ``impl="cuda"`` is kernel K2
-    with its stopping rule compiled out.
+    with its stopping rule compiled out.  ``block_b`` is ignored (a
+    Mosaic tile).
     """
     if resolve_impl(impl, xs) == "cuda":
         return cd_cuda.cd_iterations_cuda(xs, w, h, n_iters)
@@ -150,24 +174,28 @@ def fit_cd_batch(
     max_iter: int = 200,
     tol: float = 1e-4,
     impl: str = "auto",
+    block_b: Optional[int] = None,
     l1_reg_w: float = 0.0,
     l2_reg_w: float = 0.0,
     l1_reg_h: float = 0.0,
     l2_reg_h: float = 0.0,
 ) -> CDState:
-    """Coordinate-descent NMF over a ``(B, N, L)`` batch, per-problem stop."""
+    """Coordinate-descent NMF over a ``(B, N, L)`` batch, per-problem stop.
+
+    ``block_b`` is ignored (a Mosaic tile).
+    """
     fit = cd_cuda.fit_cd_cuda if resolve_impl(impl, xs) == "cuda" else fit_cd
     return fit(xs, w0, h0, max_iter=max_iter, tol=tol, l1_reg_w=l1_reg_w,
                l2_reg_w=l2_reg_w, l1_reg_h=l1_reg_h, l2_reg_h=l2_reg_h)
 
 
 def beta_mu_iterations_batch(xs, w, h, n_iters: int, beta: float = 1.0,
-                             impl: str = "auto"):
+                             impl: str = "auto", block_b: Optional[int] = None):
     """Run ``n_iters`` beta-MU iterations of every problem (no stopping).
 
     The beta-divergence counterpart of :func:`mu_iterations_batch`, for
     any float ``beta``; ``impl="cuda"`` is kernel K4 with its stopping
-    rule compiled out.
+    rule compiled out.  ``block_b`` is ignored (a Mosaic tile).
     """
     if resolve_impl(impl, xs) == "cuda":
         return beta_cuda.beta_iterations_cuda(xs, w, h, n_iters, beta)
@@ -183,6 +211,7 @@ def fit_mu_beta_batch(
     tol: float = 1e-4,
     check_every: int = 10,
     impl: str = "auto",
+    block_b: Optional[int] = None,
     l1_reg_w: float = 0.0,
     l2_reg_w: float = 0.0,
     l1_reg_h: float = 0.0,
@@ -193,6 +222,7 @@ def fit_mu_beta_batch(
     ``impl="cuda"`` is kernel K4 with sklearn's stop inside each block;
     ``"torch"`` is
     :func:`~muscle_synergies_tpu_torch.models.beta.fit_mu_beta`.
+    ``block_b`` is ignored (a Mosaic tile).
     """
     cuda = resolve_impl(impl, xs) == "cuda"
     fit = beta_cuda.fit_beta_cuda if cuda else fit_mu_beta

@@ -20,6 +20,12 @@ the hand-written kernel for a CUDA float32 batch
 (:mod:`.kernels.cnmf_cuda`), the plain PyTorch functions here
 otherwise.  Scale indeterminacy is fixed by
 :func:`normalize_synergies`.
+
+``precision=`` is the JAX package's matmul precision for the plain
+contractions (see :func:`~muscle_synergies_tpu_torch._common.allows_tf32`;
+full float32 by default); the kernel computes in float32 on the CUDA
+cores whatever it says.  ``block_b=`` is accepted and ignored: it is the
+Pallas kernel's tile of trials per Mosaic block.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from .._common import resolve_impl
+from .._common import allows_tf32, matmul_precision, resolve_impl
 from .kernels import cnmf_cuda
 from .mu import EPSILON, _guard
 
@@ -66,14 +72,15 @@ def _lag_stack(c: torch.Tensor, n_lags: int) -> torch.Tensor:
     return torch.stack([_shift_down(c, d) for d in range(n_lags)], dim=-3)
 
 
-def cnmf_reconstruct(c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+def cnmf_reconstruct(c: torch.Tensor, s: torch.Tensor, precision=None) -> torch.Tensor:
     """Reconstruction ``X^[t, l] = sum_k sum_d C[t-d, k] S[k, d, l]``."""
     cs = _lag_stack(c, s.shape[-2])
-    return torch.einsum("...dtk,...kdl->...tl", cs, s)
+    with matmul_precision(precision):
+        return torch.einsum("...dtk,...kdl->...tl", cs, s)
 
 
 def cnmf_update(
-    x: torch.Tensor, c: torch.Tensor, s: torch.Tensor
+    x: torch.Tensor, c: torch.Tensor, s: torch.Tensor, precision=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One multiplicative update of S then C.
 
@@ -84,14 +91,16 @@ def cnmf_update(
     """
     n_lags = s.shape[-2]
     cs = _lag_stack(c, n_lags)
-    xhat = torch.einsum("...dtk,...kdl->...tl", cs, s)
-    num_s = torch.einsum("...dtk,...tl->...kdl", cs, x)
-    den_s = torch.einsum("...dtk,...tl->...kdl", cs, xhat)
+    with matmul_precision(precision):
+        xhat = torch.einsum("...dtk,...kdl->...tl", cs, s)
+        num_s = torch.einsum("...dtk,...tl->...kdl", cs, x)
+        den_s = torch.einsum("...dtk,...tl->...kdl", cs, xhat)
     s = s * (num_s / _guard(den_s))
-    xhat = cnmf_reconstruct(c, s)
+    xhat = cnmf_reconstruct(c, s, precision)
     # G[d, t, k] = sum_l X[t, l] S[k, d, l]; numerator is sum_d G[d, t+d, k]
-    g_num = torch.einsum("...tl,...kdl->...dtk", x, s)
-    g_den = torch.einsum("...tl,...kdl->...dtk", xhat, s)
+    with matmul_precision(precision):
+        g_num = torch.einsum("...tl,...kdl->...dtk", x, s)
+        g_den = torch.einsum("...tl,...kdl->...dtk", xhat, s)
     num_c = sum(_shift_up(g_num[..., d, :, :], d) for d in range(n_lags))
     den_c = sum(_shift_up(g_den[..., d, :, :], d) for d in range(n_lags))
     c = c * (num_c / _guard(den_c))
@@ -106,8 +115,8 @@ class CNMFState(NamedTuple):
     converged: torch.Tensor  # bool
 
 
-def _frobenius_error(x, c, s):
-    diff = x - cnmf_reconstruct(c, s)
+def _frobenius_error(x, c, s, precision=None):
+    diff = x - cnmf_reconstruct(c, s, precision)
     return (diff * diff).sum(dim=(-2, -1)).sqrt()
 
 
@@ -118,6 +127,7 @@ def fit_cnmf(
     max_iter: int = 200,
     tol: float = 1e-4,
     check_every: int = 10,
+    precision=None,
 ) -> CNMFState:
     """Convolutive NMF to convergence, each problem stopping on its own.
 
@@ -131,13 +141,14 @@ def fit_cnmf(
         x: ``(T, L)`` or ``(B, T, L)`` non-negative data.
         c0, s0: initial activations ``(..., T, K)`` and synergies
             ``(..., K, D, L)``.
+        precision: matmul precision of the contractions.
     """
     single = x.ndim == 2
     if single:
         x, c0, s0 = x[None], c0[None], s0[None]
     b = x.shape[0]
     c, s = c0.to(x.dtype).clone(), s0.to(x.dtype).clone()
-    err0 = _frobenius_error(x, c, s)
+    err0 = _frobenius_error(x, c, s, precision)
     scale = err0.clamp(min=EPSILON)
     prev = err0.clone()
     n_iter = torch.zeros(b, dtype=torch.int32, device=x.device)
@@ -148,8 +159,8 @@ def fit_cnmf(
             break
         xa, ca, sa = x[active], c[active], s[active]
         for _ in range(check_every):
-            ca, sa = cnmf_update(xa, ca, sa)
-        err = _frobenius_error(xa, ca, sa)
+            ca, sa = cnmf_update(xa, ca, sa, precision)
+        err = _frobenius_error(xa, ca, sa, precision)
         c[active], s[active] = ca, sa
         n_iter[active] += check_every
         converged[active] = (prev[active] - err) / scale[active] < tol
@@ -168,17 +179,22 @@ def fit_cnmf_batch(
     tol: float = 1e-4,
     check_every: int = 10,
     impl: str = "auto",
+    block_b=None,
+    precision=None,
 ) -> CNMFState:
     """Convolutive NMF over a ``(B, T, L)`` stack, per-problem stopping.
 
     ``impl="cuda"`` (``"auto"`` on a CUDA float32 batch) is kernel K5
-    with its stop inside each block; ``"torch"`` is :func:`fit_cnmf`.
-    Both follow the JAX package's ``fit_cnmf_batch`` iterate for
-    iterate.
+    with its stop inside each block; ``"torch"`` is :func:`fit_cnmf`,
+    its contractions at ``precision``.  Both follow the JAX package's
+    ``fit_cnmf_batch`` iterate for iterate.  ``block_b`` is ignored (a
+    Mosaic tile).
     """
-    cuda = resolve_impl(impl, xs) == "cuda"
-    fit = cnmf_cuda.fit_cnmf_cuda if cuda else fit_cnmf
-    return fit(xs, c0, s0, max_iter=max_iter, tol=tol, check_every=check_every)
+    stop = dict(max_iter=max_iter, tol=tol, check_every=check_every)
+    if resolve_impl(impl, xs) == "cuda":
+        allows_tf32(precision)  # validated; K5 computes no matmul
+        return cnmf_cuda.fit_cnmf_cuda(xs, c0, s0, **stop)
+    return fit_cnmf(xs, c0, s0, precision=precision, **stop)
 
 
 def cnmf_iterations_batch(
@@ -187,15 +203,20 @@ def cnmf_iterations_batch(
     s0: torch.Tensor,
     n_iters: int,
     impl: str = "auto",
+    block_b=None,
+    precision=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``n_iters`` convolutive updates of every problem (no stopping).
 
     The fixed-iteration twin of :func:`fit_cnmf_batch`;
-    ``impl="cuda"`` is kernel K5 with its stop compiled out.
+    ``impl="cuda"`` is kernel K5 with its stop compiled out, and the
+    plain version contracts at ``precision``.  ``block_b`` is ignored
+    (a Mosaic tile).
     """
     if resolve_impl(impl, xs) == "cuda":
+        allows_tf32(precision)  # validated; K5 computes no matmul
         return cnmf_cuda.cnmf_iterations_cuda(xs, c0, s0, n_iters)
-    return cnmf_cuda.cnmf_iterations_plain(xs, c0, s0, n_iters)
+    return cnmf_cuda.cnmf_iterations_plain(xs, c0, s0, n_iters, precision)
 
 
 def init_cnmf(

@@ -23,6 +23,8 @@ from typing import NamedTuple
 
 import torch
 
+from .._common import matmul_precision
+
 # sklearn's EPSILON: np.finfo(np.float32).eps, independent of dtype.
 EPSILON = 1.1920929e-07
 
@@ -30,9 +32,17 @@ __all__ = ["EPSILON", "mu_update", "frobenius_error", "fit_mu", "fit_chunked",
            "MUState"]
 
 
-def frobenius_error(x: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """``||X - W @ H||_F`` per problem (a scalar, or ``(B,)`` for a batch)."""
-    diff = x - w @ h
+def frobenius_error(x: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
+                    precision=None) -> torch.Tensor:
+    """``||X - W @ H||_F`` per problem (a scalar, or ``(B,)`` for a batch).
+
+    ``precision`` is the JAX package's matmul precision for ``W @ H``
+    (see :func:`~muscle_synergies_tpu_torch._common.allows_tf32`); the
+    default is full float32.
+    """
+    with matmul_precision(precision):
+        wh = w @ h
+    diff = x - wh
     return (diff * diff).sum(dim=(-2, -1)).sqrt()
 
 

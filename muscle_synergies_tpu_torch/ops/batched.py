@@ -18,8 +18,11 @@ and every transform here is exact under that padding:
 - ``normalize``: padded zeros never win a max-abs.
 
 The zero-phase envelope is exact only for equal-length trials (the odd
-reflection must touch the true last sample), so the mask only re-zeroes
-the padding there; ragged captures are grouped by length upstream
+reflection must touch the true last sample), so in
+:func:`linear_envelope_batch`, as in the JAX package, the mask only
+re-zeroes the padding.  Ragged captures go through
+:func:`_ragged_zero_phase_envelope`, which filters each trial over its
+own length: one K3 launch for the whole padded batch on the card
 (:func:`muscle_synergies_tpu_torch.dataset.preprocess_trials`).
 """
 
@@ -29,8 +32,9 @@ from typing import Optional, Sequence, Union
 
 import torch
 
-from .._common import as_tensor
+from .._common import as_tensor, resolve_impl
 from .emg import linear_envelope, unit_grid, windowed_rms
+from .filters import _resolve_padding, sos_design
 
 __all__ = [
     "zero_center_batch",
@@ -166,3 +170,33 @@ def linear_envelope_batch(
     if mask is not None:
         out = out * as_tensor(mask, xs.device, xs.dtype)[..., None]
     return out
+
+
+def _ragged_zero_phase_envelope(
+    xs: torch.Tensor,
+    mask: torch.Tensor,
+    critical_freqs: Union[float, Sequence[float]],
+    sampling_frequency: float,
+    order: int,
+    filter_type: str = "butter",
+    cheby_param: Optional[float] = None,
+) -> torch.Tensor:
+    """Rectify and zero-phase lowpass every trial over its own length.
+
+    ``xs`` is a zero-padded ``(B, N, L)`` batch (already zero-centred),
+    ``mask`` its ``(B, N)`` validity mask.  Each trial is filtered as
+    scipy's ``sosfiltfilt`` filters it alone: the odd extension reflects
+    about its own last valid sample.  On the card that is one launch of
+    K3 with ``lengths = mask.sum(1)``; on the CPU the plain version,
+    trial lengths in groups.  The padding comes back zero.
+    """
+    from . import filter_cuda
+
+    sos = sos_design(order, critical_freqs, sampling_frequency,
+                     filter_type=filter_type, band_type="lowpass",
+                     cheby_param=cheby_param)
+    lengths = mask.sum(dim=1).round().to(torch.int64)
+    padlen = _resolve_padding(sos, int(lengths.min()), "odd", None)
+    cuda = resolve_impl("auto", xs) == "cuda"
+    run = filter_cuda.sosfiltfilt_cuda if cuda else filter_cuda.sosfiltfilt_plain
+    return run(sos, xs.abs(), padlen, "odd", lengths)

@@ -13,8 +13,8 @@ and :func:`sosfilt`, one causal pass from given states with scipy's
 Two implementations sit behind ``impl`` of each, all in
 :mod:`.filter_cuda`:
 
-- ``"cuda"``: the hand-written kernels (float32 CUDA tensors; one
-  thread per signal column), K3 for ``sosfiltfilt`` and K6 for
+- ``"cuda"``: the hand-written kernels (float32 CUDA tensors; chunked
+  scans over each signal column), K3 for ``sosfiltfilt`` and K6 for
   ``sosfilt``;
 - ``"torch"``: their plain versions, a loop over time vectorized over
   columns (:func:`_cascade`), on any device and dtype.
@@ -133,12 +133,17 @@ def _resolve_padding(
         padlen = 0
     elif padlen is None:
         padlen = default_padlen(sos_np)
+    _check_length(n_samples, padlen)
+    return int(padlen)
+
+
+def _check_length(n_samples: int, padlen: int) -> None:
+    """scipy's refusal of a signal no longer than its edge extension."""
     if padlen >= n_samples:
         raise ValueError(
             f"the length of the input vector x must be greater than padlen, "
             f"which is {padlen}"
         )
-    return int(padlen)
 
 
 # Edge extensions along the time axis (dim -2 of a (..., N, C) block),

@@ -30,6 +30,7 @@ from muscle_synergies_tpu_torch import (  # noqa: E402
     PipelineConfig,
     analyze_dataset,
     analyze_dataset_time_varying,
+    preprocess_trials,
 )
 from muscle_synergies_tpu_torch.models import cnmf  # noqa: E402
 from muscle_synergies_tpu_torch.models.beta import mu_update_beta  # noqa: E402
@@ -101,6 +102,81 @@ def test_causal_filter_kernel_matches_plain(cuda, design):
     assert _rel(torch.cat(parts, dim=1), y) < 1e-6
     one, zf1 = filters.sosfilt(sos, x[0, :, 0], zi=zi[0, :, :, 0], return_zf=True)
     assert torch.equal(one, y[0, :, 0]) and zf1.shape == (len(sos), 2)
+
+
+@pytest.mark.parametrize("padtype", ["odd", "even", "constant", None])
+def test_filter_kernel_takes_per_trial_lengths(cuda, padtype):
+    sos = filters.sos_design(4, 40.0, 1000.0)
+    padlen = filters.default_padlen(sos) if padtype else 0
+    g = torch.Generator().manual_seed(7)
+    x = torch.rand(6, 3001, 8, generator=g).to(cuda)
+    lengths = torch.tensor([3001, 2000, padlen + 1, 1234, 3000, 2999])
+    before = filter_cuda.launches
+    y = filter_cuda.sosfiltfilt_cuda(sos, x, padlen, padtype, lengths.to(cuda))
+    ref = filter_cuda.sosfiltfilt_plain(sos, x.double(), padlen, padtype, lengths)
+    torch.cuda.synchronize()
+    assert filter_cuda.launches == before + 1
+    assert _rel(y, ref) < 1e-6
+    for b, n in enumerate(lengths.tolist()):
+        assert not y[b, n:].any()  # zeros past each trial's length
+    with pytest.raises(ValueError, match="greater than padlen"):
+        filter_cuda.sosfiltfilt_cuda(sos, x, padlen, padtype,
+                                     torch.tensor([3001] * 5 + [padlen]))
+    assert filter_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("shift", [-1, 0, 1])
+def test_filter_kernels_at_chunk_boundaries(cuda, shift):
+    # N (K6) and the extended length (K3) below, at and one above a
+    # chunk; 7 x 5 columns, not a multiple of a warp's 32
+    sos = filters.sos_design(4, 4.0, 2000.0)
+    padlen = filters.default_padlen(sos)
+    chunk = filter_cuda.CHUNK
+    g = torch.Generator().manual_seed(8)
+    for n in (chunk + shift, chunk - 2 * padlen + shift, 2 * chunk + shift):
+        x = torch.rand(7, n, 5, generator=g).to(cuda)
+        y = filter_cuda.sosfiltfilt_cuda(sos, x, padlen, "odd")
+        ref = filter_cuda.sosfiltfilt_plain(sos, x.double(), padlen, "odd")
+        assert _rel(y, ref) < 1e-6
+        zi = torch.randn(7, len(sos), 2, 5, generator=g).to(cuda)
+        yc, zf = filter_cuda.sosfilt_cuda(sos, x, zi)
+        ref, ref_zf = filter_cuda.sosfilt_plain(sos, x.double(), zi.double())
+        assert _rel(yc, ref) < 1e-6 and _rel(zf, ref_zf) < 1e-6
+    torch.cuda.synchronize()
+
+
+def test_causal_kernel_streams_across_its_chunks(cuda):
+    sos = filters.sos_design(4, 4.0, 2000.0)
+    chunk = filter_cuda.CHUNK
+    g = torch.Generator().manual_seed(9)
+    x = torch.rand(3, 3 * chunk + 5, 8, generator=g).to(cuda)
+    zi = torch.randn(3, len(sos), 2, 8, generator=g).to(cuda)
+    whole, zf_whole = filter_cuda.sosfilt_cuda(sos, x, zi)
+    for piece in (1, 100, chunk, chunk + 1):
+        state, parts = zi, []
+        for start in range(0, min(x.shape[1], 40 * piece), piece):
+            part, state = filter_cuda.sosfilt_cuda(sos, x[:, start:start + piece],
+                                                   state)
+            parts.append(part)
+        done = torch.cat(parts, dim=1)
+        # zf comes back in float32, so every call rounds the state (6e-8
+        # relative); 40 one-sample calls at 4 Hz and 2 kHz measured 1.4e-6
+        assert _rel(done, whole[:, :done.shape[1]]) < 1e-5
+    assert _rel(state, zf_whole) < 1e-5  # the last piece size covers x
+
+
+def test_ragged_zero_phase_preprocess_is_one_launch(cuda):
+    rng = np.random.default_rng(10)
+    lengths = [5000, 4100, 3000, 4999, 3001]
+    trials = [rng.standard_normal((n, 8)).astype(np.float32) for n in lengths]
+    filter_cuda.launches = filter_cuda.sosfilt_launches = 0
+    pre = preprocess_trials(trials, 2000.0)
+    torch.cuda.synchronize()
+    assert (filter_cuda.launches, filter_cuda.sosfilt_launches) == (1, 0)
+    alone = torch.cat([preprocess_trials([t], 2000.0) for t in trials])
+    assert pre.shape == (5, 200, 8) and _rel(pre, alone) < 1e-5
+    cpu = preprocess_trials(trials, 2000.0, device="cpu", dtype=torch.float64)
+    assert _rel(pre.cpu(), cpu) < 1e-5
 
 
 def test_causal_and_rms_paths_launch_their_kernels(cuda):
