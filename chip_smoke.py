@@ -89,7 +89,34 @@ then, failing on the first assertion that does not hold:
     within 1e-3 of float64 in reconstruction error); on a 20,000 x 8
     frame, over one block's shared memory, ``fit_transform`` must raise
     before any launch, and with ``impl="torch"`` runs the plain fit on
-    the card (no counter moves).
+    the card (no counter moves);
+15. the capture main path, no pandas: 16 Vicon Nexus captures written
+    by ``testing.write_synthetic_capture`` at the reference trial's scale
+    (2,000 Hz, 2 force plates and an 8-channel EMG, 40 markers at 100
+    Hz, 4 passes x 2 cycles, capture i with ``seed=i`` and
+    ``state_len=2,800 + 20 i``: 114,800-127,100 samples), in parallel
+    processes that load the writer's module from its file alone (no
+    torch import), then the package's import timed in a fresh process
+    for comparison; ``io.load_vicon_files`` (native decoder, threads), one
+    capture held bit for bit against the plain decoder and its EMG
+    against the writer's array; ``segment.Segmenter`` on each, whose
+    transitions must sit on the written state boundaries; the 8 gait
+    cycles of each cut from the EMG (stop inclusive), 128 ragged trials
+    of 11,200-12,400 x 8, each a ``DeviceData`` of its own; then
+    ``analyze_dataset(trials, 2000.0, ranks=(1, 2, 3, 4))`` under the
+    default config: exactly one K3 launch (per-trial lengths), K2's warp
+    entry and no block entry, the VAF checks of phase 5, the channel
+    names from the EMG's coords, and a 16-trial subset against
+    ``impl="torch"`` at ``max_iter=2,000`` on both sides; K3's launch
+    at that shape (the 128 cycles, per-trial lengths) against
+    ``scipy.signal.sosfiltfilt`` in float64 on each cycle's own samples
+    (bar 5e-4 x max|y|), and the card's preprocess of the shortest and
+    the longest cycle against the plain chain in float64 on the host
+    (bar 1e-5 x max); last, one capture's EMG streamed with
+    ``io.DeviceStream`` in 8,192-row chunks through
+    ``ops.filters.sosfilt`` (K6) carrying ``zf``, against one K6 launch
+    on the loaded array and against ``scipy.signal.sosfilt`` in float64
+    from the same states, bar 5e-4 x max|y| each.
 
 Each main path is driven with every launch counter set to 0 just before
 it and read just after; the CD, RMS-CD and ``rank_sweep_batch`` paths
@@ -109,6 +136,7 @@ card it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -121,6 +149,9 @@ N_CHANNELS = 8
 MAIN_TRIALS = 256
 SUBSET = 16
 RAGGED_MIN = 100_000  # the RMS path's shortest ragged trial
+CAPTURES = 16  # phase 15's written captures
+STATE_LEN = 2_800  # capture i holds 41 support states of STATE_LEN + 20 i samples
+N_MARKERS = 40  # the reference trial's marker montage
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and dense peaks outside the
 # tensor cores, at the full 700 W power limit
@@ -229,6 +260,53 @@ def plain_snapshot(step, xs, w, h, counts):
     return w, h
 
 
+_WRITER = "_chip_smoke_capture_writer"
+
+
+def _write_capture(path: str, state_len: int, n_markers: int, seed: int):
+    """One of phase 15's captures (a process pool's task: module level).
+
+    The writer module is loaded from its file alone: ``testing.py``
+    needs only numpy (and scipy), so a writer process skips the
+    package's ``__init__`` and its torch import.  Returns the seconds
+    spent loading the writer (0 once a process has it) and writing.
+    """
+    import importlib.util
+
+    t0 = time.perf_counter()
+    if _WRITER not in sys.modules:
+        spec = importlib.util.spec_from_file_location(_WRITER, os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "muscle_synergies_tpu_torch",
+            "testing.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        sys.modules[_WRITER] = module
+    t1 = time.perf_counter()
+    sys.modules[_WRITER].write_synthetic_capture(
+        path, state_len=state_len, n_markers=n_markers, seed=seed)
+    return t1 - t0, time.perf_counter() - t1
+
+
+def _cut_cycles(data, segmenter):
+    """Every gait cycle of a capture's EMG (stop inclusive, as
+    ``segment.phase_summary`` cuts), each a ``DeviceData`` of its own
+    whose frames count from 1 at the cycle's start."""
+    from muscle_synergies_tpu_torch import DeviceData, ForcesEMGFrameTracker, SamplingFreq
+
+    emg, rates = data.emg, data.sampling_freq
+    out = []
+    for trecho, cycles in segmenter.segments.items():
+        for cycle in cycles:
+            times = segmenter.get_times_of(trecho, cycle)
+            start, stop = emg.to_index(times.start), emg.to_index(times.stop) + 1
+            tracker = ForcesEMGFrameTracker(SamplingFreq(
+                rates.freq_forces_emg, rates.freq_traj,
+                num_frames=(stop - start) // rates.num_subframes))
+            out.append(DeviceData(emg.name, emg.dev_type, emg.units, tracker,
+                                  array=emg.array[start:stop], coords=emg.coords))
+    return out
+
+
 class Smoke:
     """One run's card, its kernel records and its main-path launch counts."""
 
@@ -262,6 +340,50 @@ class Smoke:
 
     def stage(self, label: str, seconds: float) -> None:
         log(f"stage {label}: {seconds:.3f} s  [{self.smi}]")
+
+    def timed(self, label: str, fn):
+        """Run ``fn`` between two synchronisations and log its time."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        log(f"stage {label}: {(time.perf_counter() - t) * 1e3:.2f} ms  [{self.smi}]")
+        return out
+
+    def grid_fits(self, xs, fits, label: str = "", ranks=(1, 2, 3, 4)):
+        """The stages of a batched rank sweep on preprocessed ``xs``: the
+        NNDSVDA init of every (rank, trial) pair, zero-padded to the top
+        rank, then each of ``fits`` (name -> ``fit(x, w, h)``) with its
+        bound, the VAF of the first, and each one's longest fit alone."""
+        from muscle_synergies_tpu_torch.models import batch as mb
+
+        torch, top = self.torch, max(ranks)
+
+        def grid_init():
+            ws, hs = [], []
+            for kk in ranks:
+                w, h = mb.init_batch(xs, kk)
+                ws.append(torch.nn.functional.pad(w, (0, top - kk)))
+                hs.append(torch.nn.functional.pad(h, (0, 0, 0, top - kk)))
+            return xs.repeat(len(ranks), 1, 1), torch.cat(ws), torch.cat(hs)
+
+        gx, gw, gh = self.timed(f"{label}init (NNDSVDA, {len(ranks)} ranks)", grid_init)
+        n, l = gx.shape[1:]
+        states = {}
+        for kname, fit in fits.items():
+            states[kname] = self.timed(f"{label}fit {kname} (kernel, {gx.shape[0]} fits)",
+                                       lambda: fit(gx, gw, gh))
+            fit_bound(kname, states[kname].n_iter, n, l, top,
+                      4 * gx.shape[0] * (n * l + 2 * (n * top + top * l)))
+            medians = states[kname].n_iter.view(len(ranks), -1).float().median(dim=1)
+            log(f"fit {kname}: n_iter median by rank {medians.values.tolist()}")
+        st = states[next(iter(fits))]
+        self.timed(f"{label}vaf", lambda: mb.vaf_batch(gx, st.w, st.ht.transpose(-1, -2)))
+        for kname, fit in fits.items():
+            self.lone_fit(f"{label}{kname}", states[kname].n_iter,
+                          lambda i: fit(gx[i], gw[i], gh[i]))
+        return gx, states
 
     def record(self, name, replaces, errs, ms, plain_ms, flops, nbytes,
                kind="f32", source=None, **extra):
@@ -889,6 +1011,233 @@ class Smoke:
         assert w_big.shape == (big.shape[0], 4) and np.isfinite(w_big).all()
         log(f"NMFModel 20,000x8: plain fit on the card, n_iter {m_big.n_iter_}")
 
+    # ---- 15. the capture main path ----
+    def capture_main(self, n_captures: int = CAPTURES, state_len: int = STATE_LEN,
+                     n_markers: int = N_MARKERS, chunk: int = 8192):
+        import concurrent.futures
+        import multiprocessing
+        import shutil
+        import tempfile
+
+        from scipy import signal as sps
+
+        from muscle_synergies_tpu_torch import analyze_dataset, preprocess_trials
+        from muscle_synergies_tpu_torch.io import (
+            DeviceStream,
+            load_vicon_file,
+            load_vicon_files,
+        )
+        from muscle_synergies_tpu_torch.ops import filter_cuda, filters
+        from muscle_synergies_tpu_torch.segment import Segmenter, transition_indices
+        from muscle_synergies_tpu_torch.testing import GAIT_MUSCLES, _gait_emg_array
+
+        torch, dev = self.torch, self.dev
+        phase_t0 = time.perf_counter()
+        lens = [state_len + 20 * i for i in range(n_captures)]
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+        os.makedirs(root, exist_ok=True)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_captures_", dir=root)
+        try:
+            paths = [os.path.join(tmp, f"capture{i:02d}.csv") for i in range(n_captures)]
+            t0 = time.perf_counter()
+            workers = min(n_captures, os.cpu_count() or 1, 8)
+            with concurrent.futures.ProcessPoolExecutor(
+                    workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+                spent = list(pool.map(_write_capture, paths, lens,
+                                      [n_markers] * n_captures, range(n_captures)))
+            nbytes = sum(os.path.getsize(p) for p in paths)
+            self.stage(f"capture write ({n_captures} captures, {nbytes / 1e6:.1f} MB, "
+                       f"{workers} processes)", time.perf_counter() - t0)
+            loads, writes = zip(*spent)
+            log(f"capture write: writer module load {max(loads):.3f} s at most in a "
+                f"process; writing {sum(writes):.3f} s in all, "
+                f"{sum(writes) / n_captures:.3f} s a capture  [{self.smi}]")
+            t0 = time.perf_counter()
+            subprocess.run([sys.executable, "-c", "import muscle_synergies_tpu_torch"],
+                           check=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+            self.stage("capture write, for comparison: the whole package's import in a "
+                       "fresh process", time.perf_counter() - t0)
+
+            t0 = time.perf_counter()
+            datas = load_vicon_files(paths)
+            secs = time.perf_counter() - t0
+            self.stage(f"capture parse (load_vicon_files, native decoder, threads; "
+                       f"{nbytes / 1e6 / secs:.1f} MB/s)", secs)
+            t0 = time.perf_counter()
+            load_vicon_file(paths[0])
+            secs = time.perf_counter() - t0
+            self.stage(f"capture parse, one capture, native decoder "
+                       f"({os.path.getsize(paths[0]) / 1e6 / secs:.1f} MB/s)", secs)
+            t0 = time.perf_counter()
+            os.environ["MST_DISABLE_NATIVE"] = "1"
+            try:
+                plain = load_vicon_file(paths[0])
+            finally:
+                del os.environ["MST_DISABLE_NATIVE"]
+            secs = time.perf_counter() - t0
+            self.stage(f"capture parse, one capture, plain decoder "
+                       f"({os.path.getsize(paths[0]) / 1e6 / secs:.1f} MB/s)", secs)
+            first = datas[0]
+            devices = [first.emg] + first.forcepl + first.traj
+            plain_devices = [plain.emg] + plain.forcepl + plain.traj
+            assert len(first.traj) == n_markers and len(first.forcepl) == 2
+            for a, b in zip(devices, plain_devices):
+                assert a.name == b.name and a.coords == b.coords and a.units == b.units
+                assert np.array_equal(np.ascontiguousarray(a.array).view(np.uint64),
+                                      np.ascontiguousarray(b.array).view(np.uint64)), \
+                    f"native and plain decoders disagree on {a.name}"
+            n = 41 * lens[0]
+            written = np.round(_gait_emg_array(n_samples=n, sampling_frequency=FS,
+                                               seed=0), 6)
+            assert np.array_equal(np.ascontiguousarray(first.emg.array).view(np.uint64),
+                                  written.view(np.uint64)), \
+                "the parsed EMG differs from the writer's array"
+            assert first.emg.coords == GAIT_MUSCLES
+            log(f"capture: {n_captures} captures of {[d.emg.array.shape[0] for d in datas]}"
+                f" samples; capture 0 bit for bit equal to the plain decoder "
+                f"({len(devices)} devices) and its EMG to the writer's array")
+
+            t0 = time.perf_counter()
+            segmenters = [Segmenter(d) for d in datas]
+            self.stage(f"capture segment ({n_captures} Segmenters)",
+                       time.perf_counter() - t0)
+            for d, length in zip(datas, lens):
+                left, right = (p.array[:, p.coords.index("Fz")] for p in d.forcepl[:2])
+                got = transition_indices(left, right, num_segments=40)
+                assert got == [k * length for k in range(40)], \
+                    "transitions off the written state boundaries"
+
+            t0 = time.perf_counter()
+            trials = [cycle for d, seg in zip(datas, segmenters)
+                      for cycle in _cut_cycles(d, seg)]
+            self.stage(f"capture cut ({len(trials)} gait cycles)", time.perf_counter() - t0)
+            sizes = [t.array.shape[0] for t in trials]
+            assert len(trials) == 8 * n_captures
+            assert sorted(set(sizes)) == [4 * length for length in lens], sizes
+            log(f"capture: {len(trials)} ragged trials of {min(sizes)}-{max(sizes)} "
+                f"x {trials[0].array.shape[1]}")
+
+            kw = dict(ranks=(1, 2, 3, 4))
+            res, counts = self.main_path("analyze_dataset on the cut gait cycles",
+                                         lambda: analyze_dataset(trials, FS, **kw))
+            assert counts["sosfiltfilt"] == 1, counts  # one K3 launch, ragged
+            assert counts["cd_nmf_warp"] > 0 and counts["cd_nmf"] == 0, counts
+            assert sum(counts.values()) == 1 + counts["cd_nmf_warp"], counts
+            self.check_rank_sweep("capture", res)
+            assert res.channel_names == list(GAIT_MUSCLES), res.channel_names
+            capped = dict(kw, max_iter=2000)
+            self.subset_matches(
+                "capture (max_iter 2,000 on both sides)",
+                analyze_dataset(trials[:SUBSET], FS, **capped).vaf_overall,
+                lambda: analyze_dataset(trials[:SUBSET], FS, impl="torch",
+                                        **capped).vaf_overall)
+            arrays = [t.array for t in trials]
+            xs = self.capture_stages(arrays)
+            self.ragged_filter_check(arrays)
+            # the card's preprocess of the whole ragged batch against the
+            # plain chain in float64 on the host, on its shortest and
+            # longest trial
+            picks = [int(np.argmin(sizes)), int(np.argmax(sizes))]
+            t0 = time.perf_counter()
+            plain_pre = preprocess_trials([arrays[i] for i in picks], FS, device="cpu",
+                                          dtype=torch.float64).numpy()
+            gap = float(np.abs(xs[picks].double().cpu().numpy() - plain_pre).max()
+                        / np.abs(plain_pre).max())
+            log(f"capture preprocess: trials {picks} of the {len(trials)}-trial batch on the "
+                f"card vs "
+                f"the plain chain in float64 on the host ({time.perf_counter() - t0:.1f} s)"
+                f" {gap:.3e} x max (bar 1e-5)")
+            assert gap <= 1e-5, "the card's ragged preprocess disagrees with float64"
+
+            # one capture's EMG, streamed in chunks through K6 with carried
+            # zf, against one K6 launch on the loaded array
+            sos = filters.sos_design(4, 4.0, FS)
+            emg = first.emg.array
+            zi = torch.as_tensor(filters.sosfilt_zi(sos)[:, :, None] * emg[0],
+                                 dtype=torch.float32)
+            stream = DeviceStream(paths[0], "emg", chunk_rows=chunk)
+
+            def streamed():
+                state, parts = zi.to(dev), []
+                for part in stream:
+                    y, state = filters.sosfilt(sos, part, zi=state, return_zf=True,
+                                               device=dev, dtype=torch.float32)
+                    parts.append(y)
+                return torch.cat(parts)
+
+            ys, counts = self.main_path(f"DeviceStream, {chunk}-row chunks through K6",
+                                        streamed)
+            n_chunks = -(-emg.shape[0] // chunk)
+            assert counts["sosfilt"] == n_chunks and sum(counts.values()) == n_chunks, \
+                counts
+            whole, _ = filter_cuda.sosfilt_cuda(
+                sos, torch.as_tensor(emg, dtype=torch.float32, device=dev)[None],
+                zi.to(dev)[None])
+            scale = float(whole.abs().max())
+            err = float((ys - whole[0]).abs().max()) / scale
+            # and against scipy in float64 on the same float32 samples and zi
+            ref, _ = sps.sosfilt(sos, emg.astype(np.float32).astype(np.float64), axis=0,
+                                 zi=zi.double().numpy())
+            err_ref = float(np.abs(ys.double().cpu().numpy() - ref).max()
+                            / np.abs(ref).max())
+            log(f"capture stream: {n_chunks} chunks of {chunk} rows with carried zf vs "
+                f"one K6 launch {err:.3e} x max|y|, vs scipy sosfilt in float64 "
+                f"{err_ref:.3e} x max|y| (bar 5e-4)")
+            assert err <= 5e-4, "the streamed capture disagrees with one K6 launch"
+            assert err_ref <= 5e-4, "the streamed capture disagrees with scipy"
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        self.stage("phase 15 (capture main path, whole)", time.perf_counter() - phase_t0)
+
+    def capture_stages(self, arrays):
+        """Phase 15's analyze stage split, piece by piece as the stage
+        breakdown splits the other paths: host padding, the copy, the
+        preprocess (one K3 launch with per-trial lengths inside), init,
+        fit, VAF."""
+        from muscle_synergies_tpu_torch import PipelineConfig, preprocess_trials
+        from muscle_synergies_tpu_torch.models.batch import fit_cd_batch, pad_and_stack
+
+        torch, dev = self.torch, self.dev
+        config = PipelineConfig()
+        data, _ = self.timed("capture host padding of the ragged trials",
+                             lambda: pad_and_stack(arrays))
+        self.timed(f"capture host->device {data.nbytes / 2**20:.0f} MiB "
+                   "(float64 -> float32)",
+                   lambda: torch.as_tensor(data, dtype=torch.float32, device=dev))
+        xs = self.timed("capture preprocess_trials whole (padding, copy, K3, resample, "
+                        "normalize)", lambda: preprocess_trials(arrays, FS, config))
+        self.grid_fits(xs, {"cd_nmf": lambda x, w, h: fit_cd_batch(
+            x, w, h, max_iter=config.max_iter, tol=config.tol)}, label="capture ")
+        return xs
+
+    def ragged_filter_check(self, arrays):
+        """K3 at the capture path's launch: every ragged trial zero-centred
+        and rectified over its own length, filtered in one launch with
+        per-trial lengths, against ``scipy.signal.sosfiltfilt`` in float64
+        on each trial's own samples; the padding must come back zero."""
+        from scipy import signal as sps
+
+        from muscle_synergies_tpu_torch.models.batch import pad_and_stack
+        from muscle_synergies_tpu_torch.ops import filter_cuda, filters
+
+        torch = self.torch
+        sos = filters.sos_design(4, 4.0, FS)
+        lengths = [a.shape[0] for a in arrays]
+        rect = [np.abs(a - a.mean(axis=0)).astype(np.float32) for a in arrays]
+        x = torch.as_tensor(pad_and_stack(rect)[0], device=self.dev)
+        y = filter_cuda.sosfiltfilt_cuda(sos, x, filters.default_padlen(sos), "odd",
+                                         lengths=lengths).cpu().numpy()
+        err = scale = 0.0
+        for b, (r, n) in enumerate(zip(rect, lengths)):
+            ref = sps.sosfiltfilt(sos, r.astype(np.float64), axis=0)
+            err = max(err, float(np.abs(y[b, :n] - ref).max()))
+            scale = max(scale, float(np.abs(ref).max()))
+            assert not y[b, n:].any(), "K3 wrote past a trial's length"
+        log(f"capture K3: {len(arrays)} ragged trials ({min(lengths)}-{max(lengths)} "
+            f"samples) in one launch vs scipy sosfiltfilt in float64 {err / scale:.3e} "
+            f"x max|y| (bar 5e-4)")
+        assert err <= 5e-4 * scale, "K3 disagrees with scipy on the ragged cycles"
+
     def lone_fit(self, kname, n_iter, fit):
         """Time the path's longest fit alone on the card: the latency of
         one fit's iteration, which sets the path's tail."""
@@ -920,22 +1269,14 @@ class Smoke:
         torch, dev = self.torch, self.dev
         config = PipelineConfig()
 
-        def stage(label, fn):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            log(f"stage {label}: {(time.perf_counter() - t) * 1e3:.2f} ms  [{self.smi}]")
-            return out
-
-        xs = stage("host->device 1 GiB", lambda: torch.from_numpy(emg).to(dev))
+        xs = self.timed("host->device 1 GiB", lambda: torch.from_numpy(emg).to(dev))
         from muscle_synergies_tpu_torch import FilterSpec
         from muscle_synergies_tpu_torch.ops import filter_cuda, filters
 
-        stage("preprocess causal (K6 inside)", lambda: preprocess_trials(
+        self.timed("preprocess causal (K6 inside)", lambda: preprocess_trials(
             xs, FS, PipelineConfig(envelope=FilterSpec(zero_lag=False))))
-        stage("preprocess rms (equal lengths)",
-              lambda: preprocess_trials(xs, FS, PipelineConfig(use_rms=True)))
+        self.timed("preprocess rms (equal lengths)",
+                   lambda: preprocess_trials(xs, FS, PipelineConfig(use_rms=True)))
         rect = (xs - xs.mean(dim=1, keepdim=True)).abs()
         sos = filters.sos_design(4, 4.0, FS)
         ms = cuda_ms(lambda: filter_cuda.sosfilt_cuda(sos, rect))
@@ -945,49 +1286,25 @@ class Smoke:
         log(f"stage K6 at {tuple(rect.shape)}: {ms:.3f} ms, bound {ms_b:.4f} ms "
             f"({by})  [{self.smi}]")
         del rect
-        xs = stage("preprocess (envelope, resample, normalize)",
-                   lambda: preprocess_trials(xs, FS, config))
-        ranks = (1, 2, 3, 4)
-
-        def grid_init():
-            ws, hs = [], []
-            for kk in ranks:
-                w, h = mb.init_batch(xs, kk)
-                ws.append(torch.nn.functional.pad(w, (0, 4 - kk)))
-                hs.append(torch.nn.functional.pad(h, (0, 0, 0, 4 - kk)))
-            return xs.repeat(4, 1, 1), torch.cat(ws), torch.cat(hs)
-
-        gx, gw, gh = stage("init (NNDSVDA, 4 ranks)", grid_init)
-        n, l = gx.shape[1:]
+        xs = self.timed("preprocess (envelope, resample, normalize)",
+                        lambda: preprocess_trials(xs, FS, config))
         stop = dict(max_iter=config.max_iter, tol=config.tol)
-        fits = {
+        self.grid_fits(xs, {
             "cd_nmf": lambda x, w, h: mb.fit_cd_batch(x, w, h, **stop),
             "mu_nmf": lambda x, w, h: mb.fit_mu_batch(x, w, h, **stop),
             "beta_nmf_kl": lambda x, w, h: mb.fit_mu_beta_batch(x, w, h, beta=1.0,
                                                                 **stop),
-        }
-        states = {}
-        for kname, fit in fits.items():
-            states[kname] = stage(f"fit {kname} (kernel, 1024 fits)",
-                                  lambda: fit(gx, gw, gh))
-            fit_bound(kname, states[kname].n_iter, n, l, 4,
-                      4 * gx.shape[0] * (n * l + 2 * (n * 4 + 4 * l)))
-            medians = states[kname].n_iter.view(len(ranks), -1).float().median(dim=1)
-            log(f"fit {kname}: n_iter median by rank {medians.values.tolist()}")
-        st = states["cd_nmf"]
-        stage("vaf", lambda: mb.vaf_batch(gx, st.w, st.ht.transpose(-1, -2)))
-        for kname, fit in fits.items():
-            self.lone_fit(kname, states[kname].n_iter,
-                          lambda i: fit(gx[i], gw[i], gh[i]))
+        })
+        n, l = xs.shape[1:]
 
         # the time-varying path's own stages: 4 restarts of every trial
-        c0, s0 = stage("init cnmf on the host + copy (1024 restarts)",
-                       lambda: [torch.from_numpy(a).to(dev) for a in init_cnmf(
-                           np.repeat(xs.cpu().numpy(), 4, axis=0), 4, 10)])
+        c0, s0 = self.timed("init cnmf on the host + copy (1024 restarts)",
+                            lambda: [torch.from_numpy(a).to(dev) for a in init_cnmf(
+                                np.repeat(xs.cpu().numpy(), 4, axis=0), 4, 10)])
         gx = xs.repeat_interleave(4, dim=0)
-        st = stage("fit cnmf (kernel, 1024 fits)",
-                   lambda: fit_cnmf_batch(gx, c0, s0, max_iter=config.max_iter,
-                                          tol=config.tol))
+        st = self.timed("fit cnmf (kernel, 1024 fits)",
+                        lambda: fit_cnmf_batch(gx, c0, s0, max_iter=config.max_iter,
+                                               tol=config.tol))
         fit_bound("cnmf", st.n_iter, n, l, 4,
                   4 * gx.shape[0] * (n * l + 2 * (n * 4 + 4 * 10 * l)), d=10)
         self.lone_fit("cnmf", st.n_iter, lambda i: fit_cnmf_batch(
@@ -1000,7 +1317,7 @@ class Smoke:
             err2 = ((xs - cnmf_reconstruct(c, s)) ** 2).sum(dim=(1, 2))
             return 1.0 - err2 / (xs * xs).sum(dim=(1, 2))
 
-        stage("winners, normalize, vaf (time-varying)", tv_finish)
+        self.timed("winners, normalize, vaf (time-varying)", tv_finish)
 
 
 def main() -> int:
@@ -1074,6 +1391,8 @@ def main() -> int:
         phase(emg)                                           # 12, 13, 14
         smoke.stage(f"phase {label}", time.perf_counter() - t0)
     smoke.stage_breakdown(emg)
+    del emg
+    smoke.capture_main()                                     # 15
     smoke.stage("whole script", time.perf_counter() - run_t0)
 
     for kname, entry in smoke.kernels.items():

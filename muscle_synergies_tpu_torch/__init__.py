@@ -1,7 +1,12 @@
 """PyTorch / CUDA port of muscle_synergies_tpu for NVIDIA Hopper cards.
 
-The dataset synergy paths of the JAX package, with the same public
-names, layouts and result types: EMG trials go through the envelope
+The capture front and the dataset synergy paths of the JAX package,
+with the same public names, layouts and result types.  A Vicon Nexus
+capture loads with :func:`load_vicon_file` (a native C++ decoder, no
+pandas) into a :class:`ViconNexusData` of :class:`DeviceData` arrays,
+:class:`segment.Segmenter` cuts its gait cycles by
+``(frame, subframe)``, and the cut EMG arrays are the trials.  EMG
+trials go through the envelope
 pipeline (zero-center, then rectify and a zero-phase or causal
 Butterworth lowpass, or a moving RMS; time-normalize,
 amplitude-normalize), then one batched solve fits every
@@ -24,11 +29,13 @@ CUDA kernels (``csrc/``, built with ``nvcc`` at first use); with
     (2, 2)
 
 The package imports torch, numpy and scipy, never jax; pandas only
-inside the functions that take or return DataFrames (the result
-classes' table helpers, :mod:`.analysis`, :func:`find_synergies`).
+inside the functions that take or return DataFrames or Series (the
+result classes' table helpers, :mod:`.analysis`, :func:`find_synergies`,
+``DeviceData.df`` and its row access, ``time_seq``,
+:func:`segment.reactions`, :func:`segment.phase_summary`).
 """
 
-from . import analysis, dataset, models, ops, utils
+from . import analysis, dataset, io, models, ops, segment, utils
 from .analysis import (
     digital_filter,
     fft_spectrum,
@@ -40,6 +47,13 @@ from .analysis import (
     vaf,
     zero_center,
 )
+from .data import (
+    DeviceData,
+    DeviceType,
+    ForcePlateMeasurement,
+    SectionType,
+    ViconNexusData,
+)
 from .dataset import (
     DatasetResult,
     TimeVaryingDatasetResult,
@@ -47,18 +61,30 @@ from .dataset import (
     analyze_dataset_time_varying,
     preprocess_trials,
 )
+from .frames import ForcesEMGFrameTracker, FrameSubfr, SamplingFreq, TrajFrameTracker
+from .io import ViconCSVError, load_vicon_file
 from .models.cnmf import TimeVaryingSynergyResult
 from .models.select import NMFModel, SynergyRunResult, find_synergies
 from .utils.config import FilterSpec, PipelineConfig
 
 __all__ = [
     "DatasetResult",
+    "DeviceData",
+    "DeviceType",
     "FilterSpec",
+    "ForcePlateMeasurement",
+    "ForcesEMGFrameTracker",
+    "FrameSubfr",
     "NMFModel",
     "PipelineConfig",
+    "SamplingFreq",
+    "SectionType",
     "SynergyRunResult",
     "TimeVaryingDatasetResult",
     "TimeVaryingSynergyResult",
+    "TrajFrameTracker",
+    "ViconCSVError",
+    "ViconNexusData",
     "analysis",
     "analyze_dataset",
     "analyze_dataset_time_varying",
@@ -66,12 +92,15 @@ __all__ = [
     "digital_filter",
     "fft_spectrum",
     "find_synergies",
+    "io",
     "linear_envelope",
+    "load_vicon_file",
     "models",
     "normalize",
     "ops",
     "preprocess_trials",
     "rms",
+    "segment",
     "subsample",
     "time_normalize",
     "utils",

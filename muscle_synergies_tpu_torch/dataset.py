@@ -71,9 +71,14 @@ _MESH_TODO = "mesh= is not ported yet (ROADMAP, modules still to port: parallel)
 
 
 def _channel_names(first) -> Optional[List[str]]:
-    """Column labels of the first trial, when it carries any."""
+    """Column labels of the first trial, when it carries any: a
+    DataFrame's columns or a :class:`~.data.DeviceData`'s coords."""
     columns = getattr(first, "columns", None)
-    return list(columns) if columns is not None else None
+    if columns is not None:
+        return list(columns)
+    if hasattr(first, "coords"):  # DeviceData
+        return list(first.coords)
+    return None
 
 
 def _normalize_trials_subjects(trials, subjects):
@@ -111,11 +116,14 @@ def _match_components(reference: np.ndarray, other: np.ndarray) -> np.ndarray:
 
 
 def _as_array(trial):
-    """One trial as an array or tensor (DataFrames through ``to_numpy``)."""
+    """One trial as an array or tensor (DataFrames through ``to_numpy``,
+    a :class:`~.data.DeviceData` through its ``.array``)."""
     if isinstance(trial, torch.Tensor):
         return trial
     if hasattr(trial, "to_numpy"):
         return trial.to_numpy(dtype=float)
+    if hasattr(trial, "array"):  # DeviceData
+        return np.asarray(trial.array)
     return np.asarray(trial)
 
 

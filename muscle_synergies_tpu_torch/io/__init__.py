@@ -1,0 +1,20 @@
+"""Ingest layer: Vicon Nexus CSV parsing and streaming (no pandas)."""
+
+from .stream import DeviceStream, SectionHeader, ViconChunk, stream_vicon_file
+from .vicon import (
+    ViconCSVError,
+    load_vicon_file,
+    load_vicon_files,
+    load_vicon_lines,
+)
+
+__all__ = [
+    "load_vicon_file",
+    "load_vicon_files",
+    "load_vicon_lines",
+    "ViconCSVError",
+    "stream_vicon_file",
+    "ViconChunk",
+    "SectionHeader",
+    "DeviceStream",
+]

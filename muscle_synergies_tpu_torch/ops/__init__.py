@@ -1,4 +1,4 @@
-"""EMG preprocessing and IIR filtering on tensors."""
+"""EMG preprocessing, IIR filtering and kinematics on tensors."""
 
 from .batched import (
     linear_envelope_batch,
@@ -20,13 +20,30 @@ from .emg import (
     zero_center,
 )
 from .filters import default_padlen, sos_design, sosfilt, sosfilt_zi, sosfiltfilt
+from .kinematics import (
+    cop_path_length,
+    finite_difference,
+    grf_impulse,
+    loading_rate,
+    marker_acceleration,
+    marker_speed,
+    marker_velocity,
+    upsample_to_fast,
+)
 
 __all__ = [
+    "cop_path_length",
     "default_padlen",
     "digital_filter",
     "fft_spectrum",
+    "finite_difference",
+    "grf_impulse",
     "linear_envelope",
     "linear_envelope_batch",
+    "loading_rate",
+    "marker_acceleration",
+    "marker_speed",
+    "marker_velocity",
     "moving_rms",
     "moving_rms_batch",
     "normalize",
@@ -39,6 +56,7 @@ __all__ = [
     "subsample",
     "time_normalize",
     "time_normalize_batch",
+    "upsample_to_fast",
     "vaf",
     "zero_center",
     "zero_center_batch",

@@ -4,8 +4,9 @@ The port keeps the JAX package's public names: each ``__all__`` below is
 diffed against the JAX package's, read with ``ast`` from its source so
 that nothing of it is imported into the port, and every JAX name the
 port lacks must be on the written list of names not ported yet, each
-tagged with the ``ROADMAP.md`` item that ports it.  When an item lands,
-its names leave the list.
+tagged with the ``ROADMAP.md`` item that ports it, or be a Pallas
+kernel whose CUDA counterpart the port has under another name.  When an
+item lands, its names leave the list.
 
 Keywords: ``mu_update_batch`` is held to the JAX package's at
 ``inner_iter`` 1 and 2 (float64, 1e-12 relative); ``block_b=`` (a Mosaic
@@ -15,6 +16,7 @@ float32 or TF32, and refuses anything else.
 """
 
 import ast
+import importlib
 import os
 
 import jax
@@ -36,12 +38,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # JAX names the port does not export yet, by the ROADMAP item that ports them
 NOT_PORTED = {
-    "9a": {  # ingest, its data model and gait segmentation
-        "": ["DeviceData", "DeviceType", "ForcePlateMeasurement",
-             "ForcesEMGFrameTracker", "FrameSubfr", "SamplingFreq", "SectionType",
-             "TrajFrameTracker", "ViconCSVError", "ViconNexusData", "load_vicon_file",
-             "segment"],
-    },
     "4": {  # the rest of models/cnmf.py
         "": ["find_time_varying_synergies"],
         "models": ["CNMFModel", "cnmf_transform", "find_time_varying_synergies",
@@ -79,15 +75,22 @@ NOT_PORTED = {
         "models": ["export_transform", "load_model", "load_synergy_run",
                    "load_transform", "save_model", "save_synergy_run"],
     },
-    "8": {  # parallel
+    "8": {  # parallel, and the trial batching that feeds it
         "": ["analyze_dataset_pipelined", "parallel"],
+        "io": ["TrialBatch", "batch_iterator", "device_prefetch", "stack_trials"],
     },
     "10": {  # viz
         "": ["plot_fft", "plot_signal", "synergy_heatmap"],
+        "segment": ["SegmentPlotter"],
     },
 }
 MODULES = {"": "__init__.py", "models": "models/__init__.py",
-           "models.batch": "models/batch.py"}
+           "models.batch": "models/batch.py", "io": "io/__init__.py",
+           "segment": "segment/__init__.py", "ops": "ops/__init__.py"}
+# the JAX package's Pallas kernels, by module, and the port's counterpart
+# of each (a CUDA kernel's wrapper), which the port exports elsewhere
+PALLAS = {"ops": {"sosfiltfilt_pallas": "ops.filter_cuda.sosfiltfilt_cuda",
+                  "cascade_pallas": "ops.filter_cuda.sosfilt_cuda"}}
 
 
 def _jax_all(relpath):
@@ -107,9 +110,17 @@ def test_public_names_match_the_jax_package(module):
         port = getattr(port, part)
     missing = _jax_all(MODULES[module]) - set(port.__all__)
     listed = {n for by_module in NOT_PORTED.values() for n in by_module.get(module, [])}
-    assert missing == listed, (sorted(missing - listed), sorted(listed - missing))
+    kernels = PALLAS.get(module, {})
+    assert missing - set(kernels) == listed, (sorted(missing - listed - set(kernels)),
+                                              sorted(listed - missing))
+    assert set(kernels) <= missing
     for name in port.__all__:
         getattr(port, name)
+    for counterpart in kernels.values():
+        path, name = counterpart.rsplit(".", 1)
+        target = getattr(importlib.import_module(f"muscle_synergies_tpu_torch.{path}"),
+                         name)
+        assert callable(target), counterpart
 
 
 def test_not_ported_names_cite_roadmap_items():

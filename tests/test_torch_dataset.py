@@ -182,6 +182,22 @@ def test_port_imports_neither_jax_nor_pandas():
         "r = m.analyze_dataset_time_varying(trials, 1000.0, n_synergies=2, n_lags=5,\n"
         "                                   n_inits=2, max_iter=30, device='cpu')\n"
         "assert r.vaf_overall.shape == (3,) and r.restart_errors.shape == (3, 2)\n"
+        "import os, tempfile\n"
+        "from muscle_synergies_tpu_torch.testing import write_synthetic_capture\n"
+        "path = os.path.join(tempfile.mkdtemp(), 'capture.csv')\n"
+        "write_synthetic_capture(path, state_len=60, n_markers=2)\n"
+        "data = m.load_vicon_file(path)\n"
+        "seg = m.segment.Segmenter(data)\n"
+        "cut = []\n"
+        "for trecho, cycles in seg.segments.items():\n"
+        "    for cycle in cycles:\n"
+        "        t = seg.get_times_of(trecho, cycle)\n"
+        "        a, b = data.emg.to_index(t.start), data.emg.to_index(t.stop)\n"
+        "        cut.append(data.emg.array[a:b + 1])\n"
+        "r = m.analyze_dataset(cut, 2000.0, ranks=(1, 2), max_iter=30, device='cpu')\n"
+        "assert r.vaf_overall.shape == (2, 8)\n"
+        "r = m.analyze_dataset([data.emg], 2000.0, ranks=(1,), max_iter=30, device='cpu')\n"
+        "assert r.channel_names == list(data.emg.coords)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'pandas'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

@@ -656,3 +656,43 @@ def test_negative_beta_takes_the_block_entry(cuda):
     wp, hp = beta_cuda.beta_iterations_plain(x.double(), w.double(), h.double(), 20, -0.5)
     assert _rel(wk, wp) < 1e-3 and _rel(hk, hp) < 1e-3
     assert (beta_cuda.warp_launches, beta_cuda.launches) == (before[0], before[1] + 1)
+
+
+def test_written_capture_runs_the_main_path_on_the_card(cuda, tmp_path):
+    """A written capture goes through load, segment, the cut gait cycles
+    and ``analyze_dataset`` on the card: one K3 launch for the ragged
+    cycles (per-trial lengths) and K2's warp entry, no block entry; the
+    native decoder builds under ``build/native/``."""
+    from pathlib import Path
+
+    from muscle_synergies_tpu_torch import load_vicon_file, native
+    from muscle_synergies_tpu_torch.segment import Segmenter
+    from muscle_synergies_tpu_torch.testing import GAIT_MUSCLES, write_synthetic_capture
+
+    path = write_synthetic_capture(str(tmp_path / "capture.csv"), state_len=500,
+                                   n_markers=4, seed=3)
+    data = load_vicon_file(path)
+    lib = native.library_path()
+    assert lib.is_file() and lib.parent.name == "native"
+    assert lib.parent.parent.name == "build"
+    assert Path(native.__file__).resolve().parent.parent not in lib.resolve().parents
+    seg = Segmenter(data)
+    trials = []
+    for trecho, cycles in seg.segments.items():
+        for cycle in cycles:
+            times = seg.get_times_of(trecho, cycle)
+            start, stop = data.emg.to_index(times.start), data.emg.to_index(times.stop)
+            trials.append(data.emg.array[start:stop + 1])
+    assert len(trials) == 8 and {t.shape[0] for t in trials} == {2000}
+    trials = [t[: 1500 + 50 * i] for i, t in enumerate(trials)]  # ragged
+    filter_cuda.launches = filter_cuda.sosfilt_launches = 0
+    cd_cuda.launches = cd_cuda.warp_launches = 0
+    res = analyze_dataset(trials, 2000.0, ranks=(1, 2, 3), max_iter=2000)
+    assert filter_cuda.launches == 1 and filter_cuda.sosfilt_launches == 0
+    assert cd_cuda.warp_launches == 1 and cd_cuda.launches == 0
+    assert np.isfinite(res.vaf_overall).all() and (res.vaf_overall <= 1).all()
+    plain = analyze_dataset(trials, 2000.0, ranks=(1, 2, 3), max_iter=2000,
+                            impl="torch")
+    assert np.abs(res.vaf_overall - plain.vaf_overall).max() <= 1e-3
+    whole = analyze_dataset([data.emg], 2000.0, ranks=(1, 2), max_iter=500)
+    assert whole.channel_names == list(GAIT_MUSCLES)
