@@ -116,7 +116,28 @@ then, failing on the first assertion that does not hold:
     ``io.DeviceStream`` in 8,192-row chunks through
     ``ops.filters.sosfilt`` (K6) carrying ``zf``, against one K6 launch
     on the loaded array and against ``scipy.signal.sosfilt`` in float64
-    from the same states, bar 5e-4 x max|y| each.
+    from the same states, bar 5e-4 x max|y| each;
+16. the space-by-time dataset path, run before 15 while phase 5's 256
+    trials are alive: ``analyze_dataset_space_by_time(n_temporal=4,
+    n_spatial=3, n_inits=4)`` under the default config: exactly one K3
+    launch and no other, unit-norm temporal (200 x 4) and spatial (3 x 8)
+    modules, coefficients (256, 4, 3) >= 0, every VAF finite and <= 1;
+    20 ``nm3f_update`` steps at 1024 x 200 x 8 in float32 against
+    float64 on the host (bar 1e-4 at full float32, 5e-2 with
+    ``precision="high"``, TF32); the 4 restarts fitted from the same
+    inits on the card and in float64 on the host at ``max_iter=2,000``,
+    overall and per-trial VAF within 1e-3; then the NM3F stage's time,
+    iterations and, from the torch profiler, its kernels an iteration;
+17. the per-capture convolutive and space-by-time models, no pandas:
+    ``CNMFModel(4, 10, n_inits=4).fit_transform`` on one preprocessed
+    200 x 8 trial (exactly one K5 launch; VAF within 1e-3 of the float64
+    fit on the host), its ``transform`` of 16 other trials (plain torch,
+    no launch), the card's default start equal to the host's draw and
+    ``cnmf_transform`` of them from that start at ``tol=0``,
+    ``max_iter=200`` within 1e-3 of float64; ``NM3FModel(4, 3).fit`` on
+    64 trials and ``transform`` of 16 new ones (no launch), and
+    ``nm3f_transform`` from one start at ``tol=0``, ``max_iter=200``
+    within 1e-3 of float64.
 
 Each main path is driven with every launch counter set to 0 just before
 it and read just after; the CD, RMS-CD and ``rank_sweep_batch`` paths
@@ -1238,6 +1259,199 @@ class Smoke:
             f"x max|y| (bar 5e-4)")
         assert err <= 5e-4 * scale, "K3 disagrees with scipy on the ragged cycles"
 
+    # ---- 16. the space-by-time dataset path ----
+    def space_by_time_main(self, emg):
+        """``analyze_dataset_space_by_time`` (one K3 launch, then NM3F in
+        batched torch products); 20 NM3F updates and the whole fit held
+        against float64 on the host; the NM3F loop's time, iterations and
+        launches an iteration.  Returns the preprocessed stack for 17."""
+        from muscle_synergies_tpu_torch import (
+            PipelineConfig,
+            analyze_dataset_space_by_time,
+            preprocess_trials,
+        )
+        from muscle_synergies_tpu_torch.models import nm3f
+
+        torch, dev = self.torch, self.dev
+        config = PipelineConfig()
+        p, q, inits = 4, 3, 4
+        res, counts = self.main_path("analyze_dataset_space_by_time", lambda: (
+            analyze_dataset_space_by_time(emg, FS, n_temporal=p, n_spatial=q,
+                                          n_inits=inits)))
+        assert counts["sosfiltfilt"] == 1 and sum(counts.values()) == 1, counts
+        b = emg.shape[0]
+        assert res.w.shape == (200, p) and res.s.shape == (q, N_CHANNELS)
+        assert res.coefficients.shape == (b, p, q) and (res.coefficients >= 0).all()
+        assert np.allclose(np.linalg.norm(res.w, axis=0), 1.0, atol=1e-5)
+        assert np.allclose(np.linalg.norm(res.s, axis=1), 1.0, atol=1e-5)
+        vafs = np.append(res.vaf_per_trial, res.vaf_overall)
+        assert np.isfinite(vafs).all() and (vafs <= 1).all(), "bad VAF"
+        assert np.isfinite(res.vaf_per_channel).all() and (res.vaf_per_channel <= 1).all()
+        log(f"main space-by-time: VAF {res.vaf_overall:.6f} (per trial min "
+            f"{res.vaf_per_trial.min():.6f}), winner n_iter {res.n_iter}, restart "
+            f"errors {np.round(res.restart_errors, 6).tolist()}")
+
+        xs = self.timed("space-by-time preprocess (K3)",
+                        lambda: preprocess_trials(emg, FS, config))
+        xs_host = xs.cpu().numpy()
+
+        # 20 updates at 1024 x 200 x 8 in float32 on the card against float64
+        big = np.tile(xs_host, (4, 1, 1))
+        start = nm3f.init_nm3f(big, p, q, seed=0)
+        host = [torch.from_numpy(a).double() for a in (big,) + start]
+        for _ in range(20):
+            host[1:] = nm3f.nm3f_update(*host)
+        for precision, bar in ((None, 1e-4), ("high", 5e-2)):
+            card = [torch.from_numpy(a).to(dev) for a in (big,) + start]
+
+            def updates():
+                for _ in range(20):
+                    card[1:] = nm3f.nm3f_update(*card, precision=precision)
+
+            self.timed(f"nm3f 20 updates at {big.shape}, precision={precision}", updates)
+            err = max(rel_err(got.cpu()[None], want[None])  # over the whole factor
+                      for got, want in zip(card[1:], host[1:]))
+            log(f"nm3f fixed: 20 updates, precision={precision}: max rel factor error "
+                f"{err:.3e} (bar {bar:g})")
+            assert err <= bar, f"nm3f updates at precision={precision} disagree"
+
+        # the whole fit from the same inits: the card in float32, the host in
+        # float64, both at max_iter 2,000
+        stacked = [np.stack(f) for f in zip(*[nm3f.init_nm3f(xs_host, p, q, seed=r)
+                                              for r in range(inits)])]
+
+        def fit_and_vaf(x, max_iter):
+            st = nm3f._fit_restarts(x, *(torch.from_numpy(a).to(x.device, x.dtype)
+                                         for a in stacked), max_iter, config.tol, 10,
+                                    True, True, None)
+            best = int(st.previous_error.argmin())
+            w, a, s = nm3f.normalize_modules(st.w[best], st.a[best], st.s[best])
+            rec = nm3f.nm3f_reconstruct(w, a, s)
+            err2 = ((x - rec) ** 2).sum(dim=(1, 2))
+            tot2 = (x * x).sum(dim=(1, 2))
+            return (float(1 - err2.sum() / tot2.sum()),
+                    (1 - err2 / tot2).cpu().double().numpy(), st.n_iter.cpu())
+
+        card_vaf, card_trials, card_iters = self.timed(
+            "nm3f fit, max_iter 2,000 (card, float32)", lambda: fit_and_vaf(xs, 2000))
+        t0 = time.perf_counter()
+        host_vaf, host_trials, host_iters = fit_and_vaf(xs.cpu().double(), 2000)
+        log(f"nm3f fit, max_iter 2,000 on the host in float64: "
+            f"{time.perf_counter() - t0:.1f} s")
+        diff = max(abs(card_vaf - host_vaf), float(np.abs(card_trials - host_trials).max()))
+        log(f"nm3f fit vs float64: VAF {card_vaf:.6f} vs {host_vaf:.6f}, max VAF diff "
+            f"(overall and per trial) {diff:.3e} (bar 1e-3); n_iter card "
+            f"{card_iters.tolist()} host {host_iters.tolist()}")
+        assert diff <= 1e-3, "the space-by-time fit disagrees with float64"
+
+        # the NM3F stage of the default path on its own: time, iterations,
+        # and the kernels one iteration launches
+        w0, a0, s0 = (torch.from_numpy(a).to(dev) for a in stacked)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = nm3f._fit_restarts(xs, w0, a0, s0, config.max_iter, config.tol, 10, True,
+                                True, None)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        iters = int(st.n_iter.max())
+        log(f"stage nm3f fit: {ms:.2f} ms for {iters} iterations (n_iter "
+            f"{st.n_iter.tolist()}), {ms / iters * 1e3:.2f} us an iteration  [{self.smi}]")
+        self.nm3f_launches(xs, w0, a0, s0)
+        return xs
+
+    def nm3f_launches(self, xs, w, a, s, iters: int = 50):
+        """Kernels and device time of ``iters`` NM3F updates of the 4
+        stacked restarts, from the torch profiler."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from muscle_synergies_tpu_torch.models import nm3f
+
+        torch = self.torch
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                w, a, s = nm3f._update(xs, w, a, s, True, True)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3  # us -> ms
+        if kernels:
+            log(f"stage nm3f update: {len(kernels) / iters:.1f} kernels an iteration, "
+                f"device busy {busy / iters * 1e3:.2f} us an iteration (torch profiler)"
+                f"  [{self.smi}]")
+        else:
+            log("stage nm3f update: the profiler saw no device kernels; launches an "
+                "iteration not measured")
+
+    # ---- 17. the per-capture convolutive and space-by-time models ----
+    def per_capture_models(self, xs):
+        """``CNMFModel`` (one K5 launch) and ``NM3FModel`` on preprocessed
+        trials, their transforms (plain torch) against float64."""
+        from muscle_synergies_tpu_torch.models import CNMFModel, NM3FModel, cnmf, nm3f
+
+        torch = self.torch
+        frame, others = xs[0], xs[1:17]
+
+        def cnmf_fit():
+            model = CNMFModel(4, 10, n_inits=4)
+            return model, model.fit_transform(frame)
+
+        (model, c), counts = self.main_path("CNMFModel 200x8 fit_transform", cnmf_fit)
+        assert counts["cnmf"] == 1 and sum(counts.values()) == 1, counts
+        assert c.shape == (200, 4) and np.isfinite(c).all() and (c >= 0).all()
+        assert model.synergies_.shape == (4, 10, N_CHANNELS)
+        ref = CNMFModel(4, 10, n_inits=4, device="cpu", dtype=torch.float64)
+        c_ref = ref.fit_transform(frame.cpu().double())
+        vafs = [float(cnmf.tvaf(frame.cpu().double(), torch.as_tensor(cc).double(),
+                                torch.as_tensor(m.synergies_).double()))
+                for cc, m in ((c, model), (c_ref, ref))]
+        log(f"CNMFModel: n_iter {model.n_iter_} (float64 on the host {ref.n_iter_}), "
+            f"VAF {vafs[0]:.6f} vs {vafs[1]:.6f}")
+        assert abs(vafs[0] - vafs[1]) <= 1e-3, "CNMFModel on the card disagrees"
+        c_new, counts = self.main_path("CNMFModel transform of 16 trials",
+                                       lambda: model.transform(others))
+        assert sum(counts.values()) == 0 and c_new.shape == (16, 200, 4), counts
+        assert np.isfinite(c_new).all() and (c_new >= 0).all()
+        # the default start: the card's draw is the host's
+        s_card = torch.as_tensor(model.synergies_, device=self.dev)
+        c0 = cnmf._init_c(others, 4, 10, 0)
+        c0_host = cnmf._init_c(others.cpu(), 4, 10, 0)
+        gap = rel_err(c0.cpu(), c0_host)
+        assert gap <= 1e-6, f"the card's default start is not the host's draw ({gap:.2e})"
+        kw = dict(c0=c0, max_iter=200, tol=0.0)
+        got = self.timed("cnmf_transform 16x200x8, 200 iterations (plain, card)",
+                         lambda: cnmf.cnmf_transform(others, s_card, **kw).c)
+        want = cnmf.cnmf_transform(others.cpu().double(), s_card.cpu().double(),
+                                   c0=c0.cpu().double(), max_iter=200, tol=0.0).c
+        err = rel_err(got.cpu(), want)
+        log(f"cnmf_transform: default start vs the host's {gap:.1e}; 200 iterations vs "
+            f"float64 max rel error {err:.3e} (bar 1e-3)")
+        assert err <= 1e-3, "cnmf_transform on the card disagrees with float64"
+
+        def nm3f_fit():
+            m = NM3FModel(4, 3)
+            return m.fit(xs[:64])
+
+        nm, counts = self.main_path("NM3FModel fit, 64x200x8", nm3f_fit)
+        assert sum(counts.values()) == 0, counts
+        new = xs[64:80]
+        a_new, counts = self.main_path("NM3FModel transform of 16 trials",
+                                       lambda: nm.transform(new))
+        assert sum(counts.values()) == 0 and a_new.shape == (16, 4, 3), counts
+        assert np.isfinite(a_new).all() and (a_new >= 0).all()
+        w, s = (torch.as_tensor(m, device=self.dev)
+                for m in (nm.temporal_modules_, nm.spatial_modules_))
+        a0 = torch.as_tensor(np.random.default_rng(7).random((16, 4, 3)), device=self.dev,
+                             dtype=torch.float32)
+        got = self.timed("nm3f_transform 16x200x8, 200 iterations (plain, card)",
+                         lambda: nm3f.nm3f_transform(new, w, s, a0=a0, max_iter=200,
+                                                     tol=0.0).a)
+        want = nm3f.nm3f_transform(new.cpu().double(), w.cpu().double(), s.cpu().double(),
+                                   a0=a0.cpu().double(), max_iter=200, tol=0.0).a
+        err = rel_err(got.cpu(), want)
+        log(f"NM3FModel: n_iter {nm.n_iter_}, VAF {nm.vaf_:.6f}; nm3f_transform 200 "
+            f"iterations vs float64 max rel error {err:.3e} (bar 1e-3)")
+        assert err <= 1e-3, "nm3f_transform on the card disagrees with float64"
+
     def lone_fit(self, kname, n_iter, fit):
         """Time the path's longest fit alone on the card: the latency of
         one fit's iteration, which sets the path's tail."""
@@ -1332,6 +1546,7 @@ def main() -> int:
         PipelineConfig,
         _build,
         analyze_dataset,
+        analyze_dataset_space_by_time,
         analyze_dataset_time_varying,
     )
 
@@ -1379,6 +1594,8 @@ def main() -> int:
                         max_iter=100)
     analyze_dataset_time_varying(emg[:2, :4000], FS, n_synergies=2, n_lags=5,
                                  n_inits=2, max_iter=100)
+    analyze_dataset_space_by_time(emg[:2, :4000], FS, n_temporal=2, n_spatial=2,
+                                  n_inits=2, max_iter=100)
     smoke.stage("cold start (first calls of each path, 2 small trials)",
                 time.perf_counter() - t0)
     smoke.frobenius_main(emg)                                # 5
@@ -1391,7 +1608,14 @@ def main() -> int:
         phase(emg)                                           # 12, 13, 14
         smoke.stage(f"phase {label}", time.perf_counter() - t0)
     smoke.stage_breakdown(emg)
-    del emg
+    t0 = time.perf_counter()
+    xs = smoke.space_by_time_main(emg)                       # 16
+    smoke.stage("phase 16 (space-by-time dataset path)", time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    smoke.per_capture_models(xs)                             # 17
+    smoke.stage("phase 17 (per-capture convolutive and space-by-time models)",
+                time.perf_counter() - t0)
+    del emg, xs
     smoke.capture_main()                                     # 15
     smoke.stage("whole script", time.perf_counter() - run_t0)
 

@@ -12,9 +12,15 @@ Butterworth lowpass, or a moving RMS; time-normalize,
 amplitude-normalize), then one batched solve fits every
 ``(rank, trial)`` pair by CD, Frobenius MU or beta-divergence MU
 (:func:`analyze_dataset`), or every ``(trial, restart)`` pair by
-convolutive NMF (:func:`analyze_dataset_time_varying`).  The
-per-capture API is :mod:`.analysis` (pandas-level transforms),
-:class:`NMFModel` and :func:`find_synergies`.  The entry points run on
+convolutive NMF (:func:`analyze_dataset_time_varying`), or the whole
+stack by space-by-time NMF (:func:`analyze_dataset_space_by_time`).
+The per-capture API is :mod:`.analysis` (pandas-level transforms),
+:class:`NMFModel` and :func:`find_synergies`, and for the convolutive
+and space-by-time models ``models.CNMFModel``,
+:func:`find_time_varying_synergies`, ``models.NM3FModel`` and
+:func:`find_space_by_time_synergies`; ``models.decode_trials`` decodes
+task labels from per-trial coefficients (scikit-learn, imported when
+it runs).  The entry points run on
 the card by default, where the filters and the solvers are hand-written
 CUDA kernels (``csrc/``, built with ``nvcc`` at first use); with
 ``device="cpu"``, plain PyTorch.
@@ -31,6 +37,7 @@ CUDA kernels (``csrc/``, built with ``nvcc`` at first use); with
 The package imports torch, numpy and scipy, never jax; pandas only
 inside the functions that take or return DataFrames or Series (the
 result classes' table helpers, :mod:`.analysis`, :func:`find_synergies`,
+the ``find_*`` finders of the convolutive and space-by-time models,
 ``DeviceData.df`` and its row access, ``time_seq``,
 :func:`segment.reactions`, :func:`segment.phase_summary`).
 """
@@ -56,14 +63,17 @@ from .data import (
 )
 from .dataset import (
     DatasetResult,
+    SpaceByTimeDatasetResult,
     TimeVaryingDatasetResult,
     analyze_dataset,
+    analyze_dataset_space_by_time,
     analyze_dataset_time_varying,
     preprocess_trials,
 )
 from .frames import ForcesEMGFrameTracker, FrameSubfr, SamplingFreq, TrajFrameTracker
 from .io import ViconCSVError, load_vicon_file
-from .models.cnmf import TimeVaryingSynergyResult
+from .models.cnmf import TimeVaryingSynergyResult, find_time_varying_synergies
+from .models.nm3f import SpaceByTimeResult, find_space_by_time_synergies
 from .models.select import NMFModel, SynergyRunResult, find_synergies
 from .utils.config import FilterSpec, PipelineConfig
 
@@ -79,6 +89,8 @@ __all__ = [
     "PipelineConfig",
     "SamplingFreq",
     "SectionType",
+    "SpaceByTimeDatasetResult",
+    "SpaceByTimeResult",
     "SynergyRunResult",
     "TimeVaryingDatasetResult",
     "TimeVaryingSynergyResult",
@@ -87,11 +99,14 @@ __all__ = [
     "ViconNexusData",
     "analysis",
     "analyze_dataset",
+    "analyze_dataset_space_by_time",
     "analyze_dataset_time_varying",
     "dataset",
     "digital_filter",
     "fft_spectrum",
+    "find_space_by_time_synergies",
     "find_synergies",
+    "find_time_varying_synergies",
     "io",
     "linear_envelope",
     "load_vicon_file",

@@ -20,7 +20,10 @@ Port of :mod:`muscle_synergies_tpu.dataset`'s local paths:
 4. :func:`analyze_dataset_time_varying`: every trial's restarts of a
    convolutive (time-varying) synergy fit join one batched solve, one
    launch of the convolutive kernel on the card, and each trial keeps
-   its lowest-error restart.
+   its lowest-error restart;
+5. :func:`analyze_dataset_space_by_time`: one space-by-time (NM3F) fit
+   over the whole preprocessed stack, its restarts at once, in batched
+   PyTorch products on the device (NM3F has no kernel).
 
 The entry points run on the card unless the caller passes
 ``device="cpu"``.  Not ported yet, and raising ``NotImplementedError``:
@@ -54,6 +57,13 @@ from .models.cnmf import (
     normalize_synergies,
 )
 from .models.mu import EPSILON
+from .models.nm3f import (
+    _MESH_TODO,
+    SpaceByTimeResult,
+    _fit_space_by_time,
+    _temporal_frame,
+    _validate_trial_stack,
+)
 from .models.select import compute_regularization
 from .ops import batched as _b
 from .ops.emg import rms_window
@@ -61,13 +71,14 @@ from .utils.config import PipelineConfig, torch_impl
 
 __all__ = [
     "DatasetResult",
+    "SpaceByTimeDatasetResult",
     "TimeVaryingDatasetResult",
     "analyze_dataset",
+    "analyze_dataset_space_by_time",
     "analyze_dataset_time_varying",
     "preprocess_trials",
 ]
 
-_MESH_TODO = "mesh= is not ported yet (ROADMAP, modules still to port: parallel)"
 
 
 def _channel_names(first) -> Optional[List[str]]:
@@ -624,6 +635,175 @@ def analyze_dataset_time_varying(
         n_iter=to_numpy(state.n_iter)[best],
         converged=to_numpy(state.converged)[best],
         restart_errors=errors,
+        channel_names=channel_names,
+        subjects=subjects,
+    )
+
+
+class SpaceByTimeDatasetResult:
+    """Shared space-by-time modules for a whole dataset (NM3F).
+
+    The modules are the dataset-level quantity: every trial is one small
+    coefficient matrix against the shared temporal and spatial modules
+    (Delis et al. 2014; :mod:`~muscle_synergies_tpu_torch.models.nm3f`).
+    The constructor takes the JAX package's fields in its order; the
+    modules are kept as arrays (``w``, ``s``), and
+    :attr:`temporal_modules` / :attr:`spatial_modules` build their
+    DataFrames when read (pandas), so the result needs no pandas until
+    then.
+
+    Attributes:
+        n_temporal / n_spatial: module counts ``P`` / ``Q``.
+        w / s: the temporal ``(T, P)`` and spatial ``(Q, L)`` modules
+            as NumPy arrays.
+        temporal_modules: ``(T, P)`` DataFrame, unit-norm columns.
+        spatial_modules: ``(Q, L)`` DataFrame, unit-norm rows, columns
+            named after the channels when the trials carry labels.
+        coefficients: ``(B, P, Q)`` per-trial mixing coefficients.
+        vaf_overall: overall VAF across the dataset (scalar float).
+        vaf_per_trial: ``(B,)``.
+        vaf_per_channel: ``(B, L)``.
+        n_iter: iterations used by the winning restart.
+        restart_errors: ``(n_inits,)`` final errors of all restarts.
+        channel_names / subjects: as on :class:`DatasetResult`.
+    """
+
+    def __init__(self, n_temporal: int, n_spatial: int, temporal_modules,
+                 spatial_modules, coefficients: np.ndarray, vaf_overall: float,
+                 vaf_per_trial: np.ndarray, vaf_per_channel: np.ndarray, n_iter: int,
+                 restart_errors: np.ndarray, channel_names: Optional[List[str]] = None,
+                 subjects: Optional[List] = None):
+        self.n_temporal = n_temporal
+        self.n_spatial = n_spatial
+        self.w = np.asarray(temporal_modules)
+        self.s = np.asarray(spatial_modules)
+        self.coefficients = coefficients
+        self.vaf_overall = vaf_overall
+        self.vaf_per_trial = vaf_per_trial
+        self.vaf_per_channel = vaf_per_channel
+        self.n_iter = n_iter
+        self.restart_errors = restart_errors
+        self.channel_names = channel_names
+        self.subjects = subjects
+
+    @property
+    def temporal_modules(self):
+        """``(T, P)`` DataFrame, columns ``"temporal i"``."""
+        return _temporal_frame(self.w)
+
+    @property
+    def spatial_modules(self):
+        """``(Q, L)`` DataFrame, columns named after the channels."""
+        import pandas
+
+        cols = self.channel_names or range(self.s.shape[1])
+        return pandas.DataFrame(self.s, columns=list(cols))
+
+    def vaf_table(self):
+        """Per-trial VAF Series (subject/trial MultiIndex when labeled)."""
+        import pandas
+
+        b = self.vaf_per_trial.shape[0]
+        if self.subjects is not None:
+            index = pandas.MultiIndex.from_arrays(
+                [self.subjects, range(b)], names=["subject", "trial"]
+            )
+        else:
+            index = pandas.RangeIndex(b, name="trial")
+        return pandas.Series(self.vaf_per_trial, index=index, name="vaf")
+
+    def subject_table(self, statistic: str = "mean"):
+        """Per-subject VAF aggregated over trials."""
+        if self.subjects is None:
+            raise ValueError(
+                "no subject labels: pass subjects= (or a {subject: "
+                "trials} mapping) to analyze_dataset_space_by_time"
+            )
+        return self.vaf_table().groupby(level="subject", sort=False).agg(
+            statistic
+        )
+
+    def to_result(self):
+        """Repackage as a
+        :class:`~muscle_synergies_tpu_torch.models.nm3f.SpaceByTimeResult`."""
+        return SpaceByTimeResult(
+            temporal_modules=self.temporal_modules,
+            spatial_modules=self.spatial_modules,
+            coefficients=self.coefficients,
+            vaf=self.vaf_overall,
+            vaf_per_trial=self.vaf_per_trial,
+            n_iter=self.n_iter,
+            restart_errors=self.restart_errors,
+        )
+
+
+def analyze_dataset_space_by_time(
+    trials: Union[Sequence, Mapping],
+    sampling_frequency: float,
+    n_temporal: int,
+    n_spatial: int,
+    config: PipelineConfig = PipelineConfig(),
+    mesh=None,
+    max_iter: Optional[int] = None,
+    tol: Optional[float] = None,
+    n_inits: int = 4,
+    seed: int = 0,
+    dtype: Optional[torch.dtype] = None,
+    subjects: Optional[Sequence] = None,
+    precision=None,
+    device="cuda",
+) -> SpaceByTimeDatasetResult:
+    """Preprocess a dataset and extract its space-by-time synergies.
+
+    The JAX package's ``analyze_dataset_space_by_time``: the trials go
+    through :func:`preprocess_trials` (one K3 launch on the card), then
+    one NM3F fit over the whole stack, its ``n_inits`` restarts at once
+    on the device, gives shared temporal and spatial modules and one
+    small coefficient matrix per trial.  Needs no pandas.
+
+    Args:
+        trials / sampling_frequency / config / subjects: as on
+            :func:`analyze_dataset`.
+        n_temporal / n_spatial: module counts ``P`` / ``Q``.
+        max_iter / tol: sklearn-style stopping; default to the config's.
+        n_inits: random restarts, each a whole-dataset fit (restart
+            ``r`` seeded ``seed + r``).
+        precision: matmul precision of every NM3F product (``None``:
+            full float32; ``"high"``: TF32 allowed).
+        dtype, device: as on :func:`analyze_dataset`: the card by
+            default, in float32; ``device="cpu"`` runs on the CPU.
+        mesh: not ported (raises ``NotImplementedError``).
+
+    Returns:
+        :class:`SpaceByTimeDatasetResult` for the whole dataset.
+    """
+    if mesh is not None:
+        raise NotImplementedError(_MESH_TODO)
+    trials, subjects = _normalize_trials_subjects(trials, subjects)
+    max_iter = max_iter if max_iter is not None else config.max_iter
+    tol = tol if tol is not None else config.tol
+    channel_names = _channel_names(trials[0]) if len(trials) else None
+
+    xs = preprocess_trials(trials, sampling_frequency, config, dtype=dtype,
+                           device=device)
+    xs, _ = _validate_trial_stack(xs, xs.device, xs.dtype,
+                                  empty="empty trial stack passed to NM3F")
+    fit = _fit_space_by_time(xs, n_temporal, n_spatial, max_iter, tol, n_inits,
+                             seed, precision)
+    w, a, s = (as_tensor(f, xs.device) for f in (fit.w, fit.a, fit.s))
+    err2 = ((xs - w @ a @ s) ** 2).sum(dim=1)  # (B, L)
+    tot2 = (xs * xs).sum(dim=1)
+    return SpaceByTimeDatasetResult(
+        n_temporal=n_temporal,
+        n_spatial=n_spatial,
+        temporal_modules=fit.w,
+        spatial_modules=fit.s,
+        coefficients=fit.a,
+        vaf_overall=fit.vaf,
+        vaf_per_trial=fit.vaf_per_trial,
+        vaf_per_channel=to_numpy(1.0 - err2 / torch.where(tot2 == 0, 1.0, tot2)),
+        n_iter=fit.n_iter,
+        restart_errors=fit.restart_errors,
         channel_names=channel_names,
         subjects=subjects,
     )

@@ -28,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .._common import matmul_precision
 from .mu import EPSILON, _guard, fit_chunked
 
 # sklearn's stability-flush threshold (np.finfo(np.float64).eps)
@@ -75,17 +76,21 @@ def _gamma(beta: float) -> float:
     return 1.0
 
 
-def beta_divergence(x, w, h, beta: float, square_root: bool = True):
+def beta_divergence(x, w, h, beta: float, square_root: bool = True, precision=None):
     """sklearn's ``_beta_divergence`` for dense inputs, per problem.
 
     Entries with ``x <= EPSILON`` leave the data-dependent terms, as
     sklearn's ``indices = X_data > EPSILON`` mask does, including the
     quirk that the Itakura-Saito constant counts *all* entries.
+    ``precision`` is the JAX-style matmul precision of ``W @ H`` (see
+    :func:`~muscle_synergies_tpu_torch._common.allows_tf32`; full
+    float32 by default).
 
     Returns:
         a scalar for one problem, ``(B,)`` for a batch.
     """
-    wh = w @ h
+    with matmul_precision(precision):
+        wh = w @ h
     if beta == 2.0:
         res = ((x - wh) ** 2).sum(dim=_SUM) / 2.0
         return (res * 2.0).clamp(min=0.0).sqrt() if square_root else res

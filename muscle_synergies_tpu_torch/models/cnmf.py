@@ -1,9 +1,9 @@
 """Convolutive NMF: time-varying muscle synergies.
 
-Port of the solver half of :mod:`muscle_synergies_tpu.models.cnmf`.
-Each synergy is a short spatiotemporal pattern ``S_k`` (D lags x L
-muscles) recruited by a non-negative activation train ``c_k(t)``
-(d'Avella, Saltiel & Bizzi 2003), so that
+Port of :mod:`muscle_synergies_tpu.models.cnmf`.  Each synergy is a
+short spatiotemporal pattern ``S_k`` (D lags x L muscles) recruited by
+a non-negative activation train ``c_k(t)`` (d'Avella, Saltiel & Bizzi
+2003), so that
 
     X[t, l] ~ sum_k sum_d C[t - d, k] * S[k, d, l],
 
@@ -13,42 +13,68 @@ then C by the ratio of sums over lags, with sklearn's EPSILON
 denominator guard and its relative-improvement stop every
 ``check_every`` iterations.
 
-Every function takes one problem (X ``(T, L)``, C ``(T, K)``, S
+Every solver takes one problem (X ``(T, L)``, C ``(T, K)``, S
 ``(K, D, L)``) or a batch with a leading ``B``.  :func:`fit_cnmf_batch`
 and :func:`cnmf_iterations_batch` pick the implementation (``impl``):
-the hand-written kernel for a CUDA float32 batch
+the hand-written kernel K5 for a CUDA float32 batch
 (:mod:`.kernels.cnmf_cuda`), the plain PyTorch functions here
-otherwise.  Scale indeterminacy is fixed by
+otherwise.  A frozen factor (``update_c=False`` / ``update_s=False``)
+runs only on the plain route, as in the JAX package, whose Pallas
+route refuses it too.  Scale indeterminacy is fixed by
 :func:`normalize_synergies`.
+
+On top of the solvers, the per-capture API:
+
+- :func:`cnmf_transform` projects trials onto a fixed library (C solved
+  with S frozen): plain PyTorch on the caller's device, as the JAX
+  package runs it on XLA;
+- :func:`find_time_varying_synergies` fits one capture with its
+  ``n_inits`` restarts stacked on the batch axis of one
+  :func:`fit_cnmf_batch`, one K5 launch on the card, and returns
+  DataFrames (it needs pandas);
+- :class:`CNMFModel`, the sklearn-style estimator over the same array
+  core, needs no pandas.  On the card its fit is K5 within one block's
+  shared memory (``cnmf_cuda.smem_bytes``: a 200 x 8 frame fits, up to
+  T = 2,822 at L = 8, K = 4, D = 10); a longer frame raises before any
+  launch, naming ``impl="torch"``.
 
 ``precision=`` is the JAX package's matmul precision for the plain
 contractions (see :func:`~muscle_synergies_tpu_torch._common.allows_tf32`;
 full float32 by default); the kernel computes in float32 on the CUDA
 cores whatever it says.  ``block_b=`` is accepted and ignored: it is the
-Pallas kernel's tile of trials per Mosaic block.
+Pallas kernel's tile of trials per Mosaic block.  ``cnmf_block_b`` and
+``resolve_cnmf_impl``, the JAX package's Mosaic tile rules, have no
+counterpart.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .._common import allows_tf32, matmul_precision, resolve_impl
+from .. import _prng
+from .._common import allows_tf32, as_tensor, matmul_precision, resolve_impl, to_numpy
+from ..utils.config import torch_impl
 from .kernels import cnmf_cuda
 from .mu import EPSILON, _guard
+from .select import _PERSIST_TODO, _matrix
 
 __all__ = [
+    "CNMFModel",
     "CNMFState",
     "TimeVaryingSynergyResult",
     "cnmf_iterations_batch",
     "cnmf_reconstruct",
+    "cnmf_transform",
     "cnmf_update",
+    "find_time_varying_synergies",
     "fit_cnmf",
     "fit_cnmf_batch",
     "init_cnmf",
     "normalize_synergies",
+    "tvaf",
 ]
 
 
@@ -80,7 +106,12 @@ def cnmf_reconstruct(c: torch.Tensor, s: torch.Tensor, precision=None) -> torch.
 
 
 def cnmf_update(
-    x: torch.Tensor, c: torch.Tensor, s: torch.Tensor, precision=None
+    x: torch.Tensor,
+    c: torch.Tensor,
+    s: torch.Tensor,
+    update_c: bool = True,
+    update_s: bool = True,
+    precision=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One multiplicative update of S then C.
 
@@ -88,14 +119,21 @@ def cnmf_update(
         ``S[k, d] *= (shift_d(C)^T X) / (shift_d(C)^T X^)``
     C update (ratio of sums over lags, with the fresh S):
         ``C *= (sum_d shift_{-d}(X S_d^T)) / (sum_d shift_{-d}(X^ S_d^T))``
+
+    ``update_c=False`` freezes the activations and ``update_s=False``
+    the synergies (the transform, :func:`cnmf_transform`); a frozen
+    factor is returned as given.
     """
     n_lags = s.shape[-2]
-    cs = _lag_stack(c, n_lags)
-    with matmul_precision(precision):
-        xhat = torch.einsum("...dtk,...kdl->...tl", cs, s)
-        num_s = torch.einsum("...dtk,...tl->...kdl", cs, x)
-        den_s = torch.einsum("...dtk,...tl->...kdl", cs, xhat)
-    s = s * (num_s / _guard(den_s))
+    if update_s:
+        cs = _lag_stack(c, n_lags)
+        with matmul_precision(precision):
+            xhat = torch.einsum("...dtk,...kdl->...tl", cs, s)
+            num_s = torch.einsum("...dtk,...tl->...kdl", cs, x)
+            den_s = torch.einsum("...dtk,...tl->...kdl", cs, xhat)
+        s = s * (num_s / _guard(den_s))
+    if not update_c:
+        return c, s
     xhat = cnmf_reconstruct(c, s, precision)
     # G[d, t, k] = sum_l X[t, l] S[k, d, l]; numerator is sum_d G[d, t+d, k]
     with matmul_precision(precision):
@@ -127,6 +165,8 @@ def fit_cnmf(
     max_iter: int = 200,
     tol: float = 1e-4,
     check_every: int = 10,
+    update_c: bool = True,
+    update_s: bool = True,
     precision=None,
 ) -> CNMFState:
     """Convolutive NMF to convergence, each problem stopping on its own.
@@ -141,8 +181,13 @@ def fit_cnmf(
         x: ``(T, L)`` or ``(B, T, L)`` non-negative data.
         c0, s0: initial activations ``(..., T, K)`` and synergies
             ``(..., K, D, L)``.
-        precision: matmul precision of the contractions.
+        update_c / update_s: freeze one factor (see :func:`cnmf_update`;
+            freezing both is refused).
+        precision: matmul precision of the contractions, the stopping
+            checks' included.
     """
+    if not (update_c or update_s):
+        raise ValueError("update_c and update_s cannot both be False")
     single = x.ndim == 2
     if single:
         x, c0, s0 = x[None], c0[None], s0[None]
@@ -159,7 +204,7 @@ def fit_cnmf(
             break
         xa, ca, sa = x[active], c[active], s[active]
         for _ in range(check_every):
-            ca, sa = cnmf_update(xa, ca, sa, precision)
+            ca, sa = cnmf_update(xa, ca, sa, update_c, update_s, precision)
         err = _frobenius_error(xa, ca, sa, precision)
         c[active], s[active] = ca, sa
         n_iter[active] += check_every
@@ -171,6 +216,16 @@ def fit_cnmf(
     return state
 
 
+def _refuse_frozen_factors(update_c: bool, update_s: bool) -> None:
+    """K5 always updates both factors: a frozen one needs the plain fit."""
+    if not (update_c and update_s):
+        raise ValueError(
+            "the CUDA kernel K5 always updates both factors; use "
+            "impl='torch' for update_c=False / update_s=False (the "
+            "frozen-factor paths)"
+        )
+
+
 def fit_cnmf_batch(
     xs: torch.Tensor,
     c0: torch.Tensor,
@@ -178,6 +233,8 @@ def fit_cnmf_batch(
     max_iter: int = 200,
     tol: float = 1e-4,
     check_every: int = 10,
+    update_c: bool = True,
+    update_s: bool = True,
     impl: str = "auto",
     block_b=None,
     precision=None,
@@ -187,14 +244,19 @@ def fit_cnmf_batch(
     ``impl="cuda"`` (``"auto"`` on a CUDA float32 batch) is kernel K5
     with its stop inside each block; ``"torch"`` is :func:`fit_cnmf`,
     its contractions at ``precision``.  Both follow the JAX package's
-    ``fit_cnmf_batch`` iterate for iterate.  ``block_b`` is ignored (a
+    ``fit_cnmf_batch`` iterate for iterate.  K5 updates both factors,
+    so a frozen one (``update_c=False`` or ``update_s=False``) on the
+    kernel route raises before any launch, as the JAX package's Pallas
+    route does; ``impl="torch"`` runs it.  ``block_b`` is ignored (a
     Mosaic tile).
     """
     stop = dict(max_iter=max_iter, tol=tol, check_every=check_every)
     if resolve_impl(impl, xs) == "cuda":
+        _refuse_frozen_factors(update_c, update_s)
         allows_tf32(precision)  # validated; K5 computes no matmul
         return cnmf_cuda.fit_cnmf_cuda(xs, c0, s0, **stop)
-    return fit_cnmf(xs, c0, s0, precision=precision, **stop)
+    return fit_cnmf(xs, c0, s0, update_c=update_c, update_s=update_s,
+                    precision=precision, **stop)
 
 
 def cnmf_iterations_batch(
@@ -202,6 +264,7 @@ def cnmf_iterations_batch(
     c0: torch.Tensor,
     s0: torch.Tensor,
     n_iters: int,
+    update_c: bool = True,
     impl: str = "auto",
     block_b=None,
     precision=None,
@@ -210,13 +273,19 @@ def cnmf_iterations_batch(
 
     The fixed-iteration twin of :func:`fit_cnmf_batch`;
     ``impl="cuda"`` is kernel K5 with its stop compiled out, and the
-    plain version contracts at ``precision``.  ``block_b`` is ignored
-    (a Mosaic tile).
+    plain version contracts at ``precision``.  ``update_c=False``
+    (frozen activations) runs only on the plain route; on the kernel
+    route it raises before any launch.  ``block_b`` is ignored (a
+    Mosaic tile).
     """
     if resolve_impl(impl, xs) == "cuda":
+        _refuse_frozen_factors(update_c, True)
         allows_tf32(precision)  # validated; K5 computes no matmul
         return cnmf_cuda.cnmf_iterations_cuda(xs, c0, s0, n_iters)
-    return cnmf_cuda.cnmf_iterations_plain(xs, c0, s0, n_iters, precision)
+    c, s = c0, s0
+    for _ in range(n_iters):
+        c, s = cnmf_update(xs, c, s, update_c=update_c, precision=precision)
+    return c, s
 
 
 def init_cnmf(
@@ -287,3 +356,312 @@ class TimeVaryingSynergyResult(NamedTuple):
     vaf_per_muscle: "object"
     n_iter: int
     restart_errors: np.ndarray
+
+
+def _init_c(x: torch.Tensor, k: int, n_lags: int, seed: int,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """:func:`cnmf_transform`'s default activations: :func:`init_cnmf`'s
+    scale (``sqrt(mean(X) / (K * D))``, from ``x`` where it lies) times
+    uniform draws on ``[0, 2)``.  The draws are the JAX package's
+    (``jax.random.uniform`` from ``PRNGKey(seed)``, trial ``b`` of a
+    batch from ``fold_in(key, b)``), equal bit for bit, made on the
+    host and moved to ``x``'s device; a ``torch.Generator`` is used
+    instead when given."""
+    denom = float(k * n_lags)
+    shape = (x.shape[-2], k)
+    lead = x.shape[:-2]
+    if generator is not None:
+        u = torch.rand(lead + shape, generator=generator, dtype=x.dtype,
+                       device=generator.device).to(x.device)
+    else:
+        dtype = np.float32 if x.dtype == torch.float32 else np.float64
+        key = _prng.prng_key(seed)
+        draws = (_prng.uniform(key, shape, dtype) if x.ndim == 2 else
+                 np.stack([_prng.uniform(_prng.fold_in(key, b), shape, dtype)
+                           for b in range(x.shape[0])]))
+        u = torch.as_tensor(draws, device=x.device)
+    if x.ndim == 2:
+        scale = (x.mean() / denom).sqrt() if x.numel() else 1.0
+        return u * (2.0 * scale)
+    scales = (x.mean(dim=(1, 2)) / denom).sqrt()
+    return u * (2.0 * scales)[:, None, None]
+
+
+def cnmf_transform(
+    x: torch.Tensor,
+    s: torch.Tensor,
+    c0: Optional[torch.Tensor] = None,
+    max_iter: int = 200,
+    tol: float = 1e-4,
+    seed: int = 0,
+    precision=None,
+    generator: Optional[torch.Generator] = None,
+) -> CNMFState:
+    """Project data onto a fixed synergy library: solve C, freeze S.
+
+    The convolutive analog of ``NMFModel.transform``: given
+    spatiotemporal synergies ``(K, D, L)`` from a prior fit, recover the
+    recruitment trains of new trials.  Plain PyTorch on ``x``'s device
+    (the JAX package runs it on XLA, never on its kernel).
+
+    Args:
+        x: ``(T, L)`` or batched ``(B, T, L)`` non-negative data.
+        s: ``(K, D, L)`` fixed synergies (or ``(B, K, D, L)`` matching
+            a batched ``x``).
+        c0: initial activations; by default :func:`init_cnmf`'s scale
+            times the JAX package's uniform draws from ``seed`` (one
+            draw for a 2-D ``x``, ``fold_in(key, b)`` for trial ``b``),
+            or ``generator``'s when one is given.
+        max_iter / tol: sklearn-style stopping on the Frobenius error,
+            every 10 iterations.
+
+    Returns:
+        :class:`CNMFState` whose ``s`` equals the input bit for bit.
+    """
+    x = as_tensor(x)
+    s = as_tensor(s, x.device)
+    if c0 is None:
+        c0 = _init_c(x, s.shape[-3], s.shape[-2], seed, generator)
+    else:
+        c0 = as_tensor(c0, x.device)
+    if x.ndim == 3 and s.ndim == 3:
+        s = s.expand((x.shape[0],) + tuple(s.shape))
+    return fit_cnmf(x, c0, s, max_iter=max_iter, tol=tol, check_every=10,
+                    update_s=False, precision=precision)
+
+
+def tvaf(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
+         precision=None) -> torch.Tensor:
+    """Overall VAF of the convolutive reconstruction,
+    ``1 - ||X - X^||^2 / ||X||^2``; batched factors ``(B, ...)`` give a
+    ``(B,)`` vector."""
+    recon = cnmf_reconstruct(c, s, precision)
+    err = ((x - recon) ** 2).sum(dim=(-2, -1))
+    tot = (x * x).sum(dim=(-2, -1))
+    return 1.0 - err / torch.where(tot == 0, 1.0, tot)
+
+
+class _TimeVaryingFit(NamedTuple):
+    """:func:`_fit_time_varying`'s arrays: the winning restart's unit-norm
+    synergies ``s`` and activations ``c``, VAF overall and per muscle,
+    its iterations, every restart's final error."""
+
+    c: np.ndarray
+    s: np.ndarray
+    vaf: float
+    vaf_per_muscle: np.ndarray
+    n_iter: int
+    restart_errors: np.ndarray
+
+
+def _fit_time_varying(x: torch.Tensor, n_synergies: int, n_lags: int,
+                      max_iter: int, tol: float, n_inits: int, seed: int,
+                      impl: str, precision) -> _TimeVaryingFit:
+    """The array core of :func:`find_time_varying_synergies` and
+    :class:`CNMFModel`: the JAX package's refusals, its host-side
+    restart inits (restart ``r`` seeded ``seed + r``), one
+    :func:`fit_cnmf_batch` of the restarts where ``x`` lies, and the
+    lowest-error restart's factors with their VAF, in NumPy."""
+    if x.ndim != 2:
+        raise ValueError(f"expected a 2-D matrix, got shape {tuple(x.shape)}")
+    if x.numel() == 0:
+        raise ValueError("empty matrix passed to convolutive NMF")
+    if not bool(torch.isfinite(x).all()):
+        raise ValueError("Input X contains NaN or infinity.")
+    if bool((x < 0).any()):
+        raise ValueError("Negative values in data passed to NMF")
+    t, _ = x.shape
+    if not 1 <= n_synergies:
+        raise ValueError(f"n_synergies must be >= 1, got {n_synergies}")
+    if not 1 <= n_lags <= t:
+        raise ValueError(f"n_lags must be in [1, n_samples={t}], got {n_lags}")
+    if n_inits < 1:
+        raise ValueError(f"n_inits must be >= 1, got {n_inits}")
+
+    x_host = to_numpy(x).astype(float)
+    c0, s0 = init_cnmf(np.broadcast_to(x_host, (n_inits,) + x_host.shape),
+                       n_synergies, n_lags, seed=seed)
+    state = fit_cnmf_batch(
+        x.expand((n_inits,) + tuple(x.shape)), as_tensor(c0, x.device, x.dtype),
+        as_tensor(s0, x.device, x.dtype), max_iter=max_iter, tol=tol,
+        impl=torch_impl(impl), precision=precision,
+    )
+    errors = to_numpy(state.previous_error)
+    best = int(np.argmin(errors))
+    c, s = normalize_synergies(state.c[best], state.s[best])
+    recon = to_numpy(cnmf_reconstruct(c, s, precision))
+    err2 = ((x_host - recon) ** 2).sum(axis=0)
+    tot2 = (x_host**2).sum(axis=0)
+    overall = 1.0 - float(((x_host - recon) ** 2).sum()) / max(
+        float((x_host**2).sum()), float(EPSILON))
+    return _TimeVaryingFit(
+        c=to_numpy(c), s=to_numpy(s), vaf=overall,
+        vaf_per_muscle=1.0 - err2 / np.where(tot2 == 0, 1.0, tot2),
+        n_iter=int(state.n_iter[best]), restart_errors=errors,
+    )
+
+
+def find_time_varying_synergies(
+    signal_df,
+    n_synergies: int,
+    n_lags: int,
+    max_iter: int = 500,
+    tol: float = 1e-5,
+    n_inits: int = 4,
+    seed: int = 0,
+    impl: str = "auto",
+    precision=None,
+    device="cuda",
+    dtype: Optional[torch.dtype] = None,
+) -> TimeVaryingSynergyResult:
+    """Extract d'Avella-style time-varying synergies from an EMG frame.
+
+    The ``n_inits`` random restarts (restart ``r`` seeded ``seed + r``,
+    :func:`init_cnmf`) are stacked on a batch axis and solved by one
+    :func:`fit_cnmf_batch`: one K5 launch on the card.  The restart
+    with the lowest final Frobenius error is returned with unit-norm
+    synergies.  Needs pandas.
+
+    Args:
+        signal_df: non-negative ``(T, n_muscles)`` DataFrame (e.g. a
+            rectified envelope), or a 2-D array or tensor.
+        n_synergies: number of time-varying synergies ``K``.
+        n_lags: temporal extent ``D`` of each synergy, in samples.
+        max_iter / tol: sklearn-style stopping (see :func:`fit_cnmf`).
+        impl: ``"auto"`` (K5 for a CUDA float32 frame, the plain fit
+            otherwise), ``"torch"`` or ``"cuda"``; the JAX names
+            ``"xla"`` / ``"pallas"`` map onto the last two.
+        precision: matmul precision of the plain contractions.
+        device, dtype: where the fit runs: the card by default, in
+            float32 there; ``device="cpu"`` runs the plain fit.
+    """
+    import pandas
+
+    fit = _fit_time_varying(_matrix(signal_df, device, dtype), n_synergies,
+                            n_lags, max_iter, tol, n_inits, seed, impl, precision)
+    t, n_m = fit.c.shape[0], fit.s.shape[-1]
+    if isinstance(signal_df, pandas.DataFrame):
+        columns, index = signal_df.columns, signal_df.index
+    else:
+        columns, index = pandas.RangeIndex(n_m), pandas.RangeIndex(t)
+    return TimeVaryingSynergyResult(
+        synergies={k: pandas.DataFrame(fit.s[k], columns=columns)
+                   for k in range(n_synergies)},
+        activations=pandas.DataFrame(
+            fit.c, index=index, columns=[f"synergy {k}" for k in range(n_synergies)]),
+        vaf=fit.vaf,
+        vaf_per_muscle=pandas.Series(fit.vaf_per_muscle, index=columns),
+        n_iter=fit.n_iter,
+        restart_errors=fit.restart_errors,
+    )
+
+
+class CNMFModel:
+    """sklearn-style estimator for the time-varying synergy model.
+
+    The JAX package's ``CNMFModel``: ``fit`` / ``fit_transform`` solve
+    both factors with batched restarts (the array core of
+    :func:`find_time_varying_synergies`, one K5 launch on the card);
+    ``transform`` projects new trials onto the fitted library with the
+    synergies frozen (:func:`cnmf_transform`, plain PyTorch).  Needs no
+    pandas.  ``device`` / ``dtype``: where it runs, the card by default
+    (float32 there); ``device="cpu"`` runs the plain fits.
+
+    Attributes after fitting:
+        synergies_: ``(K, D, L)`` unit-Frobenius-norm library.
+        n_components_ / n_lags_: model order actually used.
+        n_iter_: iterations of the winning restart.
+        reconstruction_err_: its final Frobenius error.
+        restart_errors_: ``(n_inits,)`` final errors of all restarts.
+    """
+
+    def __init__(
+        self,
+        n_components: int,
+        n_lags: int,
+        *,
+        tol: float = 1e-5,
+        max_iter: int = 500,
+        n_inits: int = 4,
+        random_state: int = 0,
+        impl: str = "auto",
+        precision=None,
+        device="cuda",
+        dtype: Optional[torch.dtype] = None,
+    ):
+        self.n_components = n_components
+        self.n_lags = n_lags
+        self.tol = tol
+        self.max_iter = max_iter
+        self.n_inits = n_inits
+        self.random_state = random_state
+        self.impl = impl
+        self.precision = precision
+        self.device = device
+        self.dtype = dtype
+
+    def _set_fitted(self, synergies: np.ndarray, n_iter: int,
+                    restart_errors: np.ndarray) -> None:
+        self.synergies_ = synergies
+        self.n_components_ = self.n_components
+        self.n_lags_ = self.n_lags
+        self.n_iter_ = n_iter
+        self.restart_errors_ = restart_errors
+        self.reconstruction_err_ = float(restart_errors.min())
+
+    def fit_transform(self, X) -> np.ndarray:
+        """Fit the library and return the ``(T, K)`` activations."""
+        fit = _fit_time_varying(
+            _matrix(X, self.device, self.dtype), self.n_components, self.n_lags,
+            self.max_iter, self.tol, self.n_inits, self.random_state, self.impl,
+            self.precision)
+        self._set_fitted(fit.s, fit.n_iter, fit.restart_errors)
+        return fit.c
+
+    def fit(self, X) -> "CNMFModel":
+        self.fit_transform(X)
+        return self
+
+    @classmethod
+    def from_result(cls, res: TimeVaryingSynergyResult, n_lags: int,
+                    **kwargs) -> "CNMFModel":
+        """Wrap a :func:`find_time_varying_synergies` result as a fitted
+        estimator; ``kwargs`` are the constructor's hyperparameters."""
+        model = cls(len(res.synergies), n_lags, **kwargs)
+        model._set_fitted(
+            np.stack([np.asarray(res.synergies[k]) for k in range(model.n_components)]),
+            res.n_iter, res.restart_errors)
+        return model
+
+    def _check_fitted(self):
+        if not hasattr(self, "synergies_"):
+            raise ValueError(
+                "this CNMFModel instance is not fitted yet; call fit or "
+                "fit_transform first"
+            )
+
+    def transform(self, X) -> np.ndarray:
+        """Activations of new data (``(T, L)`` or ``(B, T, L)``) against
+        the fitted library."""
+        self._check_fitted()
+        x = _matrix(X, self.device, self.dtype)
+        state = cnmf_transform(
+            x, as_tensor(self.synergies_, x.device, x.dtype), max_iter=self.max_iter,
+            tol=self.tol, seed=self.random_state, precision=self.precision)
+        return to_numpy(state.c)
+
+    def inverse_transform(self, C) -> np.ndarray:
+        """Reconstruction ``X^`` from activations and the fitted library."""
+        self._check_fitted()
+        c = _matrix(C, self.device, self.dtype)
+        return to_numpy(cnmf_reconstruct(
+            c, as_tensor(self.synergies_, c.device, c.dtype), self.precision))
+
+    def save(self, path):
+        """Not ported yet: raises ``NotImplementedError``."""
+        raise NotImplementedError(_PERSIST_TODO)
+
+    @classmethod
+    def load(cls, path) -> "CNMFModel":
+        """Not ported yet: raises ``NotImplementedError``."""
+        raise NotImplementedError(_PERSIST_TODO)

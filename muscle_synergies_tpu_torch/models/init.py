@@ -5,9 +5,12 @@ Port of :mod:`muscle_synergies_tpu.models.init` with
 NNDSVD splits each singular triplet into its positive and negative
 parts and keeps the dominant one; ``nndsvda`` fills zeros with
 ``X.mean()``; ``nndsvdar`` with small random values; ``random`` draws
-``|N(0, 1)| * sqrt(X.mean() / k)``.  The random draws come from an
-explicit ``torch.Generator`` (they cannot reproduce ``jax.random``;
-tests feed such inits in from NumPy instead).
+``|N(0, 1)| * sqrt(X.mean() / k)``.  The random draws are the JAX
+package's ``jax.random.normal`` draws from ``PRNGKey(seed)``, computed
+on the host by :mod:`.._prng` (1e-12 relative in float64) and moved to
+``x``'s device; every problem of a batch gets the same draw, as under
+the JAX package's ``vmap``.  A ``torch.Generator`` passed as
+``generator=`` is used instead.
 
 Every function takes ``(N, L)`` or a batch ``(B, N, L)``.
 """
@@ -19,6 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import _prng
 from .rsvd import initialize_nmf_sklearn
 
 __all__ = ["initialize_nmf", "nndsvd"]
@@ -32,10 +36,17 @@ def _svd_flip(u: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
     return u * signs, v * signs.transpose(-1, -2)
 
 
-def _generator(generator: Optional[torch.Generator], seed: int, device) -> torch.Generator:
+def _normals(key, shapes, like: torch.Tensor, generator: Optional[torch.Generator]):
+    """Standard normal draws of ``shapes`` (each broadcast over ``like``'s
+    batch dimensions): jax's from ``key``'s split, or ``generator``'s."""
+    lead = like.shape[:-2]
     if generator is not None:
-        return generator
-    return torch.Generator(device=device).manual_seed(seed)
+        return [torch.randn(lead + shape, generator=generator, dtype=like.dtype,
+                            device=like.device) for shape in shapes]
+    dtype = np.float32 if like.dtype == torch.float32 else np.float64
+    return [torch.as_tensor(_prng.normal(k, shape, dtype), dtype=like.dtype,
+                            device=like.device).expand(lead + shape)
+            for k, shape in zip(_prng.split(key), shapes)]
 
 
 def nndsvd(
@@ -53,9 +64,9 @@ def nndsvd(
         n_components: rank ``k`` (``k <= min(N, L)``).
         variant: ``"nndsvd"``, ``"nndsvda"`` or ``"nndsvdar"``.
         eps: entries below this are truncated to zero before filling.
-        seed, generator: the ``nndsvdar`` fill's random source (a
-            generator seeded with ``seed`` on ``x``'s device unless one
-            is given).
+        seed, generator: the ``nndsvdar`` fill's random source: the
+            JAX package's draws from ``PRNGKey(seed)`` unless a
+            ``torch.Generator`` is given.
 
     Returns:
         ``(W, H)`` with shapes ``(..., N, k)`` and ``(..., k, L)``.
@@ -98,9 +109,9 @@ def nndsvd(
     avg = x.mean(dim=(-2, -1), keepdim=True)
     if variant == "nndsvda":
         return torch.where(w == 0, avg, w), torch.where(h == 0, avg, h)
-    gen = _generator(generator, seed, x.device)
-    rw = (avg * torch.randn(w.shape, generator=gen, dtype=w.dtype, device=w.device) / 100).abs()
-    rh = (avg * torch.randn(h.shape, generator=gen, dtype=h.dtype, device=h.device) / 100).abs()
+    nw, nh = _normals(_prng.prng_key(seed), (w.shape[-2:], h.shape[-2:]), x,
+                      generator)
+    rw, rh = (avg * nw / 100).abs(), (avg * nh / 100).abs()
     return torch.where(w == 0, rw, w), torch.where(h == 0, rh, h)
 
 
@@ -147,13 +158,9 @@ def initialize_nmf(
         init = "nndsvda" if n_components <= min(n, l) else "random"
     if init == "random":
         avg = (x.mean(dim=(-2, -1), keepdim=True) / n_components).sqrt()
-        gen = _generator(generator, seed, x.device)
-        lead = x.shape[:-2]
-        h = (avg * torch.randn(lead + (n_components, l), generator=gen,
-                               dtype=x.dtype, device=x.device)).abs()
-        w = (avg * torch.randn(lead + (n, n_components), generator=gen,
-                               dtype=x.dtype, device=x.device)).abs()
-        return w, h
+        nh, nw = _normals(_prng.prng_key(seed), ((n_components, l), (n, n_components)),
+                          x, generator)
+        return (avg * nw).abs(), (avg * nh).abs()
     if init in ("nndsvd", "nndsvda", "nndsvdar"):
         return nndsvd(x, n_components, variant=init, eps=eps, seed=seed,
                       generator=generator)

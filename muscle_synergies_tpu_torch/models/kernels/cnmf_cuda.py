@@ -130,9 +130,8 @@ def fit_cnmf_cuda(xs, c0, s0, max_iter: int = 200, tol: float = 1e-4,
 def cnmf_iterations_plain(xs, c, s, n_iters: int, precision=None):
     """Plain version of :func:`cnmf_iterations_cuda` (its contractions at
     the JAX-style matmul ``precision``)."""
-    for _ in range(n_iters):
-        c, s = _cnmf.cnmf_update(xs, c, s, precision)
-    return c, s
+    return _cnmf.cnmf_iterations_batch(xs, c, s, n_iters, impl="torch",
+                                       precision=precision)
 
 
 def fit_cnmf_plain(xs, c0, s0, max_iter: int = 200, tol: float = 1e-4,

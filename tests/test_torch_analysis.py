@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 pandas = pytest.importorskip("pandas")
 
 from muscle_synergies_tpu import analysis as ja  # noqa: E402

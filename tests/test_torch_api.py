@@ -5,8 +5,9 @@ diffed against the JAX package's, read with ``ast`` from its source so
 that nothing of it is imported into the port, and every JAX name the
 port lacks must be on the written list of names not ported yet, each
 tagged with the ``ROADMAP.md`` item that ports it, or be a Pallas
-kernel whose CUDA counterpart the port has under another name.  When an
-item lands, its names leave the list.
+kernel whose CUDA counterpart the port has under another name, or one
+of the two Mosaic tile rules of the convolutive Pallas kernel, which
+have no counterpart.  When an item lands, its names leave the list.
 
 Keywords: ``mu_update_batch`` is held to the JAX package's at
 ``inner_iter`` 1 and 2 (float64, 1e-12 relative); ``block_b=`` (a Mosaic
@@ -25,6 +26,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 from muscle_synergies_tpu.models import batch as jbatch  # noqa: E402
 from muscle_synergies_tpu.models import cnmf as jcnmf  # noqa: E402
 from muscle_synergies_tpu.models import mu as jmu  # noqa: E402
@@ -38,20 +41,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # JAX names the port does not export yet, by the ROADMAP item that ports them
 NOT_PORTED = {
-    "4": {  # the rest of models/cnmf.py
-        "": ["find_time_varying_synergies"],
-        "models": ["CNMFModel", "cnmf_transform", "find_time_varying_synergies",
-                   "tvaf"],
-    },
-    "5": {  # space-by-time NM3F and decoding
-        "": ["SpaceByTimeDatasetResult", "SpaceByTimeResult",
-             "analyze_dataset_space_by_time", "find_space_by_time_synergies"],
-        "models": ["DecodeResult", "NM3FModel", "NM3FState", "SharedSpatialResult",
-                   "SharedTemporalResult", "SpaceByTimeResult", "decode_trials",
-                   "find_shared_spatial_synergies", "find_space_by_time_synergies",
-                   "find_temporal_synergies", "fit_nm3f", "init_nm3f",
-                   "nm3f_reconstruct", "nm3f_transform", "sbt_vaf"],
-    },
     "6": {  # stability, cross-validation and resume
         "models": [
             "BootstrapResult", "CVResult", "SpaceByTimeCVResult", "SynergyClusters",
@@ -77,6 +66,7 @@ NOT_PORTED = {
     },
     "8": {  # parallel, and the trial batching that feeds it
         "": ["analyze_dataset_pipelined", "parallel"],
+        "dataset": ["analyze_dataset_pipelined"],
         "io": ["TrialBatch", "batch_iterator", "device_prefetch", "stack_trials"],
     },
     "10": {  # viz
@@ -86,7 +76,12 @@ NOT_PORTED = {
 }
 MODULES = {"": "__init__.py", "models": "models/__init__.py",
            "models.batch": "models/batch.py", "io": "io/__init__.py",
-           "segment": "segment/__init__.py", "ops": "ops/__init__.py"}
+           "segment": "segment/__init__.py", "ops": "ops/__init__.py",
+           "models.cnmf": "models/cnmf.py", "models.nm3f": "models/nm3f.py",
+           "models.decode": "models/decode.py", "dataset": "dataset.py"}
+# the JAX package's Mosaic tile rules for its convolutive Pallas kernel:
+# they pick a tile of trials per TPU block and have no CUDA counterpart
+MOSAIC = {"models.cnmf": ["cnmf_block_b", "resolve_cnmf_impl"]}
 # the JAX package's Pallas kernels, by module, and the port's counterpart
 # of each (a CUDA kernel's wrapper), which the port exports elsewhere
 PALLAS = {"ops": {"sosfiltfilt_pallas": "ops.filter_cuda.sosfiltfilt_cuda",
@@ -110,6 +105,7 @@ def test_public_names_match_the_jax_package(module):
         port = getattr(port, part)
     missing = _jax_all(MODULES[module]) - set(port.__all__)
     listed = {n for by_module in NOT_PORTED.values() for n in by_module.get(module, [])}
+    listed |= set(MOSAIC.get(module, []))
     kernels = PALLAS.get(module, {})
     assert missing - set(kernels) == listed, (sorted(missing - listed - set(kernels)),
                                               sorted(listed - missing))

@@ -19,6 +19,8 @@ from scipy import signal as sps
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 from muscle_synergies_tpu.ops import emg as j_emg  # noqa: E402
 from muscle_synergies_tpu.ops.filter_pallas import cascade_pallas  # noqa: E402
 from muscle_synergies_tpu.ops.filters import sosfilt as j_sosfilt  # noqa: E402

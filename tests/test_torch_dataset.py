@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 import muscle_synergies_tpu as mst  # noqa: E402
 from muscle_synergies_tpu.dataset import preprocess_trials as j_preprocess_trials  # noqa: E402
 from muscle_synergies_tpu.models.batch import fit_cd_batch as j_fit_cd_batch  # noqa: E402
@@ -198,7 +200,17 @@ def test_port_imports_neither_jax_nor_pandas():
         "assert r.vaf_overall.shape == (2, 8)\n"
         "r = m.analyze_dataset([data.emg], 2000.0, ranks=(1,), max_iter=30, device='cpu')\n"
         "assert r.channel_names == list(data.emg.coords)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'pandas'))\n"
+        "r = m.analyze_dataset_space_by_time(trials, 1000.0, 2, 2, max_iter=30,\n"
+        "                                    n_inits=2, device='cpu')\n"
+        "assert r.coefficients.shape == (3, 2, 2)\n"
+        "cm = m.models.CNMFModel(2, 3, max_iter=30, device='cpu')\n"
+        "assert cm.fit_transform(trials[0][:40]).shape == (40, 2)\n"
+        "assert cm.transform(np.stack([trials[1][:40]] * 2)).shape == (2, 40, 2)\n"
+        "nm = m.models.NM3FModel(2, 2, max_iter=30, device='cpu')\n"
+        "assert nm.fit_transform(np.stack([t[:40] for t in trials])).shape == (3, 2, 2)\n"
+        "assert nm.transform(trials[0][:40]).shape == (2, 2)\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'pandas', 'sklearn'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )

@@ -12,6 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 from scipy import signal as sps  # noqa: E402
 
 from muscle_synergies_tpu.ops import filters as jf  # noqa: E402

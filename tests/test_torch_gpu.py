@@ -696,3 +696,64 @@ def test_written_capture_runs_the_main_path_on_the_card(cuda, tmp_path):
     assert np.abs(res.vaf_overall - plain.vaf_overall).max() <= 1e-3
     whole = analyze_dataset([data.emg], 2000.0, ranks=(1, 2), max_iter=500)
     assert whole.channel_names == list(GAIT_MUSCLES)
+
+
+def test_cnmf_model_fits_through_one_k5_launch(cuda):
+    """``CNMFModel`` stacks its restarts on the batch axis of one K5
+    launch; its library reconstructs as the plain float64 fit of the
+    same restarts does (bar 1e-3 in VAF), and ``transform`` (plain, S
+    frozen) launches nothing."""
+    from muscle_synergies_tpu_torch.models import CNMFModel
+
+    x = preprocess_trials(np.abs(np.random.default_rng(5).standard_normal((1, 6000, 8))),
+                          2000.0)[0]
+    cnmf_cuda.launches = 0
+    model = CNMFModel(4, 10, n_inits=4)
+    c = model.fit_transform(x)
+    assert cnmf_cuda.launches == 1 and c.shape == (200, 4)
+    assert model.synergies_.shape == (4, 10, 8) and np.isfinite(c).all()
+    ref = CNMFModel(4, 10, n_inits=4, device="cpu", dtype=torch.float64)
+    c_ref = ref.fit_transform(x.cpu().double())
+    vafs = [float(cnmf.tvaf(x.cpu().double(), torch.as_tensor(cc, dtype=torch.float64),
+                            torch.as_tensor(m.synergies_, dtype=torch.float64)))
+            for cc, m in ((c, model), (c_ref, ref))]
+    assert abs(vafs[0] - vafs[1]) <= 1e-3, vafs
+    assert model.transform(x[None].repeat(3, 1, 1)).shape == (3, 200, 4)
+    assert cnmf_cuda.launches == 1
+    # over one block's shared memory (2,822 x 8 at K = 4, D = 10): refused
+    long = torch.rand(3000, 8, device=cuda)
+    with pytest.raises(ValueError, match="impl='torch'"):
+        CNMFModel(4, 10, n_inits=2).fit(long)
+    assert cnmf_cuda.launches == 1
+
+
+def test_frozen_factors_refuse_the_kernel_route(cuda):
+    x, c, s = _cnmf_problem(cuda, b=4)
+    cnmf_cuda.launches = 0
+    for frozen in (dict(update_c=False), dict(update_s=False)):
+        with pytest.raises(ValueError, match="impl='torch'"):
+            cnmf.fit_cnmf_batch(x, c, s, max_iter=20, **frozen)
+        st = cnmf.fit_cnmf_batch(x, c, s, max_iter=20, impl="torch", **frozen)
+        frozen_out, given = (st.c, c) if "update_c" in frozen else (st.s, s)
+        assert torch.equal(frozen_out, given)
+    with pytest.raises(ValueError, match="impl='torch'"):
+        cnmf.cnmf_iterations_batch(x, c, s, 2, update_c=False)
+    assert cnmf_cuda.launches == 0
+
+
+@pytest.mark.parametrize("precision, bar", [(None, 1e-4), ("high", 5e-2)])
+def test_nm3f_fixed_iterations_match_float64(cuda, precision, bar):
+    """20 space-by-time updates in float32 on the card against float64
+    on the host: full float32 by default, TF32 under "high" (the JAX
+    package's bar for its default precision)."""
+    from muscle_synergies_tpu_torch.models import nm3f
+
+    xs = np.random.default_rng(6).random((256, 200, 8))
+    w, a, s = nm3f.init_nm3f(xs, 4, 3, seed=0)
+    card = [torch.as_tensor(v, dtype=torch.float32, device=cuda) for v in (xs, w, a, s)]
+    host = [torch.as_tensor(v) for v in (xs, w, a, s)]
+    for _ in range(20):
+        card[1:] = nm3f.nm3f_update(*card, precision=precision)
+        host[1:] = nm3f.nm3f_update(*host)
+    for got, want in zip(card[1:], host[1:]):
+        assert _rel(got.cpu(), want) <= bar

@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 import muscle_synergies_tpu as mst  # noqa: E402
 from muscle_synergies_tpu import testing as jtesting  # noqa: E402
 from muscle_synergies_tpu.io import DeviceStream as JDeviceStream  # noqa: E402

@@ -15,6 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 from muscle_synergies_tpu.ops import kinematics as jk  # noqa: E402
 from muscle_synergies_tpu_torch.ops import kinematics as tk  # noqa: E402
 

@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -73,9 +75,18 @@ def test_random_inits_come_from_the_generator():
     x = torch.as_tensor(X[0])
     a = tinit.initialize_nmf(x, 9, seed=3)  # k > min(N, L): sklearn picks random
     b = tinit.initialize_nmf(x, 9, generator=torch.Generator().manual_seed(3))
-    assert a[0].shape == (N, 9) and a[1].shape == (9, L)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    assert (a[0] >= 0).all() and (a[1] >= 0).all()
+    assert a[0].shape == b[0].shape == (N, 9) and a[1].shape == b[1].shape == (9, L)
+    # seed= draws what the JAX package draws; generator= draws from it
+    jw, jh = jinit.initialize_nmf(jnp.asarray(X[0]), 9, seed=3)
+    np.testing.assert_allclose(a[0].numpy(), np.asarray(jw), rtol=1e-12, atol=0)
+    np.testing.assert_allclose(a[1].numpy(), np.asarray(jh), rtol=1e-12, atol=0)
+    g = torch.Generator().manual_seed(3)  # h's draw, then w's
+    nh, nw = torch.randn((9, L), generator=g, dtype=x.dtype), torch.randn(
+        (N, 9), generator=g, dtype=x.dtype)
+    avg = (x.mean() / 9).sqrt()
+    assert torch.equal(b[0], (avg * nw).abs()) and torch.equal(b[1], (avg * nh).abs())
+    assert not torch.equal(a[0], b[0])
+    assert (a[0] >= 0).all() and (a[1] >= 0).all() and (b[0] >= 0).all()
     w, h = tinit.nndsvd(x, 4, variant="nndsvdar", seed=1)
     plain_w, _ = tinit.nndsvd(x, 4, variant="nndsvd")
     assert (w > 0).all() and torch.equal(w[plain_w > 0], plain_w[plain_w > 0])

@@ -19,6 +19,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 from muscle_synergies_tpu.ops import batched as j_batched  # noqa: E402
 from muscle_synergies_tpu.ops import emg as j_emg  # noqa: E402
 from muscle_synergies_tpu_torch.models.batch import pad_and_stack  # noqa: E402

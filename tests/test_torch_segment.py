@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 import muscle_synergies_tpu as mst  # noqa: E402
 from muscle_synergies_tpu import segment as jseg  # noqa: E402
 import muscle_synergies_tpu_torch as mt  # noqa: E402

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 pandas = pytest.importorskip("pandas")
 
 from muscle_synergies_tpu.models import batch as j_batch  # noqa: E402
