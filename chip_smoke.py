@@ -137,7 +137,27 @@ then, failing on the first assertion that does not hold:
     ``max_iter=200`` within 1e-3 of float64; ``NM3FModel(4, 3).fit`` on
     64 trials and ``transform`` of 16 new ones (no launch), and
     ``nm3f_transform`` from one start at ``tol=0``, ``max_iter=200``
-    within 1e-3 of float64.
+    within 1e-3 of float64;
+18. stability and held-out rank selection (``models.stability``), run
+    after 17 on phase 16's preprocessed trials: ``bootstrap_synergies(x,
+    4)`` at its defaults (50 resamples) on one subject's 12 cycles
+    (2,400 x 8) in exactly one launch of K1's block entry, and on one
+    200 x 8 trial in one launch of its warp entry; a 5,000 x 8 matrix
+    refused before any launch, naming ``impl='torch'``;
+    ``bootstrap_time_varying_synergies(x, 4, 10)`` in exactly one K5
+    launch; each held against the same call in float64 on the host
+    (similarities within 2e-3, reference components' cosines >= 0.999);
+    ``cv_rank_selection`` over ranks 1-8 and
+    ``cv_time_varying_rank_selection`` over 2-5 (plain torch, no launch:
+    the best rank equal to float64's, held-out errors within 1e-3
+    relative); ``bootstrap_space_by_time`` (20 resamples) and
+    ``cv_space_by_time_selection`` on 64 trials with the same bars, and
+    the masked NM3F loop's time, iterations and kernels an iteration;
+    last ``analyze_dataset`` on 64 trials as 8 subjects of 8 trials,
+    ``cluster_subjects(4)``, and ``cluster_synergies``/``match_synergies``
+    of the subjects' components as float32 card tensors, equal to the
+    float64 host run (labels, membership, pairs exactly; consensus
+    within 1e-6).
 
 Each main path is driven with every launch counter set to 0 just before
 it and read just after; the CD, RMS-CD and ``rank_sweep_batch`` paths
@@ -1452,6 +1472,204 @@ class Smoke:
             f"iterations vs float64 max rel error {err:.3e} (bar 1e-3)")
         assert err <= 1e-3, "nm3f_transform on the card disagrees with float64"
 
+    # ---- 18. stability, held-out rank selection and group-level matching ----
+    def stability_phase(self, xs, emg):
+        """The bootstraps (one K1 or K5 launch each), the cross-validations
+        (plain torch, no launch) and the group-level matching, each held
+        against the same call in float64 on the host."""
+        from muscle_synergies_tpu_torch import analyze_dataset
+        from muscle_synergies_tpu_torch.models import stability
+
+        torch = self.torch
+        host = dict(device="cpu", dtype=torch.float64)
+        subject = xs[:12].reshape(-1, N_CHANNELS)  # 12 gait cycles, 2,400 x 8
+        trial = xs[0]
+
+        def against_host(label, fn, x):
+            """``fn`` on the card (counted) and in float64 on the host."""
+            t0 = time.perf_counter()
+            got, counts = self.main_path(label, lambda: fn(x))
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = fn(x.cpu().double(), **host)
+            host_s = time.perf_counter() - t0
+            log(f"{label}: card {card_s:.3f} s, float64 host {host_s:.1f} s")
+            return got, want, counts
+
+        def same_components(label, got, want, bar=0.999):
+            cos = [float((a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum()))
+                   for a, b in zip(got, want)]
+            log(f"{label}: reference components' cosine to float64 min {min(cos):.6f} "
+                f"(bar {bar})")
+            assert min(cos) >= bar, f"{label}: the reference components disagree"
+
+        def same_similarities(label, got, want, bar=2e-3):
+            gap = float(np.abs(got.similarities - want.similarities).max())
+            log(f"{label}: mean similarity {np.round(got.mean, 4).tolist()}; max gap to "
+                f"float64 {gap:.3e} (bar {bar:g})")
+            assert gap <= bar, f"{label}: the similarities disagree with float64"
+
+        # bootstraps: one K1 launch (block entry at 2,400 rows, warp at 200)
+        for label, x, entry in (("bootstrap_synergies 2400x8", subject, "mu_nmf"),
+                                ("bootstrap_synergies 200x8", trial, "mu_nmf_warp")):
+            got, want, counts = against_host(
+                label, lambda v, **kw: stability.bootstrap_synergies(v, 4, **kw), x)
+            assert counts[entry] == 1 and sum(counts.values()) == 1, counts
+            same_similarities(label, got, want)
+            same_components(label, got.reference_components, want.reference_components)
+        big = xs[:25].reshape(-1, N_CHANNELS)  # 5,000 x 8: over one block's memory
+        try:
+            _, counts = self.main_path("bootstrap_synergies 5000x8 (refused)",
+                                       lambda: stability.bootstrap_synergies(big, 4))
+        except ValueError as err:
+            assert "impl='torch'" in str(err), err
+            log(f"bootstrap_synergies 5000x8 refused before any launch: {err}")
+        else:
+            raise AssertionError("a 5,000 x 8 bootstrap was not refused")
+        assert all(getattr(m, a) == 0 for m, a in self.counters.values())
+
+        label = "bootstrap_time_varying_synergies 2400x8"
+        got, want, counts = against_host(label, lambda v, **kw: (
+            stability.bootstrap_time_varying_synergies(v, 4, 10, **kw)), subject)
+        assert counts["cnmf"] == 1 and sum(counts.values()) == 1, counts
+        same_similarities(label, got, want)
+        same_components(label, got.reference_synergies, want.reference_synergies)
+        self.bootstrap_launches(subject)
+
+        # cross-validations: plain torch, no launch
+        for label, fn in (
+                ("cv_rank_selection 2400x8, ranks 1-8",
+                 lambda v, **kw: stability.cv_rank_selection(v, range(1, 9), **kw)),
+                ("cv_time_varying_rank_selection 2400x8",
+                 lambda v, **kw: stability.cv_time_varying_rank_selection(
+                     v, (2, 3, 4, 5), 10, n_repeats=3, **kw))):
+            got, want, counts = against_host(label, fn, subject)
+            assert sum(counts.values()) == 0, counts
+            gap = float(np.abs(got.test_error / want.test_error - 1).max())
+            means = np.round(got.mean_test_error.astype(float), 5).tolist()
+            log(f"{label}: best rank {got.best_rank} (float64 {want.best_rank}), mean "
+                f"held-out error {means}, max relative gap {gap:.3e} (bar 1e-3)")
+            assert got.best_rank == want.best_rank and gap <= 1e-3, label
+
+        # space-by-time on 64 trials
+        stack = xs[:64]
+        label = "bootstrap_space_by_time 64x200x8"
+        got, want, counts = against_host(label, lambda v, **kw: (
+            stability.bootstrap_space_by_time(v, 4, 3, n_boot=20, **kw)), stack)
+        assert sum(counts.values()) == 0, counts
+        for side, g, w in zip(("temporal", "spatial"), got, want):
+            same_similarities(f"{label} {side}", g, w)
+            same_components(f"{label} {side}", g.reference_components,
+                            w.reference_components)
+        label = "cv_space_by_time_selection 64x200x8"
+        pairs = [(2, 2), (3, 3), (4, 3)]
+        got, want, counts = against_host(label, lambda v, **kw: (
+            stability.cv_space_by_time_selection(v, pairs, n_repeats=2, **kw)), stack)
+        assert sum(counts.values()) == 0, counts
+        gap = float(np.abs(got.test_error / want.test_error - 1).max())
+        log(f"{label}: best {got.best} (float64 {want.best}), max relative gap "
+            f"{gap:.3e} (bar 1e-3)")
+        assert got.best == want.best and gap <= 1e-3, label
+        self.masked_loop(stack, pairs)
+
+        # group level: 64 trials as 8 subjects of 8, clustered at rank 4
+        subjects = [f"s{i // 8}" for i in range(64)]
+        res, counts = self.main_path(
+            "analyze_dataset, 8 subjects x 8 trials",
+            lambda: analyze_dataset(emg[:64], FS, subjects=subjects))
+        assert counts["sosfiltfilt"] > 0 and counts["cd_nmf_warp"] > 0, counts
+        clusters = self.timed("cluster_subjects(4)", lambda: res.cluster_subjects(4))
+        sets = [res._subject_mean(4, s) for s in dict.fromkeys(subjects)]
+        on_card = [torch.as_tensor(s, dtype=torch.float32, device=self.dev) for s in sets]
+        want = stability.cluster_synergies(sets)
+        for label, got in (("cluster_subjects", clusters),
+                           ("cluster_synergies of card tensors",
+                            stability.cluster_synergies(on_card))):
+            assert all((g == w).all() for g, w in zip(got.labels, want.labels)), label
+            assert (got.membership == want.membership).all(), label
+            gap = float(np.abs(got.consensus - want.consensus).max())
+            log(f"{label}: {got.n_clusters} clusters, shared {got.shared.tolist()}, "
+                f"coverage {np.round(got.coverage, 3).tolist()}; consensus gap {gap:.1e} "
+                "(bar 1e-6)")
+            assert gap <= 1e-6, label
+        got = stability.match_synergies(on_card[0], on_card[1])
+        want = stability.match_synergies(sets[0], sets[1])
+        gap = float(np.abs(got.similarities - want.similarities).max())
+        log(f"match_synergies s0-s1: pairs {got.pairs}, mean {got.mean:.6f}; gap to "
+            f"float64 {gap:.1e}")
+        assert got.pairs == want.pairs and gap <= 1e-6, "match_synergies disagrees"
+
+    def bootstrap_launches(self, x, n_boot: int = 50):
+        """The bootstraps' one K1 and one K5 launch alone, on the batch
+        they build (the full matrix, then its resamples), against their
+        bounds at the iterations their fits ran."""
+        from muscle_synergies_tpu_torch.models import batch as mb
+        from muscle_synergies_tpu_torch.models import cnmf, stability
+        from muscle_synergies_tpu_torch.models.init import initialize_nmf
+
+        torch, dev = self.torch, self.dev
+        n, l = x.shape
+        host = x.cpu().double().numpy()
+        rng = np.random.default_rng(0)
+        rows = torch.as_tensor(rng.integers(0, n, size=(n_boot, n)), device=dev)
+        xs = torch.cat([x[None], x[rows]])
+        w0, h0 = initialize_nmf(xs, 4)
+        blocks = stability._block_bootstrap_indices(n, 40, n_boot,
+                                                    np.random.default_rng(0))
+        cx = torch.cat([x[None], x[torch.as_tensor(blocks, device=dev)]])
+        c0, s0 = (torch.as_tensor(np.concatenate([a[None], b]), dtype=torch.float32,
+                                  device=dev)
+                  for a, b in zip(cnmf.init_cnmf(host, 4, 10),
+                                  cnmf.init_cnmf(host[blocks], 4, 10)))
+        for kname, fit, k, d, sizes in (
+                ("mu_nmf", lambda: mb.fit_mu_batch(xs, w0, h0, max_iter=500, tol=1e-6),
+                 4, 1, n * l + 2 * (n * 4 + 4 * l)),
+                ("cnmf", lambda: cnmf.fit_cnmf_batch(cx, c0, s0, max_iter=300, tol=1e-5),
+                 4, 10, n * l + 2 * (n * 4 + 4 * 10 * l))):
+            st = fit()
+            ms = cuda_ms(fit, reps=3)
+            log(f"stage {kname} launch of the bootstrap ({n_boot + 1} fits of {n}x{l}): "
+                f"{ms:.3f} ms  [{self.smi}]")
+            fit_bound(kname, st.n_iter, n, l, k, 4 * (n_boot + 1) * sizes, d=d)
+
+    def masked_loop(self, stack, pairs, n_repeats: int = 2, iters: int = 20):
+        """The space-by-time CV's batched masked loop on its own: its time,
+        iterations, and kernels an iteration from the torch profiler."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from muscle_synergies_tpu_torch.models import nm3f, stability
+
+        torch = self.torch
+        host = stack.cpu().double().numpy()
+        masks_host, masks = stability._holdout_masks(
+            np.random.default_rng(0), (n_repeats,) + host.shape, 0.1, stack)
+        inits = [stability._padded(*nm3f.init_nm3f(host * masks_host[r], p, q, seed=r),
+                                   4, 3) for r in range(n_repeats) for p, q in pairs]
+        gm = masks.repeat_interleave(len(pairs), dim=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = stability._fit_stack(stack, inits, 400, 1e-6, mask=gm)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        most = int(st.n_iter.max())
+        log(f"stage masked nm3f loop ({len(inits)} fits): {ms:.2f} ms for {most} "
+            f"iterations (n_iter {st.n_iter.tolist()}), {ms / most * 1e3:.2f} us an "
+            f"iteration  [{self.smi}]")
+        w, a, s = st.w, st.a, st.s
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                w, a, s = nm3f._masked_update(stack, w, a, s, True, True, gm)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        if kernels:
+            log(f"stage masked nm3f update: {len(kernels) / iters:.1f} kernels an "
+                f"iteration, device busy {busy / iters * 1e3:.2f} us an iteration "
+                f"(torch profiler)  [{self.smi}]")
+        else:
+            log("stage masked nm3f update: the profiler saw no device kernels; launches "
+                "an iteration not measured")
+
     def lone_fit(self, kname, n_iter, fit):
         """Time the path's longest fit alone on the card: the latency of
         one fit's iteration, which sets the path's tail."""
@@ -1614,6 +1832,10 @@ def main() -> int:
     t0 = time.perf_counter()
     smoke.per_capture_models(xs)                             # 17
     smoke.stage("phase 17 (per-capture convolutive and space-by-time models)",
+                time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    smoke.stability_phase(xs, emg)                           # 18
+    smoke.stage("phase 18 (stability, held-out rank selection, group level)",
                 time.perf_counter() - t0)
     del emg, xs
     smoke.capture_main()                                     # 15

@@ -291,11 +291,10 @@ class DatasetResult:
             out[subject] = reaching[0] if reaching else -1
         return pandas.Series(out, name="min_rank")
 
-    def subject_components(self, rank: int, subject):
-        """Mean synergy components of one subject at one rank, each
-        trial's rows aligned to the subject's first trial by cosine."""
-        import pandas
-
+    def _subject_mean(self, rank: int, subject) -> np.ndarray:
+        """:meth:`subject_components`' array: the ``(rank, L)`` mean of
+        the subject's trials, each trial's rows aligned to the first
+        trial's by cosine."""
         self._require_subjects()
         trials = self.trials_of(subject)
         if not trials:
@@ -305,9 +304,34 @@ class DatasetResult:
         stacked = [reference] + [
             _match_components(reference, self.h[r, t][:rank]) for t in trials[1:]
         ]
-        mean = np.mean(stacked, axis=0)
+        return np.mean(stacked, axis=0)
+
+    def subject_components(self, rank: int, subject):
+        """Mean synergy components of one subject at one rank, each
+        trial's rows aligned to the subject's first trial by cosine."""
+        import pandas
+
+        mean = self._subject_mean(rank, subject)
         cols = self.channel_names or range(mean.shape[1])
         return pandas.DataFrame(mean, columns=list(cols))
+
+    def cluster_subjects(self, rank: int, n_clusters: Optional[int] = None):
+        """Group-level synergy clusters across subjects at one rank.
+
+        Feeds each subject's trial-averaged components (the arrays of
+        :meth:`subject_components`; no pandas) to
+        :func:`~muscle_synergies_tpu_torch.models.stability.cluster_synergies`:
+        ``.shared`` lists the clusters every subject expresses,
+        ``.coverage`` how widely each is shared, ``.consensus`` the
+        group-level synergy of each cluster.  Sets follow the subjects'
+        order of first appearance, so ``result.labels[j]`` belongs to
+        the ``j``-th distinct subject.  Needs at least two subjects.
+        """
+        from .models.stability import cluster_synergies
+
+        self._require_subjects()
+        sets = [self._subject_mean(rank, s) for s in dict.fromkeys(self.subjects)]
+        return cluster_synergies(sets, n_clusters=n_clusters)
 
     def min_rank_reaching(self, vaf_threshold: float = 0.9) -> np.ndarray:
         """Per trial: smallest swept rank whose VAF >= threshold (-1 if none)."""

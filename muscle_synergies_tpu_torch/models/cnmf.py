@@ -188,12 +188,27 @@ def fit_cnmf(
     """
     if not (update_c or update_s):
         raise ValueError("update_c and update_s cannot both be False")
+    return _fit_loop(
+        x, c0, s0,
+        lambda xa, ca, sa: cnmf_update(xa, ca, sa, update_c, update_s, precision),
+        lambda xa, ca, sa: _frobenius_error(xa, ca, sa, precision),
+        max_iter, tol, check_every)
+
+
+def _fit_loop(x, c0, s0, step, error, max_iter: int, tol: float, check_every: int,
+              mask=None) -> CNMFState:
+    """:func:`fit_cnmf`'s loop: ``step(x, c, s)`` is one update and
+    ``error(x, c, s)`` the stopping statistic; with a ``mask`` of
+    ``x``'s shape both also take the fits' mask.  Whole chunks of
+    ``check_every`` updates run on the fits still going, each stopping
+    on its own."""
     single = x.ndim == 2
     if single:
         x, c0, s0 = x[None], c0[None], s0[None]
+    masks = () if mask is None else (mask[None] if single else mask,)
     b = x.shape[0]
     c, s = c0.to(x.dtype).clone(), s0.to(x.dtype).clone()
-    err0 = _frobenius_error(x, c, s, precision)
+    err0 = error(x, c, s, *masks)
     scale = err0.clamp(min=EPSILON)
     prev = err0.clone()
     n_iter = torch.zeros(b, dtype=torch.int32, device=x.device)
@@ -203,9 +218,10 @@ def fit_cnmf(
         if active.numel() == 0:
             break
         xa, ca, sa = x[active], c[active], s[active]
+        ma = tuple(m[active] for m in masks)
         for _ in range(check_every):
-            ca, sa = cnmf_update(xa, ca, sa, update_c, update_s, precision)
-        err = _frobenius_error(xa, ca, sa, precision)
+            ca, sa = step(xa, ca, sa, *ma)
+        err = error(xa, ca, sa, *ma)
         c[active], s[active] = ca, sa
         n_iter[active] += check_every
         converged[active] = (prev[active] - err) / scale[active] < tol
@@ -214,6 +230,31 @@ def fit_cnmf(
     if single:
         return CNMFState(*(t[0] for t in state))
     return state
+
+
+def _masked_update(x, c, s, mask):
+    """One weighted convolutive update, S then C: every projection of X
+    and of its reconstruction sees ``mask`` (the EM treatment of missing
+    entries), :func:`cnmf_update` otherwise."""
+    n_lags = s.shape[-2]
+    mx = mask * x
+    cs = _lag_stack(c, n_lags)
+    xhat = mask * torch.einsum("...dtk,...kdl->...tl", cs, s)
+    num_s = torch.einsum("...dtk,...tl->...kdl", cs, mx)
+    den_s = torch.einsum("...dtk,...tl->...kdl", cs, xhat)
+    s = s * (num_s / _guard(den_s))
+    xhat = mask * torch.einsum("...dtk,...kdl->...tl", cs, s)
+    g_num = torch.einsum("...tl,...kdl->...dtk", mx, s)
+    g_den = torch.einsum("...tl,...kdl->...dtk", xhat, s)
+    num_c = sum(_shift_up(g_num[..., d, :, :], d) for d in range(n_lags))
+    den_c = sum(_shift_up(g_den[..., d, :, :], d) for d in range(n_lags))
+    return c * (num_c / _guard(den_c)), s
+
+
+def _masked_error(x, c, s, mask):
+    """``||mask * (X - X^)||_F`` per problem."""
+    diff = mask * (x - cnmf_reconstruct(c, s))
+    return (diff * diff).sum(dim=(-2, -1)).sqrt()
 
 
 def _refuse_frozen_factors(update_c: bool, update_s: bool) -> None:

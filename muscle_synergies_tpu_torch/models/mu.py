@@ -93,6 +93,26 @@ def mu_update(
     return w, h
 
 
+def _masked_update(x: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
+                   mask: torch.Tensor):
+    """One weighted multiplicative update of W then H, on the observed
+    (``mask`` = 1) entries only: the EM treatment of missing entries,
+    ``W *= ((M*X) H^T) / ((M*(WH)) H^T)`` and symmetrically for H."""
+    mx = mask * x
+    ht = h.transpose(-1, -2)
+    w = w * ((mx @ ht) / _guard((mask * (w @ h)) @ ht))
+    wt = w.transpose(-1, -2)
+    h = h * ((wt @ mx) / _guard(wt @ (mask * (w @ h))))
+    return w, h
+
+
+def _masked_error(x: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """``||mask * (X - W @ H)||_F`` per problem."""
+    diff = mask * (x - w @ h)
+    return (diff * diff).sum(dim=(-2, -1)).sqrt()
+
+
 class MUState(NamedTuple):
     w: torch.Tensor
     h: torch.Tensor
@@ -140,16 +160,17 @@ def fit_mu(
 
 
 def fit_chunked(x, w0, h0, step, error, max_iter: int, tol: float,
-                check_every: int):
+                check_every: int, mask=None):
     """sklearn's multiplicative-update loop, each fit stopping on its own.
 
     ``step(x, w, h)`` is one update and ``error(x, w, h)`` the
-    per-problem stopping statistic.  Updates run in chunks of
-    ``check_every``, the last one cut at ``max_iter``; after each chunk
-    (when ``tol > 0``) a fit converges if ``(previous - current) /
-    initial < tol`` at an exact multiple of ``check_every``, and is
-    frozen from then on.  The statistic at ``max_iter`` is stored
-    without a test.
+    per-problem stopping statistic; with a ``mask`` of ``x``'s shape
+    both also take the fits' mask, ``step(x, w, h, mask)``.  Updates
+    run in chunks of ``check_every``, the last one cut at ``max_iter``;
+    after each chunk (when ``tol > 0``) a fit converges if ``(previous
+    - current) / initial < tol`` at an exact multiple of
+    ``check_every``, and is frozen from then on.  The statistic at
+    ``max_iter`` is stored without a test.
 
     Returns:
         ``(w, h, n_iter, previous_error, converged)``, without the
@@ -159,8 +180,9 @@ def fit_chunked(x, w0, h0, step, error, max_iter: int, tol: float,
     if single:
         x, w0, h0 = x[None], w0[None], h0[None]
     b = x.shape[0]
+    masks = () if mask is None else (mask[None] if single else mask,)
     w, h = w0.clone(), h0.clone()
-    err0 = error(x, w, h)
+    err0 = error(x, w, h, *masks)
     prev = err0.clone()
     n_iter = torch.zeros(b, dtype=torch.int32, device=x.device)
     converged = torch.zeros(b, dtype=torch.bool, device=x.device)
@@ -170,14 +192,15 @@ def fit_chunked(x, w0, h0, step, error, max_iter: int, tol: float,
         if active.numel() == 0:
             break
         xa, wa, ha = x[active], w[active], h[active]
+        ma = tuple(m[active] for m in masks)
         steps = min(check_every, max_iter - done)
         for _ in range(steps):
-            wa, ha = step(xa, wa, ha)
+            wa, ha = step(xa, wa, ha, *ma)
         done += steps
         w[active], h[active] = wa, ha
         n_iter[active] = done
         if tol > 0:
-            err = error(xa, wa, ha)
+            err = error(xa, wa, ha, *ma)
             newly = (prev[active] - err) / err0[active] < tol
             converged[active] = newly & (done % check_every == 0)
             prev[active] = err

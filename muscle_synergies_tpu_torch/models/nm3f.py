@@ -146,17 +146,51 @@ def _nm3f_error(xs, w, a, s):
     return (diff * diff).sum(dim=(-3, -2, -1)).sqrt()
 
 
+def _masked_update(xs, w, a, s, update_w, update_s, mask):
+    """:func:`_update` with every projection of X and of its
+    reconstruction seeing ``mask`` (the EM treatment of missing
+    entries); the full reconstruction is rebuilt before each factor's
+    update, since no Gram shortcut exists under a mask."""
+    mx = mask * xs
+    mrec = mask * _reconstruct(w, a, s)
+    wt, st = _t(w).unsqueeze(-3), _t(s).unsqueeze(-3)
+    a = a * ((wt @ mx @ st) / _guard(wt @ mrec @ st))
+    if update_w:
+        mrec = mask * _reconstruct(w, a, s)
+        num_w = torch.einsum("...btq,...bpq->...tp", mx @ st, a)
+        den_w = torch.einsum("...btq,...bpq->...tp", mrec @ st, a)
+        w = w * (num_w / _guard(den_w))
+        wt = _t(w).unsqueeze(-3)
+    if update_s:
+        mrec = mask * _reconstruct(w, a, s)
+        num_s = torch.einsum("...bpq,...bpl->...ql", a, wt @ mx)
+        den_s = torch.einsum("...bpq,...bpl->...ql", a, wt @ mrec)
+        s = s * (num_s / _guard(den_s))
+    return w, a, s
+
+
+def _masked_error(xs, w, a, s, mask):
+    diff = mask * (xs - _reconstruct(w, a, s))
+    return (diff * diff).sum(dim=(-3, -2, -1)).sqrt()
+
+
 def _fit_restarts(xs, w0, a0, s0, max_iter, tol, check_every, update_w, update_s,
-                  precision) -> NM3FState:
-    """:func:`fit_nm3f` of every restart on the leading axis of the
-    factors, the trials shared.  Every restart still iterating has run
+                  precision, mask=None) -> NM3FState:
+    """:func:`fit_nm3f` of every fit on the leading axis of the factors.
+    The trials ``(B, T, L)`` are shared, or ``(R, B, T, L)`` give each
+    fit its own; a ``mask`` ``(R, B, T, L)`` fits each on its observed
+    entries (:func:`_masked_update`).  Every fit still iterating has run
     the same count, so each chunk runs ``min(check_every, max_iter -
-    count)`` updates of those restarts, and a restart converges only at
-    a multiple of ``check_every`` (the JAX package's tail-chunk rule)."""
+    count)`` updates of those fits, and a fit converges only at a
+    multiple of ``check_every`` (the JAX package's tail-chunk rule)."""
     w, a, s = (f.to(xs.dtype).clone() for f in (w0, a0, s0))
     r = w.shape[0]
+    per_fit = xs.ndim == 4
+    masks = () if mask is None else (mask,)
+    step = _update if mask is None else _masked_update
+    error = _nm3f_error if mask is None else _masked_error
     with matmul_precision(precision):
-        err0 = _nm3f_error(xs, w, a, s)
+        err0 = error(xs, w, a, s, *masks)
         scale = err0.clamp(min=EPSILON)
         prev = err0.clone()
         n_iter = torch.zeros(r, dtype=torch.int32, device=xs.device)
@@ -167,10 +201,12 @@ def _fit_restarts(xs, w0, a0, s0, max_iter, tol, check_every, update_w, update_s
             if active.numel() == 0:
                 break
             wa, aa, sa = w[active], a[active], s[active]
+            xa = xs[active] if per_fit else xs
+            ma = tuple(m[active] for m in masks)
             steps = min(check_every, max_iter - done)
             for _ in range(steps):
-                wa, aa, sa = _update(xs, wa, aa, sa, update_w, update_s)
-            err = _nm3f_error(xs, wa, aa, sa)
+                wa, aa, sa = step(xa, wa, aa, sa, update_w, update_s, *ma)
+            err = error(xa, wa, aa, sa, *ma)
             done += steps
             w[active], a[active], s[active] = wa, aa, sa
             n_iter[active] = done

@@ -41,23 +41,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # JAX names the port does not export yet, by the ROADMAP item that ports them
 NOT_PORTED = {
-    "6": {  # stability, cross-validation and resume
+    "6": {  # checkpointed sweeps, resume and profiling (6b)
         "models": [
-            "BootstrapResult", "CVResult", "SpaceByTimeCVResult", "SynergyClusters",
-            "SynergyMatch", "TimeVaryingBootstrapResult",
-            "bootstrap_shared_spatial_synergies",
             "bootstrap_shared_spatial_synergies_checkpointed",
-            "bootstrap_space_by_time", "bootstrap_space_by_time_checkpointed",
-            "bootstrap_synergies", "bootstrap_synergies_checkpointed",
-            "bootstrap_temporal_synergies", "bootstrap_temporal_synergies_checkpointed",
-            "bootstrap_time_varying_synergies",
-            "bootstrap_time_varying_synergies_checkpointed", "cluster_synergies",
-            "cv_rank_selection", "cv_rank_selection_checkpointed",
-            "cv_shared_spatial_selection", "cv_space_by_time_selection",
-            "cv_space_by_time_selection_checkpointed", "cv_temporal_selection",
-            "cv_time_varying_rank_selection",
-            "cv_time_varying_rank_selection_checkpointed", "fit_cnmf_masked",
-            "fit_mu_masked", "fit_nm3f_masked", "match_synergies"],
+            "bootstrap_space_by_time_checkpointed", "bootstrap_synergies_checkpointed",
+            "bootstrap_temporal_synergies_checkpointed",
+            "bootstrap_time_varying_synergies_checkpointed",
+            "cv_rank_selection_checkpointed", "cv_space_by_time_selection_checkpointed",
+            "cv_time_varying_rank_selection_checkpointed"],
+        "utils": ["GridCheckpoint", "SweepCheckpoint", "Timer", "annotate",
+                  "debug_nans", "find_synergies_checkpointed", "solver_report"],
     },
     "7": {  # persistence and export
         "": ["load_model", "load_synergy_run", "save_model", "save_synergy_run"],
@@ -78,7 +71,8 @@ MODULES = {"": "__init__.py", "models": "models/__init__.py",
            "models.batch": "models/batch.py", "io": "io/__init__.py",
            "segment": "segment/__init__.py", "ops": "ops/__init__.py",
            "models.cnmf": "models/cnmf.py", "models.nm3f": "models/nm3f.py",
-           "models.decode": "models/decode.py", "dataset": "dataset.py"}
+           "models.decode": "models/decode.py", "models.stability": "models/stability.py",
+           "dataset": "dataset.py", "utils": "utils/__init__.py"}
 # the JAX package's Mosaic tile rules for its convolutive Pallas kernel:
 # they pick a tile of trials per TPU block and have no CUDA counterpart
 MOSAIC = {"models.cnmf": ["cnmf_block_b", "resolve_cnmf_impl"]}

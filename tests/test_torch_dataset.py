@@ -209,6 +209,15 @@ def test_port_imports_neither_jax_nor_pandas():
         "nm = m.models.NM3FModel(2, 2, max_iter=30, device='cpu')\n"
         "assert nm.fit_transform(np.stack([t[:40] for t in trials])).shape == (3, 2, 2)\n"
         "assert nm.transform(trials[0][:40]).shape == (2, 2)\n"
+        "st = m.models.stability\n"
+        "boot = st.bootstrap_synergies(trials[0][:60], 2, n_boot=3, max_iter=30,\n"
+        "                              device='cpu')\n"
+        "assert boot.similarities.shape == (3, 2)\n"
+        "cv = st.cv_rank_selection(trials[0][:60], (1, 2), n_repeats=2, max_iter=30,\n"
+        "                          device='cpu')\n"
+        "assert cv.best_rank in (1, 2)\n"
+        "cl = st.cluster_synergies([boot.reference_components, trials[1][:3]])\n"
+        "assert len(cl.labels) == 2\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'pandas', 'sklearn'))\n"
         "assert not bad, bad\n"

@@ -757,3 +757,67 @@ def test_nm3f_fixed_iterations_match_float64(cuda, precision, bar):
         host[1:] = nm3f.nm3f_update(*host)
     for got, want in zip(card[1:], host[1:]):
         assert _rel(got.cpu(), want) <= bar
+
+
+def _subject_matrix(n_rows, seed=11):
+    """A preprocessed-looking ``(n_rows, 8)`` matrix: 4 smooth,
+    gait-periodic activations mixing into 8 muscles, plus noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_rows) / 200.0
+    acts = np.abs(np.sin(np.pi * (t[:, None] * (1 + 0.1 * np.arange(4)) + rng.random(4))))
+    return acts @ rng.random((4, 8)) + 0.02 * rng.random((n_rows, 8))
+
+
+def _hold_bootstrap_to_float64(got, want, ref_field):
+    """The chip bars: each similarity within 2e-3 of the float64 run's,
+    and each reference component's cosine to its counterpart >= 0.999."""
+    assert np.abs(got.similarities - want.similarities).max() <= 2e-3
+    a, b = (getattr(r, ref_field).reshape(len(getattr(r, ref_field)), -1)
+            for r in (got, want))
+    cos = (a * b).sum(1) / np.sqrt((a * a).sum(1) * (b * b).sum(1))
+    assert cos.min() >= 0.999, cos
+
+
+@pytest.mark.parametrize("n_rows, entry", [(200, "warp_launches"), (2400, "launches")])
+def test_bootstrap_synergies_is_one_k1_launch(cuda, n_rows, entry):
+    """The reference fit and the resamples in one launch of K1: its warp
+    entry for a 200 x 8 trial, its block entry for a 2,400 x 8 subject."""
+    from muscle_synergies_tpu_torch.models import stability
+
+    x = _subject_matrix(n_rows)
+    mu_cuda.warp_launches = mu_cuda.launches = 0
+    got = stability.bootstrap_synergies(x, 4, n_boot=20)
+    assert getattr(mu_cuda, entry) == 1
+    assert mu_cuda.warp_launches + mu_cuda.launches == 1
+    want = stability.bootstrap_synergies(x, 4, n_boot=20, device="cpu",
+                                         dtype=torch.float64)
+    _hold_bootstrap_to_float64(got, want, "reference_components")
+
+
+def test_bootstrap_time_varying_is_one_k5_launch(cuda):
+    from muscle_synergies_tpu_torch.models import stability
+
+    x = _subject_matrix(2400)
+    cnmf_cuda.launches = 0
+    got = stability.bootstrap_time_varying_synergies(x, 4, 10, n_boot=10)
+    assert cnmf_cuda.launches == 1
+    want = stability.bootstrap_time_varying_synergies(x, 4, 10, n_boot=10, device="cpu",
+                                                      dtype=torch.float64)
+    _hold_bootstrap_to_float64(got, want, "reference_synergies")
+
+
+def test_bootstraps_refuse_frames_over_one_block(cuda):
+    """5,000 x 8 is over K1's shared memory at rank 4 (about 4,100 rows)
+    and K5's at K = 4, D = 10 (2,822 rows): both raise before any
+    launch, naming ``impl='torch'``."""
+    from muscle_synergies_tpu_torch.models import stability
+
+    x = _subject_matrix(5000)
+    mu_cuda.warp_launches = mu_cuda.launches = cnmf_cuda.launches = 0
+    with pytest.raises(ValueError, match="impl='torch'"):
+        stability.bootstrap_synergies(x, 4, n_boot=2)
+    with pytest.raises(ValueError, match="impl='torch'"):
+        stability.bootstrap_time_varying_synergies(x, 4, 10, n_boot=2)
+    assert mu_cuda.warp_launches == mu_cuda.launches == cnmf_cuda.launches == 0
+    plain = stability.bootstrap_synergies(x, 4, n_boot=2, max_iter=20, impl="torch")
+    assert plain.similarities.shape == (2, 4) and mu_cuda.launches == 0

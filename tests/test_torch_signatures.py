@@ -69,7 +69,7 @@ MODULES = [rel for rel in _port_modules() if _jax_module(rel) is not None]
 
 def test_the_check_covers_the_ported_surface():
     for rel in ("", ".models", ".models.cnmf", ".models.nm3f", ".models.decode",
-                ".models.beta", ".dataset"):
+                ".models.beta", ".models.stability", ".dataset"):
         assert rel in MODULES, rel
 
 
