@@ -158,6 +158,26 @@ then, failing on the first assertion that does not hold:
     of the subjects' components as float32 card tensors, equal to the
     float64 host run (labels, membership, pairs exactly; consensus
     within 1e-6).
+19. resume, persistence, export and profiling, after 18 on the same
+    trials, no pandas: ``bootstrap_synergies_checkpointed`` on phase 18's
+    2,400 x 8 subject (rank 4, 50 resamples in chunks of 10) from an
+    empty directory (exactly 5 K1 launches), fully restored (1 launch,
+    the reference) and with two chunks deleted (2 launches), its
+    similarities and reference within 1e-6 of the one-shot
+    ``bootstrap_synergies``; the convolutive one (20 resamples, exactly 2
+    K5 launches) to the same bar; ``cv_rank_selection_checkpointed``
+    over ranks 1-8 from empty and with three candidates deleted, the
+    same best rank as the one-shot call and its columns within 1e-6
+    relative in float64 (the float32 gap logged); an ``NMFModel(4)``
+    fitted through K2's warp entry, phase 17's ``CNMFModel`` and
+    ``NM3FModel`` saved and loaded (factors and the transform of 16
+    trials bit-equal; loadable with ``device="cpu"``); each transform
+    exported for ``("b", 200, 8)`` on the card and replayed by a process
+    that has torch and NumPy but not this package, on 16 and on 3
+    trials, within 1e-5 relative of the eager transform; last
+    ``annotate`` in the torch profiler's trace with device time,
+    ``debug_nans`` raising for a torch op and for K1's wrapper, and
+    ``solver_report`` against NumPy.
 
 Each main path is driven with every launch counter set to 0 just before
 it and read just after; the CD, RMS-CD and ``rank_sweep_batch`` paths
@@ -1405,7 +1425,8 @@ class Smoke:
     # ---- 17. the per-capture convolutive and space-by-time models ----
     def per_capture_models(self, xs):
         """``CNMFModel`` (one K5 launch) and ``NM3FModel`` on preprocessed
-        trials, their transforms (plain torch) against float64."""
+        trials, their transforms (plain torch) against float64; returns
+        the two fitted models for phase 19."""
         from muscle_synergies_tpu_torch.models import CNMFModel, NM3FModel, cnmf, nm3f
 
         torch = self.torch
@@ -1471,6 +1492,7 @@ class Smoke:
         log(f"NM3FModel: n_iter {nm.n_iter_}, VAF {nm.vaf_:.6f}; nm3f_transform 200 "
             f"iterations vs float64 max rel error {err:.3e} (bar 1e-3)")
         assert err <= 1e-3, "nm3f_transform on the card disagrees with float64"
+        return model, nm
 
     # ---- 18. stability, held-out rank selection and group-level matching ----
     def stability_phase(self, xs, emg):
@@ -1598,6 +1620,270 @@ class Smoke:
         log(f"match_synergies s0-s1: pairs {got.pairs}, mean {got.mean:.6f}; gap to "
             f"float64 {gap:.1e}")
         assert got.pairs == want.pairs and gap <= 1e-6, "match_synergies disagrees"
+
+    # ---- 19. resume, persistence, export, profiling ----
+    def serving_phase(self, xs, cnmf_model, nm3f_model):
+        """Checkpointed bootstraps and CV resumed on the card (exact K1
+        and K5 launch counts, equal to the one-shot calls), three models
+        saved and loaded (bit-equal factors and transforms), their
+        transforms exported and replayed in a process without the
+        package, and the profiling scopes."""
+        import shutil
+        import tempfile
+
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+        os.makedirs(root, exist_ok=True)
+        work = tempfile.mkdtemp(prefix="chip_smoke_serving_", dir=root)
+        server = self.serving_process(work)
+        try:
+            subject = xs[:12].reshape(-1, N_CHANNELS)  # 12 gait cycles, 2,400 x 8
+            self.resume_checks(subject, work)
+            models = self.persist_checks(xs, cnmf_model, nm3f_model, work)
+            self.export_checks(xs, models, work, server)
+            self.profiling_checks(xs)
+        finally:
+            if server.poll() is None:
+                server.kill()
+                server.wait()
+            shutil.rmtree(work, ignore_errors=True)
+
+    def serving_process(self, work):
+        """Start the process that serves the exported transforms: it has
+        torch and NumPy, not this package (``export.py`` is loaded from
+        its file alone).  It imports torch, opens the card's context and
+        warms ``torch.export``'s serialisation on a one-op program while
+        the phase runs, then waits for a line on its standard input
+        before it loads the artifacts and calls them."""
+        from muscle_synergies_tpu_torch.models import export
+
+        child = f"""
+import importlib.util, io, json, sys, time
+import numpy as np
+import torch
+torch.zeros(1, device="cuda")
+buf = io.BytesIO()
+torch.export.save(torch.export.export(torch.nn.ReLU(), (torch.ones(2),)), buf)
+torch.export.load(io.BytesIO(buf.getvalue()))
+spec = importlib.util.spec_from_file_location("_serving_export", {export.__file__!r})
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+sys.stdin.readline()
+out = {{}}
+for name in ("NMFModel", "CNMFModel", "NM3FModel"):
+    t0 = time.perf_counter()
+    fn = mod.load_transform({work!r} + "/" + name + ".transform")
+    out[name] = {{"load_ms": (time.perf_counter() - t0) * 1e3}}
+    for b in (16, 3):
+        x = torch.as_tensor(np.load({work!r} + f"/x{{b}}.npy"), device="cuda")
+        if b == 16:
+            fn(x)  # the program's first call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = fn(x)
+        out[name][f"call_ms_{{b}}"] = (time.perf_counter() - t0) * 1e3
+        np.save({work!r} + f"/{{name}}_y{{b}}.npy", y)
+out["port_imported"] = sorted(m for m in sys.modules if m.startswith("muscle_synergies"))
+print(json.dumps(out))
+"""
+        return subprocess.Popen([sys.executable, "-c", child], stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def resume_checks(self, subject, work):
+        from muscle_synergies_tpu_torch.models import resume, stability
+        from muscle_synergies_tpu_torch.utils import GridCheckpoint
+
+        def same_as_one_shot(label, got, want, ref_attr):
+            gap = float(np.abs(got.similarities - want.similarities).max())
+            ref = float(np.abs(getattr(got, ref_attr) - getattr(want, ref_attr)).max())
+            log(f"{label}: similarities vs the one-shot call on the card max gap "
+                f"{gap:.3e}, reference {ref:.3e} (bar 1e-6)")
+            assert gap <= 1e-6 and ref <= 1e-6, f"{label}: differs from the one-shot call"
+
+        t0 = time.perf_counter()
+        want = stability.bootstrap_synergies(subject, 4, n_boot=50)
+        log(f"stage one-shot bootstrap_synergies (reference for 19a): "
+            f"{time.perf_counter() - t0:.3f} s  [{self.smi}]")
+        ck = os.path.join(work, "bootstrap")
+        run = lambda: resume.bootstrap_synergies_checkpointed(  # noqa: E731
+            subject, 4, ck, n_boot=50, chunk_size=10)
+        for label, drop, launches in (("from empty", (), 5),
+                                      ("fully restored", (), 1),
+                                      ("two chunks deleted", ("chunk_00010_00020",
+                                                              "chunk_00030_00040"), 2)):
+            for key in drop:
+                os.remove(os.path.join(ck, f"{key}.npz"))
+            got, counts = self.main_path(f"bootstrap_synergies_checkpointed {label}", run)
+            assert counts["mu_nmf"] == launches and sum(counts.values()) == launches, counts
+            same_as_one_shot(f"bootstrap_synergies_checkpointed {label}", got, want,
+                             "reference_components")
+        grid = GridCheckpoint(ck)
+        keys = grid.completed_keys()
+        t0 = time.perf_counter()
+        for key in keys:
+            grid.load(key)
+        load_ms = (time.perf_counter() - t0) * 1e3 / len(keys)
+        t0 = time.perf_counter()
+        grid.save("probe", {"sims": want.similarities[:10]}, meta={"range": [0, 10]})
+        save_ms = (time.perf_counter() - t0) * 1e3
+        log(f"stage checkpoint chunk: save {save_ms:.3f} ms, restore {load_ms:.3f} ms a "
+            f"chunk ({len(keys)} chunks)  [{self.smi}]")
+
+        want = stability.bootstrap_time_varying_synergies(subject, 4, 10, n_boot=20)
+        got, counts = self.main_path(
+            "bootstrap_time_varying_synergies_checkpointed from empty",
+            lambda: resume.bootstrap_time_varying_synergies_checkpointed(
+                subject, 4, 10, os.path.join(work, "tv"), n_boot=20, chunk_size=10))
+        assert counts["cnmf"] == 2 and sum(counts.values()) == 2, counts
+        same_as_one_shot("bootstrap_time_varying_synergies_checkpointed", got, want,
+                         "reference_synergies")
+
+        # the CV columns are held to the one-shot grid's at 1e-6 in float64;
+        # in float32 (the default on the card) a candidate's unconverged
+        # masked fits amplify the rounding of batched products shared with
+        # fewer fits than in the grid, so that gap is logged, not held
+        for dtype, bar in ((self.torch.float64, 1e-6), (self.torch.float32, None)):
+            kw = dict(dtype=dtype)
+            want = stability.cv_rank_selection(subject, range(1, 9), **kw)
+            ck = os.path.join(work, f"cv_{str(dtype)[6:]}")
+            for label, drop in (("from empty", ()), ("three candidates deleted",
+                                                     ("rank_2", "rank_5", "rank_8"))):
+                for key in drop:
+                    os.remove(os.path.join(ck, f"{key}.npz"))
+                label = f"cv_rank_selection_checkpointed {str(dtype)[6:]} {label}"
+                got, counts = self.main_path(label, lambda: (
+                    resume.cv_rank_selection_checkpointed(subject, range(1, 9), ck, **kw)))
+                assert sum(counts.values()) == 0, counts
+                gap = float(np.abs(got.test_error / want.test_error - 1).max())
+                log(f"{label}: best rank {got.best_rank} (one-shot {want.best_rank}), "
+                    f"held-out errors' max relative gap {gap:.3e} "
+                    f"({'bar 1e-6' if bar else 'logged'})")
+                assert got.best_rank == want.best_rank, label
+                assert bar is None or gap <= bar, label
+
+    def persist_checks(self, xs, cnmf_model, nm3f_model, work):
+        """Returns the three fitted models, for the export checks."""
+        from muscle_synergies_tpu_torch import NMFModel, load_model
+
+        frame, others = xs[0], xs[1:17]
+
+        def fit():
+            model = NMFModel(4)
+            model.fit_transform(frame)
+            return model
+
+        nmf_model, counts = self.main_path("NMFModel 200x8 fit (to save)", fit)
+        assert counts["cd_nmf_warp"] == 1 and sum(counts.values()) == 1, counts
+        models = {"NMFModel": nmf_model, "CNMFModel": cnmf_model, "NM3FModel": nm3f_model}
+        for name, model in models.items():
+            path = os.path.join(work, f"{name}.npz")
+            t0 = time.perf_counter()
+            model.save(path)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            loaded = type(model).load(path)
+            load_ms = (time.perf_counter() - t0) * 1e3
+            factors, again = model._transform_factors(), loaded._transform_factors()
+            assert all(a.dtype == b.dtype and np.array_equal(a, b)
+                       for a, b in zip(factors, again)), f"{name}: factors changed"
+            got, want = loaded.transform(others), model.transform(others)
+            assert np.array_equal(got, want), f"{name}: the reloaded transform differs"
+            host = load_model(path, device="cpu")
+            assert host.device == "cpu" and all(
+                np.array_equal(a, b) for a, b in zip(factors, host._transform_factors()))
+            log(f"{name}: saved in {save_ms:.2f} ms ({os.path.getsize(path)} bytes), "
+                f"loaded in {load_ms:.2f} ms; factors and the transform of 16 trials "
+                f"{want.shape} equal bit for bit; loads with device='cpu'  [{self.smi}]")
+        return models
+
+    def export_checks(self, xs, models, work, server):
+        from muscle_synergies_tpu_torch.models import export
+
+        batches = {16: xs[1:17], 3: xs[17:20]}
+        for b, x in batches.items():
+            np.save(os.path.join(work, f"x{b}.npy"), x.cpu().numpy())
+        eager = {}
+        for name, model in models.items():
+            path = os.path.join(work, f"{name}.transform")
+            t0 = time.perf_counter()
+            export.export_transform(model, ("b", 200, N_CHANNELS), platforms=("cuda",),
+                                    path=path)
+            log(f"stage export_transform {name}: {time.perf_counter() - t0:.2f} s, "
+                f"{os.path.getsize(path)} bytes  [{self.smi}]")
+            for b, x in batches.items():  # warm: the persistence checks ran it
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eager[name, b] = model.transform(x)
+                ms = (time.perf_counter() - t0) * 1e3
+                log(f"stage eager transform {name}, {b} trials: {ms:.2f} ms  [{self.smi}]")
+        t0 = time.perf_counter()
+        stdout, stderr = server.communicate("go\n", timeout=300)
+        assert server.returncode == 0, stderr[-4000:]
+        served = json.loads(stdout.strip().splitlines()[-1])
+        log(f"stage serving process after the go (3 loads, 9 calls): "
+            f"{time.perf_counter() - t0:.2f} s  [{self.smi}]")
+        assert served.pop("port_imported") == [], "the serving process imported the package"
+        for name in models:
+            for b in batches:
+                got = np.load(os.path.join(work, f"{name}_y{b}.npy"))
+                want = eager[name, b]
+                assert got.shape == want.shape, (name, b, got.shape, want.shape)
+                err = float(np.abs(got - want).max() / np.abs(want).max())
+                log(f"load_transform {name}, {b} trials: max rel error to the eager "
+                    f"transform {err:.2e} (bar 1e-5); call {served[name][f'call_ms_{b}']:.2f}"
+                    f" ms, load {served[name]['load_ms']:.1f} ms  [{self.smi}]")
+                assert err <= 1e-5, f"{name}: the exported transform disagrees"
+
+    def profiling_checks(self, xs):
+        from torch.profiler import ProfilerActivity, profile
+
+        from muscle_synergies_tpu_torch import NMFModel
+        from muscle_synergies_tpu_torch.models import batch as mb
+        from muscle_synergies_tpu_torch.models.kernels import mu_cuda
+        from muscle_synergies_tpu_torch.utils import annotate, debug_nans, solver_report
+
+        torch, dev = self.torch, self.dev
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with annotate("phase19"):
+                NMFModel(4).fit_transform(xs[0])
+            torch.cuda.synchronize()
+        device_us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+                        for e in prof.key_averages() if e.key == "phase19")
+        log(f"annotate('phase19') around one CD fit: {device_us:.1f} us of device time "
+            f"in the torch profiler's trace  [{self.smi}]")
+        assert device_us > 0, "the annotation shows no device time"
+
+        with debug_nans():
+            try:
+                torch.log(-torch.ones(4, device=dev))
+            except FloatingPointError as exc:
+                log(f"debug_nans, torch op: {exc}")
+            else:
+                raise AssertionError("debug_nans let a NaN from a torch op through")
+        x = xs[:4].clone()
+        x[0, 0, 0] = float("nan")
+        w0, h0 = mb.init_batch(xs[:4], 4)
+        with debug_nans():
+            try:
+                mu_cuda.mu_iterations_cuda(x, w0, h0, 5)
+            except FloatingPointError as exc:
+                assert "mu_nmf" in str(exc), exc
+                log(f"debug_nans, kernel wrapper: {exc}")
+            else:
+                raise AssertionError("debug_nans let a NaN out of K1")
+        mu_cuda.mu_iterations_cuda(x, w0, h0, 5)  # off again: no check
+
+        st = mb.fit_mu_batch(xs[:4], w0, h0, max_iter=200, tol=1e-4)
+        rep = solver_report(st, xs[:4])
+        w, h = (t.cpu().double().numpy() for t in (st.w, st.h))
+        want = np.sqrt(((xs[:4].cpu().double().numpy() - w @ h) ** 2).sum(axis=(1, 2)))
+        assert (rep["n_iter"] == st.n_iter.cpu().numpy()).all()
+        assert (rep["converged"] == st.converged.cpu().numpy()).all()
+        assert rep["converged_fraction"] == float(st.converged.float().mean())
+        assert np.array_equal(rep["error_at_last_check"], st.previous_error.cpu().numpy())
+        err = float(np.abs(rep["final_error"] - want).max() / want.max())
+        log(f"solver_report on a card MUState: n_iter {rep['n_iter'].tolist()}, final "
+            f"error vs NumPy float64 max rel {err:.2e} (bar 1e-5)")
+        assert err <= 1e-5, "solver_report's final error disagrees with NumPy"
 
     def bootstrap_launches(self, x, n_boot: int = 50):
         """The bootstraps' one K1 and one K5 launch alone, on the batch
@@ -1830,12 +2116,16 @@ def main() -> int:
     xs = smoke.space_by_time_main(emg)                       # 16
     smoke.stage("phase 16 (space-by-time dataset path)", time.perf_counter() - t0)
     t0 = time.perf_counter()
-    smoke.per_capture_models(xs)                             # 17
+    models = smoke.per_capture_models(xs)                    # 17
     smoke.stage("phase 17 (per-capture convolutive and space-by-time models)",
                 time.perf_counter() - t0)
     t0 = time.perf_counter()
     smoke.stability_phase(xs, emg)                           # 18
     smoke.stage("phase 18 (stability, held-out rank selection, group level)",
+                time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    smoke.serving_phase(xs, *models)                         # 19
+    smoke.stage("phase 19 (resume, persistence, export, profiling)",
                 time.perf_counter() - t0)
     del emg, xs
     smoke.capture_main()                                     # 15

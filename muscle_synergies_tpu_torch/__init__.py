@@ -39,7 +39,13 @@ inside the functions that take or return DataFrames or Series (the
 result classes' table helpers, :mod:`.analysis`, :func:`find_synergies`,
 the ``find_*`` finders of the convolutive and space-by-time models,
 ``DeviceData.df`` and its row access, ``time_seq``,
-:func:`segment.reactions`, :func:`segment.phase_summary`).
+:func:`segment.reactions`, :func:`segment.phase_summary`,
+:func:`save_synergy_run` / :func:`load_synergy_run` and the rank
+sweep's checkpoints, ``utils.find_synergies_checkpointed``).  Fitted
+models persist in the JAX package's file format (:func:`save_model`,
+:func:`load_model`), long bootstraps and CVs resume from checkpoints
+(``models.resume``), and ``models.export_transform`` serves a transform
+through ``torch.export`` to a process that has only torch.
 """
 
 from . import analysis, dataset, io, models, ops, segment, utils
@@ -74,6 +80,7 @@ from .frames import ForcesEMGFrameTracker, FrameSubfr, SamplingFreq, TrajFrameTr
 from .io import ViconCSVError, load_vicon_file
 from .models.cnmf import TimeVaryingSynergyResult, find_time_varying_synergies
 from .models.nm3f import SpaceByTimeResult, find_space_by_time_synergies
+from .models.persist import load_model, load_synergy_run, save_model, save_synergy_run
 from .models.select import NMFModel, SynergyRunResult, find_synergies
 from .utils.config import FilterSpec, PipelineConfig
 
@@ -109,12 +116,16 @@ __all__ = [
     "find_time_varying_synergies",
     "io",
     "linear_envelope",
+    "load_model",
+    "load_synergy_run",
     "load_vicon_file",
     "models",
     "normalize",
     "ops",
     "preprocess_trials",
     "rms",
+    "save_model",
+    "save_synergy_run",
     "segment",
     "subsample",
     "time_normalize",

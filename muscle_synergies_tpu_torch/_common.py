@@ -29,6 +29,11 @@ torch.backends.cudnn.allow_tf32 = False
 
 IMPLS = ("auto", "torch", "cuda")
 
+# Turned on by :func:`~muscle_synergies_tpu_torch.utils.profiling.debug_nans`:
+# the kernels are launched through ctypes, past PyTorch's dispatcher, so
+# each kernel wrapper checks its own outputs (:func:`check_kernel_nans`).
+DEBUG_NANS = False
+
 # the names jax.lax.Precision and its string forms take, by what they
 # give a float32 product here: full float32, or TF32 allowed
 _FULL_PRECISION = ("default", "highest", "float32")
@@ -115,6 +120,45 @@ def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
             raise TypeError(f"{name}: takes float32 only, got {t.dtype}")
         if t.device != device:
             raise ValueError(f"{name}: tensors on {t.device} and {device}")
+
+
+def check_kernel_nans(name: str, *outputs: torch.Tensor) -> None:
+    """Raise ``FloatingPointError`` if a kernel's floating-point output
+    holds a NaN, while :data:`DEBUG_NANS` is on; one flag read otherwise."""
+    if not DEBUG_NANS:
+        return
+    for out in outputs:
+        if out.is_floating_point() and bool(torch.isnan(out).any()):
+            raise FloatingPointError(f"{name}: the kernel's output holds a NaN")
+
+
+def eager_loop(cond, body, carried):
+    """``torch._higher_order_ops.while_loop``'s semantics, run eagerly:
+    ``body(*carried)`` while ``cond(*carried)``, one host readback of
+    the condition a body call.
+
+    The transform cores take their loop as an argument: this one when
+    they run, ``while_loop`` when ``torch.export`` traces them (whose
+    own eager form would trace every call through dynamo).
+    """
+    carried = tuple(carried)
+    while bool(cond(*carried)):
+        carried = tuple(body(*carried))
+    return carried
+
+
+def repeat(n: int, step, carried, loop=eager_loop):
+    """``step(*carried)`` applied ``n`` times: a Python loop under
+    :func:`eager_loop`, a counted ``loop`` otherwise, so a traced
+    program holds one step, not ``n``, and traces that much faster."""
+    carried = tuple(carried)
+    if loop is eager_loop:
+        for _ in range(n):
+            carried = tuple(step(*carried))
+        return carried
+    count = torch.zeros((), dtype=torch.int64, device=carried[0].device)
+    out = loop(lambda j, *c: j < n, lambda j, *c: (j + 1, *step(*c)), (count, *carried))
+    return tuple(out[1:])
 
 
 def allows_tf32(precision) -> bool:

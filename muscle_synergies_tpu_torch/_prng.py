@@ -1,4 +1,4 @@
-"""The JAX package's random draws, reproduced on the host in NumPy.
+"""The JAX package's random draws, reproduced without jax.
 
 The JAX package draws its random inits with ``jax.random`` (the
 ``nndsvdar`` fill and the ``random`` init of ``models/init.py``, the
@@ -22,8 +22,12 @@ its draws can be computed here bit for bit without jax:
   rounded once; XLA evaluates a float32 polynomial, so they agree with
   jax's to 1e-5 relative.
 
-Keys are ``(2,)`` uint32 arrays, as jax's raw keys.  Everything here
-runs on the host; callers move the draws to their device.
+Keys are ``(2,)`` uint32 arrays, as jax's raw keys.  These run on the
+host; callers move the draws to their device.  :func:`uniform_torch`
+and :func:`fold_in_torch` compute the same bits with PyTorch integer
+operations on any device (the words held in int64), so a transform's
+default start is drawn inside its traced program, for a batch size
+known only when it is called.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["fold_in", "normal", "prng_key", "split", "uniform"]
+__all__ = ["fold_in", "fold_in_torch", "normal", "prng_key", "split", "uniform",
+           "uniform_torch"]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = np.uint32(0x1BD11BDA)
@@ -116,3 +121,48 @@ def normal(key: np.ndarray, shape, dtype=np.float64) -> np.ndarray:
     u = uniform(key, shape, dtype, lo, 1.0)
     z = torch.special.erfinv(torch.as_tensor(u, dtype=torch.float64)).numpy()
     return np.asarray(np.sqrt(2.0) * z).astype(dtype)
+
+
+# ---------------------------------------------------------------------------
+# The same hash in PyTorch integer operations (traceable, on any device)
+
+_MASK = 0xFFFFFFFF
+
+
+def _threefry2x32_torch(k0, k1, x0, x1):
+    """:func:`_threefry2x32` on int64 tensors holding 32-bit words (keys
+    and counts broadcast against each other)."""
+    ks = (k0, k1, k0 ^ k1 ^ int(_PARITY))
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for group in range(5):
+        for r in _ROTATIONS[group % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _MASK) ^ x0
+        x0 = (x0 + ks[(group + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(group + 2) % 3] + (group + 1)) & _MASK
+    return x0, x1
+
+
+def fold_in_torch(key: np.ndarray, data: torch.Tensor):
+    """:func:`fold_in` of one key with every entry of the int64 tensor
+    ``data``: the two words of each new key, int64 tensors of
+    ``data``'s shape."""
+    return _threefry2x32_torch(int(key[0]), int(key[1]), torch.zeros_like(data),
+                               data & _MASK)
+
+
+def uniform_torch(k0, k1, n: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """:func:`uniform` on ``[0, 1)``: ``n`` draws (the trailing axis)
+    under the key words ``k0``, ``k1`` (ints, or int64 tensors of shape
+    ``(..., 1)`` for one key a row), in float32 or float64 on
+    ``device``."""
+    count = torch.arange(n, dtype=torch.int64, device=device)
+    b0, b1 = _threefry2x32_torch(k0, k1, count >> 32, count & _MASK)
+    if dtype == torch.float32:
+        bits = ((b0 ^ b1) >> 9) | 0x3F800000
+        return bits.to(torch.int32).view(torch.float32) - 1.0
+    if dtype == torch.float64:
+        bits = (b0 << 20) | (b1 >> 12) | 0x3FF0000000000000
+        return bits.view(torch.float64) - 1.0
+    raise TypeError(f"uniform draws float32 or float64, not {dtype}")

@@ -27,7 +27,7 @@ On top of the solvers, the per-capture API:
 
 - :func:`cnmf_transform` projects trials onto a fixed library (C solved
   with S frozen): plain PyTorch on the caller's device, as the JAX
-  package runs it on XLA;
+  package runs it on XLA, in a loop that ``torch.export`` can capture;
 - :func:`find_time_varying_synergies` fits one capture with its
   ``n_inits`` restarts stacked on the batch axis of one
   :func:`fit_cnmf_batch`, one K5 launch on the card, and returns
@@ -55,11 +55,19 @@ import numpy as np
 import torch
 
 from .. import _prng
-from .._common import allows_tf32, as_tensor, matmul_precision, resolve_impl, to_numpy
+from .._common import (
+    allows_tf32,
+    as_tensor,
+    eager_loop,
+    matmul_precision,
+    repeat,
+    resolve_impl,
+    to_numpy,
+)
 from ..utils.config import torch_impl
 from .kernels import cnmf_cuda
 from .mu import EPSILON, _guard
-from .select import _PERSIST_TODO, _matrix
+from .select import _CHUNK, _matrix
 
 __all__ = [
     "CNMFModel",
@@ -402,30 +410,82 @@ class TimeVaryingSynergyResult(NamedTuple):
 def _init_c(x: torch.Tensor, k: int, n_lags: int, seed: int,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """:func:`cnmf_transform`'s default activations: :func:`init_cnmf`'s
-    scale (``sqrt(mean(X) / (K * D))``, from ``x`` where it lies) times
-    uniform draws on ``[0, 2)``.  The draws are the JAX package's
-    (``jax.random.uniform`` from ``PRNGKey(seed)``, trial ``b`` of a
-    batch from ``fold_in(key, b)``), equal bit for bit, made on the
-    host and moved to ``x``'s device; a ``torch.Generator`` is used
-    instead when given."""
+    scale (``sqrt(mean(X) / (K * D))``) times uniform draws on ``[0,
+    2)``.  The draws are the JAX package's (``jax.random.uniform`` from
+    ``PRNGKey(seed)``, trial ``b`` of a batch from ``fold_in(key, b)``),
+    equal bit for bit, computed on ``x``'s device by PyTorch integer
+    operations (:func:`.._prng.uniform_torch`), so a traced transform
+    draws them too; a ``torch.Generator`` is used instead when given."""
     denom = float(k * n_lags)
-    shape = (x.shape[-2], k)
-    lead = x.shape[:-2]
+    t = x.shape[-2]
     if generator is not None:
-        u = torch.rand(lead + shape, generator=generator, dtype=x.dtype,
+        u = torch.rand(x.shape[:-2] + (t, k), generator=generator, dtype=x.dtype,
                        device=generator.device).to(x.device)
     else:
-        dtype = np.float32 if x.dtype == torch.float32 else np.float64
         key = _prng.prng_key(seed)
-        draws = (_prng.uniform(key, shape, dtype) if x.ndim == 2 else
-                 np.stack([_prng.uniform(_prng.fold_in(key, b), shape, dtype)
-                           for b in range(x.shape[0])]))
-        u = torch.as_tensor(draws, device=x.device)
+        if x.ndim == 2:
+            u = _prng.uniform_torch(int(key[0]), int(key[1]), t * k, x.dtype, x.device)
+        else:
+            k0, k1 = _prng.fold_in_torch(
+                key, torch.arange(x.shape[0], dtype=torch.int64, device=x.device))
+            u = _prng.uniform_torch(k0[:, None], k1[:, None], t * k, x.dtype, x.device)
+        u = u.reshape(x.shape[:-2] + (t, k))
     if x.ndim == 2:
         scale = (x.mean() / denom).sqrt() if x.numel() else 1.0
         return u * (2.0 * scale)
     scales = (x.mean(dim=(1, 2)) / denom).sqrt()
     return u * (2.0 * scales)[:, None, None]
+
+
+def _transform_loop(x, s, c0, max_iter: int, tol: float, precision, loop=eager_loop):
+    """:func:`fit_cnmf` of ``x (B, T, L)`` with the synergies ``s`` frozen,
+    each trial stopping on its own, written for ``loop``
+    (:func:`~.._common.eager_loop`, or ``while_loop`` when traced): a
+    body call is one 10-iteration chunk of the trials still going, then
+    the stopping check.  Returns ``(c, n_iter, previous_error,
+    converged)``."""
+    b = x.shape[0]
+
+    def error(c):
+        return _frobenius_error(x, c, s, precision)
+
+    err0 = error(c0)
+    scale = err0.clamp(min=EPSILON)
+
+    def cond(c, n_iter, prev, conv):
+        return (~conv & (n_iter < max_iter)).any()
+
+    def body(c, n_iter, prev, conv):
+        act = ~conv & (n_iter < max_iter)
+
+        def one(c):
+            c_new, _ = cnmf_update(x, c, s, update_s=False, precision=precision)
+            return (torch.where(act[:, None, None], c_new, c),)
+
+        (c,) = repeat(_CHUNK, one, (c,), loop)
+        err = error(c)
+        n_iter = n_iter + _CHUNK * act.to(n_iter.dtype)
+        return (c, n_iter, torch.where(act, err, prev),
+                torch.where(act, (prev - err) / scale < tol, conv))
+
+    return loop(cond, body, (c0.clone(), torch.zeros(b, dtype=torch.int32, device=x.device),
+                             err0.clone(), torch.zeros(b, dtype=torch.bool, device=x.device)))
+
+
+def _transform(x, s, c0, max_iter, tol, seed, precision, generator=None,
+               loop=eager_loop) -> CNMFState:
+    """:func:`cnmf_transform` on tensors, its loop ``loop``."""
+    if c0 is None:
+        c0 = _init_c(x, s.shape[-3], s.shape[-2], seed, generator)
+    single = x.ndim == 2
+    if single:
+        x, c0, s = x[None], c0[None], s[None]
+    elif s.ndim == 3:
+        s = s.expand((x.shape[0],) + tuple(s.shape))
+    c, n_iter, prev, conv = _transform_loop(x, s, c0.to(x.dtype), max_iter, tol,
+                                            precision, loop)
+    state = CNMFState(c, s, n_iter, prev, conv)
+    return CNMFState(*(f[0] for f in state)) if single else state
 
 
 def cnmf_transform(
@@ -443,7 +503,9 @@ def cnmf_transform(
     The convolutive analog of ``NMFModel.transform``: given
     spatiotemporal synergies ``(K, D, L)`` from a prior fit, recover the
     recruitment trains of new trials.  Plain PyTorch on ``x``'s device
-    (the JAX package runs it on XLA, never on its kernel).
+    (the JAX package runs it on XLA, never on its kernel), as a loop of
+    10-iteration chunks that ``torch.export`` can capture
+    (:mod:`.export`).
 
     Args:
         x: ``(T, L)`` or batched ``(B, T, L)`` non-negative data.
@@ -454,21 +516,16 @@ def cnmf_transform(
             draw for a 2-D ``x``, ``fold_in(key, b)`` for trial ``b``),
             or ``generator``'s when one is given.
         max_iter / tol: sklearn-style stopping on the Frobenius error,
-            every 10 iterations.
+            every 10 iterations, each trial on its own.
 
     Returns:
         :class:`CNMFState` whose ``s`` equals the input bit for bit.
     """
     x = as_tensor(x)
     s = as_tensor(s, x.device)
-    if c0 is None:
-        c0 = _init_c(x, s.shape[-3], s.shape[-2], seed, generator)
-    else:
+    if c0 is not None:
         c0 = as_tensor(c0, x.device)
-    if x.ndim == 3 and s.ndim == 3:
-        s = s.expand((x.shape[0],) + tuple(s.shape))
-    return fit_cnmf(x, c0, s, max_iter=max_iter, tol=tol, check_every=10,
-                    update_s=False, precision=precision)
+    return _transform(x, s, c0, max_iter, tol, seed, precision, generator)
 
 
 def tvaf(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
@@ -681,15 +738,26 @@ class CNMFModel:
                 "fit_transform first"
             )
 
+    def _transform_factors(self):
+        """The fitted factors the transform holds fixed: ``(synergies,)``."""
+        self._check_fitted()
+        return (self.synergies_,)
+
+    def _transform_torch(self, x: torch.Tensor, s: torch.Tensor, loop=eager_loop):
+        """The transform on tensors: ``(activations, n_iter)`` against
+        the library ``s``.  Traceable with ``loop=while_loop``, the
+        counterpart of the JAX package's ``_transform_jax`` (what
+        :mod:`.export` captures); :meth:`transform` wraps it."""
+        state = _transform(x, s, None, self.max_iter, self.tol, self.random_state,
+                           self.precision, loop=loop)
+        return state.c, state.n_iter
+
     def transform(self, X) -> np.ndarray:
         """Activations of new data (``(T, L)`` or ``(B, T, L)``) against
         the fitted library."""
-        self._check_fitted()
+        (s,) = self._transform_factors()
         x = _matrix(X, self.device, self.dtype)
-        state = cnmf_transform(
-            x, as_tensor(self.synergies_, x.device, x.dtype), max_iter=self.max_iter,
-            tol=self.tol, seed=self.random_state, precision=self.precision)
-        return to_numpy(state.c)
+        return to_numpy(self._transform_torch(x, as_tensor(s, x.device, x.dtype))[0])
 
     def inverse_transform(self, C) -> np.ndarray:
         """Reconstruction ``X^`` from activations and the fitted library."""
@@ -699,10 +767,19 @@ class CNMFModel:
             c, as_tensor(self.synergies_, c.device, c.dtype), self.precision))
 
     def save(self, path):
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise NotImplementedError(_PERSIST_TODO)
+        """Persist the fitted model as a pickle-free ``.npz``
+        (:func:`~.persist.save_model`)."""
+        from .persist import save_model
+
+        return save_model(self, path)
 
     @classmethod
-    def load(cls, path) -> "CNMFModel":
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise NotImplementedError(_PERSIST_TODO)
+    def load(cls, path, device="cuda", dtype: Optional[torch.dtype] = None) -> "CNMFModel":
+        """Load a model saved by :meth:`save` (``allow_pickle=False``),
+        to run on ``device`` (the card by default)."""
+        from .persist import load_model
+
+        model = load_model(path, device=device, dtype=dtype)
+        if not isinstance(model, cls):
+            raise TypeError(f"{path} holds a {type(model).__name__}, not {cls.__name__}")
+        return model

@@ -37,6 +37,7 @@ import ctypes
 import torch
 
 from ..._build import load
+from ..._common import check_kernel_nans
 from ..beta import BetaState, _gamma, fit_mu_beta, mu_update_beta
 from .mu_cuda import check_fits, check_shapes, warp_fits
 from .mu_cuda import smem_bytes as mu_smem_bytes
@@ -114,6 +115,7 @@ def _launch(xs, w0, h0, beta, iters, tol, check_every, with_stop,
         warp_launches += 1
     else:
         launches += 1
+    check_kernel_nans("beta_nmf", w, h, prev_err)
     return w, h, n_iter, prev_err, converged.bool()
 
 

@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from ..._build import load
+from ..._common import check_kernel_nans
 from ..hals import CDState, cd_pass, fit_cd
 from .mu_cuda import (  # noqa: F401 (the warp limits, shared with K1 and K4)
     WARP_KMAX,
@@ -97,6 +98,7 @@ def _launch(xs, w0, h0, iters, tol, with_stop, regs=(0.0, 0.0, 0.0, 0.0)):
         warp_launches += 1
     else:
         launches += 1
+    check_kernel_nans("cd_nmf", w, h, viol_init)
     return w, h, n_iter, viol_init, converged.bool()
 
 

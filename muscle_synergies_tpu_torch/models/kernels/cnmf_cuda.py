@@ -24,7 +24,7 @@ import ctypes
 import torch
 
 from ..._build import load
-from ..._common import check_cuda_f32
+from ..._common import check_cuda_f32, check_kernel_nans
 from .. import cnmf as _cnmf
 from .mu_cuda import SMEM_LIMIT
 
@@ -108,6 +108,7 @@ def _launch(xs, c0, s0, iters, tol, check_every, with_stop):
     if err != 0:
         raise RuntimeError(f"cnmf kernel launch failed: CUDA error {err}")
     launches += 1
+    check_kernel_nans("cnmf", c, s, prev_err)
     return c, s, n_iter, prev_err, converged.bool()
 
 

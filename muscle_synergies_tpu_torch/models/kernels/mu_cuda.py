@@ -30,7 +30,7 @@ import ctypes
 import torch
 
 from ..._build import load
-from ..._common import check_cuda_f32
+from ..._common import check_cuda_f32, check_kernel_nans
 from ..mu import MUState, fit_mu, mu_update
 
 __all__ = [
@@ -136,6 +136,7 @@ def _launch(xs, w0, h0, iters, tol, check_every, inner_iter, with_stop,
         warp_launches += 1
     else:
         launches += 1
+    check_kernel_nans("mu_nmf", w, h, prev_err)
     return w, h, n_iter, prev_err, converged.bool()
 
 

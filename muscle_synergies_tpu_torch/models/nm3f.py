@@ -44,9 +44,16 @@ import numpy as np
 import torch
 
 from .. import _prng
-from .._common import as_tensor, entry_placement, matmul_precision, to_numpy
+from .._common import (
+    as_tensor,
+    eager_loop,
+    entry_placement,
+    matmul_precision,
+    repeat,
+    to_numpy,
+)
 from .mu import EPSILON, _guard
-from .select import _PERSIST_TODO, _matrix
+from .select import _CHUNK, _matrix
 
 __all__ = [
     "NM3FModel",
@@ -295,6 +302,72 @@ def sbt_vaf(xs: torch.Tensor, w: torch.Tensor, a: torch.Tensor, s: torch.Tensor,
     return 1.0 - err / torch.where(tot == 0, 1.0, tot)
 
 
+def _transform_loop(xs, w, s, a0, max_iter: int, tol: float, precision,
+                    loop=eager_loop):
+    """:func:`fit_nm3f` of the stack ``xs (B, T, L)`` with both module sets
+    frozen, written for ``loop`` (:func:`~.._common.eager_loop`, or
+    ``while_loop`` when traced): a body call is one 10-iteration chunk,
+    each iteration applied only while the fit is going and the count
+    below ``max_iter`` (the tail-chunk rule), then the stopping check.
+    The stack is one fit: its error sums over every trial.  Returns
+    ``(a, n_iter, previous_error, converged)``."""
+    def error(a):
+        with matmul_precision(precision):
+            return _nm3f_error(xs, w, a, s)
+
+    err0 = error(a0)
+    scale = err0.clamp(min=EPSILON)
+
+    def cond(a, n_iter, prev, conv):
+        return ~conv & (n_iter < max_iter)
+
+    def body(a, n_iter, prev, conv):
+        going = ~conv & (n_iter < max_iter)
+
+        def one(a, n_iter):
+            act = ~conv & (n_iter < max_iter)
+            with matmul_precision(precision):
+                a = torch.where(act, _update(xs, w, a, s, False, False)[1], a)
+            return a, n_iter + act.to(n_iter.dtype)
+
+        a, n_iter = repeat(_CHUNK, one, (a, n_iter), loop)
+        err = error(a)
+        newly = ((prev - err) / scale < tol) & (n_iter % _CHUNK == 0)
+        return a, n_iter, torch.where(going, err, prev), torch.where(going, newly, conv)
+
+    return loop(cond, body, (a0.clone(), torch.zeros((), dtype=torch.int32, device=xs.device),
+                             err0.clone(), torch.zeros((), dtype=torch.bool, device=xs.device)))
+
+
+def _transform(x, w, s, a0, max_iter, tol, seed, precision, generator=None,
+               loop=eager_loop) -> NM3FState:
+    """:func:`nm3f_transform` on tensors, its loop ``loop``."""
+    squeeze = x.ndim == 2
+    if squeeze:
+        x = x[None]
+    b, t, l = x.shape
+    p, q = w.shape[1], s.shape[0]
+    if a0 is None:
+        denom = w.sum() * s.sum()
+        c = torch.where(denom > 0, x.mean() * t * l / denom.clamp(min=EPSILON), 1.0)
+        c = c.clamp(min=EPSILON)
+        if generator is not None:
+            u = torch.rand((b, p, q), generator=generator, dtype=x.dtype,
+                           device=generator.device).to(x.device)
+        else:
+            key = _prng.prng_key(seed)
+            u = _prng.uniform_torch(int(key[0]), int(key[1]), b * p * q, x.dtype,
+                                    x.device).reshape(b, p, q)
+        a0 = u * (2.0 * c).to(x.dtype)
+    elif a0.ndim == 2:
+        a0 = a0.expand((b,) + tuple(a0.shape))
+    elif a0.shape[0] != b:
+        raise ValueError(f"a0 has batch {a0.shape[0]} but x has {b} trials")
+    a, n_iter, prev, conv = _transform_loop(x, w, s, a0.to(x.dtype), max_iter, tol,
+                                            precision, loop)
+    return NM3FState(w, a[0] if squeeze else a, s, n_iter, prev, conv)
+
+
 def nm3f_transform(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -310,7 +383,9 @@ def nm3f_transform(
 
     The single-trial-decoding step of Delis et al. (2014): the mixing
     coefficients of new trials on the fitted modules' time base (``W``
-    pins ``T``).  Plain PyTorch on ``x``'s device.
+    pins ``T``).  Plain PyTorch on ``x``'s device, as a loop of
+    10-iteration chunks that ``torch.export`` can capture
+    (:mod:`.export`).
 
     Args:
         x: ``(T, L)`` or batched ``(B, T, L)`` non-negative trials.
@@ -318,10 +393,10 @@ def nm3f_transform(
         s: ``(Q, L)`` fixed spatial modules.
         a0: initial coefficients, ``(B, P, Q)`` or one ``(P, Q)`` for
             every trial; by default ``2 c`` times the JAX package's
-            uniform draws from ``PRNGKey(seed)`` (bit for bit, made on
-            the host), or ``generator``'s when one is given, with
-            ``c = mean(X) T L / (sum(W) sum(S))`` matching the data's
-            magnitude.
+            uniform draws from ``PRNGKey(seed)`` (bit for bit, computed
+            on ``x``'s device), or ``generator``'s when one is given,
+            with ``c = mean(X) T L / (sum(W) sum(S))`` matching the
+            data's magnitude.
         max_iter / tol: sklearn-style stopping on the Frobenius error.
 
     Returns:
@@ -329,35 +404,10 @@ def nm3f_transform(
         for bit; ``a`` holds the solved coefficients.
     """
     x = as_tensor(x)
-    squeeze = x.ndim == 2
-    if squeeze:
-        x = x[None]
     w, s = as_tensor(w, x.device), as_tensor(s, x.device)
-    b, t, l = x.shape
-    p, q = w.shape[1], s.shape[0]
-    if a0 is None:
-        denom = w.sum() * s.sum()
-        c = torch.where(denom > 0, x.mean() * t * l / denom.clamp(min=EPSILON), 1.0)
-        c = c.clamp(min=EPSILON)
-        if generator is not None:
-            u = torch.rand((b, p, q), generator=generator, dtype=x.dtype,
-                           device=generator.device).to(x.device)
-        else:
-            dtype = np.float32 if x.dtype == torch.float32 else np.float64
-            u = torch.as_tensor(_prng.uniform(_prng.prng_key(seed), (b, p, q), dtype),
-                                device=x.device)
-        a0 = u * (2.0 * c).to(x.dtype)
-    else:
+    if a0 is not None:
         a0 = as_tensor(a0, x.device)
-        if a0.ndim == 2:
-            a0 = a0.expand((b,) + tuple(a0.shape))
-        elif a0.shape[0] != b:
-            raise ValueError(f"a0 has batch {a0.shape[0]} but x has {b} trials")
-    state = fit_nm3f(x, w, a0, s, max_iter=max_iter, tol=tol, check_every=10,
-                     update_w=False, update_s=False, precision=precision)
-    if squeeze:
-        state = state._replace(a=state.a[0])
-    return state
+    return _transform(x, w, s, a0, max_iter, tol, seed, precision, generator)
 
 
 class SpaceByTimeResult(NamedTuple):
@@ -653,11 +703,23 @@ class NM3FModel:
                 f"trials have {x.shape[-2]} samples but the fitted temporal "
                 f"modules expect {self.temporal_modules_.shape[0]}"
             )
-        state = nm3f_transform(
-            x, as_tensor(self.temporal_modules_, x.device, x.dtype),
-            as_tensor(self.spatial_modules_, x.device, x.dtype), max_iter=self.max_iter,
-            tol=self.tol, seed=self.random_state, precision=self.precision)
-        return to_numpy(state.a)
+        w, s = (as_tensor(f, x.device, x.dtype) for f in self._transform_factors())
+        return to_numpy(self._transform_torch(x, w, s)[0])
+
+    def _transform_factors(self):
+        """The fitted factors the transform holds fixed: ``(W, S)``."""
+        self._check_fitted()
+        return self.temporal_modules_, self.spatial_modules_
+
+    def _transform_torch(self, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
+                         loop=eager_loop):
+        """The transform on tensors: ``(coefficients, n_iter)`` against
+        the modules ``w`` and ``s``.  Traceable with ``loop=while_loop``,
+        the counterpart of the JAX package's ``_transform_jax`` (what
+        :mod:`.export` captures); :meth:`transform` wraps it."""
+        state = _transform(x, w, s, None, self.max_iter, self.tol, self.random_state,
+                           self.precision, loop=loop)
+        return state.a, state.n_iter
 
     def inverse_transform(self, A) -> np.ndarray:
         """Reconstruction ``X^`` from coefficients and the fitted modules."""
@@ -668,13 +730,22 @@ class NM3FModel:
             as_tensor(self.spatial_modules_, a.device, a.dtype), self.precision))
 
     def save(self, path):
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise NotImplementedError(_PERSIST_TODO)
+        """Persist the fitted model as a pickle-free ``.npz``
+        (:func:`~.persist.save_model`)."""
+        from .persist import save_model
+
+        return save_model(self, path)
 
     @classmethod
-    def load(cls, path) -> "NM3FModel":
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise NotImplementedError(_PERSIST_TODO)
+    def load(cls, path, device="cuda", dtype: Optional[torch.dtype] = None) -> "NM3FModel":
+        """Load a model saved by :meth:`save` (``allow_pickle=False``),
+        to run on ``device`` (the card by default)."""
+        from .persist import load_model
+
+        model = load_model(path, device=device, dtype=dtype)
+        if not isinstance(model, cls):
+            raise TypeError(f"{path} holds a {type(model).__name__}, not {cls.__name__}")
+        return model
 
 
 class SharedTemporalResult(NamedTuple):

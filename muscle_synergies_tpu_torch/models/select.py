@@ -24,7 +24,9 @@ block's shared memory: a time-normalised 200 x 8 frame fits, a 20,000 x
 8 one does not, and on the card the kernel's wrapper then raises before
 any launch, naming ``impl="torch"`` and ``device="cpu"``.
 :meth:`NMFModel.transform` (H frozen) is plain PyTorch on the device
-asked for: no kernel has a frozen-factor entry yet.
+asked for: no kernel has a frozen-factor entry yet.  It runs a loop of
+10-iteration chunks that ``torch.export`` can capture
+(:func:`_transform_core`), which :mod:`.export` serves.
 
 pandas is imported only when :func:`find_synergies` runs (the machine
 with the card may have none); :class:`NMFModel` needs no pandas.
@@ -39,24 +41,27 @@ from typing import Any, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from .._common import IMPLS, as_tensor, entry_placement, resolve_impl, to_numpy
+from .._common import (
+    IMPLS,
+    as_tensor,
+    eager_loop,
+    entry_placement,
+    repeat,
+    resolve_impl,
+    to_numpy,
+)
 from .batch import (
     fit_cd_batch,
     fit_mu_batch,
     fit_mu_beta_batch,
     rank_sweep_batch,
 )
-from .beta import beta_divergence, beta_loss_to_float, fit_mu_beta
-from .hals import fit_cd
+from .beta import beta_divergence, beta_loss_to_float, fit_mu_beta, mu_update_beta
+from .hals import cd_pass, fit_cd
 from .init import initialize_nmf
-from .mu import fit_mu
+from .mu import fit_mu, frobenius_error, mu_update
 
 __all__ = ["NMFModel", "SynergyRunResult", "find_synergies", "compute_regularization"]
-
-_PERSIST_TODO = (
-    "save/load are not ported yet (ROADMAP, modules still to port: item 7, "
-    "persistence and serving)"
-)
 
 
 def _warn_if_unconverged(n_iter: int, max_iter: int, tol: float) -> None:
@@ -153,6 +158,90 @@ def _check_data(x: torch.Tensor, beta: float) -> None:
             "diverge. Please add small values to X, or use a positive "
             "beta_loss."
         )
+
+
+# iterations a body call of the transform loops runs: the MU stopping
+# check's cadence (sklearn's), and one host readback of the loop's
+# condition per chunk
+_CHUNK = 10
+
+
+def _transform_core(x, h, solver: str, beta: float, max_iter: int, tol: float,
+                    l1_w: float, l2_w: float, loop=eager_loop):
+    """sklearn's transform of a stack ``x (B, n, L)``: W solved with
+    ``h (k, L)`` frozen, each trial stopping on its own.
+
+    Written for ``loop`` (:func:`~.._common.eager_loop`, or
+    ``torch._higher_order_ops.while_loop`` when traced): each body call
+    runs :data:`_CHUNK` iterations (:func:`~.._common.repeat`), every
+    one applied to a trial only while it is still going
+    (``torch.where``), so a trial stops where
+    :func:`~.mu.fit_mu` / :func:`~.beta.fit_mu_beta` /
+    :func:`~.hals.fit_cd` with ``update_h=False`` stop it: MU checks
+    every 10 iterations and the count is capped at ``max_iter``; CD
+    checks its violation every iteration.  Returns ``(W, n_iter)``.
+    """
+    b, n, _ = x.shape
+    k = h.shape[0]
+    n0 = torch.zeros(b, dtype=torch.int32, device=x.device)
+    conv0 = torch.zeros(b, dtype=torch.bool, device=x.device)
+
+    def cond(w, n_iter, stat, conv):
+        return (~conv & (n_iter < max_iter)).any()
+
+    if beta == 2.0 and solver == "cd":
+        ht = h.transpose(-1, -2)
+
+        def one(w, n_iter, viol_init, conv):
+            act = ~conv & (n_iter < max_iter)
+            w_new, viol = cd_pass(x, w, ht, l1_w, l2_w)
+            n_iter = n_iter + act.to(n_iter.dtype)
+            viol_init = torch.where(act & (n_iter == 1), viol, viol_init)
+            return (torch.where(act[:, None, None], w_new, w), n_iter, viol_init,
+                    torch.where(act, (viol_init == 0) | (viol / viol_init <= tol), conv))
+
+        def body(*state):
+            return repeat(_CHUNK, one, state, loop)
+
+        w0 = x.new_zeros((b, n, k))  # sklearn's CD transform starts at zero
+        w, n_iter, _, _ = loop(cond, body, (w0, n0, x.new_zeros(b), conv0))
+        return w, n_iter
+
+    if beta != 2.0:
+        def step(w):
+            return mu_update_beta(x, w, h, beta, l1_w, l2_w, update_h=False)[0]
+
+        def error(w):
+            return beta_divergence(x, w, h, beta)
+    else:
+        def step(w):
+            return mu_update(x, w, h, l1_w, l2_w, update_h=False)[0]
+
+        def error(w):
+            return frobenius_error(x, w, h)
+
+    # sklearn seeds the multiplicative solver with the average fill
+    # (zeros would be absorbing states for MU)
+    avg = (x.mean(dim=(1, 2)).clamp(min=0.0) / k).sqrt()
+    w0 = x.new_ones((b, n, k)) * avg[:, None, None]
+    err0 = error(w0)
+
+    def body(w, n_iter, prev, conv):
+        going = ~conv & (n_iter < max_iter)
+
+        def one(w, n_iter):
+            act = ~conv & (n_iter < max_iter)
+            return torch.where(act[:, None, None], step(w), w), n_iter + act.to(n_iter.dtype)
+
+        w, n_iter = repeat(_CHUNK, one, (w, n_iter), loop)
+        if tol <= 0:  # no check: every trial runs max_iter
+            return w, n_iter, prev.clone(), conv.clone()
+        err = error(w)
+        newly = ((prev - err) / err0 < tol) & (n_iter % _CHUNK == 0)
+        return w, n_iter, torch.where(going, err, prev), torch.where(going, newly, conv)
+
+    w, n_iter, _, _ = loop(cond, body, (w0, n0, err0.clone(), conv0))
+    return w, n_iter
 
 
 class NMFModel:
@@ -312,54 +401,64 @@ class NMFModel:
         self.fit_transform(x, **kwargs)
         return self
 
+    def _transform_factors(self):
+        """The fitted factors the transform holds fixed: ``(H,)``."""
+        if not hasattr(self, "components_"):
+            raise ValueError("this NMFModel instance is not fitted yet")
+        return (self.components_,)
+
+    def _transform_torch(self, x: torch.Tensor, h: torch.Tensor, loop=eager_loop):
+        """The transform on tensors: ``(W, n_iter)`` with ``h`` frozen,
+        for one ``(n, L)`` frame or a ``(B, n, L)`` stack (each trial
+        stopping on its own).  Traceable with ``loop=while_loop``, the
+        counterpart of the JAX package's ``_transform_jax`` (what
+        :mod:`.export` captures); :meth:`transform` wraps it."""
+        beta = beta_loss_to_float(self.beta_loss)
+        # a hand-built model with an incompatible (solver, beta_loss)
+        # pair must not transform with the MU solver
+        _check_beta_solver(beta, self.beta_loss, self.solver)
+        l1_w, l2_w, _, _ = self._penalties(x.shape[-2], h.shape[-1])
+        single = x.ndim == 2
+        w, n_iter = _transform_core(x[None] if single else x, h, self.solver, beta,
+                                    self.max_iter, float(self.tol), l1_w, l2_w, loop)
+        return (w[0], n_iter[0]) if single else (w, n_iter)
+
     def transform(self, x) -> np.ndarray:
         """Project ``x`` onto the learned components (W with H fixed).
 
         Uses the fitted solver with frozen H, like sklearn's
         ``transform`` (``_fit_transform(X, H=components_,
         update_H=False)``): MU starts W at the average fill, CD at zero,
-        and the W-side penalties apply.  Plain PyTorch on the model's
-        device.
+        and the W-side penalties apply.  A ``(B, n, L)`` stack transforms
+        every trial, each stopping on its own.  Plain PyTorch on the
+        model's device (:func:`_transform_core`).
         """
-        if not hasattr(self, "components_"):
-            raise ValueError("this NMFModel instance is not fitted yet")
+        (h,) = self._transform_factors()
         x = _matrix(x, self.device, self.dtype)
-        h = as_tensor(np.asarray(self.components_), x.device, x.dtype)
-        k = h.shape[0]
-        l1_w, l2_w, _, _ = self._penalties(*x.shape)
-        beta = beta_loss_to_float(self.beta_loss)
-        # a hand-built model with an incompatible (solver, beta_loss)
-        # pair must not transform with the MU solver
-        _check_beta_solver(beta, self.beta_loss, self.solver)
-        fit = dict(max_iter=self.max_iter, tol=float(self.tol), l1_reg_w=l1_w,
-                   l2_reg_w=l2_w, update_h=False)
-        if beta != 2.0 or self.solver == "mu":
-            # sklearn seeds the multiplicative solver with the average
-            # fill (zeros would be absorbing states for MU)
-            avg = (x.mean().clamp(min=0.0) / k).sqrt()
-            w0 = torch.full((x.shape[0], k), float(avg), dtype=x.dtype,
-                            device=x.device)
-            if beta != 2.0:
-                state = fit_mu_beta(x, w0, h, beta=beta, **fit)
-            else:
-                state = fit_mu(x, w0, h, **fit)
-        else:
-            w0 = torch.zeros((x.shape[0], k), dtype=x.dtype, device=x.device)
-            state = fit_cd(x, w0, h, **fit)
-        _warn_if_unconverged(int(state.n_iter), self.max_iter, self.tol)
-        return to_numpy(state.w)
+        w, n_iter = self._transform_torch(x, as_tensor(h, x.device, x.dtype))
+        _warn_if_unconverged(int(n_iter.max()), self.max_iter, self.tol)
+        return to_numpy(w)
 
     def inverse_transform(self, w) -> np.ndarray:
         return np.asarray(w) @ self.components_
 
     def save(self, path):
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise NotImplementedError(_PERSIST_TODO)
+        """Persist the fitted model as a pickle-free ``.npz``
+        (:func:`~.persist.save_model`)."""
+        from .persist import save_model
+
+        return save_model(self, path)
 
     @classmethod
-    def load(cls, path) -> "NMFModel":
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise NotImplementedError(_PERSIST_TODO)
+    def load(cls, path, device="cuda", dtype: Optional[torch.dtype] = None) -> "NMFModel":
+        """Load a model saved by :meth:`save` (``allow_pickle=False``),
+        to run on ``device`` (the card by default)."""
+        from .persist import load_model
+
+        model = load_model(path, device=device, dtype=dtype)
+        if not isinstance(model, cls):
+            raise TypeError(f"{path} holds a {type(model).__name__}, not {cls.__name__}")
+        return model
 
 
 @dataclass
@@ -380,13 +479,20 @@ class SynergyRunResult:
     model: Union[NMFModel, Mapping[int, NMFModel]]
 
     def save(self, path):
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise NotImplementedError(_PERSIST_TODO)
+        """Persist the whole run (VAF table, components, models) as a
+        pickle-free ``.npz`` (:func:`~.persist.save_synergy_run`)."""
+        from .persist import save_synergy_run
+
+        return save_synergy_run(self, path)
 
     @classmethod
-    def load(cls, path) -> "SynergyRunResult":
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise NotImplementedError(_PERSIST_TODO)
+    def load(cls, path, device="cuda",
+             dtype: Optional[torch.dtype] = None) -> "SynergyRunResult":
+        """Load a run saved by :meth:`save` (``allow_pickle=False``);
+        ``device`` / ``dtype`` are its models'.  Needs pandas."""
+        from .persist import load_synergy_run
+
+        return load_synergy_run(path, device=device, dtype=dtype)
 
 
 def find_synergies(

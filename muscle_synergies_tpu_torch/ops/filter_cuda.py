@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from .._build import load
-from .._common import check_cuda_f32
+from .._common import check_cuda_f32, check_kernel_nans
 from .filters import _cascade, _check_length, _normalize_sos, fold_extend, sosfilt_zi
 
 __all__ = [
@@ -208,6 +208,7 @@ def sosfiltfilt_cuda(
     if err != 0:
         raise RuntimeError(f"sosfiltfilt kernel launch failed: CUDA error {err}")
     launches += 1
+    check_kernel_nans("sosfiltfilt", out)
     return out
 
 
@@ -347,6 +348,7 @@ def sosfilt_cuda(
     if err != 0:
         raise RuntimeError(f"sosfilt kernel launch failed: CUDA error {err}")
     sosfilt_launches += 1
+    check_kernel_nans("sosfilt", y, zf)
     return y, _trials(zf, b).to(torch.float32)
 
 

@@ -41,22 +41,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # JAX names the port does not export yet, by the ROADMAP item that ports them
 NOT_PORTED = {
-    "6": {  # checkpointed sweeps, resume and profiling (6b)
-        "models": [
-            "bootstrap_shared_spatial_synergies_checkpointed",
-            "bootstrap_space_by_time_checkpointed", "bootstrap_synergies_checkpointed",
-            "bootstrap_temporal_synergies_checkpointed",
-            "bootstrap_time_varying_synergies_checkpointed",
-            "cv_rank_selection_checkpointed", "cv_space_by_time_selection_checkpointed",
-            "cv_time_varying_rank_selection_checkpointed"],
-        "utils": ["GridCheckpoint", "SweepCheckpoint", "Timer", "annotate",
-                  "debug_nans", "find_synergies_checkpointed", "solver_report"],
-    },
-    "7": {  # persistence and export
-        "": ["load_model", "load_synergy_run", "save_model", "save_synergy_run"],
-        "models": ["export_transform", "load_model", "load_synergy_run",
-                   "load_transform", "save_model", "save_synergy_run"],
-    },
     "8": {  # parallel, and the trial batching that feeds it
         "": ["analyze_dataset_pipelined", "parallel"],
         "dataset": ["analyze_dataset_pipelined"],
@@ -72,7 +56,10 @@ MODULES = {"": "__init__.py", "models": "models/__init__.py",
            "segment": "segment/__init__.py", "ops": "ops/__init__.py",
            "models.cnmf": "models/cnmf.py", "models.nm3f": "models/nm3f.py",
            "models.decode": "models/decode.py", "models.stability": "models/stability.py",
-           "dataset": "dataset.py", "utils": "utils/__init__.py"}
+           "dataset": "dataset.py", "utils": "utils/__init__.py",
+           "models.resume": "models/resume.py", "models.persist": "models/persist.py",
+           "models.export": "models/export.py", "utils.checkpoint": "utils/checkpoint.py",
+           "utils.profiling": "utils/profiling.py"}
 # the JAX package's Mosaic tile rules for its convolutive Pallas kernel:
 # they pick a tile of trials per TPU block and have no CUDA counterpart
 MOSAIC = {"models.cnmf": ["cnmf_block_b", "resolve_cnmf_impl"]}

@@ -123,11 +123,11 @@ def test_subject_tables_match_jax():
     assert tres.trials_of("s1") == [0, 1, 2]
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.analyze_dataset(TRIALS[:2], FS, mesh=object(), **CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.NMFModel(2, **CPU).save("model.npz")
+        mt.utils.GridCheckpoint(tmp_path, backend="orbax")
     with pytest.raises(ValueError, match="solver"):
         mt.analyze_dataset(TRIALS[:2], FS, solver="als", **CPU)
 

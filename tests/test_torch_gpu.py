@@ -821,3 +821,120 @@ def test_bootstraps_refuse_frames_over_one_block(cuda):
     assert mu_cuda.warp_launches == mu_cuda.launches == cnmf_cuda.launches == 0
     plain = stability.bootstrap_synergies(x, 4, n_boot=2, max_iter=20, impl="torch")
     assert plain.similarities.shape == (2, 4) and mu_cuda.launches == 0
+
+
+def test_checkpointed_bootstraps_count_their_launches(cuda, tmp_path):
+    """A chunked bootstrap is one K1 (or K5) launch a chunk; a fully
+    restored one refits only the reference (one launch); the result is
+    the one-shot call's to 1e-6."""
+    import os
+
+    from muscle_synergies_tpu_torch.models import resume, stability
+
+    x = _subject_matrix(2400)
+    want = stability.bootstrap_synergies(x, 4, n_boot=20)
+    for drop, launches in (((), 4), ((), 1), (("chunk_00005_00010",), 1)):
+        for key in drop:
+            os.remove(tmp_path / "k1" / f"{key}.npz")
+        mu_cuda.warp_launches = mu_cuda.launches = 0
+        got = resume.bootstrap_synergies_checkpointed(x, 4, tmp_path / "k1", n_boot=20,
+                                                      chunk_size=5)
+        assert mu_cuda.launches == launches and mu_cuda.warp_launches == 0
+        assert np.abs(got.similarities - want.similarities).max() <= 1e-6
+        ref = got.reference_components - want.reference_components
+        assert np.abs(ref).max() <= 1e-6
+    want = stability.bootstrap_time_varying_synergies(x, 4, 10, n_boot=10)
+    cnmf_cuda.launches = 0
+    got = resume.bootstrap_time_varying_synergies_checkpointed(
+        x, 4, 10, tmp_path / "k5", n_boot=10, chunk_size=5)
+    assert cnmf_cuda.launches == 2
+    assert np.abs(got.similarities - want.similarities).max() <= 1e-6
+
+
+def test_checkpointed_cv_matches_the_one_shot_grid(cuda, tmp_path):
+    import os
+
+    from muscle_synergies_tpu_torch.models import resume, stability
+
+    x = _subject_matrix(2400)
+    want = stability.cv_rank_selection(x, range(1, 6), n_repeats=3)
+    for drop in ((), ("rank_2", "rank_4")):
+        for key in drop:
+            os.remove(tmp_path / f"{key}.npz")
+        got = resume.cv_rank_selection_checkpointed(x, range(1, 6), tmp_path,
+                                                    n_repeats=3)
+        assert got.best_rank == want.best_rank
+        assert np.abs(got.test_error / want.test_error - 1).max() <= 1e-6
+
+
+def _card_models(cuda):
+    """An ``NMFModel`` fitted through K2, a ``CNMFModel`` through K5 and
+    an ``NM3FModel``, on preprocessed-looking 200 x 8 trials."""
+    from muscle_synergies_tpu_torch.models import CNMFModel, NM3FModel
+
+    trials = np.stack([_subject_matrix(200, seed=s) for s in range(24)])
+    trials = trials.astype(np.float32)
+    nmf = NMFModel(4)
+    nmf.fit_transform(trials[0])
+    cn = CNMFModel(4, 10, n_inits=2, max_iter=200).fit(trials[0])
+    nm = NM3FModel(4, 3, n_inits=2, max_iter=200).fit(trials[:16])
+    return {"NMFModel": nmf, "CNMFModel": cn, "NM3FModel": nm}, trials
+
+
+def test_saved_models_reload_bit_for_bit(cuda, tmp_path):
+    from muscle_synergies_tpu_torch import load_model
+
+    models, trials = _card_models(cuda)
+    for name, model in models.items():
+        path = model.save(tmp_path / name)
+        loaded = type(model).load(path)
+        for a, b in zip(model._transform_factors(), loaded._transform_factors()):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+        assert np.array_equal(loaded.transform(trials[8:16]), model.transform(trials[8:16]))
+        host = load_model(path, device="cpu")
+        assert np.isfinite(host.transform(trials[8:10])).all()
+
+
+def test_exported_transforms_replay_on_the_card(cuda, tmp_path):
+    from muscle_synergies_tpu_torch.models import export_transform, load_transform
+
+    models, trials = _card_models(cuda)
+    for name, model in models.items():
+        fn = load_transform(export_transform(model, ("b", 200, 8), platforms=("cuda",)))
+        for b in (16, 3):
+            x = trials[4:4 + b]
+            want = model.transform(x)
+            got = fn(torch.as_tensor(x, device=cuda))
+            assert got.shape == want.shape
+            assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), name
+
+
+def test_profiling_scopes_see_the_card(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    from muscle_synergies_tpu_torch.models import batch as mb
+    from muscle_synergies_tpu_torch.utils import annotate, debug_nans, solver_report
+
+    xs = torch.as_tensor(np.stack([_subject_matrix(200, seed=s) for s in range(4)]),
+                         dtype=torch.float32, device=cuda)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with annotate("card-scope"):
+            NMFModel(4).fit_transform(xs[0])
+        torch.cuda.synchronize()
+    device_us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+                    for e in prof.key_averages() if e.key == "card-scope")
+    assert device_us > 0
+    w0, h0 = mb.init_batch(xs, 4)
+    x = xs.clone()
+    x[0, 0, 0] = float("nan")
+    with debug_nans():
+        with pytest.raises(FloatingPointError):
+            torch.log(-torch.ones(3, device=cuda))
+        with pytest.raises(FloatingPointError, match="mu_nmf"):
+            mu_cuda.mu_iterations_cuda(x, w0, h0, 5)
+    st = mb.fit_mu_batch(xs, w0, h0, max_iter=200, tol=1e-4)
+    rep = solver_report(st, xs)
+    w, h = (t.cpu().double().numpy() for t in (st.w, st.h))
+    want = np.sqrt(((xs.cpu().double().numpy() - w @ h) ** 2).sum(axis=(1, 2)))
+    assert (rep["n_iter"] == st.n_iter.cpu().numpy()).all()
+    assert np.abs(rep["final_error"] - want).max() <= 1e-5 * want.max()

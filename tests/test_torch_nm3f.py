@@ -203,7 +203,7 @@ def test_model_fits_transforms_and_inverts_as_jax(space_by_time):
     assert tm.fit(XS) is tm
 
 
-def test_model_refusals():
+def test_model_refusals(tmp_path):
     model = tn.NM3FModel(P, Q, **CPU)
     with pytest.raises(ValueError, match="not fitted yet"):
         model.transform(XS)
@@ -213,10 +213,10 @@ def test_model_refusals():
         model.transform(XS)
     with pytest.raises(ValueError, match="expected"):
         model.transform(XS[0, :, 0])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        model.save("model.npz")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tn.NM3FModel.load("model.npz")
+    with pytest.raises(ValueError, match="not fitted yet"):
+        tn.NM3FModel(P, Q, **CPU).save(tmp_path / "model.npz")
+    with pytest.raises(FileNotFoundError):
+        tn.NM3FModel.load(tmp_path / "model.npz")
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tn.NM3FModel(P, Q).fit(XS)

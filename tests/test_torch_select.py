@@ -84,7 +84,7 @@ def test_cd_rank_one_factors_match_jax():
     _close(tm.components_, jm.components_)
 
 
-def test_custom_init_and_refusals():
+def test_custom_init_and_refusals(tmp_path):
     rng = np.random.default_rng(1)
     w0, h0 = rng.random((200, 2)), rng.random((2, 8))
     jm = j_select.NMFModel(2, init="custom", solver="mu", **FIT)
@@ -100,10 +100,10 @@ def test_custom_init_and_refusals():
         select.NMFModel(2, **CPU).transform(X)
     with pytest.raises(ValueError, match="regularization"):
         select.NMFModel(2, alpha=0.1, regularization="rows", **CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        select.NMFModel.load("model.npz")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        select.SynergyRunResult(None, None, None).save("run.npz")
+    with pytest.raises(ValueError, match="not fitted"):
+        select.NMFModel(2, **CPU).save(tmp_path / "model.npz")
+    with pytest.raises(FileNotFoundError):
+        select.NMFModel.load(tmp_path / "model.npz")
     with pytest.warns(UserWarning, match="Maximum number of iterations"):
         select.NMFModel(2, max_iter=5, **CPU).fit_transform(X)
 

@@ -69,7 +69,9 @@ MODULES = [rel for rel in _port_modules() if _jax_module(rel) is not None]
 
 def test_the_check_covers_the_ported_surface():
     for rel in ("", ".models", ".models.cnmf", ".models.nm3f", ".models.decode",
-                ".models.beta", ".models.stability", ".dataset"):
+                ".models.beta", ".models.stability", ".dataset", ".models.resume",
+                ".models.persist", ".models.export", ".utils.checkpoint",
+                ".utils.profiling"):
         assert rel in MODULES, rel
 
 
