@@ -178,6 +178,32 @@ then, failing on the first assertion that does not hold:
     ``annotate`` in the torch profiler's trace with device time,
     ``debug_nans`` raising for a torch op and for K1's wrapper, and
     ``solver_report`` against NumPy.
+20. the pipelined dataset path and the command line, on phase 15's 16
+    captures before their directory is removed, no pandas:
+    ``analyze_dataset_pipelined(paths, chunk_files=4, prefetch=2)``
+    (a producer thread parses, pads into pinned memory and stages each
+    chunk on a side CUDA stream): exactly one K3 launch a chunk, K2's
+    warp entry, no other counter, VAF overall and per channel within 1e-4
+    of ``analyze_dataset`` on the same parsed captures, and from the torch
+    profiler's trace no device->host copy over 64 bytes beyond the
+    results' bytes (the host->device copies logged with their kind and
+    stream); the chunked float64 path against the one-shot one on 4
+    captures cut by one count from their ends (their real differences in
+    length, 10,000 samples the shortest), two ragged chunks, ``max_iter``
+    2,000, on the host, not on the card (K3 takes float32 only): VAF
+    within 1e-6, ``w`` within 1e-5; the wall times of ``chunk_files`` 2,
+    4 and 16 against parsing then analysing, and the analysis alone chunk
+    by chunk (no bar);
+    then the CLI through ``main()``: ``describe``, ``analyze --ranks 1:4
+    --save-model`` (one K3 and one K2 warp launch), ``analyze-dataset``
+    with and without ``--prefetch 2 --chunk-files 4`` (VAF within 1e-4
+    of each other) and with ``--subjects`` of 4 labels and
+    ``--cluster-subjects 4``, ``export-transform`` of the saved rank 4
+    for ``b,200,8`` on the card, replayed on 16 trials within 1e-5 of the
+    eager transform; last ``python -X importtime -m
+    muscle_synergies_tpu_torch analyze-dataset`` in a subprocess with no
+    ``--platform``: exit 0, its report within 1e-4 of the in-process one,
+    and neither pandas nor matplotlib imported.
 
 Each main path is driven with every launch counter set to 0 just before
 it and read just after; the CD, RMS-CD and ``rank_sweep_batch`` paths
@@ -213,6 +239,7 @@ RAGGED_MIN = 100_000  # the RMS path's shortest ragged trial
 CAPTURES = 16  # phase 15's written captures
 STATE_LEN = 2_800  # capture i holds 41 support states of STATE_LEN + 20 i samples
 N_MARKERS = 40  # the reference trial's marker montage
+F64_BASE = 10_000  # phase 20's float64 check: the shortest capture's samples
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and dense peaks outside the
 # tensor cores, at the full 700 W power limit
@@ -1074,7 +1101,9 @@ class Smoke:
 
     # ---- 15. the capture main path ----
     def capture_main(self, n_captures: int = CAPTURES, state_len: int = STATE_LEN,
-                     n_markers: int = N_MARKERS, chunk: int = 8192):
+                     n_markers: int = N_MARKERS, chunk: int = 8192, then=None):
+        """Phase 15; then ``then(paths, datas, directory)`` on its written
+        and parsed captures, before their directory is removed."""
         import concurrent.futures
         import multiprocessing
         import shutil
@@ -1246,9 +1275,12 @@ class Smoke:
                 f"{err_ref:.3e} x max|y| (bar 5e-4)")
             assert err <= 5e-4, "the streamed capture disagrees with one K6 launch"
             assert err_ref <= 5e-4, "the streamed capture disagrees with scipy"
+            self.stage("phase 15 (capture main path, whole)",
+                       time.perf_counter() - phase_t0)
+            if then is not None:
+                then(paths, datas, tmp)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
-        self.stage("phase 15 (capture main path, whole)", time.perf_counter() - phase_t0)
 
     def capture_stages(self, arrays):
         """Phase 15's analyze stage split, piece by piece as the stage
@@ -1300,6 +1332,249 @@ class Smoke:
         assert err <= 5e-4 * scale, "K3 disagrees with scipy on the ragged cycles"
 
     # ---- 16. the space-by-time dataset path ----
+    # ---- 20. the pipelined dataset path and the command line ----
+    def pipeline_cli_phase(self, paths, datas, work):
+        """Phase 20 on phase 15's written and parsed captures."""
+        t0 = time.perf_counter()
+        one = self.pipelined_path(paths, datas, work)
+        self.pipeline_overlap(paths, datas)
+        self.cli_checks(paths, datas, work, one)
+        self.stage("phase 20 (pipelined dataset path, the command line)",
+                   time.perf_counter() - t0)
+
+    @staticmethod
+    def memcpy_events(trace_path):
+        """``(name, bytes, stream)`` of every copy in a torch profiler
+        trace (the chrome trace's ``gpu_memcpy`` events)."""
+        with open(trace_path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+        return [(e["name"], int(e.get("args", {}).get("bytes", 0)),
+                 e.get("args", {}).get("stream")) for e in events
+                if e.get("cat") == "gpu_memcpy"]
+
+    def pipelined_path(self, paths, datas, work, chunk_files: int = 4):
+        """(a) ``analyze_dataset_pipelined`` against the one-shot path on
+        the same captures, (b) the copies it made, from the profiler."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from muscle_synergies_tpu_torch import analyze_dataset, analyze_dataset_pipelined
+
+        torch = self.torch
+        trials = [d.emg for d in datas]
+        n_chunks = -(-len(paths) // chunk_files)
+        trace = os.path.join(work, "pipelined_trace.json")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            piped, counts = self.main_path(
+                f"analyze_dataset_pipelined ({len(paths)} captures, {n_chunks} chunks "
+                f"of {chunk_files}, prefetch 2)",
+                lambda: analyze_dataset_pipelined(paths, chunk_files=chunk_files,
+                                                  prefetch=2))
+        prof.export_chrome_trace(trace)
+        assert counts["sosfiltfilt"] == n_chunks, counts  # one K3 launch a chunk
+        assert counts["cd_nmf_warp"] > 0 and counts["cd_nmf"] == 0, counts
+        assert sum(counts.values()) == n_chunks + counts["cd_nmf_warp"], counts
+        self.check_rank_sweep("pipelined", piped)
+        one, counts = self.main_path("analyze_dataset on the same captures, one shot",
+                                     lambda: analyze_dataset(trials, FS))
+        assert counts["sosfiltfilt"] == 1 and counts["cd_nmf"] == 0, counts
+        gaps = {k: float(np.abs(getattr(piped, k).astype(np.float64)
+                                - getattr(one, k).astype(np.float64)).max())
+                for k in ("vaf_overall", "vaf_per_channel", "w", "h", "n_iter")}
+        log(f"pipelined vs one shot (float32, card): largest gaps {gaps} "
+            f"(bar 1e-4 on the VAFs)")
+        assert gaps["vaf_overall"] <= 1e-4 and gaps["vaf_per_channel"] <= 1e-4, gaps
+        assert piped.channel_names == one.channel_names
+        assert piped.sampling_frequency == FS
+
+        # (b) what crossed between host and card during the pipelined call
+        copies = self.memcpy_events(trace)
+        d2h = [(n, b, st) for n, b, st in copies if "DtoH" in n]
+        h2d = [(n, b, st) for n, b, st in copies if "HtoD" in n]
+        results = sum(getattr(piped, k).nbytes for k in (
+            "w", "h", "vaf_overall", "vaf_per_channel", "n_iter", "converged"))
+        emg_bytes = sum(t.array.nbytes for t in trials)
+        scalars = [b for _, b, _ in d2h if b <= 64]
+        arrays = sum(b for _, b, _ in d2h) - sum(scalars)
+        kinds = {}
+        for name, nbytes, stream in h2d:
+            kinds.setdefault((name, stream), [0, 0])
+            kinds[(name, stream)][0] += 1
+            kinds[(name, stream)][1] += nbytes
+        log(f"pipelined copies: device->host {len(d2h)} copies, {arrays} bytes in "
+            f"copies over 64 bytes and {len(scalars)} of at most 64 bytes "
+            f"({sum(scalars)} bytes), against {results} bytes of results and "
+            f"{emg_bytes} bytes of EMG (float64 on the host)")
+        for (name, stream), (n, nbytes) in sorted(kinds.items(), key=str):
+            log(f"pipelined copies: host->device {name!r} on stream {stream}: {n} "
+                f"copies, {nbytes} bytes")
+        assert h2d, "the profiler saw no host->device copy: no trace of the card"
+        assert arrays <= results, "trial data came back to the host"
+        assert sum(b for _, b, _ in d2h) < emg_bytes / 100
+
+        # float64, 4 captures, chunked against one shot.  K3 takes float32
+        # only (a float64 envelope on the card raises), so the float64
+        # chain runs the plain versions on the host, where each trial of a
+        # distinct length is filtered alone, one sample at a time.  Each
+        # capture is cut by the same count from its end, so the captures
+        # keep their real differences in length, and both the chunks and
+        # the one-shot batch pad as many samples as the full captures do;
+        # max_iter 2,000 on both sides, as the JAX test caps it: at the
+        # config's 100,000 the float64 rank-1 fits stop on rounding noise
+        # too and each sweep runs minutes on the host
+        short = min(d.emg.array.shape[0] for d in datas[:4])
+        four = {p: d.emg.array[: d.emg.array.shape[0] - short + F64_BASE]
+                for p, d in zip(paths[:4], datas)}
+        kw = dict(ranks=(1, 2, 3, 4), max_iter=2000, dtype=torch.float64, device="cpu")
+        t0 = time.perf_counter()
+        chunked = analyze_dataset_pipelined(list(four), FS, chunk_files=2,
+                                            loader=four.__getitem__, **kw)
+        whole = analyze_dataset(list(four.values()), FS, **kw)
+        vaf_gap = float(np.abs(chunked.vaf_overall - whole.vaf_overall).max())
+        w_gap = float(np.abs(chunked.w - whole.w).max())
+        log(f"pipelined vs one shot (float64, host, 4 captures cut to "
+            f"{[len(a) for a in four.values()]} samples from "
+            f"{[d.emg.array.shape[0] for d in datas[:4]]}, 2 chunks, max_iter "
+            f"2,000): VAF {vaf_gap:.3e} (bar 1e-6), w {w_gap:.3e} (bar 1e-5), "
+            f"n_iter max by rank {whole.n_iter.max(axis=1).tolist()} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        assert vaf_gap <= 1e-6 and w_gap <= 1e-5
+        return one
+
+    def pipeline_overlap(self, paths, datas):
+        """(c) wall times of the pipelined path against parsing then
+        analysing, and the parse time inside its producer; no bar."""
+        from muscle_synergies_tpu_torch import analyze_dataset, analyze_dataset_pipelined
+        from muscle_synergies_tpu_torch.dataset import _default_capture_loader
+        from muscle_synergies_tpu_torch.io import load_vicon_files
+
+        torch = self.torch
+        parse_s = []
+
+        def timed_loader(path):
+            t = time.perf_counter()
+            out = _default_capture_loader(path)
+            parse_s.append(time.perf_counter() - t)
+            return out
+
+        def wall(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t, out
+
+        for chunk_files in (2, 4, len(paths)):
+            parse_s.clear()
+            secs, res = wall(lambda: analyze_dataset_pipelined(
+                paths, chunk_files=chunk_files, prefetch=2, loader=timed_loader))
+            log(f"overlap: pipelined, chunk_files {chunk_files} "
+                f"({-(-len(paths) // chunk_files)} chunks): {secs:.3f} s; parse inside "
+                f"the producer {sum(parse_s):.3f} s; n_iter max by rank "
+                f"{res.n_iter.max(axis=1).tolist()}  [{self.smi}]")
+        serial, _ = wall(lambda: analyze_dataset(
+            [d.emg for d in load_vicon_files(paths)], FS))
+        parse, parsed = wall(lambda: load_vicon_files(paths))
+        analyse, _ = wall(lambda: analyze_dataset([d.emg for d in parsed], FS))
+        log(f"overlap: parse all (load_vicon_files, threads) then analyze_dataset "
+            f"{serial:.3f} s; parse alone {parse:.3f} s + analyze_dataset alone "
+            f"{analyse:.3f} s = {parse + analyse:.3f} s  [{self.smi}]")
+        # what the consumer's side costs alone: the parsed captures analysed
+        # chunk by chunk, each chunk paying its own init and rank-1 tail
+        emg = [d.emg for d in parsed]
+        for chunk_files in (2, 4):
+            secs, _ = wall(lambda: [analyze_dataset(emg[lo:lo + chunk_files], FS)
+                                    for lo in range(0, len(emg), chunk_files)])
+            log(f"overlap: analyze_dataset alone, chunk by chunk of {chunk_files} "
+                f"parsed captures: {secs:.3f} s  [{self.smi}]")
+
+    def cli_checks(self, paths, datas, work, one):
+        """(d) the CLI in-process through ``main()``, (e) one real
+        subprocess of it with no ``--platform``."""
+        from muscle_synergies_tpu_torch import preprocess_trials
+        from muscle_synergies_tpu_torch.__main__ import main as cli
+        from muscle_synergies_tpu_torch.models.export import load_transform
+        from muscle_synergies_tpu_torch.models.persist import _load_run_models
+
+        def run(label, argv, out=None):
+            argv = argv + (["-o", out] if out else [])
+            code, counts = self.main_path(f"CLI {label}", lambda: cli(argv))
+            assert code == 0, (label, code)
+            if out is None:
+                return None, counts
+            with open(out) as fh:
+                return json.load(fh), counts
+
+        def vafs(report):
+            return np.array([[r[k] for k in sorted(r)] for r in report["vaf_overall"]])
+
+        _, counts = run("describe", ["describe", paths[0]])
+        assert sum(counts.values()) == 0, counts
+        saved = os.path.join(work, "run.npz")
+        rep, counts = run("analyze --ranks 1:4 --save-model",
+                          ["analyze", paths[0], "--ranks", "1:4", "--save-model", saved],
+                          os.path.join(work, "analyze.json"))
+        assert counts["sosfiltfilt"] == 1 and counts["cd_nmf_warp"] == 1, counts
+        assert sorted(rep["ranks"]) == ["1", "2", "3", "4"]
+        assert all(0 < rep["ranks"][k]["vaf_overall"] <= 1 for k in rep["ranks"])
+        plain, counts = run(f"analyze-dataset ({len(paths)} captures)",
+                            ["analyze-dataset", *paths], os.path.join(work, "ds.json"))
+        assert counts["sosfiltfilt"] == 1 and counts["cd_nmf_warp"] > 0, counts
+        piped, counts = run("analyze-dataset --prefetch 2 --chunk-files 4",
+                            ["analyze-dataset", *paths, "--prefetch", "2",
+                             "--chunk-files", "4"], os.path.join(work, "ds_piped.json"))
+        assert counts["sosfiltfilt"] == 4 and counts["cd_nmf_warp"] > 0, counts
+        gap = float(np.abs(vafs(piped) - vafs(plain)).max())
+        log(f"CLI: analyze-dataset with and without --prefetch: VAF gap {gap:.3e} "
+            "(bar 1e-4)")
+        assert gap <= 1e-4
+        subjects = ",".join(f"s{i // 4}" for i in range(len(paths)))
+        grouped, counts = run("analyze-dataset --subjects (4) --cluster-subjects 4",
+                              ["analyze-dataset", *paths, "--subjects", subjects,
+                               "--cluster-subjects", "4"],
+                              os.path.join(work, "ds_subjects.json"))
+        assert counts["sosfiltfilt"] == 1 and counts["cd_nmf_warp"] > 0, counts
+        assert sorted(grouped["subject_mean_vaf"]) == ["s0", "s1", "s2", "s3"]
+        assert grouped["synergy_clusters"]["rank"] == 4
+        artifact = os.path.join(work, "run.transform")
+        run("export-transform --rank 4 --shape b,200,8 --platforms cuda",
+            ["export-transform", saved, "--rank", "4", "--shape", "b,200,8",
+             "--platforms", "cuda", "-o", artifact])
+        xs = preprocess_trials([d.emg for d in datas], FS)
+        model = _load_run_models(saved, device=self.dev)[4]
+        want = model.transform(xs)
+        got = load_transform(artifact)(xs)
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        log(f"CLI: exported rank-4 transform replayed on {xs.shape[0]} trials vs the "
+            f"eager transform {err:.3e} relative (bar 1e-5)")
+        assert err <= 1e-5
+
+        # (e) a real process, as a user runs it: no --platform
+        out = os.path.join(work, "cli_subprocess.json")
+        cmd = [sys.executable, "-X", "importtime", "-m", "muscle_synergies_tpu_torch",
+               "analyze-dataset", *paths, "-o", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        imported = {line.rsplit("|", 1)[-1].strip().split(".")[0]
+                    for line in proc.stderr.splitlines() if line.startswith("import time:")}
+        assert len(imported) > 10, "no -X importtime lines: the check would be blind"
+        assert not imported & {"pandas", "matplotlib"}, imported & {"pandas", "matplotlib"}
+        with open(out) as fh:
+            child = json.load(fh)
+        gap = float(np.abs(vafs(child) - vafs(plain)).max())
+        log(f"CLI subprocess: python -m muscle_synergies_tpu_torch analyze-dataset "
+            f"({len(paths)} captures) exited 0 in {secs:.2f} s, imported "
+            f"{len(imported)} top-level modules, neither pandas nor matplotlib; VAF "
+            f"gap to the in-process report {gap:.3e} (bar 1e-4)  [{self.smi}]")
+        assert gap <= 1e-4
+        one_vaf = np.array([[one.vaf_overall[i, b] for i in range(len(one.ranks))]
+                            for b in range(len(paths))])
+        gap = float(np.abs(vafs(plain)[:, :len(one.ranks)] - one_vaf).max())
+        log(f"CLI: analyze-dataset's VAF vs the one-shot analyze_dataset of (a) "
+            f"{gap:.3e} (its max_iter is 10,000, the config's 100,000)")
+
     def space_by_time_main(self, emg):
         """``analyze_dataset_space_by_time`` (one K3 launch, then NM3F in
         batched torch products); 20 NM3F updates and the whole fit held
@@ -2128,7 +2403,7 @@ def main() -> int:
     smoke.stage("phase 19 (resume, persistence, export, profiling)",
                 time.perf_counter() - t0)
     del emg, xs
-    smoke.capture_main()                                     # 15
+    smoke.capture_main(then=smoke.pipeline_cli_phase)        # 15, 20
     smoke.stage("whole script", time.perf_counter() - run_t0)
 
     for kname, entry in smoke.kernels.items():

@@ -46,9 +46,14 @@ models persist in the JAX package's file format (:func:`save_model`,
 :func:`load_model`), long bootstraps and CVs resume from checkpoints
 (``models.resume``), and ``models.export_transform`` serves a transform
 through ``torch.export`` to a process that has only torch.
+``analyze_dataset_pipelined`` overlaps parsing capture files with the
+card's work (pinned chunks copied on a side CUDA stream), the plots of
+:mod:`.viz` need matplotlib, and ``python -m muscle_synergies_tpu_torch``
+is the command line (``describe``, ``analyze``, ``analyze-dataset``,
+``export-transform``; ``--platform cpu`` without a card).
 """
 
-from . import analysis, dataset, io, models, ops, segment, utils
+from . import analysis, dataset, io, models, ops, segment, utils, viz
 from .analysis import (
     digital_filter,
     fft_spectrum,
@@ -72,6 +77,7 @@ from .dataset import (
     SpaceByTimeDatasetResult,
     TimeVaryingDatasetResult,
     analyze_dataset,
+    analyze_dataset_pipelined,
     analyze_dataset_space_by_time,
     analyze_dataset_time_varying,
     preprocess_trials,
@@ -83,6 +89,7 @@ from .models.nm3f import SpaceByTimeResult, find_space_by_time_synergies
 from .models.persist import load_model, load_synergy_run, save_model, save_synergy_run
 from .models.select import NMFModel, SynergyRunResult, find_synergies
 from .utils.config import FilterSpec, PipelineConfig
+from .viz import plot_fft, plot_signal, synergy_heatmap
 
 __all__ = [
     "DatasetResult",
@@ -106,6 +113,7 @@ __all__ = [
     "ViconNexusData",
     "analysis",
     "analyze_dataset",
+    "analyze_dataset_pipelined",
     "analyze_dataset_space_by_time",
     "analyze_dataset_time_varying",
     "dataset",
@@ -122,14 +130,18 @@ __all__ = [
     "models",
     "normalize",
     "ops",
+    "plot_fft",
+    "plot_signal",
     "preprocess_trials",
     "rms",
     "save_model",
     "save_synergy_run",
     "segment",
     "subsample",
+    "synergy_heatmap",
     "time_normalize",
     "utils",
     "vaf",
+    "viz",
     "zero_center",
 ]

@@ -287,11 +287,34 @@ class ViconNexusData:
             devices = [devices[i] for i in device_inds]
         return tuple(one(dev) for dev in devices)
 
-    def plot_cols(self, *args, **kwargs):
-        """Not ported yet (ROADMAP, item 10: viz)."""
-        raise NotImplementedError(
-            "plot_cols is not ported yet (ROADMAP, item 10: viz)"
+    def plot_cols(
+        self,
+        device_type: Union[str, DeviceType],
+        col: str,
+        device_inds: Optional[Sequence[int]] = None,
+        time=None,
+        labels: Optional[Sequence[str]] = None,
+        show: bool = True,
+        **all_plots_kwargs,
+    ):
+        """Plot one column across devices of a type against time
+        (matplotlib; the columns and times come as pandas objects)."""
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots()
+        all_series = self.get_cols(
+            device_type, device_inds=device_inds, time=time, cols=col
         )
+        if self._parse_device_type(device_type) is DeviceType.EMG:
+            all_series = (all_series,)
+        if labels is None:
+            labels = [None] * len(all_series)
+        for series, label in zip(all_series, labels):
+            ax.plot(self.time_seq(device_type), series, label=label, **all_plots_kwargs)
+        if show:  # pragma: no cover - interactive path
+            plt.show()
+            return None
+        return fig, ax
 
     # -- per-type delegation ----------------------------------------------
     def sampling_frequency(self, device_type: Union[str, DeviceType]) -> int:

@@ -45,7 +45,6 @@ from .models.batch import (
     fit_mu_batch,
     fit_mu_beta_batch,
     init_batch,
-    pad_and_stack,
     vaf_batch,
 )
 from .models.beta import beta_loss_to_float
@@ -74,6 +73,7 @@ __all__ = [
     "SpaceByTimeDatasetResult",
     "TimeVaryingDatasetResult",
     "analyze_dataset",
+    "analyze_dataset_pipelined",
     "analyze_dataset_space_by_time",
     "analyze_dataset_time_varying",
     "preprocess_trials",
@@ -126,6 +126,14 @@ def _match_components(reference: np.ndarray, other: np.ndarray) -> np.ndarray:
     return other[order]
 
 
+def _subject_means(values: np.ndarray, subjects) -> dict:
+    """Per distinct subject (first-appearance order): the mean of
+    ``values`` over the subject's trials (the last axis)."""
+    labels = np.asarray(subjects, dtype=object)
+    return {s: np.mean(values[..., labels == s], axis=-1)
+            for s in dict.fromkeys(subjects)}
+
+
 def _as_array(trial):
     """One trial as an array or tensor (DataFrames through ``to_numpy``,
     a :class:`~.data.DeviceData` through its ``.array``)."""
@@ -136,6 +144,79 @@ def _as_array(trial):
     if hasattr(trial, "array"):  # DeviceData
         return np.asarray(trial.array)
     return np.asarray(trial)
+
+
+def _stage_trials(trials, device, dtype):
+    """Trials as one batch on ``device``: ``(xs, mask)``, the mask
+    ``None`` unless the trials are ragged (then zero-padded on the host,
+    :func:`_pad_trials`)."""
+    if getattr(trials, "ndim", None) == 3:  # already one equal-length batch
+        return as_tensor(trials, device, dtype), None
+    data, mask = _pad_trials([to_numpy(_as_array(t)) for t in trials], dtype)
+    return data.to(device), None if mask is None else mask.to(device)
+
+
+def _pad_trials(arrays, dtype: Optional[torch.dtype], pin: bool = False):
+    """``(N_i, L)`` arrays as ``(data, mask)`` CPU tensors of ``dtype``
+    (``None``: as :func:`~._common.as_tensor` would pick), padded
+    straight into (pinned, when ``pin``) buffers: equal lengths stack
+    with no mask, ragged ones are zero-padded with their ``(B, N)``
+    mask."""
+    if len({a.shape[1] for a in arrays}) != 1:
+        raise ValueError("all trials must share the channel count")
+    if dtype is None:
+        dtype = torch.float32 if arrays[0].dtype == np.float32 else torch.float64
+    lengths = [a.shape[0] for a in arrays]
+    shape = (len(arrays), max(lengths), arrays[0].shape[1])
+    data = torch.zeros(shape, dtype=dtype, pin_memory=pin)
+    for b, a in enumerate(arrays):
+        data[b, : a.shape[0]].copy_(torch.from_numpy(np.ascontiguousarray(a)))
+    if len(set(lengths)) == 1:
+        return data, None
+    mask = torch.zeros(shape[:2], dtype=dtype, pin_memory=pin)
+    for b, n in enumerate(lengths):
+        mask[b, :n] = 1.0
+    return data, mask
+
+
+def _preprocess_batch(xs: torch.Tensor, mask: Optional[torch.Tensor],
+                      sampling_frequency: float, config: PipelineConfig) -> torch.Tensor:
+    """The configured preprocessing of one ``(B, N, L)`` batch where it
+    lies, ragged trials zero-padded with their ``(B, N)`` mask."""
+    spec = config.envelope
+    # zero-center over each trial's valid samples, then the envelope
+    if config.zero_center:
+        xs = _b.zero_center_batch(xs, mask)
+    if config.use_rms:
+        window = rms_window(config.rms_window_s, sampling_frequency)
+        xs = _b.moving_rms_batch(xs, window, mask)
+    elif mask is not None and spec.zero_lag:
+        # each trial filtered over its own length: one K3 launch
+        xs = _b._ragged_zero_phase_envelope(
+            xs, mask, critical_freqs=spec.cutoff(),
+            sampling_frequency=sampling_frequency, order=spec.order,
+            filter_type=spec.filter_type, cheby_param=spec.cheby_param,
+        )
+    else:
+        xs = _b.linear_envelope_batch(
+            xs, critical_freqs=spec.cutoff(),
+            sampling_frequency=sampling_frequency, order=spec.order,
+            mask=mask, filter_type=spec.filter_type, zero_lag=spec.zero_lag,
+            cheby_param=spec.cheby_param, zero_center_=False,
+        )
+    # after resampling onto reduce_to points every row is valid
+    xs = _b.time_normalize_batch(xs, config.reduce_to, mask)
+    if config.amplitude_normalize:
+        xs = _b.normalize_batch(xs.abs())
+    return xs
+
+
+def _check_reduce_to(config: PipelineConfig) -> None:
+    if config.reduce_to is None:
+        raise ValueError(
+            "preprocess_trials needs config.reduce_to so trials share a "
+            "common length"
+        )
 
 
 def preprocess_trials(
@@ -165,48 +246,9 @@ def preprocess_trials(
     if mesh is not None:
         raise NotImplementedError(_MESH_TODO)
     device, dtype = entry_placement(device, dtype)
-    if config.reduce_to is None:
-        raise ValueError(
-            "preprocess_trials needs config.reduce_to so trials share a "
-            "common length"
-        )
-    spec = config.envelope
-
-    def run(xs, mask=None):
-        # zero-center over each trial's valid samples, then the envelope
-        if config.zero_center:
-            xs = _b.zero_center_batch(xs, mask)
-        if config.use_rms:
-            window = rms_window(config.rms_window_s, sampling_frequency)
-            xs = _b.moving_rms_batch(xs, window, mask)
-        elif mask is not None and spec.zero_lag:
-            # each trial filtered over its own length: one K3 launch
-            xs = _b._ragged_zero_phase_envelope(
-                xs, mask, critical_freqs=spec.cutoff(),
-                sampling_frequency=sampling_frequency, order=spec.order,
-                filter_type=spec.filter_type, cheby_param=spec.cheby_param,
-            )
-        else:
-            xs = _b.linear_envelope_batch(
-                xs, critical_freqs=spec.cutoff(),
-                sampling_frequency=sampling_frequency, order=spec.order,
-                mask=mask, filter_type=spec.filter_type, zero_lag=spec.zero_lag,
-                cheby_param=spec.cheby_param, zero_center_=False,
-            )
-        # after resampling onto reduce_to points every row is valid
-        xs = _b.time_normalize_batch(xs, config.reduce_to, mask)
-        if config.amplitude_normalize:
-            xs = _b.normalize_batch(xs.abs())
-        return xs
-
-    if getattr(trials, "ndim", None) == 3:  # already one equal-length batch
-        return run(as_tensor(trials, device, dtype))
-    arrays = [to_numpy(_as_array(t)) for t in trials]
-    ragged = len({a.shape[0] for a in arrays}) > 1
-    # ragged trials run as one padded batch with a mask
-    data, mask = pad_and_stack(arrays)
-    xs = as_tensor(data, device, dtype)
-    return run(xs, as_tensor(mask, xs.device, xs.dtype) if ragged else None)
+    _check_reduce_to(config)
+    xs, mask = _stage_trials(trials, device, dtype)
+    return _preprocess_batch(xs, mask, sampling_frequency, config)
 
 
 @dataclass
@@ -274,9 +316,22 @@ class DatasetResult:
         self._require_subjects()
         return [i for i, s in enumerate(self.subjects) if s == subject]
 
+    def _subject_vaf_means(self) -> dict:
+        """``subject_table("mean")``'s array core (no pandas): ``{subject:
+        (R,) mean overall VAF}`` in the subjects' first-appearance order."""
+        self._require_subjects()
+        return _subject_means(self.vaf_overall, self.subjects)
+
     def subject_table(self, statistic: str = "mean"):
         """Subjects x ranks DataFrame of overall VAF, aggregated over trials."""
+        import pandas
+
         self._require_subjects()
+        if statistic == "mean":
+            means = self._subject_vaf_means()
+            return pandas.DataFrame(np.stack(list(means.values())),
+                                    columns=list(self.ranks),
+                                    index=pandas.Index(list(means), name="subject"))
         return self.vaf_table().groupby(level="subject", sort=False).agg(statistic)
 
     def subject_min_rank(self, vaf_threshold: float = 0.9):
@@ -395,6 +450,57 @@ def analyze_dataset(
     if mesh is not None:
         raise NotImplementedError(_MESH_TODO)
     trials, subjects = _normalize_trials_subjects(trials, subjects)
+    sweep = _sweep_options(config, ranks, init=init, solver=solver,
+                           beta_loss=beta_loss, max_iter=max_iter, tol=tol,
+                           seed=seed, impl=impl, inner_iter=inner_iter,
+                           alpha_W=alpha_W, alpha_H=alpha_H, l1_ratio=l1_ratio)
+    channel_names = _channel_names(trials[0]) if len(trials) else None
+    device, dtype = entry_placement(device, dtype)
+    _check_reduce_to(config)
+    xs, mask = _stage_trials(trials, device, dtype)
+    res = _analyze_batch(xs, mask, sampling_frequency, config, sweep)
+    res.channel_names, res.subjects = channel_names, subjects
+    return res
+
+
+@dataclass(frozen=True)
+class _Sweep:
+    """:func:`analyze_dataset`'s validated solver options."""
+
+    ranks: tuple
+    init: Optional[str]
+    solver: str
+    beta: float
+    max_iter: int
+    tol: float
+    seed: int
+    impl: str
+    inner_iter: int
+    alpha_W: float
+    alpha_H: object
+    l1_ratio: float
+
+
+def _sweep_options(
+    config: PipelineConfig,
+    ranks,
+    mesh=None,
+    init: Optional[str] = None,
+    solver: Optional[str] = None,
+    beta_loss=None,
+    max_iter: Optional[int] = None,
+    tol: Optional[float] = None,
+    seed: int = 0,
+    impl: Optional[str] = None,
+    inner_iter: Optional[int] = None,
+    alpha_W: float = 0.0,
+    alpha_H="same",
+    l1_ratio: float = 0.0,
+) -> _Sweep:
+    """Resolve and check :func:`analyze_dataset`'s solver keywords
+    against ``config`` before any trial is touched."""
+    if mesh is not None:
+        raise NotImplementedError(_MESH_TODO)
     ranks = (ranks,) if isinstance(ranks, int) else tuple(ranks)
     solver = solver if solver is not None else config.solver
     if solver not in {"mu", "cd"}:
@@ -410,15 +516,25 @@ def analyze_dataset(
         raise ValueError(
             "inner_iter > 1 is only available for the Frobenius objective"
         )
-    max_iter = max_iter if max_iter is not None else config.max_iter
-    tol = tol if tol is not None else config.tol
     if inner_iter != 1 and solver != "mu":
         raise ValueError("inner_iter > 1 is only meaningful for solver='mu'")
-    impl = torch_impl(impl if impl is not None else config.solver_impl)
+    return _Sweep(
+        ranks=ranks, init=init, solver=solver, beta=beta,
+        max_iter=max_iter if max_iter is not None else config.max_iter,
+        tol=tol if tol is not None else config.tol, seed=seed,
+        impl=torch_impl(impl if impl is not None else config.solver_impl),
+        inner_iter=inner_iter, alpha_W=alpha_W, alpha_H=alpha_H, l1_ratio=l1_ratio,
+    )
 
-    channel_names = _channel_names(trials[0]) if len(trials) else None
-    xs = preprocess_trials(trials, sampling_frequency, config, dtype=dtype,
-                           device=device)
+
+def _analyze_batch(xs: torch.Tensor, mask: Optional[torch.Tensor],
+                   sampling_frequency: float, config: PipelineConfig,
+                   sweep: _Sweep) -> DatasetResult:
+    """Preprocess one staged batch where it lies and solve its whole
+    ``(rank, trial)`` grid in one batched fit; only the results come
+    back to the host."""
+    xs = _preprocess_batch(xs, mask, sampling_frequency, config)
+    ranks, beta = sweep.ranks, sweep.beta
     if beta <= 0 and bool((xs == 0).any()):
         raise ValueError(
             "When beta_loss <= 0 and X contains zeros, the solver may "
@@ -428,33 +544,30 @@ def analyze_dataset(
     b, n, l = xs.shape
     k_max = max(ranks)
     l1_w, l2_w, l1_h, l2_h = compute_regularization(
-        alpha_W, alpha_H, l1_ratio, n, l
+        sweep.alpha_W, sweep.alpha_H, sweep.l1_ratio, n, l
     )
 
     # the (R * B) problem grid with rank-padded factors, one batched
     # initialization per rank
     w_blocks, h_blocks = [], []
     for k in ranks:
-        w0, h0 = init_batch(xs, k, init=init, seed=seed)
+        w0, h0 = init_batch(xs, k, init=sweep.init, seed=sweep.seed)
         w_blocks.append(torch.nn.functional.pad(w0, (0, k_max - k)))
         h_blocks.append(torch.nn.functional.pad(h0, (0, 0, 0, k_max - k)))
     grid_x = xs.repeat(len(ranks), 1, 1)
     grid_w = torch.cat(w_blocks)
     grid_h = torch.cat(h_blocks)
-    regs = dict(l1_reg_w=l1_w, l2_reg_w=l2_w, l1_reg_h=l1_h, l2_reg_h=l2_h)
-    if solver == "mu":
+    regs = dict(l1_reg_w=l1_w, l2_reg_w=l2_w, l1_reg_h=l1_h, l2_reg_h=l2_h,
+                max_iter=sweep.max_iter, tol=sweep.tol, impl=sweep.impl)
+    if sweep.solver == "mu":
         if beta != 2.0:
-            state = fit_mu_beta_batch(grid_x, grid_w, grid_h, beta=beta,
-                                      max_iter=max_iter, tol=tol, impl=impl,
-                                      **regs)
+            state = fit_mu_beta_batch(grid_x, grid_w, grid_h, beta=beta, **regs)
         else:
-            state = fit_mu_batch(grid_x, grid_w, grid_h, max_iter=max_iter,
-                                 tol=tol, impl=impl, inner_iter=inner_iter,
-                                 **regs)
+            state = fit_mu_batch(grid_x, grid_w, grid_h,
+                                 inner_iter=sweep.inner_iter, **regs)
         h_final = state.h
     else:
-        state = fit_cd_batch(grid_x, grid_w, grid_h, max_iter=max_iter,
-                             tol=tol, impl=impl, **regs)
+        state = fit_cd_batch(grid_x, grid_w, grid_h, **regs)
         h_final = state.ht.transpose(-1, -2)
     overall, per_channel = vaf_batch(grid_x, state.w, h_final)
     r = len(ranks)
@@ -466,8 +579,150 @@ def analyze_dataset(
         vaf_per_channel=to_numpy(per_channel).reshape(r, b, l),
         n_iter=to_numpy(state.n_iter).reshape(r, b),
         converged=to_numpy(state.converged).reshape(r, b),
+    )
+
+
+def _default_capture_loader(path):
+    """Parse one Vicon capture and return its EMG ``DeviceData``."""
+    from .io.vicon import load_vicon_file
+
+    return load_vicon_file(path).emg
+
+
+def _concat_dataset_results(
+    partials: Sequence[DatasetResult],
+    channel_names=None,
+    subjects=None,
+    sampling_frequency=None,
+) -> DatasetResult:
+    """Stitch per-chunk grid results back into one dataset result."""
+    def cat(name):
+        return np.concatenate([getattr(p, name) for p in partials], axis=1)
+
+    return DatasetResult(
+        ranks=partials[0].ranks,
+        w=cat("w"),
+        h=cat("h"),
+        vaf_overall=cat("vaf_overall"),
+        vaf_per_channel=cat("vaf_per_channel"),
+        n_iter=cat("n_iter"),
+        converged=cat("converged"),
         channel_names=channel_names,
+        subjects=list(subjects) if subjects is not None else None,
+        sampling_frequency=sampling_frequency,
+    )
+
+
+def analyze_dataset_pipelined(
+    paths: Sequence,
+    sampling_frequency: Optional[float] = None,
+    ranks: Union[int, Sequence[int]] = (1, 2, 3, 4),
+    config: PipelineConfig = PipelineConfig(),
+    chunk_files: int = 2,
+    prefetch: int = 2,
+    loader=None,
+    subjects: Optional[Sequence] = None,
+    dtype: Optional[torch.dtype] = None,
+    device="cuda",
+    **fit_kwargs,
+) -> DatasetResult:
+    """:func:`analyze_dataset` over capture *files*, parse and compute
+    overlapped.
+
+    A producer thread parses ``chunk_files`` captures at a time, pads
+    each chunk on the host straight into pinned buffers of the compute
+    dtype (float32 on the card) and stages it on the device on a side
+    CUDA stream (:func:`~muscle_synergies_tpu_torch.io.batch.device_prefetch`,
+    up to ``prefetch`` chunks ahead), while the consumer preprocesses
+    the chunk already resident (one K3 launch on the card, each trial
+    of a ragged chunk filtered over its own length) and solves its
+    ``(rank, trial)`` grid.  The trials cross host->device once and
+    never come back; only each chunk's results do.
+
+    Chunked solves match the one-shot :func:`analyze_dataset` to
+    float-reordering tolerance (a chunk's batch size changes how the
+    batched products block); inits are per-trial deterministic, so the
+    grids are otherwise identical.  One chunk over all the files gives
+    the one-shot result exactly.
+
+    Args:
+        paths: capture CSV paths (or any values ``loader`` accepts).
+        sampling_frequency: EMG rate; when ``None`` it is taken from
+            the first capture and every file is checked against it.
+        chunk_files: captures per pipeline stage: one batched
+            preprocess and grid solve each.
+        prefetch: chunks the producer may stage ahead (the pipeline
+            depth); ``device_prefetch``'s buffer size.
+        loader: ``path -> DataFrame | DeviceData | array`` parse hook;
+            defaults to loading the capture's EMG device.
+        dtype, device: as on :func:`analyze_dataset`: the card by
+            default, in float32 there.
+        fit_kwargs: :func:`analyze_dataset`'s solver keywords
+            (``solver``, ``beta_loss``, ``impl``, ``max_iter``, ``tol``,
+            ...), checked before any capture is parsed.
+
+    Returns:
+        :class:`DatasetResult` over the full grid, with
+        ``sampling_frequency`` filled in from the captures.
+    """
+    from .io.batch import device_prefetch
+
+    paths = list(paths)
+    if not paths:
+        raise ValueError("analyze_dataset_pipelined needs at least one path")
+    if chunk_files < 1:
+        raise ValueError(f"chunk_files must be >= 1, got {chunk_files}")
+    if subjects is not None:
+        subjects = list(subjects)
+        if len(subjects) != len(paths):
+            raise ValueError(
+                f"got {len(subjects)} subject labels for {len(paths)} paths"
+            )
+    loader = loader if loader is not None else _default_capture_loader
+    sweep = _sweep_options(config, ranks, **fit_kwargs)
+    device, dtype = entry_placement(device, dtype)
+    _check_reduce_to(config)
+    pin = device.type == "cuda"
+
+    # filled by the producer before its first yield; the prefetch
+    # queue's put/get ordering makes them visible to the consumer
+    first_meta: dict = {}
+
+    def parsed_chunks():
+        fs = sampling_frequency
+        for lo in range(0, len(paths), chunk_files):
+            group = paths[lo : lo + chunk_files]
+            arrays = []
+            for path in group:
+                cap = loader(path)
+                cap_fs = getattr(cap, "sampling_frequency", None)
+                if fs is None:
+                    fs = cap_fs
+                elif cap_fs is not None and cap_fs != fs:
+                    raise ValueError(
+                        f"{path}: EMG sampling rate {cap_fs} != {fs} "
+                        f"of the first capture"
+                    )
+                if not first_meta:
+                    if fs is None:
+                        raise ValueError(
+                            "pass sampling_frequency=: the loader's "
+                            "output does not carry one"
+                        )
+                    first_meta.update(names=_channel_names(cap), fs=float(fs))
+                arrays.append(to_numpy(_as_array(cap)))
+            yield _pad_trials(arrays, dtype, pin)
+
+    partials = [
+        _analyze_batch(xs, mask, first_meta["fs"], config, sweep)
+        for xs, mask in device_prefetch(parsed_chunks(), buffer_size=prefetch,
+                                        device=device)
+    ]
+    return _concat_dataset_results(
+        partials,
+        channel_names=first_meta["names"],
         subjects=subjects,
+        sampling_frequency=first_meta["fs"],
     )
 
 
@@ -533,13 +788,28 @@ class TimeVaryingDatasetResult:
             index = pandas.RangeIndex(b, name="trial")
         return pandas.Series(self.vaf_overall, index=index, name="vaf")
 
-    def subject_table(self, statistic: str = "mean"):
-        """Per-subject VAF aggregated over trials."""
+    def _require_subjects(self):
         if self.subjects is None:
             raise ValueError(
                 "no subject labels: pass subjects= (or a {subject: trials} "
                 "mapping) to analyze_dataset_time_varying"
             )
+
+    def _subject_vaf_means(self) -> dict:
+        """``subject_table("mean")``'s array core (no pandas): ``{subject:
+        mean overall VAF}`` in the subjects' first-appearance order."""
+        self._require_subjects()
+        return _subject_means(self.vaf_overall, self.subjects)
+
+    def subject_table(self, statistic: str = "mean"):
+        """Per-subject VAF aggregated over trials."""
+        import pandas
+
+        self._require_subjects()
+        if statistic == "mean":
+            means = self._subject_vaf_means()
+            return pandas.Series(np.stack(list(means.values())), name="vaf",
+                                 index=pandas.Index(list(means), name="subject"))
         return self.vaf_table().groupby(level="subject", sort=False).agg(
             statistic
         )

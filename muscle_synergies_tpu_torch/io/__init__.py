@@ -1,4 +1,7 @@
-"""Ingest layer: Vicon Nexus CSV parsing and streaming (no pandas)."""
+"""Ingest layer: Vicon Nexus CSV parsing, streaming and trial batching
+(no pandas)."""
+
+from .batch import TrialBatch, batch_iterator, device_prefetch, stack_trials
 
 from .stream import DeviceStream, SectionHeader, ViconChunk, stream_vicon_file
 from .vicon import (
@@ -17,4 +20,8 @@ __all__ = [
     "ViconChunk",
     "SectionHeader",
     "DeviceStream",
+    "TrialBatch",
+    "stack_trials",
+    "batch_iterator",
+    "device_prefetch",
 ]

@@ -824,6 +824,15 @@ def find_temporal_synergies(
     one batch of restarts with ``update_s=False``; the identity passes
     through bit for bit.  Needs pandas.
     """
+    res = _fit_temporal(trials, n_temporal, max_iter, tol, n_inits, seed, precision,
+                        device, dtype)
+    return res._replace(temporal_modules=_temporal_frame(res.temporal_modules))
+
+
+def _fit_temporal(trials, n_temporal, max_iter, tol, n_inits, seed, precision,
+                  device, dtype) -> SharedTemporalResult:
+    """:func:`find_temporal_synergies` with its modules as an array (no
+    pandas)."""
     xs, _ = _validate_trial_stack(trials, device, dtype)
     b, t, l = xs.shape
     if not 1 <= n_temporal <= t:
@@ -845,7 +854,7 @@ def find_temporal_synergies(
     w, a, s = normalize_modules(states.w[best], states.a[best], states.s[best])
     vaf, per_trial = _frozen_vaf(xs, w, a, s, precision)
     return SharedTemporalResult(
-        temporal_modules=_temporal_frame(to_numpy(w)),
+        temporal_modules=to_numpy(w),
         weights=to_numpy(a),
         vaf=vaf,
         vaf_per_trial=per_trial,
@@ -874,6 +883,17 @@ def find_shared_spatial_synergies(
     """
     import pandas
 
+    res, columns = _fit_shared_spatial(trials, n_spatial, max_iter, tol, n_inits, seed,
+                                       precision, device, dtype)
+    cols = columns if columns is not None else list(range(res.spatial_modules.shape[1]))
+    return res._replace(spatial_modules=pandas.DataFrame(res.spatial_modules,
+                                                         columns=cols))
+
+
+def _fit_shared_spatial(trials, n_spatial, max_iter, tol, n_inits, seed, precision,
+                        device, dtype):
+    """:func:`find_shared_spatial_synergies` with its modules as an
+    array (no pandas), and the input's column labels (or ``None``)."""
     xs, columns = _validate_trial_stack(trials, device, dtype)
     b, t, l = xs.shape
     if not 1 <= n_spatial <= l:
@@ -897,12 +917,11 @@ def find_shared_spatial_synergies(
     s_out = s / torch.where(sn == 0, 1.0, sn)[:, None]
     a_out = a * sn[None, None, :]
     vaf, per_trial = _frozen_vaf(xs, w, a_out, s_out, precision)
-    cols = columns if columns is not None else list(range(l))
     return SharedSpatialResult(
-        spatial_modules=pandas.DataFrame(to_numpy(s_out), columns=cols),
+        spatial_modules=to_numpy(s_out),
         activations=to_numpy(a_out),
         vaf=vaf,
         vaf_per_trial=per_trial,
         n_iter=int(states.n_iter[best]),
         restart_errors=errors,
-    )
+    ), columns

@@ -288,33 +288,67 @@ def save_synergy_run(result, path) -> Path:
     """Persist a :class:`~.select.SynergyRunResult` (one run or a rank
     sweep): the VAF table, every rank's component DataFrame (with its
     muscle-name columns) and every fitted model."""
-    sweep = isinstance(result.model, Mapping)
-    arrays: Dict[str, np.ndarray] = {"vaf_values": result.vaf_values.to_numpy()}
+    vaf = result.vaf_values
+    if isinstance(result.model, Mapping):
+        components = {k: c.to_numpy() for k, c in result.components.items()}
+        columns = {k: list(c.columns) for k, c in result.components.items()}
+    else:
+        components = result.components.to_numpy()
+        columns = list(result.components.columns)
+    return _save_run(vaf.to_numpy(), list(vaf.columns), list(vaf.index), components,
+                     columns, result.model, path)
+
+
+def _save_run(vaf_values: np.ndarray, vaf_columns, vaf_index, components, columns,
+              model, path) -> Path:
+    """:func:`save_synergy_run` from arrays (no pandas): the VAF table's
+    values, columns and index; ``components``, ``columns`` and ``model``
+    are each a ``{rank: ...}`` mapping for a sweep, else one run's
+    ``(k, L)`` array, its muscle labels and its model."""
+    sweep = isinstance(model, Mapping)
+    arrays: Dict[str, np.ndarray] = {"vaf_values": np.asarray(vaf_values)}
     meta: Dict[str, Any] = {
         "format": RUN_FORMAT,
         "sweep": sweep,
-        "vaf_columns": [str(c) for c in result.vaf_values.columns],
-        "vaf_index": [int(i) for i in result.vaf_values.index],
+        "vaf_columns": [str(c) for c in vaf_columns],
+        "vaf_index": [int(i) for i in vaf_index],
     }
     if sweep:
-        ranks = sorted(int(k) for k in result.model)
+        ranks = sorted(int(k) for k in model)
         meta.update(ranks=ranks, models={}, components_columns={})
         for rank in ranks:
-            comp = result.components[rank]
-            arrays[f"components__{rank}"] = comp.to_numpy()
-            meta["components_columns"][str(rank)] = [str(c) for c in comp.columns]
-            model_arrays, model_meta = _model_payload(result.model[rank])
+            arrays[f"components__{rank}"] = np.asarray(components[rank])
+            meta["components_columns"][str(rank)] = [str(c) for c in columns[rank]]
+            model_arrays, model_meta = _model_payload(model[rank])
             for key, value in model_arrays.items():
                 arrays[f"model__{rank}__{key}"] = value
             meta["models"][str(rank)] = model_meta
     else:
-        arrays["components__"] = result.components.to_numpy()
-        meta["components_columns"] = [str(c) for c in result.components.columns]
-        model_arrays, model_meta = _model_payload(result.model)
+        arrays["components__"] = np.asarray(components)
+        meta["components_columns"] = [str(c) for c in columns]
+        model_arrays, model_meta = _model_payload(model)
         for key, value in model_arrays.items():
             arrays[f"model____{key}"] = value
         meta["model"] = model_meta
     return _atomic_savez(_normalize_path(path), arrays, meta)
+
+
+def _load_run_models(path, device="cuda", dtype: Optional[torch.dtype] = None):
+    """The fitted models of a run saved by :func:`save_synergy_run`, with
+    no pandas: ``{rank: model}`` for a sweep, else the one model."""
+    return _load_run(path, dict(device=device, dtype=dtype))[2]
+
+
+def _load_run(path, placement):
+    """A saved run's arrays, its metadata and its models."""
+    arrays, meta = _load_npz(path, RUN_FORMAT)
+    if meta["sweep"]:
+        models = {rank: _model_restore(_prefixed(arrays, f"model__{rank}__"),
+                                       meta["models"][str(rank)], placement)
+                  for rank in meta["ranks"]}
+    else:
+        models = _model_restore(_prefixed(arrays, "model____"), meta["model"], placement)
+    return arrays, meta, models
 
 
 def load_synergy_run(path, device="cuda", dtype: Optional[torch.dtype] = None):
@@ -325,20 +359,14 @@ def load_synergy_run(path, device="cuda", dtype: Optional[torch.dtype] = None):
 
     from .select import SynergyRunResult
 
-    placement = dict(device=device, dtype=dtype)
-    arrays, meta = _load_npz(path, RUN_FORMAT)
+    arrays, meta, models = _load_run(path, dict(device=device, dtype=dtype))
     vaf_values = pandas.DataFrame(arrays["vaf_values"], columns=meta["vaf_columns"],
                                   index=meta["vaf_index"])
     if meta["sweep"]:
-        components, models = {}, {}
-        for rank in meta["ranks"]:
-            components[rank] = pandas.DataFrame(
-                arrays[f"components__{rank}"],
-                columns=meta["components_columns"][str(rank)])
-            models[rank] = _model_restore(_prefixed(arrays, f"model__{rank}__"),
-                                          meta["models"][str(rank)], placement)
-        return SynergyRunResult(vaf_values, components, models)
-    components = pandas.DataFrame(arrays["components__"],
-                                  columns=meta["components_columns"])
-    model = _model_restore(_prefixed(arrays, "model____"), meta["model"], placement)
-    return SynergyRunResult(vaf_values, components, model)
+        components = {rank: pandas.DataFrame(
+            arrays[f"components__{rank}"],
+            columns=meta["components_columns"][str(rank)]) for rank in meta["ranks"]}
+    else:
+        components = pandas.DataFrame(arrays["components__"],
+                                      columns=meta["components_columns"])
+    return SynergyRunResult(vaf_values, components, models)

@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
-from typing import Any, Mapping, Optional, Union
+from typing import Any, Mapping, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -60,6 +60,7 @@ from .beta import beta_divergence, beta_loss_to_float, fit_mu_beta, mu_update_be
 from .hals import cd_pass, fit_cd
 from .init import initialize_nmf
 from .mu import fit_mu, frobenius_error, mu_update
+from ..ops.emg import vaf as _vaf
 
 __all__ = ["NMFModel", "SynergyRunResult", "find_synergies", "compute_regularization"]
 
@@ -495,6 +496,68 @@ class SynergyRunResult:
         return load_synergy_run(path, device=device, dtype=dtype)
 
 
+class _Run(NamedTuple):
+    """:func:`_find_synergies_arrays`' result: the ranks fitted, one VAF
+    row per rank (overall, then one per muscle), and each rank's
+    ``(k, L)`` components and fitted model."""
+
+    ranks: list
+    vaf_rows: np.ndarray
+    components: dict
+    models: dict
+
+
+def _vaf_row(x_host: np.ndarray, w, h, device) -> np.ndarray:
+    """:func:`~..analysis.vaf`'s row as an array: the overall VAF of
+    ``w @ h`` against ``x_host``, then each column's, computed where
+    ``device`` says."""
+    device, dtype = entry_placement(device, None)
+    x = as_tensor(np.asarray(x_host, dtype=float), device, dtype)
+    recon = as_tensor(w, x.device, x.dtype) @ as_tensor(h, x.device, x.dtype)
+    overall, per_col = _vaf(x, recon)
+    return np.array([float(overall)] + [float(v) for v in to_numpy(per_col).ravel()])
+
+
+def _find_synergies_arrays(
+    x_host: np.ndarray,
+    n_components: int,
+    max_components: Optional[int] = None,
+    *,
+    max_iter: int = 100_000,
+    tol: float = 1e-6,
+    sweep: str = "loop",
+    device="cuda",
+    dtype: Optional[torch.dtype] = None,
+    **nmf_kwargs,
+) -> _Run:
+    """:func:`find_synergies` on a ``(N, L)`` NumPy array, no pandas."""
+    if x_host.size == 0:
+        raise ValueError("empty EMG DataFrame")
+    num_features = x_host.shape[1]
+    if n_components < 1 or n_components > num_features:
+        raise ValueError("invalid number of components")
+    if max_components is not None:
+        if max_components < n_components or max_components > num_features:
+            raise ValueError("invalid number of components")
+    if sweep not in ("loop", "batched"):
+        raise ValueError(f"unknown sweep mode: {sweep!r}")
+    if sweep == "batched" and max_components is not None:
+        return _sweep_batched(
+            x_host, range(n_components, max_components + 1),
+            max_iter=max_iter, tol=tol, device=device, dtype=dtype, **nmf_kwargs,
+        )
+    ranks = [n_components] if max_components is None else list(
+        range(n_components, max_components + 1))
+    rows, comps, models = [], {}, {}
+    for k in ranks:
+        model = NMFModel(n_components=k, max_iter=max_iter, tol=tol,
+                         device=device, dtype=dtype, **nmf_kwargs)
+        transformed = model.fit_transform(x_host)
+        rows.append(_vaf_row(x_host, transformed, model.components_, device))
+        comps[k], models[k] = model.components_, model
+    return _Run(ranks, np.stack(rows), comps, models)
+
+
 def find_synergies(
     processed_emg_df,
     n_components: int,
@@ -528,48 +591,26 @@ def find_synergies(
     """
     import pandas
 
-    from ..analysis import vaf as _vaf
-
     if processed_emg_df.empty:
         raise ValueError("empty EMG DataFrame")
-    num_features = len(processed_emg_df.columns)
-    if n_components < 1 or n_components > num_features:
-        raise ValueError("invalid number of components")
-    if max_components is not None:
-        if max_components < n_components or max_components > num_features:
-            raise ValueError("invalid number of components")
-    if sweep not in ("loop", "batched"):
-        raise ValueError(f"unknown sweep mode: {sweep!r}")
-    if sweep == "batched" and max_components is not None:
-        return _sweep_batched(
-            processed_emg_df, range(n_components, max_components + 1),
-            max_iter=max_iter, tol=tol, device=device, dtype=dtype, **nmf_kwargs,
-        )
-
-    def single_run(k: int) -> SynergyRunResult:
-        model = NMFModel(n_components=k, max_iter=max_iter, tol=tol,
-                         device=device, dtype=dtype, **nmf_kwargs)
-        transformed = model.fit_transform(processed_emg_df)
-        vaf_values = _vaf(processed_emg_df, components=model.components_,
-                          transformed_signal=transformed, device=device)
-        comps = pandas.DataFrame(model.components_,
-                                 columns=processed_emg_df.columns)
-        return SynergyRunResult(vaf_values, comps, model)
-
-    if max_components is None:
-        return single_run(n_components)
-    runs = {k: single_run(k) for k in range(n_components, max_components + 1)}
-    vaf_values = pandas.concat([r.vaf_values for r in runs.values()])
-    vaf_values.set_index(np.array(tuple(runs)), inplace=True)
-    return SynergyRunResult(
-        vaf_values,
-        {k: r.components for k, r in runs.items()},
-        {k: r.model for k, r in runs.items()},
+    run = _find_synergies_arrays(
+        processed_emg_df.to_numpy(dtype=float), n_components, max_components,
+        max_iter=max_iter, tol=tol, sweep=sweep, device=device, dtype=dtype,
+        **nmf_kwargs,
     )
+    columns = processed_emg_df.columns
+    vaf_values = pandas.DataFrame(run.vaf_rows,
+                                  columns=["All signals"] + columns.tolist())
+    comps = {k: pandas.DataFrame(h, columns=columns) for k, h in run.components.items()}
+    if max_components is None:
+        return SynergyRunResult(vaf_values, comps[n_components],
+                                run.models[n_components])
+    vaf_values.set_index(np.array(run.ranks), inplace=True)
+    return SynergyRunResult(vaf_values, comps, run.models)
 
 
 def _sweep_batched(
-    processed_emg_df,
+    x_host: np.ndarray,
     ranks,
     *,
     max_iter: int,
@@ -590,7 +631,7 @@ def _sweep_batched(
     verbose: int = 0,
     impl: str = "auto",
     **unsupported,
-) -> SynergyRunResult:
+) -> _Run:
     """A rank sweep as one zero-rank-padded batched solve.
 
     Every rank's problem is one entry of an ``(R, N, L)`` batch with
@@ -598,10 +639,6 @@ def _sweep_batched(
     exactly zero, so entry ``i`` equals the independent rank-``ranks[i]``
     fit: on the card with ``impl="auto"``, one kernel launch.
     """
-    import pandas
-
-    from ..analysis import vaf as _vaf
-
     if unsupported:
         raise ValueError(
             "sweep='batched' does not support "
@@ -609,7 +646,7 @@ def _sweep_batched(
         )
     _check_regularization(regularization)
     beta = beta_loss_to_float(beta_loss)
-    x = _matrix(processed_emg_df, device, dtype)
+    x = _matrix(x_host, device, dtype)
     _check_data(x, beta)
     ranks = list(ranks)
     if alpha is not None:
@@ -629,13 +666,12 @@ def _sweep_batched(
     h_all = states.h if solver == "mu" else states.ht.transpose(-1, -2)
 
     n_iters = to_numpy(states.n_iter)
-    vaf_rows, comps, models = [], {}, {}
+    rows, comps, models = [], {}, {}
     for i, k in enumerate(ranks):
         w, h = w_all[i][:, :k], h_all[i][:k, :]
         h_np = to_numpy(h)
-        vaf_rows.append(_vaf(processed_emg_df, components=h_np,
-                             transformed_signal=to_numpy(w), device=device))
-        comps[k] = pandas.DataFrame(h_np, columns=processed_emg_df.columns)
+        rows.append(_vaf_row(x_host, to_numpy(w), h_np, device))
+        comps[k] = h_np
         model = NMFModel(
             n_components=k, solver=solver, beta_loss=beta_loss, init=init,
             tol=tol, max_iter=max_iter, random_state=random_state,
@@ -651,7 +687,4 @@ def _sweep_batched(
         )
         _warn_if_unconverged(model.n_iter_, max_iter, tol)
         models[k] = model
-
-    vaf_values = pandas.concat(vaf_rows)
-    vaf_values.set_index(np.array(ranks), inplace=True)
-    return SynergyRunResult(vaf_values, comps, models)
+    return _Run(ranks, np.stack(rows), comps, models)

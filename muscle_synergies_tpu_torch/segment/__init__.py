@@ -1,10 +1,12 @@
 """Gait segmentation from force-plate ground reactions (no pandas but
-:func:`reactions` and :func:`phase_summary`, which return pandas objects)."""
+:func:`reactions` and :func:`phase_summary`, which return pandas objects,
+and :class:`SegmentPlotter`, which plots them with matplotlib)."""
 
 from .joint import phase_summary
 from .gait import (
     Cycle,
     Phase,
+    SegmentPlotter,
     Segmenter,
     Segments,
     Trecho,
@@ -20,5 +22,6 @@ __all__ = [
     "reactions",
     "transition_indices",
     "Segmenter",
+    "SegmentPlotter",
     "phase_summary",
 ]

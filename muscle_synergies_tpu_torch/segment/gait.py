@@ -18,8 +18,9 @@ Capability parity with the reference's experiment module
 Port of :mod:`muscle_synergies_tpu.segment.gait` without pandas: the
 segmenter reads each plate's ``Fz`` column through ``coords`` and
 ``.array``; only :func:`reactions`, which returns Series, imports
-pandas.  ``SegmentPlotter`` (matplotlib) is not ported yet (ROADMAP,
-item 10: viz).
+pandas.  :class:`SegmentPlotter` shades segments over matplotlib plots
+(reference segment.py:301-664); it reads times and columns as pandas
+objects.
 
 The transition scan is vectorized: support-state validity over a
 debounce window is a cumulative-sum trick and each alternating search
@@ -31,7 +32,7 @@ from __future__ import annotations
 
 from collections import OrderedDict
 from enum import Enum, auto
-from typing import List, Mapping, Optional, Sequence, Union
+from typing import List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -46,6 +47,7 @@ __all__ = [
     "reactions",
     "transition_indices",
     "Segmenter",
+    "SegmentPlotter",
 ]
 
 
@@ -409,3 +411,315 @@ class Segmenter:
                 for c, cyc in enumerate(self._cycle_keys)
             }
         return segments
+
+
+#: A segment spec: a trecho, or a ``(trecho, cycle)`` /
+#: ``(trecho, cycle, phase)`` tuple — exactly what
+#: :meth:`Segmenter.get_times_of` accepts as its first argument.
+TimeSpec = Union[int, "Trecho", tuple]
+
+
+class SegmentPlotter:
+    """Shade gait segments over signal plots.
+
+    Reproduces the reference's full visual-inspection surface
+    (reference project/segment.py:301-664): translucent
+    :class:`~matplotlib.patches.Rectangle` overlays sized from the
+    segment's time extent and the axes' current y-limits,
+    focused x-limits with the reference's 30 % trecho margin
+    (segment.py:390-407 ``_compute_focused_xlim``), the
+    reactions-with-rectangle workflow (``plot_segment_og``,
+    segment.py:329-388), and the device-column plots with optional
+    per-axis shading (``plot_segment``, segment.py:471-583;
+    ``plot_segment_grid`` extends it to one axes per device).
+
+    Args:
+        data: the loaded capture.
+        segmenter: a fitted :class:`Segmenter` (built from ``data`` when
+            omitted).
+    """
+
+    def __init__(
+        self, data: ViconNexusData, segmenter: Optional[Segmenter] = None
+    ):
+        self.data = data
+        self.segmenter = segmenter if segmenter is not None else Segmenter(data)
+
+    # -- segment -> seconds on a device's clock -----------------------
+    def _get_times_in_seconds(
+        self, device_type, time: TimeSpec
+    ) -> Tuple[float, float]:
+        """Start/end of a segment in seconds on ``device_type``'s clock.
+
+        Mirrors reference segment.py:428-441: the ``(frame, subframe)``
+        slice maps through the device's index and into its time
+        sequence.  The slice's ``stop`` is exclusive; at the very end
+        of the capture it is clamped to the last sample (the reference
+        indexes one past and would raise there).
+        """
+        seg = self.segmenter.get_times_of(time)
+        ind = self.data.to_index(device_type, seg)
+        time_seq = self.data.time_seq(device_type)
+        stop = min(ind.stop, len(time_seq) - 1)
+        return float(time_seq.iloc[ind.start]), float(time_seq.iloc[stop])
+
+    def _compute_focused_xlim(
+        self, device_type, time: TimeSpec
+    ) -> Tuple[float, float]:
+        """X-limits zoomed to the spec's trecho with a 30 % margin
+        (reference segment.py:390-407)."""
+        trecho = time[0] if isinstance(time, tuple) else time
+        begin, end = self._get_times_in_seconds(device_type, trecho)
+        margin = (end - begin) * 0.3
+        return begin - margin, end + margin
+
+    def _calculate_rectangle_dimensions(
+        self, device_type, y_min: float, y_max: float, time: TimeSpec
+    ) -> Mapping[str, Union[float, Tuple[float, float]]]:
+        """``xy``/``width``/``height`` kwargs for the segment rectangle
+        (reference segment.py:409-426)."""
+        begin, end = self._get_times_in_seconds(device_type, time)
+        return {
+            "xy": (begin, y_min),
+            "width": end - begin,
+            "height": y_max - y_min,
+        }
+
+    @staticmethod
+    def _add_rectangle(
+        axes,
+        label: Optional[str],
+        rectangle_dims: Mapping[str, Union[float, Tuple[float, float]]],
+        alpha: float = 0.1,
+        **patch_kwargs,
+    ):
+        """Add one translucent rectangle patch to ``axes`` (reference
+        segment.py:638-664)."""
+        from matplotlib import patches
+
+        rect = patches.Rectangle(
+            **rectangle_dims, alpha=alpha, label=label, **patch_kwargs
+        )
+        axes.add_patch(rect)
+        return rect
+
+    def _shade_axes(
+        self,
+        ax,
+        device_type,
+        time: TimeSpec,
+        rectangle_label: Optional[str],
+        alpha: float,
+        show_entire: bool,
+    ) -> None:
+        y_min, y_max = ax.get_ylim()
+        dims = self._calculate_rectangle_dimensions(
+            device_type, y_min, y_max, time
+        )
+        self._add_rectangle(ax, rectangle_label, dims, alpha=alpha)
+        if not show_entire:
+            ax.set_xlim(*self._compute_focused_xlim(device_type, time))
+
+    # -- reference plotting surface ------------------------------------
+    def plot_reactions(
+        self,
+        show: bool = False,
+        title: str = "Force plates",
+        xlabel: str = "time (s)",
+        ylabel: str = "Force (N), z component",
+        labels: Sequence[str] = ("left plate Fz", "right plate Fz"),
+        figsize: Optional[Tuple[float, float]] = None,
+        **plot_kwargs,
+    ):
+        """Plot both plates' vertical reactions against time
+        (reference segment.py:585-636)."""
+        import matplotlib.pyplot as plt
+
+        left, right = reactions(self.data)
+        time = self.data.time_seq("fp")
+        fig, ax = plt.subplots(figsize=figsize)
+        ax.plot(time, left, label=labels[0], **plot_kwargs)
+        ax.plot(time, right, label=labels[1], **plot_kwargs)
+        ax.set(title=title, xlabel=xlabel, ylabel=ylabel)
+        ax.legend()
+        if show:  # pragma: no cover - interactive path
+            plt.show()
+            return None
+        return fig, ax
+
+    def plot_segment_og(
+        self,
+        box_legend: str,
+        trecho: Union[int, "Trecho"] = 1,
+        cycle=None,
+        phase=None,
+        y_min: float = -800.0,
+        y_max: float = 0.0,
+        show: bool = False,
+        show_entire: bool = True,
+        display_legend: bool = True,
+        alpha: float = 0.1,
+        **rect_kwargs,
+    ):
+        """Rectangle over the ground reactions marking one segment.
+
+        The reference's reactions-inspection workflow (segment.py:
+        329-388): plot both plates' Fz, overlay one labelled rectangle
+        with explicit ``y_min``/``y_max`` extents, optionally zoom to
+        the trecho (30 % margin).  ``trecho`` defaults to the first
+        pass (the reference's default of 0 is below its own 1-based
+        argument convention).
+        """
+        import matplotlib.pyplot as plt
+
+        time: TimeSpec = (trecho, cycle, phase)
+        begin, end = self._get_times_in_seconds("fp", time)
+        fig, ax = self.plot_reactions(show=False)
+        self._add_rectangle(
+            ax,
+            box_legend,
+            {
+                "xy": (begin, y_min),
+                "width": end - begin,
+                "height": y_max - y_min,
+            },
+            alpha=alpha,
+            **rect_kwargs,
+        )
+        if not show_entire:
+            ax.set_xlim(*self._compute_focused_xlim("fp", trecho))
+        if display_legend:
+            ax.legend()
+        if show:  # pragma: no cover - interactive path
+            plt.show()
+            return None
+        return fig, ax
+
+    def plot_segment(
+        self,
+        trecho=None,
+        cycle=None,
+        phase=None,
+        device_type: str = "fp",
+        col: str = "Fz",
+        device_inds: Optional[Sequence[int]] = None,
+        labels: Optional[Sequence[str]] = None,
+        time: Optional[TimeSpec] = None,
+        rectangle_label: Optional[str] = None,
+        alpha: float = 0.3,
+        show: bool = True,
+        show_entire: bool = True,
+        show_legend: bool = False,
+        **plot_kwargs,
+    ):
+        """Plot a column of some devices, shading the requested segment.
+
+        Two call shapes are accepted:
+
+        * segment-first (this framework's original surface):
+          ``plot_segment(1, 1, "BL", device_type="fp", col="Fz")``;
+        * device-first (the reference's surface, segment.py:471-583):
+          ``plot_segment("force plate", "Fz", time=(1, 1, "BL"),
+          rectangle_label="phase", show_entire=False)`` — recognized
+          when the first positional argument is a device-type string
+          or :class:`~muscle_synergies_tpu_torch.data.DeviceType`; ``time``
+          may be a bare trecho, ``(trecho, cycle)`` or
+          ``(trecho, cycle, phase)``, and ``time=None`` draws no
+          rectangle.
+
+        The shading is a translucent rectangle spanning the axes'
+        current y-limits; ``show_entire=False`` zooms x to the spec's
+        trecho with the reference's 30 % margin.
+        """
+        import matplotlib.pyplot as plt
+
+        if trecho is not None and not isinstance(trecho, (int, Trecho, tuple)):
+            # device-first (reference) calling convention
+            device_type = trecho
+            if cycle is not None:
+                col = cycle
+            spec = time
+        elif time is not None:
+            spec = time
+        elif trecho is not None:
+            spec = (trecho, cycle, phase)
+        else:
+            spec = None
+
+        fig, ax = self.data.plot_cols(
+            device_type,
+            col,
+            device_inds=device_inds,
+            labels=labels,
+            show=False,
+            **plot_kwargs,
+        )
+        if spec is not None:
+            self._shade_axes(
+                ax, device_type, spec, rectangle_label, alpha, show_entire
+            )
+        if show_legend and (rectangle_label is not None or labels is not None):
+            ax.legend()
+        if show:  # pragma: no cover - interactive path
+            plt.show()
+            return None
+        return fig, ax
+
+    def plot_segment_grid(
+        self,
+        device_type: str,
+        col: str,
+        device_inds: Optional[Sequence[int]] = None,
+        labels: Optional[Sequence[str]] = None,
+        time: Optional[TimeSpec] = None,
+        rectangle_label: Optional[str] = None,
+        alpha: float = 0.1,
+        show: bool = False,
+        show_entire: bool = True,
+        **plot_kwargs,
+    ):
+        """One axes per device, each shaded with its own rectangle.
+
+        Beyond-reference companion to :meth:`plot_segment`: instead of
+        overlaying every device on one axes, draw a shared-x column of
+        subplots (one per selected device) and add the segment
+        rectangle to each, sized from that axes' own y-limits — the
+        multi-signal inspection view the reference notebook builds by
+        hand around ``plot_segment``.
+
+        Returns:
+            ``(fig, axes)`` with ``axes`` a flat list, one per device.
+        """
+        import matplotlib.pyplot as plt
+
+        series = self.data.get_cols(
+            device_type, device_inds=device_inds, cols=col
+        )
+        if not isinstance(series, tuple):
+            series = (series,)
+        if labels is None:
+            try:
+                devices = self.data[device_type]
+                if device_inds is not None:
+                    devices = [devices[i] for i in device_inds]
+                names = [d.name for d in devices]
+            except (KeyError, TypeError):  # EMG: one device, one series
+                names = []
+            labels = names if len(names) == len(series) else [None] * len(series)
+        t = self.data.time_seq(device_type)
+        fig, axes = plt.subplots(
+            len(series), 1, sharex=True, squeeze=False
+        )
+        axes = [a for row in axes for a in row]
+        for ax, s, label in zip(axes, series, labels):
+            ax.plot(t, s, **plot_kwargs)
+            if label:
+                ax.set_ylabel(label)
+            if time is not None:
+                self._shade_axes(
+                    ax, device_type, time, rectangle_label, alpha, show_entire
+                )
+        if show:  # pragma: no cover - interactive path
+            plt.show()
+            return None
+        return fig, axes

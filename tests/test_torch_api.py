@@ -41,14 +41,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # JAX names the port does not export yet, by the ROADMAP item that ports them
 NOT_PORTED = {
-    "8": {  # parallel, and the trial batching that feeds it
-        "": ["analyze_dataset_pipelined", "parallel"],
-        "dataset": ["analyze_dataset_pipelined"],
-        "io": ["TrialBatch", "batch_iterator", "device_prefetch", "stack_trials"],
-    },
-    "10": {  # viz
-        "": ["plot_fft", "plot_signal", "synergy_heatmap"],
-        "segment": ["SegmentPlotter"],
+    "8": {  # 8b: parallel
+        "": ["parallel"],
     },
 }
 MODULES = {"": "__init__.py", "models": "models/__init__.py",
@@ -59,7 +53,7 @@ MODULES = {"": "__init__.py", "models": "models/__init__.py",
            "dataset": "dataset.py", "utils": "utils/__init__.py",
            "models.resume": "models/resume.py", "models.persist": "models/persist.py",
            "models.export": "models/export.py", "utils.checkpoint": "utils/checkpoint.py",
-           "utils.profiling": "utils/profiling.py"}
+           "utils.profiling": "utils/profiling.py", "io.batch": "io/batch.py"}
 # the JAX package's Mosaic tile rules for its convolutive Pallas kernel:
 # they pick a tile of trials per TPU block and have no CUDA counterpart
 MOSAIC = {"models.cnmf": ["cnmf_block_b", "resolve_cnmf_impl"]}

@@ -123,6 +123,37 @@ def test_subject_tables_match_jax():
     assert tres.trials_of("s1") == [0, 1, 2]
 
 
+@pytest.mark.parametrize("kind", ["rank sweep", "time-varying"])
+def test_subject_mean_core_matches_jax_table(kind):
+    """``subject_table("mean")`` stands on the array core the command
+    line reports from (no pandas): the JAX table's labels and values,
+    subjects in first-appearance order, and the core equal to the table."""
+    mapping = {"s2": TRIALS[:2], "s1": TRIALS[2:5]}
+    if kind == "rank sweep":
+        kw = dict(ranks=(1, 2), solver="mu", **FIT)
+        jres = mst.analyze_dataset(mapping, FS, **kw)
+        tres = mt.analyze_dataset(mapping, FS, **kw, **CPU)
+    else:
+        kw = dict(n_synergies=2, n_lags=4, n_inits=2, max_iter=200, tol=1e-4)
+        jres = mst.analyze_dataset_time_varying(mapping, FS, **kw)
+        tres = mt.analyze_dataset_time_varying(mapping, FS, **kw, **CPU)
+    jt, tt = jres.subject_table("mean"), tres.subject_table("mean")
+    assert type(tt) is type(jt)
+    assert list(tt.index) == list(jt.index) == ["s2", "s1"]
+    assert tt.index.name == jt.index.name == "subject"
+    if kind == "rank sweep":
+        assert list(tt.columns) == list(jt.columns)
+    else:
+        assert tt.name == jt.name
+    np.testing.assert_allclose(tt.to_numpy(), jt.to_numpy(), rtol=0, atol=1e-8)
+    grouped = tres.vaf_table().groupby(level="subject", sort=False).mean()
+    np.testing.assert_allclose(tt.to_numpy(), grouped.to_numpy(), rtol=1e-15, atol=0)
+    core = tres._subject_vaf_means()
+    assert list(core) == ["s2", "s1"]
+    for subject, means in core.items():
+        np.testing.assert_array_equal(np.asarray(tt.loc[subject]), means)
+
+
 def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.analyze_dataset(TRIALS[:2], FS, mesh=object(), **CPU)

@@ -938,3 +938,55 @@ def test_profiling_scopes_see_the_card(cuda):
     want = np.sqrt(((xs.cpu().double().numpy() - w @ h) ** 2).sum(axis=(1, 2)))
     assert (rep["n_iter"] == st.n_iter.cpu().numpy()).all()
     assert np.abs(rep["final_error"] - want).max() <= 1e-5 * want.max()
+
+
+def test_device_prefetch_stages_host_arrays_on_a_side_stream(cuda):
+    from muscle_synergies_tpu_torch.io import device_prefetch, stack_trials
+
+    rng = np.random.default_rng(60)
+    items = [rng.random((1000, 8)).astype(np.float32) for _ in range(4)]
+    pinned = torch.empty((500, 8), pin_memory=True).uniform_()
+    batch = stack_trials([items[0], items[1][:700]], device=cuda)
+    staged = list(device_prefetch(iter(items + [(pinned, batch)]), buffer_size=2,
+                                  device=cuda))
+    for got, want in zip(staged, items):
+        assert got.is_cuda and torch.equal(got.cpu(), torch.from_numpy(want))
+    got_pinned, got_batch = staged[-1]
+    assert got_pinned.is_cuda and torch.equal(got_pinned.cpu(), pinned)
+    assert got_batch.data is batch.data  # already on the card
+
+
+def test_the_consumer_stream_waits_for_the_staged_copy(cuda):
+    """A long K3 launch queued on the consumer's stream, then a large
+    staged copy: what the consumer computes after it sees the whole copy."""
+    from muscle_synergies_tpu_torch.io import device_prefetch
+
+    sos = filters.sos_design(4, 4.0, 2000.0)
+    busy = torch.rand((64, 124_460, 8), device=cuda)
+    host = [np.random.default_rng(s).random((2 ** 24,)).astype(np.float32)
+            for s in range(3)]
+    gen = device_prefetch(iter(host), buffer_size=1, device=cuda)
+    for want in host:
+        filter_cuda.sosfiltfilt_cuda(sos, busy, filters.default_padlen(sos), "odd")
+        got = next(gen)
+        total = got.double().sum()  # on the consumer's stream, after the wait
+        np.testing.assert_allclose(float(total), want.astype(np.float64).sum(),
+                                   rtol=1e-9)
+
+
+def test_record_stream_keeps_staged_memory_alive_across_chunks(cuda):
+    """Each chunk's tensor is dropped right after a long read of it is
+    queued; the next chunks' staging must not reuse its memory early."""
+    from muscle_synergies_tpu_torch.io import device_prefetch
+
+    host = [np.full((2 ** 22,), float(i + 1), dtype=np.float32) for i in range(3)]
+    sums = []
+    for chunk in device_prefetch(iter(host), buffer_size=2, device=cuda):
+        acc = chunk.clone()
+        for _ in range(200):  # a long read of the chunk on the consumer's stream
+            acc += chunk
+        sums.append(acc.double().sum())
+        del chunk
+    torch.cuda.synchronize()
+    for i, s in enumerate(sums):
+        assert float(s) == float((i + 1) * 201 * 2 ** 22)

@@ -71,7 +71,7 @@ def test_the_check_covers_the_ported_surface():
     for rel in ("", ".models", ".models.cnmf", ".models.nm3f", ".models.decode",
                 ".models.beta", ".models.stability", ".dataset", ".models.resume",
                 ".models.persist", ".models.export", ".utils.checkpoint",
-                ".utils.profiling"):
+                ".utils.profiling", ".io", ".io.batch", ".segment"):
         assert rel in MODULES, rel
 
 
@@ -92,6 +92,31 @@ def test_positional_parameters_follow_the_jax_package(rel):
         assert pos[:len(jax_pos)] == jax_pos, (name, pos, jax_pos)
         assert set(pos[len(jax_pos):]) <= PORT_ONLY, (name, pos[len(jax_pos):])
         assert jax_kw_only <= kw_only | set(pos), (name, jax_kw_only - kw_only)
+
+
+VIZ = ["plot_signal", "synergy_heatmap", "plot_fft", "plot_time_varying_synergies",
+       "plot_synergy_clusters", "plot_space_by_time"]
+
+
+@pytest.mark.parametrize("name", VIZ + ["ViconNexusData.plot_cols", "__main__.main"])
+def test_plots_and_the_cli_follow_the_jax_package(name):
+    """The JAX ``viz`` module has no ``__all__``; its plots, ``plot_cols``
+    and the CLI's ``main`` are held here, the port's extra keywords
+    (``columns``, ``index``, ``time``) keyword-only."""
+    import muscle_synergies_tpu.__main__ as jmain
+    import muscle_synergies_tpu.data as jdata
+    import muscle_synergies_tpu.viz as jviz
+
+    import muscle_synergies_tpu_torch.__main__ as tmain
+
+    theirs = {"viz": jviz, "ViconNexusData": jdata.ViconNexusData, "__main__": jmain}
+    mine = {"viz": port.viz, "ViconNexusData": port.ViconNexusData, "__main__": tmain}
+    owner, attr = name.split(".") if "." in name else ("viz", name)
+    (pos, kw_only), (jax_pos, jax_kw_only) = (
+        _parameters(getattr(mine[owner], attr)), _parameters(getattr(theirs[owner], attr)))
+    assert pos[:len(jax_pos)] == jax_pos, (name, pos, jax_pos)
+    assert set(pos[len(jax_pos):]) <= PORT_ONLY, (name, pos[len(jax_pos):])
+    assert jax_kw_only <= kw_only, (name, jax_kw_only - kw_only)
 
 
 @pytest.mark.parametrize("beta", [2.0, 1.0, 0.0, 1.5])
