@@ -205,6 +205,25 @@ then, failing on the first assertion that does not hold:
     ``--platform``: exit 0, its report within 1e-4 of the in-process one,
     and neither pandas nor matplotlib imported.
 
+21. the device mesh (``parallel``, ``torch.distributed``) at world size
+    1 over a real NCCL communicator, after 19: ``init_distributed()``
+    and ``make_mesh((1, 1))`` / ``make_mesh((1, 1), ("data", "model"))``
+    (the backend must be NCCL and every shard on the card); the meshed
+    ``analyze_dataset`` on phase 5's trials with MU at ``max_iter``
+    100,000 and with CD (a 2,000-iteration probe first; when it projects
+    past 60 s at 100,000, both sides run at 2,000), each one K3 launch
+    and no solver launch, VAF within 1e-3 of phase 5's kernel path (w
+    and h gaps, wall time and time an iteration printed against K1's and
+    K2's); ``sharded_sosfiltfilt`` / ``sharded_sosfilt`` on 64 x 124,460
+    x 8 folded to 512 channels, 7 and 2 K6 launches, within 5e-4 x
+    max|y| of K3 / K6, timed against them; ``sharded_fit_cd``,
+    ``sharded_fit_kl``, ``sharded_fit_mu_tp``, ``sharded_fit_cnmf`` and
+    ``sharded_fit_nm3f`` for 30 iterations against the plain functions
+    from the same start (1e-4); the meshed ``bootstrap_synergies`` and
+    ``cv_rank_selection`` on phase 18's subject against phase 18's
+    results (its bars); and an ``orbax`` checkpoint chunk saved and
+    restored bit-equal.
+
 Each main path is driven with every launch counter set to 0 just before
 it and read just after; the CD, RMS-CD and ``rank_sweep_batch`` paths
 must take K2's warp entry, the MU and causal paths K1's and the KL path
@@ -425,6 +444,7 @@ class Smoke:
                          "beta_nmf_warp": (beta_cuda, "warp_launches"),
                          "cnmf": (cnmf_cuda, "launches")}
         self.launches = {name: 0 for name in self.counters}
+        self.phase5, self.phase18 = {}, {}  # results phase 21 is held against
 
     def stage(self, label: str, seconds: float) -> None:
         log(f"stage {label}: {seconds:.3f} s  [{self.smi}]")
@@ -497,7 +517,8 @@ class Smoke:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        self.stage(f"main {label}", time.perf_counter() - t0)
+        self.last_seconds = time.perf_counter() - t0
+        self.stage(f"main {label}", self.last_seconds)
         counts = {k: getattr(mod, attr) for k, (mod, attr) in self.counters.items()}
         for k, v in counts.items():
             self.launches[k] += v
@@ -780,6 +801,7 @@ class Smoke:
                 lambda: analyze_dataset(emg, FS, ranks=(1, 2, 3, 4), config=config,
                                         solver=solver, device="cuda",
                                         dtype=torch.float32))
+            self.phase5[solver] = (results[solver], self.last_seconds)  # for 21
             # the 200 x 8 fits take the warp entries, never a block entry
             kname = "cd_nmf_warp" if solver == "cd" else "mu_nmf_warp"
             assert counts["sosfiltfilt"] > 0 and counts[kname] > 0, \
@@ -1812,6 +1834,7 @@ class Smoke:
             got, want, counts = against_host(
                 label, lambda v, **kw: stability.bootstrap_synergies(v, 4, **kw), x)
             assert counts[entry] == 1 and sum(counts.values()) == 1, counts
+            self.phase18.setdefault("bootstrap_synergies", got)  # the 2400 x 8 one
             same_similarities(label, got, want)
             same_components(label, got.reference_components, want.reference_components)
         big = xs[:25].reshape(-1, N_CHANNELS)  # 5,000 x 8: over one block's memory
@@ -1841,6 +1864,7 @@ class Smoke:
                  lambda v, **kw: stability.cv_time_varying_rank_selection(
                      v, (2, 3, 4, 5), 10, n_repeats=3, **kw))):
             got, want, counts = against_host(label, fn, subject)
+            self.phase18[label.split()[0]] = got
             assert sum(counts.values()) == 0, counts
             gap = float(np.abs(got.test_error / want.test_error - 1).max())
             means = np.round(got.mean_test_error.astype(float), 5).tolist()
@@ -2313,6 +2337,189 @@ print(json.dumps(out))
         self.timed("winners, normalize, vaf (time-varying)", tv_finish)
 
 
+    # ---- 21. the device mesh (torch.distributed) at world size 1 ----
+    def mesh_phase(self, emg, xs):
+        """Phase 21: the sharded code path of ``parallel`` over a real NCCL
+        communicator of one process (the card's machine has one card)."""
+        import shutil
+
+        import torch.distributed as dist
+
+        from muscle_synergies_tpu_torch import PipelineConfig, analyze_dataset, parallel
+        from muscle_synergies_tpu_torch.models import batch as mb
+        from muscle_synergies_tpu_torch.models import cnmf, nm3f, stability
+        from muscle_synergies_tpu_torch.ops import filters
+        from muscle_synergies_tpu_torch.parallel._spmd import full
+        from muscle_synergies_tpu_torch.utils.checkpoint import GridCheckpoint
+
+        torch, dev = self.torch, self.dev
+        t0 = time.perf_counter()
+        assert parallel.init_distributed() == 1
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        mesh = parallel.make_mesh((1, 1))
+        mesh_tp = parallel.make_mesh((1, 1), axis_names=("data", "model"))
+        log(f"mesh: NCCL, world size 1, {mesh} and {mesh_tp} in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        def on_card(state):
+            for f in state:
+                local = getattr(f, "to_local", lambda: f)()
+                assert local.device == dev, f"a shard on {local.device}"
+            return type(state)(*(full(f) for f in state))
+
+        # (a) the meshed dataset path against phase 5's kernel path
+        def gaps(label, got, mesh_s, want, want_s):
+            vaf = float(np.abs(got.vaf_overall - want.vaf_overall).max())
+            w_gap = float(np.abs(got.w - want.w).max() / np.abs(want.w).max())
+            h_gap = float(np.abs(got.h - want.h).max() / np.abs(want.h).max())
+            iters = int(got.n_iter.max())
+            log(f"mesh {label}: VAF gap {vaf:.3e} (bar 1e-3), w {w_gap:.3e}, h "
+                f"{h_gap:.3e} relative to max; n_iter max {int(got.n_iter.max())} "
+                f"(kernel {int(want.n_iter.max())}); wall {mesh_s:.3f} s, "
+                f"{mesh_s / iters * 1e6:.1f} us an iteration of the longest fit, "
+                f"against the kernel path's {want_s:.3f} s, "
+                f"{want_s / int(want.n_iter.max()) * 1e6:.1f} us  [{self.smi}]")
+            assert vaf <= 1e-3, f"mesh {label}: the VAF disagrees"
+
+        def meshed(label, **kw):
+            res, counts = self.main_path(f"analyze_dataset {label} mesh=(1, 1)",
+                                         lambda: analyze_dataset(emg, FS, mesh=mesh, **kw))
+            assert counts["sosfiltfilt"] == 1, counts  # time_shards 1: the local K3
+            assert sum(counts.values()) == 1, f"a kernel on the meshed solve: {counts}"
+            self.check_rank_sweep(f"mesh {label}", res)
+            return res
+
+        res = meshed("solver=mu", solver="mu")
+        gaps("solver=mu", res, self.last_seconds, *self.phase5["mu"])
+        probe = meshed("solver=cd max_iter=2000 (probe)", solver="cd", max_iter=2000)
+        probe_s = self.last_seconds
+        full_iter = PipelineConfig().max_iter
+        projected = probe_s * full_iter / 2000
+        if projected > 60:
+            log(f"mesh solver=cd: the probe projects {projected:.0f} s at max_iter "
+                f"{full_iter:,}: both sides compared at max_iter 2,000")
+            ref, _ = self.main_path("analyze_dataset solver=cd max_iter=2000 (K2)",
+                                    lambda: analyze_dataset(emg, FS, solver="cd",
+                                                            max_iter=2000))
+            gaps("solver=cd max_iter=2000", probe, probe_s, ref, self.last_seconds)
+        else:
+            cd = meshed("solver=cd", solver="cd")
+            gaps("solver=cd", cd, self.last_seconds, *self.phase5["cd"])
+
+        # (b) the sequence-parallel filters (K6 inside) against K3 and K6
+        sos = filters.sos_design(4, 4.0, FS)
+        sub = emg[:64]
+        sub = np.abs(sub - sub.mean(axis=1, keepdims=True))
+        folded = torch.from_numpy(sub).to(dev).transpose(0, 1).reshape(N_SAMPLES, -1)
+        folded = folded.contiguous()
+        del sub
+        for label, sharded, plain, launches, kname, kernel_ms in (
+                ("sharded_sosfiltfilt", parallel.sharded_sosfiltfilt, filters.sosfiltfilt,
+                 7, "K3", 0.747),
+                ("sharded_sosfilt", parallel.sharded_sosfilt, filters.sosfilt, 2, "K6",
+                 0.399)):
+            y, counts = self.main_path(f"{label} 124,460 x 512 mesh=(1, 1)",
+                                       lambda: sharded(sos, folded, mesh))
+            assert counts["sosfilt"] == launches and sum(counts.values()) == launches, \
+                counts
+            assert y.to_local().device == dev
+            ref = plain(sos, folded)
+            gap = float((y.full_tensor() - ref).abs().max() / ref.abs().max())
+            ms = cuda_ms(lambda: sharded(sos, folded, mesh))
+            ref_ms = cuda_ms(lambda: plain(sos, folded))
+            log(f"mesh {label}: {launches} K6 launches, gap to {kname} "
+                f"{gap:.3e} x max|y| (bar "
+                f"5e-4); {ms:.3f} ms against the kernel's {ref_ms:.3f} ms here "
+                f"({kernel_ms} ms in the PERF.md table)  [{self.smi}]")
+            assert gap <= 5e-4, f"mesh {label} disagrees"
+        del folded, y, ref
+
+        # (c) the other sharded solvers against the port's plain functions
+        g = torch.Generator(device=dev).manual_seed(21)
+        x = xs[:64].contiguous()
+        b, k, iters = x.shape[0], 4, 30
+        w0 = torch.rand((b, 200, k), device=dev, generator=g)
+        h0 = torch.rand((b, k, N_CHANNELS), device=dev, generator=g)
+        fixed = dict(max_iter=iters, tol=0.0)
+        cases = [
+            ("sharded_fit_cd", lambda: parallel.sharded_fit_cd(x, w0, h0, mesh, **fixed),
+             lambda: mb.cd_iterations_batch(x, w0, h0, iters, impl="torch"),
+             lambda s: (s.w, s.ht.transpose(-1, -2))),
+            ("sharded_fit_kl", lambda: parallel.sharded_fit_kl(x + 1e-3, w0, h0, mesh,
+                                                               **fixed),
+             lambda: mb.beta_mu_iterations_batch(x + 1e-3, w0, h0, iters, beta=1.0,
+                                                 impl="torch"),
+             lambda s: (s.w, s.h)),
+            ("sharded_fit_mu_tp", lambda: parallel.sharded_fit_mu_tp(x, w0, h0, mesh_tp,
+                                                                     **fixed),
+             lambda: mb.mu_iterations_batch(x, w0, h0, iters, impl="torch"),
+             lambda s: (s.w, s.h)),
+        ]
+        c0 = torch.rand((b, 200, k), device=dev, generator=g)
+        s0 = torch.rand((b, k, 10, N_CHANNELS), device=dev, generator=g)
+        cases.append(("sharded_fit_cnmf",
+                      lambda: parallel.sharded_fit_cnmf(x, c0, s0, mesh, **fixed),
+                      lambda: cnmf.cnmf_iterations_batch(x, c0, s0, iters, impl="torch"),
+                      lambda s: (s.c, s.s)))
+        w_t = torch.rand((200, 4), device=dev, generator=g)
+        a_t = torch.rand((b, 4, 3), device=dev, generator=g)
+        s_t = torch.rand((3, N_CHANNELS), device=dev, generator=g)
+        cases.append(("sharded_fit_nm3f",
+                      lambda: parallel.sharded_fit_nm3f(x, w_t, a_t, s_t, mesh, **fixed),
+                      lambda: nm3f.fit_nm3f(x, w_t, a_t, s_t, **fixed),
+                      lambda s: (s.w, s.a, s.s)))
+        for label, sharded, plain, factors in cases:
+            got, counts = self.main_path(f"{label} {b} x 200 x 8, {iters} iterations",
+                                         lambda: on_card(sharded()))
+            assert sum(counts.values()) == 0, counts
+            want = plain()
+            want = factors(want) if hasattr(want, "_fields") else want
+            gap = max(float((a - b).abs().max() / b.abs().max())
+                      for a, b in zip(factors(got), want))
+            log(f"mesh {label}: {iters} iterations from the same start, float32 on the "
+                f"card: max factor gap to the plain function {gap:.3e} (bar 1e-4)")
+            assert gap <= 1e-4, f"mesh {label} disagrees with the plain function"
+
+        # (d) the meshed stability calls against phase 18's
+        subject = xs[:12].reshape(-1, N_CHANNELS)
+        got, counts = self.main_path("bootstrap_synergies 2400x8 mesh=(1, 1)",
+                                     lambda: stability.bootstrap_synergies(subject, 4,
+                                                                           mesh=mesh))
+        assert sum(counts.values()) == 0, counts
+        want = self.phase18["bootstrap_synergies"]
+        sim_gap = float(np.abs(got.similarities - want.similarities).max())
+        cos = [float((a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum()))
+               for a, b in zip(got.reference_components, want.reference_components)]
+        log(f"mesh bootstrap_synergies: similarity gap to phase 18 {sim_gap:.3e} (bar "
+            f"2e-3), reference cosine min {min(cos):.6f} (bar 0.999)")
+        assert sim_gap <= 2e-3 and min(cos) >= 0.999, "mesh bootstrap disagrees"
+        got, counts = self.main_path(
+            "cv_rank_selection 2400x8, ranks 1-8 mesh=(1, 1)",
+            lambda: stability.cv_rank_selection(subject, range(1, 9), mesh=mesh))
+        assert sum(counts.values()) == 0, counts
+        want = self.phase18["cv_rank_selection"]
+        gap = float(np.abs(got.test_error / want.test_error - 1).max())
+        log(f"mesh cv_rank_selection: best rank {got.best_rank} (phase 18 "
+            f"{want.best_rank}), max relative gap {gap:.3e} (bar 1e-3)")
+        assert got.best_rank == want.best_rank and gap <= 1e-3, "mesh CV disagrees"
+
+        # (e) the orbax store round trip
+        root = os.path.join("build", "phase21_orbax")
+        shutil.rmtree(root, ignore_errors=True)
+        chunk = {"h": res.h, "vaf": res.vaf_overall, "n_iter": res.n_iter}
+        try:
+            store = GridCheckpoint(root, backend="orbax")
+            t = time.perf_counter()
+            store.save("chunk_0", chunk, meta={"phase": 21})
+            save_s = time.perf_counter() - t
+            back = GridCheckpoint(root, backend="orbax").load("chunk_0")
+            same = all(np.array_equal(back["arrays"][k], v) for k, v in chunk.items())
+            log(f"mesh orbax store: {sorted(chunk)} saved in {save_s * 1e3:.1f} ms, "
+                f"restored bit-equal {same}")
+            assert same and back["meta"] == {"phase": 21}, "the orbax store disagrees"
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+
 def main() -> int:
     import torch
 
@@ -2402,6 +2609,12 @@ def main() -> int:
     smoke.serving_phase(xs, *models)                         # 19
     smoke.stage("phase 19 (resume, persistence, export, profiling)",
                 time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    smoke.mesh_phase(emg, xs)                                # 21
+    smoke.stage("phase 21 (device mesh: NCCL at world size 1)", time.perf_counter() - t0)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
     del emg, xs
     smoke.capture_main(then=smoke.pipeline_cli_phase)        # 15, 20
     smoke.stage("whole script", time.perf_counter() - run_t0)

@@ -51,9 +51,12 @@ card's work (pinned chunks copied on a side CUDA stream), the plots of
 :mod:`.viz` need matplotlib, and ``python -m muscle_synergies_tpu_torch``
 is the command line (``describe``, ``analyze``, ``analyze-dataset``,
 ``export-transform``; ``--platform cpu`` without a card).
+:mod:`.parallel` runs the solvers and filters sharded over a
+``torch.distributed`` device mesh (NCCL on the card, gloo with
+``device="cpu"``), and every ``mesh=`` keyword takes such a mesh.
 """
 
-from . import analysis, dataset, io, models, ops, segment, utils, viz
+from . import analysis, dataset, io, models, ops, parallel, segment, utils, viz
 from .analysis import (
     digital_filter,
     fft_spectrum,
@@ -130,6 +133,7 @@ __all__ = [
     "models",
     "normalize",
     "ops",
+    "parallel",
     "plot_fft",
     "plot_signal",
     "preprocess_trials",

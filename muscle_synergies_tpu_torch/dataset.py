@@ -26,9 +26,14 @@ Port of :mod:`muscle_synergies_tpu.dataset`'s local paths:
    PyTorch products on the device (NM3F has no kernel).
 
 The entry points run on the card unless the caller passes
-``device="cpu"``.  Not ported yet, and raising ``NotImplementedError``:
-the mesh-sharded solve (ROADMAP, "Modules still to port": parallel).
-pandas is imported only by the result classes' table helpers.
+``device="cpu"``.  With ``mesh=`` (a ``(data, time)`` mesh of
+:func:`~muscle_synergies_tpu_torch.parallel.make_mesh`) every process
+of the job calls the entry point on the same trials: the time-axis
+preprocessing runs through the sequence-parallel filters when the
+mesh's time axis has more than one process, and the solve through the
+sharded solvers of :mod:`~muscle_synergies_tpu_torch.parallel` (plain
+PyTorch, no kernel); every process gets the whole result.  pandas is
+imported only by the result classes' table helpers.
 """
 
 from __future__ import annotations
@@ -57,7 +62,6 @@ from .models.cnmf import (
 )
 from .models.mu import EPSILON
 from .models.nm3f import (
-    _MESH_TODO,
     SpaceByTimeResult,
     _fit_space_by_time,
     _temporal_frame,
@@ -66,6 +70,8 @@ from .models.nm3f import (
 from .models.select import compute_regularization
 from .ops import batched as _b
 from .ops.emg import rms_window
+from .parallel._spmd import axis_size, gathered, pad_fits, usable_mesh
+from .parallel.mesh import DATA_AXIS
 from .utils.config import PipelineConfig, torch_impl
 
 __all__ = [
@@ -179,17 +185,83 @@ def _pad_trials(arrays, dtype: Optional[torch.dtype], pin: bool = False):
     return data, mask
 
 
+def _fold_channels(xs: torch.Tensor) -> torch.Tensor:
+    """``(B, N, L) -> (N, B*L)``: trials become extra channels, so a whole
+    batch is one sharded ``(N, C)`` filtering problem."""
+    b, n, l = xs.shape
+    return xs.transpose(0, 1).reshape(n, b * l)
+
+
+def _unfold_channels(y: torch.Tensor, b: int, l: int) -> torch.Tensor:
+    from .parallel._spmd import full
+
+    y = full(y)
+    return y.reshape(y.shape[0], b, l).transpose(0, 1)
+
+
+def _sharded_rms_batch(xs, window, mask, mesh):
+    """``moving_rms_batch`` with the sample axis sharded over the mesh's
+    time axis: the padded trials are exact (``'same'`` mode zero-pads past
+    each trial's end, which the batch's zero padding is), and the mask
+    zeroes the padding's outputs again."""
+    from .parallel.filters import sharded_moving_rms
+
+    b, n, l = xs.shape
+    if mask is not None:
+        shortest = int(mask.sum(dim=1).min())
+        if shortest < window:
+            raise ValueError(
+                f"window ({window} samples) is longer than the shortest "
+                f"trial ({shortest} valid samples)"
+            )
+    out = _unfold_channels(sharded_moving_rms(_fold_channels(xs), window, mesh), b, l)
+    return out if mask is None else out * mask[..., None]
+
+
+def _sharded_envelope_batch(xs, spec, sampling_frequency, mesh):
+    """``linear_envelope_batch`` of equal-length, zero-centered trials
+    with the lowpass sharded over the mesh's time axis
+    (:func:`~.parallel.filters.sharded_sosfiltfilt`, ``padtype='odd'``, or
+    ``sharded_sosfilt`` for the causal envelope)."""
+    from .parallel.filters import sharded_sosfilt, sharded_sosfiltfilt
+
+    b, n, l = xs.shape
+    folded = _fold_channels(xs.abs())
+    sos = spec.design(sampling_frequency)
+    if spec.zero_lag:
+        y = sharded_sosfiltfilt(sos, folded, mesh)
+    else:
+        y = sharded_sosfilt(sos, folded, mesh)
+    return _unfold_channels(y, b, l)
+
+
+def _time_shards(mesh) -> int:
+    """The size of the mesh's time axis (1 without one, or without a mesh)."""
+    if mesh is None or "time" not in (mesh.mesh_dim_names or ()):
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index("time"))
+
+
 def _preprocess_batch(xs: torch.Tensor, mask: Optional[torch.Tensor],
-                      sampling_frequency: float, config: PipelineConfig) -> torch.Tensor:
+                      sampling_frequency: float, config: PipelineConfig,
+                      mesh=None) -> torch.Tensor:
     """The configured preprocessing of one ``(B, N, L)`` batch where it
-    lies, ragged trials zero-padded with their ``(B, N)`` mask."""
+    lies, ragged trials zero-padded with their ``(B, N)`` mask.  With a
+    ``mesh`` whose time axis has more than one process, the moving RMS
+    and the equal-length envelope's lowpass run sharded over it."""
     spec = config.envelope
+    time_shards = _time_shards(mesh)
     # zero-center over each trial's valid samples, then the envelope
     if config.zero_center:
         xs = _b.zero_center_batch(xs, mask)
     if config.use_rms:
         window = rms_window(config.rms_window_s, sampling_frequency)
-        xs = _b.moving_rms_batch(xs, window, mask)
+        if time_shards > 1:
+            xs = _sharded_rms_batch(xs, window, mask, mesh)
+        else:
+            xs = _b.moving_rms_batch(xs, window, mask)
+    elif time_shards > 1 and mask is None:
+        xs = _sharded_envelope_batch(xs, spec, sampling_frequency, mesh)
     elif mask is not None and spec.zero_lag:
         # each trial filtered over its own length: one K3 launch
         xs = _b._ragged_zero_phase_envelope(
@@ -241,14 +313,17 @@ def preprocess_trials(
             zero-phase and causal filters through their CUDA kernels
             (K3, K6) on the card, one launch for all trials, ragged or
             not.
-        mesh: not ported (raises).
+        mesh: optional mesh; when its ``time`` axis has more than one
+            process, the moving RMS, or the lowpass of equal-length
+            trials, runs through the sequence-parallel filters
+            (:mod:`~.parallel.filters`, K6 on the card) with the batch
+            folded onto the channel axis.  The same result as the local
+            path up to rounding.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
     device, dtype = entry_placement(device, dtype)
     _check_reduce_to(config)
     xs, mask = _stage_trials(trials, device, dtype)
-    return _preprocess_batch(xs, mask, sampling_frequency, config)
+    return _preprocess_batch(xs, mask, sampling_frequency, config, mesh)
 
 
 @dataclass
@@ -442,15 +517,20 @@ def analyze_dataset(
         dtype, device: where and in what type to run the whole pipeline:
             the card by default, in float32 unless ``dtype`` says
             otherwise; ``device="cpu"`` runs the plain versions.
-        mesh: not ported (raises ``NotImplementedError``).
+        mesh: optional ``(data, time)`` mesh: the preprocessing as on
+            :func:`preprocess_trials`, and the grid solved by
+            ``sharded_fit_mu`` / ``sharded_fit_cd`` / ``sharded_fit_beta``
+            (fits over ``data``, samples over ``time``; ``impl`` is
+            ignored there).  A fit count that does not divide the data
+            axis gains copies that are dropped; a sample count that
+            does not divide the time axis warns and falls back to the
+            local solver, as does a mesh without those axes.
 
     Returns:
         :class:`DatasetResult` over the full ``(rank, trial)`` grid.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
     trials, subjects = _normalize_trials_subjects(trials, subjects)
-    sweep = _sweep_options(config, ranks, init=init, solver=solver,
+    sweep = _sweep_options(config, ranks, mesh=mesh, init=init, solver=solver,
                            beta_loss=beta_loss, max_iter=max_iter, tol=tol,
                            seed=seed, impl=impl, inner_iter=inner_iter,
                            alpha_W=alpha_W, alpha_H=alpha_H, l1_ratio=l1_ratio)
@@ -479,6 +559,7 @@ class _Sweep:
     alpha_W: float
     alpha_H: object
     l1_ratio: float
+    mesh: object = None
 
 
 def _sweep_options(
@@ -499,8 +580,7 @@ def _sweep_options(
 ) -> _Sweep:
     """Resolve and check :func:`analyze_dataset`'s solver keywords
     against ``config`` before any trial is touched."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    mesh = usable_mesh(mesh, "analyze_dataset", then="local single-device path")
     ranks = (ranks,) if isinstance(ranks, int) else tuple(ranks)
     solver = solver if solver is not None else config.solver
     if solver not in {"mu", "cd"}:
@@ -524,6 +604,7 @@ def _sweep_options(
         tol=tol if tol is not None else config.tol, seed=seed,
         impl=torch_impl(impl if impl is not None else config.solver_impl),
         inner_iter=inner_iter, alpha_W=alpha_W, alpha_H=alpha_H, l1_ratio=l1_ratio,
+        mesh=mesh,
     )
 
 
@@ -533,7 +614,7 @@ def _analyze_batch(xs: torch.Tensor, mask: Optional[torch.Tensor],
     """Preprocess one staged batch where it lies and solve its whole
     ``(rank, trial)`` grid in one batched fit; only the results come
     back to the host."""
-    xs = _preprocess_batch(xs, mask, sampling_frequency, config)
+    xs = _preprocess_batch(xs, mask, sampling_frequency, config, sweep.mesh)
     ranks, beta = sweep.ranks, sweep.beta
     if beta <= 0 and bool((xs == 0).any()):
         raise ValueError(
@@ -559,7 +640,23 @@ def _analyze_batch(xs: torch.Tensor, mask: Optional[torch.Tensor],
     grid_h = torch.cat(h_blocks)
     regs = dict(l1_reg_w=l1_w, l2_reg_w=l2_w, l1_reg_h=l1_h, l2_reg_h=l2_h,
                 max_iter=sweep.max_iter, tol=sweep.tol, impl=sweep.impl)
-    if sweep.solver == "mu":
+    mesh = usable_mesh(sweep.mesh, "analyze_dataset", n, hint=(
+        " Adjust reduce_to or the mesh shape to keep the fit sharded."))
+    if mesh is not None:
+        from .parallel import sharded_fit_beta, sharded_fit_cd, sharded_fit_mu
+
+        n_fits = grid_x.shape[0]
+        regs.pop("impl")
+        grids = pad_fits(axis_size(mesh, DATA_AXIS), grid_x, grid_w, grid_h)
+        if beta != 2.0:
+            state = sharded_fit_beta(*grids, mesh, beta=beta, **regs)
+        elif sweep.solver == "mu":
+            state = sharded_fit_mu(*grids, mesh, inner_iter=sweep.inner_iter, **regs)
+        else:
+            state = sharded_fit_cd(*grids, mesh, **regs)
+        state = gathered(state, n_fits)
+        h_final = state.ht.transpose(-1, -2) if sweep.solver == "cd" else state.h
+    elif sweep.solver == "mu":
         if beta != 2.0:
             state = fit_mu_beta_batch(grid_x, grid_w, grid_h, beta=beta, **regs)
         else:
@@ -876,14 +973,20 @@ def analyze_dataset_time_varying(
         dtype, device: as on :func:`analyze_dataset`: the card by
             default, in float32; ``device="cpu"`` runs the plain
             versions.
-        mesh: not ported (raises ``NotImplementedError``).
+        mesh: optional ``(data, time)`` mesh: the preprocessing as on
+            :func:`preprocess_trials`, and the restart grid through
+            ``sharded_fit_cnmf`` (fits over ``data``, samples over
+            ``time``, lag halos between neighbours; ``impl`` is ignored
+            there).  A trial length that does not divide the time axis,
+            or whose shards are shorter than the lag halo, warns and
+            falls back to the local solver.
 
     Returns:
         :class:`TimeVaryingDatasetResult` over all trials.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
     trials, subjects = _normalize_trials_subjects(trials, subjects)
+    mesh = usable_mesh(mesh, "analyze_dataset_time_varying",
+                       then="local single-device path")
     if n_synergies < 1:
         raise ValueError(f"n_synergies must be >= 1, got {n_synergies}")
     if n_inits < 1:
@@ -894,7 +997,7 @@ def analyze_dataset_time_varying(
 
     channel_names = _channel_names(trials[0]) if len(trials) else None
     xs = preprocess_trials(trials, sampling_frequency, config, dtype=dtype,
-                           device=device)
+                           mesh=mesh, device=device)
     b, t, l = xs.shape
     if not 1 <= n_lags <= t:
         raise ValueError(
@@ -905,11 +1008,18 @@ def analyze_dataset_time_varying(
     # on the host exactly as the JAX package draws them
     c0, s0 = init_cnmf(np.repeat(to_numpy(xs), n_inits, axis=0), n_synergies,
                        n_lags, seed=seed)
-    state = fit_cnmf_batch(
-        xs.repeat_interleave(n_inits, dim=0), as_tensor(c0, xs.device),
-        as_tensor(s0, xs.device), max_iter=max_iter, tol=tol, impl=impl,
-        precision=precision,
-    )
+    grid = (xs.repeat_interleave(n_inits, dim=0), as_tensor(c0, xs.device),
+            as_tensor(s0, xs.device))
+    mesh = usable_mesh(mesh, "analyze_dataset_time_varying", t, n_lags - 1)
+    if mesh is not None:
+        from .parallel import sharded_fit_cnmf
+
+        state = sharded_fit_cnmf(*pad_fits(axis_size(mesh, DATA_AXIS), *grid), mesh,
+                                 max_iter=max_iter, tol=tol, precision=precision)
+        state = gathered(state, b * n_inits)
+    else:
+        state = fit_cnmf_batch(*grid, max_iter=max_iter, tol=tol, impl=impl,
+                               precision=precision)
 
     errors = to_numpy(state.previous_error).reshape(b, n_inits)
     best = np.arange(b) * n_inits + np.argmin(errors, axis=1)
@@ -1066,24 +1176,28 @@ def analyze_dataset_space_by_time(
             full float32; ``"high"``: TF32 allowed).
         dtype, device: as on :func:`analyze_dataset`: the card by
             default, in float32; ``device="cpu"`` runs on the CPU.
-        mesh: not ported (raises ``NotImplementedError``).
+        mesh: optional ``(data, time)`` mesh: the preprocessing as on
+            :func:`preprocess_trials`, and each restart through
+            ``sharded_fit_nm3f`` (trials over ``data``, the shared time
+            base over ``time``; see
+            :func:`~.models.nm3f.find_space_by_time_synergies`).
 
     Returns:
         :class:`SpaceByTimeDatasetResult` for the whole dataset.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
     trials, subjects = _normalize_trials_subjects(trials, subjects)
+    mesh = usable_mesh(mesh, "analyze_dataset_space_by_time",
+                       then="local single-device path")
     max_iter = max_iter if max_iter is not None else config.max_iter
     tol = tol if tol is not None else config.tol
     channel_names = _channel_names(trials[0]) if len(trials) else None
 
     xs = preprocess_trials(trials, sampling_frequency, config, dtype=dtype,
-                           device=device)
+                           mesh=mesh, device=device)
     xs, _ = _validate_trial_stack(xs, xs.device, xs.dtype,
                                   empty="empty trial stack passed to NM3F")
     fit = _fit_space_by_time(xs, n_temporal, n_spatial, max_iter, tol, n_inits,
-                             seed, precision)
+                             seed, precision, mesh=mesh)
     w, a, s = (as_tensor(f, xs.device) for f in (fit.w, fit.a, fit.s))
     err2 = ((xs - w @ a @ s) ** 2).sum(dim=1)  # (B, L)
     tot2 = (xs * xs).sum(dim=1)

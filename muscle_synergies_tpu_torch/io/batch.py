@@ -17,7 +17,10 @@ consumer's kernels still read it) and keeps the pinned sources alive
 until the copy has completed.  With ``device="cpu"`` the same thread
 and bounded queue run with no streams.
 
-``sharding=`` is not ported yet and raises (ROADMAP, item 8b).
+``sharding=`` (a :class:`~muscle_synergies_tpu_torch.parallel.mesh.Sharding`
+of ``parallel.batch_sharding`` or ``parallel.replicated``) places each
+staged tensor on a device mesh with ``distribute_tensor``: every process
+of the job passes the same trials and holds its shard of the result.
 """
 
 from __future__ import annotations
@@ -35,10 +38,6 @@ from .._common import entry_placement
 from ..models.batch import pad_and_stack
 
 __all__ = ["TrialBatch", "stack_trials", "batch_iterator", "device_prefetch"]
-
-_SHARDING_TODO = ("sharding= is not ported yet (ROADMAP, modules still to port: "
-                  "item 8b, parallel)")
-
 
 @dataclass
 class TrialBatch:
@@ -75,21 +74,24 @@ def stack_trials(
         trials: ``(N_i, L)`` arrays sharing the channel count.
         pad_to: pad every trial to this length (defaults to the max).
         names: one identifier per trial.
-        sharding: not ported (raises ``NotImplementedError``).
+        sharding: optional ``parallel`` sharding: ``data`` and ``mask``
+            become DTensors placed by it (a ``Shard`` of a dimension the
+            mask lacks replicates it).
         dtype, device: where the batch goes: the card by default, in
             float32 there unless ``dtype`` says otherwise; with
             ``device="cpu"``, ``dtype=None`` keeps the trials' dtype.
     """
-    if sharding is not None:
-        raise NotImplementedError(_SHARDING_TODO)
     if names is not None and len(names) != len(trials):
         raise ValueError(f"got {len(names)} names for {len(trials)} trials")
     device, dtype = entry_placement(device, dtype)
     data, mask = pad_and_stack([np.asarray(t) for t in trials], pad_to=pad_to)
     data = torch.as_tensor(data).to(device=device, dtype=dtype)
+    mask = torch.as_tensor(mask).to(device=device, dtype=data.dtype)
+    if sharding is not None:
+        data, mask = sharding.apply(data), sharding.apply(mask)
     return TrialBatch(
         data=data,
-        mask=torch.as_tensor(mask).to(device=device, dtype=data.dtype),
+        mask=mask,
         lengths=np.array([t.shape[0] for t in trials]),
         names=list(names) if names is not None else None,
     )
@@ -174,11 +176,11 @@ def device_prefetch(
     tensor is used as it is), sent with ``non_blocking=True`` on a side
     stream, and the consumer's stream waits on the copy's event before
     the item is yielded.  ``device="cpu"`` turns NumPy leaves into CPU
-    tensors (no copy) and runs no streams.  ``sharding=`` is not
-    ported (raises ``NotImplementedError``).
+    tensors (no copy) and runs no streams.  With ``sharding`` (a
+    ``parallel`` sharding) each staged tensor becomes a DTensor placed
+    by it, in the consumer's thread, so its collectives keep the
+    program order of every process.
     """
-    if sharding is not None:
-        raise NotImplementedError(_SHARDING_TODO)
     device, _ = entry_placement(device, None)
     on_card = device.type == "cuda"
     q: "queue.Queue" = queue.Queue(maxsize=buffer_size)
@@ -248,6 +250,9 @@ def device_prefetch(
                 in_flight.append((got.event, got.sources))
                 while in_flight and in_flight[0][0].query():
                     in_flight.popleft()
+            if sharding is not None:
+                yield _tree_map(lambda t: sharding.apply(_host_tensor(t)), got.item)
+                continue
             yield got.item
     finally:
         # unblock the producer on early exit (break / GeneratorExit) so

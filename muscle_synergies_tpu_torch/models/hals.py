@@ -52,9 +52,15 @@ def cd_pass(
         hht = hht + l2_reg * torch.eye(k, dtype=hht.dtype, device=hht.device)
     if l1_reg != 0.0:
         xht = xht - l1_reg
+    return _sweep(w, hht, xht)
+
+
+def _sweep(w: torch.Tensor, hht: torch.Tensor, xht: torch.Tensor):
+    """:func:`cd_pass` from its (penalised) Gram ``hht`` and cross
+    products ``xht``: the cyclic column updates and the violation."""
     w = w.clone()
-    violation = torch.zeros(x.shape[:-2], dtype=x.dtype, device=x.device)
-    for s in range(k):
+    violation = torch.zeros(w.shape[:-2], dtype=w.dtype, device=w.device)
+    for s in range(w.shape[-1]):
         grad = (w @ hht[..., :, s : s + 1])[..., 0] - xht[..., s]
         col = w[..., s]
         pg = torch.where(col == 0.0, grad.clamp(max=0.0), grad)

@@ -73,9 +73,6 @@ __all__ = [
     "sbt_vaf",
 ]
 
-_MESH_TODO = "mesh= is not ported yet (ROADMAP, modules still to port: item 8, parallel)"
-
-
 def _t(m: torch.Tensor) -> torch.Tensor:
     return m.transpose(-1, -2)
 
@@ -483,14 +480,50 @@ class _SpaceByTimeFit(NamedTuple):
     restart_errors: np.ndarray
 
 
+def _fit_restarts_meshed(xs, inits, mesh, max_iter, tol, precision=None):
+    """The restarts through :func:`~..parallel.sharded_fit_nm3f`, one call
+    each (the shared modules make each restart one global problem, so
+    restarts cannot share the data axis as the per-trial grids do), their
+    states stacked on a leading restart axis as the local path's are.
+
+    A trial count that does not divide the data axis is padded with zero
+    trials of zero coefficients, which add nothing to any numerator, Gram
+    or error (their coefficients stay zero).  Returns ``None``, after a
+    warning, when the mesh lacks the ``(data, time)`` axes or the time
+    axis does not divide; the caller then fits locally.
+    """
+    from ..parallel._spmd import axis_size, full, usable_mesh
+    from ..parallel.mesh import DATA_AXIS
+    from ..parallel.nm3f import sharded_fit_nm3f
+
+    b, t, _ = xs.shape
+    mesh = usable_mesh(mesh, "find_space_by_time_synergies", t, 0)
+    if mesh is None:
+        return None
+    pad = (-b) % axis_size(mesh, DATA_AXIS)
+    if pad:
+        xs = torch.cat([xs, xs.new_zeros((pad,) + tuple(xs.shape[1:]))])
+    states = []
+    for w0, a0, s0 in inits:
+        a0 = as_tensor(a0, xs.device, xs.dtype)
+        if pad:
+            a0 = torch.cat([a0, a0.new_zeros((pad,) + tuple(a0.shape[1:]))])
+        st = sharded_fit_nm3f(xs, as_tensor(w0, xs.device, xs.dtype), a0,
+                              as_tensor(s0, xs.device, xs.dtype), mesh,
+                              max_iter=max_iter, tol=tol, precision=precision)
+        st = NM3FState(*(full(f) for f in st))
+        states.append(st._replace(a=st.a[:b]))
+    return NM3FState(*(torch.stack(f) for f in zip(*states)))
+
+
 def _fit_space_by_time(xs: torch.Tensor, n_temporal: int, n_spatial: int,
                        max_iter: int, tol: float, n_inits: int, seed: int,
-                       precision) -> _SpaceByTimeFit:
+                       precision, mesh=None) -> _SpaceByTimeFit:
     """The array core of :func:`find_space_by_time_synergies`,
     :class:`NM3FModel` and ``analyze_dataset_space_by_time``: the rank
     refusals, the host inits (restart ``r`` seeded ``seed + r``), every
-    restart fitted at once where ``xs`` lies, and the lowest-error one
-    normalised, with its VAF."""
+    restart fitted at once where ``xs`` lies (or each on the ``mesh``),
+    and the lowest-error one normalised, with its VAF."""
     b, t, l = xs.shape
     if not 1 <= n_temporal <= t:
         raise ValueError(f"n_temporal must be in [1, n_samples={t}], got {n_temporal}")
@@ -498,9 +531,15 @@ def _fit_space_by_time(xs: torch.Tensor, n_temporal: int, n_spatial: int,
         raise ValueError(f"n_spatial must be in [1, n_muscles={l}], got {n_spatial}")
     _check_inits(n_inits)
     xs_host = to_numpy(xs)
-    w0, a0, s0 = _stacked(xs, [init_nm3f(xs_host, n_temporal, n_spatial, seed=seed + r)
-                               for r in range(n_inits)])
-    states = _fit_restarts(xs, w0, a0, s0, max_iter, tol, 10, True, True, precision)
+    inits = [init_nm3f(xs_host, n_temporal, n_spatial, seed=seed + r)
+             for r in range(n_inits)]
+    states = None
+    if mesh is not None:
+        states = _fit_restarts_meshed(xs, inits, mesh, max_iter, tol, precision)
+    if states is None:
+        w0, a0, s0 = _stacked(xs, inits)
+        states = _fit_restarts(xs, w0, a0, s0, max_iter, tol, 10, True, True,
+                               precision)
     errors = to_numpy(states.previous_error)
     best = int(np.argmin(errors))
     w, a, s = normalize_modules(states.w[best], states.a[best], states.s[best])
@@ -548,7 +587,12 @@ def find_space_by_time_synergies(
             ``(T, L)`` DataFrames, arrays or tensors.
         n_temporal / n_spatial: module counts ``P`` / ``Q``.
         max_iter / tol: sklearn-style stopping (see :func:`fit_nm3f`).
-        mesh: not ported (raises ``NotImplementedError``).
+        mesh: optional ``(data, time)`` mesh: each restart runs through
+            :func:`~..parallel.sharded_fit_nm3f` (trials and coefficients
+            over ``data``, the shared time base over ``time``); a trial
+            count that does not divide the data axis is padded with
+            zero trials (exact), and a time axis that does not divide
+            warns and falls back to the local solver.
         precision: matmul precision of every product.
         device, dtype: where the fit runs: the card by default, in
             float32 there; off the card a float32 stack solves in
@@ -556,12 +600,10 @@ def find_space_by_time_synergies(
     """
     import pandas
 
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
     xs, columns = _validate_trial_stack(trials, device, dtype,
                                         empty="empty trial stack passed to NM3F")
     fit = _fit_space_by_time(xs, n_temporal, n_spatial, max_iter, tol, n_inits, seed,
-                             precision)
+                             precision, mesh=mesh)
     cols = columns if columns is not None else list(range(xs.shape[2]))
     return SpaceByTimeResult(
         temporal_modules=_temporal_frame(fit.w),

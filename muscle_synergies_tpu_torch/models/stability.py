@@ -30,8 +30,14 @@ The resample indices, masks and host inits are the JAX package's NumPy
 draws, call for call; the ``random`` NMF init draws its ``jax.random``
 normals (:mod:`.._prng`).  The entry points run on the card unless
 ``device="cpu"`` (float32 there; ``dtype`` overrides, and ``device="cpu"``
-keeps float64).  ``mesh=`` is not ported (ROADMAP item 8) and raises.
-No pandas is needed: a DataFrame is read as an array.
+keeps float64).  With ``mesh=`` (a ``(data, time)`` mesh of
+:func:`~muscle_synergies_tpu_torch.parallel.make_mesh`, every process
+calling with the same data) the MU and convolutive bootstraps run
+through the sharded solvers (``sharded_fit_mu``, ``sharded_fit_cnmf``:
+fits over ``data``, samples over ``time``), and every other grid's fits
+split over all the mesh's processes, each running its slice on the
+loop above, then gathered: the same fits as without a mesh.  No pandas
+is needed: a DataFrame is read as an array.
 """
 
 from __future__ import annotations
@@ -82,9 +88,32 @@ def _place(x, device, dtype):
     return host, as_tensor(x if isinstance(x, torch.Tensor) else host, device, dtype)
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(_nm3f._MESH_TODO)
+def _over_mesh(mesh, caller: str, fit, *per_fit):
+    """``fit(*per_fit)``, or with a usable ``mesh`` the fits (the leading
+    axis of ``per_fit``) split over all its processes and gathered back."""
+    from ..parallel._spmd import gather_fits, usable_mesh
+
+    mesh = usable_mesh(mesh, caller, then="local single-device path")
+    if mesh is None:
+        return fit(*per_fit)
+    return gather_fits(mesh, fit, *per_fit)
+
+
+def _sharded_solve(mesh, caller: str, n: int, n_lags: int, solve, *grids):
+    """``solve(*grids, mesh)`` of the sharded MU or convolutive solver,
+    gathered, when ``mesh`` is usable and its time axis divides the ``n``
+    samples with one shard covering the lag halo; ``None`` otherwise (a
+    warning said why), for the caller's local fit."""
+    from ..parallel._spmd import axis_size, gathered, pad_fits, usable_mesh
+    from ..parallel.mesh import DATA_AXIS
+
+    mesh = usable_mesh(mesh, caller, then="local single-device path")
+    mesh = usable_mesh(mesh, caller, n, n_lags - 1 if n_lags > 1 else None,
+                       what="sample count", then="local batched solver")
+    if mesh is None:
+        return None
+    grids_padded = pad_fits(axis_size(mesh, DATA_AXIS), *grids)
+    return gathered(solve(*grids_padded, mesh), grids[0].shape[0])
 
 
 def _unit(m: torch.Tensor, dim: int) -> torch.Tensor:
@@ -169,10 +198,12 @@ def bootstrap_synergies(
         _resample_plan: ``(indices, row0)``, precomputed resample rows
             (resume plumbing); the init is the same for every row, so
             ``row0`` is not needed.
+        mesh: optional ``(data, time)`` mesh: the batch through
+            :func:`~..parallel.sharded_fit_mu` (no kernel); a sample count
+            that does not divide the time axis warns and fits locally.
         device, dtype: where the fits run (the card by default).
         impl: the fits' route (:func:`~.batch.fit_mu_batch`).
     """
-    _refuse_mesh(mesh)
     _, x = _place(x, device, dtype)
     n = x.shape[0]
     if _resample_plan is None:
@@ -183,7 +214,13 @@ def bootstrap_synergies(
         n_boot = idx.shape[0]
     xs = torch.cat([x[None], x[torch.as_tensor(idx, device=x.device)]])
     w0, h0 = initialize_nmf(xs, n_components, init=init, seed=seed)
-    states = fit_mu_batch(xs, w0, h0, max_iter=max_iter, tol=tol, impl=impl)
+    from ..parallel.nmf import sharded_fit_mu
+
+    states = _sharded_solve(
+        mesh, "bootstrap_synergies", n, 1,
+        lambda *g: sharded_fit_mu(*g, max_iter=max_iter, tol=tol), xs, w0, h0)
+    if states is None:
+        states = fit_mu_batch(xs, w0, h0, max_iter=max_iter, tol=tol, impl=impl)
     hs = to_numpy(states.h).astype(float)
     h_ref = hs[0]
     sims = np.stack([_match_components(h_ref, hs[1 + b]) for b in range(n_boot)])
@@ -262,9 +299,9 @@ def cv_rank_selection(
     For every (repeat, rank) pair a masked MU fit runs (its init on the
     observed matrix, seeded ``seed + repeat``); all pairs run as one
     batched loop, ranks zero-padded to the maximum.  Plain PyTorch (no
-    kernel) on ``device``.
+    kernel) on ``device``; with a ``mesh`` the grid's fits split over
+    all its processes.
     """
-    _refuse_mesh(mesh)
     _, x = _place(x, device, dtype)
     n, l = x.shape
     ranks = tuple(ranks)
@@ -280,8 +317,10 @@ def cv_rank_selection(
             h0s.append(torch.nn.functional.pad(h0, (0, 0, 0, k_max - k)))
     gm = masks.repeat_interleave(len(ranks), dim=0)
     gx = x.expand(gm.shape)
-    fits = fit_mu_masked(gx, gm, torch.stack(w0s), torch.stack(h0s),
-                         max_iter=max_iter, tol=tol)
+    fits = _over_mesh(
+        mesh, "cv_rank_selection",
+        lambda *g: fit_mu_masked(*g, max_iter=max_iter, tol=tol),
+        gx, gm, torch.stack(w0s), torch.stack(h0s))
     test_error = _heldout(x, gm, fits.w @ fits.h).reshape(n_repeats, len(ranks))
     best_rank = int(ranks[int(np.argmin(test_error.mean(axis=0)))])
     return CVResult(ranks, test_error, best_rank)
@@ -401,9 +440,9 @@ def bootstrap_time_varying_synergies(
     (``match_max_shift`` lags each way, default ``n_lags // 2``).
     ``_resample_plan`` is ``(indices, row0)``: precomputed rows and
     their global offset, so the per-row init seeds ``seed + row0 + b``
-    match the unchunked run.
+    match the unchunked run.  With a ``mesh`` the batch runs through
+    :func:`~..parallel.sharded_fit_cnmf` (no kernel).
     """
-    _refuse_mesh(mesh)
     host, x = _place(x, device, dtype)
     n = x.shape[0]
     if block_len is None:
@@ -428,7 +467,14 @@ def bootstrap_time_varying_synergies(
     xs = torch.cat([x[None], x[torch.as_tensor(idx, device=x.device)]])
     c0s = as_tensor(np.concatenate([c0[None], c0b]), x.device, x.dtype)
     s0s = as_tensor(np.concatenate([s0[None], s0b]), x.device, x.dtype)
-    states = _cnmf.fit_cnmf_batch(xs, c0s, s0s, max_iter=max_iter, tol=tol, impl=impl)
+    from ..parallel.cnmf import sharded_fit_cnmf
+
+    states = _sharded_solve(
+        mesh, "bootstrap_time_varying_synergies", n, n_lags,
+        lambda *g: sharded_fit_cnmf(*g, max_iter=max_iter, tol=tol), xs, c0s, s0s)
+    if states is None:
+        states = _cnmf.fit_cnmf_batch(xs, c0s, s0s, max_iter=max_iter, tol=tol,
+                                      impl=impl)
     _, s_all = _cnmf.normalize_synergies(states.c, states.s)
     s_all = to_numpy(s_all).astype(float)
     s_ref = s_all[0]
@@ -483,7 +529,6 @@ def cv_time_varying_rank_selection(
     zero-padded to the maximum), and score each rank's held-out
     reconstruction error.  Plain PyTorch (no kernel) on ``device``.
     """
-    _refuse_mesh(mesh)
     host, x = _place(x, device, dtype)
     n, l = x.shape
     ranks = tuple(ranks)
@@ -498,10 +543,11 @@ def cv_time_varying_rank_selection(
             c0s.append(np.pad(c0, ((0, 0), (0, k_max - k))))
             s0s.append(np.pad(s0, ((0, k_max - k), (0, 0), (0, 0))))
     gm = masks.repeat_interleave(len(ranks), dim=0)
-    fits = fit_cnmf_masked(x.expand(gm.shape), gm,
-                           as_tensor(np.stack(c0s), x.device, x.dtype),
-                           as_tensor(np.stack(s0s), x.device, x.dtype),
-                           max_iter=max_iter, tol=tol)
+    fits = _over_mesh(
+        mesh, "cv_time_varying_rank_selection",
+        lambda *g: fit_cnmf_masked(*g, max_iter=max_iter, tol=tol),
+        x.expand(gm.shape), gm, as_tensor(np.stack(c0s), x.device, x.dtype),
+        as_tensor(np.stack(s0s), x.device, x.dtype))
     rec = _cnmf.cnmf_reconstruct(fits.c, fits.s)
     test_error = _heldout(x, gm, rec).reshape(n_repeats, len(ranks))
     best_rank = int(ranks[int(np.argmin(test_error.mean(axis=0)))])
@@ -512,12 +558,23 @@ def cv_time_varying_rank_selection(
 # space-by-time (NM3F) stability and module-count selection
 # ---------------------------------------------------------------------------
 
-def _fit_stack(xs, inits, max_iter, tol, update_w=True, update_s=True, mask=None):
+def _fit_stack(xs, inits, max_iter, tol, update_w=True, update_s=True, mask=None,
+               mesh=None, caller: str = ""):
     """Every fit of ``inits`` (``[(W, A, S), ...]`` host arrays) at once,
-    each stopping on its own: :func:`fit_nm3f` restart by restart."""
+    each stopping on its own: :func:`fit_nm3f` restart by restart.  The
+    trials are shared ``(B, T, L)`` or per fit ``(R, B, T, L)``; with a
+    ``mesh`` the fits split over its processes."""
     w0, a0, s0 = (as_tensor(np.stack(f), xs.device, xs.dtype) for f in zip(*inits))
-    return _nm3f._fit_restarts(xs, w0, a0, s0, max_iter, tol, 10, update_w, update_s,
-                               None, mask=mask)
+    per_fit = [w0, a0, s0] + ([xs] if xs.ndim == 4 else []) + (
+        [] if mask is None else [mask])
+
+    def fit(w, a, s, *rest):
+        rest = list(rest)
+        x_fit = rest.pop(0) if xs.ndim == 4 else xs.to(w.device)
+        return _nm3f._fit_restarts(x_fit, w, a, s, max_iter, tol, 10, update_w,
+                                   update_s, None, mask=rest[0] if rest else None)
+
+    return _over_mesh(mesh, caller, fit, *per_fit)
 
 
 def _trial_stack(xs, device, dtype):
@@ -555,7 +612,6 @@ def bootstrap_space_by_time(
         reference components are the unit-norm ``(P, T)`` temporal and
         ``(Q, L)`` spatial modules of the full fit.
     """
-    _refuse_mesh(mesh)
     host, x = _trial_stack(xs, device, dtype)
     b = host.shape[0]
     if _resample_plan is None:
@@ -569,7 +625,8 @@ def bootstrap_space_by_time(
     inits += [_nm3f.init_nm3f(host[idx[r]], n_temporal, n_spatial,
                               seed=seed + 1 + row0 + r) for r in range(n_boot)]
     stack = torch.cat([x[None], x[torch.as_tensor(idx, device=x.device)]])
-    states = _fit_stack(stack, inits, max_iter, tol)
+    states = _fit_stack(stack, inits, max_iter, tol, mesh=mesh,
+                        caller="bootstrap_space_by_time")
     wn = to_numpy(_unit(states.w, -2).transpose(-1, -2)).astype(float)  # (R, P, T)
     sn = to_numpy(_unit(states.s, -1)).astype(float)  # (R, Q, L)
     sims_w = np.stack([_match_components(wn[0], wn[1 + r]) for r in range(n_boot)])
@@ -637,12 +694,13 @@ def _padded(w0, a0, s0, p_max: int, q_max: int):
 
 
 def _cv_grid(x, masks, inits, n_repeats, max_iter, tol, update_w=True,
-             update_s=True) -> np.ndarray:
+             update_s=True, mesh=None, caller: str = "") -> np.ndarray:
     """Held-out errors ``(n_repeats, n_candidates)`` of one batched
     masked NM3F loop over the (repeat, candidate) grid."""
     per_repeat = len(inits) // n_repeats
     gm = masks.repeat_interleave(per_repeat, dim=0)
-    fits = _fit_stack(x, inits, max_iter, tol, update_w, update_s, mask=gm)
+    fits = _fit_stack(x, inits, max_iter, tol, update_w, update_s, mask=gm,
+                      mesh=mesh, caller=caller)
     rec = _nm3f._reconstruct(fits.w, fits.a, fits.s)
     return _heldout(x, gm, rec).reshape(n_repeats, per_repeat)
 
@@ -666,7 +724,6 @@ def cv_space_by_time_selection(
     batched loop with both module counts zero-padded to the grid maxima,
     and score each candidate's held-out reconstruction error.
     """
-    _refuse_mesh(mesh)
     host, x = _trial_stack(xs, device, dtype)
     b, t, l = host.shape
     pairs = tuple((int(p), int(q)) for p, q in pairs)
@@ -677,7 +734,8 @@ def cv_space_by_time_selection(
     inits = [_padded(*_nm3f.init_nm3f(host * masks_host[r], p, q, seed=seed + r),
                      p_max, q_max)
              for r in range(n_repeats) for p, q in pairs]
-    test_error = _cv_grid(x, masks, inits, n_repeats, max_iter, tol)
+    test_error = _cv_grid(x, masks, inits, n_repeats, max_iter, tol, mesh=mesh,
+                          caller="cv_space_by_time_selection")
     best = pairs[int(np.argmin(test_error.mean(axis=0)))]
     return SpaceByTimeCVResult(pairs, test_error, best)
 
@@ -783,7 +841,6 @@ def _cv_shared_factor_selection(
     masked NM3F loop over the (repeat, candidate) grid, the free side
     zero-padded to the grid maximum and the other frozen at identity;
     the inits drawn from the masks' generator, after them."""
-    _refuse_mesh(mesh)
     host, x = _trial_stack(xs, device, dtype)
     b, t, l = host.shape
     candidates = tuple(int(k) for k in candidates)
@@ -811,7 +868,9 @@ def _cv_shared_factor_selection(
                 s0[:k] = rng.uniform(0, 2 * c, (k, l))
                 inits.append((eye, a0, s0))
     test_error = _cv_grid(x, masks, inits, n_repeats, max_iter, tol,
-                          update_w=temporal, update_s=not temporal)
+                          update_w=temporal, update_s=not temporal, mesh=mesh,
+                          caller="cv_temporal_selection" if temporal
+                          else "cv_shared_spatial_selection")
     best = candidates[int(np.argmin(test_error.mean(axis=0)))]
     return CVResult(candidates, test_error, best)
 
@@ -870,7 +929,6 @@ def _bootstrap_shared_factor(
     """Trial-axis bootstrap core shared by the tMod/sMod wrappers: the
     full fit (init seeded ``seed``) and the refits (``seed + 1 + row0 +
     r``) with one side frozen at identity, as one batched loop."""
-    _refuse_mesh(mesh)
     host, x = _trial_stack(xs, device, dtype)
     b, t, l = host.shape
     _check_module_count(k, t if temporal else l, "module count")
@@ -898,7 +956,9 @@ def _bootstrap_shared_factor(
     inits += [random_init(host[idx[r]], row0 + r) for r in range(n_boot)]
     stack = torch.cat([x[None], x[torch.as_tensor(idx, device=x.device)]])
     states = _fit_stack(stack, inits, max_iter, tol, update_w=temporal,
-                        update_s=not temporal)
+                        update_s=not temporal, mesh=mesh,
+                        caller="bootstrap_temporal_synergies" if temporal
+                        else "bootstrap_shared_spatial_synergies")
     if temporal:
         mods = _unit(states.w, -2).transpose(-1, -2)  # (R, k, T)
     else:

@@ -8,11 +8,17 @@ with ``os.replace``, so a restarted job never reads a half-written
 file.  The files have the JAX package's layout and keys, so a directory
 started by one package resumes in the other.
 
-Only the npz backend is ported.  ``backend="orbax"`` (orbax is a JAX
-library; its multi-host saves of sharded arrays fall to
-``torch.distributed.checkpoint`` with ROADMAP item 8, parallel) raises
-``NotImplementedError``.  pandas is imported only where a VAF table is
-built (:meth:`SweepCheckpoint.load`, :func:`find_synergies_checkpointed`).
+``backend="orbax"`` keeps the JAX package's layout of that backend, one
+directory per sweep rank or key (``<dir>/rank_<k>/``, ``<dir>/<key>/``),
+each holding the same arrays and metadata as the npz store's file, as
+``data.npz``: written into ``<name>.tmp/`` and published by renaming
+the directory, as orbax publishes.  In a job of several processes every
+process calls ``save``, the first one writes and all wait for it.  The
+values loaded equal the JAX package's orbax store's, but the
+directories do not load in each other's package (orbax is a JAX
+library): the ``.npz`` files are the format both packages read.
+pandas is imported only where a VAF table is built
+(:meth:`SweepCheckpoint.load`, :func:`find_synergies_checkpointed`).
 """
 
 from __future__ import annotations
@@ -32,29 +38,56 @@ __all__ = [
     "find_synergies_checkpointed",
 ]
 
-_ORBAX_TODO = (
-    "backend='orbax' is not ported (ROADMAP, modules still to port: item 8, "
-    "parallel, where torch.distributed.checkpoint takes its multi-host role); "
-    "use backend='npz'"
-)
 _KEY_RE = re.compile(r"^[\w\-]+$")
 
 
 def _directory(directory, backend: str) -> Path:
     if backend not in ("npz", "orbax"):
         raise ValueError(f"backend must be 'npz' or 'orbax', got {backend!r}")
-    if backend == "orbax":
-        raise NotImplementedError(_ORBAX_TODO)
     path = Path(directory)
     path.mkdir(parents=True, exist_ok=True)
     return path
 
 
-def _publish(path: Path, **arrays) -> None:
-    """Write ``arrays`` to ``path`` through a temporary file, atomically."""
-    tmp = path.with_suffix(".tmp.npz")
-    np.savez_compressed(tmp, **arrays)
-    os.replace(tmp, path)
+def _entries(directory: Path, backend: str, pattern: str):
+    """The published entries' stems: ``.npz`` files, or the checkpoint
+    directories of the ``orbax`` backend (neither temporary)."""
+    if backend == "npz":
+        return [p.stem for p in directory.glob(pattern + ".npz")
+                if not p.name.endswith(".tmp.npz")]
+    return [p.name for p in directory.glob(pattern)
+            if p.is_dir() and not p.name.endswith(".tmp")]
+
+
+def _publish(path: Path, backend: str, **arrays) -> None:
+    """Write ``arrays`` at ``path`` atomically: an ``.npz`` through a
+    temporary file, or (``orbax``) a directory holding ``data.npz``
+    through a temporary directory that is renamed into place."""
+    if backend == "npz":
+        tmp = path.with_suffix(".tmp.npz")
+        np.savez_compressed(tmp, **arrays)
+        os.replace(tmp, path)
+        return
+    import shutil
+
+    import torch.distributed as dist
+
+    multi = dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+    if not multi or dist.get_rank() == 0:
+        tmp = path.with_name(path.name + ".tmp")
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir()
+        np.savez_compressed(tmp / "data.npz", **arrays)
+        if path.exists():
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+    if multi:
+        dist.barrier()
+
+
+def _open(path: Path, backend: str):
+    """``np.load`` of what :func:`_publish` wrote at ``path``."""
+    return np.load(path if backend == "npz" else path / "data.npz", allow_pickle=True)
 
 
 def _meta(meta: Optional[Mapping]) -> np.ndarray:
@@ -64,8 +97,9 @@ def _meta(meta: Optional[Mapping]) -> np.ndarray:
 class SweepCheckpoint:
     """Directory-backed store of per-rank factorization results.
 
-    Layout: ``<dir>/rank_<k>.npz`` holding arrays ``w``, ``h``, ``vaf``,
-    the VAF table's columns and JSON metadata (iterations, loss).
+    Layout: ``<dir>/rank_<k>.npz`` (or the directory ``<dir>/rank_<k>/``
+    of the ``orbax`` backend) holding arrays ``w``, ``h``, ``vaf``, the
+    VAF table's columns and JSON metadata (iterations, loss).
     """
 
     def __init__(self, directory: Union[str, os.PathLike], backend: str = "npz"):
@@ -73,13 +107,14 @@ class SweepCheckpoint:
         self.backend = backend
 
     def _path(self, rank: int) -> Path:
-        return self.directory / f"rank_{rank}.npz"
+        suffix = ".npz" if self.backend == "npz" else ""
+        return self.directory / f"rank_{rank}{suffix}"
 
     def completed_ranks(self):
         ranks = []
-        for p in self.directory.glob("rank_*.npz"):
+        for stem in _entries(self.directory, self.backend, "rank_*"):
             try:
-                ranks.append(int(p.stem.split("_")[1]))
+                ranks.append(int(stem.split("_")[1]))
             except (IndexError, ValueError):
                 continue
         return sorted(ranks)
@@ -92,6 +127,7 @@ class SweepCheckpoint:
         DataFrame) and JSON-able ``meta``."""
         _publish(
             self._path(rank),
+            self.backend,
             w=np.asarray(w),
             h=np.asarray(h),
             vaf=vaf_values.to_numpy(),
@@ -103,7 +139,7 @@ class SweepCheckpoint:
         """``{"w", "h", "vaf_values" (a DataFrame), "meta"}`` of one rank."""
         import pandas
 
-        with np.load(self._path(rank), allow_pickle=True) as data:
+        with _open(self._path(rank), self.backend) as data:
             return {
                 "w": data["w"],
                 "h": data["h"],
@@ -118,7 +154,8 @@ class GridCheckpoint:
 
     Each unit of work (a bootstrap chunk, a CV candidate) saves named
     arrays plus JSON metadata under a caller-chosen key, as
-    ``<dir>/<key>.npz``.  Keys may contain only word characters and
+    ``<dir>/<key>.npz`` (or the directory ``<dir>/<key>/`` of the
+    ``orbax`` backend).  Keys may contain only word characters and
     dashes, so they stay valid file names everywhere.
     """
 
@@ -133,11 +170,11 @@ class GridCheckpoint:
         return key
 
     def _path(self, key: str) -> Path:
-        return self.directory / f"{self._check_key(key)}.npz"
+        suffix = ".npz" if self.backend == "npz" else ""
+        return self.directory / f"{self._check_key(key)}{suffix}"
 
     def completed_keys(self):
-        return sorted(p.stem for p in self.directory.glob("*.npz")
-                      if not p.name.endswith(".tmp.npz"))
+        return sorted(_entries(self.directory, self.backend, "*"))
 
     def has(self, key: str) -> bool:
         return self._path(key).exists()
@@ -147,11 +184,11 @@ class GridCheckpoint:
         payload = {k: np.asarray(v) for k, v in arrays.items()}
         if "meta" in payload:
             raise ValueError("'meta' is a reserved array name")
-        _publish(self._path(key), meta=_meta(meta), **payload)
+        _publish(self._path(key), self.backend, meta=_meta(meta), **payload)
 
     def load(self, key: str) -> Dict:
         """``{"arrays": {name: array}, "meta": dict}`` of one key."""
-        with np.load(self._path(key), allow_pickle=True) as data:
+        with _open(self._path(key), self.backend) as data:
             return {
                 "arrays": {k: data[k] for k in data.files if k != "meta"},
                 "meta": json.loads(str(data["meta"])),

@@ -40,11 +40,8 @@ from muscle_synergies_tpu_torch.models import mu as tmu  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # JAX names the port does not export yet, by the ROADMAP item that ports them
-NOT_PORTED = {
-    "8": {  # 8b: parallel
-        "": ["parallel"],
-    },
-}
+# (none: ROADMAP item 8b, the last, ported parallel)
+NOT_PORTED = {}
 MODULES = {"": "__init__.py", "models": "models/__init__.py",
            "models.batch": "models/batch.py", "io": "io/__init__.py",
            "segment": "segment/__init__.py", "ops": "ops/__init__.py",
@@ -53,7 +50,11 @@ MODULES = {"": "__init__.py", "models": "models/__init__.py",
            "dataset": "dataset.py", "utils": "utils/__init__.py",
            "models.resume": "models/resume.py", "models.persist": "models/persist.py",
            "models.export": "models/export.py", "utils.checkpoint": "utils/checkpoint.py",
-           "utils.profiling": "utils/profiling.py", "io.batch": "io/batch.py"}
+           "utils.profiling": "utils/profiling.py", "io.batch": "io/batch.py",
+           "parallel": "parallel/__init__.py", "parallel.mesh": "parallel/mesh.py",
+           "parallel.collectives": "parallel/collectives.py",
+           "parallel.nmf": "parallel/nmf.py", "parallel.filters": "parallel/filters.py",
+           "parallel.cnmf": "parallel/cnmf.py", "parallel.nm3f": "parallel/nm3f.py"}
 # the JAX package's Mosaic tile rules for its convolutive Pallas kernel:
 # they pick a tile of trials per TPU block and have no CUDA counterpart
 MOSAIC = {"models.cnmf": ["cnmf_block_b", "resolve_cnmf_impl"]}

@@ -24,6 +24,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from test_torch_threads import one_torch_thread  # noqa: E402,F401
+from torch_mesh_pool import no_leftover_group  # noqa: E402,F401
 
 import muscle_synergies_tpu as mst  # noqa: E402
 from muscle_synergies_tpu.io import batch as jbatch  # noqa: E402
@@ -83,10 +84,18 @@ def test_names_for_trials_errors_match_jax():
 
 
 def test_sharding_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        tbatch.stack_trials(_trials(), sharding=object(), **CPU)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        next(tbatch.device_prefetch(iter([1]), sharding=object(), device="cpu"))
+    """``sharding=`` places the batch on a device mesh (here one gloo
+    process; four in ``test_torch_parallel_dataset``)."""
+    from muscle_synergies_tpu_torch.parallel import batch_sharding, make_mesh
+
+    sharding = batch_sharding(make_mesh((1, 1), device="cpu"), time_sharded=True)
+    plain = tbatch.stack_trials(_trials(), **CPU)
+    placed = tbatch.stack_trials(_trials(), sharding=sharding, **CPU)
+    assert torch.equal(placed.data.full_tensor(), plain.data)
+    assert torch.equal(placed.mask.full_tensor(), plain.mask)
+    staged = next(tbatch.device_prefetch(iter([plain.data.numpy()]), sharding=sharding,
+                                         device="cpu"))
+    assert torch.equal(staged.full_tensor(), plain.data)
 
 
 def test_device_prefetch_keeps_order_and_stages_every_leaf():
@@ -274,9 +283,9 @@ def test_staged_ragged_chunk_enters_the_batch_preprocessing(monkeypatch):
             staged.append(item)
             yield item
 
-    def spy_preprocess(xs, mask, fs, config):
+    def spy_preprocess(xs, mask, fs, config, *mesh):
         seen.append((xs, mask))
-        return preprocess(xs, mask, fs, config)
+        return preprocess(xs, mask, fs, config, *mesh)
 
     def spy_to_numpy(x):
         to_host.append(tuple(getattr(x, "shape", ())))

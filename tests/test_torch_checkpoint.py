@@ -3,8 +3,8 @@
 Held in float64 on the CPU against ``muscle_synergies_tpu.utils``:
 
 - ``SweepCheckpoint`` / ``GridCheckpoint``: round trips, key checks,
-  atomic publishing (no ``.tmp.npz`` left), ``backend="orbax"`` raising
-  with its ROADMAP item, and the JAX package's file layout: a directory
+  atomic publishing (no ``.tmp.npz`` left), the ``backend="orbax"``
+  round trip, and the JAX package's file layout: a directory
   written by either package's ``GridCheckpoint`` (through its checkpointed
   bootstrap) resumes in the other's, to 1e-10;
 - ``find_synergies_checkpointed`` against the JAX package's (VAF tables
@@ -98,8 +98,25 @@ def test_sweep_checkpoint_round_trip_and_refusals(tmp_path):
 
 @pytest.mark.parametrize("store", [SweepCheckpoint, GridCheckpoint])
 def test_orbax_backend_names_its_roadmap_item(store, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        store(tmp_path, backend="orbax")
+    """The ``orbax`` backend (ROADMAP item 8b) stores one directory per
+    entry, holding the npz store's payload, and loads it back."""
+    import pandas
+
+    ckpt = store(tmp_path, backend="orbax")
+    w = np.random.default_rng(3).random((5, 2))
+    if store is SweepCheckpoint:
+        ckpt.save(2, w, w.T, pandas.DataFrame([[0.5, 0.9]], columns=["a", "b"]),
+                  meta={"n_iter": 4})
+        got = ckpt.load(2)
+        assert ckpt.completed_ranks() == [2] and got["meta"] == {"n_iter": 4}
+        np.testing.assert_array_equal(got["h"], w.T)
+        assert list(got["vaf_values"].columns) == ["a", "b"]
+    else:
+        ckpt.save("chunk_0", {"w": w}, meta={"n_iter": 4})
+        got = ckpt.load("chunk_0")
+        assert ckpt.completed_keys() == ["chunk_0"] and got["meta"] == {"n_iter": 4}
+        np.testing.assert_array_equal(got["arrays"]["w"], w)
+    assert (tmp_path / ("rank_2" if store is SweepCheckpoint else "chunk_0")).is_dir()
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])

@@ -15,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from test_torch_threads import one_torch_thread  # noqa: E402,F401
+from torch_mesh_pool import no_leftover_group  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -191,8 +192,11 @@ def test_time_varying_tables_match_jax():
 
 def test_time_varying_refusals():
     kw = dict(n_synergies=2, n_lags=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.analyze_dataset_time_varying(TRIALS[:2], FS, mesh=object(), **kw)
+    # a mesh without the (data, time) axes is refused with a warning, and
+    # the fit runs locally
+    mesh = mt.parallel.make_mesh((1, 1), ("data", "model"), device="cpu")
+    with pytest.warns(UserWarning, match=r"lacks the \['time'\] axis"):
+        mt.analyze_dataset_time_varying(TRIALS[:2], FS, mesh=mesh, max_iter=10, **kw)
     with pytest.raises(ValueError, match="n_lags"):
         mt.analyze_dataset_time_varying(TRIALS[:2], FS, n_synergies=2, n_lags=201,
                                         device="cpu")

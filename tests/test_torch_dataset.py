@@ -21,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from test_torch_threads import one_torch_thread  # noqa: E402,F401
+from torch_mesh_pool import no_leftover_group  # noqa: E402,F401
 
 import muscle_synergies_tpu as mst  # noqa: E402
 from muscle_synergies_tpu.dataset import preprocess_trials as j_preprocess_trials  # noqa: E402
@@ -155,10 +156,12 @@ def test_subject_mean_core_matches_jax_table(kind):
 
 
 def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.analyze_dataset(TRIALS[:2], FS, mesh=object(), **CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.utils.GridCheckpoint(tmp_path, backend="orbax")
+    # ROADMAP item 8b ported the mesh and the orbax store: a mesh without
+    # the (data, time) axes is refused with a warning, and fits locally
+    mesh = mt.parallel.make_mesh((1, 1), ("data", "model"), device="cpu")
+    with pytest.warns(UserWarning, match=r"lacks the \['time'\] axis"):
+        mt.analyze_dataset(TRIALS[:2], FS, mesh=mesh, max_iter=10, **CPU)
+    assert mt.utils.GridCheckpoint(tmp_path, backend="orbax").completed_keys() == []
     with pytest.raises(ValueError, match="solver"):
         mt.analyze_dataset(TRIALS[:2], FS, solver="als", **CPU)
 

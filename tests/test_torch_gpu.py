@@ -990,3 +990,77 @@ def test_record_stream_keeps_staged_memory_alive_across_chunks(cuda):
     torch.cuda.synchronize()
     for i, s in enumerate(sums):
         assert float(s) == float((i + 1) * 201 * 2 ** 22)
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A ``(data, time)`` mesh of this one process on NCCL, torn down
+    after the test."""
+    import torch.distributed as dist
+
+    from muscle_synergies_tpu_torch import parallel
+    from muscle_synergies_tpu_torch.parallel import mesh
+
+    assert parallel.init_distributed() == 1
+    assert dist.get_backend() == "nccl"
+    yield parallel.make_mesh((1, 1))
+    dist.destroy_process_group()
+    mesh._ALONE = False
+
+
+def test_the_sharded_filters_take_k6_on_a_mesh_of_one(nccl_mesh):
+    """World size 1 over NCCL: the sequence-parallel filters run the
+    whole cascade in K6 (two launches a pass, one for the left edge pad,
+    two for the right one) and agree with K3 and K6 within 5e-4 x max|y|."""
+    from muscle_synergies_tpu_torch import parallel
+
+    sos = filters.sos_design(4, 4.0, 2000.0)
+    x = torch.rand(20_000, 16, generator=torch.Generator().manual_seed(3)).cuda()
+    filter_cuda.sosfilt_launches = 0
+    y = parallel.sharded_sosfiltfilt(sos, x, nccl_mesh)
+    assert filter_cuda.sosfilt_launches == 7 and y.to_local().is_cuda
+    assert _rel(y.full_tensor(), filters.sosfiltfilt(sos, x)) < 5e-4
+    filter_cuda.sosfilt_launches = 0
+    y = parallel.sharded_sosfilt(sos, x, nccl_mesh)
+    assert filter_cuda.sosfilt_launches == 2
+    assert _rel(y.full_tensor(), filters.sosfilt(sos, x)) < 5e-4
+
+
+def test_the_sharded_solvers_match_the_plain_fits_on_a_mesh_of_one(nccl_mesh):
+    from muscle_synergies_tpu_torch import parallel
+    from muscle_synergies_tpu_torch.models.hals import fit_cd
+    from muscle_synergies_tpu_torch.models.mu import fit_mu
+
+    g = torch.Generator().manual_seed(4)
+    x, w, h = (torch.rand(s, generator=g).cuda() for s in
+               ((64, 200, 8), (64, 200, 4), (64, 4, 8)))
+    got = parallel.sharded_fit_mu(x, w, h, nccl_mesh, max_iter=50, tol=0.0)
+    want = fit_mu(x, w, h, max_iter=50, tol=0.0)
+    assert got.w.to_local().is_cuda
+    assert _rel(got.w.full_tensor(), want.w) < 1e-4
+    got = parallel.sharded_fit_cd(x, w, h, nccl_mesh, max_iter=20, tol=0.0)
+    assert _rel(got.w.full_tensor(), fit_cd(x, w, h, max_iter=20, tol=0.0).w) < 1e-4
+
+
+def test_card_tensors_on_a_gloo_mesh_raise(cuda):
+    """The sharded code runs where its tensors lie: card tensors against
+    a mesh of CPU processes raise instead of being solved on the host,
+    and the default mesh (the card) refuses the gloo group."""
+    import torch.distributed as dist
+
+    from muscle_synergies_tpu_torch import parallel
+    from muscle_synergies_tpu_torch.models import stability
+    from muscle_synergies_tpu_torch.parallel import mesh as pmesh
+
+    try:
+        mesh = parallel.make_mesh((1, 1), device="cpu")
+        x = torch.rand(200, 8, generator=torch.Generator().manual_seed(5)).cuda()
+        with pytest.raises(ValueError, match="lies on 'cuda'"):
+            stability.bootstrap_synergies(x, 2, n_boot=2, max_iter=10, mesh=mesh)
+        with pytest.raises(ValueError, match="lies on 'cuda'"):
+            parallel.sharded_moving_rms(x, 5, mesh)
+        with pytest.raises(RuntimeError, match="runs on 'gloo'"):
+            parallel.make_mesh((1, 1))
+    finally:
+        dist.destroy_process_group()
+        pmesh._ALONE = False

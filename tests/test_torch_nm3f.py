@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from test_torch_threads import one_torch_thread  # noqa: E402,F401
+from torch_mesh_pool import no_leftover_group  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -220,8 +221,9 @@ def test_model_refusals(tmp_path):
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tn.NM3FModel(P, Q).fit(XS)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tn.find_space_by_time_synergies(XS, P, Q, mesh=object(), **CPU)
+    mesh = mt.parallel.make_mesh((1, 1), ("data", "model"), device="cpu")
+    with pytest.warns(UserWarning, match="falling back to the local"):
+        tn.find_space_by_time_synergies(XS, P, Q, mesh=mesh, max_iter=10, **CPU)
 
 
 @pytest.fixture(scope="module")
@@ -370,5 +372,7 @@ def test_dataset_path_takes_a_subject_mapping_and_refuses_a_mesh():
     res = mt.analyze_dataset_space_by_time(mapping, 1000.0, dtype=torch.float64, **CPU,
                                            **DS)
     assert res.subjects == SUBJECTS and res.coefficients.shape == (4, 2, 2)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        mt.analyze_dataset_space_by_time(TRIALS, 1000.0, mesh=object(), **CPU, **DS)
+    # a mesh without the (data, time) axes is refused with a warning
+    mesh = mt.parallel.make_mesh((1, 1), ("data", "model"), device="cpu")
+    with pytest.warns(UserWarning, match=r"lacks the \['time'\] axis"):
+        mt.analyze_dataset_space_by_time(TRIALS, 1000.0, mesh=mesh, **CPU, **DS)

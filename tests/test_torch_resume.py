@@ -184,8 +184,13 @@ def test_cv_resumes_per_candidate(tmp_path, monkeypatch):
 def test_refusals(tmp_path):
     with pytest.raises(ValueError, match="chunk_size"):
         resume_mod.bootstrap_synergies_checkpointed(X, 2, tmp_path, chunk_size=0, **CPU)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        resume_mod.bootstrap_synergies_checkpointed(X, 2, tmp_path, backend="orbax", **CPU)
+    # the orbax store (ROADMAP item 8b) resumes as the npz one does
+    kw = dict(n_boot=4, chunk_size=2, max_iter=30, backend="orbax", **CPU)
+    first = resume_mod.bootstrap_synergies_checkpointed(X, 2, tmp_path / "o", **kw)
+    again = resume_mod.bootstrap_synergies_checkpointed(X, 2, tmp_path / "o", **kw)
+    np.testing.assert_array_equal(first.similarities, again.similarities)
+    chunks = sorted(p for p in (tmp_path / "o").iterdir())
+    assert len(chunks) == 2 and all((p / "data.npz").is_file() for p in chunks)
     if not torch.cuda.is_available():  # they run on the card by default
         with pytest.raises(RuntimeError, match="device='cpu'"):
             resume_mod.cv_rank_selection_checkpointed(X, [1], tmp_path / "cv")

@@ -71,7 +71,9 @@ def test_the_check_covers_the_ported_surface():
     for rel in ("", ".models", ".models.cnmf", ".models.nm3f", ".models.decode",
                 ".models.beta", ".models.stability", ".dataset", ".models.resume",
                 ".models.persist", ".models.export", ".utils.checkpoint",
-                ".utils.profiling", ".io", ".io.batch", ".segment"):
+                ".utils.profiling", ".io", ".io.batch", ".segment", ".parallel",
+                ".parallel.mesh", ".parallel.collectives", ".parallel.nmf",
+                ".parallel.filters", ".parallel.cnmf", ".parallel.nm3f"):
         assert rel in MODULES, rel
 
 

@@ -10,8 +10,10 @@ no multiple of ``check_every`` (each loop's own tail rule) and for the
 MU one at ``tol=0``; every cross-validation's held-out errors within
 1e-10 and its choice equal; match pairs, cluster labels and membership
 exactly equal.  Also: padded ranks and modules stay exactly zero,
-``_resample_plan`` chunks give the unchunked result, ``mesh=`` raises
-naming ROADMAP item 8, the JAX package's ``ValueError`` texts, and
+``_resample_plan`` chunks give the unchunked result, every ``mesh=``
+path on a one-process mesh gives the local result (ROADMAP item 8b;
+four processes in ``test_torch_parallel_dataset``), the JAX package's
+``ValueError`` texts, and
 ``DatasetResult.cluster_subjects`` without pandas.
 """
 
@@ -21,6 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from test_torch_threads import one_torch_thread  # noqa: E402,F401
+from torch_mesh_pool import no_leftover_group  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -394,24 +397,42 @@ def test_refusals_raise_the_jax_packages_text(call):
     assert str(got.value) == str(want.value)
 
 
+SMALL = dict(max_iter=20, **CPU)
 MESHED = [
-    lambda m: ts.bootstrap_synergies(X, K, mesh=m, **CPU),
-    lambda m: ts.cv_rank_selection(X, (1, 2), mesh=m, **CPU),
-    lambda m: ts.bootstrap_time_varying_synergies(X, KC, D, mesh=m, **CPU),
-    lambda m: ts.cv_time_varying_rank_selection(X, (1, 2), D, mesh=m, **CPU),
-    lambda m: ts.bootstrap_space_by_time(XS, P, Q, mesh=m, **CPU),
-    lambda m: ts.cv_space_by_time_selection(XS, [(2, 2)], mesh=m, **CPU),
-    lambda m: ts.cv_temporal_selection(XS, (1, 2), mesh=m, **CPU),
-    lambda m: ts.cv_shared_spatial_selection(XS, (1, 2), mesh=m, **CPU),
-    lambda m: ts.bootstrap_temporal_synergies(XS, 2, mesh=m, **CPU),
-    lambda m: ts.bootstrap_shared_spatial_synergies(XS, 2, mesh=m, **CPU),
+    lambda m: ts.bootstrap_synergies(X, K, n_boot=2, mesh=m, **SMALL),
+    lambda m: ts.cv_rank_selection(X, (1, 2), n_repeats=1, mesh=m, **SMALL),
+    lambda m: ts.bootstrap_time_varying_synergies(X, KC, D, n_boot=2, mesh=m, **SMALL),
+    lambda m: ts.cv_time_varying_rank_selection(X, (1, 2), D, n_repeats=1, mesh=m,
+                                                **SMALL),
+    lambda m: ts.bootstrap_space_by_time(XS, P, Q, n_boot=2, mesh=m, **SMALL),
+    lambda m: ts.cv_space_by_time_selection(XS, [(2, 2)], n_repeats=1, mesh=m, **SMALL),
+    lambda m: ts.cv_temporal_selection(XS, (1, 2), n_repeats=1, mesh=m, **SMALL),
+    lambda m: ts.cv_shared_spatial_selection(XS, (1, 2), n_repeats=1, mesh=m, **SMALL),
+    lambda m: ts.bootstrap_temporal_synergies(XS, 2, n_boot=2, mesh=m, **SMALL),
+    lambda m: ts.bootstrap_shared_spatial_synergies(XS, 2, n_boot=2, mesh=m, **SMALL),
 ]
 
 
 def test_mesh_is_refused_naming_item_8():
+    """Every ``mesh=`` path (ROADMAP item 8b): on a one-process
+    ``(data, time)`` mesh each gives the local result; a mesh without
+    those axes is refused with a warning and the call runs locally
+    (four processes against the JAX package: ``test_torch_parallel_dataset``)."""
+    mesh = mt.parallel.make_mesh((1, 1), device="cpu")
+    other = mt.parallel.make_mesh((1, 1), ("data", "model"), device="cpu")
+
+    def arrays(res):
+        parts = res if isinstance(res, tuple) and not hasattr(res, "_fields") else (res,)
+        return [np.asarray(getattr(r, f), dtype=float) for r in parts
+                for f in ("similarities", "test_error") if hasattr(r, f)]
+
     for call in MESHED:
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call(object())
+        local = arrays(call(None))
+        for got, want in zip(arrays(call(mesh)), local):
+            np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
+        with pytest.warns(UserWarning, match=r"lacks the \['time'\] axis"):
+            for got, want in zip(arrays(call(other)), local):
+                np.testing.assert_array_equal(got, want)
 
 
 def test_entry_points_default_to_the_card():
