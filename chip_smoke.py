@@ -9,8 +9,10 @@ It builds the nine hand-written CUDA kernels from the five sources in
 ``muscle_synergies_tpu_torch/csrc/`` (one ``nvcc`` per source, all
 started together; K3 and K6 share ``sosfiltfilt.cu``; K1, K2 and K4
 each have a warp entry, one warp per fit, for frames of at most 224 x
-16 at rank 8, and a block entry, one block per fit, above that) and
-then, failing on the first assertion that does not hold:
+16 at rank 8, and a block entry, one block per fit, above that; K1 and
+K2 also a cluster entry, one thread-block cluster per fit, for frames
+over one block's shared memory) and then, failing on the first
+assertion that does not hold:
 
 1. prints the card and its power limit, and the build time;
 2. K3 ``sosfiltfilt``: 64 trials x 124,460 samples x 8 channels through
@@ -87,9 +89,10 @@ then, failing on the first assertion that does not hold:
     resampled to 2,000 x 8 through ``NMFModel`` with the CD, MU and KL
     solvers (one launch each of K2's, K1's and K4's block entries, each
     within 1e-3 of float64 in reconstruction error); on a 20,000 x 8
-    frame, over one block's shared memory, ``fit_transform`` must raise
-    before any launch, and with ``impl="torch"`` runs the plain fit on
-    the card (no counter moves);
+    frame, over one block's shared memory, ``fit_transform`` in exactly
+    one launch of K2's cluster entry and no other, and with
+    ``impl="torch"`` the plain fit on the card (no counter moves), the
+    two within 1e-3 in reconstruction error;
 15. the capture main path, no pandas: 16 Vicon Nexus captures written
     by ``testing.write_synthetic_capture`` at the reference trial's scale
     (2,000 Hz, 2 force plates and an 8-channel EMG, 40 markers at 100
@@ -142,8 +145,9 @@ then, failing on the first assertion that does not hold:
     after 17 on phase 16's preprocessed trials: ``bootstrap_synergies(x,
     4)`` at its defaults (50 resamples) on one subject's 12 cycles
     (2,400 x 8) in exactly one launch of K1's block entry, and on one
-    200 x 8 trial in one launch of its warp entry; a 5,000 x 8 matrix
-    refused before any launch, naming ``impl='torch'``;
+    200 x 8 trial in one launch of its warp entry; a 5,000 x 8 matrix in
+    one launch of its cluster entry, and refused by K5 before any launch,
+    naming ``impl='torch'``;
     ``bootstrap_time_varying_synergies(x, 4, 10)`` in exactly one K5
     launch; each held against the same call in float64 on the host
     (similarities within 2e-3, reference components' cosines >= 0.999);
@@ -195,7 +199,9 @@ then, failing on the first assertion that does not hold:
     4 and 16 against parsing then analysing, and the analysis alone chunk
     by chunk (no bar);
     then the CLI through ``main()``: ``describe``, ``analyze --ranks 1:4
-    --save-model`` (one K3 and one K2 warp launch), ``analyze-dataset``
+    --save-model`` (one K3 and one K2 warp launch), ``analyze --ranks 1:4
+    --reduce-to 0`` on the whole capture (one K3 launch and one of K2's
+    cluster entry), ``analyze-dataset``
     with and without ``--prefetch 2 --chunk-files 4`` (VAF within 1e-4
     of each other) and with ``--subjects`` of 4 labels and
     ``--cluster-subjects 4``, ``export-transform`` of the saved rank 4
@@ -223,6 +229,25 @@ then, failing on the first assertion that does not hold:
     ``cv_rank_selection`` on phase 18's subject against phase 18's
     results (its bars); and an ``orbax`` checkpoint chunk saved and
     restored bit-equal.
+22. large frames (K1's and K2's cluster entries), after 21: (a) 50
+    fixed iterations of each at 4 x 20,000 x 8, rank 4 (rows resident in
+    shared memory) and 2 x 124,460 x 8, rank 8 (rows streamed), against
+    the plain version in float64, bar 1e-3, then timed at the second;
+    (b) ranks 1-4 with the stop on (tol 1e-4, max_iter 500) on a subject's
+    30 cycles (6,000 x 8) and on two trials' envelopes side by side
+    (20,000 x 16) against float64, phase 4's method: median stopping gap
+    0 (CD at rank 1, which starts at its optimum, exempt) and factor
+    error at the kernel's stop <= 1e-3; (c) under default arguments:
+    ``find_synergies``' array core on a whole trial's 124,460 x 8
+    envelope, ranks 1-4 batched (one K2 cluster launch),
+    ``bootstrap_synergies`` on the 6,000 x 8 subject (one K1 cluster
+    launch; phase 18's bars against float64), and the dataset grid at
+    full length (4 whole trials' envelopes, one K3 launch, then ranks 1-4
+    as 16 fits, one K2 cluster launch; ``analyze_dataset`` itself needs
+    ``reduce_to``, as the JAX package's does) against ``impl="torch"``
+    to VAF 1e-3 at max_iter 2,000 on both sides; (d) the time of an
+    iteration of a lone 124,460 x 8 fit on each entry beside the plain
+    loop's and the bound.
 
 Each main path is driven with every launch counter set to 0 just before
 it and read just after; the CD, RMS-CD and ``rank_sweep_batch`` paths
@@ -438,8 +463,10 @@ class Smoke:
                          "sosfilt": (filter_cuda, "sosfilt_launches"),
                          "cd_nmf": (cd_cuda, "launches"),
                          "cd_nmf_warp": (cd_cuda, "warp_launches"),
+                         "cd_nmf_cluster": (cd_cuda, "cluster_launches"),
                          "mu_nmf": (mu_cuda, "launches"),
                          "mu_nmf_warp": (mu_cuda, "warp_launches"),
+                         "mu_nmf_cluster": (mu_cuda, "cluster_launches"),
                          "beta_nmf": (beta_cuda, "launches"),
                          "beta_nmf_warp": (beta_cuda, "warp_launches"),
                          "cnmf": (cnmf_cuda, "launches")}
@@ -582,7 +609,6 @@ class Smoke:
     # ---- 3./4. K1 and K2 (both entries) ----
     def nmf_phases(self, b=1024, n=200, l=8, k=4, iters=50, fb=128, big_b=16,
                    big_n=2000):
-        from muscle_synergies_tpu_torch.models.hals import cd_pass
         from muscle_synergies_tpu_torch.models.kernels import cd_cuda, mu_cuda
         from muscle_synergies_tpu_torch.models.mu import mu_update
 
@@ -630,18 +656,13 @@ class Smoke:
                         4 * bb * (nn * l + 2 * (nn * k + k * l)),
                         source=kname[:6], shape=f"{bb}x{nn}x{l}, k={k}", **extra)
 
-        def cd_step(x_, w_, h_):
-            w_, _ = cd_pass(x_, w_, h_.transpose(-1, -2))
-            ht, _ = cd_pass(x_.transpose(-1, -2), h_.transpose(-1, -2), w_)
-            return w_, ht.transpose(-1, -2)
-
         fits = {
             "mu_nmf_warp": (mu_cuda.fit_mu_cuda, mu_cuda.fit_mu_plain, mu_update,
                             [a[:fb] for a in main]),
             "mu_nmf": (mu_cuda.fit_mu_cuda, mu_cuda.fit_mu_plain, mu_update, big),
-            "cd_nmf_warp": (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain, cd_step,
+            "cd_nmf_warp": (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain, self._cd_step,
                             [a[:fb] for a in main]),
-            "cd_nmf": (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain, cd_step, big),
+            "cd_nmf": (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain, self._cd_step, big),
         }
         for kname, (kern, plain, step, (fx, fw, fh)) in fits.items():
             fx64, fw64, fh64 = fx.double(), fw.double(), fh.double()
@@ -1103,23 +1124,26 @@ class Smoke:
 
         big = torch.from_numpy(np.abs(emg[0, :20_000])).to(self.dev)
 
-        def plain_route():
-            # over one block's shared memory: the kernel route refuses
-            # before any launch; impl="torch" is the plain fit on the card
-            try:
-                NMFModel(n_components=4).fit_transform(big)
-            except ValueError as exc:
-                assert "impl='torch'" in str(exc), exc
-            else:
-                raise AssertionError("a 20,000 x 8 fit took the kernel route")
-            m = NMFModel(n_components=4, impl="torch")
-            return m, m.fit_transform(big)
+        def fit_big(**kw):
+            model = NMFModel(n_components=4, **kw)
+            return model, model.fit_transform(big)
 
+        # over one block's shared memory: one launch of K2's cluster entry;
+        # impl="torch" is the plain fit on the card
         (m_big, w_big), counts = self.main_path(
-            "NMFModel 20,000x8 fit_transform (impl='torch')", plain_route)
-        assert sum(counts.values()) == 0, counts
+            "NMFModel 20,000x8 fit_transform (cluster entry)", fit_big)
+        assert counts["cd_nmf_cluster"] == 1 and sum(counts.values()) == 1, counts
         assert w_big.shape == (big.shape[0], 4) and np.isfinite(w_big).all()
-        log(f"NMFModel 20,000x8: plain fit on the card, n_iter {m_big.n_iter_}")
+        (m_plain, w_plain), counts = self.main_path(
+            "NMFModel 20,000x8 fit_transform (impl='torch')", lambda: fit_big(impl="torch"))
+        assert sum(counts.values()) == 0, counts
+        assert w_plain.shape == (big.shape[0], 4) and np.isfinite(w_plain).all()
+        gap = (abs(m_big.reconstruction_err_ - m_plain.reconstruction_err_)
+               / m_plain.reconstruction_err_)
+        log(f"NMFModel 20,000x8: n_iter {m_big.n_iter_} on the cluster entry, "
+            f"{m_plain.n_iter_} plain; relative gap in reconstruction error {gap:.2e} "
+            "(bar 1e-3)")
+        assert gap <= 1e-3, "NMFModel 20,000x8: the cluster entry and the plain fit disagree"
 
     # ---- 15. the capture main path ----
     def capture_main(self, n_captures: int = CAPTURES, state_len: int = STATE_LEN,
@@ -1538,6 +1562,16 @@ class Smoke:
         assert counts["sosfiltfilt"] == 1 and counts["cd_nmf_warp"] == 1, counts
         assert sorted(rep["ranks"]) == ["1", "2", "3", "4"]
         assert all(0 < rep["ranks"][k]["vaf_overall"] <= 1 for k in rep["ranks"])
+        # the whole capture, not time-normalised: over one block's shared
+        # memory, so the rank sweep is one launch of K2's cluster entry
+        full, counts = run("analyze --ranks 1:4 --reduce-to 0",
+                           ["analyze", paths[0], "--ranks", "1:4", "--reduce-to", "0"],
+                           os.path.join(work, "analyze_full.json"))
+        assert counts["sosfiltfilt"] == 1 and counts["cd_nmf_cluster"] == 1, counts
+        assert sum(counts.values()) == 2, counts
+        assert all(0 < full["ranks"][k]["vaf_overall"] <= 1 for k in full["ranks"])
+        log("CLI analyze --reduce-to 0: VAF by rank "
+            f"{[round(full['ranks'][k]['vaf_overall'], 6) for k in sorted(full['ranks'])]}")
         plain, counts = run(f"analyze-dataset ({len(paths)} captures)",
                             ["analyze-dataset", *paths], os.path.join(work, "ds.json"))
         assert counts["sosfiltfilt"] == 1 and counts["cd_nmf_warp"] > 0, counts
@@ -1838,15 +1872,18 @@ class Smoke:
             same_similarities(label, got, want)
             same_components(label, got.reference_components, want.reference_components)
         big = xs[:25].reshape(-1, N_CHANNELS)  # 5,000 x 8: over one block's memory
-        try:
-            _, counts = self.main_path("bootstrap_synergies 5000x8 (refused)",
-                                       lambda: stability.bootstrap_synergies(big, 4))
+        got, counts = self.main_path("bootstrap_synergies 5000x8 (cluster entry)",
+                                     lambda: stability.bootstrap_synergies(big, 4))
+        assert counts["mu_nmf_cluster"] == 1 and sum(counts.values()) == 1, counts
+        assert np.isfinite(got.similarities).all()
+        try:  # over K5's one block, with no cluster entry: refused
+            stability.bootstrap_time_varying_synergies(big, 4, 10, n_boot=2)
         except ValueError as err:
             assert "impl='torch'" in str(err), err
-            log(f"bootstrap_synergies 5000x8 refused before any launch: {err}")
+            log(f"bootstrap_time_varying_synergies 5000x8 refused before any launch: {err}")
         else:
-            raise AssertionError("a 5,000 x 8 bootstrap was not refused")
-        assert all(getattr(m, a) == 0 for m, a in self.counters.values())
+            raise AssertionError("a 5,000 x 8 convolutive bootstrap was not refused")
+        assert getattr(*self.counters["cnmf"]) == 0
 
         label = "bootstrap_time_varying_synergies 2400x8"
         got, want, counts = against_host(label, lambda v, **kw: (
@@ -2519,6 +2556,196 @@ print(json.dumps(out))
             assert same and back["meta"] == {"phase": 21}, "the orbax store disagrees"
         finally:
             shutil.rmtree(root, ignore_errors=True)
+    # ---- 22. large frames: the cluster entries of K1 and K2 ----
+    def large_frames(self, emg, xs):
+        """Phase 22: frames over one block's shared memory, on the cluster
+        entries of K1 and K2 (one thread-block cluster a fit): fixed
+        iterations and fits against float64, the calls that run them under
+        default arguments, and a lone capture-length fit's iteration."""
+        from muscle_synergies_tpu_torch.models import batch as mb
+        from muscle_synergies_tpu_torch.models import select, stability
+        from muscle_synergies_tpu_torch.models.kernels import cd_cuda, mu_cuda
+        from muscle_synergies_tpu_torch.models.mu import mu_update
+        from muscle_synergies_tpu_torch.ops import batched
+
+        torch, dev, rng = self.torch, self.dev, self.rng
+        entries = {
+            "mu_nmf_cluster": (mu_cuda, mu_cuda.mu_iterations_cuda,
+                               mu_cuda.mu_iterations_plain, mu_cuda.fit_mu_cuda,
+                               mu_cuda.fit_mu_plain, mu_update,
+                               "muscle_synergies_tpu/models/kernels/mu_pallas.py:269",
+                               "muscle_synergies_tpu/models/kernels/mu_pallas.py:205"),
+            "cd_nmf_cluster": (cd_cuda, cd_cuda.cd_iterations_cuda,
+                               cd_cuda.cd_iterations_plain, cd_cuda.fit_cd_cuda,
+                               cd_cuda.fit_cd_plain, self._cd_step,
+                               "muscle_synergies_tpu/models/kernels/cd_pallas.py:168",
+                               "muscle_synergies_tpu/models/kernels/cd_pallas.py:248"),
+        }
+        for shape in ((6_000, 8, 4), (20_000, 8, 4), (20_000, 16, 4), (N_SAMPLES, 8, 8)):
+            assert mu_cuda.route(*shape) == cd_cuda.route(*shape) == "cluster", shape
+
+        # (a) 50 fixed iterations against the plain version in float64
+        def problem(b, n, l, k):
+            return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+                rng.random((b, n, l)), np.abs(rng.standard_normal((b, n, k))),
+                np.abs(rng.standard_normal((b, k, l))))]
+
+        iters = 50
+        cases = (problem(4, 20_000, N_CHANNELS, 4), problem(2, N_SAMPLES, N_CHANNELS, 8))
+        for kname, (mod, kern, plain, _, _, _, replaces, also) in entries.items():
+            errs = []
+            for x, w, h in cases:
+                b, n, l = x.shape
+                k = w.shape[-1]
+                before = mod.cluster_launches
+                wk, hk = kern(x, w, h, iters)
+                assert mod.cluster_launches == before + 1, f"{kname} took another entry"
+                wp, hp = plain(x.double(), w.double(), h.double(), iters)
+                errs.append((abs_err([(wk, wp), (hk, hp)]), max(rel_err(wk, wp), rel_err(hk, hp))))
+                log(f"{kname}: {iters} iterations at {b}x{n}x{l} k={k}: rel err "
+                    f"{errs[-1][1]:.3e} (bar 1e-3)")
+                assert errs[-1][1] <= 1e-3, f"{kname} fixed iterations disagree"
+            ms = cuda_ms(lambda: kern(x, w, h, iters), reps=3)
+            plain_ms = cuda_ms(lambda: plain(x, w, h, iters), reps=2)
+            log(f"{kname}: {iters} iterations at {b}x{n}x{l} k={k}: kernel {ms:.3f} ms, "
+                f"plain f32 {plain_ms:.3f} ms")
+            self.record(kname, replaces, (max(e[0] for e in errs), max(e[1] for e in errs),
+                                          1e-3),
+                        ms, plain_ms, b * iters * nmf_flops(kname[:6], n, l, k),
+                        4 * b * (n * l + 2 * (n * k + k * l)), source=kname[:6],
+                        shape=f"{b}x{n}x{l}, k={k}", also_replaces=also)
+        del cases
+
+        # (b) rank sweeps 1-4 with the stop on against float64 (phase 4's
+        # method); CD at rank 1 starts at its optimum and stops on rounding
+        # noise, so its stopping iteration is exempt
+        def envelopes(trials):
+            """The default envelope of whole trials, not time-normalised."""
+            x = batched.zero_center_batch(torch.from_numpy(trials).to(dev))
+            x = batched.linear_envelope_batch(x, critical_freqs=4.0, sampling_frequency=FS,
+                                              order=4, zero_center_=False)
+            return batched.normalize_batch(x.abs())
+
+        env = envelopes(emg[:2])
+        # a subject's 30 gait cycles; two trials' first 20,000 envelope rows
+        # side by side as one 16-channel frame
+        frames = (xs[:30].reshape(-1, N_CHANNELS),
+                  env[:, :20_000].permute(1, 0, 2).reshape(-1, 2 * N_CHANNELS))
+        for x in frames:
+            label = f"{x.shape[0]:,} x {x.shape[1]}"
+            ws, hs = [], []
+            for kk in (1, 2, 3, 4):
+                w0, h0 = mb.init_batch(x[None], kk)
+                ws.append(torch.nn.functional.pad(w0, (0, 4 - kk)))
+                hs.append(torch.nn.functional.pad(h0, (0, 0, 0, 4 - kk)))
+            gx, gw, gh = x[None].repeat(4, 1, 1).contiguous(), torch.cat(ws), torch.cat(hs)
+            gx64, gw64, gh64 = gx.double(), gw.double(), gh.double()
+            for kname, (mod, _, _, fit, plain, step, _, _) in entries.items():
+                before = mod.cluster_launches
+                t0 = time.perf_counter()
+                sk = fit(gx, gw, gh, max_iter=500, tol=1e-4)
+                torch.cuda.synchronize()
+                fit_ms = (time.perf_counter() - t0) * 1e3
+                assert mod.cluster_launches == before + 1, f"{kname} took another entry"
+                sp = plain(gx64, gw64, gh64, max_iter=500, tol=1e-4)
+                gap = (sk.n_iter - sp.n_iter).cpu().numpy()
+                held = gap[1:] if kname.startswith("cd") else gap
+                hk = sk.h if kname.startswith("mu") else sk.ht.transpose(-1, -2)
+                wr, hr = plain_snapshot(step, gx64, gw64, gh64, sk.n_iter)
+                err = max(rel_err(sk.w, wr), rel_err(hk, hr))
+                log(f"{kname}: ranks 1-4 on {label} at tol 1e-4: n_iter "
+                    f"{sk.n_iter.tolist()} (float64 {sp.n_iter.tolist()}), stopping gap "
+                    f"median {np.median(held):g}; factor err at the kernel's stop "
+                    f"{err:.3e} (bar 1e-3); kernel wall {fit_ms:.2f} ms")
+                assert np.median(held) == 0, f"{kname} fit stops elsewhere than float64"
+                assert err <= 1e-3, f"{kname} fit disagrees"
+        del env
+
+        # (c) the entry points under default arguments
+        host = envelopes(emg[:1])[0].cpu().numpy()
+        run, counts = self.main_path(
+            "find_synergies 124,460x8 ranks 1-4 batched (array core)",
+            lambda: select._find_synergies_arrays(host, 1, 4, sweep="batched"))
+        assert counts["cd_nmf_cluster"] == 1 and sum(counts.values()) == 1, counts
+        vaf = run.vaf_rows[:, 0]
+        log(f"find_synergies 124,460x8: VAF by rank {np.round(vaf, 6).tolist()}, n_iter "
+            f"{[run.models[k].n_iter_ for k in run.ranks]}")
+        assert np.isfinite(run.vaf_rows).all() and (vaf <= 1).all()
+        assert (np.diff(vaf) > -1e-6).all(), "VAF falls with rank"
+
+        subject = xs[:30].reshape(-1, N_CHANNELS)  # 30 gait cycles, 6,000 x 8
+        got, counts = self.main_path("bootstrap_synergies 6000x8",
+                                     lambda: stability.bootstrap_synergies(subject, 4))
+        assert counts["mu_nmf_cluster"] == 1 and sum(counts.values()) == 1, counts
+        t0 = time.perf_counter()
+        want = stability.bootstrap_synergies(subject.double(), 4, dtype=torch.float64,
+                                             impl="torch")
+        gap = float(np.abs(got.similarities - want.similarities).max())
+        cos = [float((a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum()))
+               for a, b in zip(got.reference_components, want.reference_components)]
+        log(f"bootstrap_synergies 6000x8: float64 plain on the card "
+            f"{time.perf_counter() - t0:.2f} s; similarity gap {gap:.3e} (bar 2e-3), "
+            f"reference cosines min {min(cos):.6f} (bar 0.999)")
+        assert gap <= 2e-3 and min(cos) >= 0.999, "the 6,000 x 8 bootstrap disagrees"
+
+        # the dataset grid at full length: analyze_dataset needs reduce_to
+        # (so do the JAX package's, and preprocess_trials), so the batch
+        # goes through what it calls, without the time normalisation: the
+        # envelope of 4 whole trials (one K3 launch), then ranks 1-4 of
+        # every trial as one batch of 16 fits (one K2 launch)
+        def full_grid(impl="auto"):
+            env = envelopes(emg[:4])
+            ws, hs = [], []
+            for kk in (1, 2, 3, 4):
+                w0, h0 = mb.init_batch(env, kk)
+                ws.append(torch.nn.functional.pad(w0, (0, 4 - kk)))
+                hs.append(torch.nn.functional.pad(h0, (0, 0, 0, 4 - kk)))
+            gx = env.repeat(4, 1, 1)
+            st = mb.fit_cd_batch(gx, torch.cat(ws), torch.cat(hs), max_iter=2000,
+                                 tol=1e-6, impl=impl)
+            vaf, _ = mb.vaf_batch(gx, st.w, st.ht.transpose(-1, -2))
+            return vaf.view(4, 4).cpu().numpy(), st.n_iter.view(4, 4).cpu().numpy()
+
+        (vaf, n_iter), counts = self.main_path(
+            "dataset grid, 4 full-length trials x ranks 1-4, max_iter 2,000", full_grid)
+        assert counts["sosfiltfilt"] == 1 and counts["cd_nmf_cluster"] == 1, counts
+        assert sum(counts.values()) == 2, counts
+        assert np.isfinite(vaf).all() and (vaf <= 1).all()
+        t0 = time.perf_counter()
+        plain_vaf, plain_iter = full_grid(impl="torch")
+        plain_s = time.perf_counter() - t0
+        diff = float(np.abs(plain_vaf - vaf).max())
+        log(f"dataset grid at full length: mean VAF by rank "
+            f"{np.round(vaf.mean(axis=1), 6).tolist()}, n_iter median by rank "
+            f"{np.median(n_iter, axis=1).tolist()} (plain {np.median(plain_iter, axis=1).tolist()}); "
+            f"impl='torch' {plain_s:.2f} s, max VAF diff {diff:.3e} (bar 1e-3)  [{self.smi}]")
+        assert diff <= 1e-3, "the full-length grid disagrees with impl='torch'"
+
+        # (d) a lone capture-length fit's iteration against the plain loop
+        x1, w1, h1 = problem(1, N_SAMPLES, N_CHANNELS, 4)
+        lone = 200
+        nbytes = 4 * (N_SAMPLES * N_CHANNELS + 2 * (N_SAMPLES * 4 + 4 * N_CHANNELS))
+        for kname, (mod, kern, plain, *_rest) in entries.items():
+            us = cuda_ms(lambda: kern(x1, w1, h1, lone), reps=3) / lone * 1e3
+            plain_us = cuda_ms(lambda: plain(x1, w1, h1, lone), reps=1) / lone * 1e3
+            bound_ms, bound_by = bound(lone * nmf_flops(kname[:6], N_SAMPLES, N_CHANNELS, 4),
+                                       nbytes)
+            log(f"stage {kname} lone fit 1x{N_SAMPLES}x{N_CHANNELS} k=4: {us:.2f} us an "
+                f"iteration (plain f32 {plain_us:.2f} us; bound {bound_ms / lone * 1e3:.3f} "
+                f"us, {bound_by})  [{self.smi}]")
+            self.kernels[kname].update(lone_us_per_iteration=us,
+                                       lone_plain_us_per_iteration=plain_us,
+                                       lone_bound_us_per_iteration=bound_ms / lone * 1e3)
+
+    @staticmethod
+    def _cd_step(x_, w_, h_):
+        """One CD outer iteration on (X, W, H) in the JAX layouts."""
+        from muscle_synergies_tpu_torch.models.hals import cd_pass
+
+        w_, _ = cd_pass(x_, w_, h_.transpose(-1, -2))
+        ht, _ = cd_pass(x_.transpose(-1, -2), h_.transpose(-1, -2), w_)
+        return w_, ht.transpose(-1, -2)
+
 
 def main() -> int:
     import torch
@@ -2615,6 +2842,10 @@ def main() -> int:
     import torch.distributed as dist
 
     dist.destroy_process_group()
+    t0 = time.perf_counter()
+    smoke.large_frames(emg, xs)                              # 22
+    smoke.stage("phase 22 (large frames: K1's and K2's cluster entries)",
+                time.perf_counter() - t0)
     del emg, xs
     smoke.capture_main(then=smoke.pipeline_cli_phase)        # 15, 20
     smoke.stage("whole script", time.perf_counter() - run_t0)

@@ -1,6 +1,7 @@
 // Batched Frobenius multiplicative-update NMF: a warp-per-fit entry for
-// the time-normalised frames of the main paths, and a block-per-fit
-// entry for larger frames.
+// the time-normalised frames of the main paths, a block-per-fit entry
+// for larger frames, and a cluster-per-fit entry for frames over one
+// block's shared memory (at the end of this file).
 //
 // Replaces the TPU kernels `mu_iterations_pallas` and `fit_mu_pallas`
 // (muscle_synergies_tpu/models/kernels/mu_pallas.py: _mu_kernel,
@@ -421,4 +422,214 @@ extern "C" int mu_nmf_warp_f32(const float* x, const float* w0,
                                           prev_err, converged, batch, n, l, k,
                                           iters, tol, check_every, inner_iter,
                                           pen, s);
+}
+
+// --------------------------- cluster entry ---------------------------
+//
+// mu_nmf_cluster_f32: one thread-block cluster per fit, for frames whose
+// fit exceeds one block's shared memory (nmf_common.cuh: the cluster
+// entries).  An iteration follows the block entry's order: H H^T in
+// every block; the block's rows of W updated against it (row-local:
+// the row's X H^T and W H H^T) while the block adds its rows' share of
+// W^T W and W^T X; a cluster barrier; the C partial sums added in rank
+// order over distributed shared memory; H updated from them, the same
+// bits in every block.  The stopping statistic is sum (X - WH)^2 over
+// each block's own rows, reduced the same way and square-rooted, never
+// formed from the Grams (in float32 ||X||^2 - 2 <W^T X, H> + <W^T W,
+// H H^T> cancels to ~1e-5 of the error at a VAF of 0.99, and the 1e-6
+// relative-improvement test would fire on noise).  Every block takes the
+// stop branch from the same reduced value, and a last cluster barrier
+// keeps any block from leaving while another still reads its shared
+// memory.  What bounds it: a lone fit runs on one cluster (at most 16
+// SMs), each block issuing ~6 K (L + K) flops and ~3 K (L + K) shared-
+// memory reads a row an iteration, plus two cluster barriers an
+// iteration and, streamed, its rows' X and W through L2; the bytes bound
+// (X read once) is far below that (PERF.md).
+
+// sklearn's multiplicative update of one row of W, `inner_iter` times
+// against its row of X H^T and t.gram = H H^T.
+template <int KMAX>
+struct MuClusterRows {
+  int inner_iter;
+  NmfPenalty pen;
+  __device__ float operator()(float (&wr)[KMAX], const float (&xh)[KMAX],
+                              const NmfBlock& t) const {
+    for (int it = 0; it < inner_iter; ++it) {
+      float wn[KMAX];
+#pragma unroll
+      for (int i = 0; i < KMAX; ++i) {
+        if (i < t.k) {
+          float den = 0.0f;
+#pragma unroll
+          for (int j = 0; j < KMAX; ++j) {
+            if (j < t.k) den += wr[j] * t.gram[j * t.k + i];
+          }
+          den = (den + pen.l1_w) + pen.l2_w * wr[i];
+          den = den == 0.0f ? EPSILON : den;
+          wn[i] = wr[i] * (xh[i] / den);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < KMAX; ++i) {
+        if (i < t.k) wr[i] = wn[i];
+      }
+    }
+    return 0.0f;
+  }
+};
+
+// H <- H * (W^T X) / (W^T W H), `inner_iter` times, one thread a column
+// (b.gram holds W^T W and b.cross W^T X, the cluster's sums).
+template <int KMAX>
+__device__ void mu_cluster_cols(const NmfBlock& b, int inner_iter,
+                                const NmfPenalty& pen) {
+  for (int m = threadIdx.x; m < b.l; m += blockDim.x) {
+    float hr[KMAX], hn[KMAX];
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) hr[i] = i < b.k ? b.h[i * b.l + m] : 0.0f;
+    for (int it = 0; it < inner_iter; ++it) {
+#pragma unroll
+      for (int i = 0; i < KMAX; ++i) {
+        if (i < b.k) {
+          float den = 0.0f;
+#pragma unroll
+          for (int j = 0; j < KMAX; ++j) {
+            if (j < b.k) den += b.gram[i * b.k + j] * hr[j];
+          }
+          den = (den + pen.l1_h) + pen.l2_h * hr[i];
+          den = den == 0.0f ? EPSILON : den;
+          hn[i] = hr[i] * (b.cross[i * b.l + m] / den);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < KMAX; ++i) {
+        if (i < b.k) hr[i] = hn[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) {
+      if (i < b.k) b.h[i * b.l + m] = hr[i];
+    }
+  }
+  __syncthreads();
+}
+
+// One MU iteration of the cluster's fit; `parity` picks the partial-sum
+// buffer.  xf / wf: the fit's X and W in device memory (W is read and
+// written there only when streamed).
+template <int KMAX>
+__device__ void mu_cluster_step(const NmfCluster& c, nmf_cg::cluster_group& cl,
+                                const float* xf, float* wf, int parity,
+                                int inner_iter, const NmfPenalty& pen) {
+  const NmfBlock& b = c.b;
+  float* part = c.part + parity * c.pstride;
+  for (int q = threadIdx.x; q < b.k * b.k + b.k * b.l; q += blockDim.x) {
+    part[q] = 0.0f;
+  }
+  nmf_hht(b);  // its closing barrier also orders the zeroing
+  nmf_cluster_w_pass<KMAX>(c, xf, wf, part, MuClusterRows<KMAX>{inner_iter, pen});
+  nmf_cluster_grams(c, cl, part);
+  __syncthreads();
+  mu_cluster_cols<KMAX>(b, inner_iter, pen);
+}
+
+// ||X - W H||_F of the cluster's fit, returned to every thread of every
+// block: each block's sum over its rows, then the blocks' sums in rank
+// order.  At least one cluster barrier of an iteration lies between two
+// calls, so one slot a block suffices.
+__device__ float mu_cluster_error(const NmfCluster& c, nmf_cg::cluster_group& cl,
+                                  const float* xf, float* wf) {
+  float part = 0.0f;
+  nmf_cluster_tiles<false>(c, xf, wf, [&](const NmfBlock& t) {
+    for (int n = threadIdx.x; n < t.n; n += blockDim.x) {
+      for (int m = 0; m < t.l; ++m) {
+        float rec = 0.0f;
+        for (int j = 0; j < t.k; ++j) rec += t.w[n * t.ldw + j] * t.h[j * t.l + m];
+        const float d = t.x[n * t.ldx + m] - rec;
+        part += d * d;
+      }
+    }
+  });
+  const float mine = nmf_block_sum(c.b, part);
+  if (threadIdx.x == 0) *c.err = mine;
+  cl.sync();
+  return sqrtf(nmf_cluster_sum(cl, c.err, 0));
+}
+
+template <int KMAX, bool WITH_STOP>
+__global__ void __launch_bounds__(NMF_CLUSTER_THREADS) mu_cluster_kernel(
+    NmfClusterPlan p, const float* __restrict__ x,
+    const float* __restrict__ w0, const float* __restrict__ h0,
+    float* __restrict__ w, float* __restrict__ h, int* __restrict__ n_iter_out,
+    float* __restrict__ prev_err_out, int* __restrict__ converged_out,
+    int iters, float tol, int check_every, int inner_iter, NmfPenalty pen) {
+  extern __shared__ float smem[];
+  nmf_cg::cluster_group cl = nmf_cg::this_cluster();
+  const size_t fit = blockIdx.x / cl.num_blocks();
+  const NmfCluster c = nmf_cluster(smem, p, (int)cl.block_rank());
+  const float* xf = x + fit * p.n * p.l;
+  float* wf = w + fit * p.n * p.k;
+  nmf_cluster_load(c, xf, w0 + fit * p.n * p.k, wf, h0 + fit * p.k * p.l);
+  int parity = 0;
+  if (WITH_STOP) {
+    // sklearn's loop, as the block entry runs it; every value that
+    // decides a branch is the same in every block of the cluster
+    const float err0 = mu_cluster_error(c, cl, xf, wf);
+    float prev_err = err0;
+    int n_iter = 0;
+    bool converged = false;
+    while (n_iter < iters && !converged) {
+      const int steps = min(check_every, iters - n_iter);
+      for (int t = 0; t < steps; ++t) {
+        mu_cluster_step<KMAX>(c, cl, xf, wf, parity, inner_iter, pen);
+        parity ^= 1;
+      }
+      n_iter += steps;
+      if (tol > 0.0f) {
+        const float err = mu_cluster_error(c, cl, xf, wf);
+        converged = (prev_err - err) / err0 < tol && n_iter % check_every == 0;
+        prev_err = err;
+      }
+    }
+    if (c.rank == 0 && threadIdx.x == 0) {
+      n_iter_out[fit] = n_iter;
+      prev_err_out[fit] = prev_err;
+      converged_out[fit] = converged ? 1 : 0;
+    }
+  } else {
+    for (int t = 0; t < iters; ++t) {
+      mu_cluster_step<KMAX>(c, cl, xf, wf, parity, inner_iter, pen);
+      parity ^= 1;
+    }
+  }
+  cl.sync();  // no block leaves while another reads its shared memory
+  nmf_cluster_store(c, wf, h + fit * p.k * p.l);
+}
+
+// The cluster entry: mu_nmf_f32's arguments and results, for frames
+// over one block's shared memory (models/kernels/mu_cuda.py: route).
+// Launches one cluster a fit on `stream` and returns cudaGetLastError(),
+// or the error that left no cluster able to run the fit.
+extern "C" int mu_nmf_cluster_f32(const float* x, const float* w0,
+                                  const float* h0, float* w, float* h,
+                                  int* n_iter, float* prev_err, int* converged,
+                                  int batch, int n, int l, int k, int iters,
+                                  float tol, int check_every, int inner_iter,
+                                  float l1_w, float l2_w, float l1_h,
+                                  float l2_h, int with_stop, void* stream) {
+  if (batch < 1 || n < 1 || l < 1 || k < 1 || k > NMF_KMAX || iters < 0 ||
+      inner_iter < 1 || (with_stop && check_every < 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const NmfPenalty pen = {l1_w, l2_w, l1_h, l2_h};
+  const cudaStream_t s = (cudaStream_t)stream;
+#define MU_CLUSTER_RUN(KM, ST)                                                \
+  nmf_cluster_run(mu_cluster_kernel<KM, ST>, batch, n, l, k, s, x, w0, h0, w, \
+                  h, n_iter, prev_err, converged, iters, tol, check_every,    \
+                  inner_iter, pen)
+#define MU_CLUSTER_CALL(KM) \
+  (with_stop ? MU_CLUSTER_RUN(KM, true) : MU_CLUSTER_RUN(KM, false))
+  return NMF_CLUSTER_DISPATCH(k, MU_CLUSTER_CALL);
+#undef MU_CLUSTER_CALL
+#undef MU_CLUSTER_RUN
 }

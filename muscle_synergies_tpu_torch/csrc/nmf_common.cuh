@@ -141,9 +141,12 @@ __device__ inline void nmf_hht(const NmfBlock& b) {
   __syncthreads();
 }
 
-// gram <- W^T W and cross <- W^T X: K*K + K*L sums over N, one warp
-// per entry with its lanes striding over the rows.
-__device__ inline void nmf_wtw_wtx(const NmfBlock& b) {
+// W^T W into gram and W^T X into cross, or added to them (ADD): K*K +
+// K*L sums over N, one warp per entry with its lanes striding over the
+// rows, so entry q is always written by the same warp.
+template <bool ADD>
+__device__ inline void nmf_wtw_wtx(const NmfBlock& b, float* gram,
+                                   float* cross) {
   const int lane = threadIdx.x & 31;
   const int n_warps = blockDim.x >> 5;
   const int kk = b.k * b.k;
@@ -164,14 +167,16 @@ __device__ inline void nmf_wtw_wtx(const NmfBlock& b) {
     for (int r = lane; r < b.n; r += 32) s += a[r * b.ldw] * c[r * ldc];
     s = nmf_warp_sum(s);
     if (lane == 0) {
-      if (q < kk) {
-        b.gram[q] = s;
-      } else {
-        b.cross[q - kk] = s;
-      }
+      float* d = q < kk ? gram + q : cross + (q - kk);
+      *d = ADD ? *d + s : s;
     }
   }
   __syncthreads();
+}
+
+// gram <- W^T W and cross <- W^T X.
+__device__ inline void nmf_wtw_wtx(const NmfBlock& b) {
+  nmf_wtw_wtx<false>(b, b.gram, b.cross);
 }
 
 // Row n of X H^T into xr[0..K).
@@ -385,3 +390,409 @@ inline int nmf_launch(Kernel kernel, int batch, size_t smem,
   kernel<<<batch, NMF_THREADS, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
+
+// ---- the cluster entries (cd_nmf.cu, mu_nmf.cu) ----
+//
+// One thread-block cluster per fit, for frames whose fit exceeds one
+// block's shared memory.  Block r of a cluster of C owns rows
+// [r * rows, (r + 1) * rows) of X and W (rows = ceil(N / C), the last
+// block shorter, a block past N none); every block keeps H, the Gram
+// matrices and its partial sums in its own shared memory.  One
+// iteration: every block forms H H^T, updates its rows of W (row-local)
+// and adds its rows' share of W^T W and W^T X; after a cluster barrier
+// every block sums the C partial sums over distributed shared memory in
+// rank order 0..C-1 and updates H from the same numbers, so H is the
+// same bit for bit in every block.  The partial sums are double-buffered
+// by the iteration's parity, so one cluster barrier an iteration keeps
+// a block from overwriting what another still reads.
+//
+// Where rows live (nmf_cluster_plan): resident, the block's share of X
+// and W in shared memory for the whole solve, at the smallest cluster
+// whose share fits; otherwise streamed, X read and W read and written
+// in device memory (a fit's X and W are a few MB, held by the 50 MB L2)
+// in tiles of `tile` rows, two shared buffers filled by cp.async while
+// the other is worked on, at the largest cluster the card schedules.
+// models/kernels/mu_cuda.py mirrors the limits (cluster_smem_bytes).
+
+#include <cooperative_groups.h>
+
+#define NMF_CLUSTER_THREADS 256
+#define NMF_CLUSTER_PORTABLE 8   // the portable cluster size
+#define NMF_CLUSTER_MAX 16       // non-portable, when the card schedules it
+#define NMF_CLUSTER_MIN_TILE 128 // rows of a streamed tile, at least
+#define NMF_CLUSTER_TILE_BYTES (96 * 1024)  // a streamed tile pair's budget
+
+namespace nmf_cg = cooperative_groups;
+
+// Floats of a cluster block's state besides its rows: H, the Gram
+// matrix, W^T X, 33 of reduction scratch, two partial-sum buffers
+// (W^T W, W^T X and one scalar, CD's violation) and the block's share
+// of the stopping statistic.
+__host__ __device__ inline size_t nmf_cluster_small_floats(int l, int k) {
+  return 4 * (size_t)k * l + 3 * (size_t)k * k + 36;
+}
+
+// How a cluster entry runs an (n, l) fit at rank k; the kernels take it
+// as their first argument.
+struct NmfClusterPlan {
+  int n, l, k;   // the fit
+  int rows;      // rows a block, ceil(n / size)
+  int tile;      // rows a tile (resident: = rows)
+  int resident;  // 1: rows in shared memory; 0: streamed tiles
+  int size;      // blocks a cluster
+  size_t smem;   // dynamic shared memory a block, bytes
+};
+
+struct NmfCluster {
+  NmfBlock b;     // h, gram, cross, red; x, w: the resident share, or tile buffer 0
+  float* part;    // 2 x pstride partial sums, by the iteration's parity
+  float* err;     // the block's share of the stopping statistic
+  int pstride;    // k * k + k * l + 1
+  int rank;
+  size_t r0;      // the block's first row in the fit
+  int rows;       // the block's rows
+  int tile;       // rows a tile (resident: a block's rows)
+  bool resident;
+};
+
+__device__ inline NmfCluster nmf_cluster(float* smem, const NmfClusterPlan& p,
+                                         int rank) {
+  NmfCluster c;
+  c.rank = rank;
+  const long long first = (long long)rank * p.rows;
+  const long long last = min((long long)p.n, first + p.rows);
+  c.r0 = (size_t)min(first, (long long)p.n);
+  c.rows = (int)max(0LL, last - first);
+  c.tile = p.tile;
+  c.resident = p.resident != 0;
+  NmfBlock& b = c.b;
+  b.n = p.tile;
+  b.l = p.l;
+  b.k = p.k;
+  b.ldx = nmf_odd(p.l);
+  b.ldw = nmf_odd(p.k);
+  b.h = smem;
+  b.gram = b.h + p.k * p.l;
+  b.cross = b.gram + p.k * p.k;
+  b.red = b.cross + p.k * p.l;
+  c.part = b.red + 33;
+  c.pstride = p.k * p.k + p.k * p.l + 1;
+  c.err = c.part + 2 * c.pstride;
+  b.x = c.err + 1;
+  b.w = b.x + (size_t)p.tile * b.ldx;
+  return c;
+}
+
+__device__ __forceinline__ void nmf_cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void nmf_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void nmf_cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Tile `i` of a streamed share: an NmfBlock of its rows in tile buffer
+// i % 2 (x rows then w rows, padded strides).
+__device__ inline NmfBlock nmf_cluster_buffer(const NmfCluster& c, int i) {
+  NmfBlock t = c.b;
+  const size_t pair = (size_t)c.tile * (t.ldx + t.ldw);
+  t.x = c.b.x + (i & 1) * pair;
+  t.w = t.x + (size_t)c.tile * t.ldx;
+  t.n = min(c.tile, c.rows - i * c.tile);
+  return t;
+}
+
+// Start copying `rows` rows of `cols` floats (contiguous at src) into
+// shared memory rows of stride `ld`: element e = r * cols + c goes to
+// r * ld + c, the thread's (r, c) advanced by blockDim.x elements a step
+// without a division.
+__device__ inline void nmf_cp_async_rows(float* dst, int ld, const float* src,
+                                         int rows, int cols) {
+  const int total = rows * cols;
+  const int dr = blockDim.x / cols, dc = blockDim.x % cols;
+  int r = threadIdx.x / cols, c = threadIdx.x % cols;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    nmf_cp_async4(dst + r * ld + c, src + e);
+    r += dr;
+    c += dc;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
+}
+
+// Start copying tile `i` of the block's rows of X and W (xf, wf: the
+// fit's, in device memory) into its buffer; one commit group.
+__device__ inline void nmf_cluster_fetch(const NmfCluster& c, int i,
+                                         const float* xf, const float* wf) {
+  const NmfBlock t = nmf_cluster_buffer(c, i);
+  const size_t row = c.r0 + (size_t)i * c.tile;
+  nmf_cp_async_rows(t.x, t.ldx, xf + row * t.l, t.n, t.l);
+  nmf_cp_async_rows(t.w, t.ldw, wf + row * t.k, t.n, t.k);
+  nmf_cp_async_commit();
+}
+
+// body(t) on every tile of the block's rows, t's x and w rows in shared
+// memory; barriers before and after each.  Streamed, the next tile's
+// copy runs while body works and, with STORE_W, each tile's W rows go
+// back to the fit's W in device memory after it.
+template <bool STORE_W, typename Body>
+__device__ void nmf_cluster_tiles(const NmfCluster& c, const float* xf,
+                                  float* wf, Body body) {
+  if (c.resident) {
+    if (c.rows > 0) {
+      NmfBlock t = c.b;
+      t.n = c.rows;
+      body(t);
+      __syncthreads();
+    }
+    return;
+  }
+  const int n_tiles = (c.rows + c.tile - 1) / c.tile;
+  if (n_tiles > 0) nmf_cluster_fetch(c, 0, xf, wf);
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) {
+      nmf_cluster_fetch(c, i + 1, xf, wf);
+      nmf_cp_async_wait<1>();
+    } else {
+      nmf_cp_async_wait<0>();
+    }
+    __syncthreads();
+    const NmfBlock t = nmf_cluster_buffer(c, i);
+    body(t);
+    __syncthreads();
+    if (STORE_W) {
+      float* wd = wf + (c.r0 + (size_t)i * c.tile) * t.k;
+      const int dr = blockDim.x / t.k, dc = blockDim.x % t.k;
+      int r = threadIdx.x / t.k, col = threadIdx.x % t.k;
+      for (int e = threadIdx.x; e < t.n * t.k; e += blockDim.x) {
+        wd[e] = t.w[r * t.ldw + col];
+        r += dr;
+        col += dc;
+        if (col >= t.k) {
+          col -= t.k;
+          ++r;
+        }
+      }
+      __syncthreads();  // before tile i + 2's copy refills the buffer
+    }
+  }
+}
+
+// The W pass of one iteration on the block's rows: `rows(wr, xh, t)`
+// updates one row of W in registers from its row of X H^T (t.gram holds
+// H H^T) and returns what it adds to the thread's violation; then the
+// tile's share of W^T W and W^T X is added to part[0 .. K*K + K*L)
+// (zeroed by the caller) by the block entry's sums.  Returns the
+// thread's summed violation.
+template <int KMAX, typename Rows>
+__device__ float nmf_cluster_w_pass(const NmfCluster& c, const float* xf,
+                                    float* wf, float* part, const Rows& rows) {
+  float viol = 0.0f;
+  nmf_cluster_tiles<true>(c, xf, wf, [&](const NmfBlock& t) {
+    for (int n = threadIdx.x; n < t.n; n += blockDim.x) {
+      float wr[KMAX], xh[KMAX];
+      nmf_xht_row<KMAX>(t, n, xh);
+#pragma unroll
+      for (int i = 0; i < KMAX; ++i) wr[i] = i < t.k ? t.w[n * t.ldw + i] : 0.0f;
+      viol += rows(wr, xh, t);
+#pragma unroll
+      for (int i = 0; i < KMAX; ++i) {
+        if (i < t.k) t.w[n * t.ldw + i] = wr[i];
+      }
+    }
+    __syncthreads();
+    nmf_wtw_wtx<true>(t, part, part + t.k * t.k);
+  });
+  return viol;
+}
+
+// The cluster's sum of entry q of every block's buffer `local` (the same
+// offset in each block's shared memory), added in rank order 0..C-1, so
+// every block gets the same bits.  Call after a cluster barrier.
+// Every block's value is read before the first add, so the remote reads
+// overlap instead of queueing one behind another.
+__device__ inline float nmf_cluster_sum(nmf_cg::cluster_group& cl, float* local,
+                                        int q) {
+  const unsigned size = cl.num_blocks();
+  float v[NMF_CLUSTER_MAX];
+#pragma unroll
+  for (unsigned r = 0; r < NMF_CLUSTER_MAX; ++r) {
+    v[r] = r < size ? cl.map_shared_rank(local, r)[q] : 0.0f;
+  }
+  float s = 0.0f;
+#pragma unroll
+  for (unsigned r = 0; r < NMF_CLUSTER_MAX; ++r) {
+    if (r < size) s += v[r];
+  }
+  return s;
+}
+
+// After a W pass: the cluster's sums of every block's part[0 .. K*K +
+// K*L) into b.gram (W^T W) and b.cross (W^T X), the same bits in every
+// block.  Holds the cluster barrier that makes every part readable.
+__device__ inline void nmf_cluster_grams(const NmfCluster& c,
+                                         nmf_cg::cluster_group& cl,
+                                         float* part) {
+  const NmfBlock& b = c.b;
+  cl.sync();
+  const int kk = b.k * b.k;
+  for (int q = threadIdx.x; q < kk + b.k * b.l; q += blockDim.x) {
+    const float s = nmf_cluster_sum(cl, part, q);
+    if (q < kk) {
+      b.gram[q] = s;
+    } else {
+      b.cross[q - kk] = s;
+    }
+  }
+}
+
+// Load one fit: H into every block, the block's rows of X and W into its
+// shared memory (resident), or its rows of W0 copied to W in device
+// memory (streamed: W is then updated in place there).
+__device__ inline void nmf_cluster_load(const NmfCluster& c, const float* xf,
+                                        const float* w0f, float* wf,
+                                        const float* h0f) {
+  const NmfBlock& b = c.b;
+  for (int i = threadIdx.x; i < b.k * b.l; i += blockDim.x) b.h[i] = h0f[i];
+  const float* xs = xf + c.r0 * b.l;
+  const float* ws = w0f + c.r0 * b.k;
+  if (c.resident) {
+    for (int i = threadIdx.x; i < c.rows * b.l; i += blockDim.x) {
+      b.x[(i / b.l) * b.ldx + i % b.l] = xs[i];
+    }
+    for (int i = threadIdx.x; i < c.rows * b.k; i += blockDim.x) {
+      b.w[(i / b.k) * b.ldw + i % b.k] = ws[i];
+    }
+  } else {
+    float* wd = wf + c.r0 * b.k;
+    for (int i = threadIdx.x; i < c.rows * b.k; i += blockDim.x) wd[i] = ws[i];
+  }
+  __syncthreads();
+}
+
+// Store one fit: the block's rows of W (resident; streamed rows are
+// already there) and, from rank 0, H.
+__device__ inline void nmf_cluster_store(const NmfCluster& c, float* wf,
+                                         float* hf) {
+  const NmfBlock& b = c.b;
+  if (c.resident) {
+    float* wd = wf + c.r0 * b.k;
+    for (int i = threadIdx.x; i < c.rows * b.k; i += blockDim.x) {
+      wd[i] = b.w[(i / b.k) * b.ldw + i % b.k];
+    }
+  }
+  if (c.rank == 0) {
+    for (int i = threadIdx.x; i < b.k * b.l; i += blockDim.x) hf[i] = b.h[i];
+  }
+}
+
+// A launch configuration of `batch` clusters of `size` blocks with
+// `smem` bytes each; `attr` receives the cluster attribute.
+inline cudaLaunchConfig_t nmf_cluster_config(int batch, int size, size_t smem,
+                                             cudaStream_t stream,
+                                             cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)batch * size, 1, 1);
+  cfg.blockDim = dim3(NMF_CLUSTER_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = size;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of `size` blocks with `smem` bytes each that the card can hold
+// at once (0 when it cannot schedule one); clears any error the query
+// raised.
+template <typename Kernel>
+inline int nmf_cluster_active(Kernel kernel, int size, size_t smem) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = nmf_cluster_config(1, size, smem, 0, &attr);
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return clusters;
+}
+
+// The split of an (n, l) fit at rank k: resident at the smallest cluster
+// (2, 4, 8, 16) whose share of rows fits one block and which the card
+// schedules; else streamed at the largest schedulable cluster (16 needs
+// the non-portable attribute and may not fit a GPC: queried, not
+// assumed).  Returns 0, or a CUDA error when no cluster can run it.
+template <typename Kernel>
+inline int nmf_cluster_plan(Kernel kernel, int n, int l, int k,
+                            NmfClusterPlan* plan) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, NMF_SMEM_LIMIT);
+  if (e != cudaSuccess) return (int)e;
+  const bool big = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) == cudaSuccess;
+  cudaGetLastError();
+  const int largest = big ? NMF_CLUSTER_MAX : NMF_CLUSTER_PORTABLE;
+  const size_t small = nmf_cluster_small_floats(l, k);
+  const size_t row_floats = (size_t)nmf_odd(l) + nmf_odd(k);
+  for (int size = 2; size <= largest; size *= 2) {
+    const int rows = (int)(((long long)n + size - 1) / size);
+    const size_t smem = (small + (size_t)rows * row_floats) * sizeof(float);
+    if (smem <= NMF_SMEM_LIMIT && nmf_cluster_active(kernel, size, smem) > 0) {
+      *plan = {n, l, k, rows, rows, 1, size, smem};
+      return 0;
+    }
+  }
+  const size_t room = NMF_SMEM_LIMIT / sizeof(float);
+  if (small + 2 * NMF_CLUSTER_MIN_TILE * row_floats > room) {
+    return (int)cudaErrorInvalidValue;
+  }
+  for (int size = largest; size >= 2; size /= 2) {
+    const int rows = (int)(((long long)n + size - 1) / size);
+    size_t tile = NMF_CLUSTER_TILE_BYTES / sizeof(float) / (2 * row_floats);
+    // whole rows for every thread in each tile, where the budget allows
+    if (tile > NMF_CLUSTER_THREADS) tile -= tile % NMF_CLUSTER_THREADS;
+    if (tile < NMF_CLUSTER_MIN_TILE) tile = NMF_CLUSTER_MIN_TILE;
+    if (small + 2 * tile * row_floats > room) tile = (room - small) / (2 * row_floats);
+    if (tile > (size_t)rows) tile = rows;
+    const size_t smem = (small + 2 * tile * row_floats) * sizeof(float);
+    if (nmf_cluster_active(kernel, size, smem) > 0) {
+      *plan = {n, l, k, rows, (int)tile, 0, size, smem};
+      return 0;
+    }
+  }
+  return (int)cudaErrorInvalidConfiguration;
+}
+
+// Plan an (n, l) fit at rank k for `kernel` and launch it on `batch`
+// clusters (one a fit), the plan its first argument; returns
+// cudaGetLastError(), or the error that left no cluster able to run it.
+template <typename... Params, typename... Args>
+inline int nmf_cluster_run(void (*kernel)(NmfClusterPlan, Params...),
+                           int batch, int n, int l, int k, cudaStream_t stream,
+                           Args... args) {
+  NmfClusterPlan plan;
+  const int e = nmf_cluster_plan(kernel, n, l, k, &plan);
+  if (e != 0) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      nmf_cluster_config(batch, plan.size, plan.smem, stream, &attr);
+  const cudaError_t le = cudaLaunchKernelEx(&cfg, kernel, plan, args...);
+  if (le != cudaSuccess) return (int)le;
+  return (int)cudaGetLastError();
+}
+
+// The KMAX a cluster kernel runs a rank-k fit at, as the block entries'.
+#define NMF_CLUSTER_DISPATCH(k, CALL) \
+  ((k) <= 4 ? CALL(4) : (k) <= 8 ? CALL(8) : CALL(16))

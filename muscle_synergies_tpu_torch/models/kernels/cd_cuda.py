@@ -5,14 +5,18 @@ Replaces the TPU kernels ``cd_iterations_pallas`` and ``fit_cd_pallas``
 source serves both: the stopping rule is a template switch, compiled
 out for the fixed-iteration entry point.
 
-The source has two entries, picked by :func:`route` from the frame's
-shape: the warp entry (one warp per fit, X and W rows in registers) for
-frames of at most ``WARP_NMAX`` x ``WARP_LMAX`` at rank ``WARP_KMAX``,
-which covers every time-normalised 200 x 8 frame of the main paths at
-ranks 1-8; the block entry (one block per fit, the fit in shared
-memory) above that; and a refusal before any launch for a frame over
-one block's shared memory.  ``warp_launches`` and ``launches`` count
-the two entries' launches.
+The source has three entries, picked by :func:`route` (K1's rule,
+:func:`~.mu_cuda.route`) from the frame's shape: the warp entry (one
+warp per fit, X and W rows in registers) for frames of at most
+``WARP_NMAX`` x ``WARP_LMAX`` at rank ``WARP_KMAX``, which covers every
+time-normalised 200 x 8 frame of the main paths at ranks 1-8; the block
+entry (one block per fit, the fit in shared memory) above that; the
+cluster entry (one thread-block cluster per fit, the partial Grams and
+W-pass violations reduced over distributed shared memory) for a frame
+over one block's shared memory, such as a full-length trial of
+``PipelineConfig(reduce_to=None)``; and a refusal before any launch
+beyond.  ``warp_launches``, ``launches`` and ``cluster_launches`` count
+the three entries' launches.
 
 :func:`cd_iterations_cuda` and :func:`fit_cd_cuda` take contiguous CUDA
 float32 tensors in the JAX layouts, X ``(B, N, L)``, W ``(B, N, k)``,
@@ -32,12 +36,12 @@ import torch
 from ..._build import load
 from ..._common import check_kernel_nans
 from ..hals import CDState, cd_pass, fit_cd
+from . import mu_cuda
 from .mu_cuda import (  # noqa: F401 (the warp limits, shared with K1 and K4)
     WARP_KMAX,
     WARP_LMAX,
     WARP_NMAX,
-    check_fits,
-    check_shapes,
+    check_layout,
     warp_fits,
 )
 
@@ -46,6 +50,7 @@ __all__ = [
     "fit_cd_cuda",
     "cd_iterations_plain",
     "fit_cd_plain",
+    "cluster_launches",
     "launches",
     "route",
     "warp_launches",
@@ -53,19 +58,20 @@ __all__ = [
 
 launches = 0  # block-entry launches since the last reset
 warp_launches = 0  # warp-entry launches since the last reset
+cluster_launches = 0  # cluster-entry launches since the last reset
 
 
 def route(n: int, l: int, k: int) -> str:
-    """K2's entry for fits of ``(n, l)`` frames at rank ``k``: ``"warp"``
-    or ``"block"``; raises ``ValueError`` (naming ``impl='torch'``) when
-    one fit exceeds one block's shared memory."""
-    check_fits("cd_nmf", n, l, k)
-    return "warp" if warp_fits(n, l, k) else "block"
+    """K2's entry for fits of ``(n, l)`` frames at rank ``k``: ``"warp"``,
+    ``"block"`` or ``"cluster"``, by K1's rule; raises ``ValueError``
+    (naming ``impl='torch'``) beyond the cluster entry's limit."""
+    return mu_cuda.entry_for("cd_nmf", n, l, k)
 
 
 def _lib(entry: str):
     lib = load("cd_nmf")
-    fn = lib.cd_nmf_warp_f32 if entry == "warp" else lib.cd_nmf_f32
+    fn = {"warp": lib.cd_nmf_warp_f32, "block": lib.cd_nmf_f32,
+          "cluster": lib.cd_nmf_cluster_f32}[entry]
     fn.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] * 5
         + [ctypes.c_int] + [ctypes.c_void_p]
@@ -75,8 +81,8 @@ def _lib(entry: str):
 
 
 def _launch(xs, w0, h0, iters, tol, with_stop, regs=(0.0, 0.0, 0.0, 0.0)):
-    global launches, warp_launches
-    check_shapes("cd_nmf", xs, w0, h0)
+    global launches, warp_launches, cluster_launches
+    check_layout("cd_nmf", xs, w0, h0)
     xs, w0, h0 = xs.contiguous(), w0.contiguous(), h0.contiguous()
     b, n, l = xs.shape
     k = w0.shape[-1]
@@ -96,6 +102,8 @@ def _launch(xs, w0, h0, iters, tol, with_stop, regs=(0.0, 0.0, 0.0, 0.0)):
         raise RuntimeError(f"cd_nmf {entry} entry launch failed: CUDA error {err}")
     if entry == "warp":
         warp_launches += 1
+    elif entry == "cluster":
+        cluster_launches += 1
     else:
         launches += 1
     check_kernel_nans("cd_nmf", w, h, viol_init)

@@ -5,15 +5,20 @@ Replaces the TPU kernels ``mu_iterations_pallas`` and ``fit_mu_pallas``
 source serves both: the stopping rule is a template switch, compiled
 out for the fixed-iteration entry point.
 
-The source has two entries, picked by :func:`route` from the frame's
+The source has three entries, picked by :func:`route` from the frame's
 shape: the warp entry (one warp per fit, X and W rows in registers) for
 frames of at most ``WARP_NMAX`` x ``WARP_LMAX`` at rank ``WARP_KMAX``,
 which covers every time-normalised 200 x 8 frame of the main paths at
 ranks 1-8; the block entry (one block per fit, the fit in shared
-memory) above that; and a refusal before any launch for a frame over
-one block's shared memory.  ``warp_launches`` and ``launches`` count
-the two entries' launches.  The warp limits are those of every warp
-entry (K1, K2 and K4; ``csrc/nmf_common.cuh``).
+memory) above that; the cluster entry (one thread-block cluster per
+fit, each block owning a range of rows, the partial Grams reduced over
+distributed shared memory) for a frame over one block's shared memory,
+such as a subject's concatenated cycles or a whole capture; and a
+refusal before any launch for a frame whose H and Grams alone would
+fill a cluster block (:func:`cluster_smem_bytes`).  ``warp_launches``,
+``launches`` and ``cluster_launches`` count the three entries'
+launches.  The warp limits are those of every warp entry (K1, K2 and
+K4; ``csrc/nmf_common.cuh``).
 
 :func:`mu_iterations_cuda` and :func:`fit_mu_cuda` take contiguous CUDA
 float32 tensors in the JAX layouts, X ``(B, N, L)``, W ``(B, N, k)``,
@@ -38,6 +43,7 @@ __all__ = [
     "fit_mu_cuda",
     "mu_iterations_plain",
     "fit_mu_plain",
+    "cluster_launches",
     "launches",
     "route",
     "warp_launches",
@@ -45,15 +51,27 @@ __all__ = [
 
 launches = 0  # block-entry launches since the last reset
 warp_launches = 0  # warp-entry launches since the last reset
+cluster_launches = 0  # cluster-entry launches since the last reset
 KMAX = 16  # csrc/nmf_common.cuh NMF_KMAX
 # csrc/nmf_common.cuh: NMF_WARP_NMAX, NMF_WARP_LMAX, NMF_WARP_KMAX
 WARP_NMAX, WARP_LMAX, WARP_KMAX = 224, 16, 8
 SMEM_LIMIT = 227 * 1024  # bytes of shared memory one block may use on sm_90
+CLUSTER_MIN_TILE = 128  # csrc/nmf_common.cuh NMF_CLUSTER_MIN_TILE
 
 
 def smem_bytes(n: int, l: int, k: int) -> int:
     """Shared memory of one fit (csrc/nmf_common.cuh ``nmf_smem_floats``)."""
     return 4 * (n * ((l | 1) + (k | 1)) + 2 * k * l + k * k + 33)
+
+
+def cluster_smem_bytes(l: int, k: int) -> int:
+    """Shared memory of one block of the cluster entries at its least:
+    H, the Grams, the partial sums, and two tile buffers of
+    ``CLUSTER_MIN_TILE`` rows of X and W (csrc/nmf_common.cuh
+    ``nmf_cluster_small_floats``, ``nmf_cluster_plan``).  The entry takes
+    an ``(l, k)`` fit of any number of rows when this fits one block."""
+    small = 4 * k * l + 3 * k * k + 36
+    return 4 * (small + 2 * CLUSTER_MIN_TILE * ((l | 1) + (k | 1)))
 
 
 def check_fits(name: str, n: int, l: int, k: int, smem_bytes=smem_bytes) -> None:
@@ -72,6 +90,13 @@ def check_fits(name: str, n: int, l: int, k: int, smem_bytes=smem_bytes) -> None
 def check_shapes(name: str, xs, w, h, smem_bytes=smem_bytes) -> None:
     """Raise unless the problem fits the kernel's bounds (``smem_bytes``
     is the kernel's shared memory per fit)."""
+    check_layout(name, xs, w, h)
+    check_fits(name, *xs.shape[1:], w.shape[-1], smem_bytes)
+
+
+def check_layout(name: str, xs, w, h) -> None:
+    """Raise unless X, W and H are CUDA float32 tensors of matching
+    ``(B, N, L)``, ``(B, N, k)`` and ``(B, k, L)`` shapes."""
     check_cuda_f32(name, xs, w, h)
     if xs.ndim != 3 or w.ndim != 3 or h.ndim != 3:
         raise ValueError(f"{name}: expected 3-D X, W, H")
@@ -82,7 +107,6 @@ def check_shapes(name: str, xs, w, h, smem_bytes=smem_bytes) -> None:
             f"{name}: shapes X {tuple(xs.shape)}, W {tuple(w.shape)}, "
             f"H {tuple(h.shape)} do not match"
         )
-    check_fits(name, n, l, k, smem_bytes)
 
 
 def warp_fits(n: int, l: int, k: int) -> bool:
@@ -92,16 +116,36 @@ def warp_fits(n: int, l: int, k: int) -> bool:
 
 
 def route(n: int, l: int, k: int) -> str:
-    """K1's entry for fits of ``(n, l)`` frames at rank ``k``: ``"warp"``
-    or ``"block"``; raises ``ValueError`` (naming ``impl='torch'``) when
-    one fit exceeds one block's shared memory."""
-    check_fits("mu_nmf", n, l, k)
-    return "warp" if warp_fits(n, l, k) else "block"
+    """K1's entry for fits of ``(n, l)`` frames at rank ``k``: ``"warp"``,
+    ``"block"`` or, for a fit over one block's shared memory,
+    ``"cluster"``; raises ``ValueError`` (naming ``impl='torch'``) when
+    even a cluster block cannot hold H, the Grams and two tiles of rows."""
+    return entry_for("mu_nmf", n, l, k)
+
+
+def entry_for(name: str, n: int, l: int, k: int) -> str:
+    """The rule of :func:`route`, shared by K1 and K2 (``name`` heads
+    the error)."""
+    if not 1 <= k <= KMAX:
+        raise ValueError(f"{name}: rank {k} outside the kernel's 1..{KMAX}")
+    if warp_fits(n, l, k):
+        return "warp"
+    if smem_bytes(n, l, k) <= SMEM_LIMIT:
+        return "block"
+    if cluster_smem_bytes(l, k) <= SMEM_LIMIT:
+        return "cluster"
+    raise ValueError(
+        f"{name}: one fit of {n}x{l} at rank {k} needs "
+        f"{cluster_smem_bytes(l, k)} bytes of shared memory a block even on "
+        f"the cluster entry, over {SMEM_LIMIT}; pass impl='torch' for the "
+        "plain fit on the card, or device='cpu'"
+    )
 
 
 def _lib(entry: str):
     lib = load("mu_nmf")
-    fn = lib.mu_nmf_warp_f32 if entry == "warp" else lib.mu_nmf_f32
+    fn = {"warp": lib.mu_nmf_warp_f32, "block": lib.mu_nmf_f32,
+          "cluster": lib.mu_nmf_cluster_f32}[entry]
     fn.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
         + [ctypes.c_int] * 2 + [ctypes.c_float] * 4 + [ctypes.c_int]
@@ -113,8 +157,8 @@ def _lib(entry: str):
 
 def _launch(xs, w0, h0, iters, tol, check_every, inner_iter, with_stop,
             regs=(0.0, 0.0, 0.0, 0.0)):
-    global launches, warp_launches
-    check_shapes("mu_nmf", xs, w0, h0)
+    global launches, warp_launches, cluster_launches
+    check_layout("mu_nmf", xs, w0, h0)
     xs, w0, h0 = xs.contiguous(), w0.contiguous(), h0.contiguous()
     b, n, l = xs.shape
     k = w0.shape[-1]
@@ -134,6 +178,8 @@ def _launch(xs, w0, h0, iters, tol, check_every, inner_iter, with_stop,
         raise RuntimeError(f"mu_nmf {entry} entry launch failed: CUDA error {err}")
     if entry == "warp":
         warp_launches += 1
+    elif entry == "cluster":
+        cluster_launches += 1
     else:
         launches += 1
     check_kernel_nans("mu_nmf", w, h, prev_err)

@@ -81,8 +81,11 @@ def mu_update(
     if not update_h:
         return w, h
     wt = w.transpose(-1, -2)
-    wtx = wt @ x
-    wtw = wt @ w
+    return w, _update_h(h, wt @ x, wt @ w, l1_reg_h, l2_reg_h, inner_iter)
+
+
+def _update_h(h, wtx, wtw, l1_reg_h: float, l2_reg_h: float, inner_iter: int):
+    """H's half of :func:`mu_update` from ``W^T X`` and ``W^T W``."""
     for _ in range(inner_iter):
         den = wtw @ h
         if l1_reg_h > 0:
@@ -90,7 +93,7 @@ def mu_update(
         if l2_reg_h > 0:
             den = den + l2_reg_h * h
         h = h * (wtx / _guard(den))
-    return w, h
+    return h
 
 
 def _masked_update(x: torch.Tensor, w: torch.Tensor, h: torch.Tensor,

@@ -19,10 +19,13 @@ the fit, as on the batched solvers: ``"auto"`` (the default) runs a
 CUDA frame as a batch of one, or of all swept ranks, through
 ``fit_*_batch``, one launch of K2 (CD), K1 (MU) or K4 (beta-MU), and a
 CPU frame through the plain PyTorch fit; ``"torch"`` runs the plain fit
-wherever the frame is.  The kernels hold a whole fit in one thread
-block's shared memory: a time-normalised 200 x 8 frame fits, a 20,000 x
-8 one does not, and on the card the kernel's wrapper then raises before
-any launch, naming ``impl="torch"`` and ``device="cpu"``.
+wherever the frame is.  A time-normalised 200 x 8 frame fits one warp
+or one thread block; a larger one, a subject's concatenated cycles or a
+whole capture's envelope (20,000 or 124,460 x 8), runs on K1's or K2's
+cluster entry, one thread-block cluster per fit, in the same single
+launch.  K4 (beta-MU) has no cluster entry yet: a KL or IS fit over one
+block's shared memory raises before any launch, naming ``impl="torch"``
+and ``device="cpu"``.
 :meth:`NMFModel.transform` (H frozen) is plain PyTorch on the device
 asked for: no kernel has a frozen-factor entry yet.  It runs a loop of
 10-iteration chunks that ``torch.export`` can capture

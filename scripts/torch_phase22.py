@@ -1,0 +1,67 @@
+#!/usr/bin/env python3
+"""Run ``chip_smoke.py``'s phase 22 (large frames) alone on one card.
+
+Phase 22 fits frames over one block's shared memory on the cluster
+entries of K1 and K2.  This script builds the kernels, warms the
+dataset path once, makes 32 of the script's synthetic trials (the first
+32 of its 256), runs phase 14 (the per-capture API, whose 20,000 x 8
+fit takes K2's cluster entry) and phase 22 on them, and prints each
+stage's time beside the card's name and power limit, then the two
+cluster entries' records.  About two minutes, against about fifteen
+for the whole script.  From the repository root::
+
+    python3 scripts/torch_phase22.py
+
+Without a CUDA card it exits with code 2 and runs nothing.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_phase22: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from muscle_synergies_tpu_torch import _build, analyze_dataset, preprocess_trials
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}; {smi}", flush=True)
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(0)  # first calls load cuSOLVER/cuBLAS and the kernels
+    analyze_dataset([rng.standard_normal((4000 + 10 * i, 8)) for i in range(2)], cs.FS,
+                    ranks=(1, 2), max_iter=100)
+    smoke = cs.Smoke(torch.device("cuda", 0), smi)
+    emg = cs.synthetic_emg(32, seed=2)
+    t0 = time.perf_counter()
+    smoke.per_capture_api(emg)
+    smoke.stage("phase 14 (per-capture API)", time.perf_counter() - t0)
+    xs = preprocess_trials(emg, cs.FS)
+    t0 = time.perf_counter()
+    smoke.large_frames(emg, xs)
+    smoke.stage("phase 22 (large frames: K1's and K2's cluster entries)",
+                time.perf_counter() - t0)
+    for name in ("mu_nmf_cluster", "cd_nmf_cluster"):
+        entry = dict(smoke.kernels[name], launches=smoke.launches[name])
+        entry.pop("library_note", None)
+        print(json.dumps({name: entry}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,233 @@
+"""PyTorch port: the cluster entries of K1 (MU) and K2 (CD) on the CPU.
+
+A fit whose frame exceeds one block's shared memory runs on a
+thread-block cluster: each block owns a range of rows, updates its rows
+of W, adds their share of W^T W and W^T X, and every block sums the
+blocks' partial Grams in rank order before updating H.  The kernels run
+only on the card; here
+
+- :func:`route` of K1 and K2 is held to a table of frames (the warp,
+  block and cluster entries, and the refusal past the cluster's limit);
+- the plain mirrors of that split (``torch_cluster_split.py``),
+  ``fit_mu_cluster_plain`` and ``fit_cd_cluster_plain``, are held in float64 to the JAX package's
+  XLA solvers on a 6,000 x 8 matrix (one range, three, sixteen, and
+  ranges of unequal length): 200 fixed iterations to 1e-10 relative,
+  fits with the stop on to the same iteration count and factors to
+  1e-8, with and without sklearn's L1/L2 penalties and, for MU,
+  ``inner_iter=2``.  Summing the Grams range by range changes only the
+  order of float64 additions (~1e-16 an iteration);
+- ``NMFModel`` of the port (CPU, float64) is held to the JAX package's
+  on the same 6,000 x 8 frame, which the card fits on a cluster entry.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+from torch_cluster_split import (  # noqa: E402
+    fit_cd_cluster_plain,
+    fit_mu_cluster_plain,
+    split_rows,
+)
+
+import jax.numpy as jnp  # noqa: E402
+
+from muscle_synergies_tpu.models import hals as jhals  # noqa: E402
+from muscle_synergies_tpu.models import mu as jmu  # noqa: E402
+from muscle_synergies_tpu.models import select as jselect  # noqa: E402
+from muscle_synergies_tpu_torch.models import select  # noqa: E402
+from muscle_synergies_tpu_torch.models.kernels import cd_cuda, mu_cuda  # noqa: E402
+
+N, L = 6000, 8
+RANGES = [1, 3, 16, [0, 500, 2600, 2601, 6000]]
+REGS = dict(l1_reg_w=0.02, l2_reg_w=0.05, l1_reg_h=0.01, l2_reg_h=0.03)
+
+
+def _frame(n=N, l=L, seed=13):
+    """A non-negative 4-synergy envelope with noise, ``(n, l)``."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 25.0, n)[:, None]
+    acts = np.abs(np.sin(2 * np.pi * (t * (0.8 + 0.4 * rng.random(4)) + rng.random(4))))
+    return acts @ rng.random((4, l)) + 0.05 * rng.random((n, l))
+
+
+X = _frame()
+
+
+def _start(k, seed=5):
+    rng = np.random.default_rng(seed + k)
+    scale = np.sqrt(X.mean() / k)
+    return scale * rng.random((N, k)), scale * rng.random((k, L))
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _n_max_block(l, k):
+    """The most rows whose fit fits one block (``mu_cuda.smem_bytes``)."""
+    per_row = 4 * ((l | 1) + (k | 1))
+    return (mu_cuda.SMEM_LIMIT - 4 * (2 * k * l + k * k + 33)) // per_row
+
+
+# ---- route -----------------------------------------------------------
+
+ROUTES = [
+    ((200, 8, 4), "warp"),
+    ((2000, 8, 4), "block"),
+    ((_n_max_block(8, 4), 8, 4), "block"),
+    ((_n_max_block(8, 4) + 1, 8, 4), "cluster"),
+    ((_n_max_block(16, 8), 16, 8), "block"),
+    ((_n_max_block(16, 8) + 1, 16, 8), "cluster"),
+    ((5000, 8, 4), "cluster"),
+    ((20_000, 8, 4), "cluster"),
+    *[((20_000, 16, k), "cluster") for k in range(1, 9)],
+    *[((124_460, 8, k), "cluster") for k in range(1, 9)],
+    ((124_460, 8, 16), "cluster"),
+    ((2000, 2000, 16), None),
+]
+
+
+@pytest.mark.parametrize("module", [mu_cuda, cd_cuda], ids=["mu", "cd"])
+@pytest.mark.parametrize("shape, entry", ROUTES, ids=[f"{s[0]}x{s[1]}k{s[2]}" for s, _ in ROUTES])
+def test_route_takes_the_entry_of_the_frame(module, shape, entry):
+    if entry is None:
+        with pytest.raises(ValueError, match="impl='torch'"):
+            module.route(*shape)
+    else:
+        assert module.route(*shape) == entry
+
+
+def test_the_block_limit_sits_where_smem_bytes_puts_it():
+    for l, k in ((8, 4), (16, 8)):
+        n = _n_max_block(l, k)
+        assert mu_cuda.smem_bytes(n, l, k) <= mu_cuda.SMEM_LIMIT
+        assert mu_cuda.smem_bytes(n + 1, l, k) > mu_cuda.SMEM_LIMIT
+    # about 4,140 rows at 8 channels and rank 4, about 2,220 at 16 and 8
+    assert 4100 < _n_max_block(8, 4) < 4200 and 2200 < _n_max_block(16, 8) < 2300
+
+
+def test_the_cluster_limit_is_its_blocks_shared_memory():
+    # every frame of 8 or 16 channels at ranks 1-16 takes the cluster entry,
+    # whatever its rows; a frame whose H and Grams fill a block does not
+    for l in (8, 16):
+        for k in range(1, 17):
+            assert mu_cuda.cluster_smem_bytes(l, k) <= mu_cuda.SMEM_LIMIT
+    assert mu_cuda.cluster_smem_bytes(2000, 16) > mu_cuda.SMEM_LIMIT
+    with pytest.raises(ValueError, match="rank"):
+        cd_cuda.route(124_460, 8, 17)
+
+
+def test_split_rows_cuts_as_the_kernel_does():
+    assert split_rows(10, 1) == [0, 10]
+    assert split_rows(10, 3) == [0, 4, 8, 10]
+    # a block past N owns no rows
+    assert split_rows(10, 16) == [0] + list(range(1, 11)) + [10] * 6
+    assert split_rows(10, [0, 2, 2, 10]) == [0, 2, 2, 10]
+    for bad in ([1, 10], [0, 5], [0, 6, 4, 10]):
+        with pytest.raises(ValueError, match="bounds"):
+            split_rows(10, bad)
+    with pytest.raises(ValueError, match="ranges"):
+        split_rows(10, 0)
+
+
+# ---- the split mirrors against the JAX package -----------------------
+
+MODES = {
+    "fixed": dict(max_iter=200, tol=0.0),
+    "stop": dict(max_iter=1000, tol=1e-4),
+    "penalized": dict(max_iter=600, tol=1e-2, **REGS),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fit(solver, k, mode, inner_iter=1):
+    w0, h0 = _start(k)
+    args = (jnp.asarray(X), jnp.asarray(w0), jnp.asarray(h0))
+    if solver == "mu":
+        st = jmu.fit_mu(*args, inner_iter=inner_iter, **MODES[mode])
+        return int(st.n_iter), np.asarray(st.w), np.asarray(st.h)
+    st = jhals.fit_cd(*args, **MODES[mode])
+    return int(st.n_iter), np.asarray(st.w), np.asarray(st.ht).T
+
+
+def _check(got_n_iter, got_w, got_h, want, mode):
+    n_iter, w, h = want
+    assert int(got_n_iter) == n_iter
+    bar = 1e-10 if mode == "fixed" else 1e-8
+    assert _rel(got_w, w) < bar and _rel(got_h, h) < bar
+
+
+@pytest.mark.parametrize("ranges", RANGES, ids=["C1", "C3", "C16", "unequal"])
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("k", [2, 4])
+def test_mu_split_mirror_matches_jax(k, mode, ranges):
+    w0, h0 = _start(k)
+    st = fit_mu_cluster_plain(*map(torch.as_tensor, (X, w0, h0)), ranges,
+                                      **MODES[mode])
+    if mode == "fixed":
+        assert int(st.n_iter) == 200 and not bool(st.converged)
+    _check(st.n_iter, st.w, st.h, _jax_fit("mu", k, mode), mode)
+
+
+@pytest.mark.parametrize("ranges", [3, [0, 500, 2600, 2601, 6000]], ids=["C3", "unequal"])
+@pytest.mark.parametrize("mode", ["fixed", "penalized"])
+def test_mu_split_mirror_matches_jax_with_inner_iterations(mode, ranges):
+    w0, h0 = _start(4)
+    st = fit_mu_cluster_plain(*map(torch.as_tensor, (X, w0, h0)), ranges,
+                                      inner_iter=2, **MODES[mode])
+    _check(st.n_iter, st.w, st.h, _jax_fit("mu", 4, mode, inner_iter=2), mode)
+
+
+@pytest.mark.parametrize("ranges", RANGES, ids=["C1", "C3", "C16", "unequal"])
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("k", [2, 4])
+def test_cd_split_mirror_matches_jax(k, mode, ranges):
+    w0, h0 = _start(k)
+    st = fit_cd_cluster_plain(*map(torch.as_tensor, (X, w0, h0)), ranges,
+                                      **MODES[mode])
+    if mode == "fixed":
+        assert int(st.n_iter) == 200
+    _check(st.n_iter, st.w, st.ht.T, _jax_fit("cd", k, mode), mode)
+
+
+@pytest.mark.parametrize("solver", ["mu", "cd"])
+def test_split_mirrors_stop_each_fit_on_its_own(solver):
+    """A batch of fits (the card's batch of clusters): each stops where
+    its own single fit stops, and zero-padded components stay 0."""
+    fits = []
+    for k in (2, 4):
+        w0, h0 = _start(k)
+        fits.append((np.pad(w0, ((0, 0), (0, 4 - k))), np.pad(h0, ((0, 4 - k), (0, 0)))))
+    xs = torch.as_tensor(np.stack([X, X]))
+    w0 = torch.as_tensor(np.stack([f[0] for f in fits]))
+    h0 = torch.as_tensor(np.stack([f[1] for f in fits]))
+    mirror = fit_mu_cluster_plain if solver == "mu" else fit_cd_cluster_plain
+    st = mirror(xs, w0, h0, 3, max_iter=1000, tol=1e-4)
+    h = st.h if solver == "mu" else st.ht.transpose(-1, -2)
+    assert (st.w[0, :, 2:] == 0).all() and (h[0, 2:] == 0).all()
+    for i, k in enumerate((2, 4)):
+        _check(st.n_iter[i], st.w[i, :, :k], h[i, :k], _jax_fit(solver, k, "stop"), "stop")
+
+
+# ---- the per-capture model on a frame the card fits on a cluster ------
+
+@pytest.mark.parametrize("kw", [dict(n_components=4), dict(n_components=4, solver="mu"),
+                                dict(n_components=2, solver="mu", alpha_W=0.01)],
+                         ids=["cd", "mu", "mu-penalized"])
+def test_nmf_model_on_a_cluster_frame_matches_jax(kw):
+    assert cd_cuda.route(N, L, kw["n_components"]) == "cluster"
+    fit = dict(max_iter=400, tol=1e-4)
+    jm = jselect.NMFModel(**kw, **fit)
+    jw = np.asarray(jm.fit_transform(X))
+    tm = select.NMFModel(**kw, **fit, device="cpu", dtype=torch.float64)
+    tw = tm.fit_transform(X)
+    assert tm.n_iter_ == jm.n_iter_
+    assert _rel(tw, jw) < 1e-8 and _rel(tm.components_, np.asarray(jm.components_)) < 1e-8
+    assert abs(tm.reconstruction_err_ - float(jm.reconstruction_err_)) < (
+        1e-8 * float(jm.reconstruction_err_))

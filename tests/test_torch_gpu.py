@@ -228,14 +228,17 @@ def test_nmf_model_route_follows_the_shape(cuda):
         assert getattr(mod, attr) == 1 and w.shape == (200, 4)
     assert cd_cuda.launches == mu_cuda.launches == beta_cuda.launches == 0
     before = (cd_cuda.warp_launches, mu_cuda.warp_launches, beta_cuda.warp_launches)
-    # over one block's shared memory: the kernel route refuses before any
-    # launch, and impl="torch" runs the plain fit on the card
-    with pytest.raises(ValueError, match="impl='torch'"):
-        NMFModel(n_components=4, max_iter=50).fit_transform(big)
-    w = NMFModel(n_components=4, max_iter=50, impl="torch").fit_transform(big)
-    assert w.shape == (20_000, 4) and np.isfinite(w).all()
+    # over one block's shared memory: one launch of K2's cluster entry, and
+    # impl="torch" runs the plain fit on the card
+    cd_cuda.cluster_launches = mu_cuda.cluster_launches = 0
+    w = NMFModel(n_components=4, max_iter=50).fit_transform(big)
+    assert cd_cuda.cluster_launches == 1 and w.shape == (20_000, 4)
+    w_plain = NMFModel(n_components=4, max_iter=50, impl="torch").fit_transform(big)
+    assert w_plain.shape == (20_000, 4) and np.isfinite(w_plain).all()
+    assert np.abs(w - w_plain).max() <= 1e-3 * np.abs(w_plain).max()
     assert (cd_cuda.warp_launches, mu_cuda.warp_launches, beta_cuda.warp_launches) == before
     assert cd_cuda.launches == mu_cuda.launches == beta_cuda.launches == 0
+    assert (cd_cuda.cluster_launches, mu_cuda.cluster_launches) == (1, 0)
     states, vafs = rank_sweep_batch(torch.as_tensor(small, device=cuda), range(1, 9),
                                     solver="cd")
     assert cd_cuda.warp_launches == before[0] + 1 and vafs.shape == (8,)
@@ -807,20 +810,87 @@ def test_bootstrap_time_varying_is_one_k5_launch(cuda):
 
 
 def test_bootstraps_refuse_frames_over_one_block(cuda):
-    """5,000 x 8 is over K1's shared memory at rank 4 (about 4,100 rows)
-    and K5's at K = 4, D = 10 (2,822 rows): both raise before any
+    """5,000 x 8 is over one block's shared memory for K1 at rank 4 (about
+    4,100 rows) and K5 at K = 4, D = 10 (2,822 rows): K1 fits it on its
+    cluster entry in one launch, held to float64; K5 raises before any
     launch, naming ``impl='torch'``."""
     from muscle_synergies_tpu_torch.models import stability
 
     x = _subject_matrix(5000)
-    mu_cuda.warp_launches = mu_cuda.launches = cnmf_cuda.launches = 0
-    with pytest.raises(ValueError, match="impl='torch'"):
-        stability.bootstrap_synergies(x, 4, n_boot=2)
+    mu_cuda.warp_launches = mu_cuda.launches = mu_cuda.cluster_launches = 0
+    cnmf_cuda.launches = 0
+    got = stability.bootstrap_synergies(x, 4, n_boot=10)
+    assert (mu_cuda.warp_launches, mu_cuda.launches, mu_cuda.cluster_launches) == (0, 0, 1)
+    want = stability.bootstrap_synergies(x, 4, n_boot=10, device="cpu",
+                                         dtype=torch.float64)
+    _hold_bootstrap_to_float64(got, want, "reference_components")
     with pytest.raises(ValueError, match="impl='torch'"):
         stability.bootstrap_time_varying_synergies(x, 4, 10, n_boot=2)
-    assert mu_cuda.warp_launches == mu_cuda.launches == cnmf_cuda.launches == 0
+    assert cnmf_cuda.launches == 0
     plain = stability.bootstrap_synergies(x, 4, n_boot=2, max_iter=20, impl="torch")
-    assert plain.similarities.shape == (2, 4) and mu_cuda.launches == 0
+    assert plain.similarities.shape == (2, 4) and mu_cuda.cluster_launches == 1
+
+
+@pytest.mark.parametrize("n, l, k", [(20_000, 8, 4), (124_460, 8, 8), (20_000, 16, 8),
+                                     (8_000, 8, 12)])
+def test_cluster_entries_match_plain_float64(cuda, n, l, k):
+    """K1's and K2's cluster entries (resident rows at 20,000 x 8 and 16,
+    streamed at 124,460 x 8; the per-tile sums at rank 12): 30 fixed
+    iterations within 1e-3 of float64, and fits that stop where the
+    float64 fit stops, with sklearn's penalties."""
+    x, w, h = _problem(cuda, b=2, n=n, l=l, k=k)
+    assert mu_cuda.route(n, l, k) == cd_cuda.route(n, l, k) == "cluster"
+    mu_cuda.cluster_launches = cd_cuda.cluster_launches = 0
+    for kern, plain in ((mu_cuda.mu_iterations_cuda, mu_cuda.mu_iterations_plain),
+                        (cd_cuda.cd_iterations_cuda, cd_cuda.cd_iterations_plain)):
+        wk, hk = kern(x, w, h, 30)
+        wp, hp = plain(x.double(), w.double(), h.double(), 30)
+        assert _rel(wk, wp) < 1e-3 and _rel(hk, hp) < 1e-3
+    assert (mu_cuda.cluster_launches, cd_cuda.cluster_launches) == (1, 1)
+    for kern, plain in ((mu_cuda.fit_mu_cuda, mu_cuda.fit_mu_plain),
+                        (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain)):
+        sk = kern(x, w, h, max_iter=200, tol=1e-3, **REGS)
+        sp = plain(x.double(), w.double(), h.double(), max_iter=200, tol=1e-3, **REGS)
+        assert np.median((sk.n_iter - sp.n_iter).cpu().numpy()) == 0
+    # zero-padded components stay exactly 0
+    w[..., k // 2:] = 0
+    h[:, k // 2:] = 0
+    st = mu_cuda.fit_mu_cuda(x, w, h, max_iter=30)
+    assert (st.w[..., k // 2:] == 0).all() and (st.h[:, k // 2:] == 0).all()
+    st = cd_cuda.fit_cd_cuda(x, w, h, max_iter=30, **REGS)
+    assert (st.w[..., k // 2:] == 0).all() and (st.ht[..., k // 2:] == 0).all()
+
+
+_CAPTURE_FIT = """
+import sys, numpy as np, torch
+sys.path.insert(0, {root!r})
+from muscle_synergies_tpu_torch.models.kernels import cd_cuda, mu_cuda
+rng = np.random.default_rng(3)
+x = torch.tensor(rng.random((1, 124_460, 8)), dtype=torch.float32, device="cuda")
+w = torch.tensor(rng.random((1, 124_460, 8)), dtype=torch.float32, device="cuda")
+h = torch.tensor(rng.random((1, 8, 8)), dtype=torch.float32, device="cuda")
+for fit in (mu_cuda.fit_mu_cuda, cd_cuda.fit_cd_cuda):
+    st = fit(x, w, h, max_iter=300, tol=1e-4)
+    torch.cuda.synchronize()
+    assert torch.isfinite(st.w).all() and int(st.n_iter[0]) >= 1
+assert mu_cuda.cluster_launches == cd_cuda.cluster_launches == 1
+print("finished")
+"""
+
+
+def test_a_capture_length_fit_finishes_in_time(cuda):
+    """A rank-8 fit of a whole capture's 124,460 x 8 envelope on each
+    cluster entry, in a process of its own that must finish within 120 s:
+    a cluster whose blocks took different branches at a barrier would
+    hang the card rather than fail."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _CAPTURE_FIT.format(root=root)],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "finished" in out.stdout, out.stderr[-2000:]
 
 
 def test_checkpointed_bootstraps_count_their_launches(cuda, tmp_path):

@@ -253,8 +253,10 @@ def test_cd_kernel_routes_around_the_warp_limits():
     assert cd_cuda.route(200, l + 1, 4) == "block"
     assert cd_cuda.route(200, 8, k + 1) == "block"
     assert cd_cuda.route(2000, 8, 4) == "block"
+    # over one block's shared memory: the cluster entry, up to its own limit
+    assert cd_cuda.route(20_000, 8, 4) == "cluster"
     with pytest.raises(ValueError, match="impl='torch'"):
-        cd_cuda.route(20_000, 8, 4)
+        cd_cuda.route(2000, 2000, 16)
     with pytest.raises(ValueError, match="rank"):
         cd_cuda.route(200, 8, 17)
 
@@ -277,8 +279,11 @@ def test_mu_kernel_routes_around_the_warp_limits(n, l, k, entry):
 
 
 def test_mu_kernel_route_refuses_over_one_block():
+    # a fit over one block's shared memory takes the cluster entry; one
+    # whose H and Grams alone fill a cluster block is refused
+    assert mu_cuda.route(20_000, 8, 4) == "cluster"
     with pytest.raises(ValueError, match="impl='torch'"):
-        mu_cuda.route(20_000, 8, 4)
+        mu_cuda.route(2000, 2000, 16)
     with pytest.raises(ValueError, match="rank"):
         mu_cuda.route(200, 8, 17)
 
