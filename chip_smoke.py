@@ -9,9 +9,9 @@ It builds the nine hand-written CUDA kernels from the five sources in
 ``muscle_synergies_tpu_torch/csrc/`` (one ``nvcc`` per source, all
 started together; K3 and K6 share ``sosfiltfilt.cu``; K1, K2 and K4
 each have a warp entry, one warp per fit, for frames of at most 224 x
-16 at rank 8, and a block entry, one block per fit, above that; K1 and
-K2 also a cluster entry, one thread-block cluster per fit, for frames
-over one block's shared memory) and then, failing on the first
+16 at rank 8, and a block entry, one block per fit, above that; K1, K2,
+K4 and K5 also a cluster entry, one thread-block cluster per fit, for
+frames over one block's shared memory) and then, failing on the first
 assertion that does not hold:
 
 1. prints the card and its power limit, and the build time;
@@ -146,8 +146,8 @@ assertion that does not hold:
     4)`` at its defaults (50 resamples) on one subject's 12 cycles
     (2,400 x 8) in exactly one launch of K1's block entry, and on one
     200 x 8 trial in one launch of its warp entry; a 5,000 x 8 matrix in
-    one launch of its cluster entry, and refused by K5 before any launch,
-    naming ``impl='torch'``;
+    one launch of K1's cluster entry, and of K5's for
+    ``bootstrap_time_varying_synergies(x, 4, 10, n_boot=2)``;
     ``bootstrap_time_varying_synergies(x, 4, 10)`` in exactly one K5
     launch; each held against the same call in float64 on the host
     (similarities within 2e-3, reference components' cosines >= 0.999);
@@ -248,6 +248,24 @@ assertion that does not hold:
     to VAF 1e-3 at max_iter 2,000 on both sides; (d) the time of an
     iteration of a lone 124,460 x 8 fit on each entry beside the plain
     loop's and the bound.
+23. large frames (K4's and K5's cluster entries), after 22: (a) 50
+    fixed iterations at 4 x 6,000 x 8 (rows resident in shared memory)
+    and 1 x 124,460 x 8 (streamed), rank 4, for beta = 1, 0, 1.5 and
+    -0.5, and of K5 at K = 4, D = 10, against the plain version in
+    float64, bar 1e-3, then timed at the second; (b) fits with the stop
+    on (max_iter 500) on a subject's 30 cycles (6,000 x 8): K4 at ranks
+    1-4 for KL and IS (tol 1e-4), K5 with 4 restarts (tol 1e-3),
+    against float64 at phase 7's bars (|median stopping gap| <= 10 iterations, factor
+    error at the kernel's stop <= 2e-3); (c) under default arguments,
+    each exactly one cluster launch and no other launch:
+    ``NMFModel(4, solver="mu", beta_loss="kullback-leibler").fit`` on
+    the 30 cycles, ``find_synergies``' array core with the KL loss on a
+    whole trial's 124,460 x 8 envelope (ranks 1-4 batched),
+    ``CNMFModel(4, 10).fit`` on that envelope (4 restarts), and
+    ``bootstrap_time_varying_synergies`` on the 30 cycles, held to
+    float64 at phase 18's bars; (d) the time of an iteration of a lone
+    124,460 x 8 fit on each entry (K4 for beta = 1, 0, 1.5) beside the
+    plain loop's and the bound.
 
 Each main path is driven with every launch counter set to 0 just before
 it and read just after; the CD, RMS-CD and ``rank_sweep_batch`` paths
@@ -469,7 +487,9 @@ class Smoke:
                          "mu_nmf_cluster": (mu_cuda, "cluster_launches"),
                          "beta_nmf": (beta_cuda, "launches"),
                          "beta_nmf_warp": (beta_cuda, "warp_launches"),
-                         "cnmf": (cnmf_cuda, "launches")}
+                         "beta_nmf_cluster": (beta_cuda, "cluster_launches"),
+                         "cnmf": (cnmf_cuda, "launches"),
+                         "cnmf_cluster": (cnmf_cuda, "cluster_launches")}
         self.launches = {name: 0 for name in self.counters}
         self.phase5, self.phase18 = {}, {}  # results phase 21 is held against
 
@@ -1876,14 +1896,11 @@ class Smoke:
                                      lambda: stability.bootstrap_synergies(big, 4))
         assert counts["mu_nmf_cluster"] == 1 and sum(counts.values()) == 1, counts
         assert np.isfinite(got.similarities).all()
-        try:  # over K5's one block, with no cluster entry: refused
-            stability.bootstrap_time_varying_synergies(big, 4, 10, n_boot=2)
-        except ValueError as err:
-            assert "impl='torch'" in str(err), err
-            log(f"bootstrap_time_varying_synergies 5000x8 refused before any launch: {err}")
-        else:
-            raise AssertionError("a 5,000 x 8 convolutive bootstrap was not refused")
-        assert getattr(*self.counters["cnmf"]) == 0
+        got, counts = self.main_path(
+            "bootstrap_time_varying_synergies 5000x8 (cluster entry)",
+            lambda: stability.bootstrap_time_varying_synergies(big, 4, 10, n_boot=2))
+        assert counts["cnmf_cluster"] == 1 and sum(counts.values()) == 1, counts
+        assert np.isfinite(got.similarities).all()
 
         label = "bootstrap_time_varying_synergies 2400x8"
         got, want, counts = against_host(label, lambda v, **kw: (
@@ -2737,6 +2754,199 @@ print(json.dumps(out))
                                        lone_plain_us_per_iteration=plain_us,
                                        lone_bound_us_per_iteration=bound_ms / lone * 1e3)
 
+    def large_frames_beta_cnmf(self, emg, xs):
+        """Phase 23: frames over one block's shared memory, on the cluster
+        entries of K4 (beta-MU) and K5 (cNMF): fixed iterations and fits
+        against float64, the four calls that raised before them under
+        default arguments, and a lone capture-length fit's iteration."""
+        from muscle_synergies_tpu_torch.models import CNMFModel, select, stability
+        from muscle_synergies_tpu_torch.models import batch as mb
+        from muscle_synergies_tpu_torch.models import cnmf as mc
+        from muscle_synergies_tpu_torch.models.beta import mu_update_beta
+        from muscle_synergies_tpu_torch.models.kernels import beta_cuda, cnmf_cuda
+        from muscle_synergies_tpu_torch.ops import batched
+
+        torch, dev, rng = self.torch, self.dev, self.rng
+        for shape in ((6_000, 8, 4), (20_000, 8, 4), (N_SAMPLES, 8, 8)):
+            for beta in (1.0, 0.0, 1.5, -0.5):
+                assert beta_cuda.route(*shape, beta) == "cluster", (shape, beta)
+        for shape in ((6_000, 8, 4, 10), (N_SAMPLES, 8, 4, 10)):
+            assert cnmf_cuda.route(*shape) == "cluster", shape
+
+        def positive(*shape):
+            return torch.from_numpy((rng.random(shape) + 0.05).astype(np.float32)).to(dev)
+
+        # (a) 50 fixed iterations against the plain version in float64: rows
+        # resident in shared memory at 4 x 6,000 x 8, streamed at 124,460 x 8
+        iters = 50
+        errs = {"beta_nmf_cluster": [], "cnmf_cluster": []}
+        for b, n in ((4, 6_000), (1, N_SAMPLES)):
+            x, w, h = positive(b, n, N_CHANNELS), positive(b, n, 4), positive(b, 4, N_CHANNELS)
+            for beta in (1.0, 0.0, 1.5, -0.5):
+                before = beta_cuda.cluster_launches
+                wk, hk = beta_cuda.beta_iterations_cuda(x, w, h, iters, beta)
+                assert beta_cuda.cluster_launches == before + 1, "beta_nmf took another entry"
+                wp, hp = beta_cuda.beta_iterations_plain(x.double(), w.double(), h.double(),
+                                                         iters, beta)
+                errs["beta_nmf_cluster"].append((abs_err([(wk, wp), (hk, hp)]),
+                                                 max(rel_err(wk, wp), rel_err(hk, hp))))
+                log(f"beta_nmf_cluster: {iters} iterations at {b}x{n}x{N_CHANNELS} k=4, "
+                    f"beta={beta:g}: rel err {errs['beta_nmf_cluster'][-1][1]:.3e} (bar 1e-3)")
+                assert errs["beta_nmf_cluster"][-1][1] <= 1e-3, "beta_nmf_cluster disagrees"
+            c, s = positive(b, n, 4), positive(b, 4, 10, N_CHANNELS)
+            before = cnmf_cuda.cluster_launches
+            ck, sk = cnmf_cuda.cnmf_iterations_cuda(x, c, s, iters)
+            assert cnmf_cuda.cluster_launches == before + 1, "cnmf took another entry"
+            cp, sp = cnmf_cuda.cnmf_iterations_plain(x.double(), c.double(), s.double(), iters)
+            errs["cnmf_cluster"].append((abs_err([(ck, cp), (sk, sp)]),
+                                         max(rel_err(ck, cp), rel_err(sk, sp))))
+            log(f"cnmf_cluster: {iters} iterations at {b}x{n}x{N_CHANNELS} K=4 D=10: rel err "
+                f"{errs['cnmf_cluster'][-1][1]:.3e} (bar 1e-3)")
+            assert errs["cnmf_cluster"][-1][1] <= 1e-3, "cnmf_cluster disagrees"
+        # timed at the streamed frame: KL for K4, the kind the main paths run
+        b, n = x.shape[:2]
+        ms = cuda_ms(lambda: beta_cuda.beta_iterations_cuda(x, w, h, iters, 1.0), reps=3)
+        plain_ms = cuda_ms(lambda: beta_cuda.beta_iterations_plain(x, w, h, iters, 1.0), reps=1)
+        log(f"beta_nmf_cluster: {iters} KL iterations at {b}x{n}x{N_CHANNELS} k=4: kernel "
+            f"{ms:.3f} ms, plain f32 {plain_ms:.3f} ms")
+        err = errs["beta_nmf_cluster"]
+        self.record("beta_nmf_cluster", "muscle_synergies_tpu/models/kernels/beta_pallas.py:231",
+                    (max(e[0] for e in err), max(e[1] for e in err), 1e-3), ms, plain_ms,
+                    b * iters * nmf_flops("beta_nmf_kl", n, N_CHANNELS, 4),
+                    4 * b * (n * N_CHANNELS + 2 * (n * 4 + 4 * N_CHANNELS)),
+                    source="beta_nmf", shape=f"{b}x{n}x{N_CHANNELS}, k=4, KL",
+                    also_replaces="muscle_synergies_tpu/models/kernels/beta_pallas.py:292")
+        ms = cuda_ms(lambda: cnmf_cuda.cnmf_iterations_cuda(x, c, s, iters), reps=3)
+        plain_ms = cuda_ms(lambda: cnmf_cuda.cnmf_iterations_plain(x, c, s, iters), reps=1)
+        log(f"cnmf_cluster: {iters} iterations at {b}x{n}x{N_CHANNELS} K=4 D=10: kernel "
+            f"{ms:.3f} ms, plain f32 {plain_ms:.3f} ms")
+        err = errs["cnmf_cluster"]
+        self.record("cnmf_cluster", "muscle_synergies_tpu/models/kernels/cnmf_pallas.py:147",
+                    (max(e[0] for e in err), max(e[1] for e in err), 1e-3), ms, plain_ms,
+                    b * iters * nmf_flops("cnmf", n, N_CHANNELS, 4, 10),
+                    4 * b * (2 * n * N_CHANNELS + 2 * (n * 4 + 40 * N_CHANNELS)),
+                    source="cnmf", shape=f"{b}x{n}x{N_CHANNELS}, K=4, D=10")
+        del x, w, h, c, s, wk, hk, wp, hp, ck, sk, cp, sp
+
+        # (b) fits with the stop on against float64 on a subject's 30 gait
+        # cycles (6,000 x 8): K4 at ranks 1-4 batched, KL and IS (tol
+        # 1e-4); K5 with 4 restarts (tol 1e-3, where its stop fires before
+        # max_iter); the bars of phase 7: |median stopping gap| <= 10
+        # iterations, factor error at the kernel's own stop <= 2e-3
+        subject = xs[:30].reshape(-1, N_CHANNELS).contiguous()
+        positive_subject = subject + 1e-3  # IS refuses zeros
+        ws, hs = [], []
+        for kk in (1, 2, 3, 4):
+            w0, h0 = mb.init_batch(positive_subject[None], kk)
+            ws.append(torch.nn.functional.pad(w0, (0, 4 - kk)))
+            hs.append(torch.nn.functional.pad(h0, (0, 0, 0, 4 - kk)))
+        gx = positive_subject[None].repeat(4, 1, 1).contiguous()
+        gw, gh = torch.cat(ws), torch.cat(hs)
+        gx64, gw64, gh64 = gx.double(), gw.double(), gh.double()
+        for beta in (1.0, 0.0):
+            before = beta_cuda.cluster_launches
+            sk = beta_cuda.fit_beta_cuda(gx, gw, gh, beta, max_iter=500, tol=1e-4)
+            assert beta_cuda.cluster_launches == before + 1, "beta_nmf took another entry"
+            sp = beta_cuda.fit_beta_plain(gx64, gw64, gh64, beta, max_iter=500, tol=1e-4)
+            gap = (sk.n_iter - sp.n_iter).cpu().numpy()
+            wr, hr = plain_snapshot(lambda x_, w_, h_: mu_update_beta(x_, w_, h_, beta),
+                                    gx64, gw64, gh64, sk.n_iter)
+            err = max(rel_err(sk.w, wr), rel_err(sk.h, hr))
+            log(f"beta_nmf_cluster: ranks 1-4 on 6,000 x 8 at tol 1e-4, beta={beta:g}: "
+                f"n_iter {sk.n_iter.tolist()} (float64 {sp.n_iter.tolist()}); factor err at "
+                f"the kernel's stop {err:.3e} (bar 2e-3)")
+            assert abs(np.median(gap)) <= 10, "beta_nmf_cluster fit stops far from float64"
+            assert err <= 2e-3, "beta_nmf_cluster fit disagrees"
+        c0, s0 = mc.init_cnmf(np.repeat(subject.cpu().numpy()[None], 4, axis=0), 4, 10)
+        c0, s0 = (torch.as_tensor(a).to(dev) for a in (c0, s0))
+        gx = subject[None].repeat(4, 1, 1).contiguous()
+        gx64, c064, s064 = gx.double(), c0.double(), s0.double()
+        before = cnmf_cuda.cluster_launches
+        sk = cnmf_cuda.fit_cnmf_cuda(gx, c0, s0, max_iter=500, tol=1e-3)
+        assert cnmf_cuda.cluster_launches == before + 1, "cnmf took another entry"
+        sp = cnmf_cuda.fit_cnmf_plain(gx64, c064, s064, max_iter=500, tol=1e-3)
+        gap = (sk.n_iter - sp.n_iter).cpu().numpy()
+        cr, sr = plain_snapshot(lambda x_, c_, s_: mc.cnmf_update(x_, c_, s_), gx64, c064,
+                                s064, sk.n_iter)
+        err = max(rel_err(sk.c, cr), rel_err(sk.s, sr))
+        log(f"cnmf_cluster: 4 restarts on 6,000 x 8 at tol 1e-3: n_iter {sk.n_iter.tolist()} "
+            f"(float64 {sp.n_iter.tolist()}); factor err at the kernel's stop {err:.3e} "
+            f"(bar 2e-3)")
+        assert abs(np.median(gap)) <= 10, "cnmf_cluster fit stops far from float64"
+        assert err <= 2e-3, "cnmf_cluster fit disagrees"
+
+        # (c) the calls that raised before these entries, under default
+        # arguments: each one cluster launch and no other launch
+        x = batched.zero_center_batch(torch.from_numpy(emg[:1]).to(dev))
+        x = batched.linear_envelope_batch(x, critical_freqs=4.0, sampling_frequency=FS,
+                                          order=4, zero_center_=False)
+        capture = batched.normalize_batch(x.abs())[0] + 1e-4  # a whole trial, positive
+        host = capture.cpu().numpy()
+        kl = dict(solver="mu", beta_loss="kullback-leibler")
+        model, counts = self.main_path(
+            "NMFModel(4, KL).fit on 30 cycles (6000x8)",
+            lambda: select.NMFModel(n_components=4, **kl).fit(positive_subject))
+        assert counts["beta_nmf_cluster"] == 1 and sum(counts.values()) == 1, counts
+        assert np.isfinite(model.components_).all()
+        run, counts = self.main_path(
+            "find_synergies KL 124,460x8 ranks 1-4 batched (array core)",
+            lambda: select._find_synergies_arrays(host, 1, 4, sweep="batched",
+                                                  max_iter=2000, **kl))
+        assert counts["beta_nmf_cluster"] == 1 and sum(counts.values()) == 1, counts
+        vaf = run.vaf_rows[:, 0]
+        log(f"find_synergies KL 124,460x8: VAF by rank {np.round(vaf, 6).tolist()}, n_iter "
+            f"{[run.models[k].n_iter_ for k in run.ranks]}")
+        assert np.isfinite(run.vaf_rows).all() and (vaf <= 1).all()
+        model, counts = self.main_path("CNMFModel(4, 10).fit on a whole trial (124,460x8)",
+                                       lambda: CNMFModel(4, 10).fit(capture))
+        assert counts["cnmf_cluster"] == 1 and sum(counts.values()) == 1, counts
+        tvaf = 1.0 - model.reconstruction_err_ ** 2 / float((capture.double() ** 2).sum())
+        log(f"CNMFModel(4, 10) on 124,460x8: {model.n_iter_} iterations, restart errors "
+            f"{np.round(model.restart_errors_, 4).tolist()}, VAF {tvaf:.6f}")
+        assert np.isfinite(model.synergies_).all() and 0.5 < tvaf <= 1.0
+        got, counts = self.main_path(
+            "bootstrap_time_varying_synergies 6000x8 (30 cycles)",
+            lambda: stability.bootstrap_time_varying_synergies(subject, 4, 10, n_boot=10))
+        assert counts["cnmf_cluster"] == 1 and sum(counts.values()) == 1, counts
+        t0 = time.perf_counter()
+        want = stability.bootstrap_time_varying_synergies(subject.double(), 4, 10, n_boot=10,
+                                                          dtype=torch.float64, impl="torch")
+        gap = float(np.abs(got.similarities - want.similarities).max())
+        a, bb = (r.reference_synergies.reshape(4, -1) for r in (got, want))
+        cos = (a * bb).sum(1) / np.sqrt((a * a).sum(1) * (bb * bb).sum(1))
+        log(f"bootstrap_time_varying_synergies 6000x8: float64 plain on the card "
+            f"{time.perf_counter() - t0:.2f} s; similarity gap {gap:.3e} (bar 2e-3), "
+            f"reference cosines min {cos.min():.6f} (bar 0.999)")
+        assert gap <= 2e-3 and cos.min() >= 0.999, "the 6,000 x 8 convolutive bootstrap disagrees"
+
+        # (d) a lone capture-length fit's iteration against the plain loop
+        lone = 100
+        x1, w1, h1 = (positive(1, N_SAMPLES, N_CHANNELS), positive(1, N_SAMPLES, 4),
+                      positive(1, 4, N_CHANNELS))
+        c1, s1 = positive(1, N_SAMPLES, 4), positive(1, 4, 10, N_CHANNELS)
+        runs = [(f"beta_nmf_cluster beta={beta:g}", "beta_nmf_kl" if beta == 1.0 else "beta_nmf",
+                 lambda it, bt=beta: beta_cuda.beta_iterations_cuda(x1, w1, h1, it, bt),
+                 lambda it, bt=beta: beta_cuda.beta_iterations_plain(x1, w1, h1, it, bt))
+                for beta in (1.0, 0.0, 1.5)]
+        runs.append(("cnmf_cluster", "cnmf",
+                     lambda it: cnmf_cuda.cnmf_iterations_cuda(x1, c1, s1, it),
+                     lambda it: cnmf_cuda.cnmf_iterations_plain(x1, c1, s1, it)))
+        for label, kind, kern, plain in runs:
+            us = cuda_ms(lambda: kern(lone), reps=3) / lone * 1e3
+            plain_us = cuda_ms(lambda: plain(10), reps=1) / 10 * 1e3
+            d = 10 if kind == "cnmf" else 1
+            nbytes = 4 * (N_SAMPLES * N_CHANNELS + 2 * (N_SAMPLES * 4 + 4 * d * N_CHANNELS))
+            bound_ms, bound_by = bound(lone * nmf_flops(kind, N_SAMPLES, N_CHANNELS, 4, d),
+                                       nbytes)
+            log(f"stage {label} lone fit 1x{N_SAMPLES}x{N_CHANNELS} k=4: {us:.2f} us an "
+                f"iteration (plain f32 {plain_us:.2f} us; bound {bound_ms / lone * 1e3:.3f} "
+                f"us, {bound_by})  [{self.smi}]")
+            name = label.split()[0]
+            if name == "cnmf_cluster" or label.endswith("=1"):
+                self.kernels[name].update(lone_us_per_iteration=us,
+                                          lone_plain_us_per_iteration=plain_us,
+                                          lone_bound_us_per_iteration=bound_ms / lone * 1e3)
+
     @staticmethod
     def _cd_step(x_, w_, h_):
         """One CD outer iteration on (X, W, H) in the JAX layouts."""
@@ -2845,6 +3055,10 @@ def main() -> int:
     t0 = time.perf_counter()
     smoke.large_frames(emg, xs)                              # 22
     smoke.stage("phase 22 (large frames: K1's and K2's cluster entries)",
+                time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    smoke.large_frames_beta_cnmf(emg, xs)                    # 23
+    smoke.stage("phase 23 (large frames: K4's and K5's cluster entries)",
                 time.perf_counter() - t0)
     del emg, xs
     smoke.capture_main(then=smoke.pipeline_cli_phase)        # 15, 20

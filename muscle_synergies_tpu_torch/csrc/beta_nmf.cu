@@ -1,6 +1,7 @@
 // Batched beta-divergence multiplicative-update NMF: a warp-per-fit
-// entry for the time-normalised frames of the main paths, and a
-// block-per-fit entry for larger frames.
+// entry for the time-normalised frames of the main paths, a
+// block-per-fit entry for larger frames, and a cluster-per-fit entry for
+// frames over one block's shared memory (at the end of this file).
 //
 // Replaces the TPU kernels `beta_mu_iterations_pallas` and
 // `kl_mu_iterations_pallas` (muscle_synergies_tpu/models/kernels/
@@ -149,6 +150,118 @@ __device__ inline bool beta_flush_h(float beta) {
   return KIND != BETA_GENERIC || beta <= 1.0f;
 }
 
+// ----------------- pieces of the block and cluster entries -----------------
+
+// b.gram[0..k) <- the row sums of H, KL's W denominator.
+__device__ inline void beta_h_row_sums(const NmfBlock& b) {
+  for (int i = threadIdx.x; i < b.k; i += blockDim.x) {
+    float s = 0.0f;
+    for (int m = 0; m < b.l; ++m) s += b.h[i * b.l + m];
+    b.gram[i] = s;
+  }
+  __syncthreads();
+}
+
+// Row n of W updated from its row of WH (old W, H) in registers: wr
+// holds the new row, also stored to b.w; b.gram holds H's row sums (KL).
+template <int KIND, int KMAX>
+__device__ __forceinline__ void beta_w_row(const NmfBlock& b, int n, float beta,
+                                           float gamma, const NmfPenalty& pen,
+                                           float (&wr)[KMAX]) {
+  float num[KMAX], den[KMAX];
+#pragma unroll
+  for (int i = 0; i < KMAX; ++i) {
+    wr[i] = i < b.k ? b.w[n * b.ldw + i] : 0.0f;
+    num[i] = 0.0f;
+    den[i] = 0.0f;
+  }
+  for (int m = 0; m < b.l; ++m) {
+    float wh = 0.0f;
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) {
+      if (j < b.k) wh += wr[j] * b.h[j * b.l + m];
+    }
+    float a, d;
+    beta_weights<KIND>(b.x[n * b.ldx + m], wh, beta, &a, &d);
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) {
+      if (i < b.k) {
+        const float hv = b.h[i * b.l + m];
+        num[i] += a * hv;
+        if (KIND != BETA_KL) den[i] += d * hv;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < KMAX; ++i) {
+    if (i < b.k) {
+      float dd = KIND == BETA_KL ? b.gram[i] : den[i];
+      dd = (dd + pen.l1_w) + pen.l2_w * wr[i];
+      dd = dd == 0.0f ? EPSILON : dd;
+      float v = wr[i] * beta_damp<KIND>(num[i] / dd, gamma);
+      if (beta_flush_w<KIND>(beta) && v < F64_EPS) v = 0.0f;
+      wr[i] = v;
+      b.w[n * b.ldw + i] = v;
+    }
+  }
+}
+
+// W^T (weights) over rows 0..b.n of the planes num and den (stride
+// b.ldx; KL: the column sums of W), one warp per entry, its lanes
+// striding over the rows; ADD adds each sum to nd[q] instead of storing it.
+template <int KIND, bool ADD>
+__device__ inline void beta_wt_weights(const NmfBlock& b, const float* num,
+                                       const float* den, float* nd) {
+  const int lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+  const int kl = b.k * b.l;
+  const int entries = KIND == BETA_KL ? kl + b.k : 2 * kl;
+  for (int q = threadIdx.x >> 5; q < entries; q += n_warps) {
+    int i;
+    const float* col = nullptr;  // nullptr: column sums of W (KL)
+    if (q < kl) {
+      i = q / b.l;
+      col = num + (q - i * b.l);
+    } else if (KIND == BETA_KL) {
+      i = q - kl;
+    } else {
+      i = (q - kl) / b.l;
+      col = den + (q - kl - i * b.l);
+    }
+    float s = 0.0f;
+    for (int r = lane; r < b.n; r += 32) {
+      s += b.w[r * b.ldw + i] * (col ? col[r * b.ldx] : 1.0f);
+    }
+    s = nmf_warp_sum(s);
+    if (lane == 0) nd[q] = ADD ? nd[q] + s : s;
+  }
+  __syncthreads();
+}
+
+// H <- H * damp(W^T num / (W^T den + penalties)) from nd (W^T num, then
+// W^T den or, for KL, the column sums of W, 0 -> 1 as in sklearn).
+template <int KIND>
+__device__ inline void beta_update_h(const NmfBlock& b, const float* nd,
+                                     float beta, float gamma,
+                                     const NmfPenalty& pen) {
+  const int kl = b.k * b.l;
+  for (int q = threadIdx.x; q < kl; q += blockDim.x) {
+    float dd;
+    if (KIND == BETA_KL) {
+      const float ws = nd[kl + q / b.l];
+      dd = ws == 0.0f ? 1.0f : ws;
+    } else {
+      dd = nd[kl + q];
+    }
+    dd = (dd + pen.l1_h) + pen.l2_h * b.h[q];
+    dd = dd == 0.0f ? EPSILON : dd;
+    float v = b.h[q] * beta_damp<KIND>(nd[q] / dd, gamma);
+    if (beta_flush_h<KIND>(beta) && v < F64_EPS) v = 0.0f;
+    b.h[q] = v;
+  }
+  __syncthreads();
+}
+
 // ---------------------------- block entry ----------------------------
 
 template <int KIND, int KMAX>
@@ -157,50 +270,10 @@ __device__ void beta_step(const BetaBlock& bb) {
   const float beta = bb.beta;
 
   // ---- W: one thread per row, weights in registers ----
-  if (KIND == BETA_KL) {
-    for (int i = threadIdx.x; i < b.k; i += blockDim.x) {
-      float s = 0.0f;
-      for (int m = 0; m < b.l; ++m) s += b.h[i * b.l + m];
-      b.gram[i] = s;
-    }
-    __syncthreads();
-  }
+  if (KIND == BETA_KL) beta_h_row_sums(b);
   for (int n = threadIdx.x; n < b.n; n += blockDim.x) {
-    float wr[KMAX], num[KMAX], den[KMAX];
-#pragma unroll
-    for (int i = 0; i < KMAX; ++i) {
-      wr[i] = i < b.k ? b.w[n * b.ldw + i] : 0.0f;
-      num[i] = 0.0f;
-      den[i] = 0.0f;
-    }
-    for (int m = 0; m < b.l; ++m) {
-      float wh = 0.0f;
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j) {
-        if (j < b.k) wh += wr[j] * b.h[j * b.l + m];
-      }
-      float a, d;
-      beta_weights<KIND>(b.x[n * b.ldx + m], wh, beta, &a, &d);
-#pragma unroll
-      for (int i = 0; i < KMAX; ++i) {
-        if (i < b.k) {
-          const float hv = b.h[i * b.l + m];
-          num[i] += a * hv;
-          if (KIND != BETA_KL) den[i] += d * hv;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < KMAX; ++i) {
-      if (i < b.k) {
-        float dd = KIND == BETA_KL ? b.gram[i] : den[i];
-        dd = (dd + bb.pen.l1_w) + bb.pen.l2_w * wr[i];
-        dd = dd == 0.0f ? EPSILON : dd;
-        float v = wr[i] * beta_damp<KIND>(num[i] / dd, bb.gamma);
-        if (beta_flush_w<KIND>(beta) && v < F64_EPS) v = 0.0f;
-        b.w[n * b.ldw + i] = v;
-      }
-    }
+    float wr[KMAX];
+    beta_w_row<KIND, KMAX>(b, n, beta, bb.gamma, bb.pen, wr);
   }
   __syncthreads();
 
@@ -216,45 +289,8 @@ __device__ void beta_step(const BetaBlock& bb) {
     if (KIND != BETA_KL) bb.den[n * b.ldx + m] = d;
   }
   __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  const int kl = b.k * b.l;
-  const int entries = KIND == BETA_KL ? kl + b.k : 2 * kl;
-  for (int q = threadIdx.x >> 5; q < entries; q += n_warps) {
-    int i;
-    const float* col = nullptr;  // nullptr: column sums of W (KL)
-    if (q < kl) {
-      i = q / b.l;
-      col = bb.num + (q - i * b.l);
-    } else if (KIND == BETA_KL) {
-      i = q - kl;
-    } else {
-      i = (q - kl) / b.l;
-      col = bb.den + (q - kl - i * b.l);
-    }
-    float s = 0.0f;
-    for (int r = lane; r < b.n; r += 32) {
-      s += b.w[r * b.ldw + i] * (col ? col[r * b.ldx] : 1.0f);
-    }
-    s = nmf_warp_sum(s);
-    if (lane == 0) bb.nd[q] = s;
-  }
-  __syncthreads();
-  for (int q = threadIdx.x; q < kl; q += blockDim.x) {
-    float dd;
-    if (KIND == BETA_KL) {
-      const float ws = bb.nd[kl + q / b.l];
-      dd = ws == 0.0f ? 1.0f : ws;
-    } else {
-      dd = bb.nd[kl + q];
-    }
-    dd = (dd + bb.pen.l1_h) + bb.pen.l2_h * b.h[q];
-    dd = dd == 0.0f ? EPSILON : dd;
-    float v = b.h[q] * beta_damp<KIND>(bb.nd[q] / dd, bb.gamma);
-    if (beta_flush_h<KIND>(beta) && v < F64_EPS) v = 0.0f;
-    b.h[q] = v;
-  }
-  __syncthreads();
+  beta_wt_weights<KIND, false>(b, bb.num, bb.den, bb.nd);
+  beta_update_h<KIND>(b, bb.nd, beta, bb.gamma, bb.pen);
 }
 
 // One entry's terms of sklearn's beta divergence added to `part` in
@@ -710,4 +746,271 @@ extern "C" int beta_nmf_warp_f32(const float* x, const float* w0,
                 : beta_warp_dispatch<BETA_KL, 8, 16>(
                       st, x, w0, h0, w, h, n_iter, prev_err, converged, batch,
                       n, l, k, iters, beta, gamma, tol, check_every, pen, s);
+}
+
+// --------------------------- cluster entry ---------------------------
+//
+// beta_nmf_cluster_f32: one thread-block cluster per fit, for frames
+// whose fit exceeds one block's shared memory (nmf_common.cuh: the
+// cluster entries; rows resident in shared memory or streamed through
+// L2 in tiles).  An iteration keeps sklearn's order, W then H, in one
+// pass over the block's rows: each row of W is updated from its row of
+// WH (old W, old H: row-local), its row of WH is rebuilt at once from
+// the new W and the old H, and the row's weights X * max(WH,
+// eps)^(beta-2) and WH^(beta-1) go to per-tile planes, whose share of
+// W^T (weights) (KL: W^T (X / WH) and the column sums of W) each block
+// adds to its two (k, l) partial planes.  After a cluster barrier every
+// block sums the C blocks' planes in rank order over distributed shared
+// memory and updates H from the same numbers, so H is the same bits in
+// every block.  The float64-eps flushes of W (beta < 1) and H (beta <=
+// 1) and the max(WH, EPSILON) clamps are the block entry's.  The stop
+// is sklearn's beta divergence summed in float64 over each block's own
+// rows (KL: X log(X / WH) - X + WH; IS: X / WH - log(X / WH) - 1), the
+// blocks' sums added in rank order, never formed from the planes; every
+// block takes each branch from the same numbers, and a last cluster
+// barrier keeps any block from leaving while another reads its shared
+// memory.  What bounds it: as K1's cluster entry, with one divide (KL),
+// or two powers (a run-time beta), per entry of WH twice an iteration.
+
+// Floats of a cluster block's own state besides nmf_cluster's (two (k,
+// l) planes a parity): the cluster's sums of the planes, one float to
+// align 34 doubles of float64 reduction scratch and the divergence.
+__host__ __device__ inline int beta_cluster_extra(int l, int k) {
+  return 2 * k * l + 1 + 2 * 34;
+}
+
+// All the floats a cluster block keeps besides its rows
+// (models/kernels/beta_cuda.py mirrors it: cluster_smem_bytes).
+__host__ __device__ inline size_t beta_cluster_small_floats(int l, int k) {
+  return 2 * (size_t)k * l + (size_t)k * k + 34 + 4 * (size_t)k * l +
+         beta_cluster_extra(l, k);
+}
+
+struct BetaCluster {
+  NmfCluster c;   // b.gram holds KL's row sums of H
+  float* num;     // (tile, ldx) numerator weights of the rows' fresh WH
+  float* den;     // (tile, ldx) denominator weights (not KL)
+  float* nd;      // (2, k, l): the cluster's W^T num, then W^T den (KL: column sums of W)
+  double* red;    // 33 doubles of float64 reduction scratch
+  double* err;    // the block's share of the divergence
+  float beta, gamma;
+  NmfPenalty pen;
+};
+
+__device__ inline BetaCluster beta_cluster(float* smem, const NmfClusterPlan& p,
+                                           int rank, float beta, float gamma,
+                                           NmfPenalty pen) {
+  BetaCluster bc;
+  bc.c = nmf_cluster_sized(smem, p, rank, 2 * p.k * p.l, beta_cluster_extra(p.l, p.k));
+  bc.nd = bc.c.err + 1;  // nmf_cluster's `extra` floats
+  size_t off = (size_t)(bc.nd + 2 * p.k * p.l - smem);
+  off += off & 1;  // 8-byte alignment of the doubles
+  bc.red = (double*)(smem + off);
+  bc.err = bc.red + 33;
+  bc.num = nmf_cluster_rows_end(bc.c);
+  bc.den = bc.num + (size_t)bc.c.tile * bc.c.b.ldx;
+  bc.beta = beta;
+  bc.gamma = gamma;
+  bc.pen = pen;
+  return bc;
+}
+
+// One beta-MU iteration of the cluster's fit; `parity` picks the
+// partial-plane buffer.  xf / wf: the fit's X and W in device memory
+// (W is read and written there only when streamed).
+template <int KIND, int KMAX>
+__device__ void beta_cluster_step(const BetaCluster& bc, nmf_cg::cluster_group& cl,
+                                  const float* xf, float* wf, int parity) {
+  const NmfCluster& c = bc.c;
+  const NmfBlock& b = c.b;
+  const int kl = b.k * b.l;
+  const int entries = KIND == BETA_KL ? kl + b.k : 2 * kl;
+  float* part = c.part + parity * c.pstride;
+  for (int q = threadIdx.x; q < entries; q += blockDim.x) part[q] = 0.0f;
+  if (KIND == BETA_KL) {
+    beta_h_row_sums(b);  // its barrier also orders the zeroing
+  } else {
+    __syncthreads();
+  }
+  nmf_cluster_tiles<true>(c, xf, wf, [&](const NmfBlock& t) {
+    for (int n = threadIdx.x; n < t.n; n += blockDim.x) {
+      float wr[KMAX];
+      beta_w_row<KIND, KMAX>(t, n, bc.beta, bc.gamma, bc.pen, wr);
+      // the weights of the row's fresh WH: the new W, the old H
+      for (int m = 0; m < t.l; ++m) {
+        float wh = 0.0f;
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j) {
+          if (j < t.k) wh += wr[j] * t.h[j * t.l + m];
+        }
+        float a, d;
+        beta_weights<KIND>(t.x[n * t.ldx + m], wh, bc.beta, &a, &d);
+        bc.num[n * t.ldx + m] = a;
+        if (KIND != BETA_KL) bc.den[n * t.ldx + m] = d;
+      }
+    }
+    __syncthreads();
+    beta_wt_weights<KIND, true>(t, bc.num, bc.den, part);
+  });
+  cl.sync();  // every block's planes are readable
+  for (int q = threadIdx.x; q < entries; q += blockDim.x) {
+    bc.nd[q] = nmf_cluster_sum(cl, part, q);
+  }
+  __syncthreads();
+  beta_update_h<KIND>(b, bc.nd, bc.beta, bc.gamma, bc.pen);
+}
+
+// sklearn's square-rooted beta divergence of the cluster's fit, returned
+// to every thread of every block: each block's float64 sum over its own
+// rows, then the blocks' sums in rank order.  At least one cluster
+// barrier of an iteration lies between two calls, so one slot a block
+// suffices.
+template <int KIND>
+__device__ double beta_cluster_divergence(const BetaCluster& bc,
+                                          nmf_cg::cluster_group& cl,
+                                          const float* xf, float* wf) {
+  const double beta = bc.beta;
+  double part = 0.0;
+  nmf_cluster_tiles<false>(bc.c, xf, wf, [&](const NmfBlock& t) {
+    for (int q = threadIdx.x; q < t.n * t.l; q += blockDim.x) {
+      const int n = q / t.l;
+      const int m = q - n * t.l;
+      double wh = 0.0;
+      for (int j = 0; j < t.k; ++j) {
+        wh += (double)t.w[n * t.ldw + j] * (double)t.h[j * t.l + m];
+      }
+      part = beta_entry_divergence<KIND>(part, t.x[n * t.ldx + m], wh, beta);
+    }
+  });
+  const double mine = nmf_block_sum_d(bc.red, part);
+  if (threadIdx.x == 0) *bc.err = mine;
+  cl.sync();
+  return beta_divergence_root<KIND>(nmf_cluster_sum_d(cl, bc.err, 0), beta);
+}
+
+template <int KIND, int KMAX, bool WITH_STOP>
+__global__ void __launch_bounds__(NMF_CLUSTER_THREADS) beta_cluster_kernel(
+    NmfClusterPlan p, const float* __restrict__ x,
+    const float* __restrict__ w0, const float* __restrict__ h0,
+    float* __restrict__ w, float* __restrict__ h, int* __restrict__ n_iter_out,
+    float* __restrict__ prev_err_out, int* __restrict__ converged_out,
+    int iters, float beta, float gamma, double tol, int check_every,
+    NmfPenalty pen) {
+  extern __shared__ float smem[];
+  nmf_cg::cluster_group cl = nmf_cg::this_cluster();
+  const size_t fit = blockIdx.x / cl.num_blocks();
+  const BetaCluster bc = beta_cluster(smem, p, (int)cl.block_rank(), beta, gamma, pen);
+  const float* xf = x + fit * p.n * p.l;
+  float* wf = w + fit * p.n * p.k;
+  nmf_cluster_load(bc.c, xf, w0 + fit * p.n * p.k, wf, h0 + fit * p.k * p.l);
+  int parity = 0;
+  if (WITH_STOP) {
+    // sklearn's loop, as the block entry runs it; every value that
+    // decides a branch is the same in every block of the cluster
+    const double err0 = beta_cluster_divergence<KIND>(bc, cl, xf, wf);
+    double prev_err = err0;
+    int n_iter = 0;
+    bool converged = false;
+    while (n_iter < iters && !converged) {
+      const int steps = min(check_every, iters - n_iter);
+      for (int t = 0; t < steps; ++t) {
+        beta_cluster_step<KIND, KMAX>(bc, cl, xf, wf, parity);
+        parity ^= 1;
+      }
+      n_iter += steps;
+      if (tol > 0.0) {
+        const double err = beta_cluster_divergence<KIND>(bc, cl, xf, wf);
+        converged = (prev_err - err) / err0 < tol && n_iter % check_every == 0;
+        prev_err = err;
+      }
+    }
+    if (bc.c.rank == 0 && threadIdx.x == 0) {
+      n_iter_out[fit] = n_iter;
+      prev_err_out[fit] = (float)prev_err;
+      converged_out[fit] = converged ? 1 : 0;
+    }
+  } else {
+    for (int t = 0; t < iters; ++t) {
+      beta_cluster_step<KIND, KMAX>(bc, cl, xf, wf, parity);
+      parity ^= 1;
+    }
+  }
+  cl.sync();  // no block leaves while another reads its shared memory
+  nmf_cluster_store(bc.c, wf, h + fit * p.k * p.l);
+}
+
+// Plan and launch the cluster entry of one kind and KMAX.
+template <int KIND, int KMAX>
+static int beta_cluster_dispatch(bool with_stop, const float* x, const float* w0,
+                                 const float* h0, float* w, float* h, int* n_iter,
+                                 float* prev_err, int* converged, int batch,
+                                 int n, int l, int k, int iters, float beta,
+                                 float gamma, double tol, int check_every,
+                                 NmfPenalty pen, cudaStream_t s) {
+  const size_t small = beta_cluster_small_floats(l, k);
+  const size_t row = (size_t)nmf_odd(l) + nmf_odd(k);
+  const size_t planes = (KIND == BETA_KL ? 1 : 2) * (size_t)nmf_odd(l);
+  auto run = [&](auto kernel) {
+    NmfClusterPlan plan;
+    const int e = nmf_cluster_plan_sized(kernel, n, l, k, small, row, planes, &plan);
+    if (e != 0) return e;
+    return nmf_cluster_launch(kernel, plan, batch, s, x, w0, h0, w, h, n_iter,
+                              prev_err, converged, iters, beta, gamma, tol,
+                              check_every, pen);
+  };
+  return with_stop ? run(beta_cluster_kernel<KIND, KMAX, true>)
+                   : run(beta_cluster_kernel<KIND, KMAX, false>);
+}
+
+template <int KIND>
+static int beta_cluster_dispatch_k(bool with_stop, const float* x,
+                                   const float* w0, const float* h0, float* w,
+                                   float* h, int* n_iter, float* prev_err,
+                                   int* converged, int batch, int n, int l,
+                                   int k, int iters, float beta, float gamma,
+                                   double tol, int check_every, NmfPenalty pen,
+                                   cudaStream_t s) {
+#define BETA_CLUSTER_CALL(KM)                                                  \
+  beta_cluster_dispatch<KIND, KM>(with_stop, x, w0, h0, w, h, n_iter,          \
+                                  prev_err, converged, batch, n, l, k, iters,  \
+                                  beta, gamma, tol, check_every, pen, s)
+  return NMF_CLUSTER_DISPATCH(k, BETA_CLUSTER_CALL);
+#undef BETA_CLUSTER_CALL
+}
+
+// The cluster entry: beta_nmf_f32's arguments and results, for frames
+// over one block's shared memory (models/kernels/beta_cuda.py: route).
+// Launches one cluster a fit on `stream` and returns cudaGetLastError(),
+// or the error that left no cluster able to run the fit.
+extern "C" int beta_nmf_cluster_f32(const float* x, const float* w0,
+                                    const float* h0, float* w, float* h,
+                                    int* n_iter, float* prev_err,
+                                    int* converged, int batch, int n, int l,
+                                    int k, int iters, float beta, float gamma,
+                                    double tol, int check_every, float l1_w,
+                                    float l2_w, float l1_h, float l2_h,
+                                    int with_stop, void* stream) {
+  if (batch < 1 || n < 1 || l < 1 || k < 1 || k > NMF_KMAX || iters < 0 ||
+      !(gamma > 0.0f) || (with_stop && check_every < 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  const NmfPenalty pen = {l1_w, l2_w, l1_h, l2_h};
+  const bool st = with_stop != 0;
+  if (beta == 1.0f) {
+    return beta_cluster_dispatch_k<BETA_KL>(st, x, w0, h0, w, h, n_iter,
+                                            prev_err, converged, batch, n, l,
+                                            k, iters, beta, gamma, tol,
+                                            check_every, pen, s);
+  }
+  if (beta == 0.0f) {
+    return beta_cluster_dispatch_k<BETA_IS>(st, x, w0, h0, w, h, n_iter,
+                                            prev_err, converged, batch, n, l,
+                                            k, iters, beta, gamma, tol,
+                                            check_every, pen, s);
+  }
+  return beta_cluster_dispatch_k<BETA_GENERIC>(st, x, w0, h0, w, h, n_iter,
+                                               prev_err, converged, batch, n,
+                                               l, k, iters, beta, gamma, tol,
+                                               check_every, pen, s);
 }

@@ -1,5 +1,6 @@
 // Batched convolutive NMF (time-varying synergies), one thread block
-// per fit, register-tiled.
+// per fit, register-tiled, and one thread-block cluster per fit for
+// frames over one block's shared memory (at the end of this file).
 //
 // Replaces the TPU kernel `cnmf_iterations_pallas`
 // (muscle_synergies_tpu/models/kernels/cnmf_pallas.py: _cnmf_step) and
@@ -442,4 +443,536 @@ extern "C" int cnmf_f32(const float* x, const float* c0, const float* s0,
   return nmf_launch(cnmf_kernel<false>, batch, smem, st, x, c0, s0, c, s,
                     n_iter, prev_err, converged, t, l, k, d, iters, tol,
                     check_every);
+}
+
+// --------------------------- cluster entry ---------------------------
+//
+// cnmf_cluster_f32: one thread-block cluster per fit, for frames whose
+// fit exceeds one block's shared memory (nmf_common.cuh: the cluster
+// plan and launch, the rank-ordered sums).  Block r owns rows [t0, t1)
+// of time (ceil(T / C) rows a block, the last shorter, a block past T
+// none) and keeps S, its S sums and a few rows of C in shared memory; X
+// stays in device memory and C is updated in place there, both read in
+// tiles of `tile` rows (the whole share at once where it fits, else
+// streamed through L2).  An iteration keeps the block entry's order:
+//   1. Xh of the block's rows from the old C and S, and the block's
+//      share of the S sums, sum_t C[t-d, k] X[t, l] and the same with
+//      Xh, added tile by tile in registers and shared memory;
+//   2. after a cluster barrier, the C blocks' sums added in rank order
+//      over distributed shared memory and S updated from them, the same
+//      bits in every block;
+//   3. Xh again with the new S, over the block's rows and the D - 1 rows
+//      after them;
+//   4. C of the block's rows from X and Xh rows t..t+D-1.
+// The lags need a halo: rows t0-D+1..t0-1 of C for the first Xh rows
+// and rows t1..t1+D-2 for the last C rows' Xh, the old C in both.  Each
+// block keeps its first and last D - 1 rows of C in an edge buffer,
+// written with the new C in step 4 and keyed on the iteration's parity;
+// after the barrier that opens an iteration every block reads its 2 (D -
+// 1) halo rows from the edge buffers of the blocks that own them, so no
+// Xh crosses a block.  A range shorter than D - 1 rows is read where it
+// lies: each halo row is fetched from the block that owns it (row g from
+// block g / rows), which may be more than one neighbour away.  Inside a
+// block, the D - 1 old rows of C before each tile are carried from the
+// tile before it, since step 4 overwrites them in device memory.  Two
+// cluster barriers an iteration (the edges, the S sums).  The stop is
+// ||X - Xh||_F, Xh rebuilt in float64 over each block's own rows, the
+// blocks' sums added in rank order, so every block takes the same
+// branch; a last cluster barrier keeps any block from leaving while
+// another reads its shared memory.  What bounds it: the block entry's
+// six passes of K*D*L*T multiply-adds, spread over the cluster's SMs,
+// plus the tiles' X and C through L2 and two barriers an iteration.
+
+#define CNMF_CLUSTER_SLICES 8  // most time slices of a tile's S sums
+
+__host__ __device__ inline int cnmf_cluster_slices(int items) {
+  const int g = NMF_CLUSTER_THREADS / items;
+  return g < 1 ? 1 : (g > CNMF_CLUSTER_SLICES ? CNMF_CLUSTER_SLICES : g);
+}
+
+// Floats a cluster block keeps besides its tile's rows (a tile of n rows
+// adds n * (2 Lp + K)): the X and Xh rows past a tile, S, two parities of
+// S sums (16 floats a (k, d, L-tile) item), the slices' partial sums,
+// C^T's halo rows and rounding, the edge buffers, the halo and the
+// carried rows, and 34 doubles (models/kernels/cnmf_cuda.py mirrors it:
+// cluster_smem_bytes).
+__host__ __device__ inline size_t cnmf_cluster_small_floats(int l, int k, int d) {
+  const size_t lp = cnmf_lp(l), h1 = d - 1;
+  const size_t items = (size_t)k * d * (lp / CNMF_LT);
+  return 2 * h1 * lp + k * d * lp + 32 * items +
+         16 * (cnmf_cluster_slices((int)items) - 1) * items + k * (2 * h1 + 3) +
+         7 * h1 * k + 1 + 2 * 34;
+}
+
+struct CnmfCluster {
+  CnmfBlock b;     // lp, sh, l, k, d, s; x, xh: the tile's rows (from its first)
+  int T;           // the fit's rows
+  int rows;        // rows a block (the plan's)
+  int t0, t1;      // the block's rows [t0, t1)
+  int tile;        // rows a tile
+  int h1;          // D - 1
+  int ldc;         // row stride of ct: tile + 2 (D - 1), rounded up to 4
+  int items;       // (k, d, L-tile) items of the S sums
+  int slices;      // time slices of a tile's S sums
+  float* ct;       // (k, ldc): C^T of a tile's rows from its first minus D - 1
+  float* part;     // 2 parities x items x 16: S sums (8 numerators, 8 denominators)
+  float* scratch;  // (slices - 1) x items x 16: the slices' partial sums
+  float* edge;     // 2 parities x (first, last) x (D - 1) x k: the block's edge rows
+  float* hlo;      // (D - 1, k): C rows [t0 - D + 1, t0), the lower halo
+  float* hhi;      // (D - 1, k): C rows [t1, t1 + D - 1), the upper halo
+  float* carry;    // (D - 1, k): old C rows just before the current tile
+  double* red;     // 33 doubles of float64 reduction scratch
+  double* err;     // the block's share of the stopping statistic
+};
+
+__device__ inline CnmfCluster cnmf_cluster(float* smem, const NmfClusterPlan& p,
+                                           int d, int rank) {
+  CnmfCluster cc;
+  CnmfBlock& b = cc.b;
+  b.l = p.l;
+  b.k = p.k;
+  b.d = d;
+  b.lp = cnmf_lp(p.l);
+  const int nc = b.lp / 4;
+  b.sh = nc == 2 ? 2 : (nc == 4 ? 1 : 0);
+  cc.T = p.n;
+  cc.rows = p.rows;
+  cc.tile = p.tile;
+  cc.h1 = d - 1;
+  cc.t0 = (int)min((long long)rank * p.rows, (long long)p.n);
+  cc.t1 = (int)min((long long)cc.t0 + p.rows, (long long)p.n);
+  b.t = p.tile + cc.h1;
+  cc.ldc = (p.tile + 2 * cc.h1 + 3) & ~3;
+  cc.items = p.k * d * (b.lp / CNMF_LT);
+  cc.slices = cnmf_cluster_slices(cc.items);
+  b.x = smem;
+  b.xh = b.x + (size_t)b.t * b.lp;
+  b.s = b.xh + (size_t)b.t * b.lp;
+  cc.part = b.s + (size_t)p.k * d * b.lp;
+  cc.scratch = cc.part + 32 * (size_t)cc.items;
+  cc.ct = cc.scratch + 16 * (size_t)(cc.slices - 1) * cc.items;
+  cc.edge = cc.ct + (size_t)p.k * cc.ldc;
+  cc.hlo = cc.edge + 4 * (size_t)cc.h1 * p.k;
+  cc.hhi = cc.hlo + (size_t)cc.h1 * p.k;
+  cc.carry = cc.hhi + (size_t)cc.h1 * p.k;
+  size_t off = (size_t)(cc.carry + (size_t)cc.h1 * p.k - smem);
+  off += off & 1;  // 8-byte alignment of the doubles
+  cc.red = (double*)(smem + off);
+  cc.err = cc.red + 33;
+  return cc;
+}
+
+// The block's edge rows of C for `parity`: its first D - 1 rows, then
+// its last D - 1 (of a range shorter than that, all of it in each).
+__device__ inline float* cnmf_edge(const CnmfCluster& cc, int parity, bool last) {
+  return cc.edge + ((size_t)2 * parity + (last ? 1 : 0)) * cc.h1 * cc.b.k;
+}
+
+// Load one fit: S into every block, C0's rows of the block into C in
+// device memory (updated in place there) and into the edges of parity 0.
+__device__ void cnmf_cluster_load(const CnmfCluster& cc, const float* c0f,
+                                  float* cf, const float* s0f) {
+  const CnmfBlock& b = cc.b;
+  for (int i = threadIdx.x; i < b.k * b.d * b.lp; i += blockDim.x) {
+    const int r = i / b.lp, m = i - r * b.lp;
+    b.s[i] = m < b.l ? s0f[r * b.l + m] : 0.0f;
+  }
+  const int n = cc.t1 - cc.t0;
+  const int e = min(cc.h1, n);
+  for (int i = threadIdx.x; i < n * b.k; i += blockDim.x) {
+    const float v = c0f[(size_t)cc.t0 * b.k + i];
+    cf[(size_t)cc.t0 * b.k + i] = v;
+    const int r = i / b.k;
+    if (r < e) cnmf_edge(cc, 0, false)[i] = v;
+    if (r >= n - e) cnmf_edge(cc, 0, true)[i - (n - e) * b.k] = v;
+  }
+  __syncthreads();
+}
+
+// The block's halo rows of C for `parity` (rows before t0 into hlo,
+// rows from t1 on into hhi; rows outside the fit 0), each read from the
+// edge buffer of the block that owns it; then carry <- hlo.  Call after
+// a cluster barrier that follows the edges' writes.
+__device__ void cnmf_cluster_halo(const CnmfCluster& cc, nmf_cg::cluster_group& cl,
+                                  int parity) {
+  const int k = cc.b.k, hk = cc.h1 * k;
+  for (int i = threadIdx.x; i < 2 * hk; i += blockDim.x) {
+    const bool upper = i >= hk;
+    const int j = upper ? i - hk : i;
+    const int r = j / k, kk = j - r * k;
+    const int g = upper ? cc.t1 + r : cc.t0 - cc.h1 + r;
+    float v = 0.0f;
+    if (cc.t1 > cc.t0 && g >= 0 && g < cc.T) {
+      const int q = g / cc.rows;  // the owner
+      const int rq = min(cc.rows, cc.T - q * cc.rows);
+      const int o = g - q * cc.rows;
+      // an upper row is among the owner's first rows, a lower one among its last
+      const int row = upper ? o : o - (rq - min(cc.h1, rq));
+      v = cl.map_shared_rank(cnmf_edge(cc, parity, !upper), q)[row * k + kk];
+    }
+    (upper ? cc.hhi : cc.hlo)[j] = v;
+    if (!upper) cc.carry[j] = v;
+  }
+  __syncthreads();
+}
+
+// Load a tile starting at row a: C rows [a - D + 1, a + n_c - D + 1) into
+// ct (before a from carry, then the fit's C in device memory up to t1,
+// then the upper halo, 0 outside the fit) and X rows [a, a + n_x) into
+// b.x (0 past T).
+__device__ void cnmf_cluster_tile(const CnmfCluster& cc, const float* xf,
+                                  const float* cf, int a, int n_c, int n_x) {
+  const CnmfBlock& b = cc.b;
+  for (int i = threadIdx.x; i < b.k * n_c; i += blockDim.x) {
+    const int kk = i / n_c, j = i - kk * n_c;
+    const int g = a - cc.h1 + j;
+    float v;
+    if (g < 0 || g >= cc.T) {
+      v = 0.0f;
+    } else if (g < a) {
+      v = cc.carry[(g - (a - cc.h1)) * b.k + kk];
+    } else if (g < cc.t1) {
+      v = cf[(size_t)g * b.k + kk];
+    } else {
+      v = cc.hhi[(g - cc.t1) * b.k + kk];
+    }
+    cc.ct[kk * cc.ldc + j] = v;
+  }
+  for (int i = threadIdx.x; i < n_x * b.lp; i += blockDim.x) {
+    const int j = i / b.lp, m = i - j * b.lp;
+    const long long g = (long long)a + j;
+    b.x[cnmf_xidx(b, j, m)] = m < b.l && g < cc.T ? xf[g * b.l + m] : 0.0f;
+  }
+  __syncthreads();
+}
+
+// carry <- the old C rows [a + n - D + 1, a + n) of the tile in ct, for
+// the next tile; barriers before (the tile's reads) and after.
+__device__ inline void cnmf_cluster_carry(const CnmfCluster& cc, int n) {
+  const int k = cc.b.k;
+  for (int i = threadIdx.x; i < cc.h1 * k; i += blockDim.x) {
+    const int r = i / k, kk = i - r * k;
+    cc.carry[i] = cc.ct[kk * cc.ldc + n + r];
+  }
+  __syncthreads();
+}
+
+// Xh rows [0, n_rows) of the tile from ct and S: Xh[j] = sum_d sum_k
+// C[a + j - d, k] S[k, d, :], summed over d then k as the block entry.
+__device__ void cnmf_cluster_reconstruct(const CnmfCluster& cc, int n_rows) {
+  const CnmfBlock& b = cc.b;
+  for (int j = threadIdx.x; j < n_rows; j += blockDim.x) {
+    const float* cj = cc.ct + j + cc.h1;
+    for (int jt = 0; jt < b.lp / CNMF_LT; ++jt) {
+      float acc[CNMF_LT];
+#pragma unroll
+      for (int i = 0; i < CNMF_LT; ++i) acc[i] = 0.0f;
+      for (int d = 0; d < b.d; ++d) {
+#pragma unroll 2
+        for (int k = 0; k < b.k; ++k) {
+          float sv[CNMF_LT];
+          cnmf_s_tile(b, k, d, jt, sv);
+          const float cv = cj[k * cc.ldc - d];
+#pragma unroll
+          for (int i = 0; i < CNMF_LT; ++i) acc[i] += cv * sv[i];
+        }
+      }
+      *(float4*)(b.xh + cnmf_chunk(b, j, 2 * jt)) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+      *(float4*)(b.xh + cnmf_chunk(b, j, 2 * jt + 1)) =
+          make_float4(acc[4], acc[5], acc[6], acc[7]);
+    }
+  }
+  __syncthreads();
+}
+
+// Item q's S sums over tile rows [r0, r1) added to num[8] and den[8]:
+// sum_t C[t - d, k] X[t, tile] and the same with Xh.
+__device__ inline void cnmf_cluster_item(const CnmfCluster& cc, int q, int r0,
+                                         int r1, float* num, float* den) {
+  const CnmfBlock& b = cc.b;
+  const int tiles = b.lp / CNMF_LT;
+  const int k = q / (b.d * tiles);
+  const int rem = q - k * b.d * tiles;
+  const int d = rem / tiles, jt = rem - d * tiles;
+  const float* crow = cc.ct + k * cc.ldc + cc.h1 - d;
+#pragma unroll 2
+  for (int t = r0; t < r1; ++t) {
+    const float cv = crow[t];
+    float xv[CNMF_LT], hv[CNMF_LT];
+    cnmf_row_tile(b, b.x, t, jt, xv);
+    cnmf_row_tile(b, b.xh, t, jt, hv);
+#pragma unroll
+    for (int i = 0; i < CNMF_LT; ++i) {
+      num[i] += cv * xv[i];
+      den[i] += cv * hv[i];
+    }
+  }
+}
+
+// The tile's share of the S sums (its rows [0, n)) added to `part`:
+// threads over items in `slices` time slices, slice 0 adding the
+// others' partial sums in slice order.
+__device__ void cnmf_cluster_s_sums(const CnmfCluster& cc, int n, float* part) {
+  const int items = cc.items, slices = cc.slices;
+  if (slices == 1) {
+    for (int q = threadIdx.x; q < items; q += blockDim.x) {
+      float num[CNMF_LT], den[CNMF_LT];
+#pragma unroll
+      for (int i = 0; i < CNMF_LT; ++i) num[i] = den[i] = 0.0f;
+      cnmf_cluster_item(cc, q, 0, n, num, den);
+      float* out = part + 16 * q;
+#pragma unroll
+      for (int i = 0; i < CNMF_LT; ++i) {
+        out[i] += num[i];
+        out[CNMF_LT + i] += den[i];
+      }
+    }
+    __syncthreads();
+    return;
+  }
+  const int g = threadIdx.x / items;
+  const int q = threadIdx.x - g * items;
+  float num[CNMF_LT], den[CNMF_LT];
+#pragma unroll
+  for (int i = 0; i < CNMF_LT; ++i) num[i] = den[i] = 0.0f;
+  if (g < slices) {
+    cnmf_cluster_item(cc, q, g * n / slices, (g + 1) * n / slices, num, den);
+    if (g > 0) {
+      float* out = cc.scratch + 16 * ((size_t)(g - 1) * items + q);
+#pragma unroll
+      for (int i = 0; i < CNMF_LT; ++i) {
+        out[i] = num[i];
+        out[CNMF_LT + i] = den[i];
+      }
+    }
+  }
+  __syncthreads();
+  if (g == 0) {
+    for (int gg = 1; gg < slices; ++gg) {
+      const float* in = cc.scratch + 16 * ((size_t)(gg - 1) * items + q);
+#pragma unroll
+      for (int i = 0; i < CNMF_LT; ++i) {
+        num[i] += in[i];
+        den[i] += in[CNMF_LT + i];
+      }
+    }
+    float* out = part + 16 * q;
+#pragma unroll
+    for (int i = 0; i < CNMF_LT; ++i) {
+      out[i] += num[i];
+      out[CNMF_LT + i] += den[i];
+    }
+  }
+  __syncthreads();
+}
+
+// C of the tile's rows [0, n) (fit rows a..a+n-1) from X and Xh rows
+// t..t+D-1 (zero past T) and ct's old C, written to the fit's C in
+// device memory and, for the block's edge rows, to the edges of `parity`.
+__device__ void cnmf_cluster_update_c(const CnmfCluster& cc, float* cf, int a,
+                                      int n, int parity) {
+  const CnmfBlock& b = cc.b;
+  const int tiles = b.lp / CNMF_LT;
+  const int e = min(cc.h1, cc.t1 - cc.t0);
+  float* first = cnmf_edge(cc, parity, false);
+  float* last = cnmf_edge(cc, parity, true);
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const int g = a + j;
+    const int d_end = min(b.d, cc.T - g);
+    for (int k0 = 0; k0 < b.k; k0 += CNMF_KT) {
+      float num[CNMF_KT], den[CNMF_KT];
+#pragma unroll
+      for (int q = 0; q < CNMF_KT; ++q) num[q] = den[q] = 0.0f;
+      for (int d = 0; d < d_end; ++d) {
+        for (int jt = 0; jt < tiles; ++jt) {
+          float xv[CNMF_LT], hv[CNMF_LT];
+          cnmf_row_tile(b, b.x, j + d, jt, xv);
+          cnmf_row_tile(b, b.xh, j + d, jt, hv);
+#pragma unroll
+          for (int q = 0; q < CNMF_KT; ++q) {
+            if (k0 + q < b.k) {
+              float sv[CNMF_LT];
+              cnmf_s_tile(b, k0 + q, d, jt, sv);
+#pragma unroll
+              for (int i = 0; i < CNMF_LT; ++i) {
+                num[q] += xv[i] * sv[i];
+                den[q] += hv[i] * sv[i];
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < CNMF_KT; ++q) {
+        const int kk = k0 + q;
+        if (kk < b.k) {
+          const float dn = den[q] == 0.0f ? EPSILON : den[q];
+          const float v = cc.ct[kk * cc.ldc + j + cc.h1] * (num[q] / dn);
+          cf[(size_t)g * b.k + kk] = v;
+          if (g - cc.t0 < e) first[(g - cc.t0) * b.k + kk] = v;
+          if (g >= cc.t1 - e) last[(g - (cc.t1 - e)) * b.k + kk] = v;
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// One multiplicative update of S then C of the cluster's fit; `parity`
+// keys the edges of the C it starts from (the new C's go to parity ^ 1)
+// and the S sums' buffer.
+__device__ void cnmf_cluster_step(const CnmfCluster& cc, nmf_cg::cluster_group& cl,
+                                  const float* xf, float* cf, int parity) {
+  const CnmfBlock& b = cc.b;
+  float* part = cc.part + (size_t)parity * 16 * cc.items;
+  for (int i = threadIdx.x; i < 16 * cc.items; i += blockDim.x) part[i] = 0.0f;
+  cl.sync();  // every block's edges of `parity` are written
+  cnmf_cluster_halo(cc, cl, parity);  // its barrier also orders the zeroing
+  // ---- S: the block's share of the sums, from the old C and S ----
+  for (int a = cc.t0; a < cc.t1; a += cc.tile) {
+    const int n = min(cc.tile, cc.t1 - a);
+    cnmf_cluster_tile(cc, xf, cf, a, n + cc.h1, n);
+    cnmf_cluster_reconstruct(cc, n);
+    cnmf_cluster_s_sums(cc, n, part);
+    cnmf_cluster_carry(cc, n);
+  }
+  cl.sync();  // every block's S sums are readable
+  const int dl = b.d * b.l;
+  for (int i = threadIdx.x; i < b.k * dl; i += blockDim.x) {
+    const int k = i / dl, r = i - k * dl;
+    const int d = r / b.l, m = r - d * b.l;
+    const int q = 16 * ((k * b.d + d) * (b.lp / CNMF_LT) + m / CNMF_LT) + m % CNMF_LT;
+    const float num = nmf_cluster_sum(cl, part, q);
+    const float den = nmf_cluster_sum(cl, part, q + CNMF_LT);
+    const float dn = den == 0.0f ? EPSILON : den;
+    float* sp = b.s + (k * b.d + d) * b.lp + m;
+    *sp = *sp * (num / dn);
+  }
+  __syncthreads();
+  // ---- C: Xh with the new S over the block's rows and D - 1 after ----
+  for (int i = threadIdx.x; i < cc.h1 * b.k; i += blockDim.x) cc.carry[i] = cc.hlo[i];
+  __syncthreads();
+  for (int a = cc.t0; a < cc.t1; a += cc.tile) {
+    const int n = min(cc.tile, cc.t1 - a);
+    cnmf_cluster_tile(cc, xf, cf, a, n + 2 * cc.h1, n + cc.h1);
+    cnmf_cluster_reconstruct(cc, n + cc.h1);
+    cnmf_cluster_carry(cc, n);  // ct's old C, before update_c overwrites cf
+    cnmf_cluster_update_c(cc, cf, a, n, parity ^ 1);
+  }
+}
+
+// ||X - Xh||_F of the cluster's fit, Xh rebuilt in float64 from the C
+// whose edges are keyed `parity`, returned to every thread of every
+// block: each block's sum over its rows, then the blocks' sums in rank
+// order.  Cluster barriers lie between two calls' uses of the slot.
+__device__ double cnmf_cluster_error(const CnmfCluster& cc, nmf_cg::cluster_group& cl,
+                                     const float* xf, const float* cf, int parity) {
+  const CnmfBlock& b = cc.b;
+  cl.sync();  // every block's edges of `parity` are written
+  cnmf_cluster_halo(cc, cl, parity);
+  double part = 0.0;
+  for (int a = cc.t0; a < cc.t1; a += cc.tile) {
+    const int n = min(cc.tile, cc.t1 - a);
+    cnmf_cluster_tile(cc, xf, cf, a, n + cc.h1, n);
+    for (int q = threadIdx.x; q < n * b.l; q += blockDim.x) {
+      const int j = q / b.l, m = q - j * b.l;
+      double acc = 0.0;
+      for (int d = 0; d < b.d; ++d) {
+        for (int k = 0; k < b.k; ++k) {
+          acc += (double)cc.ct[k * cc.ldc + j + cc.h1 - d] *
+                 (double)b.s[(k * b.d + d) * b.lp + m];
+        }
+      }
+      const double diff = (double)b.x[cnmf_xidx(b, j, m)] - acc;
+      part += diff * diff;
+    }
+    cnmf_cluster_carry(cc, n);
+  }
+  const double mine = nmf_block_sum_d(cc.red, part);
+  if (threadIdx.x == 0) *cc.err = mine;
+  cl.sync();
+  return sqrt(nmf_cluster_sum_d(cl, cc.err, 0));
+}
+
+template <bool WITH_STOP>
+__global__ void __launch_bounds__(NMF_CLUSTER_THREADS) cnmf_cluster_kernel(
+    NmfClusterPlan p, const float* __restrict__ x, const float* __restrict__ c0,
+    const float* __restrict__ s0, float* c, float* __restrict__ s,
+    int* __restrict__ n_iter_out, float* __restrict__ prev_err_out,
+    int* __restrict__ converged_out, int d, int iters, double tol,
+    int check_every) {
+  extern __shared__ __align__(16) float smem[];
+  nmf_cg::cluster_group cl = nmf_cg::this_cluster();
+  const size_t fit = blockIdx.x / cl.num_blocks();
+  const int rank = (int)cl.block_rank();
+  const CnmfCluster cc = cnmf_cluster(smem, p, d, rank);
+  const float* xf = x + fit * p.n * p.l;
+  float* cf = c + fit * p.n * p.k;
+  cnmf_cluster_load(cc, c0 + fit * p.n * p.k, cf, s0 + fit * p.k * d * p.l);
+  int parity = 0;
+  if (WITH_STOP) {
+    // the block entry's loop: no tail chunk; every value that decides a
+    // branch is the same in every block of the cluster
+    const double err0 = cnmf_cluster_error(cc, cl, xf, cf, parity);
+    const double scale = fmax(err0, (double)EPSILON);
+    double prev_err = err0;
+    int n_iter = 0;
+    bool converged = false;
+    while (n_iter < iters && !converged) {
+      for (int i = 0; i < check_every; ++i) {
+        cnmf_cluster_step(cc, cl, xf, cf, parity);
+        parity ^= 1;
+      }
+      n_iter += check_every;
+      const double err = cnmf_cluster_error(cc, cl, xf, cf, parity);
+      converged = (prev_err - err) / scale < tol;
+      prev_err = err;
+    }
+    if (rank == 0 && threadIdx.x == 0) {
+      n_iter_out[fit] = n_iter;
+      prev_err_out[fit] = (float)prev_err;
+      converged_out[fit] = converged ? 1 : 0;
+    }
+  } else {
+    for (int i = 0; i < iters; ++i) {
+      cnmf_cluster_step(cc, cl, xf, cf, parity);
+      parity ^= 1;
+    }
+  }
+  cl.sync();  // no block leaves while another reads its shared memory
+  if (rank == 0) {
+    const CnmfBlock& b = cc.b;
+    float* sf = s + fit * p.k * d * p.l;
+    for (int i = threadIdx.x; i < b.k * b.d * b.l; i += blockDim.x) {
+      const int r = i / b.l;
+      sf[i] = b.s[r * b.lp + i - r * b.l];
+    }
+  }
+}
+
+// The cluster entry: cnmf_f32's arguments and results, for frames over
+// one block's shared memory (models/kernels/cnmf_cuda.py: route).
+// Launches one cluster a fit on `stream` and returns cudaGetLastError(),
+// or the error that left no cluster able to run the fit.
+extern "C" int cnmf_cluster_f32(const float* x, const float* c0, const float* s0,
+                                float* c, float* s, int* n_iter, float* prev_err,
+                                int* converged, int batch, int t, int l, int k,
+                                int d, int iters, double tol, int check_every,
+                                int with_stop, void* stream) {
+  if (batch < 1 || t < 1 || l < 1 || k < 1 || d < 1 || d > t || iters < 0 ||
+      (with_stop && check_every < 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t small = cnmf_cluster_small_floats(l, k, d);
+  const size_t per_row = 2 * (size_t)cnmf_lp(l) + k;
+  auto run = [&](auto kernel) {
+    NmfClusterPlan plan;
+    const int e = nmf_cluster_plan_sized(kernel, t, l, k, small, 0, per_row, &plan);
+    if (e != 0) return e;
+    return nmf_cluster_launch(kernel, plan, batch, st, x, c0, s0, c, s, n_iter,
+                              prev_err, converged, d, iters, tol, check_every);
+  };
+  return with_stop ? run(cnmf_cluster_kernel<true>) : run(cnmf_cluster_kernel<false>);
 }

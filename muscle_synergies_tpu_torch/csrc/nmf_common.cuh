@@ -391,7 +391,8 @@ inline int nmf_launch(Kernel kernel, int batch, size_t smem,
   return (int)cudaGetLastError();
 }
 
-// ---- the cluster entries (cd_nmf.cu, mu_nmf.cu) ----
+// ---- the cluster entries (cd_nmf.cu, mu_nmf.cu, beta_nmf.cu; cnmf.cu
+// takes the plan, the launch and the rank-ordered sums) ----
 //
 // One thread-block cluster per fit, for frames whose fit exceeds one
 // block's shared memory.  Block r of a cluster of C owns rows
@@ -413,6 +414,9 @@ inline int nmf_launch(Kernel kernel, int batch, size_t smem,
 // in tiles of `tile` rows, two shared buffers filled by cp.async while
 // the other is worked on, at the largest cluster the card schedules.
 // models/kernels/mu_cuda.py mirrors the limits (cluster_smem_bytes).
+// A kernel whose partial sums are not K1's W^T W and W^T X (K4: two
+// (k, l) planes) takes its layout from nmf_cluster_sized and plans with
+// nmf_cluster_plan_sized.
 
 #include <cooperative_groups.h>
 
@@ -447,7 +451,7 @@ struct NmfCluster {
   NmfBlock b;     // h, gram, cross, red; x, w: the resident share, or tile buffer 0
   float* part;    // 2 x pstride partial sums, by the iteration's parity
   float* err;     // the block's share of the stopping statistic
-  int pstride;    // k * k + k * l + 1
+  int pstride;    // K1, K2: k * k + k * l + 1
   int rank;
   size_t r0;      // the block's first row in the fit
   int rows;       // the block's rows
@@ -481,6 +485,27 @@ __device__ inline NmfCluster nmf_cluster(float* smem, const NmfClusterPlan& p,
   b.x = c.err + 1;
   b.w = b.x + (size_t)p.tile * b.ldx;
   return c;
+}
+
+// nmf_cluster's layout for a kernel with partial sums of its own (K4):
+// `pstride` floats a parity, and `extra` floats of the kernel's own after
+// the stopping statistic (from err + 1), before the rows.  Kept apart
+// from nmf_cluster so that K1 and K2 compile the same code as before:
+// edits to it moved their register allocation and their time.
+__device__ inline NmfCluster nmf_cluster_sized(float* smem, const NmfClusterPlan& p,
+                                               int rank, int pstride, int extra) {
+  NmfCluster c = nmf_cluster(smem, p, rank);
+  c.pstride = pstride;
+  c.err = c.part + 2 * pstride;
+  c.b.x = c.err + 1 + extra;
+  c.b.w = c.b.x + (size_t)p.tile * c.b.ldx;
+  return c;
+}
+
+// The first float past the block's row buffers (the resident share, or
+// the two tile buffers): where a kernel's per-row scratch starts.
+__device__ inline float* nmf_cluster_rows_end(const NmfCluster& c) {
+  return c.b.x + (c.resident ? 1 : 2) * (size_t)c.tile * (c.b.ldx + c.b.ldw);
 }
 
 __device__ __forceinline__ void nmf_cp_async4(float* dst, const float* src) {
@@ -636,6 +661,24 @@ __device__ inline float nmf_cluster_sum(nmf_cg::cluster_group& cl, float* local,
   return s;
 }
 
+// nmf_cluster_sum in float64, for the stopping statistics of K4 and K5
+// (a function of its own for the reason nmf_cluster_sized gives).
+__device__ inline double nmf_cluster_sum_d(nmf_cg::cluster_group& cl,
+                                           double* local, int q) {
+  const unsigned size = cl.num_blocks();
+  double v[NMF_CLUSTER_MAX];
+#pragma unroll
+  for (unsigned r = 0; r < NMF_CLUSTER_MAX; ++r) {
+    v[r] = r < size ? cl.map_shared_rank(local, r)[q] : 0.0;
+  }
+  double s = 0.0;
+#pragma unroll
+  for (unsigned r = 0; r < NMF_CLUSTER_MAX; ++r) {
+    if (r < size) s += v[r];
+  }
+  return s;
+}
+
 // After a W pass: the cluster's sums of every block's part[0 .. K*K +
 // K*L) into b.gram (W^T W) and b.cross (W^T X), the same bits in every
 // block.  Holds the cluster barrier that makes every part readable.
@@ -729,14 +772,18 @@ inline int nmf_cluster_active(Kernel kernel, int size, size_t smem) {
   return clusters;
 }
 
-// The split of an (n, l) fit at rank k: resident at the smallest cluster
-// (2, 4, 8, 16) whose share of rows fits one block and which the card
-// schedules; else streamed at the largest schedulable cluster (16 needs
-// the non-portable attribute and may not fit a GPC: queried, not
-// assumed).  Returns 0, or a CUDA error when no cluster can run it.
+// The split of an (n, l) fit at rank k for a kernel that keeps `small`
+// floats a block besides its rows, `row_floats` a row in the row buffers
+// (two of them when streamed) and `extra_row` a row of single-buffered
+// scratch: resident at the smallest cluster (2, 4, 8, 16) whose share of
+// rows fits one block and which the card schedules; else streamed at the
+// largest schedulable cluster (16 needs the non-portable attribute and may
+// not fit a GPC: queried, not assumed).  Returns 0, or a CUDA error when
+// no cluster can run it.
 template <typename Kernel>
-inline int nmf_cluster_plan(Kernel kernel, int n, int l, int k,
-                            NmfClusterPlan* plan) {
+inline int nmf_cluster_plan_sized(Kernel kernel, int n, int l, int k,
+                                  size_t small, size_t row_floats,
+                                  size_t extra_row, NmfClusterPlan* plan) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, NMF_SMEM_LIMIT);
   if (e != cudaSuccess) return (int)e;
@@ -744,29 +791,29 @@ inline int nmf_cluster_plan(Kernel kernel, int n, int l, int k,
       kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) == cudaSuccess;
   cudaGetLastError();
   const int largest = big ? NMF_CLUSTER_MAX : NMF_CLUSTER_PORTABLE;
-  const size_t small = nmf_cluster_small_floats(l, k);
-  const size_t row_floats = (size_t)nmf_odd(l) + nmf_odd(k);
+  const size_t resident_row = row_floats + extra_row;
+  const size_t streamed_row = 2 * row_floats + extra_row;
   for (int size = 2; size <= largest; size *= 2) {
     const int rows = (int)(((long long)n + size - 1) / size);
-    const size_t smem = (small + (size_t)rows * row_floats) * sizeof(float);
+    const size_t smem = (small + (size_t)rows * resident_row) * sizeof(float);
     if (smem <= NMF_SMEM_LIMIT && nmf_cluster_active(kernel, size, smem) > 0) {
       *plan = {n, l, k, rows, rows, 1, size, smem};
       return 0;
     }
   }
   const size_t room = NMF_SMEM_LIMIT / sizeof(float);
-  if (small + 2 * NMF_CLUSTER_MIN_TILE * row_floats > room) {
+  if (small + NMF_CLUSTER_MIN_TILE * streamed_row > room) {
     return (int)cudaErrorInvalidValue;
   }
   for (int size = largest; size >= 2; size /= 2) {
     const int rows = (int)(((long long)n + size - 1) / size);
-    size_t tile = NMF_CLUSTER_TILE_BYTES / sizeof(float) / (2 * row_floats);
+    size_t tile = NMF_CLUSTER_TILE_BYTES / sizeof(float) / streamed_row;
     // whole rows for every thread in each tile, where the budget allows
     if (tile > NMF_CLUSTER_THREADS) tile -= tile % NMF_CLUSTER_THREADS;
     if (tile < NMF_CLUSTER_MIN_TILE) tile = NMF_CLUSTER_MIN_TILE;
-    if (small + 2 * tile * row_floats > room) tile = (room - small) / (2 * row_floats);
+    if (small + tile * streamed_row > room) tile = (room - small) / streamed_row;
     if (tile > (size_t)rows) tile = rows;
-    const size_t smem = (small + 2 * tile * row_floats) * sizeof(float);
+    const size_t smem = (small + tile * streamed_row) * sizeof(float);
     if (nmf_cluster_active(kernel, size, smem) > 0) {
       *plan = {n, l, k, rows, (int)tile, 0, size, smem};
       return 0;
@@ -775,9 +822,32 @@ inline int nmf_cluster_plan(Kernel kernel, int n, int l, int k,
   return (int)cudaErrorInvalidConfiguration;
 }
 
-// Plan an (n, l) fit at rank k for `kernel` and launch it on `batch`
-// clusters (one a fit), the plan its first argument; returns
-// cudaGetLastError(), or the error that left no cluster able to run it.
+// K1's and K2's split: rows of X and W, their small state as
+// nmf_cluster_small_floats counts it.
+template <typename Kernel>
+inline int nmf_cluster_plan(Kernel kernel, int n, int l, int k,
+                            NmfClusterPlan* plan) {
+  return nmf_cluster_plan_sized(kernel, n, l, k, nmf_cluster_small_floats(l, k),
+                                (size_t)nmf_odd(l) + nmf_odd(k), 0, plan);
+}
+
+// Launch `kernel` on `batch` clusters (one a fit) as `plan` says, the
+// plan its first argument; returns cudaGetLastError().
+template <typename... Params, typename... Args>
+inline int nmf_cluster_launch(void (*kernel)(NmfClusterPlan, Params...),
+                              const NmfClusterPlan& plan, int batch,
+                              cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      nmf_cluster_config(batch, plan.size, plan.smem, stream, &attr);
+  const cudaError_t le = cudaLaunchKernelEx(&cfg, kernel, plan, args...);
+  if (le != cudaSuccess) return (int)le;
+  return (int)cudaGetLastError();
+}
+
+// Plan an (n, l) fit at rank k for `kernel` (nmf_cluster_plan) and launch
+// it on `batch` clusters; returns cudaGetLastError(), or the error that
+// left no cluster able to run it.
 template <typename... Params, typename... Args>
 inline int nmf_cluster_run(void (*kernel)(NmfClusterPlan, Params...),
                            int batch, int n, int l, int k, cudaStream_t stream,
@@ -785,12 +855,7 @@ inline int nmf_cluster_run(void (*kernel)(NmfClusterPlan, Params...),
   NmfClusterPlan plan;
   const int e = nmf_cluster_plan(kernel, n, l, k, &plan);
   if (e != 0) return e;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      nmf_cluster_config(batch, plan.size, plan.smem, stream, &attr);
-  const cudaError_t le = cudaLaunchKernelEx(&cfg, kernel, plan, args...);
-  if (le != cudaSuccess) return (int)le;
-  return (int)cudaGetLastError();
+  return nmf_cluster_launch(kernel, plan, batch, stream, args...);
 }
 
 // The KMAX a cluster kernel runs a rank-k fit at, as the block entries'.

@@ -260,12 +260,11 @@ def rank_sweep_batch(
 
     Runs on the card unless ``device="cpu"`` (float32 there unless
     ``dtype`` says otherwise), where ``impl="auto"`` makes the whole
-    sweep one launch of K2 (CD), K1 (MU) or K4 (beta-MU).  K2 and K1 run
-    a trial of any length: one warp or one thread block a fit for a
+    sweep one launch of K2 (CD), K1 (MU) or K4 (beta-MU).  Each runs a
+    trial of any length: one warp or one thread block a fit for a
     time-normalised 200 x 8 trial, one thread-block cluster a fit for a
-    longer one (20,000 or 124,460 x 8).  K4 holds a fit in one block's
-    shared memory and raises before any launch beyond it; pass
-    ``impl="torch"`` for the plain fit on the card, or ``device="cpu"``.
+    longer one (20,000 or 124,460 x 8).  ``impl="torch"`` is the plain
+    fit on the card.
 
     Returns:
         ``(states, vafs)``: the stacked solver states (leading axis =

@@ -33,10 +33,12 @@ On top of the solvers, the per-capture API:
   :func:`fit_cnmf_batch`, one K5 launch on the card, and returns
   DataFrames (it needs pandas);
 - :class:`CNMFModel`, the sklearn-style estimator over the same array
-  core, needs no pandas.  On the card its fit is K5 within one block's
-  shared memory (``cnmf_cuda.smem_bytes``: a 200 x 8 frame fits, up to
-  T = 2,822 at L = 8, K = 4, D = 10); a longer frame raises before any
-  launch, naming ``impl="torch"``.
+  core, needs no pandas.  On the card its fit is one K5 launch: on the
+  block entry within one block's shared memory
+  (``cnmf_cuda.smem_bytes``: a 200 x 8 frame fits, up to T = 2,822 at
+  L = 8, K = 4, D = 10), on the cluster entry (one thread-block cluster
+  a fit) for a longer frame, a subject's cycles or a continuous
+  recording up to a whole capture.
 
 ``precision=`` is the JAX package's matmul precision for the plain
 contractions (see :func:`~muscle_synergies_tpu_torch._common.allows_tf32`;

@@ -9,16 +9,21 @@ switch, compiled out for the fixed-iteration one, and the kernel is
 specialised for KL (beta = 1) and Itakura-Saito (beta = 0), with every
 other beta taken at run time.
 
-The source has two entries, picked by :func:`route`: the warp entry
+The source has three entries, picked by :func:`route`: the warp entry
 (one warp per fit, X and W rows in registers) for KL frames within the
 warp limits of :mod:`.mu_cuda` and for Itakura-Saito frames within
 ``IS_WARP_LMAX`` columns at rank ``IS_WARP_KMAX`` (the main paths' 200
 x 8 at ranks 1-4); the block entry (one block per fit, X, W, H and the
 weight planes in shared memory; KL stores one plane, the other kinds
-two) for the rest, a run-time beta included (its warp entry was slower
-than the block entry); and a refusal before any launch for a frame over
-one block's shared memory.
-``warp_launches`` and ``launches`` count the two entries' launches.
+two) for the rest within one block's shared memory, a run-time beta
+included (its warp entry was slower than the block entry); the cluster
+entry (one thread-block cluster per fit, each block a range of rows,
+the two partial (k, L) planes reduced over distributed shared memory)
+for a frame over one block, such as a subject's concatenated cycles or
+a whole capture; and a refusal before any launch for a frame whose
+small per-block state alone would fill a cluster block
+(:func:`cluster_smem_bytes`).  ``warp_launches``, ``launches`` and
+``cluster_launches`` count the three entries' launches.
 
 :func:`beta_iterations_cuda` and :func:`fit_beta_cuda` take contiguous
 CUDA float32 tensors in the JAX layouts, X ``(B, N, L)``, W
@@ -39,7 +44,7 @@ import torch
 from ..._build import load
 from ..._common import check_kernel_nans
 from ..beta import BetaState, _gamma, fit_mu_beta, mu_update_beta
-from .mu_cuda import check_fits, check_shapes, warp_fits
+from .mu_cuda import CLUSTER_MIN_TILE, check_layout, entry_for, warp_fits
 from .mu_cuda import smem_bytes as mu_smem_bytes
 
 __all__ = [
@@ -47,6 +52,7 @@ __all__ = [
     "fit_beta_cuda",
     "beta_iterations_plain",
     "fit_beta_plain",
+    "cluster_launches",
     "launches",
     "route",
     "warp_launches",
@@ -54,6 +60,7 @@ __all__ = [
 
 launches = 0  # block-entry launches since the last reset
 warp_launches = 0  # warp-entry launches since the last reset
+cluster_launches = 0  # cluster-entry launches since the last reset
 # csrc/beta_nmf.cu: BETA_WARP_IS_LMAX, BETA_WARP_IS_KMAX
 IS_WARP_LMAX, IS_WARP_KMAX = 8, 4
 
@@ -66,19 +73,36 @@ def smem_bytes(n: int, l: int, k: int, kl: bool = False) -> int:
     return 4 * (floats + 2 * 33)
 
 
+def cluster_smem_bytes(l: int, k: int, kl: bool = False) -> int:
+    """Shared memory of one block of the cluster entry at its least: H,
+    the Grams' room, two parities of the two partial (k, l) planes, their
+    sums, float64 scratch, two tile buffers of ``CLUSTER_MIN_TILE`` rows
+    of X and W and that tile's weight planes (one for KL)
+    (csrc/beta_nmf.cu ``beta_cluster_small_floats``, nmf_common.cuh
+    ``nmf_cluster_plan_sized``).  The entry takes an ``(l, k)`` fit of
+    any number of rows when this fits one block."""
+    small = 8 * k * l + k * k + 103
+    per_row = 2 * ((l | 1) + (k | 1)) + (1 if kl else 2) * (l | 1)
+    return 4 * (small + CLUSTER_MIN_TILE * per_row)
+
+
 def route(n: int, l: int, k: int, beta: float = 1.0) -> str:
     """K4's entry for fits of ``(n, l)`` frames at rank ``k`` and
-    ``beta``: ``"warp"`` or ``"block"``; raises ``ValueError`` (naming
-    ``impl='torch'``) when one fit exceeds one block's shared memory."""
+    ``beta``: ``"warp"``, ``"block"`` or, for a fit over one block's
+    shared memory, ``"cluster"``; raises ``ValueError`` (naming
+    ``impl='torch'``) when even a cluster block cannot hold the fit's
+    small state and two tiles of rows."""
     kl = beta == 1.0
-    check_fits("beta_nmf", n, l, k, lambda *shape: smem_bytes(*shape, kl=kl))
     is_ = beta == 0.0 and l <= IS_WARP_LMAX and k <= IS_WARP_KMAX
-    return "warp" if warp_fits(n, l, k) and (kl or is_) else "block"
+    return entry_for("beta_nmf", n, l, k, warp=warp_fits(n, l, k) and (kl or is_),
+                     block_bytes=smem_bytes(n, l, k, kl=kl),
+                     cluster_bytes=cluster_smem_bytes(l, k, kl=kl))
 
 
 def _lib(entry: str):
     lib = load("beta_nmf")
-    fn = lib.beta_nmf_warp_f32 if entry == "warp" else lib.beta_nmf_f32
+    fn = {"warp": lib.beta_nmf_warp_f32, "block": lib.beta_nmf_f32,
+          "cluster": lib.beta_nmf_cluster_f32}[entry]
     fn.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
         + [ctypes.c_double] + [ctypes.c_int] + [ctypes.c_float] * 4
@@ -90,9 +114,8 @@ def _lib(entry: str):
 
 def _launch(xs, w0, h0, beta, iters, tol, check_every, with_stop,
             regs=(0.0, 0.0, 0.0, 0.0)):
-    global launches, warp_launches
-    check_shapes("beta_nmf", xs, w0, h0,
-                 lambda *shape: smem_bytes(*shape, kl=float(beta) == 1.0))
+    global launches, warp_launches, cluster_launches
+    check_layout("beta_nmf", xs, w0, h0)
     xs, w0, h0 = xs.contiguous(), w0.contiguous(), h0.contiguous()
     b, n, l = xs.shape
     k = w0.shape[-1]
@@ -113,6 +136,8 @@ def _launch(xs, w0, h0, beta, iters, tol, check_every, with_stop,
         raise RuntimeError(f"beta_nmf {entry} entry launch failed: CUDA error {err}")
     if entry == "warp":
         warp_launches += 1
+    elif entry == "cluster":
+        cluster_launches += 1
     else:
         launches += 1
     check_kernel_nans("beta_nmf", w, h, prev_err)

@@ -4,10 +4,21 @@ Replaces the TPU kernel ``cnmf_iterations_pallas``
 (``muscle_synergies_tpu/models/kernels/cnmf_pallas.py``) and its
 chunked fit driver (``models/cnmf.py:_fit_cnmf_batch_pallas``).  One
 CUDA source serves both entry points: the stopping rule is a template
-switch, compiled out for the fixed-iteration one.  One thread block
-runs one fit with X, C, S and the reconstruction in shared memory,
-register-tiled so that one shared-memory load feeds 8 or more
-multiply-adds; see the source.
+switch, compiled out for the fixed-iteration one.
+
+The source has two entries, picked by :func:`route`: the block entry
+(one thread block per fit with X, C, S and the reconstruction in
+shared memory, register-tiled so that one shared-memory load feeds 8
+or more multiply-adds) for a frame within one block's shared memory
+(:func:`smem_bytes`: 200 x 8 fits, up to 2,822 x 8 at K = 4, D = 10);
+the cluster entry (one thread-block cluster per fit, each block a
+range of time, the S sums reduced over distributed shared memory and
+the lags' halo rows of C read from the neighbouring blocks) for a
+longer frame, such as a subject's concatenated cycles or a continuous
+recording; and a refusal before any launch for a frame whose S, its
+sums and the halo alone would fill a cluster block
+(:func:`cluster_smem_bytes`).  ``launches`` and ``cluster_launches``
+count the two entries' launches; see the source.
 
 :func:`cnmf_iterations_cuda` and :func:`fit_cnmf_cuda` take contiguous
 CUDA float32 tensors in the JAX layouts, X ``(B, T, L)``, C
@@ -26,17 +37,31 @@ import torch
 from ..._build import load
 from ..._common import check_cuda_f32, check_kernel_nans
 from .. import cnmf as _cnmf
-from .mu_cuda import SMEM_LIMIT
+from .mu_cuda import CLUSTER_MIN_TILE, SMEM_LIMIT
 
 __all__ = [
     "cnmf_iterations_cuda",
     "fit_cnmf_cuda",
     "cnmf_iterations_plain",
     "fit_cnmf_plain",
+    "cluster_launches",
     "launches",
+    "route",
 ]
 
-launches = 0  # kernel launches since the last reset
+launches = 0  # block-entry launches since the last reset
+cluster_launches = 0  # cluster-entry launches since the last reset
+CLUSTER_THREADS = 256  # csrc/nmf_common.cuh NMF_CLUSTER_THREADS
+CLUSTER_SLICES = 8  # csrc/cnmf.cu CNMF_CLUSTER_SLICES
+
+
+def _lp(l: int) -> int:
+    """Row stride of X and its reconstruction: L rounded up to a power of
+    two of at least 8 (csrc/cnmf.cu ``cnmf_lp``)."""
+    lp = 8
+    while lp < l:
+        lp *= 2
+    return lp
 
 
 def smem_bytes(t: int, l: int, k: int, d: int) -> int:
@@ -45,9 +70,7 @@ def smem_bytes(t: int, l: int, k: int, d: int) -> int:
     power of two of at least 8, C transposed ``(K, T)`` rounded up to 4
     floats, S ``(K, D, Lp)``, the S update's partial sums (16 floats per
     (k, d) pair and time slice after the first) and 33 doubles."""
-    lp = 8
-    while lp < l:
-        lp *= 2
+    lp = _lp(l)
     pairs = k * d
     groups = min(4, max(1, 128 // pairs))  # csrc/cnmf.cu cnmf_groups
     floats = 2 * t * lp + (k * t + 3) // 4 * 4 + pairs * lp
@@ -56,8 +79,43 @@ def smem_bytes(t: int, l: int, k: int, d: int) -> int:
     return 4 * (floats + 2 * 33)
 
 
-def check_shapes(name: str, xs, c, s) -> None:
-    """Raise unless the problem fits the kernel's bounds."""
+def cluster_smem_bytes(l: int, k: int, d: int) -> int:
+    """Shared memory of one block of the cluster entry at its least: S,
+    two parities of its sums, the time slices' partial sums, the edge,
+    halo and carried rows of C, float64 scratch, and a tile of
+    ``CLUSTER_MIN_TILE`` rows of X, its reconstruction and C with the
+    lags' D - 1 rows past it (csrc/cnmf.cu ``cnmf_cluster_small_floats``).
+    The entry takes an ``(l, k, d)`` fit of any length when this fits one
+    block."""
+    lp, h1 = _lp(l), d - 1
+    items = k * d * (lp // 8)
+    slices = min(CLUSTER_SLICES, max(1, CLUSTER_THREADS // items))
+    small = (2 * h1 * lp + k * d * lp + 32 * items + 16 * (slices - 1) * items
+             + k * (2 * h1 + 3) + 7 * h1 * k + 1 + 2 * 34)
+    return 4 * (small + CLUSTER_MIN_TILE * (2 * lp + k))
+
+
+def route(t: int, l: int, k: int, d: int) -> str:
+    """K5's entry for fits of ``(t, l)`` frames with ``k`` synergies of
+    ``d`` lags: ``"block"`` within one block's shared memory, else
+    ``"cluster"``; raises ``ValueError`` (naming ``impl='torch'``) when
+    even a cluster block cannot hold the fit's small state and a tile."""
+    if not 1 <= d <= t:
+        raise ValueError(f"cnmf: {d} lags outside 1..{t} samples")
+    if smem_bytes(t, l, k, d) <= SMEM_LIMIT:
+        return "block"
+    if cluster_smem_bytes(l, k, d) <= SMEM_LIMIT:
+        return "cluster"
+    raise ValueError(
+        f"cnmf: one fit of {t}x{l} with {k} synergies of {d} lags needs "
+        f"{cluster_smem_bytes(l, k, d)} bytes of shared memory a block even on "
+        f"the cluster entry, over {SMEM_LIMIT}; use impl='torch'"
+    )
+
+
+def check_shapes(name: str, xs, c, s) -> str:
+    """Raise unless the problem fits the kernel's bounds; returns its
+    entry (:func:`route`)."""
     check_cuda_f32(name, xs, c, s)
     if xs.ndim != 3 or c.ndim != 3 or s.ndim != 4:
         raise ValueError(f"{name}: expected X (B, T, L), C (B, T, K), S (B, K, D, L)")
@@ -68,18 +126,12 @@ def check_shapes(name: str, xs, c, s) -> None:
             f"{name}: shapes X {tuple(xs.shape)}, C {tuple(c.shape)}, "
             f"S {tuple(s.shape)} do not match"
         )
-    if not 1 <= d <= t:
-        raise ValueError(f"{name}: {d} lags outside 1..{t} samples")
-    if smem_bytes(t, l, k, d) > SMEM_LIMIT:
-        raise ValueError(
-            f"{name}: one fit of {t}x{l} with {k} synergies of {d} lags "
-            f"needs {smem_bytes(t, l, k, d)} bytes of shared memory, over "
-            f"{SMEM_LIMIT}; use impl='torch'"
-        )
+    return route(t, l, k, d)
 
 
-def _lib():
-    fn = load("cnmf").cnmf_f32
+def _lib(entry: str):
+    lib = load("cnmf")
+    fn = lib.cnmf_cluster_f32 if entry == "cluster" else lib.cnmf_f32
     fn.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_double]
         + [ctypes.c_int] * 2 + [ctypes.c_void_p]
@@ -89,8 +141,8 @@ def _lib():
 
 
 def _launch(xs, c0, s0, iters, tol, check_every, with_stop):
-    global launches
-    check_shapes("cnmf", xs, c0, s0)
+    global launches, cluster_launches
+    entry = check_shapes("cnmf", xs, c0, s0)
     xs, c0, s0 = xs.contiguous(), c0.contiguous(), s0.contiguous()
     b, t, l = xs.shape
     k, d = s0.shape[1], s0.shape[2]
@@ -98,7 +150,7 @@ def _launch(xs, c0, s0, iters, tol, check_every, with_stop):
     n_iter = torch.zeros(b, dtype=torch.int32, device=xs.device)
     prev_err = torch.zeros(b, dtype=torch.float32, device=xs.device)
     converged = torch.zeros(b, dtype=torch.int32, device=xs.device)
-    err = _lib()(
+    err = _lib(entry)(
         xs.data_ptr(), c0.data_ptr(), s0.data_ptr(), c.data_ptr(),
         s.data_ptr(), n_iter.data_ptr(), prev_err.data_ptr(),
         converged.data_ptr(), b, t, l, k, d, int(iters), float(tol),
@@ -106,8 +158,11 @@ def _launch(xs, c0, s0, iters, tol, check_every, with_stop):
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"cnmf kernel launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"cnmf {entry} entry launch failed: CUDA error {err}")
+    if entry == "cluster":
+        cluster_launches += 1
+    else:
+        launches += 1
     check_kernel_nans("cnmf", c, s, prev_err)
     return c, s, n_iter, prev_err, converged.bool()
 

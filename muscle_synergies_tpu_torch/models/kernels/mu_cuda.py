@@ -74,26 +74,6 @@ def cluster_smem_bytes(l: int, k: int) -> int:
     return 4 * (small + 2 * CLUSTER_MIN_TILE * ((l | 1) + (k | 1)))
 
 
-def check_fits(name: str, n: int, l: int, k: int, smem_bytes=smem_bytes) -> None:
-    """Raise unless an ``(n, l)`` fit at rank ``k`` fits one block
-    (``smem_bytes`` is the kernel's shared memory per fit)."""
-    if not 1 <= k <= KMAX:
-        raise ValueError(f"{name}: rank {k} outside the kernel's 1..{KMAX}")
-    if smem_bytes(n, l, k) > SMEM_LIMIT:
-        raise ValueError(
-            f"{name}: one fit of {n}x{l} at rank {k} needs "
-            f"{smem_bytes(n, l, k)} bytes of shared memory, over {SMEM_LIMIT}; "
-            "pass impl='torch' for the plain fit on the card, or device='cpu'"
-        )
-
-
-def check_shapes(name: str, xs, w, h, smem_bytes=smem_bytes) -> None:
-    """Raise unless the problem fits the kernel's bounds (``smem_bytes``
-    is the kernel's shared memory per fit)."""
-    check_layout(name, xs, w, h)
-    check_fits(name, *xs.shape[1:], w.shape[-1], smem_bytes)
-
-
 def check_layout(name: str, xs, w, h) -> None:
     """Raise unless X, W and H are CUDA float32 tensors of matching
     ``(B, N, L)``, ``(B, N, k)`` and ``(B, k, L)`` shapes."""
@@ -123,22 +103,29 @@ def route(n: int, l: int, k: int) -> str:
     return entry_for("mu_nmf", n, l, k)
 
 
-def entry_for(name: str, n: int, l: int, k: int) -> str:
-    """The rule of :func:`route`, shared by K1 and K2 (``name`` heads
-    the error)."""
+def entry_for(name: str, n: int, l: int, k: int, warp=None, block_bytes=None,
+              cluster_bytes=None) -> str:
+    """The rule of :func:`route`, shared by K1, K2 and K4 (``name`` heads
+    the error): the warp entry where ``warp``, else the block entry
+    where one fit's ``block_bytes`` fit a block, else the cluster entry
+    where a cluster block's least ``cluster_bytes`` do.  Left out, they
+    are K1's and K2's (:func:`warp_fits`, :func:`smem_bytes`,
+    :func:`cluster_smem_bytes`)."""
     if not 1 <= k <= KMAX:
         raise ValueError(f"{name}: rank {k} outside the kernel's 1..{KMAX}")
-    if warp_fits(n, l, k):
+    if warp is None:
+        warp, block_bytes = warp_fits(n, l, k), smem_bytes(n, l, k)
+        cluster_bytes = cluster_smem_bytes(l, k)
+    if warp:
         return "warp"
-    if smem_bytes(n, l, k) <= SMEM_LIMIT:
+    if block_bytes <= SMEM_LIMIT:
         return "block"
-    if cluster_smem_bytes(l, k) <= SMEM_LIMIT:
+    if cluster_bytes <= SMEM_LIMIT:
         return "cluster"
     raise ValueError(
-        f"{name}: one fit of {n}x{l} at rank {k} needs "
-        f"{cluster_smem_bytes(l, k)} bytes of shared memory a block even on "
-        f"the cluster entry, over {SMEM_LIMIT}; pass impl='torch' for the "
-        "plain fit on the card, or device='cpu'"
+        f"{name}: one fit of {n}x{l} at rank {k} needs {cluster_bytes} bytes of "
+        f"shared memory a block even on the cluster entry, over {SMEM_LIMIT}; "
+        "pass impl='torch' for the plain fit on the card, or device='cpu'"
     )
 
 

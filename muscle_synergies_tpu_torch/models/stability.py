@@ -10,12 +10,11 @@ Port of :mod:`muscle_synergies_tpu.models.stability`:
   reference fit rides as row 0 of the same batch as the resamples:
   each fit stops on its own, so it is the single-problem fit of the JAX
   package, and on the card each MU or convolutive bootstrap is one
-  launch of kernel K1 or K5 (``impl="auto"``).  K1 takes a matrix of
-  any length (up to about 4,100 rows of 8 channels at rank 4 in one
-  block, on its cluster entry beyond, one thread-block cluster a fit);
-  K5 holds a fit in one block's shared memory (2,822 rows at K = 4,
-  D = 10), and a longer matrix raises before any launch, naming
-  ``impl="torch"``;
+  launch of kernel K1 or K5 (``impl="auto"``).  Both take a matrix of
+  any length: within one block's shared memory (about 4,100 rows of 8
+  channels at rank 4 for K1, 2,822 rows at K = 4, D = 10 for K5) on
+  their block entries, beyond on their cluster entries, one
+  thread-block cluster a fit;
 - the masked fits (:func:`fit_mu_masked`, :func:`fit_cnmf_masked`,
   :func:`fit_nm3f_masked`) minimise the Frobenius error on the observed
   (mask = 1) entries, and the cross-validations hold out random entries

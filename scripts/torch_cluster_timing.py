@@ -7,7 +7,9 @@ another commit to compare two versions), prints each cluster kernel's
 registers and spills from ``nvcc -Xptxas -v``, then for each case
 checks 50 fixed iterations against the plain version in float64 and
 times 200 iterations with CUDA events (the best of 3), one JSON line a
-case, beside the card's name and power limit.  The cases are the
+case, beside the card's name and power limit.  Each line carries a
+digest of the 50 iterations' factors (``sha256`` of their bytes), so
+two trees that compute the same bits print the same digests.  The cases are the
 large-frame shapes of ``chip_smoke.py``'s phase 22: 124,460 x 8 and
 20,000 x 8 at rank 4, one fit alone and 4 at once, and 124,460 x 8 at
 rank 8 alone.  To compare two trees, run them alternately (A, B, B, A)
@@ -19,6 +21,7 @@ Without a CUDA card it exits with code 2 and runs nothing.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -112,10 +115,13 @@ def main() -> int:
             err = max(float(((a.double() - c).abs().amax() / c.abs().amax()).item())
                       for a, c in ((wk, wp), (hk, hp)))
             assert err <= 1e-3, f"{name} disagrees with float64 at {b}x{n}x{l} k={k}: {err}"
+            digest = hashlib.sha256(wk.cpu().numpy().tobytes()
+                                    + hk.cpu().numpy().tobytes()).hexdigest()[:16]
             ms = best_ms(lambda: kern(x, w, h, ITERS))
             print(json.dumps({"root": args.root, "kernel": name, "shape": f"{b}x{n}x{l}",
                               "k": k, "us_per_iteration": ms / ITERS * 1e3,
-                              "rel_err_50": err, "card": smi}), flush=True)
+                              "rel_err_50": err, "digest_50": digest, "card": smi}),
+                  flush=True)
     return 0
 
 

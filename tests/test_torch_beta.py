@@ -256,13 +256,17 @@ def test_beta_kernel_routes_around_the_warp_limits(n, l, k, beta, entry):
 
 
 def test_beta_kernel_route_refuses_over_one_block():
-    with pytest.raises(ValueError, match="impl='torch'"):
-        beta_cuda.route(20_000, 8, 4)
+    """Over one block's shared memory a fit takes K4's cluster entry; only
+    a frame whose small state fills a cluster block is refused (the whole
+    table: tests/test_torch_cluster_beta_cnmf.py)."""
+    assert beta_cuda.route(20_000, 8, 4) == "cluster"
     # KL's block entry stores no denominator plane: 2,000 x 8 fits one
     # block for KL, not for the kinds that need both weight planes
     assert beta_cuda.smem_bytes(2000, 8, 4, kl=True) <= 227 * 1024
+    assert beta_cuda.route(2000, 8, 4, beta=1.0) == "block"
+    assert beta_cuda.route(2000, 8, 4, beta=1.5) == "cluster"
     with pytest.raises(ValueError, match="impl='torch'"):
-        beta_cuda.route(2000, 8, 4, beta=1.5)
+        beta_cuda.route(20_000, 2000, 16, beta=1.5)
     with pytest.raises(ValueError, match="rank"):
         beta_cuda.route(200, 8, 17)
 

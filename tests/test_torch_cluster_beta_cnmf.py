@@ -1,0 +1,277 @@
+"""PyTorch port: the cluster entries of K4 (beta-MU) and K5 (cNMF) on the CPU.
+
+A beta-divergence or convolutive fit whose frame exceeds one block's
+shared memory runs on a thread-block cluster: each block owns a range
+of rows.  K4's blocks update their rows of W, add their share of the two
+weight planes W^T (X WH^(beta-2)) and W^T WH^(beta-1) (KL: the column
+sums of W) and of the divergence, and sum the blocks' shares in rank
+order before updating H.  K5's blocks add their share of the S sums,
+sum them in rank order, update S, then update their rows of C from a
+halo of D - 1 rows of C on each side, read from the blocks that own
+them.  The kernels run only on the card; here
+
+- :func:`route` of K4 and K5 is held to a table of frames (the warp,
+  block and cluster entries, and the refusal past the cluster's limit);
+- the plain mirrors of those splits (``torch_cluster_split.py``),
+  ``fit_beta_cluster_plain`` and ``fit_cnmf_cluster_plain``, are held
+  in float64 to the JAX package's XLA solvers (``fit_mu_beta``,
+  ``fit_cnmf``) on a 6,000 x 8 matrix (one range, three, sixteen, and
+  ranges of unequal length, one of them shorter than D - 1, so that a
+  halo is read from two ranges): fixed iterations to 1e-10 relative,
+  fits with the stop on to the same iteration count and factors to
+  1e-8, for KL, Itakura-Saito, beta = 1.5 and beta = -0.5, with and
+  without sklearn's L1/L2 penalties;
+- ``NMFModel`` with a beta loss (CPU, float64) is held to the JAX
+  package's on the same 6,000 x 8 frame, which the card fits on K4's
+  cluster entry.
+Run serially: ``python -m pytest tests/test_torch_cluster_beta_cnmf.py -q``.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+from torch_cluster_split import (  # noqa: E402
+    fit_beta_cluster_plain,
+    fit_cnmf_cluster_plain,
+    halo_rows,
+    split_rows,
+)
+
+import jax.numpy as jnp  # noqa: E402
+
+from muscle_synergies_tpu.models import beta as jbeta  # noqa: E402
+from muscle_synergies_tpu.models import cnmf as jcnmf  # noqa: E402
+from muscle_synergies_tpu.models import select as jselect  # noqa: E402
+from muscle_synergies_tpu_torch.models import select  # noqa: E402
+from muscle_synergies_tpu_torch.models.kernels import beta_cuda, cnmf_cuda, mu_cuda  # noqa: E402
+
+N, L = 6000, 8
+K_CNMF, D_CNMF = 4, 10
+REGS = dict(l1_reg_w=0.02, l2_reg_w=0.05, l1_reg_h=0.01, l2_reg_h=0.03)
+BETAS = [1.0, 0.0, 1.5, -0.5]
+# the unequal layouts hold a range shorter than D - 1 = 9 rows, so the
+# range after it reads its lower halo from two ranges
+RANGES = {"C1": 1, "C3": 3, "C16": 16, "unequal": [0, 500, 2600, 2605, 6000]}
+
+
+def _frame(n=N, l=L, seed=13):
+    """A positive 4-synergy envelope with noise, ``(n, l)``."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 25.0, n)[:, None]
+    acts = np.abs(np.sin(2 * np.pi * (t * (0.8 + 0.4 * rng.random(4)) + rng.random(4))))
+    return acts @ rng.random((4, l)) + 0.05 * rng.random((n, l)) + 0.01
+
+
+X = _frame()
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _n_max_block(l, k, kl):
+    """The most rows whose fit fits K4's block entry."""
+    n = 1
+    while beta_cuda.smem_bytes(2 * n, l, k, kl=kl) <= mu_cuda.SMEM_LIMIT:
+        n *= 2
+    lo, hi = n, 2 * n
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        fits = beta_cuda.smem_bytes(mid, l, k, kl=kl) <= mu_cuda.SMEM_LIMIT
+        lo, hi = (mid, hi) if fits else (lo, mid)
+    return lo
+
+
+# ---- route -----------------------------------------------------------
+
+BETA_ROUTES = [
+    ((200, 8, 4, 1.0), "warp"),
+    ((200, 8, 4, 0.0), "warp"),
+    ((200, 8, 4, 1.5), "block"),
+    ((200, 8, 4, -0.5), "block"),
+    ((2000, 8, 4, 1.0), "block"),
+    ((_n_max_block(8, 4, True), 8, 4, 1.0), "block"),
+    ((_n_max_block(8, 4, True) + 1, 8, 4, 1.0), "cluster"),
+    ((_n_max_block(8, 4, False), 8, 4, 0.0), "block"),
+    ((_n_max_block(8, 4, False) + 1, 8, 4, 0.0), "cluster"),
+    ((2000, 8, 4, 1.5), "cluster"),
+    *[((n, 8, k, beta), "cluster") for n in (6000, 20_000, 124_460)
+      for k in range(1, 9) for beta in BETAS],
+    ((124_460, 8, 16, 1.0), "cluster"),
+    ((124_460, 16, 16, 1.5), "cluster"),
+    ((20_000, 2000, 16, 1.0), None),
+    ((20_000, 2000, 16, 1.5), None),
+]
+
+
+@pytest.mark.parametrize("shape, entry", BETA_ROUTES,
+                         ids=[f"{s[0]}x{s[1]}k{s[2]}b{s[3]}" for s, _ in BETA_ROUTES])
+def test_beta_route_takes_the_entry_of_the_frame(shape, entry):
+    if entry is None:
+        with pytest.raises(ValueError, match="impl='torch'"):
+            beta_cuda.route(*shape)
+    else:
+        assert beta_cuda.route(*shape) == entry
+
+
+def test_the_beta_limits_sit_where_the_shared_memory_puts_them():
+    # the block entry: about 2,516 x 8 for KL at rank 4, 1,808 x 8 for the rest
+    assert 2500 < _n_max_block(8, 4, True) < 2530
+    assert 1800 < _n_max_block(8, 4, False) < 1820
+    # the cluster entry: any rows at 8 or 16 channels, ranks 1-16; not when
+    # its small state fills a block, and never past rank 16
+    for l in (8, 16):
+        for k in range(1, 17):
+            assert beta_cuda.cluster_smem_bytes(l, k) <= mu_cuda.SMEM_LIMIT
+    assert beta_cuda.cluster_smem_bytes(2000, 16, kl=True) > mu_cuda.SMEM_LIMIT
+    assert beta_cuda.cluster_smem_bytes(8, 4, kl=True) < beta_cuda.cluster_smem_bytes(8, 4)
+    with pytest.raises(ValueError, match="rank"):
+        beta_cuda.route(124_460, 8, 17)
+
+
+CNMF_ROUTES = [
+    ((200, 8, 4, 10), "block"),
+    ((2822, 8, 4, 10), "block"),
+    ((2823, 8, 4, 10), "cluster"),
+    ((6000, 8, 4, 10), "cluster"),
+    ((20_000, 8, 4, 10), "cluster"),
+    ((124_460, 8, 4, 10), "cluster"),
+    ((124_460, 8, 8, 10), "cluster"),
+    ((124_460, 16, 4, 20), "cluster"),
+    ((6000, 8, 4, 1), "cluster"),
+    ((5000, 8, 1, 700), "cluster"),
+    ((2000, 2000, 16, 1), None),
+    ((6000, 8, 4, 400), None),
+    ((6000, 8, 16, 200), None),
+]
+
+
+@pytest.mark.parametrize("shape, entry", CNMF_ROUTES,
+                         ids=[f"{s[0]}x{s[1]}k{s[2]}d{s[3]}" for s, _ in CNMF_ROUTES])
+def test_cnmf_route_takes_the_entry_of_the_frame(shape, entry):
+    if entry is None:
+        with pytest.raises(ValueError, match="impl='torch'"):
+            cnmf_cuda.route(*shape)
+    else:
+        assert cnmf_cuda.route(*shape) == entry
+
+
+def test_the_cnmf_limits_sit_where_the_shared_memory_puts_them():
+    assert cnmf_cuda.smem_bytes(2822, 8, 4, 10) <= cnmf_cuda.SMEM_LIMIT
+    assert cnmf_cuda.smem_bytes(2823, 8, 4, 10) > cnmf_cuda.SMEM_LIMIT
+    # the cluster block's least state grows with K and D, not with T
+    assert cnmf_cuda.cluster_smem_bytes(8, 4, 10) < 40 * 1024
+    assert cnmf_cuda.cluster_smem_bytes(8, 4, 400) > cnmf_cuda.SMEM_LIMIT
+    with pytest.raises(ValueError, match="lags"):
+        cnmf_cuda.route(5, 8, 4, 10)
+
+
+def test_halo_rows_come_from_the_ranges_that_own_them():
+    bounds = split_rows(N, RANGES["unequal"])
+    # the range after the 5-row one reads 4 rows from range 1 and 5 from range 2
+    owners = [(g, q, edge) for g, q, edge, _ in halo_rows(bounds, 3, D_CNMF, N)]
+    assert owners == ([(g, 1, "last") for g in range(2596, 2600)]
+                      + [(g, 2, "last") for g in range(2600, 2605)])
+    # the 5-row range's halo: 9 rows below from range 1, 9 above from range 3
+    got = halo_rows(bounds, 2, D_CNMF, N)
+    assert [q for _, q, _, _ in got] == [1] * 9 + [3] * 9
+    # the first range has no rows below; equal ranges read one neighbour each
+    assert [g for g, *_ in halo_rows(split_rows(N, 3), 0, D_CNMF, N)] == list(range(2000, 2009))
+    assert {q for _, q, _, _ in halo_rows(split_rows(N, 16), 5, D_CNMF, N)} == {4, 6}
+
+
+# ---- the split mirrors against the JAX package -----------------------
+
+BETA_MODES = {
+    "fixed": dict(max_iter=60, tol=0.0),
+    "stop": dict(max_iter=400, tol=1e-3),
+    "penalized": dict(max_iter=200, tol=3e-4, **REGS),
+}
+
+
+def _beta_start(k=4, seed=5):
+    rng = np.random.default_rng(seed + k)
+    scale = np.sqrt(X.mean() / k)
+    return scale * (rng.random((N, k)) + 0.1), scale * (rng.random((k, L)) + 0.1)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_beta(beta, mode):
+    w0, h0 = _beta_start()
+    st = jbeta.fit_mu_beta(jnp.asarray(X), jnp.asarray(w0), jnp.asarray(h0), beta=beta,
+                           **BETA_MODES[mode])
+    return int(st.n_iter), np.asarray(st.w), np.asarray(st.h)
+
+
+def _check(got, want, mode):
+    n_iter, w, h = want
+    assert int(got[0]) == n_iter
+    bar = 1e-10 if mode == "fixed" else 1e-8
+    assert _rel(got[1], w) < bar and _rel(got[2], h) < bar
+
+
+@pytest.mark.parametrize("ranges", list(RANGES.values()), ids=list(RANGES))
+@pytest.mark.parametrize("mode", list(BETA_MODES))
+@pytest.mark.parametrize("beta", BETAS, ids=["kl", "is", "b1.5", "b-0.5"])
+def test_beta_split_mirror_matches_jax(beta, mode, ranges):
+    w0, h0 = _beta_start()
+    st = fit_beta_cluster_plain(*map(torch.as_tensor, (X, w0, h0)), ranges, beta,
+                                **BETA_MODES[mode])
+    if mode == "fixed":
+        assert int(st.n_iter) == 60 and not bool(st.converged)
+    _check((st.n_iter, st.w, st.h), _jax_beta(beta, mode), mode)
+
+
+CNMF_MODES = {
+    "fixed": dict(max_iter=40, tol=0.0),
+    "stop": dict(max_iter=300, tol=1e-3),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _cnmf_start():
+    rng = np.random.default_rng(29)
+    scale = np.sqrt(X.mean() / (K_CNMF * D_CNMF))
+    return (scale * (rng.random((N, K_CNMF)) + 0.1),
+            scale * (rng.random((K_CNMF, D_CNMF, L)) + 0.1))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_cnmf(mode):
+    c0, s0 = _cnmf_start()
+    st = jcnmf.fit_cnmf(jnp.asarray(X), jnp.asarray(c0), jnp.asarray(s0), **CNMF_MODES[mode])
+    return int(st.n_iter), np.asarray(st.c), np.asarray(st.s)
+
+
+@pytest.mark.parametrize("ranges", list(RANGES.values()), ids=list(RANGES))
+@pytest.mark.parametrize("mode", list(CNMF_MODES))
+def test_cnmf_split_mirror_matches_jax(mode, ranges):
+    c0, s0 = _cnmf_start()
+    st = fit_cnmf_cluster_plain(*map(torch.as_tensor, (X, c0, s0)), ranges,
+                                **CNMF_MODES[mode])
+    want = _jax_cnmf(mode)
+    if mode == "fixed":
+        assert int(st.n_iter) == 40
+    else:
+        assert 40 < want[0] < 300  # the stop, not max_iter, ended it
+    _check((st.n_iter, st.c, st.s), want, mode)
+
+
+# ---- the per-capture model on a frame the card fits on a cluster ------
+
+@pytest.mark.parametrize("loss", ["kullback-leibler", "itakura-saito"])
+def test_beta_nmf_model_on_a_cluster_frame_matches_jax(loss):
+    assert beta_cuda.route(N, L, 4, 1.0 if loss == "kullback-leibler" else 0.0) == "cluster"
+    kw = dict(n_components=4, solver="mu", beta_loss=loss, max_iter=200, tol=1e-4)
+    jm = jselect.NMFModel(**kw)
+    jw = np.asarray(jm.fit_transform(X))
+    tm = select.NMFModel(**kw, device="cpu", dtype=torch.float64)
+    tw = tm.fit_transform(X)
+    assert tm.n_iter_ == jm.n_iter_
+    assert _rel(tw, jw) < 1e-8 and _rel(tm.components_, np.asarray(jm.components_)) < 1e-8

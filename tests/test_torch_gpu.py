@@ -531,9 +531,10 @@ def test_wrappers_refuse_what_the_kernels_cannot_run(cuda):
     with pytest.raises(ValueError, match="lags"):
         cnmf_cuda.fit_cnmf_cuda(xc[:, :4], c[:, :4], s)
     with pytest.raises(ValueError, match="shared memory"):
-        big = torch.zeros(1, 5000, 16, device=cuda)
-        cnmf_cuda.cnmf_iterations_cuda(big, torch.zeros(1, 5000, 8, device=cuda),
-                                       torch.zeros(1, 8, 10, 16, device=cuda), 1)
+        # 16 synergies of 200 lags: S and its sums alone fill a cluster block
+        big = torch.zeros(1, 3000, 16, device=cuda)
+        cnmf_cuda.cnmf_iterations_cuda(big, torch.zeros(1, 3000, 16, device=cuda),
+                                       torch.zeros(1, 16, 200, 16, device=cuda), 1)
 
 
 def _warp_bar(kern_plain, x, w, h, iters, **kw):
@@ -723,11 +724,13 @@ def test_cnmf_model_fits_through_one_k5_launch(cuda):
     assert abs(vafs[0] - vafs[1]) <= 1e-3, vafs
     assert model.transform(x[None].repeat(3, 1, 1)).shape == (3, 200, 4)
     assert cnmf_cuda.launches == 1
-    # over one block's shared memory (2,822 x 8 at K = 4, D = 10): refused
+    # over one block's shared memory (2,822 x 8 at K = 4, D = 10): one
+    # launch of K5's cluster entry
+    cnmf_cuda.cluster_launches = 0
     long = torch.rand(3000, 8, device=cuda)
-    with pytest.raises(ValueError, match="impl='torch'"):
-        CNMFModel(4, 10, n_inits=2).fit(long)
-    assert cnmf_cuda.launches == 1
+    fitted = CNMFModel(4, 10, n_inits=2, max_iter=100).fit(long)
+    assert (cnmf_cuda.launches, cnmf_cuda.cluster_launches) == (1, 1)
+    assert np.isfinite(fitted.synergies_).all()
 
 
 def test_frozen_factors_refuse_the_kernel_route(cuda):
@@ -811,22 +814,24 @@ def test_bootstrap_time_varying_is_one_k5_launch(cuda):
 
 def test_bootstraps_refuse_frames_over_one_block(cuda):
     """5,000 x 8 is over one block's shared memory for K1 at rank 4 (about
-    4,100 rows) and K5 at K = 4, D = 10 (2,822 rows): K1 fits it on its
-    cluster entry in one launch, held to float64; K5 raises before any
-    launch, naming ``impl='torch'``."""
+    4,100 rows) and K5 at K = 4, D = 10 (2,822 rows): each bootstrap is
+    one launch of its kernel's cluster entry, held to float64 (the name
+    is from when K5 refused such a frame)."""
     from muscle_synergies_tpu_torch.models import stability
 
     x = _subject_matrix(5000)
     mu_cuda.warp_launches = mu_cuda.launches = mu_cuda.cluster_launches = 0
-    cnmf_cuda.launches = 0
+    cnmf_cuda.launches = cnmf_cuda.cluster_launches = 0
     got = stability.bootstrap_synergies(x, 4, n_boot=10)
     assert (mu_cuda.warp_launches, mu_cuda.launches, mu_cuda.cluster_launches) == (0, 0, 1)
     want = stability.bootstrap_synergies(x, 4, n_boot=10, device="cpu",
                                          dtype=torch.float64)
     _hold_bootstrap_to_float64(got, want, "reference_components")
-    with pytest.raises(ValueError, match="impl='torch'"):
-        stability.bootstrap_time_varying_synergies(x, 4, 10, n_boot=2)
-    assert cnmf_cuda.launches == 0
+    got = stability.bootstrap_time_varying_synergies(x, 4, 10, n_boot=4)
+    assert (cnmf_cuda.launches, cnmf_cuda.cluster_launches) == (0, 1)
+    want = stability.bootstrap_time_varying_synergies(x, 4, 10, n_boot=4, device="cpu",
+                                                      dtype=torch.float64)
+    _hold_bootstrap_to_float64(got, want, "reference_synergies")
     plain = stability.bootstrap_synergies(x, 4, n_boot=2, max_iter=20, impl="torch")
     assert plain.similarities.shape == (2, 4) and mu_cuda.cluster_launches == 1
 
@@ -861,6 +866,68 @@ def test_cluster_entries_match_plain_float64(cuda, n, l, k):
     assert (st.w[..., k // 2:] == 0).all() and (st.ht[..., k // 2:] == 0).all()
 
 
+@pytest.mark.parametrize("n, l, k", [(6000, 8, 4), (124_460, 8, 4), (3000, 16, 12)])
+@pytest.mark.parametrize("beta", [1.0, 0.0, 1.5, -0.5])
+def test_beta_cluster_entry_matches_plain_float64(cuda, n, l, k, beta):
+    """K4's cluster entry (rows resident in shared memory at 6,000 x 8,
+    streamed at 124,460 x 8; the per-tile sums at rank 12): 30 fixed
+    iterations within 1e-3 of float64, and fits with sklearn's penalties
+    within 10 iterations of where the float64 fit stops."""
+    x, w, h = _problem(cuda, b=2, n=n, l=l, k=k)
+    x = x + 0.05  # strictly positive for Itakura-Saito and beta < 0
+    assert beta_cuda.route(n, l, k, beta) == "cluster"
+    beta_cuda.cluster_launches = 0
+    wk, hk = beta_cuda.beta_iterations_cuda(x, w, h, 30, beta)
+    wp, hp = beta_cuda.beta_iterations_plain(x.double(), w.double(), h.double(), 30, beta)
+    assert _rel(wk, wp) < 1e-3 and _rel(hk, hp) < 1e-3
+    sk = beta_cuda.fit_beta_cuda(x, w, h, beta, max_iter=200, tol=1e-3, **REGS)
+    sp = beta_cuda.fit_beta_plain(x.double(), w.double(), h.double(), beta, max_iter=200,
+                                  tol=1e-3, **REGS)
+    assert np.abs((sk.n_iter - sp.n_iter).cpu().numpy()).max() <= 10
+    assert beta_cuda.cluster_launches == 2
+
+
+@pytest.mark.parametrize("b, t, l, k, d", [(2, 6000, 8, 4, 10), (1, 124_460, 8, 4, 10),
+                                           (2, 6000, 8, 4, 1), (1, 5000, 8, 1, 700),
+                                           (2, 4000, 12, 3, 7)])
+def test_cnmf_cluster_entry_matches_plain_float64(cuda, b, t, l, k, d):
+    """K5's cluster entry: 20 fixed iterations within 1e-3 of float64,
+    and fits within 10 iterations of where the float64 fit stops.  At
+    5,000 x 8 with one synergy of 700 lags every block's range (625
+    rows) is shorter than D - 1, so each halo is read from two blocks;
+    D = 1 has no halo; 124,460 x 8 streams its rows in tiles."""
+    x, c, s = _cnmf_problem(cuda, b=b, t=t, l=l, k=k, d=d)
+    assert cnmf_cuda.route(t, l, k, d) == "cluster"
+    cnmf_cuda.cluster_launches = 0
+    ck, sk = cnmf_cuda.cnmf_iterations_cuda(x, c, s, 20)
+    cp, sp = cnmf_cuda.cnmf_iterations_plain(x.double(), c.double(), s.double(), 20)
+    assert _rel(ck, cp) < 1e-3 and _rel(sk, sp) < 1e-3
+    if t <= 6000:
+        fk = cnmf_cuda.fit_cnmf_cuda(x, c, s, max_iter=300, tol=1e-3)
+        fp = cnmf_cuda.fit_cnmf_plain(x.double(), c.double(), s.double(), max_iter=300,
+                                      tol=1e-3)
+        assert np.abs((fk.n_iter - fp.n_iter).cpu().numpy()).max() <= 10
+    assert cnmf_cuda.cluster_launches == (2 if t <= 6000 else 1)
+
+
+def test_beta_and_convolutive_finders_take_the_cluster_entries(cuda):
+    """Under default arguments: ``NMFModel`` with a KL loss on a
+    subject's 6,000 x 8 cycles and ``CNMFModel`` on a 6,000 x 8
+    recording are one cluster launch each, with no other launch."""
+    from muscle_synergies_tpu_torch.models import CNMFModel
+
+    x = torch.as_tensor(_subject_matrix(6000), dtype=torch.float32, device=cuda)
+    beta_cuda.warp_launches = beta_cuda.launches = beta_cuda.cluster_launches = 0
+    w = NMFModel(n_components=4, solver="mu", beta_loss="kullback-leibler",
+                 max_iter=300).fit_transform(x)
+    assert (beta_cuda.warp_launches, beta_cuda.launches, beta_cuda.cluster_launches) == (0, 0, 1)
+    assert np.isfinite(w).all() and w.shape == (6000, 4)
+    cnmf_cuda.launches = cnmf_cuda.cluster_launches = 0
+    c = CNMFModel(4, 10, max_iter=200).fit_transform(x)
+    assert (cnmf_cuda.launches, cnmf_cuda.cluster_launches) == (0, 1)
+    assert np.isfinite(c).all() and c.shape == (6000, 4)
+
+
 _CAPTURE_FIT = """
 import sys, numpy as np, torch
 sys.path.insert(0, {root!r})
@@ -874,15 +941,28 @@ for fit in (mu_cuda.fit_mu_cuda, cd_cuda.fit_cd_cuda):
     torch.cuda.synchronize()
     assert torch.isfinite(st.w).all() and int(st.n_iter[0]) >= 1
 assert mu_cuda.cluster_launches == cd_cuda.cluster_launches == 1
+from muscle_synergies_tpu_torch.models.kernels import beta_cuda, cnmf_cuda
+x = x + 0.01
+for beta in (1.0, 0.0):
+    st = beta_cuda.fit_beta_cuda(x, w, h, beta, max_iter=100, tol=1e-4)
+    torch.cuda.synchronize()
+    assert torch.isfinite(st.w).all() and int(st.n_iter[0]) >= 1
+c = torch.tensor(rng.random((1, 124_460, 4)), dtype=torch.float32, device="cuda")
+s = torch.tensor(rng.random((1, 4, 10, 8)), dtype=torch.float32, device="cuda")
+st = cnmf_cuda.fit_cnmf_cuda(x, c, s, max_iter=60, tol=1e-4)
+torch.cuda.synchronize()
+assert torch.isfinite(st.c).all() and int(st.n_iter[0]) >= 10
+assert beta_cuda.cluster_launches == 2 and cnmf_cuda.cluster_launches == 1
 print("finished")
 """
 
 
 def test_a_capture_length_fit_finishes_in_time(cuda):
     """A rank-8 fit of a whole capture's 124,460 x 8 envelope on each
-    cluster entry, in a process of its own that must finish within 120 s:
-    a cluster whose blocks took different branches at a barrier would
-    hang the card rather than fail."""
+    cluster entry of K1 and K2, KL and IS fits on K4's, and a K = 4, D =
+    10 fit on K5's, with the stop on, in a process of its own that must
+    finish within 120 s: a cluster whose blocks took different branches
+    at a barrier would hang the card rather than fail."""
     import os
     import subprocess
     import sys
