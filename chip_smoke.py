@@ -10,9 +10,10 @@ It builds the nine hand-written CUDA kernels from the five sources in
 started together; K3 and K6 share ``sosfiltfilt.cu``; K1, K2 and K4
 each have a warp entry, one warp per fit, for frames of at most 224 x
 16 at rank 8, and a block entry, one block per fit, above that; K1, K2,
-K4 and K5 also a cluster entry, one thread-block cluster per fit, for
-frames over one block's shared memory) and then, failing on the first
-assertion that does not hold:
+K4 and K5 also a cluster entry for frames over one block's shared
+memory: K1's and K2's spread one fit over many blocks of the card, K4's
+and K5's run one thread-block cluster a fit) and then, failing on the
+first assertion that does not hold:
 
 1. prints the card and its power limit, and the build time;
 2. K3 ``sosfiltfilt``: 64 trials x 124,460 samples x 8 channels through
@@ -230,9 +231,11 @@ assertion that does not hold:
     results (its bars); and an ``orbax`` checkpoint chunk saved and
     restored bit-equal.
 22. large frames (K1's and K2's cluster entries), after 21: (a) 50
-    fixed iterations of each at 4 x 20,000 x 8, rank 4 (rows resident in
-    shared memory) and 2 x 124,460 x 8, rank 8 (rows streamed), against
-    the plain version in float64, bar 1e-3, then timed at the second;
+    fixed iterations of each at 4 x 20,000 x 8, rank 4 (33 blocks a fit)
+    and 2 x 124,460 x 8, rank 8 (66 blocks a fit), rows resident in
+    shared memory, against the plain version in float64, bar 1e-3, then
+    timed at the second; every launch's plan (blocks a fit, rows a
+    block, resident or streamed) is the one ``mu_cuda.grid_plan`` gives;
     (b) ranks 1-4 with the stop on (tol 1e-4, max_iter 500) on a subject's
     30 cycles (6,000 x 8) and on two trials' envelopes side by side
     (20,000 x 16) against float64, phase 4's method: median stopping gap
@@ -245,9 +248,10 @@ assertion that does not hold:
     full length (4 whole trials' envelopes, one K3 launch, then ranks 1-4
     as 16 fits, one K2 cluster launch; ``analyze_dataset`` itself needs
     ``reduce_to``, as the JAX package's does) against ``impl="torch"``
-    to VAF 1e-3 at max_iter 2,000 on both sides; (d) the time of an
-    iteration of a lone 124,460 x 8 fit on each entry beside the plain
-    loop's and the bound.
+    to VAF 1e-3 at max_iter 2,000 on both sides (the 16 fits' rows
+    exceed the card's shared memory, so they stream); (d) the time of an
+    iteration of a lone 124,460 x 8 fit and of 4 at once on each entry,
+    with the plan each took, beside the plain loop's and the bound.
 23. large frames (K4's and K5's cluster entries), after 22: (a) 50
     fixed iterations at 4 x 6,000 x 8 (rows resident in shared memory)
     and 1 x 124,460 x 8 (streamed), rank 4, for beta = 1, 0, 1.5 and
@@ -2600,6 +2604,7 @@ print(json.dumps(out))
         }
         for shape in ((6_000, 8, 4), (20_000, 8, 4), (20_000, 16, 4), (N_SAMPLES, 8, 8)):
             assert mu_cuda.route(*shape) == cd_cuda.route(*shape) == "cluster", shape
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
         # (a) 50 fixed iterations against the plain version in float64
         def problem(b, n, l, k):
@@ -2619,8 +2624,11 @@ print(json.dumps(out))
                 assert mod.cluster_launches == before + 1, f"{kname} took another entry"
                 wp, hp = plain(x.double(), w.double(), h.double(), iters)
                 errs.append((abs_err([(wk, wp), (hk, hp)]), max(rel_err(wk, wp), rel_err(hk, hp))))
+                plan = mod.last_plan
+                assert plan == mu_cuda.grid_plan(b, n, l, k, sms), plan
                 log(f"{kname}: {iters} iterations at {b}x{n}x{l} k={k}: rel err "
-                    f"{errs[-1][1]:.3e} (bar 1e-3)")
+                    f"{errs[-1][1]:.3e} (bar 1e-3); plan {plan.blocks} blocks a fit of "
+                    f"{plan.rows} rows, {'resident' if plan.resident else 'streamed'}")
                 assert errs[-1][1] <= 1e-3, f"{kname} fixed iterations disagree"
             ms = cuda_ms(lambda: kern(x, w, h, iters), reps=3)
             plain_ms = cuda_ms(lambda: plain(x, w, h, iters), reps=2)
@@ -2684,6 +2692,8 @@ print(json.dumps(out))
             "find_synergies 124,460x8 ranks 1-4 batched (array core)",
             lambda: select._find_synergies_arrays(host, 1, 4, sweep="batched"))
         assert counts["cd_nmf_cluster"] == 1 and sum(counts.values()) == 1, counts
+        self.log_plan("find_synergies 124,460x8", cd_cuda.last_plan,
+                      mu_cuda.grid_plan(4, N_SAMPLES, N_CHANNELS, 4, sms))
         vaf = run.vaf_rows[:, 0]
         log(f"find_synergies 124,460x8: VAF by rank {np.round(vaf, 6).tolist()}, n_iter "
             f"{[run.models[k].n_iter_ for k in run.ranks]}")
@@ -2694,6 +2704,8 @@ print(json.dumps(out))
         got, counts = self.main_path("bootstrap_synergies 6000x8",
                                      lambda: stability.bootstrap_synergies(subject, 4))
         assert counts["mu_nmf_cluster"] == 1 and sum(counts.values()) == 1, counts
+        self.log_plan("bootstrap_synergies 6000x8", mu_cuda.last_plan,
+                      mu_cuda.grid_plan(51, subject.shape[0], N_CHANNELS, 4, sms))
         t0 = time.perf_counter()
         want = stability.bootstrap_synergies(subject.double(), 4, dtype=torch.float64,
                                              impl="torch")
@@ -2727,6 +2739,8 @@ print(json.dumps(out))
             "dataset grid, 4 full-length trials x ranks 1-4, max_iter 2,000", full_grid)
         assert counts["sosfiltfilt"] == 1 and counts["cd_nmf_cluster"] == 1, counts
         assert sum(counts.values()) == 2, counts
+        self.log_plan("dataset grid at full length", cd_cuda.last_plan,
+                      mu_cuda.grid_plan(16, N_SAMPLES, N_CHANNELS, 4, sms))
         assert np.isfinite(vaf).all() and (vaf <= 1).all()
         t0 = time.perf_counter()
         plain_vaf, plain_iter = full_grid(impl="torch")
@@ -2738,21 +2752,45 @@ print(json.dumps(out))
             f"impl='torch' {plain_s:.2f} s, max VAF diff {diff:.3e} (bar 1e-3)  [{self.smi}]")
         assert diff <= 1e-3, "the full-length grid disagrees with impl='torch'"
 
-        # (d) a lone capture-length fit's iteration against the plain loop
-        x1, w1, h1 = problem(1, N_SAMPLES, N_CHANNELS, 4)
-        lone = 200
+        # (d) a lone capture-length fit's iteration, and 4 at once, against
+        # the plain loop, with the plan each launch took
         nbytes = 4 * (N_SAMPLES * N_CHANNELS + 2 * (N_SAMPLES * 4 + 4 * N_CHANNELS))
-        for kname, (mod, kern, plain, *_rest) in entries.items():
-            us = cuda_ms(lambda: kern(x1, w1, h1, lone), reps=3) / lone * 1e3
-            plain_us = cuda_ms(lambda: plain(x1, w1, h1, lone), reps=1) / lone * 1e3
-            bound_ms, bound_by = bound(lone * nmf_flops(kname[:6], N_SAMPLES, N_CHANNELS, 4),
-                                       nbytes)
-            log(f"stage {kname} lone fit 1x{N_SAMPLES}x{N_CHANNELS} k=4: {us:.2f} us an "
-                f"iteration (plain f32 {plain_us:.2f} us; bound {bound_ms / lone * 1e3:.3f} "
-                f"us, {bound_by})  [{self.smi}]")
-            self.kernels[kname].update(lone_us_per_iteration=us,
-                                       lone_plain_us_per_iteration=plain_us,
-                                       lone_bound_us_per_iteration=bound_ms / lone * 1e3)
+        lone = 200
+        for b in (1, 4):
+            x1, w1, h1 = problem(b, N_SAMPLES, N_CHANNELS, 4)
+            for kname, (mod, kern, plain, *_rest) in entries.items():
+                us = cuda_ms(lambda: kern(x1, w1, h1, lone), reps=3) / lone * 1e3
+                plan = mod.last_plan
+                assert plan == mu_cuda.grid_plan(b, N_SAMPLES, N_CHANNELS, 4, sms), plan
+                # every SM, not one cluster of at most 16, rows kept in shared memory
+                assert plan.resident and plan.blocks * b > 16, plan
+                bound_ms, bound_by = bound(
+                    b * lone * nmf_flops(kname[:6], N_SAMPLES, N_CHANNELS, 4), b * nbytes)
+                label = "lone fit" if b == 1 else f"{b} fits at once"
+                if b == 1:
+                    plain_us = cuda_ms(lambda: plain(x1, w1, h1, lone), reps=1) / lone * 1e3
+                    plain_note = f"plain f32 {plain_us:.2f} us; "
+                    self.kernels[kname].update(lone_us_per_iteration=us,
+                                               lone_plain_us_per_iteration=plain_us,
+                                               lone_bound_us_per_iteration=bound_ms / lone * 1e3)
+                else:
+                    plain_note = ""
+                self.kernels[kname][f"plan_{b}x{N_SAMPLES}x{N_CHANNELS}"] = plan._asdict()
+                if b == 4:
+                    self.kernels[kname]["four_us_per_iteration"] = us
+                log(f"stage {kname} {label} {b}x{N_SAMPLES}x{N_CHANNELS} k=4: {us:.2f} us an "
+                    f"iteration ({plain_note}bound {bound_ms / lone * 1e3:.3f} us, {bound_by}); "
+                    f"plan {plan.blocks} blocks a fit of {plan.rows} rows, "
+                    f"{'resident' if plan.resident else f'streamed in tiles of {plan.tile}'}, "
+                    f"{plan.smem} B shared memory a block  [{self.smi}]")
+            del x1, w1, h1
+
+    @staticmethod
+    def log_plan(label, plan, want):
+        """Print a cluster-entry launch's plan, held to its mirror's."""
+        log(f"{label}: plan {plan.blocks} blocks a fit of {plan.rows} rows, "
+            f"{'resident' if plan.resident else f'streamed in tiles of {plan.tile}'}")
+        assert plan == want, (plan, want)
 
     def large_frames_beta_cnmf(self, emg, xs):
         """Phase 23: frames over one block's shared memory, on the cluster

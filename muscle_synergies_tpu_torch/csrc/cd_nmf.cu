@@ -1,7 +1,8 @@
 // Batched HALS / coordinate-descent NMF: a warp-per-fit entry for the
 // time-normalised frames of the main paths, a block-per-fit entry for
-// larger frames, and a cluster-per-fit entry for frames over one block's
-// shared memory (at the end of this file).
+// larger frames, and the cluster entry, one fit spread over many blocks
+// of the card, for frames over one block's shared memory (at the end of
+// this file).
 //
 // Replaces the TPU kernels `cd_iterations_pallas` and `fit_cd_pallas`
 // (muscle_synergies_tpu/models/kernels/cd_pallas.py: _cd_kernel,
@@ -369,22 +370,25 @@ extern "C" int cd_nmf_warp_f32(const float* x, const float* w0,
 
 // --------------------------- cluster entry ---------------------------
 //
-// cd_nmf_cluster_f32: one thread-block cluster per fit, for frames whose
-// fit exceeds one block's shared memory (nmf_common.cuh: the cluster
-// entries).  An iteration follows the block entry's order: H H^T in
-// every block; sklearn's cyclic component loop on the block's rows of W
-// (row-local given H H^T and the row's X H^T), each row's |projected
-// gradient| added to the block's violation, while the block adds its
-// rows' share of W^T W and W^T X; a cluster barrier; the C partial sums
-// (and W-pass violations) added in rank order over distributed shared
-// memory; the H pass on the same numbers in every block, so H and its
-// violation are the same bits everywhere.  The stopping ratio
-// violation / violation_init is thus the same value in every block,
-// every block takes the same branch, and a last cluster barrier keeps
-// any block from leaving while another still reads its shared memory.
-// What bounds it: as K1's cluster entry (mu_nmf.cu), one cluster (at most
-// 16 SMs) a fit, the rows' flops and shared-memory reads, the cluster
-// barrier's latency and, streamed, the rows' trips through L2.
+// cd_nmf_cluster_f32: the entry for frames whose fit exceeds one block's
+// shared memory (a whole capture's envelope for find_synergies or
+// `analyze --reduce-to 0`, full-length dataset grids), replacing
+// `fit_cd_pallas` / `cd_iterations_pallas` there.  One fit is spread over
+// P blocks of the whole card (nmf_common.cuh: the grid entries), as K1's
+// cluster entry (mu_nmf.cu).  An iteration follows the block entry's
+// order: H H^T in every block; sklearn's cyclic component loop on the
+// block's rows of W (row-local given H H^T and the row's X H^T), each
+// row's |projected gradient| added to the block's violation; the block's
+// share of W^T W and W^T X summed in registers; the fit's one barrier in
+// device memory; the P partial sets (and W-pass violations) added in
+// block order; the H pass on the same numbers in every block, so H and
+// its violation are the same bits everywhere.  The stopping ratio
+// violation / violation_init is thus the same value in every block of a
+// fit and every block takes the same branch.  What bounds it: as K1's,
+// the latency of an iteration's chain (the barrier's round trip through
+// L2, the P sets read back, the block's barriers around the H pass), not
+// its bytes or operations; the rank-1 fits of a capture sweep, which run
+// all 100,000 iterations, pay it each time.
 
 // sklearn's cyclic component loop on one row of W against its row of
 // X H^T and t.gram = H H^T; returns the row's summed |projected
@@ -416,7 +420,7 @@ struct CdClusterRows {
 };
 
 // sklearn's cyclic loop on each column of H, one thread a column (b.gram
-// holds W^T W and b.cross W^T X, the cluster's sums); returns the
+// holds W^T W and b.cross W^T X, the fit's sums); returns the
 // block's summed |projected gradient| when WITH_VIOL.
 template <int KMAX, bool WITH_VIOL>
 __device__ float cd_cluster_cols(const NmfBlock& b, const NmfPenalty& pen) {
@@ -450,94 +454,93 @@ __device__ float cd_cluster_cols(const NmfBlock& b, const NmfPenalty& pen) {
   return WITH_VIOL ? nmf_block_sum(b, part) : 0.0f;
 }
 
-// One outer CD iteration of the cluster's fit, W pass then H pass;
-// `parity` picks the partial-sum buffer.  Returns the fit's violation
-// (every block's W-pass share in rank order, then the H pass's) to every
-// thread of every block when WITH_VIOL.
+// One outer CD iteration of the fit, W pass then H pass; `parity` picks
+// the partial-set buffer.  Returns the fit's violation (every block's
+// W-pass share in block order, then the H pass's) to every thread of
+// every block when WITH_VIOL.
 template <int KMAX, bool WITH_VIOL>
-__device__ float cd_cluster_iteration(const NmfCluster& c,
-                                      nmf_cg::cluster_group& cl,
-                                      const float* xf, float* wf, int parity,
-                                      const NmfPenalty& pen) {
-  const NmfBlock& b = c.b;
-  float* part = c.part + parity * c.pstride;
-  const int nq = b.k * b.k + b.k * b.l;
-  for (int q = threadIdx.x; q <= nq; q += blockDim.x) part[q] = 0.0f;
+__device__ float cd_grid_iteration(const NmfGrid& g, const float* xf, float* wf,
+                                   int parity, unsigned& syncs, const NmfPenalty& pen) {
+  const NmfBlock& b = g.b;
+  for (int q = threadIdx.x; q <= g.nq; q += blockDim.x) g.bpart[q] = 0.0f;
   nmf_hht(b);  // its closing barrier also orders the zeroing
-  const float viol = nmf_cluster_w_pass<KMAX>(c, xf, wf, part,
-                                              CdClusterRows<KMAX, WITH_VIOL>{pen});
+  float viol = 0.0f;
+  nmf_grid_chunks<true>(g, xf, wf, [&](const NmfGridRows& c) {
+    viol += nmf_grid_w_pass<KMAX>(b, c, CdClusterRows<KMAX, WITH_VIOL>{pen});
+    nmf_grid_gram_pass(g, c);
+  });
   if (WITH_VIOL) {
     const float mine = nmf_block_sum(b, viol);
-    if (threadIdx.x == 0) part[nq] = mine;
+    if (threadIdx.x == 0) g.bpart[g.nq] = mine;
   }
-  nmf_cluster_grams(c, cl, part);
-  const float viol_w = WITH_VIOL ? nmf_cluster_sum(cl, part, nq) : 0.0f;
-  __syncthreads();
+  const float viol_w = nmf_grid_sum(g, parity, syncs);
   const float viol_h = cd_cluster_cols<KMAX, WITH_VIOL>(b, pen);
   return viol_w + viol_h;
 }
 
 template <int KMAX, bool WITH_STOP>
-__global__ void __launch_bounds__(NMF_CLUSTER_THREADS) cd_cluster_kernel(
-    NmfClusterPlan p, const float* __restrict__ x,
-    const float* __restrict__ w0, const float* __restrict__ h0,
-    float* __restrict__ w, float* __restrict__ h, int* __restrict__ n_iter_out,
-    float* __restrict__ viol_init_out, int* __restrict__ converged_out,
-    int iters, float tol, NmfPenalty pen) {
+__global__ void __launch_bounds__(NMF_GRID_THREADS) cd_cluster_kernel(
+    NmfGridPlan p, const float* __restrict__ x, const float* __restrict__ w0,
+    const float* __restrict__ h0, float* __restrict__ w, float* __restrict__ h,
+    int* __restrict__ n_iter_out, float* __restrict__ viol_init_out,
+    int* __restrict__ converged_out, float* __restrict__ ws, int batch, int iters,
+    float tol, NmfPenalty pen) {
   extern __shared__ float smem[];
-  nmf_cg::cluster_group cl = nmf_cg::this_cluster();
-  const size_t fit = blockIdx.x / cl.num_blocks();
-  const NmfCluster c = nmf_cluster(smem, p, (int)cl.block_rank());
+  const size_t fit = blockIdx.x / p.blocks;
+  const NmfGrid g = nmf_grid(smem, p, ws, batch, fit, (int)(blockIdx.x % p.blocks));
   const float* xf = x + fit * p.n * p.l;
   float* wf = w + fit * p.n * p.k;
-  nmf_cluster_load(c, xf, w0 + fit * p.n * p.k, wf, h0 + fit * p.k * p.l);
+  nmf_grid_load(g, xf, w0 + fit * p.n * p.k, wf, h0 + fit * p.k * p.l);
+  unsigned syncs = 0;
   int parity = 0;
   if (WITH_STOP) {
     int n_iter = 0;
     float viol_init = 0.0f;
     bool converged = false;
     while (n_iter < iters && !converged) {
-      const float viol =
-          cd_cluster_iteration<KMAX, true>(c, cl, xf, wf, parity, pen);
+      const float viol = cd_grid_iteration<KMAX, true>(g, xf, wf, parity, syncs, pen);
       parity ^= 1;
       n_iter += 1;
       if (n_iter == 1) viol_init = viol;
       converged = viol_init == 0.0f || viol / viol_init <= tol;
     }
-    if (c.rank == 0 && threadIdx.x == 0) {
+    if (g.rank == 0 && threadIdx.x == 0) {
       n_iter_out[fit] = n_iter;
       viol_init_out[fit] = viol_init;
       converged_out[fit] = converged ? 1 : 0;
     }
   } else {
     for (int t = 0; t < iters; ++t) {
-      cd_cluster_iteration<KMAX, false>(c, cl, xf, wf, parity, pen);
+      cd_grid_iteration<KMAX, false>(g, xf, wf, parity, syncs, pen);
       parity ^= 1;
     }
   }
-  cl.sync();  // no block leaves while another reads its shared memory
-  nmf_cluster_store(c, wf, h + fit * p.k * p.l);
+  nmf_grid_store(g, wf, h + fit * p.k * p.l);
 }
 
-// The cluster entry: cd_nmf_f32's arguments and results, for frames
-// over one block's shared memory (models/kernels/cd_cuda.py: route).
-// Launches one cluster a fit on `stream` and returns cudaGetLastError(),
-// or the error that left no cluster able to run the fit.
+// The cluster entry: cd_nmf_f32's arguments and results, for frames over
+// one block's shared memory (models/kernels/cd_cuda.py: route), and
+// `ws`, a zeroed workspace of `ws_floats` floats (at least
+// nmf_grid_workspace_floats).  Writes the plan it took to `plan_out`
+// (NMF_GRID_PLAN_INTS host ints), launches once on `stream` and returns
+// cudaGetLastError(), or the error that refused the plan.
 extern "C" int cd_nmf_cluster_f32(const float* x, const float* w0,
                                   const float* h0, float* w, float* h,
                                   int* n_iter, float* viol_init,
                                   int* converged, int batch, int n, int l,
                                   int k, int iters, float tol, float l1_w,
                                   float l2_w, float l1_h, float l2_h,
-                                  int with_stop, void* stream) {
+                                  int with_stop, float* ws, long long ws_floats,
+                                  int* plan_out, void* stream) {
   if (batch < 1 || n < 1 || l < 1 || k < 1 || k > NMF_KMAX || iters < 0) {
     return (int)cudaErrorInvalidValue;
   }
   const NmfPenalty pen = {l1_w, l2_w, l1_h, l2_h};
   const cudaStream_t s = (cudaStream_t)stream;
-#define CD_CLUSTER_RUN(KM, ST)                                                \
-  nmf_cluster_run(cd_cluster_kernel<KM, ST>, batch, n, l, k, s, x, w0, h0, w, \
-                  h, n_iter, viol_init, converged, iters, tol, pen)
+#define CD_CLUSTER_RUN(KM, ST)                                                   \
+  nmf_grid_run(cd_cluster_kernel<KM, ST>, batch, n, l, k, ws_floats, plan_out, s, \
+               x, w0, h0, w, h, n_iter, viol_init, converged, ws, batch, iters,  \
+               tol, pen)
 #define CD_CLUSTER_CALL(KM) \
   (with_stop ? CD_CLUSTER_RUN(KM, true) : CD_CLUSTER_RUN(KM, false))
   return NMF_CLUSTER_DISPATCH(k, CD_CLUSTER_CALL);

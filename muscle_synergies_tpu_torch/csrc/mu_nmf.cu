@@ -1,7 +1,8 @@
 // Batched Frobenius multiplicative-update NMF: a warp-per-fit entry for
 // the time-normalised frames of the main paths, a block-per-fit entry
-// for larger frames, and a cluster-per-fit entry for frames over one
-// block's shared memory (at the end of this file).
+// for larger frames, and the cluster entry, one fit spread over many
+// blocks of the card, for frames over one block's shared memory (at the
+// end of this file).
 //
 // Replaces the TPU kernels `mu_iterations_pallas` and `fit_mu_pallas`
 // (muscle_synergies_tpu/models/kernels/mu_pallas.py: _mu_kernel,
@@ -426,25 +427,28 @@ extern "C" int mu_nmf_warp_f32(const float* x, const float* w0,
 
 // --------------------------- cluster entry ---------------------------
 //
-// mu_nmf_cluster_f32: one thread-block cluster per fit, for frames whose
-// fit exceeds one block's shared memory (nmf_common.cuh: the cluster
-// entries).  An iteration follows the block entry's order: H H^T in
-// every block; the block's rows of W updated against it (row-local:
-// the row's X H^T and W H H^T) while the block adds its rows' share of
-// W^T W and W^T X; a cluster barrier; the C partial sums added in rank
-// order over distributed shared memory; H updated from them, the same
+// mu_nmf_cluster_f32: the entry for frames whose fit exceeds one block's
+// shared memory (a subject's concatenated cycles, a whole capture),
+// replacing `fit_mu_pallas` / `mu_iterations_pallas` there.  One fit is
+// spread over P blocks of the whole card (nmf_common.cuh: the grid
+// entries): a lone 124,460 x 8 fit over all 132 SMs, 943 rows a block
+// resident in shared memory.  An iteration follows the block entry's
+// order: H H^T in every block; the block's rows of W updated against it
+// (row-local: the row's X H^T and W H H^T); the block's share of W^T W
+// and W^T X summed in registers; the fit's one barrier in device memory;
+// the P partial sets added in block order; H updated from them, the same
 // bits in every block.  The stopping statistic is sum (X - WH)^2 over
-// each block's own rows, reduced the same way and square-rooted, never
-// formed from the Grams (in float32 ||X||^2 - 2 <W^T X, H> + <W^T W,
-// H H^T> cancels to ~1e-5 of the error at a VAF of 0.99, and the 1e-6
-// relative-improvement test would fire on noise).  Every block takes the
-// stop branch from the same reduced value, and a last cluster barrier
-// keeps any block from leaving while another still reads its shared
-// memory.  What bounds it: a lone fit runs on one cluster (at most 16
-// SMs), each block issuing ~6 K (L + K) flops and ~3 K (L + K) shared-
-// memory reads a row an iteration, plus two cluster barriers an
-// iteration and, streamed, its rows' X and W through L2; the bytes bound
-// (X read once) is far below that (PERF.md).
+// each block's own rows, summed in block order the same way (one more
+// barrier every check_every iterations) and square-rooted, never formed
+// from the Grams (in float32 ||X||^2 - 2 <W^T X, H> + <W^T W, H H^T>
+// cancels to ~1e-5 of the error at a VAF of 0.99, and the 1e-6
+// relative-improvement test would fire on noise).  What bounds it: not
+// the bytes (X is read once from device memory) nor the operations
+// (~6 k (l + k) flops a row an iteration, a few hundred a thread), but
+// the latency of an iteration's chain: the barrier's round trip through
+// L2 and the P sets read back from it, then the block's barriers around
+// the H update.  The design answers with one device-memory barrier an
+// iteration and every row's arithmetic on every SM, in registers.
 
 // sklearn's multiplicative update of one row of W, `inner_iter` times
 // against its row of X H^T and t.gram = H H^T.
@@ -479,7 +483,7 @@ struct MuClusterRows {
 };
 
 // H <- H * (W^T X) / (W^T W H), `inner_iter` times, one thread a column
-// (b.gram holds W^T W and b.cross W^T X, the cluster's sums).
+// (b.gram holds W^T W and b.cross W^T X, the fit's sums).
 template <int KMAX>
 __device__ void mu_cluster_cols(const NmfBlock& b, int inner_iter,
                                 const NmfPenalty& pen) {
@@ -514,119 +518,119 @@ __device__ void mu_cluster_cols(const NmfBlock& b, int inner_iter,
   __syncthreads();
 }
 
-// One MU iteration of the cluster's fit; `parity` picks the partial-sum
-// buffer.  xf / wf: the fit's X and W in device memory (W is read and
-// written there only when streamed).
+// One MU iteration of the fit; `parity` picks the partial-set buffer.
+// xf / wf: the fit's X and W in device memory (read and written there
+// only when streamed).
 template <int KMAX>
-__device__ void mu_cluster_step(const NmfCluster& c, nmf_cg::cluster_group& cl,
-                                const float* xf, float* wf, int parity,
-                                int inner_iter, const NmfPenalty& pen) {
-  const NmfBlock& b = c.b;
-  float* part = c.part + parity * c.pstride;
-  for (int q = threadIdx.x; q < b.k * b.k + b.k * b.l; q += blockDim.x) {
-    part[q] = 0.0f;
-  }
+__device__ void mu_grid_step(const NmfGrid& g, const float* xf, float* wf, int parity,
+                             unsigned& syncs, int inner_iter, const NmfPenalty& pen) {
+  const NmfBlock& b = g.b;
+  for (int q = threadIdx.x; q <= g.nq; q += blockDim.x) g.bpart[q] = 0.0f;
   nmf_hht(b);  // its closing barrier also orders the zeroing
-  nmf_cluster_w_pass<KMAX>(c, xf, wf, part, MuClusterRows<KMAX>{inner_iter, pen});
-  nmf_cluster_grams(c, cl, part);
-  __syncthreads();
+  nmf_grid_chunks<true>(g, xf, wf, [&](const NmfGridRows& c) {
+    nmf_grid_w_pass<KMAX>(b, c, MuClusterRows<KMAX>{inner_iter, pen});
+    nmf_grid_gram_pass(g, c);
+  });
+  nmf_grid_sum(g, parity, syncs);
   mu_cluster_cols<KMAX>(b, inner_iter, pen);
 }
 
-// ||X - W H||_F of the cluster's fit, returned to every thread of every
-// block: each block's sum over its rows, then the blocks' sums in rank
-// order.  At least one cluster barrier of an iteration lies between two
-// calls, so one slot a block suffices.
-__device__ float mu_cluster_error(const NmfCluster& c, nmf_cg::cluster_group& cl,
-                                  const float* xf, float* wf) {
+// ||X - W H||_F of the fit, returned to every thread of every block: each
+// block's sum over its rows (the block entry's order within a row), then
+// the blocks' sums in block order.
+__device__ float mu_grid_error(const NmfGrid& g, const float* xf, float* wf,
+                               unsigned& syncs) {
+  const NmfBlock& b = g.b;
   float part = 0.0f;
-  nmf_cluster_tiles<false>(c, xf, wf, [&](const NmfBlock& t) {
-    for (int n = threadIdx.x; n < t.n; n += blockDim.x) {
-      for (int m = 0; m < t.l; ++m) {
+  nmf_grid_chunks<false>(g, xf, wf, [&](const NmfGridRows& c) {
+    const float* xs = c.y + (size_t)b.k * c.ld;
+    for (int r = threadIdx.x; r < c.n; r += blockDim.x) {
+      for (int m = 0; m < b.l; ++m) {
         float rec = 0.0f;
-        for (int j = 0; j < t.k; ++j) rec += t.w[n * t.ldw + j] * t.h[j * t.l + m];
-        const float d = t.x[n * t.ldx + m] - rec;
+        for (int j = 0; j < b.k; ++j) rec += c.y[(size_t)j * c.ld + r] * b.h[j * b.l + m];
+        const float d = xs[(size_t)m * c.ld + r] - rec;
         part += d * d;
       }
     }
   });
-  const float mine = nmf_block_sum(c.b, part);
-  if (threadIdx.x == 0) *c.err = mine;
-  cl.sync();
-  return sqrtf(nmf_cluster_sum(cl, c.err, 0));
+  return sqrtf(nmf_grid_scalar_sum(g, nmf_block_sum(b, part), syncs));
 }
 
 template <int KMAX, bool WITH_STOP>
-__global__ void __launch_bounds__(NMF_CLUSTER_THREADS) mu_cluster_kernel(
-    NmfClusterPlan p, const float* __restrict__ x,
-    const float* __restrict__ w0, const float* __restrict__ h0,
-    float* __restrict__ w, float* __restrict__ h, int* __restrict__ n_iter_out,
-    float* __restrict__ prev_err_out, int* __restrict__ converged_out,
-    int iters, float tol, int check_every, int inner_iter, NmfPenalty pen) {
+__global__ void __launch_bounds__(NMF_GRID_THREADS) mu_cluster_kernel(
+    NmfGridPlan p, const float* __restrict__ x, const float* __restrict__ w0,
+    const float* __restrict__ h0, float* __restrict__ w, float* __restrict__ h,
+    int* __restrict__ n_iter_out, float* __restrict__ prev_err_out,
+    int* __restrict__ converged_out, float* __restrict__ ws, int batch, int iters,
+    float tol, int check_every, int inner_iter, NmfPenalty pen) {
   extern __shared__ float smem[];
-  nmf_cg::cluster_group cl = nmf_cg::this_cluster();
-  const size_t fit = blockIdx.x / cl.num_blocks();
-  const NmfCluster c = nmf_cluster(smem, p, (int)cl.block_rank());
+  const size_t fit = blockIdx.x / p.blocks;
+  const NmfGrid g = nmf_grid(smem, p, ws, batch, fit, (int)(blockIdx.x % p.blocks));
   const float* xf = x + fit * p.n * p.l;
   float* wf = w + fit * p.n * p.k;
-  nmf_cluster_load(c, xf, w0 + fit * p.n * p.k, wf, h0 + fit * p.k * p.l);
+  nmf_grid_load(g, xf, w0 + fit * p.n * p.k, wf, h0 + fit * p.k * p.l);
+  unsigned syncs = 0;
   int parity = 0;
   if (WITH_STOP) {
     // sklearn's loop, as the block entry runs it; every value that
-    // decides a branch is the same in every block of the cluster
-    const float err0 = mu_cluster_error(c, cl, xf, wf);
+    // decides a branch is the same in every block of the fit
+    const float err0 = mu_grid_error(g, xf, wf, syncs);
     float prev_err = err0;
     int n_iter = 0;
     bool converged = false;
     while (n_iter < iters && !converged) {
       const int steps = min(check_every, iters - n_iter);
       for (int t = 0; t < steps; ++t) {
-        mu_cluster_step<KMAX>(c, cl, xf, wf, parity, inner_iter, pen);
+        mu_grid_step<KMAX>(g, xf, wf, parity, syncs, inner_iter, pen);
         parity ^= 1;
       }
       n_iter += steps;
       if (tol > 0.0f) {
-        const float err = mu_cluster_error(c, cl, xf, wf);
+        const float err = mu_grid_error(g, xf, wf, syncs);
         converged = (prev_err - err) / err0 < tol && n_iter % check_every == 0;
         prev_err = err;
       }
     }
-    if (c.rank == 0 && threadIdx.x == 0) {
+    if (g.rank == 0 && threadIdx.x == 0) {
       n_iter_out[fit] = n_iter;
       prev_err_out[fit] = prev_err;
       converged_out[fit] = converged ? 1 : 0;
     }
   } else {
     for (int t = 0; t < iters; ++t) {
-      mu_cluster_step<KMAX>(c, cl, xf, wf, parity, inner_iter, pen);
+      mu_grid_step<KMAX>(g, xf, wf, parity, syncs, inner_iter, pen);
       parity ^= 1;
     }
   }
-  cl.sync();  // no block leaves while another reads its shared memory
-  nmf_cluster_store(c, wf, h + fit * p.k * p.l);
+  nmf_grid_store(g, wf, h + fit * p.k * p.l);
 }
 
-// The cluster entry: mu_nmf_f32's arguments and results, for frames
-// over one block's shared memory (models/kernels/mu_cuda.py: route).
-// Launches one cluster a fit on `stream` and returns cudaGetLastError(),
-// or the error that left no cluster able to run the fit.
+// The cluster entry: mu_nmf_f32's arguments and results, for frames over
+// one block's shared memory (models/kernels/mu_cuda.py: route), and
+// `ws`, a zeroed workspace of `ws_floats` floats (at least
+// nmf_grid_workspace_floats; mu_cuda.grid_workspace_floats).  Writes the
+// plan it took to `plan_out` (NMF_GRID_PLAN_INTS host ints), launches
+// once on `stream` and returns cudaGetLastError(), or the error that
+// refused the plan.
 extern "C" int mu_nmf_cluster_f32(const float* x, const float* w0,
                                   const float* h0, float* w, float* h,
                                   int* n_iter, float* prev_err, int* converged,
                                   int batch, int n, int l, int k, int iters,
                                   float tol, int check_every, int inner_iter,
                                   float l1_w, float l2_w, float l1_h,
-                                  float l2_h, int with_stop, void* stream) {
+                                  float l2_h, int with_stop, float* ws,
+                                  long long ws_floats, int* plan_out,
+                                  void* stream) {
   if (batch < 1 || n < 1 || l < 1 || k < 1 || k > NMF_KMAX || iters < 0 ||
       inner_iter < 1 || (with_stop && check_every < 1)) {
     return (int)cudaErrorInvalidValue;
   }
   const NmfPenalty pen = {l1_w, l2_w, l1_h, l2_h};
   const cudaStream_t s = (cudaStream_t)stream;
-#define MU_CLUSTER_RUN(KM, ST)                                                \
-  nmf_cluster_run(mu_cluster_kernel<KM, ST>, batch, n, l, k, s, x, w0, h0, w, \
-                  h, n_iter, prev_err, converged, iters, tol, check_every,    \
-                  inner_iter, pen)
+#define MU_CLUSTER_RUN(KM, ST)                                                   \
+  nmf_grid_run(mu_cluster_kernel<KM, ST>, batch, n, l, k, ws_floats, plan_out, s, \
+               x, w0, h0, w, h, n_iter, prev_err, converged, ws, batch, iters,   \
+               tol, check_every, inner_iter, pen)
 #define MU_CLUSTER_CALL(KM) \
   (with_stop ? MU_CLUSTER_RUN(KM, true) : MU_CLUSTER_RUN(KM, false))
   return NMF_CLUSTER_DISPATCH(k, MU_CLUSTER_CALL);

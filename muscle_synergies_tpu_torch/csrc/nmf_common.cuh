@@ -391,32 +391,30 @@ inline int nmf_launch(Kernel kernel, int batch, size_t smem,
   return (int)cudaGetLastError();
 }
 
-// ---- the cluster entries (cd_nmf.cu, mu_nmf.cu, beta_nmf.cu; cnmf.cu
-// takes the plan, the launch and the rank-ordered sums) ----
+// ---- the cluster entries (beta_nmf.cu; cnmf.cu takes the plan, the
+// launch and the rank-ordered sums) ----
 //
 // One thread-block cluster per fit, for frames whose fit exceeds one
 // block's shared memory.  Block r of a cluster of C owns rows
 // [r * rows, (r + 1) * rows) of X and W (rows = ceil(N / C), the last
-// block shorter, a block past N none); every block keeps H, the Gram
-// matrices and its partial sums in its own shared memory.  One
-// iteration: every block forms H H^T, updates its rows of W (row-local)
-// and adds its rows' share of W^T W and W^T X; after a cluster barrier
-// every block sums the C partial sums over distributed shared memory in
-// rank order 0..C-1 and updates H from the same numbers, so H is the
-// same bit for bit in every block.  The partial sums are double-buffered
-// by the iteration's parity, so one cluster barrier an iteration keeps
-// a block from overwriting what another still reads.
+// block shorter, a block past N none); every block keeps H and its
+// partial sums in its own shared memory.  One iteration: every block
+// updates its rows of W (row-local) and adds its rows' share of the H
+// update's sums; after a cluster barrier every block sums the C partial
+// sums over distributed shared memory in rank order 0..C-1 and updates H
+// from the same numbers, so H is the same bit for bit in every block.
+// The partial sums are double-buffered by the iteration's parity, so one
+// cluster barrier an iteration keeps a block from overwriting what
+// another still reads.
 //
-// Where rows live (nmf_cluster_plan): resident, the block's share of X
-// and W in shared memory for the whole solve, at the smallest cluster
-// whose share fits; otherwise streamed, X read and W read and written
-// in device memory (a fit's X and W are a few MB, held by the 50 MB L2)
-// in tiles of `tile` rows, two shared buffers filled by cp.async while
-// the other is worked on, at the largest cluster the card schedules.
-// models/kernels/mu_cuda.py mirrors the limits (cluster_smem_bytes).
-// A kernel whose partial sums are not K1's W^T W and W^T X (K4: two
-// (k, l) planes) takes its layout from nmf_cluster_sized and plans with
-// nmf_cluster_plan_sized.
+// Where rows live (nmf_cluster_plan_sized): resident, the block's share
+// of X and W in shared memory for the whole solve, at the smallest
+// cluster whose share fits; otherwise streamed, X read and W read and
+// written in device memory in tiles of `tile` rows, two shared buffers
+// filled by cp.async while the other is worked on, at the largest
+// cluster the card schedules.  A kernel takes its layout from
+// nmf_cluster_sized (its own partial-sum stride and scratch).  K1's and
+// K2's entries left this design for the grid entries below.
 
 #include <cooperative_groups.h>
 
@@ -427,14 +425,6 @@ inline int nmf_launch(Kernel kernel, int batch, size_t smem,
 #define NMF_CLUSTER_TILE_BYTES (96 * 1024)  // a streamed tile pair's budget
 
 namespace nmf_cg = cooperative_groups;
-
-// Floats of a cluster block's state besides its rows: H, the Gram
-// matrix, W^T X, 33 of reduction scratch, two partial-sum buffers
-// (W^T W, W^T X and one scalar, CD's violation) and the block's share
-// of the stopping statistic.
-__host__ __device__ inline size_t nmf_cluster_small_floats(int l, int k) {
-  return 4 * (size_t)k * l + 3 * (size_t)k * k + 36;
-}
 
 // How a cluster entry runs an (n, l) fit at rank k; the kernels take it
 // as their first argument.
@@ -451,7 +441,7 @@ struct NmfCluster {
   NmfBlock b;     // h, gram, cross, red; x, w: the resident share, or tile buffer 0
   float* part;    // 2 x pstride partial sums, by the iteration's parity
   float* err;     // the block's share of the stopping statistic
-  int pstride;    // K1, K2: k * k + k * l + 1
+  int pstride;    // floats a parity (nmf_cluster: k * k + k * l + 1)
   int rank;
   size_t r0;      // the block's first row in the fit
   int rows;       // the block's rows
@@ -490,8 +480,8 @@ __device__ inline NmfCluster nmf_cluster(float* smem, const NmfClusterPlan& p,
 // nmf_cluster's layout for a kernel with partial sums of its own (K4):
 // `pstride` floats a parity, and `extra` floats of the kernel's own after
 // the stopping statistic (from err + 1), before the rows.  Kept apart
-// from nmf_cluster so that K1 and K2 compile the same code as before:
-// edits to it moved their register allocation and their time.
+// from nmf_cluster: edits to that moved the register allocation and the
+// time of the kernels that use it.
 __device__ inline NmfCluster nmf_cluster_sized(float* smem, const NmfClusterPlan& p,
                                                int rank, int pstride, int extra) {
   NmfCluster c = nmf_cluster(smem, p, rank);
@@ -612,34 +602,6 @@ __device__ void nmf_cluster_tiles(const NmfCluster& c, const float* xf,
   }
 }
 
-// The W pass of one iteration on the block's rows: `rows(wr, xh, t)`
-// updates one row of W in registers from its row of X H^T (t.gram holds
-// H H^T) and returns what it adds to the thread's violation; then the
-// tile's share of W^T W and W^T X is added to part[0 .. K*K + K*L)
-// (zeroed by the caller) by the block entry's sums.  Returns the
-// thread's summed violation.
-template <int KMAX, typename Rows>
-__device__ float nmf_cluster_w_pass(const NmfCluster& c, const float* xf,
-                                    float* wf, float* part, const Rows& rows) {
-  float viol = 0.0f;
-  nmf_cluster_tiles<true>(c, xf, wf, [&](const NmfBlock& t) {
-    for (int n = threadIdx.x; n < t.n; n += blockDim.x) {
-      float wr[KMAX], xh[KMAX];
-      nmf_xht_row<KMAX>(t, n, xh);
-#pragma unroll
-      for (int i = 0; i < KMAX; ++i) wr[i] = i < t.k ? t.w[n * t.ldw + i] : 0.0f;
-      viol += rows(wr, xh, t);
-#pragma unroll
-      for (int i = 0; i < KMAX; ++i) {
-        if (i < t.k) t.w[n * t.ldw + i] = wr[i];
-      }
-    }
-    __syncthreads();
-    nmf_wtw_wtx<true>(t, part, part + t.k * t.k);
-  });
-  return viol;
-}
-
 // The cluster's sum of entry q of every block's buffer `local` (the same
 // offset in each block's shared memory), added in rank order 0..C-1, so
 // every block gets the same bits.  Call after a cluster barrier.
@@ -677,25 +639,6 @@ __device__ inline double nmf_cluster_sum_d(nmf_cg::cluster_group& cl,
     if (r < size) s += v[r];
   }
   return s;
-}
-
-// After a W pass: the cluster's sums of every block's part[0 .. K*K +
-// K*L) into b.gram (W^T W) and b.cross (W^T X), the same bits in every
-// block.  Holds the cluster barrier that makes every part readable.
-__device__ inline void nmf_cluster_grams(const NmfCluster& c,
-                                         nmf_cg::cluster_group& cl,
-                                         float* part) {
-  const NmfBlock& b = c.b;
-  cl.sync();
-  const int kk = b.k * b.k;
-  for (int q = threadIdx.x; q < kk + b.k * b.l; q += blockDim.x) {
-    const float s = nmf_cluster_sum(cl, part, q);
-    if (q < kk) {
-      b.gram[q] = s;
-    } else {
-      b.cross[q - kk] = s;
-    }
-  }
 }
 
 // Load one fit: H into every block, the block's rows of X and W into its
@@ -822,15 +765,6 @@ inline int nmf_cluster_plan_sized(Kernel kernel, int n, int l, int k,
   return (int)cudaErrorInvalidConfiguration;
 }
 
-// K1's and K2's split: rows of X and W, their small state as
-// nmf_cluster_small_floats counts it.
-template <typename Kernel>
-inline int nmf_cluster_plan(Kernel kernel, int n, int l, int k,
-                            NmfClusterPlan* plan) {
-  return nmf_cluster_plan_sized(kernel, n, l, k, nmf_cluster_small_floats(l, k),
-                                (size_t)nmf_odd(l) + nmf_odd(k), 0, plan);
-}
-
 // Launch `kernel` on `batch` clusters (one a fit) as `plan` says, the
 // plan its first argument; returns cudaGetLastError().
 template <typename... Params, typename... Args>
@@ -845,19 +779,540 @@ inline int nmf_cluster_launch(void (*kernel)(NmfClusterPlan, Params...),
   return (int)cudaGetLastError();
 }
 
-// Plan an (n, l) fit at rank k for `kernel` (nmf_cluster_plan) and launch
-// it on `batch` clusters; returns cudaGetLastError(), or the error that
-// left no cluster able to run it.
-template <typename... Params, typename... Args>
-inline int nmf_cluster_run(void (*kernel)(NmfClusterPlan, Params...),
-                           int batch, int n, int l, int k, cudaStream_t stream,
-                           Args... args) {
-  NmfClusterPlan plan;
-  const int e = nmf_cluster_plan(kernel, n, l, k, &plan);
-  if (e != 0) return e;
-  return nmf_cluster_launch(kernel, plan, batch, stream, args...);
-}
-
 // The KMAX a cluster kernel runs a rank-k fit at, as the block entries'.
 #define NMF_CLUSTER_DISPATCH(k, CALL) \
   ((k) <= 4 ? CALL(4) : (k) <= 8 ? CALL(8) : CALL(16))
+
+// ---- the grid entries (mu_nmf.cu, cd_nmf.cu: K1's and K2's cluster
+// entries) ----
+//
+// One fit spread over P blocks of the whole card, not one cluster: P
+// from the batch and the SM count (nmf_grid_rule), one block a SM, so a
+// lone capture-length fit runs on every SM.  Block r of a fit owns rows
+// [r * rows, (r + 1) * rows) (rows = ceil(N / P), the last block
+// shorter, a block past N none) and keeps H, the Gram matrices and its
+// partial sums in its own shared memory.  Where the batch's rows fit
+// the card's shared memory (resident) a block holds its rows there for
+// the whole solve, column-major: y(r, j) at j * rows + r, W's k columns
+// then X's l, so the lanes of a warp, one row each, read neighbouring
+// words.  Otherwise (streamed) W lives in device memory and a block
+// passes over its rows in tiles of the same layout, each copied in by
+// 16-byte loads and W's columns written back by 16-byte stores.
+//
+// One iteration: every block forms H H^T; updates its rows of W
+// (row-local); adds its rows' W^T [W X] into a partial set (4 x 8 tiles
+// of the k x (k + l) product: each thread's rows summed in registers,
+// the warp's lanes by a reduce-scatter, the warps in order) with one
+// scalar (CD's W-pass violation); writes the set to the fit's workspace
+// in device memory, double-buffered by the iteration's parity; meets the
+// fit's other blocks at a barrier in device memory (an arrive counter a
+// fit, release and acquire); adds the P sets in block order 0..P-1, a
+// thread an entry with NMF_GRID_LOADS loads in flight, so every block
+// holds the same bits; and updates H from them.  A block
+// writes parity p again only after a barrier that every block of its fit
+// passes only after reading parity p, so one barrier an iteration
+// suffices.  Every branch is taken on values that are the same in every
+// block of a fit, so a fit's blocks leave together and its counter is
+// its own: a converged fit holds up no other.  The barrier needs every
+// block of a fit resident at once: the plan gives a batch at most one
+// block a SM, and the launch is cooperative, which the runtime refuses
+// where the blocks could not all be resident.  models/kernels/mu_cuda.py
+// mirrors the plan (grid_plan) and the least state (cluster_smem_bytes).
+
+#define NMF_GRID_THREADS 256
+#define NMF_GRID_WARPS (NMF_GRID_THREADS / 32)
+#define NMF_GRID_MIN_ROWS 256  // rows a block, at least, where the fit has them
+#define NMF_GRID_MIN_TILE 128  // rows of a streamed tile, at least
+#define NMF_GRID_LOADS 32      // loads in flight a thread while summing the sets
+#define NMF_GRID_PLAN_INTS 7   // blocks, rows, resident, tile, smem, SMs, blocks a SM
+
+// Entries of a partial set: W^T [W X] in 4 x 8 tiles of 32 floats.
+__host__ __device__ inline int nmf_grid_nq(int l, int k) {
+  return 32 * ((k + 3) / 4) * ((k + l + 7) / 8);
+}
+
+// Floats of a block's state besides its rows: H, the Gram matrix (H H^T
+// in the W pass, then W^T W), W^T X, 33 of block-reduction scratch, the
+// block's partial set and its scalar, and the warps' sums of two tiles.
+__host__ __device__ inline size_t nmf_grid_small_floats(int l, int k) {
+  return 2 * (size_t)k * l + (size_t)k * k + 33 + nmf_grid_nq(l, k) + 1 +
+         NMF_GRID_WARPS * 64;
+}
+
+__host__ __device__ inline long long nmf_cdiv(long long a, long long b) {
+  return (a + b - 1) / b;
+}
+
+__host__ __device__ inline size_t nmf_r4(size_t v) { return (v + 3) & ~(size_t)3; }
+
+// How a grid entry runs a batch of (n, l) fits at rank k; the kernels
+// take it as their first argument.
+struct NmfGridPlan {
+  int n, l, k;   // the fit
+  int blocks;    // P, blocks a fit
+  int rows;      // rows a block, ceil(n / P)
+  int tile;      // rows a pass holds in shared memory (resident: = rows)
+  int resident;  // 1: rows in shared memory; 0: streamed tiles
+  int nq;        // entries of a partial set
+  int pstride;   // floats of a partial set in the workspace
+  size_t smem;   // dynamic shared memory a block, bytes
+};
+
+// The plan rule (models/kernels/mu_cuda.py: grid_plan): P at most SMs /
+// batch (so the batch's blocks are resident together, one a SM) and at
+// most ceil(n / NMF_GRID_MIN_ROWS); resident at the least P whose rows
+// fit a block, where that is within SMs / batch; else streamed at P =
+// SMs / batch in tiles of as many rows as fit.  Returns 0, or
+// cudaErrorInvalidValue when not even NMF_GRID_MIN_TILE rows fit.
+inline int nmf_grid_rule(int batch, int n, int l, int k, int sms,
+                         NmfGridPlan* plan) {
+  const long long room =
+      NMF_SMEM_LIMIT / (long long)sizeof(float) - (long long)nmf_grid_small_floats(l, k);
+  const long long row = (long long)k + l;
+  const long long p_max = sms / batch > 1 ? sms / batch : 1;
+  const long long want = nmf_cdiv(n, NMF_GRID_MIN_ROWS);
+  long long p = want < p_max ? want : p_max;
+  const long long fit = room > 0 ? room / row : 0;
+  long long rows, tile;
+  int resident;
+  if (fit >= 1 && nmf_cdiv(n, fit) <= p_max) {
+    if (nmf_cdiv(n, fit) > p) p = nmf_cdiv(n, fit);
+    rows = nmf_cdiv(n, p);
+    tile = rows;
+    resident = 1;
+  } else {
+    p = p_max;
+    rows = nmf_cdiv(n, p);
+    tile = fit < rows ? fit : rows;
+    resident = 0;
+    if (tile < NMF_GRID_MIN_TILE && tile < rows) return (int)cudaErrorInvalidValue;
+  }
+  plan->n = n;
+  plan->l = l;
+  plan->k = k;
+  plan->blocks = (int)p;
+  plan->rows = (int)rows;
+  plan->tile = (int)tile;
+  plan->resident = resident;
+  plan->nq = nmf_grid_nq(l, k);
+  plan->pstride = (int)nmf_r4(plan->nq + 1);
+  plan->smem = (nmf_grid_small_floats(l, k) + (size_t)tile * row) * sizeof(float);
+  return 0;
+}
+
+// Floats of the workspace a batch needs: the fits' arrive counters, the
+// stopping statistic's slots (one a block) and the partial sets (two
+// parities of one a block).  The wrapper allocates it zeroed.
+inline size_t nmf_grid_workspace_floats(const NmfGridPlan& p, int batch) {
+  const size_t blocks = (size_t)batch * p.blocks;
+  return nmf_r4(batch) + nmf_r4(blocks) + 2 * blocks * p.pstride;
+}
+
+struct NmfGrid {
+  NmfBlock b;         // k, l, h, gram, cross, red (x, w unused)
+  float* bpart;       // the block's partial set, nq entries and the scalar
+  float* wred;        // NMF_GRID_WARPS x 64: the warps' sums of two tiles
+  float* y;           // the rows: tile rows, column-major
+  int rank;           // the block's rank in its fit
+  int rows;           // the block's rows
+  size_t r0;          // its first row in the fit
+  int tile, nq, pstride, blocks;
+  bool resident;
+  unsigned* counter;  // the fit's arrive counter
+  float* err;         // the fit's stopping-statistic slots, one a block
+  float* part;        // the fit's partial sets, [2][blocks][pstride]
+};
+
+__device__ inline NmfGrid nmf_grid(float* smem, const NmfGridPlan& p, float* ws,
+                                   int batch, size_t fit, int rank) {
+  NmfGrid g;
+  NmfBlock& b = g.b;
+  b.n = p.tile;
+  b.l = p.l;
+  b.k = p.k;
+  b.ldx = b.ldw = 0;
+  b.x = b.w = nullptr;
+  b.h = smem;
+  b.gram = b.h + p.k * p.l;
+  b.cross = b.gram + p.k * p.k;
+  b.red = b.cross + p.k * p.l;
+  g.bpart = b.red + 33;
+  g.wred = g.bpart + p.nq + 1;
+  g.y = g.wred + NMF_GRID_WARPS * 64;
+  const long long first = (long long)rank * p.rows;
+  const long long last = min((long long)p.n, first + p.rows);
+  g.r0 = (size_t)min(first, (long long)p.n);
+  g.rows = (int)max(0LL, last - first);
+  g.rank = rank;
+  g.tile = p.tile;
+  g.nq = p.nq;
+  g.pstride = p.pstride;
+  g.blocks = p.blocks;
+  g.resident = p.resident != 0;
+  g.counter = reinterpret_cast<unsigned*>(ws) + fit;
+  g.err = ws + nmf_r4(batch) + fit * p.blocks;
+  g.part = ws + nmf_r4(batch) + nmf_r4((size_t)batch * p.blocks) +
+           fit * 2 * p.blocks * p.pstride;
+  return g;
+}
+
+// `cnt` rows of `cols` floats, contiguous at src in device memory, into
+// dst column-major (element (r, c) at c * ld + r): the 16-byte-aligned
+// body by 16-byte loads, at most 3 elements before it and 3 after one by
+// one.
+__device__ inline void nmf_grid_gather(float* dst, int ld, const float* src, int cnt,
+                                       int cols) {
+  const int total = cnt * cols;
+  const int head = min(total, (int)(((16 - ((size_t)src & 15)) & 15) >> 2));
+  const int quads = (total - head) >> 2;
+  const float4* s4 = reinterpret_cast<const float4*>(src + head);
+  for (int f = threadIdx.x; f < quads; f += blockDim.x) {
+    const float4 v = __ldcg(s4 + f);
+    const float vals[4] = {v.x, v.y, v.z, v.w};
+    const int e = head + 4 * f;
+    int r = e / cols, c = e - r * cols;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      dst[(size_t)c * ld + r] = vals[u];
+      if (++c == cols) {
+        c = 0;
+        ++r;
+      }
+    }
+  }
+  const int tail = head + 4 * quads;
+  if (threadIdx.x < head + (total - tail)) {
+    const int e = threadIdx.x < head ? threadIdx.x : tail + threadIdx.x - head;
+    dst[(size_t)(e % cols) * ld + e / cols] = __ldcg(src + e);
+  }
+}
+
+// The inverse of nmf_grid_gather: `cnt` column-major rows of `cols`
+// floats (stride ld) to dst in device memory, row-major.
+__device__ inline void nmf_grid_scatter(float* dst, const float* src, int ld, int cnt,
+                                        int cols) {
+  const int total = cnt * cols;
+  const int head = min(total, (int)(((16 - ((size_t)dst & 15)) & 15) >> 2));
+  const int quads = (total - head) >> 2;
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  for (int f = threadIdx.x; f < quads; f += blockDim.x) {
+    float vals[4];
+    const int e = head + 4 * f;
+    int r = e / cols, c = e - r * cols;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      vals[u] = src[(size_t)c * ld + r];
+      if (++c == cols) {
+        c = 0;
+        ++r;
+      }
+    }
+    __stcg(d4 + f, make_float4(vals[0], vals[1], vals[2], vals[3]));
+  }
+  const int tail = head + 4 * quads;
+  if (threadIdx.x < head + (total - tail)) {
+    const int e = threadIdx.x < head ? threadIdx.x : tail + threadIdx.x - head;
+    __stcg(dst + e, src[(size_t)(e % cols) * ld + e / cols]);
+  }
+}
+
+// A pass's rows: n rows of the buffer y, column stride ld.
+struct NmfGridRows {
+  float* y;
+  int ld;
+  int n;
+};
+
+// body(c) on the block's rows: resident, once on the rows in shared
+// memory; streamed, on each tile in turn, its X and W (from wf) copied in
+// before and, with STORE_W, its W written back to wf after; barriers
+// before and after each tile.
+template <bool STORE_W, typename Body>
+__device__ void nmf_grid_chunks(const NmfGrid& g, const float* xf, float* wf,
+                                Body body) {
+  if (g.resident) {
+    body(NmfGridRows{g.y, g.tile, g.rows});
+    return;
+  }
+  const int k = g.b.k, l = g.b.l;
+  for (int i = 0; i * g.tile < g.rows; ++i) {
+    const size_t row = g.r0 + (size_t)i * g.tile;
+    const NmfGridRows c{g.y, g.tile, min(g.tile, g.rows - i * g.tile)};
+    nmf_grid_gather(c.y + (size_t)k * c.ld, c.ld, xf + row * l, c.n, l);
+    nmf_grid_gather(c.y, c.ld, wf + row * k, c.n, k);
+    __syncthreads();
+    body(c);
+    __syncthreads();
+    if (STORE_W) {
+      nmf_grid_scatter(wf + row * k, c.y, c.ld, c.n, k);
+      __syncthreads();  // before the next tile's copy refills the buffer
+    }
+  }
+}
+
+// The W pass on a pass's rows, one thread a row: the row's X H^T in
+// registers (b.gram holds H H^T), `rows(wr, xh, b)` updates the row of W
+// and returns what it adds to the thread's violation.  Returns the
+// thread's summed violation.  Threads own the same rows in the Gram pass.
+template <int KMAX, typename Rows>
+__device__ float nmf_grid_w_pass(const NmfBlock& b, const NmfGridRows& c,
+                                 const Rows& rows) {
+  const int k = b.k, l = b.l, ld = c.ld, n = c.n;
+  float* __restrict__ y = c.y;
+  const float* __restrict__ h = b.h;
+  float viol = 0.0f;
+  for (int r = threadIdx.x; r < n; r += blockDim.x) {
+    float wr[KMAX], xh[KMAX];
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) xh[i] = 0.0f;
+#pragma unroll 8
+    for (int m = 0; m < l; ++m) {
+      const float v = y[(k + m) * ld + r];
+#pragma unroll
+      for (int i = 0; i < KMAX; ++i) {
+        if (i < k) xh[i] += v * h[i * l + m];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) wr[i] = i < k ? y[i * ld + r] : 0.0f;
+    viol += rows(wr, xh, b);
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) {
+      if (i < k) y[i * ld + r] = wr[i];
+    }
+  }
+  return viol;
+}
+
+// Adds a pass's share of W^T [W X] to g.bpart.  Tile t of the k x (k + l)
+// product is entries 32 t .. 32 t + 31 (row 4 (t / tj) + v / 8, column
+// 8 (t % tj) + v % 8 of [W X], v = 0..31): each thread sums its rows in
+// order in 32 registers, each warp's lanes combine by a reduce-scatter
+// (lane v ends with entry v), and the warps' sums are added in warp
+// order, two tiles a round.
+__device__ inline void nmf_grid_gram_pass(const NmfGrid& g, const NmfGridRows& c) {
+  const int k = g.b.k, kl = g.b.k + g.b.l;
+  const int tj = (kl + 7) / 8, nt = ((k + 3) / 4) * tj;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int t0 = 0; t0 < nt; t0 += 2) {
+    for (int u = 0; u < 2 && t0 + u < nt; ++u) {
+      const int i0 = 4 * ((t0 + u) / tj), j0 = 8 * ((t0 + u) % tj);
+      float a[32];
+#pragma unroll
+      for (int v = 0; v < 32; ++v) a[v] = 0.0f;
+      for (int r = threadIdx.x; r < c.n; r += blockDim.x) {
+        float p[4], q[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          p[i] = i0 + i < k ? c.y[(size_t)(i0 + i) * c.ld + r] : 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          q[j] = j0 + j < kl ? c.y[(size_t)(j0 + j) * c.ld + r] : 0.0f;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) a[8 * i + j] += p[i] * q[j];
+        }
+      }
+      nmf_warp_halve<16>(a, lane);
+      g.wred[warp * 64 + 32 * u + lane] = a[0];
+    }
+    __syncthreads();
+    const int q = 32 * t0 + threadIdx.x;
+    if (threadIdx.x < 64 && q < g.nq) {
+      float s = 0.0f;
+#pragma unroll
+      for (int w = 0; w < NMF_GRID_WARPS; ++w) s += g.wred[w * 64 + threadIdx.x];
+      g.bpart[q] += s;
+    }
+    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ unsigned nmf_ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The fit's barrier in device memory: each block arrives (a fence, then
+// the counter's add: release) and waits until the counter reaches
+// `target` (acquire), so every write a block of the fit made before
+// arriving is visible to every block after.
+__device__ inline void nmf_grid_barrier(unsigned* counter, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1u);
+    while (nmf_ld_acquire(counter) < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The sum of `count` floats at src, src + stride, ..., added one after
+// another from 0: rounds of NMF_GRID_LOADS loads in flight, then the
+// rest one by one.
+__device__ __forceinline__ float nmf_grid_ordered_sum(const float* src, int count,
+                                                      int stride) {
+  float s = 0.0f;
+  int r = 0;
+  for (; r + NMF_GRID_LOADS <= count; r += NMF_GRID_LOADS) {
+    float v[NMF_GRID_LOADS];
+#pragma unroll
+    for (int u = 0; u < NMF_GRID_LOADS; ++u) v[u] = __ldcg(src + (size_t)(r + u) * stride);
+#pragma unroll
+    for (int u = 0; u < NMF_GRID_LOADS; ++u) s += v[u];
+  }
+  for (; r < count; ++r) s += __ldcg(src + (size_t)r * stride);
+  return s;
+}
+
+// Entry q of the fit's sums (or of a lone block's set) to its place:
+// b.gram (W^T W), b.cross (W^T X), or, for the scalar, g.bpart[nq].
+__device__ __forceinline__ void nmf_grid_place(const NmfGrid& g, int q, float s) {
+  const NmfBlock& b = g.b;
+  if (q == g.nq) {
+    g.bpart[q] = s;
+    return;
+  }
+  const int kl = b.k + b.l, tj = (kl + 7) / 8;
+  const int t = q >> 5, v = q & 31;
+  const int i = 4 * (t / tj) + (v >> 3), j = 8 * (t % tj) + (v & 7);
+  if (i < b.k && j < b.k) {
+    b.gram[i * b.k + j] = s;
+  } else if (i < b.k && j < kl) {
+    b.cross[i * b.l + (j - b.k)] = s;
+  }
+}
+
+// After a pass: the fit's sums of every block's partial set into b.gram
+// (W^T W) and b.cross (W^T X), and the sum of the scalars returned, the
+// same bits in every block: the block's set to the workspace at
+// `parity`, the fit's barrier, then each entry's P values added in block
+// order 0..P-1 (a lone block: its own set).  `syncs` counts the fit's
+// barriers.
+__device__ inline float nmf_grid_sum(const NmfGrid& g, int parity, unsigned& syncs) {
+  __syncthreads();
+  if (g.blocks > 1) {
+    const float* sets = g.part + (size_t)parity * g.blocks * g.pstride;
+    float* mine = g.part + ((size_t)parity * g.blocks + g.rank) * g.pstride;
+    for (int q = threadIdx.x; q <= g.nq; q += blockDim.x) __stcg(mine + q, g.bpart[q]);
+    syncs += 1;
+    nmf_grid_barrier(g.counter, syncs * g.blocks);
+    for (int q = threadIdx.x; q <= g.nq; q += blockDim.x) {
+      nmf_grid_place(g, q, nmf_grid_ordered_sum(sets + q, g.blocks, g.pstride));
+    }
+  } else {
+    for (int q = threadIdx.x; q <= g.nq; q += blockDim.x) nmf_grid_place(g, q, g.bpart[q]);
+  }
+  __syncthreads();
+  return g.bpart[g.nq];
+}
+
+// The fit's sum of every block's `mine` (one value, the same in every
+// thread of the block), in block order: the stopping statistics.  One
+// slot a block: a barrier of an iteration lies between two calls.
+__device__ inline float nmf_grid_scalar_sum(const NmfGrid& g, float mine,
+                                            unsigned& syncs) {
+  if (g.blocks == 1) return mine;
+  if (threadIdx.x == 0) __stcg(g.err + g.rank, mine);
+  syncs += 1;
+  nmf_grid_barrier(g.counter, syncs * g.blocks);
+  if (threadIdx.x == 0) g.b.red[32] = nmf_grid_ordered_sum(g.err, g.blocks, 1);
+  __syncthreads();
+  const float total = g.b.red[32];
+  __syncthreads();
+  return total;
+}
+
+// Load one fit: H into every block; resident, the block's rows of X and
+// W0 into its shared memory; streamed, its rows of W0 copied to W in
+// device memory (W is then updated in place there).
+__device__ inline void nmf_grid_load(const NmfGrid& g, const float* xf,
+                                     const float* w0f, float* wf, const float* h0f) {
+  const NmfBlock& b = g.b;
+  for (int i = threadIdx.x; i < b.k * b.l; i += blockDim.x) b.h[i] = h0f[i];
+  if (g.resident) {
+    nmf_grid_gather(g.y + (size_t)b.k * g.tile, g.tile, xf + g.r0 * b.l, g.rows, b.l);
+    nmf_grid_gather(g.y, g.tile, w0f + g.r0 * b.k, g.rows, b.k);
+  } else {
+    const float* ws = w0f + g.r0 * b.k;
+    float* wd = wf + g.r0 * b.k;
+    for (size_t i = threadIdx.x; i < (size_t)g.rows * b.k; i += blockDim.x) wd[i] = ws[i];
+  }
+  __syncthreads();
+}
+
+// Store one fit: the block's rows of W (resident; streamed rows are
+// already there) and, from rank 0, H.
+__device__ inline void nmf_grid_store(const NmfGrid& g, float* wf, float* hf) {
+  const NmfBlock& b = g.b;
+  if (g.resident) nmf_grid_scatter(wf + g.r0 * b.k, g.y, g.tile, g.rows, b.k);
+  if (g.rank == 0) {
+    for (int i = threadIdx.x; i < b.k * b.l; i += blockDim.x) hf[i] = b.h[i];
+  }
+}
+
+// Plan a batch of (n, l) fits at rank k for `kernel` on the current
+// device (nmf_grid_rule) and write the plan to `out` (host ints, when
+// given: blocks a fit, rows a block, resident, tile, shared memory a
+// block, SMs, blocks a SM can hold).  Refuses a plan whose blocks could
+// not all be resident at once.
+template <typename Kernel>
+inline int nmf_grid_plan(Kernel kernel, int batch, int n, int l, int k,
+                         NmfGridPlan* plan, int* out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int r = nmf_grid_rule(batch, n, l, k, sms, plan);
+  if (r != 0) return r;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)plan->smem);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NMF_GRID_THREADS,
+                                                      plan->smem);
+  }
+  if (e != cudaSuccess) return (int)e;
+  if (out != nullptr) {
+    const int vals[NMF_GRID_PLAN_INTS] = {plan->blocks, plan->rows, plan->resident,
+                                          plan->tile, (int)plan->smem, sms, per_sm};
+    for (int i = 0; i < NMF_GRID_PLAN_INTS; ++i) out[i] = vals[i];
+  }
+  if (plan->blocks > 1 && (long long)batch * plan->blocks > (long long)per_sm * sms) {
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  }
+  return 0;
+}
+
+// Plan (nmf_grid_plan) and launch `kernel` on batch * P blocks,
+// cooperatively when P > 1; `ws` must hold nmf_grid_workspace_floats,
+// zeroed.  Returns cudaGetLastError(), or the error that refused the plan.
+template <typename... Params, typename... Args>
+inline int nmf_grid_run(void (*kernel)(NmfGridPlan, Params...), int batch, int n,
+                        int l, int k, long long ws_floats, int* plan_out,
+                        cudaStream_t stream, Args... args) {
+  NmfGridPlan plan;
+  const int e = nmf_grid_plan(kernel, batch, n, l, k, &plan, plan_out);
+  if (e != 0) return e;
+  if ((long long)nmf_grid_workspace_floats(plan, batch) > ws_floats) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)batch * plan.blocks, 1, 1);
+  cfg.blockDim = dim3(NMF_GRID_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = plan.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = plan.blocks > 1 ? 1 : 0;
+  const cudaError_t le = cudaLaunchKernelEx(&cfg, kernel, plan, args...);
+  if (le != cudaSuccess) return (int)le;
+  return (int)cudaGetLastError();
+}

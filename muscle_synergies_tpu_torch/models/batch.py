@@ -262,8 +262,9 @@ def rank_sweep_batch(
     ``dtype`` says otherwise), where ``impl="auto"`` makes the whole
     sweep one launch of K2 (CD), K1 (MU) or K4 (beta-MU).  Each runs a
     trial of any length: one warp or one thread block a fit for a
-    time-normalised 200 x 8 trial, one thread-block cluster a fit for a
-    longer one (20,000 or 124,460 x 8).  ``impl="torch"`` is the plain
+    time-normalised 200 x 8 trial, many blocks of the card a fit (K1,
+    K2) or one thread-block cluster a fit (K4) for a longer one (20,000
+    or 124,460 x 8).  ``impl="torch"`` is the plain
     fit on the card.
 
     Returns:

@@ -11,12 +11,13 @@ warp per fit, X and W rows in registers) for frames of at most
 ``WARP_NMAX`` x ``WARP_LMAX`` at rank ``WARP_KMAX``, which covers every
 time-normalised 200 x 8 frame of the main paths at ranks 1-8; the block
 entry (one block per fit, the fit in shared memory) above that; the
-cluster entry (one thread-block cluster per fit, the partial Grams and
-W-pass violations reduced over distributed shared memory) for a frame
-over one block's shared memory, such as a full-length trial of
-``PipelineConfig(reduce_to=None)``; and a refusal before any launch
-beyond.  ``warp_launches``, ``launches`` and ``cluster_launches`` count
-the three entries' launches.
+cluster entry (one fit spread over many blocks of the card, the partial
+Grams and W-pass violations summed in block order after a barrier in
+device memory, K1's plan, :func:`~.mu_cuda.grid_plan`) for a frame over
+one block's shared memory, such as a whole capture's envelope; and a
+refusal before any launch beyond.  ``warp_launches``, ``launches`` and
+``cluster_launches`` count the three entries' launches; ``last_plan``
+is the last cluster launch's plan.
 
 :func:`cd_iterations_cuda` and :func:`fit_cd_cuda` take contiguous CUDA
 float32 tensors in the JAX layouts, X ``(B, N, L)``, W ``(B, N, k)``,
@@ -38,10 +39,13 @@ from ..._common import check_kernel_nans
 from ..hals import CDState, cd_pass, fit_cd
 from . import mu_cuda
 from .mu_cuda import (  # noqa: F401 (the warp limits, shared with K1 and K4)
+    CLUSTER_ARGTYPES,
     WARP_KMAX,
     WARP_LMAX,
     WARP_NMAX,
     check_layout,
+    check_plan,
+    cluster_call,
     warp_fits,
 )
 
@@ -59,6 +63,7 @@ __all__ = [
 launches = 0  # block-entry launches since the last reset
 warp_launches = 0  # warp-entry launches since the last reset
 cluster_launches = 0  # cluster-entry launches since the last reset
+last_plan = None  # the plan of the last cluster-entry launch (mu_cuda.GridPlan)
 
 
 def route(n: int, l: int, k: int) -> str:
@@ -74,14 +79,15 @@ def _lib(entry: str):
           "cluster": lib.cd_nmf_cluster_f32}[entry]
     fn.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] * 5
-        + [ctypes.c_int] + [ctypes.c_void_p]
+        + [ctypes.c_int] + (CLUSTER_ARGTYPES if entry == "cluster" else [])
+        + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(xs, w0, h0, iters, tol, with_stop, regs=(0.0, 0.0, 0.0, 0.0)):
-    global launches, warp_launches, cluster_launches
+    global launches, warp_launches, cluster_launches, last_plan
     check_layout("cd_nmf", xs, w0, h0)
     xs, w0, h0 = xs.contiguous(), w0.contiguous(), h0.contiguous()
     b, n, l = xs.shape
@@ -91,11 +97,12 @@ def _launch(xs, w0, h0, iters, tol, with_stop, regs=(0.0, 0.0, 0.0, 0.0)):
     n_iter = torch.zeros(b, dtype=torch.int32, device=xs.device)
     viol_init = torch.zeros(b, dtype=torch.float32, device=xs.device)
     converged = torch.zeros(b, dtype=torch.int32, device=xs.device)
+    extra, held = cluster_call(xs, b, n, l, k) if entry == "cluster" else ((), None)
     err = _lib(entry)(
         xs.data_ptr(), w0.data_ptr(), h0.data_ptr(), w.data_ptr(),
         h.data_ptr(), n_iter.data_ptr(), viol_init.data_ptr(),
         converged.data_ptr(), b, n, l, k, int(iters), float(tol),
-        *map(float, regs), int(with_stop),
+        *map(float, regs), int(with_stop), *extra,
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
     if err != 0:
@@ -103,6 +110,7 @@ def _launch(xs, w0, h0, iters, tol, with_stop, regs=(0.0, 0.0, 0.0, 0.0)):
     if entry == "warp":
         warp_launches += 1
     elif entry == "cluster":
+        last_plan = check_plan("cd_nmf", held)
         cluster_launches += 1
     else:
         launches += 1

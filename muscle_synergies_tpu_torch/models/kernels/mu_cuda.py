@@ -10,15 +10,20 @@ shape: the warp entry (one warp per fit, X and W rows in registers) for
 frames of at most ``WARP_NMAX`` x ``WARP_LMAX`` at rank ``WARP_KMAX``,
 which covers every time-normalised 200 x 8 frame of the main paths at
 ranks 1-8; the block entry (one block per fit, the fit in shared
-memory) above that; the cluster entry (one thread-block cluster per
-fit, each block owning a range of rows, the partial Grams reduced over
-distributed shared memory) for a frame over one block's shared memory,
-such as a subject's concatenated cycles or a whole capture; and a
-refusal before any launch for a frame whose H and Grams alone would
-fill a cluster block (:func:`cluster_smem_bytes`).  ``warp_launches``,
-``launches`` and ``cluster_launches`` count the three entries'
-launches.  The warp limits are those of every warp entry (K1, K2 and
-K4; ``csrc/nmf_common.cuh``).
+memory) above that; the cluster entry (one fit spread over many blocks
+of the card, each block owning a range of rows, the partial Grams
+summed in block order after a barrier in device memory) for a frame
+over one block's shared memory, such as a subject's concatenated cycles
+or a whole capture; and a refusal before any launch for a frame whose H
+and Grams alone would fill a block (:func:`cluster_smem_bytes`).
+``warp_launches``, ``launches`` and ``cluster_launches`` count the three
+entries' launches.  The warp limits are those of every warp entry (K1,
+K2 and K4; ``csrc/nmf_common.cuh``).
+
+:func:`grid_plan` mirrors the cluster entry's plan (blocks a fit, rows
+a block, rows resident in shared memory or streamed in tiles); each
+launch checks the plan the kernel reports against it and keeps it in
+``last_plan``.
 
 :func:`mu_iterations_cuda` and :func:`fit_mu_cuda` take contiguous CUDA
 float32 tensors in the JAX layouts, X ``(B, N, L)``, W ``(B, N, k)``,
@@ -31,6 +36,7 @@ sklearn's L1/L2 penalties as the kernel does.  Their plain versions are
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -44,6 +50,7 @@ __all__ = [
     "mu_iterations_plain",
     "fit_mu_plain",
     "cluster_launches",
+    "grid_plan",
     "launches",
     "route",
     "warp_launches",
@@ -52,11 +59,12 @@ __all__ = [
 launches = 0  # block-entry launches since the last reset
 warp_launches = 0  # warp-entry launches since the last reset
 cluster_launches = 0  # cluster-entry launches since the last reset
+last_plan = None  # the plan of the last cluster-entry launch (a GridPlan)
 KMAX = 16  # csrc/nmf_common.cuh NMF_KMAX
 # csrc/nmf_common.cuh: NMF_WARP_NMAX, NMF_WARP_LMAX, NMF_WARP_KMAX
 WARP_NMAX, WARP_LMAX, WARP_KMAX = 224, 16, 8
 SMEM_LIMIT = 227 * 1024  # bytes of shared memory one block may use on sm_90
-CLUSTER_MIN_TILE = 128  # csrc/nmf_common.cuh NMF_CLUSTER_MIN_TILE
+CLUSTER_MIN_TILE = 128  # csrc/nmf_common.cuh NMF_CLUSTER_MIN_TILE, NMF_GRID_MIN_TILE
 
 
 def smem_bytes(n: int, l: int, k: int) -> int:
@@ -64,14 +72,106 @@ def smem_bytes(n: int, l: int, k: int) -> int:
     return 4 * (n * ((l | 1) + (k | 1)) + 2 * k * l + k * k + 33)
 
 
+# csrc/nmf_common.cuh: NMF_GRID_THREADS, NMF_GRID_MIN_ROWS, NMF_GRID_PLAN_INTS
+GRID_THREADS, GRID_MIN_ROWS, GRID_PLAN_INTS = 256, 256, 7
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def grid_nq(l: int, k: int) -> int:
+    """Entries of the cluster entry's partial set: ``W^T [W X]`` in 4 x 8
+    tiles of 32 (csrc/nmf_common.cuh ``nmf_grid_nq``)."""
+    return 32 * _cdiv(k, 4) * _cdiv(k + l, 8)
+
+
+def grid_small_floats(l: int, k: int) -> int:
+    """Floats of a cluster-entry block besides its rows: H, the Gram
+    matrix, W^T X, reduction scratch, the partial set and the warps' sums
+    (csrc/nmf_common.cuh ``nmf_grid_small_floats``)."""
+    return 2 * k * l + k * k + 33 + grid_nq(l, k) + 1 + (GRID_THREADS // 32) * 64
+
+
 def cluster_smem_bytes(l: int, k: int) -> int:
     """Shared memory of one block of the cluster entries at its least:
-    H, the Grams, the partial sums, and two tile buffers of
-    ``CLUSTER_MIN_TILE`` rows of X and W (csrc/nmf_common.cuh
-    ``nmf_cluster_small_floats``, ``nmf_cluster_plan``).  The entry takes
-    an ``(l, k)`` fit of any number of rows when this fits one block."""
-    small = 4 * k * l + 3 * k * k + 36
-    return 4 * (small + 2 * CLUSTER_MIN_TILE * ((l | 1) + (k | 1)))
+    its small state (:func:`grid_small_floats`) and a streamed tile of
+    ``CLUSTER_MIN_TILE`` rows of W and X.  The entry takes an ``(l, k)``
+    fit of any number of rows when this fits one block."""
+    return 4 * (grid_small_floats(l, k) + CLUSTER_MIN_TILE * (k + l))
+
+
+class GridPlan(NamedTuple):
+    """How the cluster entries run a batch of fits: ``blocks`` a fit,
+    ``rows`` a block, ``resident`` (rows kept in shared memory) or
+    streamed in tiles of ``tile`` rows, ``smem`` bytes of shared memory
+    a block."""
+
+    blocks: int
+    rows: int
+    resident: bool
+    tile: int
+    smem: int
+
+
+def grid_plan(batch: int, n: int, l: int, k: int, sms: int,
+              smem_limit: int = SMEM_LIMIT) -> GridPlan:
+    """The cluster entries' plan for ``batch`` fits of ``(n, l)`` frames
+    at rank ``k`` on a card of ``sms`` SMs (csrc/nmf_common.cuh
+    ``nmf_grid_rule``): at most ``sms // batch`` blocks a fit (one block
+    a SM, so the batch's blocks are resident together) and at most
+    ``ceil(n / GRID_MIN_ROWS)``; rows resident at the least block count
+    whose rows fit a block, where that is within ``sms // batch``; else
+    ``sms // batch`` blocks streaming their rows in tiles of as many rows
+    as fit.  Raises ``ValueError`` where not even ``CLUSTER_MIN_TILE``
+    rows fit."""
+    small, row = grid_small_floats(l, k), k + l
+    room = smem_limit // 4 - small
+    p_max = max(1, sms // batch)
+    p = min(_cdiv(n, GRID_MIN_ROWS), p_max)
+    fit = room // row if room > 0 else 0
+    if fit >= 1 and _cdiv(n, fit) <= p_max:
+        p = max(p, _cdiv(n, fit))
+        rows = _cdiv(n, p)
+        return GridPlan(p, rows, True, rows, 4 * (small + rows * row))
+    rows = _cdiv(n, p_max)
+    tile = min(fit, rows)
+    if tile < CLUSTER_MIN_TILE and tile < rows:
+        raise ValueError(f"{n}x{l} at rank {k}: a block holds {tile} rows, "
+                         f"under {CLUSTER_MIN_TILE}")
+    return GridPlan(p_max, rows, False, tile, 4 * (small + tile * row))
+
+
+def grid_workspace_floats(plan: GridPlan, batch: int, l: int, k: int) -> int:
+    """Floats of the cluster entries' workspace (csrc/nmf_common.cuh
+    ``nmf_grid_workspace_floats``): the fits' arrive counters, a slot a
+    block for the stopping statistic, two partial sets a block."""
+    blocks = batch * plan.blocks
+    pstride = (grid_nq(l, k) + 1 + 3) // 4 * 4
+    return _cdiv(batch, 4) * 4 + _cdiv(blocks, 4) * 4 + 2 * blocks * pstride
+
+
+def cluster_call(xs, b: int, n: int, l: int, k: int):
+    """The cluster entries' last arguments for a batch on ``xs``'s card:
+    the zeroed workspace, its size, the plan's output ints; and the plan
+    the kernel must report (:func:`grid_plan`)."""
+    sms = torch.cuda.get_device_properties(xs.device).multi_processor_count
+    plan = grid_plan(b, n, l, k, sms)
+    floats = grid_workspace_floats(plan, b, l, k)
+    ws = torch.zeros(floats, dtype=torch.float32, device=xs.device)
+    out = (ctypes.c_int * GRID_PLAN_INTS)()
+    return (ws.data_ptr(), floats, out), (plan, ws, out, sms)
+
+
+def check_plan(name: str, held) -> GridPlan:
+    """Raise unless the plan a cluster entry reported (``held`` from
+    :func:`cluster_call`) is its Python mirror's; returns the plan."""
+    plan, _, out, sms = held
+    got = GridPlan(out[0], out[1], bool(out[2]), out[3], out[4])
+    if got != plan or out[5] != sms:
+        raise RuntimeError(f"{name}: the kernel planned {got} on {out[5]} SMs, "
+                           f"the mirror {plan} on {sms}")
+    return plan
 
 
 def check_layout(name: str, xs, w, h) -> None:
@@ -129,6 +229,10 @@ def entry_for(name: str, n: int, l: int, k: int, warp=None, block_bytes=None,
     )
 
 
+# the cluster entries' workspace, its floats and the plan's output ints
+CLUSTER_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
+
+
 def _lib(entry: str):
     lib = load("mu_nmf")
     fn = {"warp": lib.mu_nmf_warp_f32, "block": lib.mu_nmf_f32,
@@ -136,7 +240,7 @@ def _lib(entry: str):
     fn.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
         + [ctypes.c_int] * 2 + [ctypes.c_float] * 4 + [ctypes.c_int]
-        + [ctypes.c_void_p]
+        + (CLUSTER_ARGTYPES if entry == "cluster" else []) + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
@@ -144,7 +248,7 @@ def _lib(entry: str):
 
 def _launch(xs, w0, h0, iters, tol, check_every, inner_iter, with_stop,
             regs=(0.0, 0.0, 0.0, 0.0)):
-    global launches, warp_launches, cluster_launches
+    global launches, warp_launches, cluster_launches, last_plan
     check_layout("mu_nmf", xs, w0, h0)
     xs, w0, h0 = xs.contiguous(), w0.contiguous(), h0.contiguous()
     b, n, l = xs.shape
@@ -154,18 +258,20 @@ def _launch(xs, w0, h0, iters, tol, check_every, inner_iter, with_stop,
     n_iter = torch.zeros(b, dtype=torch.int32, device=xs.device)
     prev_err = torch.zeros(b, dtype=torch.float32, device=xs.device)
     converged = torch.zeros(b, dtype=torch.int32, device=xs.device)
+    extra, held = cluster_call(xs, b, n, l, k) if entry == "cluster" else ((), None)
     err = _lib(entry)(
         xs.data_ptr(), w0.data_ptr(), h0.data_ptr(), w.data_ptr(),
         h.data_ptr(), n_iter.data_ptr(), prev_err.data_ptr(),
         converged.data_ptr(), b, n, l, k, int(iters), float(tol),
         int(check_every), int(inner_iter), *map(float, regs), int(with_stop),
-        torch.cuda.current_stream(xs.device).cuda_stream,
+        *extra, torch.cuda.current_stream(xs.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"mu_nmf {entry} entry launch failed: CUDA error {err}")
     if entry == "warp":
         warp_launches += 1
     elif entry == "cluster":
+        last_plan = check_plan("mu_nmf", held)
         cluster_launches += 1
     else:
         launches += 1

@@ -22,8 +22,8 @@ CPU frame through the plain PyTorch fit; ``"torch"`` runs the plain fit
 wherever the frame is.  A time-normalised 200 x 8 frame fits one warp
 or one thread block; a larger one, a subject's concatenated cycles or a
 whole capture's envelope (20,000 or 124,460 x 8), runs on K1's or K2's
-cluster entry, one thread-block cluster per fit, in the same single
-launch; a beta-divergence fit (KL, IS or any other beta) over one
+cluster entry, one fit spread over many blocks of the card, in the
+same single launch; a beta-divergence fit (KL, IS or any other beta) over one
 block's shared memory likewise runs on K4's cluster entry.
 :meth:`NMFModel.transform` (H frozen) is plain PyTorch on the device
 asked for: no kernel has a frozen-factor entry yet.  It runs a loop of

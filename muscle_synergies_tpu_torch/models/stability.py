@@ -13,8 +13,9 @@ Port of :mod:`muscle_synergies_tpu.models.stability`:
   launch of kernel K1 or K5 (``impl="auto"``).  Both take a matrix of
   any length: within one block's shared memory (about 4,100 rows of 8
   channels at rank 4 for K1, 2,822 rows at K = 4, D = 10 for K5) on
-  their block entries, beyond on their cluster entries, one
-  thread-block cluster a fit;
+  their block entries, beyond on their cluster entries (K1's spreads
+  a fit over many blocks of the card, K5's runs one thread-block
+  cluster a fit);
 - the masked fits (:func:`fit_mu_masked`, :func:`fit_cnmf_masked`,
   :func:`fit_nm3f_masked`) minimise the Frobenius error on the observed
   (mask = 1) entries, and the cross-validations hold out random entries

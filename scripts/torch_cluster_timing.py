@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Time the cluster entries of K1 (MU) and K2 (CD) on one card.
+"""Time the cluster entries of K1 (MU), K2 (CD), K4 (beta-MU) and K5 (cNMF) on one card.
 
-Builds ``mu_nmf`` and ``cd_nmf`` from the package under ``--root`` (the
-repository by default; point it at an unpacked ``git archive`` of
-another commit to compare two versions), prints each cluster kernel's
-registers and spills from ``nvcc -Xptxas -v``, then for each case
-checks 50 fixed iterations against the plain version in float64 and
-times 200 iterations with CUDA events (the best of 3), one JSON line a
-case, beside the card's name and power limit.  Each line carries a
-digest of the 50 iterations' factors (``sha256`` of their bytes), so
-two trees that compute the same bits print the same digests.  The cases are the
-large-frame shapes of ``chip_smoke.py``'s phase 22: 124,460 x 8 and
-20,000 x 8 at rank 4, one fit alone and 4 at once, and 124,460 x 8 at
-rank 8 alone.  To compare two trees, run them alternately (A, B, B, A)
-in one session::
+Builds ``mu_nmf``, ``cd_nmf``, ``beta_nmf`` and ``cnmf`` from the package
+under ``--root`` (the repository by default; point it at an unpacked
+``git archive`` of another commit to compare two versions), prints each
+cluster kernel's registers and spills at KMAX 4, 8 and 16 from ``nvcc
+-Xptxas -v``, then for each case checks 50 fixed iterations against the
+plain version in float64 and times 200 iterations with CUDA events (the
+best of 3), one JSON line a case, beside the card's name and power
+limit.  Each line carries a digest of the 50 iterations' factors
+(``sha256`` of their bytes), so two trees that compute the same bits
+print the same digests, and, for K1 and K2 where the tree reports it,
+the plan the entry took (blocks a fit, rows a block, resident or
+streamed).  The K1 and K2 cases are the large-frame shapes of
+``chip_smoke.py``'s phase 22: 124,460 x 8 and 20,000 x 8 at rank 4, one
+fit alone and 4 at once, and 124,460 x 8 at rank 8 alone; K4 runs a lone
+124,460 x 8 fit at rank 4 for KL, IS and beta 1.5, K5 one at K = 4, D =
+10.  To compare two trees, run them alternately (A, B, B, A) on one
+card, one command after another::
 
     python3 scripts/torch_cluster_timing.py [--root DIR] [--build-only]
 
@@ -33,12 +37,15 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = [(1, 124_460, 8, 4), (4, 124_460, 8, 4), (1, 20_000, 8, 4), (4, 20_000, 8, 4),
          (1, 124_460, 8, 8)]
+BETAS = (1.0, 0.0, 1.5)
 ITERS = 200
+SOURCES = ("mu_nmf", "cd_nmf", "beta_nmf", "cnmf")
 
 
 def ptxas_summary(log: str) -> list:
-    """``(kernel, registers, spill store bytes)`` of every cluster kernel in
-    an ``nvcc -Xptxas -v`` report."""
+    """``(kernel, KMAX, registers, spill store bytes)`` of every cluster
+    kernel in an ``nvcc -Xptxas -v`` report (KMAX from the mangled
+    template arguments)."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S*cluster_kernel\S*)'", line)
@@ -49,7 +56,8 @@ def ptxas_summary(log: str) -> list:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
         elif name and "Used" in line and "registers" in line:
             regs = int(re.search(r"Used (\d+) registers", line).group(1))
-            out.append((name, regs, spill))
+            kmax = re.search(r"cluster_kernelILi(\d+)E", name)
+            out.append((name, int(kmax.group(1)) if kmax else None, regs, spill))
             name = None
     return out
 
@@ -68,18 +76,24 @@ def main() -> int:
     sys.path.insert(0, root)
     import muscle_synergies_tpu_torch as pkg
     from muscle_synergies_tpu_torch import _build
-    from muscle_synergies_tpu_torch.models.kernels import cd_cuda, mu_cuda
+    from muscle_synergies_tpu_torch.models.kernels import (
+        beta_cuda,
+        cd_cuda,
+        cnmf_cuda,
+        mu_cuda,
+    )
 
     assert os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__))) == root
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
-    _build.build_all(("mu_nmf", "cd_nmf"))
-    for name in ("mu_nmf", "cd_nmf"):
+    _build.build_all(SOURCES)
+    for name in SOURCES:
         log = _build._library_path(name).with_suffix(".log").read_text()
-        for kernel, regs, spill in ptxas_summary(log):
-            print(json.dumps({"root": args.root, "ptxas": kernel, "registers": regs,
-                              "spill_store_bytes": spill}), flush=True)
+        for kernel, kmax, regs, spill in ptxas_summary(log):
+            print(json.dumps({"root": args.root, "ptxas": kernel, "kmax": kmax,
+                              "registers": regs, "spill_store_bytes": spill}),
+                  flush=True)
     if args.build_only:
         return 0
 
@@ -99,29 +113,53 @@ def main() -> int:
             times.append(events[0].elapsed_time(events[1]))
         return min(times)
 
-    entries = (("mu_nmf_cluster", mu_cuda, mu_cuda.mu_iterations_cuda,
-                mu_cuda.mu_iterations_plain),
-               ("cd_nmf_cluster", cd_cuda, cd_cuda.cd_iterations_cuda,
-                cd_cuda.cd_iterations_plain))
+    def run(name, mod, kern, plain, inputs, shape, k, **extra):
+        """50 iterations against float64, their digest, 200 timed."""
+        before = mod.cluster_launches
+        ak, bk = kern(*inputs, 50)
+        assert mod.cluster_launches == before + 1, f"{name} took another entry"
+        plan = getattr(mod, "last_plan", None)
+        ap_, bp = plain(*(t.double() for t in inputs), 50)
+        err = max(float(((a.double() - c).abs().amax() / c.abs().amax()).item())
+                  for a, c in ((ak, ap_), (bk, bp)))
+        assert err <= 1e-3, f"{name} disagrees with float64 at {shape} k={k}: {err}"
+        digest = hashlib.sha256(ak.cpu().numpy().tobytes()
+                                + bk.cpu().numpy().tobytes()).hexdigest()[:16]
+        ms = best_ms(lambda: kern(*inputs, ITERS))
+        line = {"root": args.root, "kernel": name, "shape": shape, "k": k, **extra,
+                "us_per_iteration": ms / ITERS * 1e3, "rel_err_50": err,
+                "digest_50": digest, "card": smi}
+        if plan is not None:
+            line["plan"] = plan._asdict()
+        print(json.dumps(line), flush=True)
+
+    def positive(*shape):
+        return torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
+
+    def normal(*shape):
+        a = np.abs(rng.standard_normal(shape)).astype(np.float32)
+        return torch.from_numpy(a).to(dev)
+
     for b, n, l, k in CASES:
-        x, w, h = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
-            rng.random((b, n, l)), np.abs(rng.standard_normal((b, n, k))),
-            np.abs(rng.standard_normal((b, k, l)))))
-        for name, mod, kern, plain in entries:
-            before = mod.cluster_launches
-            wk, hk = kern(x, w, h, 50)
-            assert mod.cluster_launches == before + 1, f"{name} took another entry"
-            wp, hp = plain(x.double(), w.double(), h.double(), 50)
-            err = max(float(((a.double() - c).abs().amax() / c.abs().amax()).item())
-                      for a, c in ((wk, wp), (hk, hp)))
-            assert err <= 1e-3, f"{name} disagrees with float64 at {b}x{n}x{l} k={k}: {err}"
-            digest = hashlib.sha256(wk.cpu().numpy().tobytes()
-                                    + hk.cpu().numpy().tobytes()).hexdigest()[:16]
-            ms = best_ms(lambda: kern(x, w, h, ITERS))
-            print(json.dumps({"root": args.root, "kernel": name, "shape": f"{b}x{n}x{l}",
-                              "k": k, "us_per_iteration": ms / ITERS * 1e3,
-                              "rel_err_50": err, "digest_50": digest, "card": smi}),
-                  flush=True)
+        x, w, h = positive(b, n, l), normal(b, n, k), normal(b, k, l)
+        run("mu_nmf_cluster", mu_cuda, mu_cuda.mu_iterations_cuda,
+            mu_cuda.mu_iterations_plain, (x, w, h), f"{b}x{n}x{l}", k)
+        run("cd_nmf_cluster", cd_cuda, cd_cuda.cd_iterations_cuda,
+            cd_cuda.cd_iterations_plain, (x, w, h), f"{b}x{n}x{l}", k)
+    n, l, k = CASES[0][1:]
+    x, w, h = positive(1, n, l) + 0.05, normal(1, n, k), normal(1, k, l)
+    for beta in BETAS:
+        def kern(x_, w_, h_, it, beta=beta):
+            return beta_cuda.beta_iterations_cuda(x_, w_, h_, it, beta)
+
+        def plain(x_, w_, h_, it, beta=beta):
+            return beta_cuda.beta_iterations_plain(x_, w_, h_, it, beta)
+
+        run("beta_nmf_cluster", beta_cuda, kern, plain, (x, w, h), f"1x{n}x{l}", k,
+            beta=beta)
+    c, s = normal(1, n, 4), normal(1, 4, 10, l)
+    run("cnmf_cluster", cnmf_cuda, cnmf_cuda.cnmf_iterations_cuda,
+        cnmf_cuda.cnmf_iterations_plain, (x, c, s), f"1x{n}x{l}", 4, d=10)
     return 0
 
 

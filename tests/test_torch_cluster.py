@@ -1,21 +1,27 @@
 """PyTorch port: the cluster entries of K1 (MU) and K2 (CD) on the CPU.
 
-A fit whose frame exceeds one block's shared memory runs on a
-thread-block cluster: each block owns a range of rows, updates its rows
-of W, adds their share of W^T W and W^T X, and every block sums the
-blocks' partial Grams in rank order before updating H.  The kernels run
-only on the card; here
+A fit whose frame exceeds one block's shared memory is spread over
+many blocks of the card: each block owns a range of rows, updates its
+rows of W, adds their share of W^T W and W^T X, and every block sums
+the blocks' partial Grams in block order before updating H.  The
+kernels run only on the card; here
 
 - :func:`route` of K1 and K2 is held to a table of frames (the warp,
   block and cluster entries, and the refusal past the cluster's limit);
+- ``mu_cuda.grid_plan``, the mirror of the plan the kernels report, is
+  held to the plans of capture-length frames alone and batched, the
+  switch from rows resident in shared memory to streamed tiles, and
+  ranks 4, 8 and 16 at 8 and 16 channels;
 - the plain mirrors of that split (``torch_cluster_split.py``),
   ``fit_mu_cluster_plain`` and ``fit_cd_cluster_plain``, are held in float64 to the JAX package's
   XLA solvers on a 6,000 x 8 matrix (one range, three, sixteen, and
   ranges of unequal length): 200 fixed iterations to 1e-10 relative,
   fits with the stop on to the same iteration count and factors to
   1e-8, with and without sklearn's L1/L2 penalties and, for MU,
-  ``inner_iter=2``.  Summing the Grams range by range changes only the
-  order of float64 additions (~1e-16 an iteration);
+  ``inner_iter=2``; and at the splits the plan picks on the card (132
+  ranges for a lone fit, 33 for 4 at once, 4 ranges streamed in tiles).
+  Summing the Grams range by range changes only the order of float64
+  additions (~1e-16 an iteration);
 - ``NMFModel`` of the port (CPU, float64) is held to the JAX package's
   on the same 6,000 x 8 frame, which the card fits on a cluster entry.
 """
@@ -136,6 +142,99 @@ def test_split_rows_cuts_as_the_kernel_does():
         split_rows(10, 0)
 
 
+# ---- the plan mirror -------------------------------------------------
+
+SMS = 132  # an H100 SXM's SMs
+CAPTURE = 124_460
+
+
+def _old_cluster_smem_bytes(l, k):
+    """The least block of the thread-block-cluster design these entries
+    replaced: H, the Grams, two partial sums, two tiles of 128 rows."""
+    return 4 * (4 * k * l + 3 * k * k + 36 + 2 * 128 * ((l | 1) + (k | 1)))
+
+
+@pytest.mark.parametrize("b, n, plan", [
+    (1, CAPTURE, (132, 943, True)),  # a lone capture on every SM
+    (4, CAPTURE, (33, 3772, True)),  # 4 at once, a quarter of the card each
+    (2, CAPTURE, (66, 1886, True)),
+    (5, CAPTURE, (26, 4787, False)),  # 5 at once no longer fit: streamed
+    (16, CAPTURE, (8, 15_558, False)),  # phase 22's grid of 4 trials x 4 ranks
+    (1, 20_000, (79, 254, True)),  # at least 256 rows a block
+    (4, 20_000, (33, 607, True)),
+    (51, 6000, (2, 3000, True)),  # a bootstrap's 51 fits
+    (140, 6000, (1, 6000, False)),  # more fits than SMs: one block a fit
+    (1, 4150, (17, 245, True)),
+], ids=lambda v: str(v) if not isinstance(v, tuple) else "-")
+def test_grid_plan_spreads_a_fit_over_the_card(b, n, plan):
+    got = mu_cuda.grid_plan(b, n, 8, 4, SMS)
+    assert (got.blocks, got.rows, got.resident) == plan
+    assert got.blocks * b <= SMS or got.blocks == 1
+    if got.resident:
+        assert got.tile == got.rows
+    else:
+        # tiles of as many rows as fit, the block's share in shared memory
+        assert CLUSTER_MIN_TILE <= got.tile < got.rows
+        assert got.smem + 4 * 12 > mu_cuda.SMEM_LIMIT
+    assert got.smem == 4 * (mu_cuda.grid_small_floats(8, 4) + got.tile * 12)
+    assert got.smem <= mu_cuda.SMEM_LIMIT
+
+
+CLUSTER_MIN_TILE = mu_cuda.CLUSTER_MIN_TILE
+
+
+@pytest.mark.parametrize("l", [8, 16])
+@pytest.mark.parametrize("k", [4, 8, 16])
+@pytest.mark.parametrize("b", [1, 4, 16])
+def test_grid_plan_rule_at_ranks_and_channels(b, k, l):
+    """The rule, held case by case: at most SMs // batch blocks and 256
+    rows a block where the fit has them; resident at the least block
+    count whose rows fit, where that is within SMs // batch; else
+    streamed at SMs // batch in tiles as large as fit."""
+    got = mu_cuda.grid_plan(b, CAPTURE, l, k, SMS)
+    row, small = k + l, mu_cuda.grid_small_floats(l, k)
+    room = mu_cuda.SMEM_LIMIT // 4 - small
+
+    def fits(p):
+        return -(-CAPTURE // p) * row <= room
+
+    assert got.blocks * got.rows >= CAPTURE > (got.blocks - 1) * got.rows
+    assert got.smem == 4 * (small + got.tile * row) <= mu_cuda.SMEM_LIMIT
+    p_max, p_min = SMS // b, min(SMS // b, -(-CAPTURE // 256))
+    if got.resident:
+        assert fits(got.blocks) and p_min <= got.blocks <= p_max
+        # no fewer blocks from p_min up would hold their rows
+        assert not any(fits(p) for p in range(p_min, got.blocks))
+    else:
+        assert got.blocks == p_max and not any(fits(p) for p in range(p_min, p_max + 1))
+        assert got.tile == room // row
+    # a lone capture-length fit always spreads over the card, resident
+    if b == 1:
+        assert got.resident and got.blocks == SMS
+
+
+def test_grid_plan_refuses_only_past_the_least_block():
+    # the least block (small state and a 128-row tile) bounds the entry
+    for l, k in ((8, 4), (16, 8), (64, 16), (150, 16), (200, 1)):
+        assert mu_cuda.cluster_smem_bytes(l, k) <= mu_cuda.SMEM_LIMIT
+        mu_cuda.grid_plan(16, CAPTURE, l, k, SMS)
+    with pytest.raises(ValueError, match="under 128"):
+        mu_cuda.grid_plan(16, CAPTURE, 2000, 16, SMS)
+    # the redesign refuses nothing the cluster design took: wherever
+    # that design's least block fit, this one's does
+    for l in range(1, 300):
+        for k in range(1, 17):
+            if _old_cluster_smem_bytes(l, k) <= mu_cuda.SMEM_LIMIT:
+                assert mu_cuda.cluster_smem_bytes(l, k) <= mu_cuda.SMEM_LIMIT, (l, k)
+
+
+def test_grid_workspace_holds_counters_slots_and_two_parities():
+    plan = mu_cuda.grid_plan(4, CAPTURE, 8, 4, SMS)
+    # 4 counters, 132 slots, 2 x 132 partial sets of 64 entries and a scalar
+    assert mu_cuda.grid_workspace_floats(plan, 4, 8, 4) == 4 + 132 + 2 * 132 * 68
+    assert mu_cuda.grid_nq(8, 4) == 64 and mu_cuda.grid_nq(16, 8) == 2 * 3 * 32
+
+
 # ---- the split mirrors against the JAX package -----------------------
 
 MODES = {
@@ -194,6 +293,30 @@ def test_cd_split_mirror_matches_jax(k, mode, ranges):
     if mode == "fixed":
         assert int(st.n_iter) == 200
     _check(st.n_iter, st.w, st.ht.T, _jax_fit("cd", k, mode), mode)
+
+
+# the splits the card's plan takes: a lone capture-length fit (132
+# ranges), 4 at once (33), and 4 ranges streamed in tiles of 700 rows
+GRID_SPLITS = {"lone": dict(ranges=132), "four": dict(ranges=33),
+               "streamed": dict(ranges=4, tile=700)}
+GRID_MODES = [("mu", m) for m in ("fixed", "stop", "penalized", "inner2")] + [
+    ("cd", m) for m in ("fixed", "stop", "penalized")]
+
+
+@pytest.mark.parametrize("split", list(GRID_SPLITS))
+@pytest.mark.parametrize("solver, mode", GRID_MODES,
+                         ids=[f"{s}-{m}" for s, m in GRID_MODES])
+def test_split_mirrors_at_the_grid_plans_splits_match_jax(solver, mode, split):
+    assert mu_cuda.grid_plan(1, CAPTURE, 8, 4, SMS).blocks == 132
+    assert mu_cuda.grid_plan(4, CAPTURE, 8, 4, SMS).blocks == 33
+    w0, h0 = _start(4)
+    inner = dict(inner_iter=2) if mode == "inner2" else {}
+    kw = MODES["fixed" if mode == "inner2" else mode]
+    mirror = fit_mu_cluster_plain if solver == "mu" else fit_cd_cluster_plain
+    st = mirror(*map(torch.as_tensor, (X, w0, h0)), **GRID_SPLITS[split], **kw, **inner)
+    h = st.h if solver == "mu" else st.ht.T
+    want = _jax_fit(solver, 4, "fixed" if mode == "inner2" else mode, **inner)
+    _check(st.n_iter, st.w, h, want, "fixed" if mode in ("fixed", "inner2") else mode)
 
 
 @pytest.mark.parametrize("solver", ["mu", "cd"])

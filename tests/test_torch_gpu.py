@@ -836,34 +836,81 @@ def test_bootstraps_refuse_frames_over_one_block(cuda):
     assert plain.similarities.shape == (2, 4) and mu_cuda.cluster_launches == 1
 
 
-@pytest.mark.parametrize("n, l, k", [(20_000, 8, 4), (124_460, 8, 8), (20_000, 16, 8),
-                                     (8_000, 8, 12)])
-def test_cluster_entries_match_plain_float64(cuda, n, l, k):
-    """K1's and K2's cluster entries (resident rows at 20,000 x 8 and 16,
-    streamed at 124,460 x 8; the per-tile sums at rank 12): 30 fixed
-    iterations within 1e-3 of float64, and fits that stop where the
-    float64 fit stops, with sklearn's penalties."""
-    x, w, h = _problem(cuda, b=2, n=n, l=l, k=k)
-    assert mu_cuda.route(n, l, k) == cd_cuda.route(n, l, k) == "cluster"
-    mu_cuda.cluster_launches = cd_cuda.cluster_launches = 0
-    for kern, plain in ((mu_cuda.mu_iterations_cuda, mu_cuda.mu_iterations_plain),
-                        (cd_cuda.cd_iterations_cuda, cd_cuda.cd_iterations_plain)):
-        wk, hk = kern(x, w, h, 30)
-        wp, hp = plain(x.double(), w.double(), h.double(), 30)
-        assert _rel(wk, wp) < 1e-3 and _rel(hk, hp) < 1e-3
-    assert (mu_cuda.cluster_launches, cd_cuda.cluster_launches) == (1, 1)
-    for kern, plain in ((mu_cuda.fit_mu_cuda, mu_cuda.fit_mu_plain),
-                        (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain)):
-        sk = kern(x, w, h, max_iter=200, tol=1e-3, **REGS)
-        sp = plain(x.double(), w.double(), h.double(), max_iter=200, tol=1e-3, **REGS)
-        assert np.median((sk.n_iter - sp.n_iter).cpu().numpy()) == 0
-    # zero-padded components stay exactly 0
-    w[..., k // 2:] = 0
-    h[:, k // 2:] = 0
-    st = mu_cuda.fit_mu_cuda(x, w, h, max_iter=30)
-    assert (st.w[..., k // 2:] == 0).all() and (st.h[:, k // 2:] == 0).all()
-    st = cd_cuda.fit_cd_cuda(x, w, h, max_iter=30, **REGS)
-    assert (st.w[..., k // 2:] == 0).all() and (st.ht[..., k // 2:] == 0).all()
+_CLUSTER_CASE = """
+import sys, numpy as np, torch
+sys.path.insert(0, {root!r})
+from muscle_synergies_tpu_torch.models.kernels import cd_cuda, mu_cuda
+b, n, l, k, streamed = {case!r}
+regs = {regs!r}
+dev = torch.device("cuda", 0)
+g = torch.Generator().manual_seed(0)
+x = torch.rand(b, n, l, generator=g).to(dev)
+w = torch.randn(b, n, k, generator=g).abs().to(dev)
+h = torch.randn(b, k, l, generator=g).abs().to(dev)
+assert mu_cuda.route(n, l, k) == cd_cuda.route(n, l, k) == "cluster"
+sms = torch.cuda.get_device_properties(dev).multi_processor_count
+plan = mu_cuda.grid_plan(b, n, l, k, sms)
+assert plan.resident == (not streamed), plan
+def rel(a, c):
+    return float((a.double() - c).abs().max() / c.abs().max())
+for mod, kern, plain in ((mu_cuda, mu_cuda.mu_iterations_cuda, mu_cuda.mu_iterations_plain),
+                         (cd_cuda, cd_cuda.cd_iterations_cuda, cd_cuda.cd_iterations_plain)):
+    before = mod.cluster_launches
+    wk, hk = kern(x, w, h, 30)
+    assert mod.cluster_launches == before + 1 and mod.last_plan == plan, mod.last_plan
+    wp, hp = plain(x.double(), w.double(), h.double(), 30)
+    assert rel(wk, wp) < 1e-3 and rel(hk, hp) < 1e-3, (rel(wk, wp), rel(hk, hp))
+fits = min(b, 2)
+for kern, plain in ((mu_cuda.fit_mu_cuda, mu_cuda.fit_mu_plain),
+                    (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain)):
+    sk = kern(x, w, h, max_iter=200, tol=1e-3, **regs)
+    sp = plain(x[:fits].double(), w[:fits].double(), h[:fits].double(), max_iter=200,
+               tol=1e-3, **regs)
+    assert np.median((sk.n_iter[:fits] - sp.n_iter).cpu().numpy()) == 0
+# zero-padded components stay exactly 0
+w[..., k // 2:] = 0
+h[:, k // 2:] = 0
+st = mu_cuda.fit_mu_cuda(x, w, h, max_iter=30)
+assert (st.w[..., k // 2:] == 0).all() and (st.h[:, k // 2:] == 0).all()
+st = cd_cuda.fit_cd_cuda(x, w, h, max_iter=30, **regs)
+assert (st.w[..., k // 2:] == 0).all() and (st.ht[..., k // 2:] == 0).all()
+torch.cuda.synchronize()
+print("finished", plan)
+"""
+
+# (batch, rows, channels, rank, streamed): resident rows at a subject's
+# 6,000 x 8, 20,000 x 8 and x 16, a whole capture at ranks 4 and 8 alone
+# (every SM) and 4 at once, rank 12 (three 4-row Gram tiles); streamed
+# tiles where the batch's rows exceed the card's shared memory, with
+# rows of 9 channels at rank 3 (copies that start off 16-byte alignment)
+# and a batch over the SM count (one block a fit, no barrier)
+CLUSTER_CASES = [(2, 6000, 8, 4, False), (2, 20_000, 8, 4, False),
+                 (2, 20_000, 16, 8, False), (1, 124_460, 8, 4, False),
+                 (1, 124_460, 8, 8, False), (4, 124_460, 8, 4, False),
+                 (2, 8000, 8, 12, False), (33, 20_000, 8, 4, True),
+                 (33, 21_001, 9, 3, True), (140, 6000, 8, 4, True)]
+
+
+@pytest.mark.parametrize("case", CLUSTER_CASES,
+                         ids=[f"{b}x{n}x{l}k{k}" for b, n, l, k, _ in CLUSTER_CASES])
+def test_cluster_entries_match_plain_float64(cuda, case):
+    """K1's and K2's cluster entries (one fit spread over many blocks, rows
+    resident or streamed as ``grid_plan`` says, the plan the kernel
+    reports equal to the mirror's): 30 fixed iterations within 1e-3 of
+    float64, fits with sklearn's penalties that stop where the float64
+    fit stops, and zero-padded components that stay 0.  Each case runs in
+    a process of its own that must finish within 120 s: blocks that took
+    different branches at a barrier in device memory would hang the card
+    rather than fail."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = _CLUSTER_CASE.format(root=root, case=case, regs=REGS)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and "finished" in out.stdout, out.stderr[-2000:]
 
 
 @pytest.mark.parametrize("n, l, k", [(6000, 8, 4), (124_460, 8, 4), (3000, 16, 12)])

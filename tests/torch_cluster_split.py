@@ -5,7 +5,10 @@ rows into one range a block; each block updates its rows of W, adds
 their share of the H update's sums (W^T W and W^T X; for K4 the two
 weight planes W^T (X WH^(beta-2)) and W^T WH^(beta-1), for KL the
 column sums of W) and of the stopping statistic, and every block sums
-the ranges' shares in range order before updating H.  K5's (cNMF)
+the ranges' shares in range order before updating H.  K1's and K2's
+blocks are spread over the card (``mu_cuda.grid_plan`` picks the
+ranges); a block that streams its rows adds its tiles' shares in tile
+order into its own before the ranges are summed (``tile=``).  K5's (cNMF)
 cluster entry cuts time the same way: the S sums are added range by
 range, and each range updates its rows of C from its own rows and a
 halo of D - 1 rows of C on each side, read from the ranges that own
@@ -60,51 +63,84 @@ def split_rows(n: int, ranges) -> list:
     return bounds
 
 
-def _mu_split_update(xs, w, h, bounds, regs, inner_iter):
+def _in_order(parts, dim):
+    """Sum ``parts`` along ``dim`` one after another, first to last (the
+    kernels' order: a running sum, each part added to it)."""
+    return parts.cumsum(dim).select(dim, -1)
+
+
+def _ranges(v, bounds, dim=-2):
+    """``v`` cut along ``dim`` into the ranges of ``bounds``, zero-padded to
+    equal lengths and stacked just before ``dim``."""
+    dim = dim % v.ndim
+    longest = max(b - a for a, b in zip(bounds, bounds[1:]))
+    pieces = []
+    for a, b in zip(bounds, bounds[1:]):
+        piece = v.narrow(dim, a, b - a)
+        pad = [0, 0] * (v.ndim - 1 - dim) + [0, longest - (b - a)]
+        pieces.append(torch.nn.functional.pad(piece, pad))
+    return torch.stack(pieces, dim)
+
+
+def _range_grams(w, xs, bounds, tile):
+    """``W^T W`` and ``W^T X`` summed as the grid entries' blocks sum them:
+    each range's tiles of ``tile`` rows (the whole range when ``None``)
+    in tile order into the range's share, the shares in range order."""
+    k = w.shape[-1]
+    y = _ranges(torch.cat([w, xs], dim=-1), bounds)  # (..., P, rows, k + l)
+    rows = y.shape[-2]
+    tile = rows if tile is None else tile
+    n_tiles = -(-rows // tile) if rows else 1
+    y = torch.nn.functional.pad(y, (0, 0, 0, n_tiles * tile - rows))
+    y = y.unflatten(-2, (n_tiles, tile))  # (..., P, T, tile, k + l)
+    part = y[..., :k].transpose(-1, -2) @ y  # (..., P, T, k, k + l)
+    total = _in_order(_in_order(part, -3), -3)
+    return total[..., :k], total[..., k:]
+
+
+def _mu_split_update(xs, w, h, bounds, regs, inner_iter, tile=None):
     """One MU iteration with H's Grams summed range by range, in range
     order, as the cluster entry's blocks add theirs."""
     l1_w, l2_w, l1_h, l2_h = regs
     w, _ = mu_update(xs, w, h, l1_w, l2_w, inner_iter=inner_iter, update_h=False)
-    wtw = wtx = 0
-    for a, b in zip(bounds, bounds[1:]):
-        wr = w[..., a:b, :].transpose(-1, -2)
-        wtw = wtw + wr @ w[..., a:b, :]
-        wtx = wtx + wr @ xs[..., a:b, :]
+    wtw, wtx = _range_grams(w, xs, bounds, tile)
     return w, _update_h(h, wtx, wtw, l1_h, l2_h, inner_iter)
 
 
 def _mu_split_error(xs, w, h, bounds):
-    """``||X - W H||_F``: the ranges' sums of squares added in range order."""
-    total = 0
-    for a, b in zip(bounds, bounds[1:]):
-        d = xs[..., a:b, :] - w[..., a:b, :] @ h
-        total = total + (d * d).sum(dim=(-2, -1))
-    return total.sqrt()
+    """``||X - W H||_F``: the ranges' sums of squares added in range order
+    (a block's threads carry theirs across its tiles)."""
+    d = xs - w @ h
+    return _in_order(_ranges((d * d).sum(dim=-1), bounds, -1).sum(dim=-1), -1).sqrt()
 
 
 def fit_mu_cluster_plain(
     xs, w0, h0, ranges, max_iter: int = 200, tol: float = 1e-4,
     check_every: int = 10, inner_iter: int = 1, l1_reg_w: float = 0.0,
     l2_reg_w: float = 0.0, l1_reg_h: float = 0.0, l2_reg_h: float = 0.0,
+    tile=None,
 ) -> MUState:
     """``mu_cuda.fit_mu_plain`` computed as the cluster entry splits it:
     the rows cut into ``ranges`` (a count, or bounds; :func:`split_rows`),
-    each range's W^T W, W^T X and squared error summed in range order.
+    each range's W^T W, W^T X and squared error summed in range order,
+    a range's Grams over its tiles of ``tile`` rows first where the plan
+    streams them.
     ``tol <= 0`` runs ``max_iter`` iterations."""
     bounds = split_rows(xs.shape[-2], ranges)
     regs = (l1_reg_w, l2_reg_w, l1_reg_h, l2_reg_h)
     return MUState(*fit_chunked(
         xs, w0, h0,
-        lambda xa, wa, ha: _mu_split_update(xa, wa, ha, bounds, regs, inner_iter),
+        lambda xa, wa, ha: _mu_split_update(xa, wa, ha, bounds, regs, inner_iter, tile),
         lambda xa, wa, ha: _mu_split_error(xa, wa, ha, bounds),
         max_iter, tol, check_every,
     ))
 
 
-def _cd_split_iteration(xs, w, ht, bounds, regs):
+def _cd_split_iteration(xs, w, ht, bounds, regs, tile=None):
     """One CD outer iteration as the cluster entry splits it: the W pass
     range by range (row-local), the ranges' W^T W, W^T X and violations
-    added in range order, then the H pass from those sums."""
+    added in range order (a range's Grams over its tiles first, in tile
+    order), then the H pass from those sums."""
     l1_w, l2_w, l1_h, l2_h = regs
     k = ht.shape[-1]
     eye = torch.eye(k, dtype=ht.dtype, device=ht.device)
@@ -114,31 +150,32 @@ def _cd_split_iteration(xs, w, ht, bounds, regs):
         hht = hht + l2_w * eye
     if l1_w != 0.0:
         xht = xht - l1_w
-    rows, viol, wtw, wtx = [], 0, 0, 0
-    for a, b in zip(bounds, bounds[1:]):
-        wr, vr = _sweep(w[..., a:b, :], hht, xht[..., a:b, :])
-        rows.append(wr)
-        viol = viol + vr
-        wtw = wtw + wr.transpose(-1, -2) @ wr
-        wtx = wtx + wr.transpose(-1, -2) @ xs[..., a:b, :]
+    # the W pass is row-local: every range at once, the padding rows 0
+    # (their gradient is 0, so they stay 0 and add no violation)
+    wr, vr = _sweep(_ranges(w, bounds), hht.unsqueeze(-3), _ranges(xht, bounds))
+    w = torch.cat([wr[..., r, :b - a, :] for r, (a, b) in
+                   enumerate(zip(bounds, bounds[1:]))], dim=-2)
+    viol = _in_order(vr, -1)
+    wtw, wtx = _range_grams(w, xs, bounds, tile)
     if l2_h != 0.0:
         wtw = wtw + l2_h * eye
     cross = wtx.transpose(-1, -2)
     if l1_h != 0.0:
         cross = cross - l1_h
     ht, viol_h = _sweep(ht, wtw, cross)
-    return torch.cat(rows, dim=-2), ht, viol + viol_h
+    return w, ht, viol + viol_h
 
 
 def fit_cd_cluster_plain(
     xs, w0, h0, ranges, max_iter: int = 200, tol: float = 1e-4,
     l1_reg_w: float = 0.0, l2_reg_w: float = 0.0, l1_reg_h: float = 0.0,
-    l2_reg_h: float = 0.0,
+    l2_reg_h: float = 0.0, tile=None,
 ) -> CDState:
     """``cd_cuda.fit_cd_plain`` computed as the cluster entry splits it:
     the rows cut into ``ranges`` (a count, or bounds; :func:`split_rows`),
-    each range's W^T W, W^T X and W-pass violation summed in range order;
-    each fit stops on its own."""
+    each range's W^T W, W^T X and W-pass violation summed in range order,
+    a range's Grams over its tiles of ``tile`` rows first where the plan
+    streams them; each fit stops on its own."""
     single = xs.ndim == 2
     if single:
         xs, w0, h0 = xs[None], w0[None], h0[None]
@@ -154,7 +191,7 @@ def fit_cd_cluster_plain(
         if active.numel() == 0:
             break
         wa, hta, viol = _cd_split_iteration(xs[active], w[active], ht[active],
-                                            bounds, regs)
+                                            bounds, regs, tile)
         w[active], ht[active] = wa, hta
         n_iter[active] = it
         if it == 1:
