@@ -11,9 +11,8 @@ started together; K3 and K6 share ``sosfiltfilt.cu``; K1, K2 and K4
 each have a warp entry, one warp per fit, for frames of at most 224 x
 16 at rank 8, and a block entry, one block per fit, above that; K1, K2,
 K4 and K5 also a cluster entry for frames over one block's shared
-memory: K1's and K2's spread one fit over many blocks of the card, K4's
-and K5's run one thread-block cluster a fit) and then, failing on the
-first assertion that does not hold:
+memory, each spreading one fit over many blocks of the card) and then,
+failing on the first assertion that does not hold:
 
 1. prints the card and its power limit, and the build time;
 2. K3 ``sosfiltfilt``: 64 trials x 124,460 samples x 8 channels through
@@ -253,10 +252,13 @@ first assertion that does not hold:
     iteration of a lone 124,460 x 8 fit and of 4 at once on each entry,
     with the plan each took, beside the plain loop's and the bound.
 23. large frames (K4's and K5's cluster entries), after 22: (a) 50
-    fixed iterations at 4 x 6,000 x 8 (rows resident in shared memory)
-    and 1 x 124,460 x 8 (streamed), rank 4, for beta = 1, 0, 1.5 and
-    -0.5, and of K5 at K = 4, D = 10, against the plain version in
-    float64, bar 1e-3, then timed at the second; (b) fits with the stop
+    fixed iterations at 4 x 6,000 x 8, 4 x 124,460 x 8 (K4 resident on 33
+    blocks a fit, K5 streamed, as ``CNMFModel(4, 10)`` runs it) and 1 x
+    124,460 x 8 (resident), rank 4, for beta = 1, 0, 1.5 and -0.5, and of K5
+    at K = 4, D = 10, against the plain version in float64, bar 1e-3,
+    then timed at the last; every launch's plan (blocks a fit, rows a
+    block, resident or streamed) is logged and is the one
+    ``beta_cuda.grid_plan`` / ``cnmf_cuda.grid_plan`` gives; (b) fits with the stop
     on (max_iter 500) on a subject's 30 cycles (6,000 x 8): K4 at ranks
     1-4 for KL and IS (tol 1e-4), K5 with 4 restarts (tol 1e-3),
     against float64 at phase 7's bars (|median stopping gap| <= 10 iterations, factor
@@ -268,7 +270,8 @@ first assertion that does not hold:
     ``CNMFModel(4, 10).fit`` on that envelope (4 restarts), and
     ``bootstrap_time_varying_synergies`` on the 30 cycles, held to
     float64 at phase 18's bars; (d) the time of an iteration of a lone
-    124,460 x 8 fit on each entry (K4 for beta = 1, 0, 1.5) beside the
+    124,460 x 8 fit and of 4 at once on each entry (K4 for beta = 1, 0,
+    1.5; K5's 4 stream their rows), with the plan each took, beside the
     plain loop's and the bound.
 
 Each main path is driven with every launch counter set to 0 just before
@@ -2580,7 +2583,7 @@ print(json.dumps(out))
     # ---- 22. large frames: the cluster entries of K1 and K2 ----
     def large_frames(self, emg, xs):
         """Phase 22: frames over one block's shared memory, on the cluster
-        entries of K1 and K2 (one thread-block cluster a fit): fixed
+        entries of K1 and K2 (one fit spread over many blocks): fixed
         iterations and fits against float64, the calls that run them under
         default arguments, and a lone capture-length fit's iteration."""
         from muscle_synergies_tpu_torch.models import batch as mb
@@ -2794,9 +2797,11 @@ print(json.dumps(out))
 
     def large_frames_beta_cnmf(self, emg, xs):
         """Phase 23: frames over one block's shared memory, on the cluster
-        entries of K4 (beta-MU) and K5 (cNMF): fixed iterations and fits
-        against float64, the four calls that raised before them under
-        default arguments, and a lone capture-length fit's iteration."""
+        entries of K4 (beta-MU) and K5 (cNMF), each fit spread over many
+        blocks of the card: fixed iterations and fits against float64, the
+        four calls that raised before them under default arguments, and
+        a capture-length fit's iteration alone and 4 at once, every plan
+        held to its mirror."""
         from muscle_synergies_tpu_torch.models import CNMFModel, select, stability
         from muscle_synergies_tpu_torch.models import batch as mb
         from muscle_synergies_tpu_torch.models import cnmf as mc
@@ -2805,6 +2810,7 @@ print(json.dumps(out))
         from muscle_synergies_tpu_torch.ops import batched
 
         torch, dev, rng = self.torch, self.dev, self.rng
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         for shape in ((6_000, 8, 4), (20_000, 8, 4), (N_SAMPLES, 8, 8)):
             for beta in (1.0, 0.0, 1.5, -0.5):
                 assert beta_cuda.route(*shape, beta) == "cluster", (shape, beta)
@@ -2814,11 +2820,14 @@ print(json.dumps(out))
         def positive(*shape):
             return torch.from_numpy((rng.random(shape) + 0.05).astype(np.float32)).to(dev)
 
-        # (a) 50 fixed iterations against the plain version in float64: rows
-        # resident in shared memory at 4 x 6,000 x 8, streamed at 124,460 x 8
+        # (a) 50 fixed iterations against the plain version in float64 at
+        # the plans the main paths take: 4 x 6,000 x 8 (a subject), 4 x
+        # 124,460 x 8 (K4's sweep resident on 33 blocks a fit, K5's 4
+        # restarts of CNMFModel streamed through L2), and a lone 124,460 x 8
+        # fit (both resident on every SM), the plan of each logged
         iters = 50
         errs = {"beta_nmf_cluster": [], "cnmf_cluster": []}
-        for b, n in ((4, 6_000), (1, N_SAMPLES)):
+        for b, n in ((4, 6_000), (4, N_SAMPLES), (1, N_SAMPLES)):
             x, w, h = positive(b, n, N_CHANNELS), positive(b, n, 4), positive(b, 4, N_CHANNELS)
             for beta in (1.0, 0.0, 1.5, -0.5):
                 before = beta_cuda.cluster_launches
@@ -2831,6 +2840,9 @@ print(json.dumps(out))
                 log(f"beta_nmf_cluster: {iters} iterations at {b}x{n}x{N_CHANNELS} k=4, "
                     f"beta={beta:g}: rel err {errs['beta_nmf_cluster'][-1][1]:.3e} (bar 1e-3)")
                 assert errs["beta_nmf_cluster"][-1][1] <= 1e-3, "beta_nmf_cluster disagrees"
+                self.log_plan(f"beta_nmf_cluster {b}x{n}x{N_CHANNELS} beta={beta:g}",
+                              beta_cuda.last_plan,
+                              beta_cuda.grid_plan(b, n, N_CHANNELS, 4, sms, beta == 1.0))
             c, s = positive(b, n, 4), positive(b, 4, 10, N_CHANNELS)
             before = cnmf_cuda.cluster_launches
             ck, sk = cnmf_cuda.cnmf_iterations_cuda(x, c, s, iters)
@@ -2841,7 +2853,10 @@ print(json.dumps(out))
             log(f"cnmf_cluster: {iters} iterations at {b}x{n}x{N_CHANNELS} K=4 D=10: rel err "
                 f"{errs['cnmf_cluster'][-1][1]:.3e} (bar 1e-3)")
             assert errs["cnmf_cluster"][-1][1] <= 1e-3, "cnmf_cluster disagrees"
-        # timed at the streamed frame: KL for K4, the kind the main paths run
+            self.log_plan(f"cnmf_cluster {b}x{n}x{N_CHANNELS}", cnmf_cuda.last_plan,
+                          cnmf_cuda.grid_plan(b, n, N_CHANNELS, 4, 10, sms))
+        # timed at the lone capture-length fit: KL for K4, the kind the main
+        # paths run
         b, n = x.shape[:2]
         ms = cuda_ms(lambda: beta_cuda.beta_iterations_cuda(x, w, h, iters, 1.0), reps=3)
         plain_ms = cuda_ms(lambda: beta_cuda.beta_iterations_plain(x, w, h, iters, 1.0), reps=1)
@@ -2895,6 +2910,9 @@ print(json.dumps(out))
                 f"the kernel's stop {err:.3e} (bar 2e-3)")
             assert abs(np.median(gap)) <= 10, "beta_nmf_cluster fit stops far from float64"
             assert err <= 2e-3, "beta_nmf_cluster fit disagrees"
+            self.log_plan(f"beta_nmf_cluster ranks 1-4 on 6000x8 beta={beta:g}",
+                          beta_cuda.last_plan,
+                          beta_cuda.grid_plan(4, gx.shape[1], N_CHANNELS, 4, sms, beta == 1.0))
         c0, s0 = mc.init_cnmf(np.repeat(subject.cpu().numpy()[None], 4, axis=0), 4, 10)
         c0, s0 = (torch.as_tensor(a).to(dev) for a in (c0, s0))
         gx = subject[None].repeat(4, 1, 1).contiguous()
@@ -2912,6 +2930,8 @@ print(json.dumps(out))
             f"(bar 2e-3)")
         assert abs(np.median(gap)) <= 10, "cnmf_cluster fit stops far from float64"
         assert err <= 2e-3, "cnmf_cluster fit disagrees"
+        self.log_plan("cnmf_cluster 4 restarts on 6000x8", cnmf_cuda.last_plan,
+                      cnmf_cuda.grid_plan(4, gx.shape[1], N_CHANNELS, 4, 10, sms))
 
         # (c) the calls that raised before these entries, under default
         # arguments: each one cluster launch and no other launch
@@ -2925,12 +2945,16 @@ print(json.dumps(out))
             "NMFModel(4, KL).fit on 30 cycles (6000x8)",
             lambda: select.NMFModel(n_components=4, **kl).fit(positive_subject))
         assert counts["beta_nmf_cluster"] == 1 and sum(counts.values()) == 1, counts
+        self.log_plan("NMFModel(4, KL) 6000x8", beta_cuda.last_plan,
+                      beta_cuda.grid_plan(1, positive_subject.shape[0], N_CHANNELS, 4, sms, True))
         assert np.isfinite(model.components_).all()
         run, counts = self.main_path(
             "find_synergies KL 124,460x8 ranks 1-4 batched (array core)",
             lambda: select._find_synergies_arrays(host, 1, 4, sweep="batched",
                                                   max_iter=2000, **kl))
         assert counts["beta_nmf_cluster"] == 1 and sum(counts.values()) == 1, counts
+        self.log_plan("find_synergies KL 124,460x8", beta_cuda.last_plan,
+                      beta_cuda.grid_plan(4, N_SAMPLES, N_CHANNELS, 4, sms, True))
         vaf = run.vaf_rows[:, 0]
         log(f"find_synergies KL 124,460x8: VAF by rank {np.round(vaf, 6).tolist()}, n_iter "
             f"{[run.models[k].n_iter_ for k in run.ranks]}")
@@ -2938,6 +2962,8 @@ print(json.dumps(out))
         model, counts = self.main_path("CNMFModel(4, 10).fit on a whole trial (124,460x8)",
                                        lambda: CNMFModel(4, 10).fit(capture))
         assert counts["cnmf_cluster"] == 1 and sum(counts.values()) == 1, counts
+        self.log_plan("CNMFModel(4, 10) 124,460x8", cnmf_cuda.last_plan,
+                      cnmf_cuda.grid_plan(4, N_SAMPLES, N_CHANNELS, 4, 10, sms))
         tvaf = 1.0 - model.reconstruction_err_ ** 2 / float((capture.double() ** 2).sum())
         log(f"CNMFModel(4, 10) on 124,460x8: {model.n_iter_} iterations, restart errors "
             f"{np.round(model.restart_errors_, 4).tolist()}, VAF {tvaf:.6f}")
@@ -2946,6 +2972,9 @@ print(json.dumps(out))
             "bootstrap_time_varying_synergies 6000x8 (30 cycles)",
             lambda: stability.bootstrap_time_varying_synergies(subject, 4, 10, n_boot=10))
         assert counts["cnmf_cluster"] == 1 and sum(counts.values()) == 1, counts
+        self.log_plan("bootstrap_time_varying_synergies 6000x8 (the full fit and 10)",
+                      cnmf_cuda.last_plan,
+                      cnmf_cuda.grid_plan(11, subject.shape[0], N_CHANNELS, 4, 10, sms))
         t0 = time.perf_counter()
         want = stability.bootstrap_time_varying_synergies(subject.double(), 4, 10, n_boot=10,
                                                           dtype=torch.float64, impl="torch")
@@ -2957,33 +2986,52 @@ print(json.dumps(out))
             f"reference cosines min {cos.min():.6f} (bar 0.999)")
         assert gap <= 2e-3 and cos.min() >= 0.999, "the 6,000 x 8 convolutive bootstrap disagrees"
 
-        # (d) a lone capture-length fit's iteration against the plain loop
+        # (d) a lone capture-length fit's iteration, and 4 at once, against
+        # the plain loop, with the plan each launch took
         lone = 100
-        x1, w1, h1 = (positive(1, N_SAMPLES, N_CHANNELS), positive(1, N_SAMPLES, 4),
-                      positive(1, 4, N_CHANNELS))
-        c1, s1 = positive(1, N_SAMPLES, 4), positive(1, 4, 10, N_CHANNELS)
-        runs = [(f"beta_nmf_cluster beta={beta:g}", "beta_nmf_kl" if beta == 1.0 else "beta_nmf",
-                 lambda it, bt=beta: beta_cuda.beta_iterations_cuda(x1, w1, h1, it, bt),
-                 lambda it, bt=beta: beta_cuda.beta_iterations_plain(x1, w1, h1, it, bt))
-                for beta in (1.0, 0.0, 1.5)]
-        runs.append(("cnmf_cluster", "cnmf",
-                     lambda it: cnmf_cuda.cnmf_iterations_cuda(x1, c1, s1, it),
-                     lambda it: cnmf_cuda.cnmf_iterations_plain(x1, c1, s1, it)))
-        for label, kind, kern, plain in runs:
-            us = cuda_ms(lambda: kern(lone), reps=3) / lone * 1e3
-            plain_us = cuda_ms(lambda: plain(10), reps=1) / 10 * 1e3
-            d = 10 if kind == "cnmf" else 1
-            nbytes = 4 * (N_SAMPLES * N_CHANNELS + 2 * (N_SAMPLES * 4 + 4 * d * N_CHANNELS))
-            bound_ms, bound_by = bound(lone * nmf_flops(kind, N_SAMPLES, N_CHANNELS, 4, d),
-                                       nbytes)
-            log(f"stage {label} lone fit 1x{N_SAMPLES}x{N_CHANNELS} k=4: {us:.2f} us an "
-                f"iteration (plain f32 {plain_us:.2f} us; bound {bound_ms / lone * 1e3:.3f} "
-                f"us, {bound_by})  [{self.smi}]")
-            name = label.split()[0]
-            if name == "cnmf_cluster" or label.endswith("=1"):
-                self.kernels[name].update(lone_us_per_iteration=us,
-                                          lone_plain_us_per_iteration=plain_us,
-                                          lone_bound_us_per_iteration=bound_ms / lone * 1e3)
+        for b in (1, 4):
+            x1, w1, h1 = (positive(b, N_SAMPLES, N_CHANNELS), positive(b, N_SAMPLES, 4),
+                          positive(b, 4, N_CHANNELS))
+            c1, s1 = positive(b, N_SAMPLES, 4), positive(b, 4, 10, N_CHANNELS)
+            runs = [(f"beta_nmf_cluster beta={beta:g}", "beta_nmf_kl" if beta == 1.0 else "beta_nmf",
+                     beta_cuda, beta_cuda.grid_plan(b, N_SAMPLES, N_CHANNELS, 4, sms, beta == 1.0),
+                     lambda it, bt=beta: beta_cuda.beta_iterations_cuda(x1, w1, h1, it, bt),
+                     lambda it, bt=beta: beta_cuda.beta_iterations_plain(x1, w1, h1, it, bt))
+                    for beta in (1.0, 0.0, 1.5)]
+            runs.append(("cnmf_cluster", "cnmf", cnmf_cuda,
+                         cnmf_cuda.grid_plan(b, N_SAMPLES, N_CHANNELS, 4, 10, sms),
+                         lambda it: cnmf_cuda.cnmf_iterations_cuda(x1, c1, s1, it),
+                         lambda it: cnmf_cuda.cnmf_iterations_plain(x1, c1, s1, it)))
+            for label, kind, mod, want, kern, plain in runs:
+                us = cuda_ms(lambda: kern(lone), reps=3) / lone * 1e3
+                plan = mod.last_plan
+                assert plan == want, (label, plan, want)
+                d = 10 if kind == "cnmf" else 1
+                nbytes = 4 * b * (N_SAMPLES * N_CHANNELS + 2 * (N_SAMPLES * 4 + 4 * d * N_CHANNELS))
+                bound_ms, bound_by = bound(
+                    b * lone * nmf_flops(kind, N_SAMPLES, N_CHANNELS, 4, d), nbytes)
+                name = label.split()[0]
+                record = name == "cnmf_cluster" or label.endswith("=1")
+                if b == 1:
+                    plain_us = cuda_ms(lambda: plain(10), reps=1) / 10 * 1e3
+                    plain_note = f"plain f32 {plain_us:.2f} us; "
+                    if record:
+                        self.kernels[name].update(lone_us_per_iteration=us,
+                                                  lone_plain_us_per_iteration=plain_us,
+                                                  lone_bound_us_per_iteration=bound_ms / lone * 1e3)
+                else:
+                    plain_note = ""
+                    if record:
+                        self.kernels[name]["four_us_per_iteration"] = us
+                if record:
+                    self.kernels[name][f"plan_{b}x{N_SAMPLES}x{N_CHANNELS}"] = plan._asdict()
+                log(f"stage {label} {'lone fit' if b == 1 else f'{b} fits at once'} "
+                    f"{b}x{N_SAMPLES}x{N_CHANNELS} k=4: {us:.2f} us an iteration ({plain_note}"
+                    f"bound {bound_ms / lone * 1e3:.3f} us, {bound_by}); plan {plan.blocks} "
+                    f"blocks a fit of {plan.rows} rows, "
+                    f"{'resident' if plan.resident else f'streamed in tiles of {plan.tile}'}, "
+                    f"{plan.smem} B shared memory a block  [{self.smi}]")
+            del x1, w1, h1, c1, s1
 
     @staticmethod
     def _cd_step(x_, w_, h_):

@@ -1,7 +1,8 @@
 // Batched beta-divergence multiplicative-update NMF: a warp-per-fit
 // entry for the time-normalised frames of the main paths, a
-// block-per-fit entry for larger frames, and a cluster-per-fit entry for
-// frames over one block's shared memory (at the end of this file).
+// block-per-fit entry for larger frames, and the cluster entry, one fit
+// spread over many blocks of the card, for frames over one block's
+// shared memory (at the end of this file).
 //
 // Replaces the TPU kernels `beta_mu_iterations_pallas` and
 // `kl_mu_iterations_pallas` (muscle_synergies_tpu/models/kernels/
@@ -208,8 +209,8 @@ __device__ __forceinline__ void beta_w_row(const NmfBlock& b, int n, float beta,
 
 // W^T (weights) over rows 0..b.n of the planes num and den (stride
 // b.ldx; KL: the column sums of W), one warp per entry, its lanes
-// striding over the rows; ADD adds each sum to nd[q] instead of storing it.
-template <int KIND, bool ADD>
+// striding over the rows.
+template <int KIND>
 __device__ inline void beta_wt_weights(const NmfBlock& b, const float* num,
                                        const float* den, float* nd) {
   const int lane = threadIdx.x & 31;
@@ -233,7 +234,7 @@ __device__ inline void beta_wt_weights(const NmfBlock& b, const float* num,
       s += b.w[r * b.ldw + i] * (col ? col[r * b.ldx] : 1.0f);
     }
     s = nmf_warp_sum(s);
-    if (lane == 0) nd[q] = ADD ? nd[q] + s : s;
+    if (lane == 0) nd[q] = s;
   }
   __syncthreads();
 }
@@ -289,7 +290,7 @@ __device__ void beta_step(const BetaBlock& bb) {
     if (KIND != BETA_KL) bb.den[n * b.ldx + m] = d;
   }
   __syncthreads();
-  beta_wt_weights<KIND, false>(b, bb.num, bb.den, bb.nd);
+  beta_wt_weights<KIND>(b, bb.num, bb.den, bb.nd);
   beta_update_h<KIND>(b, bb.nd, beta, bb.gamma, bb.pen);
 }
 
@@ -750,238 +751,453 @@ extern "C" int beta_nmf_warp_f32(const float* x, const float* w0,
 
 // --------------------------- cluster entry ---------------------------
 //
-// beta_nmf_cluster_f32: one thread-block cluster per fit, for frames
-// whose fit exceeds one block's shared memory (nmf_common.cuh: the
-// cluster entries; rows resident in shared memory or streamed through
-// L2 in tiles).  An iteration keeps sklearn's order, W then H, in one
-// pass over the block's rows: each row of W is updated from its row of
-// WH (old W, old H: row-local), its row of WH is rebuilt at once from
-// the new W and the old H, and the row's weights X * max(WH,
-// eps)^(beta-2) and WH^(beta-1) go to per-tile planes, whose share of
-// W^T (weights) (KL: W^T (X / WH) and the column sums of W) each block
-// adds to its two (k, l) partial planes.  After a cluster barrier every
-// block sums the C blocks' planes in rank order over distributed shared
-// memory and updates H from the same numbers, so H is the same bits in
-// every block.  The float64-eps flushes of W (beta < 1) and H (beta <=
-// 1) and the max(WH, EPSILON) clamps are the block entry's.  The stop
-// is sklearn's beta divergence summed in float64 over each block's own
-// rows (KL: X log(X / WH) - X + WH; IS: X / WH - log(X / WH) - 1), the
-// blocks' sums added in rank order, never formed from the planes; every
-// block takes each branch from the same numbers, and a last cluster
-// barrier keeps any block from leaving while another reads its shared
-// memory.  What bounds it: as K1's cluster entry, with one divide (KL),
-// or two powers (a run-time beta), per entry of WH twice an iteration.
+// beta_nmf_cluster_f32: the entry for frames whose fit exceeds one
+// block's shared memory (a subject's concatenated cycles, a whole
+// capture), replacing `beta_mu_iterations_pallas` (beta_pallas.py:231)
+// and `kl_mu_iterations_pallas` (beta_pallas.py:292) there.  One fit is
+// spread over P blocks of the whole card on K1's grid design
+// (nmf_common.cuh: the grid entries): a lone 124,460 x 8 fit over all
+// 132 SMs, 943 rows a block resident in shared memory (k + l floats a
+// row, 48 B at rank 4: 45 KB); the rank 1-4 sweep of one trial as 4
+// fits of 33 blocks of 3,772 rows (181 KB); more fits than that stream
+// their rows in tiles.  An iteration keeps sklearn's order, W then H, in
+// one pass over a block's rows, one thread a row: the row's WH (old W,
+// old H) and its weights in registers update the row of W; the fresh WH
+// of the new row (new W, old H) gives the weights X * max(WH,
+// eps)^(beta-2) and WH^(beta-1) of the H update, multiplied into the
+// row's share of W^T (weights) in registers (4 components x 8 columns of
+// each plane a tile; KL: W^T (X / WH) and, in place of the second plane,
+// the column sums of W); the warps' lanes combine by a reduce-scatter,
+// the warps in order, into the block's partial set.  The set goes to the
+// workspace by the iteration's parity; after the fit's one barrier in
+// device memory every block adds the P sets in block order 0..P-1 and
+// updates H from the same numbers, so H is the same bits everywhere.
+// The float64-eps flushes of W (beta < 1) and H (beta <= 1), the
+// max(WH, EPSILON) clamps, the penalties and the den == 0 guards are the
+// block entry's.  The stop is sklearn's beta divergence summed in
+// float64 over each block's own rows, the blocks' sums added in block
+// order (one more barrier every check_every iterations), never formed
+// from the planes.  What bounds it on this card: not the bytes (X is
+// read once) nor the operations (~(4 k + 2) l flops and two quotients
+// or four powers an entry an iteration, ~0.5 us of the card at a
+// capture's 124,460 x 8), but an iteration's dependent chain: the
+// quotients or powf of each row's 2 l entries on the row's thread, then
+// the barrier's round trip through L2 and the P sets read back.  The
+// design spreads the rows over every SM, keeps each entry's weights in
+// registers (no weight plane in shared memory, so a sweep's 4 fits stay
+// resident) and has one device-memory barrier an iteration.
 
-// Floats of a cluster block's own state besides nmf_cluster's (two (k,
-// l) planes a parity): the cluster's sums of the planes, one float to
-// align 34 doubles of float64 reduction scratch and the divergence.
-__host__ __device__ inline int beta_cluster_extra(int l, int k) {
-  return 2 * k * l + 1 + 2 * 34;
+// Entries of a K4 partial set: tiles of 4 components x 8 columns, each
+// 32 entries of W^T num then 32 of W^T den (KL: the column sums of W at
+// column 0 of the tiles of columns 0-7).
+__host__ __device__ inline int beta_grid_nq(int l, int k) {
+  return 64 * ((k + 3) / 4) * ((l + 7) / 8);
 }
 
-// All the floats a cluster block keeps besides its rows
-// (models/kernels/beta_cuda.py mirrors it: cluster_smem_bytes).
-__host__ __device__ inline size_t beta_cluster_small_floats(int l, int k) {
-  return 2 * (size_t)k * l + (size_t)k * k + 34 + 4 * (size_t)k * l +
-         beta_cluster_extra(l, k);
+// Floats of a K4 grid block besides its rows: 33 doubles of float64
+// scratch, H, KL's row sums of H, the fit's sums of the two planes (KL:
+// of W^T num and the column sums of W), the block's partial set and the
+// warps' sums of a tile (models/kernels/beta_cuda.py: grid_small_floats).
+__host__ __device__ inline size_t beta_grid_small_floats(int l, int k, bool kl) {
+  return 66 + 2 * (size_t)k * l + k + (kl ? (size_t)k : (size_t)k * l) +
+         beta_grid_nq(l, k) + NMF_GRID_WARPS * 64;
 }
 
-struct BetaCluster {
-  NmfCluster c;   // b.gram holds KL's row sums of H
-  float* num;     // (tile, ldx) numerator weights of the rows' fresh WH
-  float* den;     // (tile, ldx) denominator weights (not KL)
-  float* nd;      // (2, k, l): the cluster's W^T num, then W^T den (KL: column sums of W)
-  double* red;    // 33 doubles of float64 reduction scratch
-  double* err;    // the block's share of the divergence
+// K4's plan: K1's rule with K4's small state, rows of k + l floats and
+// sets of nq entries (models/kernels/beta_cuda.py: grid_plan).
+inline int beta_grid_rule(int batch, int n, int l, int k, bool kl, int sms,
+                          NmfGridPlan* plan) {
+  const int r = nmf_grid_rule_sized(batch, n, l, k, sms, beta_grid_small_floats(l, k, kl),
+                                    (long long)k + l, plan);
+  if (r != 0) return r;
+  plan->nq = beta_grid_nq(l, k);
+  plan->pstride = (int)nmf_r4(plan->nq);
+  return 0;
+}
+
+// Floats of K4's workspace: the fits' arrive counters, a float64
+// divergence slot a block, two partial sets a block
+// (models/kernels/beta_cuda.py: grid_workspace_floats).
+inline size_t beta_grid_workspace_floats(const NmfGridPlan& p, int batch) {
+  const size_t blocks = (size_t)batch * p.blocks;
+  return nmf_r4(batch) + 2 * nmf_r4(blocks) + 2 * blocks * p.pstride;
+}
+
+struct BetaGrid {
+  NmfGrid g;     // b.h: H, b.gram: KL's row sums of H; bpart, wred, y; the workspace
+  float* nd;     // the fit's sums: W^T num (k, l), then W^T den (k, l) or the column sums of W (KL)
+  double* red;   // 33 doubles of float64 reduction scratch
+  double* err;   // the fit's divergence slots, one a block
   float beta, gamma;
   NmfPenalty pen;
 };
 
-__device__ inline BetaCluster beta_cluster(float* smem, const NmfClusterPlan& p,
-                                           int rank, float beta, float gamma,
-                                           NmfPenalty pen) {
-  BetaCluster bc;
-  bc.c = nmf_cluster_sized(smem, p, rank, 2 * p.k * p.l, beta_cluster_extra(p.l, p.k));
-  bc.nd = bc.c.err + 1;  // nmf_cluster's `extra` floats
-  size_t off = (size_t)(bc.nd + 2 * p.k * p.l - smem);
-  off += off & 1;  // 8-byte alignment of the doubles
-  bc.red = (double*)(smem + off);
-  bc.err = bc.red + 33;
-  bc.num = nmf_cluster_rows_end(bc.c);
-  bc.den = bc.num + (size_t)bc.c.tile * bc.c.b.ldx;
-  bc.beta = beta;
-  bc.gamma = gamma;
-  bc.pen = pen;
-  return bc;
+template <int KIND>
+__device__ inline BetaGrid beta_grid(float* smem, const NmfGridPlan& p, float* ws,
+                                     int batch, size_t fit, int rank, float beta,
+                                     float gamma, NmfPenalty pen) {
+  BetaGrid bg;
+  NmfGrid& g = bg.g;
+  NmfBlock& b = g.b;
+  bg.red = reinterpret_cast<double*>(smem);
+  b.n = p.tile;
+  b.l = p.l;
+  b.k = p.k;
+  b.ldx = b.ldw = 0;
+  b.x = b.w = nullptr;
+  b.cross = b.red = nullptr;
+  b.h = smem + 66;
+  b.gram = b.h + p.k * p.l;
+  bg.nd = b.gram + p.k;
+  g.bpart = bg.nd + p.k * p.l + (KIND == BETA_KL ? p.k : p.k * p.l);
+  g.wred = g.bpart + p.nq;
+  g.y = g.wred + NMF_GRID_WARPS * 64;
+  const long long first = (long long)rank * p.rows;
+  const long long last = min((long long)p.n, first + p.rows);
+  g.r0 = (size_t)min(first, (long long)p.n);
+  g.rows = (int)max(0LL, last - first);
+  g.rank = rank;
+  g.tile = p.tile;
+  g.nq = p.nq;
+  g.pstride = p.pstride;
+  g.blocks = p.blocks;
+  g.resident = p.resident != 0;
+  const size_t blocks = (size_t)batch * p.blocks;
+  g.counter = reinterpret_cast<unsigned*>(ws) + fit;
+  g.err = nullptr;
+  bg.err = reinterpret_cast<double*>(ws + nmf_r4(batch)) + fit * p.blocks;
+  g.part = ws + nmf_r4(batch) + 2 * nmf_r4(blocks) + fit * 2 * p.blocks * p.pstride;
+  bg.beta = beta;
+  bg.gamma = gamma;
+  bg.pen = pen;
+  return bg;
 }
 
-// One beta-MU iteration of the cluster's fit; `parity` picks the
-// partial-plane buffer.  xf / wf: the fit's X and W in device memory
-// (W is read and written there only when streamed).
-template <int KIND, int KMAX>
-__device__ void beta_cluster_step(const BetaCluster& bc, nmf_cg::cluster_group& cl,
-                                  const float* xf, float* wf, int parity) {
-  const NmfCluster& c = bc.c;
-  const NmfBlock& b = c.b;
-  const int kl = b.k * b.l;
-  const int entries = KIND == BETA_KL ? kl + b.k : 2 * kl;
-  float* part = c.part + parity * c.pstride;
-  for (int q = threadIdx.x; q < entries; q += blockDim.x) part[q] = 0.0f;
-  if (KIND == BETA_KL) {
-    beta_h_row_sums(b);  // its barrier also orders the zeroing
-  } else {
-    __syncthreads();
-  }
-  nmf_cluster_tiles<true>(c, xf, wf, [&](const NmfBlock& t) {
-    for (int n = threadIdx.x; n < t.n; n += blockDim.x) {
-      float wr[KMAX];
-      beta_w_row<KIND, KMAX>(t, n, bc.beta, bc.gamma, bc.pen, wr);
-      // the weights of the row's fresh WH: the new W, the old H
-      for (int m = 0; m < t.l; ++m) {
-        float wh = 0.0f;
+// The warps' sums of a tile's 64 entries (an: W^T num, ad: W^T den or
+// KL's column sums) added to the block's set at entry 64 t: each warp's
+// lanes by a reduce-scatter, then the warps in order.
+__device__ inline void beta_grid_reduce(const NmfGrid& g, float (&an)[32], float (&ad)[32],
+                                        int t) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  nmf_warp_halve<16>(an, lane);
+  nmf_warp_halve<16>(ad, lane);
+  g.wred[warp * 64 + lane] = an[0];
+  g.wred[warp * 64 + 32 + lane] = ad[0];
+  __syncthreads();
+  if (threadIdx.x < 64) {
+    float s = 0.0f;
 #pragma unroll
-        for (int j = 0; j < KMAX; ++j) {
-          if (j < t.k) wh += wr[j] * t.h[j * t.l + m];
-        }
-        float a, d;
-        beta_weights<KIND>(t.x[n * t.ldx + m], wh, bc.beta, &a, &d);
-        bc.num[n * t.ldx + m] = a;
-        if (KIND != BETA_KL) bc.den[n * t.ldx + m] = d;
-      }
-    }
-    __syncthreads();
-    beta_wt_weights<KIND, true>(t, bc.num, bc.den, part);
-  });
-  cl.sync();  // every block's planes are readable
-  for (int q = threadIdx.x; q < entries; q += blockDim.x) {
-    bc.nd[q] = nmf_cluster_sum(cl, part, q);
+    for (int w = 0; w < NMF_GRID_WARPS; ++w) s += g.wred[w * 64 + threadIdx.x];
+    g.bpart[64 * t + threadIdx.x] += s;
   }
   __syncthreads();
-  beta_update_h<KIND>(b, bc.nd, bc.beta, bc.gamma, bc.pen);
 }
 
-// sklearn's square-rooted beta divergence of the cluster's fit, returned
-// to every thread of every block: each block's float64 sum over its own
-// rows, then the blocks' sums in rank order.  At least one cluster
-// barrier of an iteration lies between two calls, so one slot a block
-// suffices.
-template <int KIND>
-__device__ double beta_cluster_divergence(const BetaCluster& bc,
-                                          nmf_cg::cluster_group& cl,
-                                          const float* xf, float* wf) {
-  const double beta = bc.beta;
-  double part = 0.0;
-  nmf_cluster_tiles<false>(bc.c, xf, wf, [&](const NmfBlock& t) {
-    for (int q = threadIdx.x; q < t.n * t.l; q += blockDim.x) {
-      const int n = q / t.l;
-      const int m = q - n * t.l;
-      double wh = 0.0;
-      for (int j = 0; j < t.k; ++j) {
-        wh += (double)t.w[n * t.ldw + j] * (double)t.h[j * t.l + m];
+// One row's share of tile (i0, j0) of the H update's sums: the weights of
+// the fresh WH (wr: the row's new W) at columns j0..j0+7 (y: the rows,
+// column-major, stride ld; H in b.h), times p = W[row, i0..i0+3].
+template <int KIND, int KMAX>
+__device__ __forceinline__ void beta_grid_tile_row(const NmfBlock& b, const float* y,
+                                                   int ld, int r, const float (&wr)[KMAX],
+                                                   const float (&p)[4], int j0, float beta,
+                                                   float (&an)[32], float (&ad)[32]) {
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int m = j0 + jj;
+    if (m < b.l) {
+      float wh = 0.0f;
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) {
+        if (j < b.k) wh += wr[j] * b.h[j * b.l + m];
       }
-      part = beta_entry_divergence<KIND>(part, t.x[n * t.ldx + m], wh, beta);
-    }
-  });
-  const double mine = nmf_block_sum_d(bc.red, part);
-  if (threadIdx.x == 0) *bc.err = mine;
-  cl.sync();
-  return beta_divergence_root<KIND>(nmf_cluster_sum_d(cl, bc.err, 0), beta);
-}
-
-template <int KIND, int KMAX, bool WITH_STOP>
-__global__ void __launch_bounds__(NMF_CLUSTER_THREADS) beta_cluster_kernel(
-    NmfClusterPlan p, const float* __restrict__ x,
-    const float* __restrict__ w0, const float* __restrict__ h0,
-    float* __restrict__ w, float* __restrict__ h, int* __restrict__ n_iter_out,
-    float* __restrict__ prev_err_out, int* __restrict__ converged_out,
-    int iters, float beta, float gamma, double tol, int check_every,
-    NmfPenalty pen) {
-  extern __shared__ float smem[];
-  nmf_cg::cluster_group cl = nmf_cg::this_cluster();
-  const size_t fit = blockIdx.x / cl.num_blocks();
-  const BetaCluster bc = beta_cluster(smem, p, (int)cl.block_rank(), beta, gamma, pen);
-  const float* xf = x + fit * p.n * p.l;
-  float* wf = w + fit * p.n * p.k;
-  nmf_cluster_load(bc.c, xf, w0 + fit * p.n * p.k, wf, h0 + fit * p.k * p.l);
-  int parity = 0;
-  if (WITH_STOP) {
-    // sklearn's loop, as the block entry runs it; every value that
-    // decides a branch is the same in every block of the cluster
-    const double err0 = beta_cluster_divergence<KIND>(bc, cl, xf, wf);
-    double prev_err = err0;
-    int n_iter = 0;
-    bool converged = false;
-    while (n_iter < iters && !converged) {
-      const int steps = min(check_every, iters - n_iter);
-      for (int t = 0; t < steps; ++t) {
-        beta_cluster_step<KIND, KMAX>(bc, cl, xf, wf, parity);
-        parity ^= 1;
+      float a, d;
+      beta_weights<KIND>(y[(size_t)(b.k + m) * ld + r], wh, beta, &a, &d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        an[8 * i + jj] += p[i] * a;
+        if (KIND != BETA_KL) ad[8 * i + jj] += p[i] * d;
       }
-      n_iter += steps;
-      if (tol > 0.0) {
-        const double err = beta_cluster_divergence<KIND>(bc, cl, xf, wf);
-        converged = (prev_err - err) / err0 < tol && n_iter % check_every == 0;
-        prev_err = err;
-      }
-    }
-    if (bc.c.rank == 0 && threadIdx.x == 0) {
-      n_iter_out[fit] = n_iter;
-      prev_err_out[fit] = (float)prev_err;
-      converged_out[fit] = converged ? 1 : 0;
-    }
-  } else {
-    for (int t = 0; t < iters; ++t) {
-      beta_cluster_step<KIND, KMAX>(bc, cl, xf, wf, parity);
-      parity ^= 1;
     }
   }
-  cl.sync();  // no block leaves while another reads its shared memory
-  nmf_cluster_store(bc.c, wf, h + fit * p.k * p.l);
+  if (KIND == BETA_KL && j0 == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ad[8 * i] += p[i];
+  }
+}
+
+// The W pass on a pass's rows, one thread a row, with tile 0 (components
+// 0-3, columns 0-7) of the H update's sums: the row's weights of the old
+// WH update its W (b.gram: KL's row sums of H), then the fresh WH's
+// weights add the row's share of tile 0; the warps' sums go to the set.
+template <int KIND, int KMAX>
+__device__ void beta_grid_w_pass(const BetaGrid& bg, const NmfGridRows& c) {
+  const NmfBlock& b = bg.g.b;
+  const int k = b.k, l = b.l, ld = c.ld;
+  float* __restrict__ y = c.y;
+  const float* __restrict__ h = b.h;
+  const float beta = bg.beta;
+  const NmfPenalty& pen = bg.pen;
+  float an[32], ad[32];
+#pragma unroll
+  for (int v = 0; v < 32; ++v) an[v] = ad[v] = 0.0f;
+  for (int r = threadIdx.x; r < c.n; r += blockDim.x) {
+    float wr[KMAX], num[KMAX], den[KMAX];
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) {
+      wr[i] = i < k ? y[(size_t)i * ld + r] : 0.0f;
+      num[i] = den[i] = 0.0f;
+    }
+#pragma unroll 4
+    for (int m = 0; m < l; ++m) {
+      float wh = 0.0f;
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) {
+        if (j < k) wh += wr[j] * h[j * l + m];
+      }
+      float a, d;
+      beta_weights<KIND>(y[(size_t)(k + m) * ld + r], wh, beta, &a, &d);
+#pragma unroll
+      for (int i = 0; i < KMAX; ++i) {
+        if (i < k) {
+          const float hv = h[i * l + m];
+          num[i] += a * hv;
+          if (KIND != BETA_KL) den[i] += d * hv;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) {
+      if (i < k) {
+        float dd = KIND == BETA_KL ? b.gram[i] : den[i];
+        dd = (dd + pen.l1_w) + pen.l2_w * wr[i];
+        dd = dd == 0.0f ? EPSILON : dd;
+        float v = wr[i] * beta_damp<KIND>(num[i] / dd, bg.gamma);
+        if (beta_flush_w<KIND>(beta) && v < F64_EPS) v = 0.0f;
+        wr[i] = v;
+        y[(size_t)i * ld + r] = v;
+      }
+    }
+    const float p[4] = {wr[0], wr[1], wr[2], wr[3]};  // KMAX >= 4; zero past k
+    beta_grid_tile_row<KIND, KMAX>(b, y, ld, r, wr, p, 0, beta, an, ad);
+  }
+  beta_grid_reduce(bg.g, an, ad, 0);
+}
+
+// Tile t > 0 of the H update's sums over a pass's rows (their W already
+// updated): each row rebuilds its fresh WH at the tile's 8 columns.
+template <int KIND, int KMAX>
+__device__ void beta_grid_tile_pass(const BetaGrid& bg, const NmfGridRows& c, int t) {
+  const NmfBlock& b = bg.g.b;
+  const int k = b.k, ld = c.ld, tj = (b.l + 7) / 8;
+  const int i0 = 4 * (t / tj), j0 = 8 * (t % tj);
+  const float* __restrict__ y = c.y;
+  float an[32], ad[32];
+#pragma unroll
+  for (int v = 0; v < 32; ++v) an[v] = ad[v] = 0.0f;
+  for (int r = threadIdx.x; r < c.n; r += blockDim.x) {
+    float wr[KMAX], p[4];
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) wr[i] = i < k ? y[(size_t)i * ld + r] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = i0 + i < k ? y[(size_t)(i0 + i) * ld + r] : 0.0f;
+    beta_grid_tile_row<KIND, KMAX>(b, y, ld, r, wr, p, j0, bg.beta, an, ad);
+  }
+  beta_grid_reduce(bg.g, an, ad, t);
+}
+
+// Whether entry q of a set holds a sum the H update reads (KL's den half
+// holds only the column sums, at column 0).
+__device__ __forceinline__ bool beta_grid_used(const NmfBlock& b, int q, bool kl,
+                                               int* dst) {
+  const int tj = (b.l + 7) / 8, t = q >> 6, v = q & 63;
+  const bool den = v >= 32;
+  const int i = 4 * (t / tj) + ((v & 31) >> 3), j = 8 * (t % tj) + (v & 7);
+  if (i >= b.k || j >= b.l) return false;
+  const int kl_ = b.k * b.l;
+  if (!den) {
+    *dst = i * b.l + j;
+  } else if (!kl) {
+    *dst = kl_ + i * b.l + j;
+  } else if (j == 0) {
+    *dst = kl_ + i;
+  } else {
+    return false;
+  }
+  return true;
+}
+
+// After a pass: the fit's sums of every block's partial set into bg.nd,
+// the same bits in every block: the block's set to the workspace at
+// `parity`, the fit's barrier, then each entry's P values added in block
+// order 0..P-1 (a lone block: its own set).  `syncs` counts the fit's
+// barriers.
+template <int KIND>
+__device__ inline void beta_grid_sum(const BetaGrid& bg, int parity, unsigned& syncs) {
+  const NmfGrid& g = bg.g;
+  __syncthreads();
+  if (g.blocks > 1) {
+    const float* sets = g.part + (size_t)parity * g.blocks * g.pstride;
+    float* mine = g.part + ((size_t)parity * g.blocks + g.rank) * g.pstride;
+    for (int q = threadIdx.x; q < g.nq; q += blockDim.x) __stcg(mine + q, g.bpart[q]);
+    syncs += 1;
+    nmf_grid_barrier(g.counter, syncs * g.blocks);
+    for (int q = threadIdx.x; q < g.nq; q += blockDim.x) {
+      int dst;
+      if (beta_grid_used(g.b, q, KIND == BETA_KL, &dst)) {
+        bg.nd[dst] = nmf_grid_ordered_sum(sets + q, g.blocks, g.pstride);
+      }
+    }
+  } else {
+    for (int q = threadIdx.x; q < g.nq; q += blockDim.x) {
+      int dst;
+      if (beta_grid_used(g.b, q, KIND == BETA_KL, &dst)) bg.nd[dst] = g.bpart[q];
+    }
+  }
+  __syncthreads();
+}
+
+// One beta-MU iteration of the fit; `parity` picks the partial-set
+// buffer.  xf / wf: the fit's X and W in device memory (read and written
+// there only when streamed).
+template <int KIND, int KMAX>
+__device__ void beta_grid_step(const BetaGrid& bg, const float* xf, float* wf, int parity,
+                               unsigned& syncs) {
+  const NmfGrid& g = bg.g;
+  for (int q = threadIdx.x; q < g.nq; q += blockDim.x) g.bpart[q] = 0.0f;
+  if (KIND == BETA_KL) {
+    beta_h_row_sums(g.b);  // its barrier also orders the zeroing
+  } else {
+    __syncthreads();
+  }
+  const int tiles = g.nq / 64;
+  nmf_grid_chunks<true>(g, xf, wf, [&](const NmfGridRows& c) {
+    beta_grid_w_pass<KIND, KMAX>(bg, c);
+    for (int t = 1; t < tiles; ++t) beta_grid_tile_pass<KIND, KMAX>(bg, c, t);
+  });
+  beta_grid_sum<KIND>(bg, parity, syncs);
+  beta_update_h<KIND>(g.b, bg.nd, bg.beta, bg.gamma, bg.pen);
+}
+
+// sklearn's square-rooted beta divergence of the fit, returned to every
+// thread of every block: each block's float64 sum over its own rows, then
+// the blocks' sums in block order.  A barrier of an iteration lies between
+// two calls, so one slot a block suffices.  Out of line: one copy serves
+// every KMAX.
+template <int KIND>
+__device__ __noinline__ double beta_grid_divergence(const BetaGrid& bg, const float* xf,
+                                                    float* wf, unsigned& syncs) {
+  const NmfGrid& g = bg.g;
+  const NmfBlock& b = g.b;
+  const double beta = bg.beta;
+  double part = 0.0;
+  nmf_grid_chunks<false>(g, xf, wf, [&](const NmfGridRows& c) {
+    for (int r = threadIdx.x; r < c.n; r += blockDim.x) {
+      for (int m = 0; m < b.l; ++m) {
+        double wh = 0.0;
+        for (int j = 0; j < b.k; ++j) {
+          wh += (double)c.y[(size_t)j * c.ld + r] * (double)b.h[j * b.l + m];
+        }
+        part = beta_entry_divergence<KIND>(part, c.y[(size_t)(b.k + m) * c.ld + r], wh, beta);
+      }
+    }
+  });
+  const double total = nmf_grid_total_d(g.counter, bg.err, g.rank, g.blocks, syncs, bg.red,
+                                        nmf_block_sum_d(bg.red, part));
+  return beta_divergence_root<KIND>(total, beta);
+}
+
+// The stop is a run-time switch here, not a template one as in the block
+// and warp entries: one kernel a kind and KMAX holds one copy of the
+// iteration, where two made the source take minutes longer to build.
+template <int KIND, int KMAX>
+__global__ void __launch_bounds__(NMF_GRID_THREADS) beta_cluster_kernel(
+    NmfGridPlan p, const float* __restrict__ x, const float* __restrict__ w0,
+    const float* __restrict__ h0, float* __restrict__ w, float* __restrict__ h,
+    int* __restrict__ n_iter_out, float* __restrict__ prev_err_out,
+    int* __restrict__ converged_out, float* __restrict__ ws, int batch, int iters,
+    float beta, float gamma, double tol, int check_every, NmfPenalty pen, int with_stop) {
+  extern __shared__ float smem[];
+  const size_t fit = blockIdx.x / p.blocks;
+  const BetaGrid bg = beta_grid<KIND>(smem, p, ws, batch, fit, (int)(blockIdx.x % p.blocks),
+                                      beta, gamma, pen);
+  const NmfGrid& g = bg.g;
+  const float* xf = x + fit * p.n * p.l;
+  float* wf = w + fit * p.n * p.k;
+  nmf_grid_load(g, xf, w0 + fit * p.n * p.k, wf, h0 + fit * p.k * p.l);
+  unsigned syncs = 0;
+  int parity = 0;
+  // sklearn's loop, as the block entry runs it (with the stop off, one
+  // chunk of `iters` updates); every value that decides a branch is the
+  // same in every block of the fit
+  const double err0 = with_stop ? beta_grid_divergence<KIND>(bg, xf, wf, syncs) : 0.0;
+  double prev_err = err0;
+  int n_iter = 0;
+  bool converged = false;
+  while (n_iter < iters && !converged) {
+    const int steps = with_stop ? min(check_every, iters - n_iter) : iters - n_iter;
+    for (int t = 0; t < steps; ++t) {
+      beta_grid_step<KIND, KMAX>(bg, xf, wf, parity, syncs);
+      parity ^= 1;
+    }
+    n_iter += steps;
+    if (with_stop && tol > 0.0) {
+      const double err = beta_grid_divergence<KIND>(bg, xf, wf, syncs);
+      converged = (prev_err - err) / err0 < tol && n_iter % check_every == 0;
+      prev_err = err;
+    }
+  }
+  if (with_stop && g.rank == 0 && threadIdx.x == 0) {
+    n_iter_out[fit] = n_iter;
+    prev_err_out[fit] = (float)prev_err;
+    converged_out[fit] = converged ? 1 : 0;
+  }
+  nmf_grid_store(g, wf, h + fit * p.k * p.l);
 }
 
 // Plan and launch the cluster entry of one kind and KMAX.
 template <int KIND, int KMAX>
 static int beta_cluster_dispatch(bool with_stop, const float* x, const float* w0,
                                  const float* h0, float* w, float* h, int* n_iter,
-                                 float* prev_err, int* converged, int batch,
-                                 int n, int l, int k, int iters, float beta,
-                                 float gamma, double tol, int check_every,
-                                 NmfPenalty pen, cudaStream_t s) {
-  const size_t small = beta_cluster_small_floats(l, k);
-  const size_t row = (size_t)nmf_odd(l) + nmf_odd(k);
-  const size_t planes = (KIND == BETA_KL ? 1 : 2) * (size_t)nmf_odd(l);
-  auto run = [&](auto kernel) {
-    NmfClusterPlan plan;
-    const int e = nmf_cluster_plan_sized(kernel, n, l, k, small, row, planes, &plan);
-    if (e != 0) return e;
-    return nmf_cluster_launch(kernel, plan, batch, s, x, w0, h0, w, h, n_iter,
-                              prev_err, converged, iters, beta, gamma, tol,
-                              check_every, pen);
-  };
-  return with_stop ? run(beta_cluster_kernel<KIND, KMAX, true>)
-                   : run(beta_cluster_kernel<KIND, KMAX, false>);
+                                 float* prev_err, int* converged, int batch, int n, int l,
+                                 int k, int iters, float beta, float gamma, double tol,
+                                 int check_every, NmfPenalty pen, float* ws,
+                                 long long ws_floats, int* plan_out, cudaStream_t s) {
+  int sms = 0;
+  int e = nmf_grid_sms(&sms);
+  if (e != 0) return e;
+  NmfGridPlan plan;
+  e = beta_grid_rule(batch, n, l, k, KIND == BETA_KL, sms, &plan);
+  if (e != 0) return e;
+  const auto kernel = beta_cluster_kernel<KIND, KMAX>;
+  e = nmf_grid_settle(kernel, batch, sms, plan, plan_out);
+  if (e != 0) return e;
+  return nmf_grid_launch(kernel, batch, plan, beta_grid_workspace_floats(plan, batch),
+                         ws_floats, s, x, w0, h0, w, h, n_iter, prev_err, converged, ws,
+                         batch, iters, beta, gamma, tol, check_every, pen, with_stop ? 1 : 0);
 }
 
 template <int KIND>
-static int beta_cluster_dispatch_k(bool with_stop, const float* x,
-                                   const float* w0, const float* h0, float* w,
-                                   float* h, int* n_iter, float* prev_err,
-                                   int* converged, int batch, int n, int l,
-                                   int k, int iters, float beta, float gamma,
-                                   double tol, int check_every, NmfPenalty pen,
-                                   cudaStream_t s) {
-#define BETA_CLUSTER_CALL(KM)                                                  \
-  beta_cluster_dispatch<KIND, KM>(with_stop, x, w0, h0, w, h, n_iter,          \
-                                  prev_err, converged, batch, n, l, k, iters,  \
-                                  beta, gamma, tol, check_every, pen, s)
+static int beta_cluster_dispatch_k(bool with_stop, const float* x, const float* w0,
+                                   const float* h0, float* w, float* h, int* n_iter,
+                                   float* prev_err, int* converged, int batch, int n, int l,
+                                   int k, int iters, float beta, float gamma, double tol,
+                                   int check_every, NmfPenalty pen, float* ws,
+                                   long long ws_floats, int* plan_out, cudaStream_t s) {
+#define BETA_CLUSTER_CALL(KM)                                                          \
+  beta_cluster_dispatch<KIND, KM>(with_stop, x, w0, h0, w, h, n_iter, prev_err,        \
+                                  converged, batch, n, l, k, iters, beta, gamma, tol,  \
+                                  check_every, pen, ws, ws_floats, plan_out, s)
   return NMF_CLUSTER_DISPATCH(k, BETA_CLUSTER_CALL);
 #undef BETA_CLUSTER_CALL
 }
 
 // The cluster entry: beta_nmf_f32's arguments and results, for frames
-// over one block's shared memory (models/kernels/beta_cuda.py: route).
-// Launches one cluster a fit on `stream` and returns cudaGetLastError(),
-// or the error that left no cluster able to run the fit.
+// over one block's shared memory (models/kernels/beta_cuda.py: route),
+// and `ws`, a zeroed workspace of `ws_floats` floats (at least
+// beta_grid_workspace_floats; beta_cuda.grid_workspace_floats).  Writes
+// the plan it took to `plan_out` (NMF_GRID_PLAN_INTS host ints),
+// launches once on `stream` and returns cudaGetLastError(), or the error
+// that refused the plan.
 extern "C" int beta_nmf_cluster_f32(const float* x, const float* w0,
                                     const float* h0, float* w, float* h,
                                     int* n_iter, float* prev_err,
@@ -989,7 +1205,8 @@ extern "C" int beta_nmf_cluster_f32(const float* x, const float* w0,
                                     int k, int iters, float beta, float gamma,
                                     double tol, int check_every, float l1_w,
                                     float l2_w, float l1_h, float l2_h,
-                                    int with_stop, void* stream) {
+                                    int with_stop, float* ws, long long ws_floats,
+                                    int* plan_out, void* stream) {
   if (batch < 1 || n < 1 || l < 1 || k < 1 || k > NMF_KMAX || iters < 0 ||
       !(gamma > 0.0f) || (with_stop && check_every < 1)) {
     return (int)cudaErrorInvalidValue;
@@ -998,19 +1215,19 @@ extern "C" int beta_nmf_cluster_f32(const float* x, const float* w0,
   const NmfPenalty pen = {l1_w, l2_w, l1_h, l2_h};
   const bool st = with_stop != 0;
   if (beta == 1.0f) {
-    return beta_cluster_dispatch_k<BETA_KL>(st, x, w0, h0, w, h, n_iter,
-                                            prev_err, converged, batch, n, l,
-                                            k, iters, beta, gamma, tol,
-                                            check_every, pen, s);
+    return beta_cluster_dispatch_k<BETA_KL>(st, x, w0, h0, w, h, n_iter, prev_err,
+                                            converged, batch, n, l, k, iters, beta, gamma,
+                                            tol, check_every, pen, ws, ws_floats, plan_out,
+                                            s);
   }
   if (beta == 0.0f) {
-    return beta_cluster_dispatch_k<BETA_IS>(st, x, w0, h0, w, h, n_iter,
-                                            prev_err, converged, batch, n, l,
-                                            k, iters, beta, gamma, tol,
-                                            check_every, pen, s);
+    return beta_cluster_dispatch_k<BETA_IS>(st, x, w0, h0, w, h, n_iter, prev_err,
+                                            converged, batch, n, l, k, iters, beta, gamma,
+                                            tol, check_every, pen, ws, ws_floats, plan_out,
+                                            s);
   }
-  return beta_cluster_dispatch_k<BETA_GENERIC>(st, x, w0, h0, w, h, n_iter,
-                                               prev_err, converged, batch, n,
-                                               l, k, iters, beta, gamma, tol,
-                                               check_every, pen, s);
+  return beta_cluster_dispatch_k<BETA_GENERIC>(st, x, w0, h0, w, h, n_iter, prev_err,
+                                               converged, batch, n, l, k, iters, beta,
+                                               gamma, tol, check_every, pen, ws, ws_floats,
+                                               plan_out, s);
 }

@@ -1,6 +1,7 @@
 // Batched convolutive NMF (time-varying synergies), one thread block
-// per fit, register-tiled, and one thread-block cluster per fit for
-// frames over one block's shared memory (at the end of this file).
+// per fit, register-tiled, and the cluster entry, one fit spread over
+// many blocks of the card, for frames over one block's shared memory (at
+// the end of this file).
 //
 // Replaces the TPU kernel `cnmf_iterations_pallas`
 // (muscle_synergies_tpu/models/kernels/cnmf_pallas.py: _cnmf_step) and
@@ -447,255 +448,465 @@ extern "C" int cnmf_f32(const float* x, const float* c0, const float* s0,
 
 // --------------------------- cluster entry ---------------------------
 //
-// cnmf_cluster_f32: one thread-block cluster per fit, for frames whose
-// fit exceeds one block's shared memory (nmf_common.cuh: the cluster
-// plan and launch, the rank-ordered sums).  Block r owns rows [t0, t1)
-// of time (ceil(T / C) rows a block, the last shorter, a block past T
-// none) and keeps S, its S sums and a few rows of C in shared memory; X
-// stays in device memory and C is updated in place there, both read in
-// tiles of `tile` rows (the whole share at once where it fits, else
-// streamed through L2).  An iteration keeps the block entry's order:
-//   1. Xh of the block's rows from the old C and S, and the block's
-//      share of the S sums, sum_t C[t-d, k] X[t, l] and the same with
-//      Xh, added tile by tile in registers and shared memory;
-//   2. after a cluster barrier, the C blocks' sums added in rank order
-//      over distributed shared memory and S updated from them, the same
-//      bits in every block;
+// cnmf_cluster_f32: the entry for frames whose fit exceeds one block's
+// shared memory (a subject's concatenated cycles, a whole capture),
+// replacing `cnmf_iterations_pallas` (cnmf_pallas.py:147) there.  One fit
+// is spread over P blocks of the whole card on K1's grid design
+// (nmf_common.cuh: the grid entries).  Block r owns rows [t0, t1) of time
+// and keeps S and its S sums in shared memory.  An iteration keeps the
+// block entry's order and passes, register-tiled as there (two rows a
+// thread in the C update, up to four in the reconstructions, sharing S's
+// float4 broadcasts; the S sums by (k, d, L-tile) items in time slices;
+// 4 synergies of a row's C in registers):
+//   1. Xh of the block's rows from the old C and S, and the block's share
+//      of the S sums, sum_t C[t-d, k] X[t, l] and the same with Xh;
+//   2. the set to the workspace, the fit's barrier in device memory, the
+//      P sets added in block order 0..P-1 (float4 loads, each entry's sum
+//      in order) and S updated from them, the same bits in every block;
 //   3. Xh again with the new S, over the block's rows and the D - 1 rows
 //      after them;
-//   4. C of the block's rows from X and Xh rows t..t+D-1.
-// The lags need a halo: rows t0-D+1..t0-1 of C for the first Xh rows
-// and rows t1..t1+D-2 for the last C rows' Xh, the old C in both.  Each
-// block keeps its first and last D - 1 rows of C in an edge buffer,
-// written with the new C in step 4 and keyed on the iteration's parity;
-// after the barrier that opens an iteration every block reads its 2 (D -
-// 1) halo rows from the edge buffers of the blocks that own them, so no
-// Xh crosses a block.  A range shorter than D - 1 rows is read where it
-// lies: each halo row is fetched from the block that owns it (row g from
-// block g / rows), which may be more than one neighbour away.  Inside a
-// block, the D - 1 old rows of C before each tile are carried from the
-// tile before it, since step 4 overwrites them in device memory.  Two
-// cluster barriers an iteration (the edges, the S sums).  The stop is
-// ||X - Xh||_F, Xh rebuilt in float64 over each block's own rows, the
-// blocks' sums added in rank order, so every block takes the same
-// branch; a last cluster barrier keeps any block from leaving while
-// another reads its shared memory.  What bounds it: the block entry's
-// six passes of K*D*L*T multiply-adds, spread over the cluster's SMs,
-// plus the tiles' X and C through L2 and two barriers an iteration.
+//   4. C of the block's rows from X and Xh rows t..t+D-1 (den == 0 ->
+//      EPSILON, as cnmf_update).
+// The lags need a halo of the old C: rows t0-D+1..t0-1 for the first Xh
+// rows and t1..t1+D-2 for the last C rows' Xh.  Each block writes its
+// first and last D - 1 rows of the new C to the workspace, one slot a
+// parity, and then a flag (its C's version, a release store); at the
+// next pass a block waits for the flags of the blocks that own its halo
+// rows (acquire) and reads the rows from their slots, each from the block
+// that owns it, which is more than one block away when a range is
+// shorter than D - 1.  So an iteration has two syncs in device memory:
+// the flags of the edges (point to point, with the owners only) and the
+// fit's barrier of the S sums.  One is not enough: the S sums of an
+// iteration need the halo of the C that the owners update after the S
+// sums of the iteration before, and the C update needs the S the whole
+// fit sums; each dependence crosses blocks, one after the other.  A
+// block rewrites an edge slot of parity p only after the S barrier of
+// the next iteration, which every block passes after reading parity p.
+// The stop is ||X - Xh||_F, Xh rebuilt in float64 over each block's own
+// rows, the blocks' sums added in block order (one more barrier every
+// check_every iterations); no tail chunk, as the block entry.
+//
+// Where rows live (cnmf_grid_rule, K1's rule with K5's sizes): a row
+// costs X and Xh (2 Lp floats) and C (K floats), 80 B at L = 8, K = 4.
+// A lone 124,460 x 8 trial is 132 blocks of 943 rows, resident: X (with
+// the D - 1 rows after the block), Xh and C^T stay in shared memory for
+// the whole solve, 75 KB of rows and 94 KB a block with S and its sums,
+// and only the halo moves.
+// CNMFModel(4, 10)'s 4 restarts are 33 blocks of 3,772 rows: 302 KB with
+// Xh, over the 227 KB of a block, so those rows stream: C lives in device
+// memory, updated in place, and each pass reads X and C through L2 in
+// tiles of as many rows as fit (2,677 at K = 4, D = 10), the D - 1 old
+// rows of C before each tile carried from the tile before it.  Streaming
+// X was chosen over rebuilding Xh in tiles from resident X and C (181
+// KB): the X of 4 fits is 16 MB and their C 8 MB, well inside the 50 MB
+// of L2, and one tiled path then serves every plan that does not fit,
+// a wider batch or more restarts included.  What bounds it on this card:
+// the six passes of K*D*L*T multiply-adds (7.1 us an iteration at a
+// capture's 124,460 x 8, K = 4, D = 10, at the card's float32 peak),
+// spread over every SM, then an iteration's chain: the halo flags, the
+// barrier and the P sets (16 K D L floats each) read back from L2.
 
-#define CNMF_CLUSTER_SLICES 8  // most time slices of a tile's S sums
+#define CNMF_GRID_SLICES 8  // most time slices of the S sums
+#define CNMF_GRID_SUM4 16   // float4 loads in flight a thread while summing the sets
+#define CNMF_GRID_BATCH 8   // loads in flight a thread while a streamed tile is copied in
 
-__host__ __device__ inline int cnmf_cluster_slices(int items) {
-  const int g = NMF_CLUSTER_THREADS / items;
-  return g < 1 ? 1 : (g > CNMF_CLUSTER_SLICES ? CNMF_CLUSTER_SLICES : g);
+__host__ __device__ inline int cnmf_grid_items(int l, int k, int d) {
+  return k * d * (cnmf_lp(l) / CNMF_LT);
 }
 
-// Floats a cluster block keeps besides its tile's rows (a tile of n rows
-// adds n * (2 Lp + K)): the X and Xh rows past a tile, S, two parities of
-// S sums (16 floats a (k, d, L-tile) item), the slices' partial sums,
-// C^T's halo rows and rounding, the edge buffers, the halo and the
-// carried rows, and 34 doubles (models/kernels/cnmf_cuda.py mirrors it:
-// cluster_smem_bytes).
-__host__ __device__ inline size_t cnmf_cluster_small_floats(int l, int k, int d) {
+__host__ __device__ inline int cnmf_grid_slices(int items) {
+  const int g = NMF_GRID_THREADS / items;
+  return g < 1 ? 1 : (g > CNMF_GRID_SLICES ? CNMF_GRID_SLICES : g);
+}
+
+// Floats a K5 grid block keeps besides its rows (a tile of n rows adds n
+// (2 Lp + K): X and Xh rows, C^T): the X and Xh rows past a tile (D - 1
+// each), S, 34 doubles' room of float64 scratch, the block's S sums and
+// the time slices' partial sums (16 floats a (k, d, L-tile) item and
+// slice), the lower halo, upper halo and carried rows of C, and C^T's
+// halo columns and rounding (models/kernels/cnmf_cuda.py:
+// grid_small_floats).
+__host__ __device__ inline size_t cnmf_grid_small_floats(int l, int k, int d) {
   const size_t lp = cnmf_lp(l), h1 = d - 1;
-  const size_t items = (size_t)k * d * (lp / CNMF_LT);
-  return 2 * h1 * lp + k * d * lp + 32 * items +
-         16 * (cnmf_cluster_slices((int)items) - 1) * items + k * (2 * h1 + 3) +
-         7 * h1 * k + 1 + 2 * 34;
+  const size_t items = cnmf_grid_items(l, k, d);
+  return 2 * h1 * lp + (size_t)k * d * lp + 68 + 16 * items * cnmf_grid_slices((int)items) +
+         3 * h1 * k + (size_t)k * (2 * h1 + 3);
 }
 
-struct CnmfCluster {
-  CnmfBlock b;     // lp, sh, l, k, d, s; x, xh: the tile's rows (from its first)
-  int T;           // the fit's rows
-  int rows;        // rows a block (the plan's)
-  int t0, t1;      // the block's rows [t0, t1)
-  int tile;        // rows a tile
-  int h1;          // D - 1
-  int ldc;         // row stride of ct: tile + 2 (D - 1), rounded up to 4
-  int items;       // (k, d, L-tile) items of the S sums
-  int slices;      // time slices of a tile's S sums
-  float* ct;       // (k, ldc): C^T of a tile's rows from its first minus D - 1
-  float* part;     // 2 parities x items x 16: S sums (8 numerators, 8 denominators)
-  float* scratch;  // (slices - 1) x items x 16: the slices' partial sums
-  float* edge;     // 2 parities x (first, last) x (D - 1) x k: the block's edge rows
-  float* hlo;      // (D - 1, k): C rows [t0 - D + 1, t0), the lower halo
-  float* hhi;      // (D - 1, k): C rows [t1, t1 + D - 1), the upper halo
-  float* carry;    // (D - 1, k): old C rows just before the current tile
-  double* red;     // 33 doubles of float64 reduction scratch
-  double* err;     // the block's share of the stopping statistic
+// K5's plan (models/kernels/cnmf_cuda.py: grid_plan).
+inline int cnmf_grid_rule(int batch, int t, int l, int k, int d, int sms,
+                          NmfGridPlan* plan) {
+  const int r = nmf_grid_rule_sized(batch, t, l, k, sms, cnmf_grid_small_floats(l, k, d),
+                                    2 * (long long)cnmf_lp(l) + k, plan);
+  if (r != 0) return r;
+  plan->nq = 16 * cnmf_grid_items(l, k, d);
+  plan->pstride = plan->nq;
+  return 0;
+}
+
+// Floats of one fit's edge slots: two parities of a block's first and
+// last D - 1 rows of C.
+__host__ __device__ inline size_t cnmf_grid_edge_floats(const NmfGridPlan& p, int d) {
+  return nmf_r4((size_t)4 * p.blocks * (d - 1) * p.k);
+}
+
+// Floats of K5's workspace: the fits' arrive counters, a flag a block, a
+// float64 error slot a block, the fits' edge slots and two partial sets
+// a block (models/kernels/cnmf_cuda.py: grid_workspace_floats).
+inline size_t cnmf_grid_workspace_floats(const NmfGridPlan& p, int d, int batch) {
+  const size_t blocks = (size_t)batch * p.blocks;
+  return nmf_r4(batch) + 3 * nmf_r4(blocks) + batch * cnmf_grid_edge_floats(p, d) +
+         2 * blocks * p.pstride;
+}
+
+struct CnmfGrid {
+  CnmfBlock b;      // lp, sh, l, k, d; s: S; x, xh: a tile's X and Xh rows from its first; red
+  float* ct;        // (k, ldc): C^T, column c the fit's row a - (D - 1) + c (a: the tile's first)
+  float* bpart;     // the block's S sums, 16 floats an item (8 numerators, 8 denominators)
+  float* scratch;   // (slices - 1) x items x 16: the time slices' partial sums
+  float* hlo;       // (D - 1, k): C rows [t0 - D + 1, t0), the lower halo
+  float* hhi;       // (D - 1, k): C rows [t1, t1 + D - 1), the upper halo
+  float* carry;     // (D - 1, k): the old C rows just before the current tile
+  int T;            // the fit's rows
+  int rows;         // rows a block (the plan's)
+  int t0, t1;       // the block's rows [t0, t1)
+  int tile;         // rows a tile (resident: = rows)
+  int h1;           // D - 1
+  int ldc;          // row stride of ct: tile + 2 (D - 1), rounded up to 4
+  int items, slices, rank, blocks, nq, pstride;
+  bool resident;
+  unsigned* counter;  // the fit's arrive counter
+  unsigned* flags;    // the fit's blocks' edge versions
+  double* err;        // the fit's error slots, one a block
+  float* edge;        // the fit's edge slots, [2][blocks][first, last][D - 1][k]
+  float* part;        // the fit's partial sets, [2][blocks][pstride]
 };
 
-__device__ inline CnmfCluster cnmf_cluster(float* smem, const NmfClusterPlan& p,
-                                           int d, int rank) {
-  CnmfCluster cc;
-  CnmfBlock& b = cc.b;
+__device__ inline CnmfGrid cnmf_grid(float* smem, const NmfGridPlan& p, int d, float* ws,
+                                     int batch, size_t fit, int rank) {
+  CnmfGrid cg;
+  CnmfBlock& b = cg.b;
   b.l = p.l;
   b.k = p.k;
   b.d = d;
   b.lp = cnmf_lp(p.l);
   const int nc = b.lp / 4;
   b.sh = nc == 2 ? 2 : (nc == 4 ? 1 : 0);
-  cc.T = p.n;
-  cc.rows = p.rows;
-  cc.tile = p.tile;
-  cc.h1 = d - 1;
-  cc.t0 = (int)min((long long)rank * p.rows, (long long)p.n);
-  cc.t1 = (int)min((long long)cc.t0 + p.rows, (long long)p.n);
-  b.t = p.tile + cc.h1;
-  cc.ldc = (p.tile + 2 * cc.h1 + 3) & ~3;
-  cc.items = p.k * d * (b.lp / CNMF_LT);
-  cc.slices = cnmf_cluster_slices(cc.items);
+  b.groups = 1;
+  b.part = nullptr;
+  cg.T = p.n;
+  cg.rows = p.rows;
+  cg.tile = p.tile;
+  cg.h1 = d - 1;
+  cg.t0 = (int)min((long long)rank * p.rows, (long long)p.n);
+  cg.t1 = (int)min((long long)cg.t0 + p.rows, (long long)p.n);
+  b.t = p.tile + cg.h1;  // rows of the X and Xh buffers
+  cg.ldc = (p.tile + 2 * cg.h1 + 3) & ~3;
+  cg.items = cnmf_grid_items(p.l, p.k, d);
+  cg.slices = cnmf_grid_slices(cg.items);
+  cg.rank = rank;
+  cg.blocks = p.blocks;
+  cg.nq = p.nq;
+  cg.pstride = p.pstride;
+  cg.resident = p.resident != 0;
   b.x = smem;
   b.xh = b.x + (size_t)b.t * b.lp;
   b.s = b.xh + (size_t)b.t * b.lp;
-  cc.part = b.s + (size_t)p.k * d * b.lp;
-  cc.scratch = cc.part + 32 * (size_t)cc.items;
-  cc.ct = cc.scratch + 16 * (size_t)(cc.slices - 1) * cc.items;
-  cc.edge = cc.ct + (size_t)p.k * cc.ldc;
-  cc.hlo = cc.edge + 4 * (size_t)cc.h1 * p.k;
-  cc.hhi = cc.hlo + (size_t)cc.h1 * p.k;
-  cc.carry = cc.hhi + (size_t)cc.h1 * p.k;
-  size_t off = (size_t)(cc.carry + (size_t)cc.h1 * p.k - smem);
-  off += off & 1;  // 8-byte alignment of the doubles
-  cc.red = (double*)(smem + off);
-  cc.err = cc.red + 33;
-  return cc;
+  b.red = reinterpret_cast<double*>(b.s + (size_t)p.k * d * b.lp);
+  cg.bpart = b.s + (size_t)p.k * d * b.lp + 68;  // 16-byte aligned, past the doubles
+  cg.scratch = cg.bpart + 16 * (size_t)cg.items;
+  cg.hlo = cg.scratch + 16 * (size_t)(cg.slices - 1) * cg.items;
+  cg.hhi = cg.hlo + (size_t)cg.h1 * p.k;
+  cg.carry = cg.hhi + (size_t)cg.h1 * p.k;
+  cg.ct = cg.carry + (size_t)cg.h1 * p.k;
+  const size_t blocks = (size_t)batch * p.blocks;
+  cg.counter = reinterpret_cast<unsigned*>(ws) + fit;
+  cg.flags = reinterpret_cast<unsigned*>(ws + nmf_r4(batch)) + fit * p.blocks;
+  cg.err = reinterpret_cast<double*>(ws + nmf_r4(batch) + nmf_r4(blocks)) + fit * p.blocks;
+  cg.edge = ws + nmf_r4(batch) + 3 * nmf_r4(blocks) + fit * cnmf_grid_edge_floats(p, d);
+  cg.part = ws + nmf_r4(batch) + 3 * nmf_r4(blocks) + batch * cnmf_grid_edge_floats(p, d) +
+            fit * 2 * p.blocks * p.pstride;
+  return cg;
 }
 
-// The block's edge rows of C for `parity`: its first D - 1 rows, then
-// its last D - 1 (of a range shorter than that, all of it in each).
-__device__ inline float* cnmf_edge(const CnmfCluster& cc, int parity, bool last) {
-  return cc.edge + ((size_t)2 * parity + (last ? 1 : 0)) * cc.h1 * cc.b.k;
+// Block q's edge slot of `parity`: its first D - 1 rows of C, or its
+// last (of a range shorter than that, all of it in each).
+__device__ inline float* cnmf_grid_edge(const CnmfGrid& cg, int parity, int q, bool last) {
+  return cg.edge + (((size_t)parity * cg.blocks + q) * 2 + (last ? 1 : 0)) * cg.h1 * cg.b.k;
 }
 
-// Load one fit: S into every block, C0's rows of the block into C in
-// device memory (updated in place there) and into the edges of parity 0.
-__device__ void cnmf_cluster_load(const CnmfCluster& cc, const float* c0f,
-                                  float* cf, const float* s0f) {
-  const CnmfBlock& b = cc.b;
+// Row g of the new C (value v of synergy kk) to the block's edge slots of
+// `parity` where it is among the block's first or last D - 1 rows.
+__device__ __forceinline__ void cnmf_grid_put_edge(const CnmfGrid& cg, int parity, int g,
+                                                   int kk, float v) {
+  const int e = min(cg.h1, cg.t1 - cg.t0);
+  if (g - cg.t0 < e) __stcg(cnmf_grid_edge(cg, parity, cg.rank, false) + (g - cg.t0) * cg.b.k + kk, v);
+  if (g >= cg.t1 - e) {
+    __stcg(cnmf_grid_edge(cg, parity, cg.rank, true) + (g - (cg.t1 - e)) * cg.b.k + kk, v);
+  }
+}
+
+// The block's edges are written: its flag to `ver` (after a barrier and
+// a fence, a release store).
+__device__ inline void cnmf_grid_publish(const CnmfGrid& cg, unsigned ver) {
+  __syncthreads();
+  if (threadIdx.x == 0 && cg.blocks > 1 && cg.h1 > 0) {
+    __threadfence();
+    nmf_st_release(cg.flags + cg.rank, ver);
+  }
+}
+
+// Load one fit: S into every block; resident, the block's X rows and the
+// D - 1 after them into its shared memory and its rows of C0 into C^T;
+// streamed, its rows of C0 copied to C in device memory (updated in
+// place there); and its edges of C0 to the slots of parity 0.
+__device__ void cnmf_grid_load(const CnmfGrid& cg, const float* xf, const float* c0f,
+                               float* cf, const float* s0f) {
+  const CnmfBlock& b = cg.b;
   for (int i = threadIdx.x; i < b.k * b.d * b.lp; i += blockDim.x) {
     const int r = i / b.lp, m = i - r * b.lp;
     b.s[i] = m < b.l ? s0f[r * b.l + m] : 0.0f;
   }
-  const int n = cc.t1 - cc.t0;
-  const int e = min(cc.h1, n);
+  const int n = cg.t1 - cg.t0;
+  if (cg.resident) {
+    for (int i = threadIdx.x; i < (n + cg.h1) * b.lp; i += blockDim.x) {
+      const int j = i / b.lp, m = i - j * b.lp;
+      const long long g = (long long)cg.t0 + j;
+      b.x[cnmf_xidx(b, j, m)] = m < b.l && g < cg.T ? xf[g * b.l + m] : 0.0f;
+    }
+  }
+  const bool edges = cg.blocks > 1 && cg.h1 > 0;
   for (int i = threadIdx.x; i < n * b.k; i += blockDim.x) {
-    const float v = c0f[(size_t)cc.t0 * b.k + i];
-    cf[(size_t)cc.t0 * b.k + i] = v;
-    const int r = i / b.k;
-    if (r < e) cnmf_edge(cc, 0, false)[i] = v;
-    if (r >= n - e) cnmf_edge(cc, 0, true)[i - (n - e) * b.k] = v;
+    const float v = c0f[(size_t)cg.t0 * b.k + i];
+    const int r = i / b.k, kk = i - r * b.k;
+    if (cg.resident) {
+      cg.ct[kk * cg.ldc + cg.h1 + r] = v;
+    } else {
+      cf[(size_t)cg.t0 * b.k + i] = v;
+    }
+    if (edges) cnmf_grid_put_edge(cg, 0, cg.t0 + r, kk, v);
   }
   __syncthreads();
 }
 
-// The block's halo rows of C for `parity` (rows before t0 into hlo,
-// rows from t1 on into hhi; rows outside the fit 0), each read from the
-// edge buffer of the block that owns it; then carry <- hlo.  Call after
-// a cluster barrier that follows the edges' writes.
-__device__ void cnmf_cluster_halo(const CnmfCluster& cc, nmf_cg::cluster_group& cl,
-                                  int parity) {
-  const int k = cc.b.k, hk = cc.h1 * k;
+// The block's halo rows of C for `parity` (rows before t0 into hlo, rows
+// from t1 on into hhi; rows outside the fit 0), each read from the edge
+// slot of the block that owns it once that block's flag reaches `ver`;
+// then carry <- hlo.  Ends with a barrier.
+__device__ void cnmf_grid_halo(const CnmfGrid& cg, int parity, unsigned ver) {
+  const int k = cg.b.k, hk = cg.h1 * k;
+  const bool rows = cg.t1 > cg.t0;
+  if (hk > 0 && rows && cg.blocks > 1 && threadIdx.x == 0) {
+    const int lo = max(0, cg.t0 - cg.h1), hi = min(cg.T, cg.t1 + cg.h1) - 1;
+    for (int q = lo / cg.rows; q <= hi / cg.rows; ++q) {
+      if (q == cg.rank) continue;
+      while (nmf_ld_acquire(cg.flags + q) < ver) {
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
   for (int i = threadIdx.x; i < 2 * hk; i += blockDim.x) {
     const bool upper = i >= hk;
     const int j = upper ? i - hk : i;
     const int r = j / k, kk = j - r * k;
-    const int g = upper ? cc.t1 + r : cc.t0 - cc.h1 + r;
+    const int g = upper ? cg.t1 + r : cg.t0 - cg.h1 + r;
     float v = 0.0f;
-    if (cc.t1 > cc.t0 && g >= 0 && g < cc.T) {
-      const int q = g / cc.rows;  // the owner
-      const int rq = min(cc.rows, cc.T - q * cc.rows);
-      const int o = g - q * cc.rows;
+    if (rows && g >= 0 && g < cg.T) {
+      const int q = g / cg.rows;  // the owner
+      const int rq = min(cg.rows, cg.T - q * cg.rows);
+      const int o = g - q * cg.rows;
       // an upper row is among the owner's first rows, a lower one among its last
-      const int row = upper ? o : o - (rq - min(cc.h1, rq));
-      v = cl.map_shared_rank(cnmf_edge(cc, parity, !upper), q)[row * k + kk];
+      const int row = upper ? o : o - (rq - min(cg.h1, rq));
+      v = __ldcg(cnmf_grid_edge(cg, parity, q, !upper) + row * k + kk);
     }
-    (upper ? cc.hhi : cc.hlo)[j] = v;
-    if (!upper) cc.carry[j] = v;
+    (upper ? cg.hhi : cg.hlo)[j] = v;
+    if (!upper) cg.carry[j] = v;
   }
   __syncthreads();
 }
 
-// Load a tile starting at row a: C rows [a - D + 1, a + n_c - D + 1) into
-// ct (before a from carry, then the fit's C in device memory up to t1,
-// then the upper halo, 0 outside the fit) and X rows [a, a + n_x) into
-// b.x (0 past T).
-__device__ void cnmf_cluster_tile(const CnmfCluster& cc, const float* xf,
-                                  const float* cf, int a, int n_c, int n_x) {
-  const CnmfBlock& b = cc.b;
-  for (int i = threadIdx.x; i < b.k * n_c; i += blockDim.x) {
-    const int kk = i / n_c, j = i - kk * n_c;
-    const int g = a - cc.h1 + j;
-    float v;
-    if (g < 0 || g >= cc.T) {
-      v = 0.0f;
-    } else if (g < a) {
-      v = cc.carry[(g - (a - cc.h1)) * b.k + kk];
-    } else if (g < cc.t1) {
-      v = cf[(size_t)g * b.k + kk];
-    } else {
-      v = cc.hhi[(g - cc.t1) * b.k + kk];
+// Load a tile starting at fit row a: C rows [a - D + 1, a - D + 1 + n_c)
+// into ct (before a from carry, then the fit's C up to t1, then the upper
+// halo, 0 outside the fit) and X rows [a, a + n_x) into b.x (0 past T).
+// Resident (one tile, a = t0): the block's X and its own C stay in shared
+// memory, and only C's halo columns are written, the lower from hlo and,
+// where n_c reaches past the block's rows, the upper from hhi.
+__device__ void cnmf_grid_tile(const CnmfGrid& cg, const float* xf, const float* cf, int a,
+                               int n_c, int n_x) {
+  const CnmfBlock& b = cg.b;
+  const int k = b.k;
+  if (cg.resident) {
+    const int own = cg.t1 - cg.t0, hk = cg.h1 * k;
+    for (int i = threadIdx.x; i < k * (n_c - own); i += blockDim.x) {
+      const bool upper = i >= hk;
+      const int j = upper ? i - hk : i;
+      const int r = j / k, kk = j - r * k;
+      cg.ct[kk * cg.ldc + (upper ? cg.h1 + own + r : r)] = (upper ? cg.hhi : cg.hlo)[j];
     }
-    cc.ct[kk * cc.ldc + j] = v;
-  }
-  for (int i = threadIdx.x; i < n_x * b.lp; i += blockDim.x) {
-    const int j = i / b.lp, m = i - j * b.lp;
-    const long long g = (long long)a + j;
-    b.x[cnmf_xidx(b, j, m)] = m < b.l && g < cc.T ? xf[g * b.l + m] : 0.0f;
+  } else {
+    // C, a row's 4 synergies at a time (one 16-byte load where K is a
+    // multiple of 4), CNMF_GRID_BATCH loads in flight a thread
+    const int kc = (k + 3) / 4, total = n_c * kc;
+    const bool vec = (k & 3) == 0;
+    for (int base = threadIdx.x; base < total; base += CNMF_GRID_BATCH * blockDim.x) {
+      float4 v[CNMF_GRID_BATCH];
+#pragma unroll
+      for (int u = 0; u < CNMF_GRID_BATCH; ++u) {
+        const int e = base + u * blockDim.x;
+        if (e >= total) continue;
+        const int j = e / kc, c = e - j * kc;
+        const int g = a - cg.h1 + j;
+        if (vec && g >= a && g < cg.t1) {
+          v[u] = __ldcg(reinterpret_cast<const float4*>(cf + (size_t)g * k) + c);
+          continue;
+        }
+        float q[4];
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const int kk = 4 * c + w;
+          if (kk >= k || g < 0 || g >= cg.T) {
+            q[w] = 0.0f;
+          } else if (g < a) {
+            q[w] = cg.carry[(g - (a - cg.h1)) * k + kk];
+          } else if (g < cg.t1) {
+            q[w] = __ldcg(cf + (size_t)g * k + kk);
+          } else {
+            q[w] = cg.hhi[(g - cg.t1) * k + kk];
+          }
+        }
+        v[u] = make_float4(q[0], q[1], q[2], q[3]);
+      }
+#pragma unroll
+      for (int u = 0; u < CNMF_GRID_BATCH; ++u) {
+        const int e = base + u * blockDim.x;
+        if (e >= total) continue;
+        const int j = e / kc, c = e - j * kc;
+        const float q[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          if (4 * c + w < k) cg.ct[(4 * c + w) * cg.ldc + j] = q[w];
+        }
+      }
+    }
+    // X, a row's 16-byte chunks (one 16-byte load where L is a multiple
+    // of 4), 0 past L and past T
+    const int cr = b.lp / 4, tx = n_x * cr;
+    for (int base = threadIdx.x; base < tx; base += CNMF_GRID_BATCH * blockDim.x) {
+      float4 v[CNMF_GRID_BATCH];
+#pragma unroll
+      for (int u = 0; u < CNMF_GRID_BATCH; ++u) {
+        const int e = base + u * blockDim.x;
+        if (e >= tx) continue;
+        const int j = e / cr, c = e - j * cr;
+        const long long g = (long long)a + j;
+        if ((b.l & 3) == 0) {
+          v[u] = 4 * c < b.l && g < cg.T
+                     ? *(reinterpret_cast<const float4*>(xf + g * b.l) + c)
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        } else {
+          float q[4];
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            q[w] = 4 * c + w < b.l && g < cg.T ? xf[g * b.l + 4 * c + w] : 0.0f;
+          }
+          v[u] = make_float4(q[0], q[1], q[2], q[3]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < CNMF_GRID_BATCH; ++u) {
+        const int e = base + u * blockDim.x;
+        if (e >= tx) continue;
+        const int j = e / cr, c = e - j * cr;
+        *reinterpret_cast<float4*>(b.x + cnmf_chunk(b, j, c)) = v[u];
+      }
+    }
   }
   __syncthreads();
 }
 
 // carry <- the old C rows [a + n - D + 1, a + n) of the tile in ct, for
 // the next tile; barriers before (the tile's reads) and after.
-__device__ inline void cnmf_cluster_carry(const CnmfCluster& cc, int n) {
-  const int k = cc.b.k;
-  for (int i = threadIdx.x; i < cc.h1 * k; i += blockDim.x) {
+__device__ inline void cnmf_grid_carry(const CnmfGrid& cg, int n) {
+  const int k = cg.b.k;
+  __syncthreads();
+  for (int i = threadIdx.x; i < cg.h1 * k; i += blockDim.x) {
     const int r = i / k, kk = i - r * k;
-    cc.carry[i] = cc.ct[kk * cc.ldc + n + r];
+    cg.carry[i] = cg.ct[kk * cg.ldc + n + r];
   }
   __syncthreads();
 }
 
-// Xh rows [0, n_rows) of the tile from ct and S: Xh[j] = sum_d sum_k
-// C[a + j - d, k] S[k, d, :], summed over d then k as the block entry.
-__device__ void cnmf_cluster_reconstruct(const CnmfCluster& cc, int n_rows) {
-  const CnmfBlock& b = cc.b;
-  for (int j = threadIdx.x; j < n_rows; j += blockDim.x) {
-    const float* cj = cc.ct + j + cc.h1;
-    for (int jt = 0; jt < b.lp / CNMF_LT; ++jt) {
-      float acc[CNMF_LT];
+// Tile rows j, j + blockDim.x, ... (R of them, those from m on masked)
+// of Xh[j, l] = sum_d sum_k C[a + j - d, k] S[k, d, l], summed over d
+// then k as the block entry; the rows share each S broadcast.
+template <int R>
+__device__ inline void cnmf_grid_rows(const CnmfGrid& cg, int j, int m) {
+  const CnmfBlock& b = cg.b;
+  const int step = blockDim.x;
+  for (int jt = 0; jt < b.lp / CNMF_LT; ++jt) {
+    float acc[R][CNMF_LT];
 #pragma unroll
-      for (int i = 0; i < CNMF_LT; ++i) acc[i] = 0.0f;
-      for (int d = 0; d < b.d; ++d) {
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int i = 0; i < CNMF_LT; ++i) acc[r][i] = 0.0f;
+    }
+    for (int d = 0; d < b.d; ++d) {
+      const float* cd = cg.ct + cg.h1 - d + j;
 #pragma unroll 2
-        for (int k = 0; k < b.k; ++k) {
-          float sv[CNMF_LT];
-          cnmf_s_tile(b, k, d, jt, sv);
-          const float cv = cj[k * cc.ldc - d];
+      for (int k = 0; k < b.k; ++k) {
+        float sv[CNMF_LT];
+        cnmf_s_tile(b, k, d, jt, sv);
 #pragma unroll
-          for (int i = 0; i < CNMF_LT; ++i) acc[i] += cv * sv[i];
+        for (int r = 0; r < R; ++r) {
+          const float cv = j + r * step < m ? cd[k * cg.ldc + r * step] : 0.0f;
+#pragma unroll
+          for (int i = 0; i < CNMF_LT; ++i) acc[r][i] += cv * sv[i];
         }
       }
-      *(float4*)(b.xh + cnmf_chunk(b, j, 2 * jt)) =
-          make_float4(acc[0], acc[1], acc[2], acc[3]);
-      *(float4*)(b.xh + cnmf_chunk(b, j, 2 * jt + 1)) =
-          make_float4(acc[4], acc[5], acc[6], acc[7]);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int jr = j + r * step;
+      if (jr < m) {
+        *(float4*)(b.xh + cnmf_chunk(b, jr, 2 * jt)) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+        *(float4*)(b.xh + cnmf_chunk(b, jr, 2 * jt + 1)) =
+            make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+      }
+    }
+  }
+}
+
+// Xh rows [0, m) of the tile from ct and S: each thread takes rows j, j
+// + blockDim.x, j + 2 blockDim.x, j + 3 blockDim.x, as many of them as
+// its warp has (1, 2, or up to 4).
+__device__ void cnmf_grid_reconstruct(const CnmfGrid& cg, int m) {
+  const int step = blockDim.x;
+  for (int j = threadIdx.x; j < m; j += 4 * step) {
+    const int left = m - (j & ~31);
+    if (left > 2 * step) {
+      cnmf_grid_rows<4>(cg, j, m);
+    } else if (left > step) {
+      cnmf_grid_rows<2>(cg, j, m);
+    } else {
+      cnmf_grid_rows<1>(cg, j, m);
     }
   }
   __syncthreads();
 }
 
 // Item q's S sums over tile rows [r0, r1) added to num[8] and den[8]:
-// sum_t C[t - d, k] X[t, tile] and the same with Xh.
-__device__ inline void cnmf_cluster_item(const CnmfCluster& cc, int q, int r0,
-                                         int r1, float* num, float* den) {
-  const CnmfBlock& b = cc.b;
+// sum_t C[t - d, k] X[t, tile] and the same with Xh.  Every thread of a
+// slice walks the same rows, so the X and Xh rows are broadcasts.
+__device__ inline void cnmf_grid_item(const CnmfGrid& cg, int q, int r0, int r1, float* num,
+                                      float* den) {
+  const CnmfBlock& b = cg.b;
   const int tiles = b.lp / CNMF_LT;
   const int k = q / (b.d * tiles);
   const int rem = q - k * b.d * tiles;
   const int d = rem / tiles, jt = rem - d * tiles;
-  const float* crow = cc.ct + k * cc.ldc + cc.h1 - d;
+  const float* crow = cg.ct + k * cg.ldc + cg.h1 - d;
 #pragma unroll 2
   for (int t = r0; t < r1; ++t) {
     const float cv = crow[t];
@@ -710,18 +921,18 @@ __device__ inline void cnmf_cluster_item(const CnmfCluster& cc, int q, int r0,
   }
 }
 
-// The tile's share of the S sums (its rows [0, n)) added to `part`:
-// threads over items in `slices` time slices, slice 0 adding the
+// The tile's share of the S sums (its rows [0, n)) added to the block's
+// set: threads over items in `slices` time slices, slice 0 adding the
 // others' partial sums in slice order.
-__device__ void cnmf_cluster_s_sums(const CnmfCluster& cc, int n, float* part) {
-  const int items = cc.items, slices = cc.slices;
+__device__ void cnmf_grid_s_sums(const CnmfGrid& cg, int n) {
+  const int items = cg.items, slices = cg.slices;
   if (slices == 1) {
     for (int q = threadIdx.x; q < items; q += blockDim.x) {
       float num[CNMF_LT], den[CNMF_LT];
 #pragma unroll
       for (int i = 0; i < CNMF_LT; ++i) num[i] = den[i] = 0.0f;
-      cnmf_cluster_item(cc, q, 0, n, num, den);
-      float* out = part + 16 * q;
+      cnmf_grid_item(cg, q, 0, n, num, den);
+      float* out = cg.bpart + 16 * q;
 #pragma unroll
       for (int i = 0; i < CNMF_LT; ++i) {
         out[i] += num[i];
@@ -737,9 +948,9 @@ __device__ void cnmf_cluster_s_sums(const CnmfCluster& cc, int n, float* part) {
 #pragma unroll
   for (int i = 0; i < CNMF_LT; ++i) num[i] = den[i] = 0.0f;
   if (g < slices) {
-    cnmf_cluster_item(cc, q, g * n / slices, (g + 1) * n / slices, num, den);
+    cnmf_grid_item(cg, q, g * n / slices, (g + 1) * n / slices, num, den);
     if (g > 0) {
-      float* out = cc.scratch + 16 * ((size_t)(g - 1) * items + q);
+      float* out = cg.scratch + 16 * ((size_t)(g - 1) * items + q);
 #pragma unroll
       for (int i = 0; i < CNMF_LT; ++i) {
         out[i] = num[i];
@@ -750,14 +961,14 @@ __device__ void cnmf_cluster_s_sums(const CnmfCluster& cc, int n, float* part) {
   __syncthreads();
   if (g == 0) {
     for (int gg = 1; gg < slices; ++gg) {
-      const float* in = cc.scratch + 16 * ((size_t)(gg - 1) * items + q);
+      const float* in = cg.scratch + 16 * ((size_t)(gg - 1) * items + q);
 #pragma unroll
       for (int i = 0; i < CNMF_LT; ++i) {
         num[i] += in[i];
         den[i] += in[CNMF_LT + i];
       }
     }
-    float* out = part + 16 * q;
+    float* out = cg.bpart + 16 * q;
 #pragma unroll
     for (int i = 0; i < CNMF_LT; ++i) {
       out[i] += num[i];
@@ -767,165 +978,254 @@ __device__ void cnmf_cluster_s_sums(const CnmfCluster& cc, int n, float* part) {
   __syncthreads();
 }
 
-// C of the tile's rows [0, n) (fit rows a..a+n-1) from X and Xh rows
-// t..t+D-1 (zero past T) and ct's old C, written to the fit's C in
-// device memory and, for the block's edge rows, to the edges of `parity`.
-__device__ void cnmf_cluster_update_c(const CnmfCluster& cc, float* cf, int a,
-                                      int n, int parity) {
-  const CnmfBlock& b = cc.b;
-  const int tiles = b.lp / CNMF_LT;
-  const int e = min(cc.h1, cc.t1 - cc.t0);
-  float* first = cnmf_edge(cc, parity, false);
-  float* last = cnmf_edge(cc, parity, true);
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const int g = a + j;
-    const int d_end = min(b.d, cc.T - g);
-    for (int k0 = 0; k0 < b.k; k0 += CNMF_KT) {
-      float num[CNMF_KT], den[CNMF_KT];
+// The sum of `count` float4s at src, src + stride, ..., each component
+// added one after another from 0: rounds of CNMF_GRID_SUM4 loads in
+// flight, then the rest one by one.
+__device__ __forceinline__ float4 cnmf_grid_sum4(const float* src, int count, int stride) {
+  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int r = 0;
+  for (; r + CNMF_GRID_SUM4 <= count; r += CNMF_GRID_SUM4) {
+    float4 v[CNMF_GRID_SUM4];
 #pragma unroll
-      for (int q = 0; q < CNMF_KT; ++q) num[q] = den[q] = 0.0f;
-      for (int d = 0; d < d_end; ++d) {
-        for (int jt = 0; jt < tiles; ++jt) {
-          float xv[CNMF_LT], hv[CNMF_LT];
-          cnmf_row_tile(b, b.x, j + d, jt, xv);
-          cnmf_row_tile(b, b.xh, j + d, jt, hv);
+    for (int u = 0; u < CNMF_GRID_SUM4; ++u) {
+      v[u] = __ldcg(reinterpret_cast<const float4*>(src + (size_t)(r + u) * stride));
+    }
 #pragma unroll
-          for (int q = 0; q < CNMF_KT; ++q) {
-            if (k0 + q < b.k) {
-              float sv[CNMF_LT];
-              cnmf_s_tile(b, k0 + q, d, jt, sv);
+    for (int u = 0; u < CNMF_GRID_SUM4; ++u) {
+      s.x += v[u].x;
+      s.y += v[u].y;
+      s.z += v[u].z;
+      s.w += v[u].w;
+    }
+  }
+  for (; r < count; ++r) {
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(src + (size_t)r * stride));
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  return s;
+}
+
+// After the S pass: the fit's S sums (the block's set to the workspace at
+// `parity`, the fit's barrier, the P sets added in block order into the
+// block's set; a lone block: its own), then S <- S * num / den, the same
+// bits in every block.  `syncs` counts the fit's barriers.
+__device__ void cnmf_grid_update_s(const CnmfGrid& cg, int parity, unsigned& syncs) {
+  const CnmfBlock& b = cg.b;
+  __syncthreads();
+  if (cg.blocks > 1) {
+    const float* sets = cg.part + (size_t)parity * cg.blocks * cg.pstride;
+    float4* mine = reinterpret_cast<float4*>(
+        cg.part + ((size_t)parity * cg.blocks + cg.rank) * cg.pstride);
+    float4* own = reinterpret_cast<float4*>(cg.bpart);
+    for (int q = threadIdx.x; q < cg.nq / 4; q += blockDim.x) __stcg(mine + q, own[q]);
+    syncs += 1;
+    nmf_grid_barrier(cg.counter, syncs * cg.blocks);
+    for (int q = threadIdx.x; q < cg.nq / 4; q += blockDim.x) {
+      own[q] = cnmf_grid_sum4(sets + 4 * q, cg.blocks, cg.pstride);
+    }
+    __syncthreads();
+  }
+  const int dl = b.d * b.l, tiles = b.lp / CNMF_LT;
+  for (int i = threadIdx.x; i < b.k * dl; i += blockDim.x) {
+    const int k = i / dl, r = i - k * dl;
+    const int d = r / b.l, m = r - d * b.l;
+    const int q = 16 * ((k * b.d + d) * tiles + m / CNMF_LT) + m % CNMF_LT;
+    const float den = cg.bpart[q + CNMF_LT];
+    const float dn = den == 0.0f ? EPSILON : den;
+    float* sp = b.s + (k * b.d + d) * b.lp + m;
+    *sp = *sp * (cg.bpart[q] / dn);
+  }
+  __syncthreads();
+}
+
+// C of tile rows j, j + blockDim.x, ... (R of them, those from n on
+// masked; fit rows a + j, ...) from X and Xh rows t..t+D-1 (none past T)
+// and ct's old C, 4 synergies at once, the rows sharing each S broadcast:
+// into ct (resident) or the fit's C in device memory (streamed) and, for
+// the block's edge rows, to its edge slots of `parity`.
+template <int R>
+__device__ inline void cnmf_grid_c_rows(const CnmfGrid& cg, float* cf, int a, int j, int n,
+                                        int parity) {
+  const CnmfBlock& b = cg.b;
+  const int tiles = b.lp / CNMF_LT, step = blockDim.x;
+  const bool edges = cg.blocks > 1 && cg.h1 > 0;
+  int d_end[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    d_end[r] = j + r * step < n ? min(b.d, cg.T - (a + j + r * step)) : 0;
+  }
+  for (int k0 = 0; k0 < b.k; k0 += CNMF_KT) {
+    float num[R][CNMF_KT], den[R][CNMF_KT];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int q = 0; q < CNMF_KT; ++q) num[r][q] = den[r][q] = 0.0f;
+    }
+    for (int d = 0; d < d_end[0]; ++d) {
+      for (int jt = 0; jt < tiles; ++jt) {
+        float sv[CNMF_KT][CNMF_LT];
+#pragma unroll
+        for (int q = 0; q < CNMF_KT; ++q) {
+          if (k0 + q < b.k) {
+            cnmf_s_tile(b, k0 + q, d, jt, sv[q]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < CNMF_LT; ++i) sv[q][i] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (d < d_end[r]) {
+            float xv[CNMF_LT], hv[CNMF_LT];
+            cnmf_row_tile(b, b.x, j + r * step + d, jt, xv);
+            cnmf_row_tile(b, b.xh, j + r * step + d, jt, hv);
+#pragma unroll
+            for (int q = 0; q < CNMF_KT; ++q) {
 #pragma unroll
               for (int i = 0; i < CNMF_LT; ++i) {
-                num[q] += xv[i] * sv[i];
-                den[q] += hv[i] * sv[i];
+                num[r][q] += xv[i] * sv[q][i];
+                den[r][q] += hv[i] * sv[q][i];
               }
             }
           }
         }
       }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int jr = j + r * step;
+      if (jr >= n) continue;
+      const int g = a + jr;
 #pragma unroll
       for (int q = 0; q < CNMF_KT; ++q) {
         const int kk = k0 + q;
         if (kk < b.k) {
-          const float dn = den[q] == 0.0f ? EPSILON : den[q];
-          const float v = cc.ct[kk * cc.ldc + j + cc.h1] * (num[q] / dn);
-          cf[(size_t)g * b.k + kk] = v;
-          if (g - cc.t0 < e) first[(g - cc.t0) * b.k + kk] = v;
-          if (g >= cc.t1 - e) last[(g - (cc.t1 - e)) * b.k + kk] = v;
+          const float dn = den[r][q] == 0.0f ? EPSILON : den[r][q];
+          float* cp = cg.ct + kk * cg.ldc + jr + cg.h1;
+          const float v = *cp * (num[r][q] / dn);
+          if (cg.resident) {
+            *cp = v;
+          } else {
+            cf[(size_t)g * b.k + kk] = v;
+          }
+          if (edges) cnmf_grid_put_edge(cg, parity, g, kk, v);
         }
       }
+    }
+  }
+}
+
+// C of the tile's rows [0, n): two rows a thread (j and j + blockDim.x)
+// where its warp has any second row, else one.
+__device__ void cnmf_grid_update_c(const CnmfGrid& cg, float* cf, int a, int n, int parity) {
+  for (int j = threadIdx.x; j < n; j += 2 * blockDim.x) {
+    if ((j & ~31) + (int)blockDim.x < n) {
+      cnmf_grid_c_rows<2>(cg, cf, a, j, n, parity);
+    } else {
+      cnmf_grid_c_rows<1>(cg, cf, a, j, n, parity);
     }
   }
   __syncthreads();
 }
 
-// One multiplicative update of S then C of the cluster's fit; `parity`
-// keys the edges of the C it starts from (the new C's go to parity ^ 1)
-// and the S sums' buffer.
-__device__ void cnmf_cluster_step(const CnmfCluster& cc, nmf_cg::cluster_group& cl,
-                                  const float* xf, float* cf, int parity) {
-  const CnmfBlock& b = cc.b;
-  float* part = cc.part + (size_t)parity * 16 * cc.items;
-  for (int i = threadIdx.x; i < 16 * cc.items; i += blockDim.x) part[i] = 0.0f;
-  cl.sync();  // every block's edges of `parity` are written
-  cnmf_cluster_halo(cc, cl, parity);  // its barrier also orders the zeroing
+// One multiplicative update of S then C of the fit, starting from the C
+// whose edges are keyed `parity` and of version `ver` (the new C's go to
+// parity ^ 1 as version ver + 1); the S sums' buffer is keyed `parity`.
+__device__ void cnmf_grid_step(const CnmfGrid& cg, const float* xf, float* cf, int parity,
+                               unsigned& ver, unsigned& syncs) {
+  for (int i = threadIdx.x; i < cg.nq; i += blockDim.x) cg.bpart[i] = 0.0f;
+  cnmf_grid_halo(cg, parity, ver);  // its barriers also order the zeroing
   // ---- S: the block's share of the sums, from the old C and S ----
-  for (int a = cc.t0; a < cc.t1; a += cc.tile) {
-    const int n = min(cc.tile, cc.t1 - a);
-    cnmf_cluster_tile(cc, xf, cf, a, n + cc.h1, n);
-    cnmf_cluster_reconstruct(cc, n);
-    cnmf_cluster_s_sums(cc, n, part);
-    cnmf_cluster_carry(cc, n);
+  for (int a = cg.t0; a < cg.t1; a += cg.tile) {
+    const int n = min(cg.tile, cg.t1 - a);
+    cnmf_grid_tile(cg, xf, cf, a, n + cg.h1, n);
+    cnmf_grid_reconstruct(cg, n);
+    cnmf_grid_s_sums(cg, n);
+    if (!cg.resident) cnmf_grid_carry(cg, n);
   }
-  cl.sync();  // every block's S sums are readable
-  const int dl = b.d * b.l;
-  for (int i = threadIdx.x; i < b.k * dl; i += blockDim.x) {
-    const int k = i / dl, r = i - k * dl;
-    const int d = r / b.l, m = r - d * b.l;
-    const int q = 16 * ((k * b.d + d) * (b.lp / CNMF_LT) + m / CNMF_LT) + m % CNMF_LT;
-    const float num = nmf_cluster_sum(cl, part, q);
-    const float den = nmf_cluster_sum(cl, part, q + CNMF_LT);
-    const float dn = den == 0.0f ? EPSILON : den;
-    float* sp = b.s + (k * b.d + d) * b.lp + m;
-    *sp = *sp * (num / dn);
-  }
-  __syncthreads();
+  cnmf_grid_update_s(cg, parity, syncs);
   // ---- C: Xh with the new S over the block's rows and D - 1 after ----
-  for (int i = threadIdx.x; i < cc.h1 * b.k; i += blockDim.x) cc.carry[i] = cc.hlo[i];
-  __syncthreads();
-  for (int a = cc.t0; a < cc.t1; a += cc.tile) {
-    const int n = min(cc.tile, cc.t1 - a);
-    cnmf_cluster_tile(cc, xf, cf, a, n + 2 * cc.h1, n + cc.h1);
-    cnmf_cluster_reconstruct(cc, n + cc.h1);
-    cnmf_cluster_carry(cc, n);  // ct's old C, before update_c overwrites cf
-    cnmf_cluster_update_c(cc, cf, a, n, parity ^ 1);
+  if (!cg.resident) {
+    for (int i = threadIdx.x; i < cg.h1 * cg.b.k; i += blockDim.x) cg.carry[i] = cg.hlo[i];
+    __syncthreads();
   }
+  for (int a = cg.t0; a < cg.t1; a += cg.tile) {
+    const int n = min(cg.tile, cg.t1 - a);
+    cnmf_grid_tile(cg, xf, cf, a, n + 2 * cg.h1, n + cg.h1);
+    cnmf_grid_reconstruct(cg, n + cg.h1);
+    if (!cg.resident) cnmf_grid_carry(cg, n);  // ct's old C, before the next tile
+    cnmf_grid_update_c(cg, cf, a, n, parity ^ 1);
+  }
+  ver += 1;
+  cnmf_grid_publish(cg, ver);
 }
 
-// ||X - Xh||_F of the cluster's fit, Xh rebuilt in float64 from the C
-// whose edges are keyed `parity`, returned to every thread of every
-// block: each block's sum over its rows, then the blocks' sums in rank
-// order.  Cluster barriers lie between two calls' uses of the slot.
-__device__ double cnmf_cluster_error(const CnmfCluster& cc, nmf_cg::cluster_group& cl,
-                                     const float* xf, const float* cf, int parity) {
-  const CnmfBlock& b = cc.b;
-  cl.sync();  // every block's edges of `parity` are written
-  cnmf_cluster_halo(cc, cl, parity);
+// ||X - Xh||_F of the fit, Xh rebuilt in float64 from the C whose edges
+// are keyed `parity` (version `ver`), returned to every thread of every
+// block: each block's sum over its rows, then the blocks' sums in block
+// order.  A barrier of an iteration lies between two calls' uses of the
+// slot.
+__device__ double cnmf_grid_error(const CnmfGrid& cg, const float* xf, const float* cf,
+                                  int parity, unsigned ver, unsigned& syncs) {
+  const CnmfBlock& b = cg.b;
+  cnmf_grid_halo(cg, parity, ver);
   double part = 0.0;
-  for (int a = cc.t0; a < cc.t1; a += cc.tile) {
-    const int n = min(cc.tile, cc.t1 - a);
-    cnmf_cluster_tile(cc, xf, cf, a, n + cc.h1, n);
+  for (int a = cg.t0; a < cg.t1; a += cg.tile) {
+    const int n = min(cg.tile, cg.t1 - a);
+    cnmf_grid_tile(cg, xf, cf, a, n + cg.h1, n);
     for (int q = threadIdx.x; q < n * b.l; q += blockDim.x) {
       const int j = q / b.l, m = q - j * b.l;
       double acc = 0.0;
       for (int d = 0; d < b.d; ++d) {
         for (int k = 0; k < b.k; ++k) {
-          acc += (double)cc.ct[k * cc.ldc + j + cc.h1 - d] *
+          acc += (double)cg.ct[k * cg.ldc + j + cg.h1 - d] *
                  (double)b.s[(k * b.d + d) * b.lp + m];
         }
       }
       const double diff = (double)b.x[cnmf_xidx(b, j, m)] - acc;
       part += diff * diff;
     }
-    cnmf_cluster_carry(cc, n);
+    if (!cg.resident) cnmf_grid_carry(cg, n);
   }
-  const double mine = nmf_block_sum_d(cc.red, part);
-  if (threadIdx.x == 0) *cc.err = mine;
-  cl.sync();
-  return sqrt(nmf_cluster_sum_d(cl, cc.err, 0));
+  return sqrt(nmf_grid_total_d(cg.counter, cg.err, cg.rank, cg.blocks, syncs, b.red,
+                               nmf_block_sum_d(b.red, part)));
 }
 
 template <bool WITH_STOP>
-__global__ void __launch_bounds__(NMF_CLUSTER_THREADS) cnmf_cluster_kernel(
-    NmfClusterPlan p, const float* __restrict__ x, const float* __restrict__ c0,
+__global__ void __launch_bounds__(NMF_GRID_THREADS) cnmf_cluster_kernel(
+    NmfGridPlan p, const float* __restrict__ x, const float* __restrict__ c0,
     const float* __restrict__ s0, float* c, float* __restrict__ s,
     int* __restrict__ n_iter_out, float* __restrict__ prev_err_out,
-    int* __restrict__ converged_out, int d, int iters, double tol,
-    int check_every) {
+    int* __restrict__ converged_out, float* __restrict__ ws, int batch, int d, int iters,
+    double tol, int check_every) {
   extern __shared__ __align__(16) float smem[];
-  nmf_cg::cluster_group cl = nmf_cg::this_cluster();
-  const size_t fit = blockIdx.x / cl.num_blocks();
-  const int rank = (int)cl.block_rank();
-  const CnmfCluster cc = cnmf_cluster(smem, p, d, rank);
+  const size_t fit = blockIdx.x / p.blocks;
+  const int rank = (int)(blockIdx.x % p.blocks);
+  const CnmfGrid cg = cnmf_grid(smem, p, d, ws, batch, fit, rank);
   const float* xf = x + fit * p.n * p.l;
   float* cf = c + fit * p.n * p.k;
-  cnmf_cluster_load(cc, c0 + fit * p.n * p.k, cf, s0 + fit * p.k * d * p.l);
+  cnmf_grid_load(cg, xf, c0 + fit * p.n * p.k, cf, s0 + fit * p.k * d * p.l);
+  unsigned ver = 1, syncs = 0;
+  cnmf_grid_publish(cg, ver);
   int parity = 0;
   if (WITH_STOP) {
     // the block entry's loop: no tail chunk; every value that decides a
-    // branch is the same in every block of the cluster
-    const double err0 = cnmf_cluster_error(cc, cl, xf, cf, parity);
+    // branch is the same in every block of the fit
+    const double err0 = cnmf_grid_error(cg, xf, cf, parity, ver, syncs);
     const double scale = fmax(err0, (double)EPSILON);
     double prev_err = err0;
     int n_iter = 0;
     bool converged = false;
     while (n_iter < iters && !converged) {
       for (int i = 0; i < check_every; ++i) {
-        cnmf_cluster_step(cc, cl, xf, cf, parity);
+        cnmf_grid_step(cg, xf, cf, parity, ver, syncs);
         parity ^= 1;
       }
       n_iter += check_every;
-      const double err = cnmf_cluster_error(cc, cl, xf, cf, parity);
+      const double err = cnmf_grid_error(cg, xf, cf, parity, ver, syncs);
       converged = (prev_err - err) / scale < tol;
       prev_err = err;
     }
@@ -936,13 +1236,18 @@ __global__ void __launch_bounds__(NMF_CLUSTER_THREADS) cnmf_cluster_kernel(
     }
   } else {
     for (int i = 0; i < iters; ++i) {
-      cnmf_cluster_step(cc, cl, xf, cf, parity);
+      cnmf_grid_step(cg, xf, cf, parity, ver, syncs);
       parity ^= 1;
     }
   }
-  cl.sync();  // no block leaves while another reads its shared memory
+  const CnmfBlock& b = cg.b;
+  if (cg.resident) {
+    for (int i = threadIdx.x; i < (cg.t1 - cg.t0) * b.k; i += blockDim.x) {
+      const int r = i / b.k, kk = i - r * b.k;
+      cf[(size_t)cg.t0 * b.k + i] = cg.ct[kk * cg.ldc + cg.h1 + r];
+    }
+  }
   if (rank == 0) {
-    const CnmfBlock& b = cc.b;
     float* sf = s + fit * p.k * d * p.l;
     for (int i = threadIdx.x; i < b.k * b.d * b.l; i += blockDim.x) {
       const int r = i / b.l;
@@ -952,27 +1257,35 @@ __global__ void __launch_bounds__(NMF_CLUSTER_THREADS) cnmf_cluster_kernel(
 }
 
 // The cluster entry: cnmf_f32's arguments and results, for frames over
-// one block's shared memory (models/kernels/cnmf_cuda.py: route).
-// Launches one cluster a fit on `stream` and returns cudaGetLastError(),
-// or the error that left no cluster able to run the fit.
+// one block's shared memory (models/kernels/cnmf_cuda.py: route), and
+// `ws`, a zeroed workspace of `ws_floats` floats (at least
+// cnmf_grid_workspace_floats; cnmf_cuda.grid_workspace_floats).  Writes
+// the plan it took to `plan_out` (NMF_GRID_PLAN_INTS host ints),
+// launches once on `stream` and returns cudaGetLastError(), or the error
+// that refused the plan.
 extern "C" int cnmf_cluster_f32(const float* x, const float* c0, const float* s0,
                                 float* c, float* s, int* n_iter, float* prev_err,
                                 int* converged, int batch, int t, int l, int k,
                                 int d, int iters, double tol, int check_every,
-                                int with_stop, void* stream) {
+                                int with_stop, float* ws, long long ws_floats,
+                                int* plan_out, void* stream) {
   if (batch < 1 || t < 1 || l < 1 || k < 1 || d < 1 || d > t || iters < 0 ||
       (with_stop && check_every < 1)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t st = (cudaStream_t)stream;
-  const size_t small = cnmf_cluster_small_floats(l, k, d);
-  const size_t per_row = 2 * (size_t)cnmf_lp(l) + k;
+  int sms = 0;
+  int e = nmf_grid_sms(&sms);
+  if (e != 0) return e;
+  NmfGridPlan plan;
+  e = cnmf_grid_rule(batch, t, l, k, d, sms, &plan);
+  if (e != 0) return e;
   auto run = [&](auto kernel) {
-    NmfClusterPlan plan;
-    const int e = nmf_cluster_plan_sized(kernel, t, l, k, small, 0, per_row, &plan);
-    if (e != 0) return e;
-    return nmf_cluster_launch(kernel, plan, batch, st, x, c0, s0, c, s, n_iter,
-                              prev_err, converged, d, iters, tol, check_every);
+    const int r = nmf_grid_settle(kernel, batch, sms, plan, plan_out);
+    if (r != 0) return r;
+    return nmf_grid_launch(kernel, batch, plan, cnmf_grid_workspace_floats(plan, d, batch),
+                           ws_floats, st, x, c0, s0, c, s, n_iter, prev_err, converged, ws,
+                           batch, d, iters, tol, check_every);
   };
   return with_stop ? run(cnmf_cluster_kernel<true>) : run(cnmf_cluster_kernel<false>);
 }

@@ -1,5 +1,6 @@
 // Shared pieces of the batched NMF kernels (cd_nmf.cu, mu_nmf.cu,
-// beta_nmf.cu; cnmf.cu takes the reductions and the launcher).
+// beta_nmf.cu; cnmf.cu takes the reductions, the launcher and the grid
+// entries' plan rule, barrier and launch).
 //
 // One thread block owns one fit: X (N, L), W (N, K) and H (K, L) of its
 // trial live in shared memory for the whole solve, so device memory is
@@ -391,404 +392,17 @@ inline int nmf_launch(Kernel kernel, int batch, size_t smem,
   return (int)cudaGetLastError();
 }
 
-// ---- the cluster entries (beta_nmf.cu; cnmf.cu takes the plan, the
-// launch and the rank-ordered sums) ----
-//
-// One thread-block cluster per fit, for frames whose fit exceeds one
-// block's shared memory.  Block r of a cluster of C owns rows
-// [r * rows, (r + 1) * rows) of X and W (rows = ceil(N / C), the last
-// block shorter, a block past N none); every block keeps H and its
-// partial sums in its own shared memory.  One iteration: every block
-// updates its rows of W (row-local) and adds its rows' share of the H
-// update's sums; after a cluster barrier every block sums the C partial
-// sums over distributed shared memory in rank order 0..C-1 and updates H
-// from the same numbers, so H is the same bit for bit in every block.
-// The partial sums are double-buffered by the iteration's parity, so one
-// cluster barrier an iteration keeps a block from overwriting what
-// another still reads.
-//
-// Where rows live (nmf_cluster_plan_sized): resident, the block's share
-// of X and W in shared memory for the whole solve, at the smallest
-// cluster whose share fits; otherwise streamed, X read and W read and
-// written in device memory in tiles of `tile` rows, two shared buffers
-// filled by cp.async while the other is worked on, at the largest
-// cluster the card schedules.  A kernel takes its layout from
-// nmf_cluster_sized (its own partial-sum stride and scratch).  K1's and
-// K2's entries left this design for the grid entries below.
-
-#include <cooperative_groups.h>
-
-#define NMF_CLUSTER_THREADS 256
-#define NMF_CLUSTER_PORTABLE 8   // the portable cluster size
-#define NMF_CLUSTER_MAX 16       // non-portable, when the card schedules it
-#define NMF_CLUSTER_MIN_TILE 128 // rows of a streamed tile, at least
-#define NMF_CLUSTER_TILE_BYTES (96 * 1024)  // a streamed tile pair's budget
-
-namespace nmf_cg = cooperative_groups;
-
-// How a cluster entry runs an (n, l) fit at rank k; the kernels take it
-// as their first argument.
-struct NmfClusterPlan {
-  int n, l, k;   // the fit
-  int rows;      // rows a block, ceil(n / size)
-  int tile;      // rows a tile (resident: = rows)
-  int resident;  // 1: rows in shared memory; 0: streamed tiles
-  int size;      // blocks a cluster
-  size_t smem;   // dynamic shared memory a block, bytes
-};
-
-struct NmfCluster {
-  NmfBlock b;     // h, gram, cross, red; x, w: the resident share, or tile buffer 0
-  float* part;    // 2 x pstride partial sums, by the iteration's parity
-  float* err;     // the block's share of the stopping statistic
-  int pstride;    // floats a parity (nmf_cluster: k * k + k * l + 1)
-  int rank;
-  size_t r0;      // the block's first row in the fit
-  int rows;       // the block's rows
-  int tile;       // rows a tile (resident: a block's rows)
-  bool resident;
-};
-
-__device__ inline NmfCluster nmf_cluster(float* smem, const NmfClusterPlan& p,
-                                         int rank) {
-  NmfCluster c;
-  c.rank = rank;
-  const long long first = (long long)rank * p.rows;
-  const long long last = min((long long)p.n, first + p.rows);
-  c.r0 = (size_t)min(first, (long long)p.n);
-  c.rows = (int)max(0LL, last - first);
-  c.tile = p.tile;
-  c.resident = p.resident != 0;
-  NmfBlock& b = c.b;
-  b.n = p.tile;
-  b.l = p.l;
-  b.k = p.k;
-  b.ldx = nmf_odd(p.l);
-  b.ldw = nmf_odd(p.k);
-  b.h = smem;
-  b.gram = b.h + p.k * p.l;
-  b.cross = b.gram + p.k * p.k;
-  b.red = b.cross + p.k * p.l;
-  c.part = b.red + 33;
-  c.pstride = p.k * p.k + p.k * p.l + 1;
-  c.err = c.part + 2 * c.pstride;
-  b.x = c.err + 1;
-  b.w = b.x + (size_t)p.tile * b.ldx;
-  return c;
-}
-
-// nmf_cluster's layout for a kernel with partial sums of its own (K4):
-// `pstride` floats a parity, and `extra` floats of the kernel's own after
-// the stopping statistic (from err + 1), before the rows.  Kept apart
-// from nmf_cluster: edits to that moved the register allocation and the
-// time of the kernels that use it.
-__device__ inline NmfCluster nmf_cluster_sized(float* smem, const NmfClusterPlan& p,
-                                               int rank, int pstride, int extra) {
-  NmfCluster c = nmf_cluster(smem, p, rank);
-  c.pstride = pstride;
-  c.err = c.part + 2 * pstride;
-  c.b.x = c.err + 1 + extra;
-  c.b.w = c.b.x + (size_t)p.tile * c.b.ldx;
-  return c;
-}
-
-// The first float past the block's row buffers (the resident share, or
-// the two tile buffers): where a kernel's per-row scratch starts.
-__device__ inline float* nmf_cluster_rows_end(const NmfCluster& c) {
-  return c.b.x + (c.resident ? 1 : 2) * (size_t)c.tile * (c.b.ldx + c.b.ldw);
-}
-
-__device__ __forceinline__ void nmf_cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void nmf_cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void nmf_cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Tile `i` of a streamed share: an NmfBlock of its rows in tile buffer
-// i % 2 (x rows then w rows, padded strides).
-__device__ inline NmfBlock nmf_cluster_buffer(const NmfCluster& c, int i) {
-  NmfBlock t = c.b;
-  const size_t pair = (size_t)c.tile * (t.ldx + t.ldw);
-  t.x = c.b.x + (i & 1) * pair;
-  t.w = t.x + (size_t)c.tile * t.ldx;
-  t.n = min(c.tile, c.rows - i * c.tile);
-  return t;
-}
-
-// Start copying `rows` rows of `cols` floats (contiguous at src) into
-// shared memory rows of stride `ld`: element e = r * cols + c goes to
-// r * ld + c, the thread's (r, c) advanced by blockDim.x elements a step
-// without a division.
-__device__ inline void nmf_cp_async_rows(float* dst, int ld, const float* src,
-                                         int rows, int cols) {
-  const int total = rows * cols;
-  const int dr = blockDim.x / cols, dc = blockDim.x % cols;
-  int r = threadIdx.x / cols, c = threadIdx.x % cols;
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    nmf_cp_async4(dst + r * ld + c, src + e);
-    r += dr;
-    c += dc;
-    if (c >= cols) {
-      c -= cols;
-      ++r;
-    }
-  }
-}
-
-// Start copying tile `i` of the block's rows of X and W (xf, wf: the
-// fit's, in device memory) into its buffer; one commit group.
-__device__ inline void nmf_cluster_fetch(const NmfCluster& c, int i,
-                                         const float* xf, const float* wf) {
-  const NmfBlock t = nmf_cluster_buffer(c, i);
-  const size_t row = c.r0 + (size_t)i * c.tile;
-  nmf_cp_async_rows(t.x, t.ldx, xf + row * t.l, t.n, t.l);
-  nmf_cp_async_rows(t.w, t.ldw, wf + row * t.k, t.n, t.k);
-  nmf_cp_async_commit();
-}
-
-// body(t) on every tile of the block's rows, t's x and w rows in shared
-// memory; barriers before and after each.  Streamed, the next tile's
-// copy runs while body works and, with STORE_W, each tile's W rows go
-// back to the fit's W in device memory after it.
-template <bool STORE_W, typename Body>
-__device__ void nmf_cluster_tiles(const NmfCluster& c, const float* xf,
-                                  float* wf, Body body) {
-  if (c.resident) {
-    if (c.rows > 0) {
-      NmfBlock t = c.b;
-      t.n = c.rows;
-      body(t);
-      __syncthreads();
-    }
-    return;
-  }
-  const int n_tiles = (c.rows + c.tile - 1) / c.tile;
-  if (n_tiles > 0) nmf_cluster_fetch(c, 0, xf, wf);
-  for (int i = 0; i < n_tiles; ++i) {
-    if (i + 1 < n_tiles) {
-      nmf_cluster_fetch(c, i + 1, xf, wf);
-      nmf_cp_async_wait<1>();
-    } else {
-      nmf_cp_async_wait<0>();
-    }
-    __syncthreads();
-    const NmfBlock t = nmf_cluster_buffer(c, i);
-    body(t);
-    __syncthreads();
-    if (STORE_W) {
-      float* wd = wf + (c.r0 + (size_t)i * c.tile) * t.k;
-      const int dr = blockDim.x / t.k, dc = blockDim.x % t.k;
-      int r = threadIdx.x / t.k, col = threadIdx.x % t.k;
-      for (int e = threadIdx.x; e < t.n * t.k; e += blockDim.x) {
-        wd[e] = t.w[r * t.ldw + col];
-        r += dr;
-        col += dc;
-        if (col >= t.k) {
-          col -= t.k;
-          ++r;
-        }
-      }
-      __syncthreads();  // before tile i + 2's copy refills the buffer
-    }
-  }
-}
-
-// The cluster's sum of entry q of every block's buffer `local` (the same
-// offset in each block's shared memory), added in rank order 0..C-1, so
-// every block gets the same bits.  Call after a cluster barrier.
-// Every block's value is read before the first add, so the remote reads
-// overlap instead of queueing one behind another.
-__device__ inline float nmf_cluster_sum(nmf_cg::cluster_group& cl, float* local,
-                                        int q) {
-  const unsigned size = cl.num_blocks();
-  float v[NMF_CLUSTER_MAX];
-#pragma unroll
-  for (unsigned r = 0; r < NMF_CLUSTER_MAX; ++r) {
-    v[r] = r < size ? cl.map_shared_rank(local, r)[q] : 0.0f;
-  }
-  float s = 0.0f;
-#pragma unroll
-  for (unsigned r = 0; r < NMF_CLUSTER_MAX; ++r) {
-    if (r < size) s += v[r];
-  }
-  return s;
-}
-
-// nmf_cluster_sum in float64, for the stopping statistics of K4 and K5
-// (a function of its own for the reason nmf_cluster_sized gives).
-__device__ inline double nmf_cluster_sum_d(nmf_cg::cluster_group& cl,
-                                           double* local, int q) {
-  const unsigned size = cl.num_blocks();
-  double v[NMF_CLUSTER_MAX];
-#pragma unroll
-  for (unsigned r = 0; r < NMF_CLUSTER_MAX; ++r) {
-    v[r] = r < size ? cl.map_shared_rank(local, r)[q] : 0.0;
-  }
-  double s = 0.0;
-#pragma unroll
-  for (unsigned r = 0; r < NMF_CLUSTER_MAX; ++r) {
-    if (r < size) s += v[r];
-  }
-  return s;
-}
-
-// Load one fit: H into every block, the block's rows of X and W into its
-// shared memory (resident), or its rows of W0 copied to W in device
-// memory (streamed: W is then updated in place there).
-__device__ inline void nmf_cluster_load(const NmfCluster& c, const float* xf,
-                                        const float* w0f, float* wf,
-                                        const float* h0f) {
-  const NmfBlock& b = c.b;
-  for (int i = threadIdx.x; i < b.k * b.l; i += blockDim.x) b.h[i] = h0f[i];
-  const float* xs = xf + c.r0 * b.l;
-  const float* ws = w0f + c.r0 * b.k;
-  if (c.resident) {
-    for (int i = threadIdx.x; i < c.rows * b.l; i += blockDim.x) {
-      b.x[(i / b.l) * b.ldx + i % b.l] = xs[i];
-    }
-    for (int i = threadIdx.x; i < c.rows * b.k; i += blockDim.x) {
-      b.w[(i / b.k) * b.ldw + i % b.k] = ws[i];
-    }
-  } else {
-    float* wd = wf + c.r0 * b.k;
-    for (int i = threadIdx.x; i < c.rows * b.k; i += blockDim.x) wd[i] = ws[i];
-  }
-  __syncthreads();
-}
-
-// Store one fit: the block's rows of W (resident; streamed rows are
-// already there) and, from rank 0, H.
-__device__ inline void nmf_cluster_store(const NmfCluster& c, float* wf,
-                                         float* hf) {
-  const NmfBlock& b = c.b;
-  if (c.resident) {
-    float* wd = wf + c.r0 * b.k;
-    for (int i = threadIdx.x; i < c.rows * b.k; i += blockDim.x) {
-      wd[i] = b.w[(i / b.k) * b.ldw + i % b.k];
-    }
-  }
-  if (c.rank == 0) {
-    for (int i = threadIdx.x; i < b.k * b.l; i += blockDim.x) hf[i] = b.h[i];
-  }
-}
-
-// A launch configuration of `batch` clusters of `size` blocks with
-// `smem` bytes each; `attr` receives the cluster attribute.
-inline cudaLaunchConfig_t nmf_cluster_config(int batch, int size, size_t smem,
-                                             cudaStream_t stream,
-                                             cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)batch * size, 1, 1);
-  cfg.blockDim = dim3(NMF_CLUSTER_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = size;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// Clusters of `size` blocks with `smem` bytes each that the card can hold
-// at once (0 when it cannot schedule one); clears any error the query
-// raised.
-template <typename Kernel>
-inline int nmf_cluster_active(Kernel kernel, int size, size_t smem) {
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = nmf_cluster_config(1, size, smem, 0, &attr);
-  int clusters = 0;
-  if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess) {
-    cudaGetLastError();
-    return 0;
-  }
-  return clusters;
-}
-
-// The split of an (n, l) fit at rank k for a kernel that keeps `small`
-// floats a block besides its rows, `row_floats` a row in the row buffers
-// (two of them when streamed) and `extra_row` a row of single-buffered
-// scratch: resident at the smallest cluster (2, 4, 8, 16) whose share of
-// rows fits one block and which the card schedules; else streamed at the
-// largest schedulable cluster (16 needs the non-portable attribute and may
-// not fit a GPC: queried, not assumed).  Returns 0, or a CUDA error when
-// no cluster can run it.
-template <typename Kernel>
-inline int nmf_cluster_plan_sized(Kernel kernel, int n, int l, int k,
-                                  size_t small, size_t row_floats,
-                                  size_t extra_row, NmfClusterPlan* plan) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, NMF_SMEM_LIMIT);
-  if (e != cudaSuccess) return (int)e;
-  const bool big = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) == cudaSuccess;
-  cudaGetLastError();
-  const int largest = big ? NMF_CLUSTER_MAX : NMF_CLUSTER_PORTABLE;
-  const size_t resident_row = row_floats + extra_row;
-  const size_t streamed_row = 2 * row_floats + extra_row;
-  for (int size = 2; size <= largest; size *= 2) {
-    const int rows = (int)(((long long)n + size - 1) / size);
-    const size_t smem = (small + (size_t)rows * resident_row) * sizeof(float);
-    if (smem <= NMF_SMEM_LIMIT && nmf_cluster_active(kernel, size, smem) > 0) {
-      *plan = {n, l, k, rows, rows, 1, size, smem};
-      return 0;
-    }
-  }
-  const size_t room = NMF_SMEM_LIMIT / sizeof(float);
-  if (small + NMF_CLUSTER_MIN_TILE * streamed_row > room) {
-    return (int)cudaErrorInvalidValue;
-  }
-  for (int size = largest; size >= 2; size /= 2) {
-    const int rows = (int)(((long long)n + size - 1) / size);
-    size_t tile = NMF_CLUSTER_TILE_BYTES / sizeof(float) / streamed_row;
-    // whole rows for every thread in each tile, where the budget allows
-    if (tile > NMF_CLUSTER_THREADS) tile -= tile % NMF_CLUSTER_THREADS;
-    if (tile < NMF_CLUSTER_MIN_TILE) tile = NMF_CLUSTER_MIN_TILE;
-    if (small + tile * streamed_row > room) tile = (room - small) / streamed_row;
-    if (tile > (size_t)rows) tile = rows;
-    const size_t smem = (small + tile * streamed_row) * sizeof(float);
-    if (nmf_cluster_active(kernel, size, smem) > 0) {
-      *plan = {n, l, k, rows, (int)tile, 0, size, smem};
-      return 0;
-    }
-  }
-  return (int)cudaErrorInvalidConfiguration;
-}
-
-// Launch `kernel` on `batch` clusters (one a fit) as `plan` says, the
-// plan its first argument; returns cudaGetLastError().
-template <typename... Params, typename... Args>
-inline int nmf_cluster_launch(void (*kernel)(NmfClusterPlan, Params...),
-                              const NmfClusterPlan& plan, int batch,
-                              cudaStream_t stream, Args... args) {
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      nmf_cluster_config(batch, plan.size, plan.smem, stream, &attr);
-  const cudaError_t le = cudaLaunchKernelEx(&cfg, kernel, plan, args...);
-  if (le != cudaSuccess) return (int)le;
-  return (int)cudaGetLastError();
-}
-
-// The KMAX a cluster kernel runs a rank-k fit at, as the block entries'.
+// The KMAX a large-frame (grid) kernel runs a rank-k fit at, as the block
+// entries'.
 #define NMF_CLUSTER_DISPATCH(k, CALL) \
   ((k) <= 4 ? CALL(4) : (k) <= 8 ? CALL(8) : CALL(16))
 
-// ---- the grid entries (mu_nmf.cu, cd_nmf.cu: K1's and K2's cluster
-// entries) ----
+// ---- the grid entries (the cluster entries of mu_nmf.cu, cd_nmf.cu,
+// beta_nmf.cu and cnmf.cu: the one design for frames over one block) ----
 //
-// One fit spread over P blocks of the whole card, not one cluster: P
-// from the batch and the SM count (nmf_grid_rule), one block a SM, so a
-// lone capture-length fit runs on every SM.  Block r of a fit owns rows
+// One fit spread over P blocks of the whole card: P from the batch and
+// the SM count (nmf_grid_rule), one block a SM, so a lone
+// capture-length fit runs on every SM.  Block r of a fit owns rows
 // [r * rows, (r + 1) * rows) (rows = ceil(N / P), the last block
 // shorter, a block past N none) and keeps H, the Gram matrices and its
 // partial sums in its own shared memory.  Where the batch's rows fit
@@ -818,6 +432,11 @@ inline int nmf_cluster_launch(void (*kernel)(NmfClusterPlan, Params...),
 // block a SM, and the launch is cooperative, which the runtime refuses
 // where the blocks could not all be resident.  models/kernels/mu_cuda.py
 // mirrors the plan (grid_plan) and the least state (cluster_smem_bytes).
+// K4 (beta_nmf.cu) and K5 (cnmf.cu) take the same plan rule with their
+// own small state and row width (nmf_grid_rule_sized), their own partial
+// sets and workspace layout, and the same barrier, launch and row
+// helpers; their Python mirrors are beta_cuda.grid_plan and
+// cnmf_cuda.grid_plan.
 
 #define NMF_GRID_THREADS 256
 #define NMF_GRID_WARPS (NMF_GRID_THREADS / 32)
@@ -858,17 +477,17 @@ struct NmfGridPlan {
   size_t smem;   // dynamic shared memory a block, bytes
 };
 
-// The plan rule (models/kernels/mu_cuda.py: grid_plan): P at most SMs /
-// batch (so the batch's blocks are resident together, one a SM) and at
-// most ceil(n / NMF_GRID_MIN_ROWS); resident at the least P whose rows
-// fit a block, where that is within SMs / batch; else streamed at P =
-// SMs / batch in tiles of as many rows as fit.  Returns 0, or
-// cudaErrorInvalidValue when not even NMF_GRID_MIN_TILE rows fit.
-inline int nmf_grid_rule(int batch, int n, int l, int k, int sms,
-                         NmfGridPlan* plan) {
-  const long long room =
-      NMF_SMEM_LIMIT / (long long)sizeof(float) - (long long)nmf_grid_small_floats(l, k);
-  const long long row = (long long)k + l;
+// The plan rule for a kernel that keeps `small` floats a block besides its
+// rows and `row` floats a row (models/kernels/mu_cuda.py: grid_rule): P at
+// most SMs / batch (so the batch's blocks are resident together, one a SM)
+// and at most ceil(n / NMF_GRID_MIN_ROWS); resident at the least P whose
+// rows fit a block, where that is within SMs / batch; else streamed at P =
+// SMs / batch in tiles of as many rows as fit.  Fills everything but nq and
+// pstride.  Returns 0, or cudaErrorInvalidValue when not even
+// NMF_GRID_MIN_TILE rows fit.
+inline int nmf_grid_rule_sized(int batch, int n, int l, int k, int sms, size_t small,
+                               long long row, NmfGridPlan* plan) {
+  const long long room = NMF_SMEM_LIMIT / (long long)sizeof(float) - (long long)small;
   const long long p_max = sms / batch > 1 ? sms / batch : 1;
   const long long want = nmf_cdiv(n, NMF_GRID_MIN_ROWS);
   long long p = want < p_max ? want : p_max;
@@ -894,9 +513,21 @@ inline int nmf_grid_rule(int batch, int n, int l, int k, int sms,
   plan->rows = (int)rows;
   plan->tile = (int)tile;
   plan->resident = resident;
+  plan->nq = 0;
+  plan->pstride = 0;
+  plan->smem = (small + (size_t)tile * row) * sizeof(float);
+  return 0;
+}
+
+// K1's and K2's plan (models/kernels/mu_cuda.py: grid_plan): their small
+// state, rows of k + l floats, partial sets of nq entries and a scalar.
+inline int nmf_grid_rule(int batch, int n, int l, int k, int sms,
+                         NmfGridPlan* plan) {
+  const int r = nmf_grid_rule_sized(batch, n, l, k, sms, nmf_grid_small_floats(l, k),
+                                    (long long)k + l, plan);
+  if (r != 0) return r;
   plan->nq = nmf_grid_nq(l, k);
   plan->pstride = (int)nmf_r4(plan->nq + 1);
-  plan->smem = (nmf_grid_small_floats(l, k) + (size_t)tile * row) * sizeof(float);
   return 0;
 }
 
@@ -1137,6 +768,11 @@ __device__ __forceinline__ unsigned nmf_ld_acquire(const unsigned* p) {
   return v;
 }
 
+// A release store of a flag that another block reads with nmf_ld_acquire.
+__device__ __forceinline__ void nmf_st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
 // The fit's barrier in device memory: each block arrives (a fence, then
 // the counter's add: release) and waits until the counter reaches
 // `target` (acquire), so every write a block of the fit made before
@@ -1229,6 +865,29 @@ __device__ inline float nmf_grid_scalar_sum(const NmfGrid& g, float mine,
   return total;
 }
 
+// The float64 form of nmf_grid_scalar_sum, for the stops of K4 and K5:
+// the fit's sum of every block's `mine` in block order, the same bits in
+// every thread of every block.  `slots` holds one double a block (a
+// barrier of an iteration lies between two calls), `red` is the block's
+// float64 scratch.  K1 and K2 keep their own inline code.
+__device__ __forceinline__ double nmf_grid_total_d(unsigned* counter, double* slots, int rank,
+                                                   int blocks, unsigned& syncs, double* red,
+                                                   double mine) {
+  if (blocks == 1) return mine;
+  if (threadIdx.x == 0) __stcg(slots + rank, mine);
+  syncs += 1;
+  nmf_grid_barrier(counter, syncs * blocks);
+  if (threadIdx.x == 0) {
+    double s = 0.0;
+    for (int r = 0; r < blocks; ++r) s += __ldcg(slots + r);
+    red[32] = s;
+  }
+  __syncthreads();
+  const double total = red[32];
+  __syncthreads();
+  return total;
+}
+
 // Load one fit: H into every block; resident, the block's rows of X and
 // W0 into its shared memory; streamed, its rows of W0 copied to W in
 // device memory (W is then updated in place there).
@@ -1257,51 +916,49 @@ __device__ inline void nmf_grid_store(const NmfGrid& g, float* wf, float* hf) {
   }
 }
 
-// Plan a batch of (n, l) fits at rank k for `kernel` on the current
-// device (nmf_grid_rule) and write the plan to `out` (host ints, when
-// given: blocks a fit, rows a block, resident, tile, shared memory a
-// block, SMs, blocks a SM can hold).  Refuses a plan whose blocks could
-// not all be resident at once.
-template <typename Kernel>
-inline int nmf_grid_plan(Kernel kernel, int batch, int n, int l, int k,
-                         NmfGridPlan* plan, int* out) {
-  int dev = 0, sms = 0, per_sm = 0;
+// The current device's SM count.
+inline int nmf_grid_sms(int* sms) {
+  int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  const int r = nmf_grid_rule(batch, n, l, k, sms, plan);
-  if (r != 0) return r;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)plan->smem);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)e;
+}
+
+// Settle a plan from a rule for `kernel` on a card of `sms` SMs: raise
+// the kernel's shared memory limit to the plan's, write the plan to `out`
+// (host ints, when given: blocks a fit, rows a block, resident, tile,
+// shared memory a block, SMs, blocks a SM can hold) and refuse a plan
+// whose blocks could not all be resident at once.
+template <typename Kernel>
+inline int nmf_grid_settle(Kernel kernel, int batch, int sms, const NmfGridPlan& plan,
+                           int* out) {
+  int per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)plan.smem);
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NMF_GRID_THREADS,
-                                                      plan->smem);
+                                                      plan.smem);
   }
   if (e != cudaSuccess) return (int)e;
   if (out != nullptr) {
-    const int vals[NMF_GRID_PLAN_INTS] = {plan->blocks, plan->rows, plan->resident,
-                                          plan->tile, (int)plan->smem, sms, per_sm};
+    const int vals[NMF_GRID_PLAN_INTS] = {plan.blocks, plan.rows, plan.resident,
+                                          plan.tile, (int)plan.smem, sms, per_sm};
     for (int i = 0; i < NMF_GRID_PLAN_INTS; ++i) out[i] = vals[i];
   }
-  if (plan->blocks > 1 && (long long)batch * plan->blocks > (long long)per_sm * sms) {
+  if (plan.blocks > 1 && (long long)batch * plan.blocks > (long long)per_sm * sms) {
     return (int)cudaErrorCooperativeLaunchTooLarge;
   }
   return 0;
 }
 
-// Plan (nmf_grid_plan) and launch `kernel` on batch * P blocks,
-// cooperatively when P > 1; `ws` must hold nmf_grid_workspace_floats,
-// zeroed.  Returns cudaGetLastError(), or the error that refused the plan.
+// Launch `kernel` on batch * P blocks as `plan` says, cooperatively when P
+// > 1, the plan its first argument; `ws_floats` (the workspace's size)
+// must be at least `need`.  Returns cudaGetLastError().
 template <typename... Params, typename... Args>
-inline int nmf_grid_run(void (*kernel)(NmfGridPlan, Params...), int batch, int n,
-                        int l, int k, long long ws_floats, int* plan_out,
-                        cudaStream_t stream, Args... args) {
-  NmfGridPlan plan;
-  const int e = nmf_grid_plan(kernel, batch, n, l, k, &plan, plan_out);
-  if (e != 0) return e;
-  if ((long long)nmf_grid_workspace_floats(plan, batch) > ws_floats) {
-    return (int)cudaErrorInvalidValue;
-  }
+inline int nmf_grid_launch(void (*kernel)(NmfGridPlan, Params...), int batch,
+                           const NmfGridPlan& plan, size_t need, long long ws_floats,
+                           cudaStream_t stream, Args... args) {
+  if ((long long)need > ws_floats) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)batch * plan.blocks, 1, 1);
   cfg.blockDim = dim3(NMF_GRID_THREADS, 1, 1);
@@ -1315,4 +972,22 @@ inline int nmf_grid_run(void (*kernel)(NmfGridPlan, Params...), int batch, int n
   const cudaError_t le = cudaLaunchKernelEx(&cfg, kernel, plan, args...);
   if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();
+}
+
+// Plan (nmf_grid_rule) and launch K1's or K2's `kernel` on batch * P
+// blocks; `ws` must hold nmf_grid_workspace_floats, zeroed.  Returns
+// cudaGetLastError(), or the error that refused the plan.
+template <typename... Params, typename... Args>
+inline int nmf_grid_run(void (*kernel)(NmfGridPlan, Params...), int batch, int n,
+                        int l, int k, long long ws_floats, int* plan_out,
+                        cudaStream_t stream, Args... args) {
+  int sms = 0;
+  int e = nmf_grid_sms(&sms);
+  if (e != 0) return e;
+  NmfGridPlan plan;
+  e = nmf_grid_rule(batch, n, l, k, sms, &plan);
+  if (e == 0) e = nmf_grid_settle(kernel, batch, sms, plan, plan_out);
+  if (e != 0) return e;
+  return nmf_grid_launch(kernel, batch, plan, nmf_grid_workspace_floats(plan, batch),
+                         ws_floats, stream, args...);
 }

@@ -46,6 +46,8 @@ from .mu_cuda import (  # noqa: F401 (the warp limits, shared with K1 and K4)
     check_layout,
     check_plan,
     cluster_call,
+    grid_plan,
+    grid_workspace_floats,
     warp_fits,
 )
 
@@ -97,7 +99,10 @@ def _launch(xs, w0, h0, iters, tol, with_stop, regs=(0.0, 0.0, 0.0, 0.0)):
     n_iter = torch.zeros(b, dtype=torch.int32, device=xs.device)
     viol_init = torch.zeros(b, dtype=torch.float32, device=xs.device)
     converged = torch.zeros(b, dtype=torch.int32, device=xs.device)
-    extra, held = cluster_call(xs, b, n, l, k) if entry == "cluster" else ((), None)
+    extra, held = ((), None)
+    if entry == "cluster":
+        extra, held = cluster_call(xs, lambda sms: grid_plan(b, n, l, k, sms),
+                                   lambda plan: grid_workspace_floats(plan, b, l, k))
     err = _lib(entry)(
         xs.data_ptr(), w0.data_ptr(), h0.data_ptr(), w.data_ptr(),
         h.data_ptr(), n_iter.data_ptr(), viol_init.data_ptr(),

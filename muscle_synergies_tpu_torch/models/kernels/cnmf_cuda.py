@@ -11,14 +11,18 @@ The source has two entries, picked by :func:`route`: the block entry
 shared memory, register-tiled so that one shared-memory load feeds 8
 or more multiply-adds) for a frame within one block's shared memory
 (:func:`smem_bytes`: 200 x 8 fits, up to 2,822 x 8 at K = 4, D = 10);
-the cluster entry (one thread-block cluster per fit, each block a
-range of time, the S sums reduced over distributed shared memory and
-the lags' halo rows of C read from the neighbouring blocks) for a
-longer frame, such as a subject's concatenated cycles or a continuous
-recording; and a refusal before any launch for a frame whose S, its
-sums and the halo alone would fill a cluster block
-(:func:`cluster_smem_bytes`).  ``launches`` and ``cluster_launches``
-count the two entries' launches; see the source.
+the cluster entry (one fit spread over many blocks of the card on K1's
+grid design, each block a range of time with the block entry's
+register-tiled passes, the S sums added in block order after a barrier
+in device memory, the lags' halo rows of C read from the blocks that
+own them once their flags say the rows are written) for a longer frame,
+such as a subject's concatenated cycles or a whole capture; and a
+refusal before any launch for a frame whose S, its sums and the halo
+alone would fill a block (:func:`cluster_smem_bytes`).  ``launches`` and
+``cluster_launches`` count the two entries' launches; :func:`grid_plan`
+mirrors the cluster entry's plan (blocks a fit, rows a block, resident
+or streamed), which each launch checks and keeps in ``last_plan``; see
+the source.
 
 :func:`cnmf_iterations_cuda` and :func:`fit_cnmf_cuda` take contiguous
 CUDA float32 tensors in the JAX layouts, X ``(B, T, L)``, C
@@ -37,7 +41,16 @@ import torch
 from ..._build import load
 from ..._common import check_cuda_f32, check_kernel_nans
 from .. import cnmf as _cnmf
-from .mu_cuda import CLUSTER_MIN_TILE, SMEM_LIMIT
+from .mu_cuda import (
+    CLUSTER_ARGTYPES,
+    CLUSTER_MIN_TILE,
+    GRID_THREADS,
+    SMEM_LIMIT,
+    GridPlan,
+    check_plan,
+    cluster_call,
+    grid_rule,
+)
 
 __all__ = [
     "cnmf_iterations_cuda",
@@ -45,14 +58,15 @@ __all__ = [
     "cnmf_iterations_plain",
     "fit_cnmf_plain",
     "cluster_launches",
+    "grid_plan",
     "launches",
     "route",
 ]
 
 launches = 0  # block-entry launches since the last reset
 cluster_launches = 0  # cluster-entry launches since the last reset
-CLUSTER_THREADS = 256  # csrc/nmf_common.cuh NMF_CLUSTER_THREADS
-CLUSTER_SLICES = 8  # csrc/cnmf.cu CNMF_CLUSTER_SLICES
+last_plan = None  # the plan of the last cluster-entry launch (mu_cuda.GridPlan)
+GRID_SLICES = 8  # csrc/cnmf.cu CNMF_GRID_SLICES
 
 
 def _lp(l: int) -> int:
@@ -79,27 +93,65 @@ def smem_bytes(t: int, l: int, k: int, d: int) -> int:
     return 4 * (floats + 2 * 33)
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def grid_items(l: int, k: int, d: int) -> int:
+    """(k, d, L-tile) items of the cluster entry's S sums, 16 floats each
+    (csrc/cnmf.cu ``cnmf_grid_items``)."""
+    return k * d * (_lp(l) // 8)
+
+
+def grid_small_floats(l: int, k: int, d: int) -> int:
+    """Floats of a cluster-entry block besides its rows: the X and Xh rows
+    past a tile, S, float64 scratch, the S sums and the time slices'
+    partial sums, the halo and carried rows of C, C^T's halo columns
+    (csrc/cnmf.cu ``cnmf_grid_small_floats``)."""
+    lp, h1, items = _lp(l), d - 1, grid_items(l, k, d)
+    slices = min(GRID_SLICES, max(1, GRID_THREADS // items))
+    return (2 * h1 * lp + k * d * lp + 68 + 16 * items * slices + 3 * h1 * k
+            + k * (2 * h1 + 3))
+
+
 def cluster_smem_bytes(l: int, k: int, d: int) -> int:
-    """Shared memory of one block of the cluster entry at its least: S,
-    two parities of its sums, the time slices' partial sums, the edge,
-    halo and carried rows of C, float64 scratch, and a tile of
-    ``CLUSTER_MIN_TILE`` rows of X, its reconstruction and C with the
-    lags' D - 1 rows past it (csrc/cnmf.cu ``cnmf_cluster_small_floats``).
-    The entry takes an ``(l, k, d)`` fit of any length when this fits one
+    """Shared memory of one block of the cluster entry at its least: its
+    small state (:func:`grid_small_floats`) and a streamed tile of
+    ``CLUSTER_MIN_TILE`` rows of X, its reconstruction and C.  The entry
+    takes an ``(l, k, d)`` fit of any length when this fits one block."""
+    return 4 * (grid_small_floats(l, k, d) + CLUSTER_MIN_TILE * (2 * _lp(l) + k))
+
+
+def grid_plan(batch: int, t: int, l: int, k: int, d: int, sms: int) -> GridPlan:
+    """The cluster entry's plan for ``batch`` fits of ``(t, l)`` frames
+    with ``k`` synergies of ``d`` lags on a card of ``sms`` SMs
+    (csrc/cnmf.cu ``cnmf_grid_rule``): K1's rule
+    (:func:`~.mu_cuda.grid_rule`) with K5's small state and rows of ``2
+    Lp + k`` floats (X, its reconstruction, C)."""
+    try:
+        return grid_rule(batch, t, sms, grid_small_floats(l, k, d), 2 * _lp(l) + k)
+    except ValueError as e:
+        raise ValueError(f"cnmf {t}x{l} with {k} synergies of {d} lags: {e}") from None
+
+
+def grid_workspace_floats(plan: GridPlan, batch: int, l: int, k: int, d: int) -> int:
+    """Floats of the cluster entry's workspace (csrc/cnmf.cu
+    ``cnmf_grid_workspace_floats``): the fits' arrive counters, a flag and
+    a float64 error slot a block, the fits' edge slots (two parities of a
+    block's first and last D - 1 rows of C) and two partial sets a
     block."""
-    lp, h1 = _lp(l), d - 1
-    items = k * d * (lp // 8)
-    slices = min(CLUSTER_SLICES, max(1, CLUSTER_THREADS // items))
-    small = (2 * h1 * lp + k * d * lp + 32 * items + 16 * (slices - 1) * items
-             + k * (2 * h1 + 3) + 7 * h1 * k + 1 + 2 * 34)
-    return 4 * (small + CLUSTER_MIN_TILE * (2 * lp + k))
+    blocks = batch * plan.blocks
+    edges = _cdiv(4 * plan.blocks * (d - 1) * k, 4) * 4
+    return (_cdiv(batch, 4) * 4 + 3 * _cdiv(blocks, 4) * 4 + batch * edges
+            + 2 * blocks * 16 * grid_items(l, k, d))
 
 
 def route(t: int, l: int, k: int, d: int) -> str:
     """K5's entry for fits of ``(t, l)`` frames with ``k`` synergies of
     ``d`` lags: ``"block"`` within one block's shared memory, else
     ``"cluster"``; raises ``ValueError`` (naming ``impl='torch'``) when
-    even a cluster block cannot hold the fit's small state and a tile."""
+    even a cluster block cannot hold the fit's small state and a tile of
+    rows."""
     if not 1 <= d <= t:
         raise ValueError(f"cnmf: {d} lags outside 1..{t} samples")
     if smem_bytes(t, l, k, d) <= SMEM_LIMIT:
@@ -134,14 +186,15 @@ def _lib(entry: str):
     fn = lib.cnmf_cluster_f32 if entry == "cluster" else lib.cnmf_f32
     fn.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_double]
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 2 + (CLUSTER_ARGTYPES if entry == "cluster" else [])
+        + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(xs, c0, s0, iters, tol, check_every, with_stop):
-    global launches, cluster_launches
+    global launches, cluster_launches, last_plan
     entry = check_shapes("cnmf", xs, c0, s0)
     xs, c0, s0 = xs.contiguous(), c0.contiguous(), s0.contiguous()
     b, t, l = xs.shape
@@ -150,16 +203,21 @@ def _launch(xs, c0, s0, iters, tol, check_every, with_stop):
     n_iter = torch.zeros(b, dtype=torch.int32, device=xs.device)
     prev_err = torch.zeros(b, dtype=torch.float32, device=xs.device)
     converged = torch.zeros(b, dtype=torch.int32, device=xs.device)
+    extra, held = ((), None)
+    if entry == "cluster":
+        extra, held = cluster_call(xs, lambda sms: grid_plan(b, t, l, k, d, sms),
+                                   lambda plan: grid_workspace_floats(plan, b, l, k, d))
     err = _lib(entry)(
         xs.data_ptr(), c0.data_ptr(), s0.data_ptr(), c.data_ptr(),
         s.data_ptr(), n_iter.data_ptr(), prev_err.data_ptr(),
         converged.data_ptr(), b, t, l, k, d, int(iters), float(tol),
-        int(check_every), int(with_stop),
+        int(check_every), int(with_stop), *extra,
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"cnmf {entry} entry launch failed: CUDA error {err}")
     if entry == "cluster":
+        last_plan = check_plan("cnmf", held)
         cluster_launches += 1
     else:
         launches += 1

@@ -64,7 +64,7 @@ KMAX = 16  # csrc/nmf_common.cuh NMF_KMAX
 # csrc/nmf_common.cuh: NMF_WARP_NMAX, NMF_WARP_LMAX, NMF_WARP_KMAX
 WARP_NMAX, WARP_LMAX, WARP_KMAX = 224, 16, 8
 SMEM_LIMIT = 227 * 1024  # bytes of shared memory one block may use on sm_90
-CLUSTER_MIN_TILE = 128  # csrc/nmf_common.cuh NMF_CLUSTER_MIN_TILE, NMF_GRID_MIN_TILE
+CLUSTER_MIN_TILE = 128  # csrc/nmf_common.cuh NMF_GRID_MIN_TILE
 
 
 def smem_bytes(n: int, l: int, k: int) -> int:
@@ -114,18 +114,17 @@ class GridPlan(NamedTuple):
     smem: int
 
 
-def grid_plan(batch: int, n: int, l: int, k: int, sms: int,
+def grid_rule(batch: int, n: int, sms: int, small: int, row: int,
               smem_limit: int = SMEM_LIMIT) -> GridPlan:
-    """The cluster entries' plan for ``batch`` fits of ``(n, l)`` frames
-    at rank ``k`` on a card of ``sms`` SMs (csrc/nmf_common.cuh
-    ``nmf_grid_rule``): at most ``sms // batch`` blocks a fit (one block
-    a SM, so the batch's blocks are resident together) and at most
-    ``ceil(n / GRID_MIN_ROWS)``; rows resident at the least block count
-    whose rows fit a block, where that is within ``sms // batch``; else
-    ``sms // batch`` blocks streaming their rows in tiles of as many rows
-    as fit.  Raises ``ValueError`` where not even ``CLUSTER_MIN_TILE``
-    rows fit."""
-    small, row = grid_small_floats(l, k), k + l
+    """The grid entries' plan rule for a kernel that keeps ``small``
+    floats a block besides its rows and ``row`` floats a row
+    (csrc/nmf_common.cuh ``nmf_grid_rule_sized``): at most ``sms //
+    batch`` blocks a fit (one block a SM, so the batch's blocks are
+    resident together) and at most ``ceil(n / GRID_MIN_ROWS)``; rows
+    resident at the least block count whose rows fit a block, where that
+    is within ``sms // batch``; else ``sms // batch`` blocks streaming
+    their rows in tiles of as many rows as fit.  Raises ``ValueError``
+    where not even ``CLUSTER_MIN_TILE`` rows fit."""
     room = smem_limit // 4 - small
     p_max = max(1, sms // batch)
     p = min(_cdiv(n, GRID_MIN_ROWS), p_max)
@@ -137,9 +136,20 @@ def grid_plan(batch: int, n: int, l: int, k: int, sms: int,
     rows = _cdiv(n, p_max)
     tile = min(fit, rows)
     if tile < CLUSTER_MIN_TILE and tile < rows:
-        raise ValueError(f"{n}x{l} at rank {k}: a block holds {tile} rows, "
-                         f"under {CLUSTER_MIN_TILE}")
+        raise ValueError(f"{n} rows: a block holds {tile} rows, under {CLUSTER_MIN_TILE}")
     return GridPlan(p_max, rows, False, tile, 4 * (small + tile * row))
+
+
+def grid_plan(batch: int, n: int, l: int, k: int, sms: int,
+              smem_limit: int = SMEM_LIMIT) -> GridPlan:
+    """K1's and K2's cluster-entry plan for ``batch`` fits of ``(n, l)``
+    frames at rank ``k`` on a card of ``sms`` SMs (csrc/nmf_common.cuh
+    ``nmf_grid_rule``): :func:`grid_rule` with their small state
+    (:func:`grid_small_floats`) and rows of ``k + l`` floats."""
+    try:
+        return grid_rule(batch, n, sms, grid_small_floats(l, k), k + l, smem_limit)
+    except ValueError as e:
+        raise ValueError(f"{n}x{l} at rank {k}: {e}") from None
 
 
 def grid_workspace_floats(plan: GridPlan, batch: int, l: int, k: int) -> int:
@@ -151,13 +161,15 @@ def grid_workspace_floats(plan: GridPlan, batch: int, l: int, k: int) -> int:
     return _cdiv(batch, 4) * 4 + _cdiv(blocks, 4) * 4 + 2 * blocks * pstride
 
 
-def cluster_call(xs, b: int, n: int, l: int, k: int):
-    """The cluster entries' last arguments for a batch on ``xs``'s card:
-    the zeroed workspace, its size, the plan's output ints; and the plan
-    the kernel must report (:func:`grid_plan`)."""
+def cluster_call(xs, plan_for, floats_for):
+    """The grid entries' last arguments for a batch on ``xs``'s card: the
+    zeroed workspace, its size, the plan's output ints; and what
+    :func:`check_plan` needs.  ``plan_for(sms)`` is the plan the kernel
+    must report (its Python mirror), ``floats_for(plan)`` the workspace's
+    floats."""
     sms = torch.cuda.get_device_properties(xs.device).multi_processor_count
-    plan = grid_plan(b, n, l, k, sms)
-    floats = grid_workspace_floats(plan, b, l, k)
+    plan = plan_for(sms)
+    floats = floats_for(plan)
     ws = torch.zeros(floats, dtype=torch.float32, device=xs.device)
     out = (ctypes.c_int * GRID_PLAN_INTS)()
     return (ws.data_ptr(), floats, out), (plan, ws, out, sms)
@@ -258,7 +270,10 @@ def _launch(xs, w0, h0, iters, tol, check_every, inner_iter, with_stop,
     n_iter = torch.zeros(b, dtype=torch.int32, device=xs.device)
     prev_err = torch.zeros(b, dtype=torch.float32, device=xs.device)
     converged = torch.zeros(b, dtype=torch.int32, device=xs.device)
-    extra, held = cluster_call(xs, b, n, l, k) if entry == "cluster" else ((), None)
+    extra, held = ((), None)
+    if entry == "cluster":
+        extra, held = cluster_call(xs, lambda sms: grid_plan(b, n, l, k, sms),
+                                   lambda plan: grid_workspace_floats(plan, b, l, k))
     err = _lib(entry)(
         xs.data_ptr(), w0.data_ptr(), h0.data_ptr(), w.data_ptr(),
         h.data_ptr(), n_iter.data_ptr(), prev_err.data_ptr(),

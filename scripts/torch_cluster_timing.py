@@ -3,21 +3,23 @@
 
 Builds ``mu_nmf``, ``cd_nmf``, ``beta_nmf`` and ``cnmf`` from the package
 under ``--root`` (the repository by default; point it at an unpacked
-``git archive`` of another commit to compare two versions), prints each
-cluster kernel's registers and spills at KMAX 4, 8 and 16 from ``nvcc
--Xptxas -v``, then for each case checks 50 fixed iterations against the
-plain version in float64 and times 200 iterations with CUDA events (the
-best of 3), one JSON line a case, beside the card's name and power
-limit.  Each line carries a digest of the 50 iterations' factors
-(``sha256`` of their bytes), so two trees that compute the same bits
-print the same digests, and, for K1 and K2 where the tree reports it,
-the plan the entry took (blocks a fit, rows a block, resident or
-streamed).  The K1 and K2 cases are the large-frame shapes of
-``chip_smoke.py``'s phase 22: 124,460 x 8 and 20,000 x 8 at rank 4, one
-fit alone and 4 at once, and 124,460 x 8 at rank 8 alone; K4 runs a lone
-124,460 x 8 fit at rank 4 for KL, IS and beta 1.5, K5 one at K = 4, D =
-10.  To compare two trees, run them alternately (A, B, B, A) on one
-card, one command after another::
+``git archive`` of another commit to compare two versions), prints every
+kernel's registers and spills from ``nvcc -Xptxas -v`` (the cluster
+kernels' KMAX from their template arguments), then for each case checks
+50 fixed iterations against the plain version in float64 and times 200
+iterations with CUDA events (the best of 3), one JSON line a case,
+beside the card's name and power limit.  Each line carries a digest of
+the 50 iterations' factors (``sha256`` of their bytes), so two trees
+that compute the same bits print the same digests, and, where the tree
+reports it, the plan the entry took (blocks a fit, rows a block,
+resident or streamed).  The K1 and K2 cases are the large-frame shapes
+of ``chip_smoke.py``'s phase 22: 124,460 x 8 and 20,000 x 8 at rank 4,
+one fit alone and 4 at once, and 124,460 x 8 at rank 8 alone; K4 runs
+124,460 x 8 fits at rank 4 for KL, IS and beta 1.5, and K5 at K = 4, D
+= 10, each alone and 4 at once, then K4 on a lone 124,460 x 16 fit at
+rank 12 (its KMAX-16 kernels) for the same three betas.  To compare two
+trees, run them alternately (A, B, B, A) on one card, one command after
+another::
 
     python3 scripts/torch_cluster_timing.py [--root DIR] [--build-only]
 
@@ -38,26 +40,29 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = [(1, 124_460, 8, 4), (4, 124_460, 8, 4), (1, 20_000, 8, 4), (4, 20_000, 8, 4),
          (1, 124_460, 8, 8)]
 BETAS = (1.0, 0.0, 1.5)
+WIDE_BETA_CASE = (1, 124_460, 16, 12)  # K4's KMAX-16 kernels
 ITERS = 200
-SOURCES = ("mu_nmf", "cd_nmf", "beta_nmf", "cnmf")
+SOURCES = ("mu_nmf", "cd_nmf", "beta_nmf", "cnmf", "sosfiltfilt")
 
 
 def ptxas_summary(log: str) -> list:
-    """``(kernel, KMAX, registers, spill store bytes)`` of every cluster
-    kernel in an ``nvcc -Xptxas -v`` report (KMAX from the mangled
-    template arguments)."""
-    out, name = [], None
+    """``(kernel, KMAX, registers, spill store bytes)`` of every kernel in
+    an ``nvcc -Xptxas -v`` report (KMAX from a cluster kernel's mangled
+    template arguments, else None)."""
+    out, name, spill = [], None, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S*cluster_kernel\S*)'", line)
+        m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = m.group(1)
-            spill = None
+            name, spill = m.group(1), None
         elif name and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
         elif name and "Used" in line and "registers" in line:
             regs = int(re.search(r"Used (\d+) registers", line).group(1))
-            kmax = re.search(r"cluster_kernelILi(\d+)E", name)
-            out.append((name, int(kmax.group(1)) if kmax else None, regs, spill))
+            # KMAX: K1's and K2's first template argument, K4's second
+            ints = re.findall(r"Li(\d+)E", name.split("cluster_kernel", 1)[-1]) \
+                if "cluster_kernel" in name else []
+            kmax = ints[1] if "beta_cluster" in name and len(ints) > 1 else (ints or [None])[0]
+            out.append((name, int(kmax) if kmax else None, regs, spill))
             name = None
     return out
 
@@ -147,7 +152,23 @@ def main() -> int:
         run("cd_nmf_cluster", cd_cuda, cd_cuda.cd_iterations_cuda,
             cd_cuda.cd_iterations_plain, (x, w, h), f"{b}x{n}x{l}", k)
     n, l, k = CASES[0][1:]
-    x, w, h = positive(1, n, l) + 0.05, normal(1, n, k), normal(1, k, l)
+    for b in (1, 4):
+        x, w, h = positive(b, n, l) + 0.05, normal(b, n, k), normal(b, k, l)
+        for beta in BETAS:
+            def kern(x_, w_, h_, it, beta=beta):
+                return beta_cuda.beta_iterations_cuda(x_, w_, h_, it, beta)
+
+            def plain(x_, w_, h_, it, beta=beta):
+                return beta_cuda.beta_iterations_plain(x_, w_, h_, it, beta)
+
+            run("beta_nmf_cluster", beta_cuda, kern, plain, (x, w, h), f"{b}x{n}x{l}", k,
+                beta=beta)
+        c, s = normal(b, n, 4), normal(b, 4, 10, l)
+        run("cnmf_cluster", cnmf_cuda, cnmf_cuda.cnmf_iterations_cuda,
+            cnmf_cuda.cnmf_iterations_plain, (x, c, s), f"{b}x{n}x{l}", 4, d=10)
+    # K4 at KMAX 16: a lone rank-12 fit of 16 channels
+    b, n, l, k = WIDE_BETA_CASE
+    x, w, h = positive(b, n, l) + 0.05, normal(b, n, k), normal(b, k, l)
     for beta in BETAS:
         def kern(x_, w_, h_, it, beta=beta):
             return beta_cuda.beta_iterations_cuda(x_, w_, h_, it, beta)
@@ -155,11 +176,8 @@ def main() -> int:
         def plain(x_, w_, h_, it, beta=beta):
             return beta_cuda.beta_iterations_plain(x_, w_, h_, it, beta)
 
-        run("beta_nmf_cluster", beta_cuda, kern, plain, (x, w, h), f"1x{n}x{l}", k,
+        run("beta_nmf_cluster", beta_cuda, kern, plain, (x, w, h), f"{b}x{n}x{l}", k,
             beta=beta)
-    c, s = normal(1, n, 4), normal(1, 4, 10, l)
-    run("cnmf_cluster", cnmf_cuda, cnmf_cuda.cnmf_iterations_cuda,
-        cnmf_cuda.cnmf_iterations_plain, (x, c, s), f"1x{n}x{l}", 4, d=10)
     return 0
 
 

@@ -913,48 +913,144 @@ def test_cluster_entries_match_plain_float64(cuda, case):
     assert out.returncode == 0 and "finished" in out.stdout, out.stderr[-2000:]
 
 
-@pytest.mark.parametrize("n, l, k", [(6000, 8, 4), (124_460, 8, 4), (3000, 16, 12)])
-@pytest.mark.parametrize("beta", [1.0, 0.0, 1.5, -0.5])
-def test_beta_cluster_entry_matches_plain_float64(cuda, n, l, k, beta):
-    """K4's cluster entry (rows resident in shared memory at 6,000 x 8,
-    streamed at 124,460 x 8; the per-tile sums at rank 12): 30 fixed
-    iterations within 1e-3 of float64, and fits with sklearn's penalties
-    within 10 iterations of where the float64 fit stops."""
-    x, w, h = _problem(cuda, b=2, n=n, l=l, k=k)
-    x = x + 0.05  # strictly positive for Itakura-Saito and beta < 0
+_CHILD_HELPERS = """
+import sys, hashlib, numpy as np, torch
+sys.path.insert(0, {root!r})
+dev = torch.device("cuda", 0)
+sms = torch.cuda.get_device_properties(dev).multi_processor_count
+def rel(a, c):
+    return float((a.double() - c).abs().max() / c.abs().max())
+def digest(*ts):
+    return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()
+"""
+
+_BETA_CLUSTER_CASE = _CHILD_HELPERS + """
+from muscle_synergies_tpu_torch.models.kernels import beta_cuda
+b, n, l, k, streamed = {case!r}
+regs = {regs!r}
+g = torch.Generator().manual_seed(0)
+x = (torch.rand(b, n, l, generator=g) + 0.05).to(dev)  # strictly positive for IS, beta < 0
+w = torch.randn(b, n, k, generator=g).abs().to(dev)
+h = torch.randn(b, k, l, generator=g).abs().to(dev)
+fits = min(b, 2)
+for beta in (1.0, 0.0, 1.5, -0.5):
     assert beta_cuda.route(n, l, k, beta) == "cluster"
-    beta_cuda.cluster_launches = 0
+    plan = beta_cuda.grid_plan(b, n, l, k, sms, beta == 1.0)
+    assert plan.resident == (not streamed), plan
+    before = beta_cuda.cluster_launches
     wk, hk = beta_cuda.beta_iterations_cuda(x, w, h, 30, beta)
+    assert beta_cuda.cluster_launches == before + 1, "beta_nmf took another entry"
+    assert beta_cuda.last_plan == plan, (beta_cuda.last_plan, plan)
+    assert digest(wk, hk) == digest(*beta_cuda.beta_iterations_cuda(x, w, h, 30, beta))
     wp, hp = beta_cuda.beta_iterations_plain(x.double(), w.double(), h.double(), 30, beta)
-    assert _rel(wk, wp) < 1e-3 and _rel(hk, hp) < 1e-3
-    sk = beta_cuda.fit_beta_cuda(x, w, h, beta, max_iter=200, tol=1e-3, **REGS)
-    sp = beta_cuda.fit_beta_plain(x.double(), w.double(), h.double(), beta, max_iter=200,
-                                  tol=1e-3, **REGS)
-    assert np.abs((sk.n_iter - sp.n_iter).cpu().numpy()).max() <= 10
-    assert beta_cuda.cluster_launches == 2
+    assert rel(wk, wp) < 1e-3 and rel(hk, hp) < 1e-3, (beta, rel(wk, wp), rel(hk, hp))
+    sk = beta_cuda.fit_beta_cuda(x, w, h, beta, max_iter=200, tol=1e-3, **regs)
+    sp = beta_cuda.fit_beta_plain(x[:fits].double(), w[:fits].double(), h[:fits].double(),
+                                  beta, max_iter=200, tol=1e-3, **regs)
+    gap = np.abs((sk.n_iter[:fits] - sp.n_iter).cpu().numpy()).max()
+    assert gap <= 10, (beta, sk.n_iter[:fits].tolist(), sp.n_iter.tolist())
+# zero-padded components stay exactly 0
+w[..., k // 2:] = 0
+h[:, k // 2:] = 0
+st = beta_cuda.fit_beta_cuda(x, w, h, 1.0, max_iter=30)
+assert (st.w[..., k // 2:] == 0).all() and (st.h[:, k // 2:] == 0).all()
+torch.cuda.synchronize()
+print("finished", plan)
+"""
+
+# (batch, rows, channels, rank, streamed): resident rows at a subject's
+# 6,000 x 8, a whole capture alone (every SM) and 4 at once (a sweep's
+# ranks), rank 12 at 16 channels (three component tiles, two column
+# tiles); streamed tiles where the batch's rows exceed the card's shared
+# memory (5 captures at once; 9 channels at rank 3, copies off 16-byte
+# alignment); and more fits than SMs (one block a fit, no barrier)
+BETA_CLUSTER_CASES = [(2, 6000, 8, 4, False), (1, 124_460, 8, 4, False),
+                      (4, 124_460, 8, 4, False), (2, 3000, 16, 12, False),
+                      (5, 124_460, 8, 4, True), (33, 21_001, 9, 3, True),
+                      (140, 3000, 8, 4, False)]
 
 
-@pytest.mark.parametrize("b, t, l, k, d", [(2, 6000, 8, 4, 10), (1, 124_460, 8, 4, 10),
-                                           (2, 6000, 8, 4, 1), (1, 5000, 8, 1, 700),
-                                           (2, 4000, 12, 3, 7)])
-def test_cnmf_cluster_entry_matches_plain_float64(cuda, b, t, l, k, d):
-    """K5's cluster entry: 20 fixed iterations within 1e-3 of float64,
-    and fits within 10 iterations of where the float64 fit stops.  At
-    5,000 x 8 with one synergy of 700 lags every block's range (625
-    rows) is shorter than D - 1, so each halo is read from two blocks;
-    D = 1 has no halo; 124,460 x 8 streams its rows in tiles."""
-    x, c, s = _cnmf_problem(cuda, b=b, t=t, l=l, k=k, d=d)
-    assert cnmf_cuda.route(t, l, k, d) == "cluster"
-    cnmf_cuda.cluster_launches = 0
-    ck, sk = cnmf_cuda.cnmf_iterations_cuda(x, c, s, 20)
-    cp, sp = cnmf_cuda.cnmf_iterations_plain(x.double(), c.double(), s.double(), 20)
-    assert _rel(ck, cp) < 1e-3 and _rel(sk, sp) < 1e-3
-    if t <= 6000:
-        fk = cnmf_cuda.fit_cnmf_cuda(x, c, s, max_iter=300, tol=1e-3)
-        fp = cnmf_cuda.fit_cnmf_plain(x.double(), c.double(), s.double(), max_iter=300,
-                                      tol=1e-3)
-        assert np.abs((fk.n_iter - fp.n_iter).cpu().numpy()).max() <= 10
-    assert cnmf_cuda.cluster_launches == (2 if t <= 6000 else 1)
+def _child(code):
+    """Run ``code`` in a process of its own that must finish within 120 s:
+    blocks that took different branches at a barrier in device memory
+    would hang the card rather than fail."""
+    import subprocess
+    import sys
+
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and "finished" in out.stdout, out.stderr[-2000:]
+
+
+def _root():
+    import os
+
+    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("case", BETA_CLUSTER_CASES,
+                         ids=[f"{b}x{n}x{l}k{k}" for b, n, l, k, _ in BETA_CLUSTER_CASES])
+def test_beta_cluster_entry_matches_plain_float64(cuda, case):
+    """K4's cluster entry (one fit spread over many blocks, rows resident
+    or streamed as ``beta_cuda.grid_plan`` says, the plan the kernel
+    reports equal to the mirror's), for KL, IS, beta 1.5 and beta -0.5:
+    30 fixed iterations within 1e-3 of float64 and the same bits on a
+    second run, fits with sklearn's penalties within 10 iterations of
+    where the float64 fit stops, and zero-padded components that stay 0,
+    in a process of its own under the 120 s guard."""
+    _child(_BETA_CLUSTER_CASE.format(root=_root(), case=case, regs=REGS))
+
+
+_CNMF_CLUSTER_CASE = _CHILD_HELPERS + """
+from muscle_synergies_tpu_torch.models import cnmf
+from muscle_synergies_tpu_torch.models.kernels import cnmf_cuda
+b, t, l, k, d, streamed = {case!r}
+x = torch.rand(b, t, l, generator=torch.Generator().manual_seed(1), dtype=torch.float64)
+c0, s0 = cnmf.init_cnmf(x.numpy(), k, d, seed=3)
+x, c, s = x.float().to(dev), torch.as_tensor(c0).float().to(dev), torch.as_tensor(s0).float().to(dev)
+assert cnmf_cuda.route(t, l, k, d) == "cluster"
+plan = cnmf_cuda.grid_plan(b, t, l, k, d, sms)
+assert plan.resident == (not streamed), plan
+before = cnmf_cuda.cluster_launches
+ck, sk = cnmf_cuda.cnmf_iterations_cuda(x, c, s, 20)
+assert cnmf_cuda.cluster_launches == before + 1, "cnmf took another entry"
+assert cnmf_cuda.last_plan == plan, (cnmf_cuda.last_plan, plan)
+assert digest(ck, sk) == digest(*cnmf_cuda.cnmf_iterations_cuda(x, c, s, 20))
+cp, sp = cnmf_cuda.cnmf_iterations_plain(x.double(), c.double(), s.double(), 20)
+assert rel(ck, cp) < 1e-3 and rel(sk, sp) < 1e-3, (rel(ck, cp), rel(sk, sp))
+if t <= 6000:
+    fits = min(b, 2)
+    fk = cnmf_cuda.fit_cnmf_cuda(x, c, s, max_iter=300, tol=1e-3)
+    fp = cnmf_cuda.fit_cnmf_plain(x[:fits].double(), c[:fits].double(), s[:fits].double(),
+                                  max_iter=300, tol=1e-3)
+    gap = np.abs((fk.n_iter[:fits] - fp.n_iter).cpu().numpy()).max()
+    assert gap <= 10, (fk.n_iter[:fits].tolist(), fp.n_iter.tolist())
+torch.cuda.synchronize()
+print("finished", plan)
+"""
+
+# (batch, length, channels, synergies, lags, streamed): a subject's
+# 6,000 x 8 at D = 10 and at D = 1 (no halo), a whole capture alone
+# (resident on every SM) and 4 at once (CNMFModel's restarts, streamed),
+# one synergy of 700 lags (blocks of 250 rows, shorter than D - 1, so a
+# halo comes from up to three blocks away), 12 channels at K = 3 (two
+# L-tiles, C rows off 16-byte chunks), streamed 6-channel rows (no
+# 16-byte loads of X), and more fits than SMs (one block a fit)
+CNMF_CLUSTER_CASES = [(2, 6000, 8, 4, 10, False), (2, 6000, 8, 4, 1, False),
+                      (1, 124_460, 8, 4, 10, False), (4, 124_460, 8, 4, 10, True),
+                      (1, 5000, 8, 1, 700, False), (2, 4000, 12, 3, 7, False),
+                      (40, 30_000, 6, 3, 7, True), (140, 3000, 8, 4, 10, True)]
+
+
+@pytest.mark.parametrize("case", CNMF_CLUSTER_CASES,
+                         ids=[f"{b}x{t}x{l}k{k}d{d}" for b, t, l, k, d, _ in CNMF_CLUSTER_CASES])
+def test_cnmf_cluster_entry_matches_plain_float64(cuda, case):
+    """K5's cluster entry (rows resident or streamed as
+    ``cnmf_cuda.grid_plan`` says, the plan the kernel reports equal to
+    the mirror's): 20 fixed iterations within 1e-3 of float64 and the
+    same bits on a second run, and fits within 10 iterations of where the
+    float64 fit stops, in a process of its own under the 120 s guard."""
+    _child(_CNMF_CLUSTER_CASE.format(root=_root(), case=case))
 
 
 def test_beta_and_convolutive_finders_take_the_cluster_entries(cuda):

@@ -1,15 +1,16 @@
 """Plain mirrors of the cluster entries' split, for the CPU tests.
 
-The cluster entries of K1 (MU), K2 (CD) and K4 (beta-MU) cut a fit's
-rows into one range a block; each block updates its rows of W, adds
-their share of the H update's sums (W^T W and W^T X; for K4 the two
-weight planes W^T (X WH^(beta-2)) and W^T WH^(beta-1), for KL the
-column sums of W) and of the stopping statistic, and every block sums
-the ranges' shares in range order before updating H.  K1's and K2's
-blocks are spread over the card (``mu_cuda.grid_plan`` picks the
-ranges); a block that streams its rows adds its tiles' shares in tile
-order into its own before the ranges are summed (``tile=``).  K5's (cNMF)
-cluster entry cuts time the same way: the S sums are added range by
+The cluster entries of K1 (MU), K2 (CD), K4 (beta-MU) and K5 (cNMF)
+spread a fit over many blocks of the card (one design, the grid entries
+of ``csrc/nmf_common.cuh``) and cut its rows into one range a block
+(``mu_cuda.grid_plan``, ``beta_cuda.grid_plan``, ``cnmf_cuda.grid_plan``
+pick the ranges).  Each block updates its rows of W, adds their share of
+the H update's sums (W^T W and W^T X; for K4 the two weight planes W^T
+(X WH^(beta-2)) and W^T WH^(beta-1), for KL the column sums of W) and of
+the stopping statistic, and every block adds the ranges' shares in range
+order before updating H; a block that streams its rows adds its tiles'
+shares in tile order into its own before the ranges are summed
+(``tile=``).  K5 cuts time the same way: the S sums are added range by
 range, and each range updates its rows of C from its own rows and a
 halo of D - 1 rows of C on each side, read from the ranges that own
 them.  :func:`fit_mu_cluster_plain`, :func:`fit_cd_cluster_plain`,
@@ -47,10 +48,10 @@ from muscle_synergies_tpu_torch.models.mu import (
 
 
 def split_rows(n: int, ranges) -> list:
-    """Row bounds ``[0, .., n]`` of a cluster's blocks: ``ranges`` blocks
-    of ``ceil(n / ranges)`` rows, the last ones shorter (the kernels'
-    split: ``csrc/nmf_common.cuh`` ``nmf_cluster``), or, given a sequence,
-    those bounds themselves (ranges of any lengths)."""
+    """Row bounds ``[0, .., n]`` of a fit's blocks: ``ranges`` blocks of
+    ``ceil(n / ranges)`` rows, the last ones shorter (the kernels' split:
+    ``csrc/nmf_common.cuh`` ``nmf_grid``), or, given a sequence, those
+    bounds themselves (ranges of any lengths)."""
     if isinstance(ranges, int):
         if ranges < 1:
             raise ValueError(f"ranges must be >= 1, got {ranges}")
