@@ -9,10 +9,13 @@ It builds the nine hand-written CUDA kernels from the five sources in
 ``muscle_synergies_tpu_torch/csrc/`` (one ``nvcc`` per source, all
 started together; K3 and K6 share ``sosfiltfilt.cu``; K1, K2 and K4
 each have a warp entry, one warp per fit, for frames of at most 224 x
-16 at rank 8, and a block entry, one block per fit, above that; K1, K2,
-K4 and K5 also a cluster entry for frames over one block's shared
-memory, each spreading one fit over many blocks of the card) and then,
-failing on the first assertion that does not hold:
+16 at rank 8, and a block entry, one block per fit, above that (K1's
+and K4's only for batches that fill the card with 4 waves or more of
+fits: K1 at rank 9-16, K4 past its warp entry); K1, K2, K4 and K5 also
+a cluster (grid) entry, each spreading one fit over many blocks of the
+card, for frames over one block's shared memory and, K1 and K4, for
+every other frame past the warp entry) and then, failing on the first
+assertion that does not hold:
 
 1. prints the card and its power limit, and the build time;
 2. K3 ``sosfiltfilt``: 64 trials x 124,460 samples x 8 channels through
@@ -21,28 +24,38 @@ failing on the first assertion that does not hold:
    bar: max abs error <= 5e-4 * max|y|; then timed at 64 and at 256
    trials (the 64 four times over);
 3. K1/K2 fixed iterations (stop compiled out): 50 MU / CD iterations at
-   1024 x 200 x 8, rank 4 (K1's and K2's warp entries) and at 16 x 2,000
-   x 8 (their block entries), kernel in float32 against the plain
-   version in float64; bar: max relative factor error <= 1e-3;
+   1024 x 200 x 8, rank 4 (K1's and K2's warp entries), at 16 x 2,000
+   x 8 (K2's block entry, K1's grid entry, its plan and blocks a SM
+   logged) and at 1024 x 200 x 16, rank 12 (K1's block entry), each
+   route asserted, kernel in float32 against the plain version in
+   float64; bar: max relative factor error <= 1e-3;
 4. K1/K2 fits against a plain float64 fit on 128 of the 200 x 8
-   problems (the warp entries) and the 16 problems of 2,000 x 8 (the
-   block entries) at tol 1e-4: the median stopping gap must be 0, and
-   the factor error at the kernel's own stopping iteration <= 1e-3;
+   problems (the warp entries), the 16 problems of 2,000 x 8 (K2's block
+   entry, K1's grid entry) and, K1, the 1024 of 200 x 16 (its block
+   entry) at tol 1e-4, each launch on the entry named: the median
+   stopping gap must be 0, and the factor error at the kernel's own
+   stopping iteration <= 1e-3;
 5. the main path, ``analyze_dataset`` under the default
    ``PipelineConfig`` on 256 synthetic float32 trials of 124,460 x 8 at
    2000 Hz (ranks 1-4, 1,024 fits), once with ``solver="cd"`` and once
    with ``solver="mu"``: every kernel's launch counter must rise, every
    VAF be finite and <= 1, the mean VAF rise from rank 1 to 4, and a
-   16-trial subset match ``impl="torch"`` to VAF 1e-3;
+   16-trial subset match ``impl="torch"`` to VAF 1e-3; then MU on 64
+   trials of 16 channels (two trials side by side), ranks 1-12 at
+   ``max_iter=2,000``: one K3 launch and one of K1's block entry (768
+   fits of 200 x 16 at rank 12), the VAF rising with rank and 4 trials
+   matching ``impl="torch"`` to VAF 1e-3;
 6. K4 fixed iterations: 50 beta-MU iterations at 1024 x 200 x 8, rank
    4, on strictly positive X, for beta = 1 (KL) and 0 (Itakura-Saito) on
-   the warp entry and 1.5 (the generic kind) on the block entry, and 50
-   KL iterations at 16 x 2,000 x 8 on the block entry, kernel in float32
-   against the plain version in float64; bar: max relative factor error
-   <= 1e-3;
+   the warp entry and 1.5 (the generic kind) on the block entry; 50 KL
+   iterations at 16 x 2,000 x 8 and 50 at beta 1.5 on 16 x 200 x 8 on
+   the grid entry (plan and blocks a SM logged); each route asserted,
+   kernel in float32 against the plain version in float64; bar: max
+   relative factor error <= 1e-3;
 7. K4 fits: 128 problems at tol 1e-4, max_iter 200, beta = 1 and 0
-   (warp entry), and the 16 problems of 2,000 x 8 at beta = 1 (block
-   entry), against a plain float64 fit: |median stopping gap| <= 10
+   (warp entry), the 1024 problems at beta = 1.5 (block entry), and the
+   16 problems of 2,000 x 8 at beta = 1 (grid entry), each launch on the
+   entry named, against a plain float64 fit: |median stopping gap| <= 10
    iterations and the factor error at the kernel's own stop <= 2e-3;
 8. K5: 20 convolutive iterations at 1024 x 200 x 8, K = 4, D = 10,
    against the plain version in float64 (bar 1e-3); then 128 fits at
@@ -52,7 +65,9 @@ failing on the first assertion that does not hold:
    beta_loss="kullback-leibler")`` on the 256 trials of phase 5 with
    the default device and config: the K3 and K4 launch counters must
    rise, every VAF be finite and <= 1, the mean VAF rise from rank 1 to
-   4, and a 16-trial subset match ``impl="torch"`` to VAF 1e-3;
+   4, and a 16-trial subset match ``impl="torch"`` to VAF 1e-3; then the
+   same with ``beta_loss=1.5`` at ``max_iter=2,000``: one launch of K4's
+   block entry (the 1,024 fits), the same checks;
 10. the time-varying main path: ``analyze_dataset_time_varying(
     n_synergies=4, n_lags=10, n_inits=4)`` on the same 256 trials
     (1,024 fits): the K3 and K5 counters must rise, every VAF be finite
@@ -87,8 +102,8 @@ failing on the first assertion that does not hold:
     entry, one launch; ``transform``, plain), ``rank_sweep_batch`` over
     ranks 1-8 on it (one launch of the warp entry); the same trial
     resampled to 2,000 x 8 through ``NMFModel`` with the CD, MU and KL
-    solvers (one launch each of K2's, K1's and K4's block entries, each
-    within 1e-3 of float64 in reconstruction error); on a 20,000 x 8
+    solvers (one launch each of K2's block entry and K1's and K4's grid
+    entries, each within 1e-3 of float64 in reconstruction error); on a 20,000 x 8
     frame, over one block's shared memory, ``fit_transform`` in exactly
     one launch of K2's cluster entry and no other, and with
     ``impl="torch"`` the plain fit on the card (no counter moves), the
@@ -144,7 +159,8 @@ failing on the first assertion that does not hold:
 18. stability and held-out rank selection (``models.stability``), run
     after 17 on phase 16's preprocessed trials: ``bootstrap_synergies(x,
     4)`` at its defaults (50 resamples) on one subject's 12 cycles
-    (2,400 x 8) in exactly one launch of K1's block entry, and on one
+    (2,400 x 8) in exactly one launch of K1's grid entry (51 fits of two
+    blocks each; plan and time in the stage line), and on one
     200 x 8 trial in one launch of its warp entry; a 5,000 x 8 matrix in
     one launch of K1's cluster entry, and of K5's for
     ``bootstrap_time_varying_synergies(x, 4, 10, n_boot=2)``;
@@ -165,7 +181,8 @@ failing on the first assertion that does not hold:
 19. resume, persistence, export and profiling, after 18 on the same
     trials, no pandas: ``bootstrap_synergies_checkpointed`` on phase 18's
     2,400 x 8 subject (rank 4, 50 resamples in chunks of 10) from an
-    empty directory (exactly 5 K1 launches), fully restored (1 launch,
+    empty directory (exactly 5 launches of K1's grid entry, each planned
+    for the one-shot call's 51 fits), fully restored (1 launch,
     the reference) and with two chunks deleted (2 launches), its
     similarities and reference within 1e-6 of the one-shot
     ``bootstrap_synergies``; the convolutive one (20 resamples, exactly 2
@@ -499,6 +516,7 @@ class Smoke:
                          "cnmf_cluster": (cnmf_cuda, "cluster_launches")}
         self.launches = {name: 0 for name in self.counters}
         self.phase5, self.phase18 = {}, {}  # results phase 21 is held against
+        self.small_grid = {}  # the grid entries on block-range frames (phases 3, 6)
 
     def stage(self, label: str, seconds: float) -> None:
         log(f"stage {label}: {seconds:.3f} s  [{self.smi}]")
@@ -633,31 +651,38 @@ class Smoke:
                     kind="f64", ms_256_trials=ms4, bound_ms_256_trials=bound4,
                     chunk=filter_cuda.CHUNK)
 
-    # ---- 3./4. K1 and K2 (both entries) ----
+    # ---- 3./4. K1 and K2 (every entry of the block range) ----
     def nmf_phases(self, b=1024, n=200, l=8, k=4, iters=50, fb=128, big_b=16,
-                   big_n=2000):
+                   big_n=2000, wide_l=16, wide_k=12):
         from muscle_synergies_tpu_torch.models.kernels import cd_cuda, mu_cuda
         from muscle_synergies_tpu_torch.models.mu import mu_update
 
         torch, dev, rng = self.torch, self.dev, self.rng
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-        def problem(b_, n_):
+        def problem(b_, n_, l_=l, k_=k):
             return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
-                rng.random((b_, n_, l)), np.abs(rng.standard_normal((b_, n_, k))),
-                np.abs(rng.standard_normal((b_, k, l))))]
+                rng.random((b_, n_, l_)), np.abs(rng.standard_normal((b_, n_, k_))),
+                np.abs(rng.standard_normal((b_, k_, l_))))]
 
-        main, big = problem(b, n), problem(big_b, big_n)
-        # the warp entries take the main paths' frames, the block entries
-        # the larger ones
+        main, big, wide = problem(b, n), problem(big_b, big_n), problem(b, n, wide_l, wide_k)
+        # the warp entries take the main paths' frames; above them K2 its
+        # block entry, K1 its grid entry for a small batch and its block
+        # entry only for a batch of fits past rank 8 that fills the card
         for mod in (cd_cuda, mu_cuda):
-            assert mod.route(n, l, k) == "warp" and mod.route(big_n, l, k) == "block"
+            assert mod.route(n, l, k) == "warp"
+        assert cd_cuda.route(big_n, l, k) == "block"
+        assert mu_cuda.route(big_n, l, k, batch=big_b, sms=sms) == "cluster"
+        assert mu_cuda.route(n, wide_l, wide_k, batch=b, sms=sms) == "block"
         cd_replaces = "muscle_synergies_tpu/models/kernels/cd_pallas.py:168"
         mu_replaces = "muscle_synergies_tpu/models/kernels/mu_pallas.py:269"
         fixed = {
             "mu_nmf_warp": (mu_cuda.mu_iterations_cuda, mu_cuda.mu_iterations_plain,
                             mu_replaces, main, (mu_cuda, "warp_launches")),
             "mu_nmf": (mu_cuda.mu_iterations_cuda, mu_cuda.mu_iterations_plain,
-                       mu_replaces, big, (mu_cuda, "launches")),
+                       mu_replaces, wide, (mu_cuda, "launches")),
+            "mu_nmf_cluster": (mu_cuda.mu_iterations_cuda, mu_cuda.mu_iterations_plain,
+                               mu_replaces, big, (mu_cuda, "cluster_launches")),
             "cd_nmf_warp": (cd_cuda.cd_iterations_cuda, cd_cuda.cd_iterations_plain,
                             cd_replaces, main, (cd_cuda, "warp_launches")),
             "cd_nmf": (cd_cuda.cd_iterations_cuda, cd_cuda.cd_iterations_plain,
@@ -665,7 +690,8 @@ class Smoke:
         }
         for kname, (kern, plain, replaces, data, (mod, attr)) in fixed.items():
             xs, w0, h0 = data
-            bb, nn = xs.shape[:2]
+            bb, nn, ll = xs.shape
+            kk = w0.shape[-1]
             before = getattr(mod, attr)
             wk, hk = kern(xs, w0, h0, iters)
             assert getattr(mod, attr) == before + 1, f"{kname} took another entry"
@@ -673,47 +699,60 @@ class Smoke:
             err = max(rel_err(wk, wp), rel_err(hk, hp))
             ms = cuda_ms(lambda: kern(xs, w0, h0, iters))
             plain_ms = cuda_ms(lambda: plain(xs, w0, h0, iters), reps=3)
-            log(f"{kname}: {iters} iterations at {bb}x{nn}x{l} k={k}: rel err {err:.3e} "
+            log(f"{kname}: {iters} iterations at {bb}x{nn}x{ll} k={kk}: rel err {err:.3e} "
                 f"(bar 1e-3); kernel {ms:.3f} ms, plain f32 {plain_ms:.3f} ms")
             assert err <= 1e-3, f"{kname} fixed iterations disagree"
+            if kname.endswith("_cluster"):
+                # the grid entry's record is the capture-length one (phase 22)
+                log(f"{kname}: plan {mu_cuda.last_plan}, "
+                    f"{mu_cuda.blocks_per_sm['mu_nmf']} blocks a SM  [{self.smi}]")
+                self.small_grid[kname] = dict(ms=ms, plain_ms=plain_ms, err=err,
+                                              shape=f"{bb}x{nn}x{ll}, k={kk}")
+                continue
             extra = {"also_replaces": "muscle_synergies_tpu/models/kernels/" + (
                 "cd_pallas.py:248" if kname.startswith("cd") else "mu_pallas.py:205")}
             self.record(kname, replaces, (abs_err([(wk, wp), (hk, hp)]), err, 1e-3),
-                        ms, plain_ms, bb * iters * nmf_flops(kname[:6], nn, l, k),
-                        4 * bb * (nn * l + 2 * (nn * k + k * l)),
-                        source=kname[:6], shape=f"{bb}x{nn}x{l}, k={k}", **extra)
+                        ms, plain_ms, bb * iters * nmf_flops(kname[:6], nn, ll, kk),
+                        4 * bb * (nn * ll + 2 * (nn * kk + kk * ll)),
+                        source=kname[:6], shape=f"{bb}x{nn}x{ll}, k={kk}", **extra)
 
         fits = {
             "mu_nmf_warp": (mu_cuda.fit_mu_cuda, mu_cuda.fit_mu_plain, mu_update,
                             [a[:fb] for a in main]),
-            "mu_nmf": (mu_cuda.fit_mu_cuda, mu_cuda.fit_mu_plain, mu_update, big),
+            "mu_nmf": (mu_cuda.fit_mu_cuda, mu_cuda.fit_mu_plain, mu_update, wide),
+            "mu_nmf_cluster": (mu_cuda.fit_mu_cuda, mu_cuda.fit_mu_plain, mu_update, big),
             "cd_nmf_warp": (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain, self._cd_step,
                             [a[:fb] for a in main]),
             "cd_nmf": (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain, self._cd_step, big),
         }
+        counter = {"warp": "warp_launches", "": "launches", "cluster": "cluster_launches"}
         for kname, (kern, plain, step, (fx, fw, fh)) in fits.items():
             fx64, fw64, fh64 = fx.double(), fw.double(), fh.double()
+            mod, attr = (mu_cuda if kname.startswith("mu") else cd_cuda,
+                         counter[kname[7:]])
+            before = getattr(mod, attr)
             t0 = time.perf_counter()
             sk = kern(fx, fw, fh, max_iter=200, tol=1e-4)
             torch.cuda.synchronize()
+            assert getattr(mod, attr) == before + 1, f"{kname} fit took another entry"
             fit_ms = (time.perf_counter() - t0) * 1e3
             sp = plain(fx64, fw64, fh64, max_iter=200, tol=1e-4)
             gap = (sk.n_iter - sp.n_iter).cpu().numpy()
             hk = sk.h if kname.startswith("mu") else sk.ht.transpose(-1, -2)
             wr, hr = plain_snapshot(step, fx64, fw64, fh64, sk.n_iter)
             err = max(rel_err(sk.w, wr), rel_err(hk, hr))
-            log(f"{kname}: fit of {fx.shape[0]}x{fx.shape[1]}x{l} at tol 1e-4: stopping "
+            log(f"{kname}: fit of {'x'.join(map(str, fx.shape))} at tol 1e-4: stopping "
                 f"gap median {np.median(gap):g} (min {gap.min()}, max {gap.max()}); "
                 f"factor err at the kernel's stop {err:.3e} (bar 1e-3); kernel wall "
                 f"{fit_ms:.2f} ms")
             assert np.median(gap) == 0, f"{kname} fit stops elsewhere than float64"
             assert err <= 1e-3, f"{kname} fit disagrees"
 
-    # ---- 6./7. K4 (both entries) ----
+    # ---- 6./7. K4 (every entry of the block range) ----
     def beta_phases(self, b=1024, n=200, l=8, k=4, iters=50, fb=128, big_b=16,
                     big_n=2000):
         from muscle_synergies_tpu_torch.models.beta import mu_update_beta
-        from muscle_synergies_tpu_torch.models.kernels import beta_cuda
+        from muscle_synergies_tpu_torch.models.kernels import beta_cuda, mu_cuda
 
         torch, dev, rng = self.torch, self.dev, self.rng
 
@@ -725,6 +764,7 @@ class Smoke:
                 np.abs(rng.standard_normal((b_, k, l))))]
 
         main, big = problem(b, n), problem(big_b, big_n)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
         def fixed(data, beta, counter):
             xs, w0, h0 = data
@@ -746,10 +786,13 @@ class Smoke:
             assert err <= 1e-3, f"beta_nmf fixed iterations disagree at beta={beta}"
             return ms, plain_ms, abs_err([(wk, wp), (hk, hp)]), err
 
-        # the warp entry takes KL and IS at the main paths' frames, the
-        # block entry a run-time beta and KL's larger frames
+        # the warp entry takes KL and IS at the main paths' frames; a
+        # run-time beta on them takes the block entry at the main paths'
+        # 1,024 fits and the grid entry at 16, as do KL's larger frames
         assert beta_cuda.route(n, l, k, 1.0) == beta_cuda.route(n, l, k, 0.0) == "warp"
-        assert beta_cuda.route(n, l, k, 1.5) == beta_cuda.route(big_n, l, k, 1.0) == "block"
+        assert beta_cuda.route(n, l, k, 1.5, batch=b, sms=sms) == "block"
+        assert beta_cuda.route(n, l, k, 1.5, batch=big_b, sms=sms) == "cluster"
+        assert beta_cuda.route(big_n, l, k, 1.0, batch=big_b, sms=sms) == "cluster"
         times = {beta: fixed(main, beta, "warp_launches") for beta in (1.0, 0.0)}
         generic = fixed(main, 1.5, "launches")
         replaces = "muscle_synergies_tpu/models/kernels/beta_pallas.py:231"
@@ -761,19 +804,32 @@ class Smoke:
                     4 * b * (n * l + 2 * (n * k + k * l)), source="beta_nmf",
                     also_replaces=also, shape=f"{b}x{n}x{l}, k={k}",
                     ms_by_beta={f"{bt:g}": v[0] for bt, v in times.items()})
-        ms, plain_ms, a_err, r_err = fixed(big, 1.0, "launches")
+        ms, plain_ms, a_err, r_err = generic
         self.record("beta_nmf", replaces, (a_err, r_err, 1e-3), ms, plain_ms,
-                    big_b * iters * nmf_flops("beta_nmf_kl", big_n, l, k),
-                    4 * big_b * (big_n * l + 2 * (big_n * k + k * l)),
-                    also_replaces=also, shape=f"{big_b}x{big_n}x{l}, k={k}, KL",
-                    ms_beta_1_5_at_main_shape=generic[0])
+                    b * iters * nmf_flops("beta_nmf", n, l, k),
+                    4 * b * (n * l + 2 * (n * k + k * l)),
+                    also_replaces=also, shape=f"{b}x{n}x{l}, k={k}, beta 1.5")
+        # the grid entry on block-range frames: its record is the
+        # capture-length one (phase 23)
+        for label, data, beta in (("KL", big, 1.0), ("beta 1.5", [a[:big_b] for a in main],
+                                                     1.5)):
+            ms, plain_ms, _, r_err = fixed(data, beta, "cluster_launches")
+            log(f"beta_nmf_cluster: plan {beta_cuda.last_plan}, "
+                f"{mu_cuda.blocks_per_sm['beta_nmf']} blocks a SM  [{self.smi}]")
+            shape = "x".join(map(str, data[0].shape))
+            self.small_grid[f"beta_nmf_cluster {label}"] = dict(
+                ms=ms, plain_ms=plain_ms, err=r_err, shape=f"{shape}, k={k}")
 
-        for beta, (fx, fw, fh) in ((1.0, [a[:fb] for a in main]),
-                                   (0.0, [a[:fb] for a in main]), (1.0, big)):
+        for beta, (fx, fw, fh), counter in (
+                (1.0, [a[:fb] for a in main], "warp_launches"),
+                (0.0, [a[:fb] for a in main], "warp_launches"),
+                (1.5, main, "launches"), (1.0, big, "cluster_launches")):
             fx64, fw64, fh64 = fx.double(), fw.double(), fh.double()
+            before = getattr(beta_cuda, counter)
             t0 = time.perf_counter()
             sk = beta_cuda.fit_beta_cuda(fx, fw, fh, beta=beta, max_iter=200, tol=1e-4)
             torch.cuda.synchronize()
+            assert getattr(beta_cuda, counter) == before + 1, "beta_nmf took another entry"
             fit_ms = (time.perf_counter() - t0) * 1e3
             sp = beta_cuda.fit_beta_plain(fx64, fw64, fh64, beta=beta, max_iter=200,
                                           tol=1e-4)
@@ -862,6 +918,23 @@ class Smoke:
                 emg[:SUBSET], FS, ranks=(1, 2, 3, 4), config=config, solver=solver,
                 device="cuda", dtype=torch.float32, impl="torch").vaf_overall)
 
+        # 16 channels (two trials side by side), ranks 1-12: 768 fits of 200
+        # x 16 at rank 12, past the warp entry, enough to fill the card
+        # with waves of fits: K1's block entry
+        emg16 = np.concatenate([emg[:64], emg[64:128]], axis=2)
+        kw = dict(ranks=tuple(range(1, 13)), solver="mu", max_iter=2000)
+        res, counts = self.main_path("analyze_dataset 16 channels, ranks 1-12, solver=mu",
+                                     lambda: analyze_dataset(emg16, FS, **kw))
+        assert counts["sosfiltfilt"] > 0 and counts["mu_nmf"] == 1, counts
+        vaf = res.vaf_overall
+        assert vaf.shape == (12, 64) and np.isfinite(vaf).all() and (vaf <= 1).all()
+        means = vaf.mean(axis=1)
+        log(f"main mu 16 channels: mean VAF by rank {np.round(means, 6).tolist()}")
+        assert (np.diff(means) > 0).all(), "mean VAF does not rise with rank"
+        self.subset_matches("mu 16 channels", vaf[:, :4], lambda: analyze_dataset(
+            emg16[:4], FS, impl="torch", **kw).vaf_overall)
+        del emg16
+
     def check_rank_sweep(self, label, res):
         vaf = res.vaf_overall
         b = vaf.shape[1]
@@ -894,6 +967,15 @@ class Smoke:
         assert counts["beta_nmf"] == 0, counts
         self.check_rank_sweep("kl", res)
         self.subset_matches("kl", res.vaf_overall[:, :SUBSET], lambda: analyze_dataset(
+            emg[:SUBSET], FS, impl="torch", **kw).vaf_overall)
+        # beta = 1.5 (a run-time beta, no warp entry): the 1,024 fits fill
+        # the card with waves of fits, K4's block entry
+        kw = dict(ranks=(1, 2, 3, 4), solver="mu", beta_loss=1.5, max_iter=2000)
+        res, counts = self.main_path("analyze_dataset beta_loss=1.5",
+                                     lambda: analyze_dataset(emg, FS, **kw))
+        assert counts["sosfiltfilt"] > 0 and counts["beta_nmf"] == 1, counts
+        self.check_rank_sweep("beta 1.5", res)
+        self.subset_matches("beta 1.5", res.vaf_overall[:, :SUBSET], lambda: analyze_dataset(
             emg[:SUBSET], FS, impl="torch", **kw).vaf_overall)
 
     # ---- 10. the time-varying main path ----
@@ -1127,10 +1209,12 @@ class Smoke:
         assert (np.diff(vafs) > -1e-6).all(), "VAF falls with rank"
 
         # a frame over the warp entries' rows (the envelope resampled to
-        # 2,000 samples, not 200) takes the block entries: K2's, K1's, K4's
+        # 2,000 samples, not 200) takes K2's block entry and, one fit, the
+        # grid entries of K1 and K4
         frame2k = preprocess_trials(emg[:1], FS, PipelineConfig(reduce_to=2000))[0]
-        for kname, kw in (("cd_nmf", {}), ("mu_nmf", dict(solver="mu")),
-                          ("beta_nmf", dict(solver="mu", beta_loss="kullback-leibler"))):
+        for kname, kw in (("cd_nmf", {}), ("mu_nmf_cluster", dict(solver="mu")),
+                          ("beta_nmf_cluster",
+                           dict(solver="mu", beta_loss="kullback-leibler"))):
 
             def fit_2000():
                 model = NMFModel(n_components=4, **kw)
@@ -1144,7 +1228,7 @@ class Smoke:
             ref.fit_transform(frame2k.cpu().double())
             gap = (abs(model.reconstruction_err_ - ref.reconstruction_err_)
                    / ref.reconstruction_err_)
-            log(f"NMFModel 2,000x8 {kw} (block entry): n_iter {model.n_iter_} (float64 "
+            log(f"NMFModel 2,000x8 {kw} ({kname}): n_iter {model.n_iter_} (float64 "
                 f"on the host {ref.n_iter_}), relative gap in reconstruction error "
                 f"{gap:.2e} (bar 1e-3)")
             assert gap <= 1e-3, f"NMFModel 2,000x8 {kw} on the card disagrees with float64"
@@ -1889,8 +1973,9 @@ class Smoke:
                 f"float64 {gap:.3e} (bar {bar:g})")
             assert gap <= bar, f"{label}: the similarities disagree with float64"
 
-        # bootstraps: one K1 launch (block entry at 2,400 rows, warp at 200)
-        for label, x, entry in (("bootstrap_synergies 2400x8", subject, "mu_nmf"),
+        # bootstraps: one K1 launch (the grid entry at 2,400 rows, 51 fits on
+        # two blocks each; the warp entry at 200)
+        for label, x, entry in (("bootstrap_synergies 2400x8", subject, "mu_nmf_cluster"),
                                 ("bootstrap_synergies 200x8", trial, "mu_nmf_warp")):
             got, want, counts = against_host(
                 label, lambda v, **kw: stability.bootstrap_synergies(v, 4, **kw), x)
@@ -2073,7 +2158,8 @@ print(json.dumps(out))
             for key in drop:
                 os.remove(os.path.join(ck, f"{key}.npz"))
             got, counts = self.main_path(f"bootstrap_synergies_checkpointed {label}", run)
-            assert counts["mu_nmf"] == launches and sum(counts.values()) == launches, counts
+            assert counts["mu_nmf_cluster"] == launches and sum(counts.values()) == launches, \
+                counts
             same_as_one_shot(f"bootstrap_synergies_checkpointed {label}", got, want,
                              "reference_components")
         grid = GridCheckpoint(ck)
@@ -2252,6 +2338,7 @@ print(json.dumps(out))
         from muscle_synergies_tpu_torch.models import batch as mb
         from muscle_synergies_tpu_torch.models import cnmf, stability
         from muscle_synergies_tpu_torch.models.init import initialize_nmf
+        from muscle_synergies_tpu_torch.models.kernels import mu_cuda
 
         torch, dev = self.torch, self.dev
         n, l = x.shape
@@ -2272,10 +2359,16 @@ print(json.dumps(out))
                  4, 1, n * l + 2 * (n * 4 + 4 * l)),
                 ("cnmf", lambda: cnmf.fit_cnmf_batch(cx, c0, s0, max_iter=300, tol=1e-5),
                  4, 10, n * l + 2 * (n * 4 + 4 * 10 * l))):
+            before = mu_cuda.cluster_launches
             st = fit()
             ms = cuda_ms(fit, reps=3)
             log(f"stage {kname} launch of the bootstrap ({n_boot + 1} fits of {n}x{l}): "
                 f"{ms:.3f} ms  [{self.smi}]")
+            if kname == "mu_nmf":
+                # K1's bootstrap of a subject's matrix runs on its grid entry
+                assert mu_cuda.cluster_launches > before, "K1's bootstrap took another entry"
+                log(f"mu_nmf bootstrap: grid plan {mu_cuda.last_plan}, "
+                    f"{mu_cuda.blocks_per_sm['mu_nmf']} blocks a SM")
             fit_bound(kname, st.n_iter, n, l, k, 4 * (n_boot + 1) * sizes, d=d)
 
     def masked_loop(self, stack, pairs, n_repeats: int = 2, iters: int = 20):
@@ -2641,7 +2734,9 @@ print(json.dumps(out))
                                           1e-3),
                         ms, plain_ms, b * iters * nmf_flops(kname[:6], n, l, k),
                         4 * b * (n * l + 2 * (n * k + k * l)), source=kname[:6],
-                        shape=f"{b}x{n}x{l}, k={k}", also_replaces=also)
+                        shape=f"{b}x{n}x{l}, k={k}", also_replaces=also,
+                        **({"block_range": self.small_grid[kname]}
+                           if kname in self.small_grid else {}))
         del cases
 
         # (b) rank sweeps 1-4 with the stop on against float64 (phase 4's
@@ -2868,7 +2963,9 @@ print(json.dumps(out))
                     b * iters * nmf_flops("beta_nmf_kl", n, N_CHANNELS, 4),
                     4 * b * (n * N_CHANNELS + 2 * (n * 4 + 4 * N_CHANNELS)),
                     source="beta_nmf", shape=f"{b}x{n}x{N_CHANNELS}, k=4, KL",
-                    also_replaces="muscle_synergies_tpu/models/kernels/beta_pallas.py:292")
+                    also_replaces="muscle_synergies_tpu/models/kernels/beta_pallas.py:292",
+                    block_range={key.split(" ", 1)[1]: v for key, v in self.small_grid.items()
+                                 if key.startswith("beta_nmf_cluster")})
         ms = cuda_ms(lambda: cnmf_cuda.cnmf_iterations_cuda(x, c, s, iters), reps=3)
         plain_ms = cuda_ms(lambda: cnmf_cuda.cnmf_iterations_plain(x, c, s, iters), reps=1)
         log(f"cnmf_cluster: {iters} iterations at {b}x{n}x{N_CHANNELS} K=4 D=10: kernel "

@@ -1,8 +1,9 @@
 // Batched beta-divergence multiplicative-update NMF: a warp-per-fit
-// entry for the time-normalised frames of the main paths, a
-// block-per-fit entry for larger frames, and the cluster entry, one fit
-// spread over many blocks of the card, for frames over one block's
-// shared memory (at the end of this file).
+// entry for the time-normalised frames of the main paths (KL; IS up to
+// rank 4), the cluster (grid) entry, one fit spread over many blocks of
+// the card (at the end of this file), for every other frame, and a
+// block-per-fit entry for batches of frames within one block that fill
+// the card with waves of fits (models/kernels/beta_cuda.py: route).
 //
 // Replaces the TPU kernels `beta_mu_iterations_pallas` and
 // `kl_mu_iterations_pallas` (muscle_synergies_tpu/models/kernels/
@@ -34,7 +35,14 @@
 //
 // Block entry (beta_nmf_f32, any frame whose X, W, H and two weight
 // planes fit one block's shared memory, about 26 KB at N=200, L=8,
-// K=4): one block of 128 threads per fit.  What bounds it: about 51
+// K=4; the route gives it only batches that would take the grid entry,
+// one block a SM at 184-255 registers a thread, 4 or more waves, and
+// whose blocks share an SM 4 at a time): one block of 128 threads per
+// fit.  Against the grid entry (H100 80GB HBM3, 700 W, us an iteration,
+// scripts/torch_cluster_timing.py): 200 x 8 at beta 1.5, 264 fits 23.5
+// against 16.4, 528 fits 29.0 against 32.3, 1,024 fits 49.7 against 63.8;
+// KL on 16 x 2,000 x 8 57.3 against 5.8 on 8 blocks each, 1,024 fits 450.5
+// against 130.6 (one block a SM either way).  What bounds it: about 51
 // KFLOP (KL) to 77 KFLOP (other betas) per fit and iteration on CUDA
 // cores plus one divide or power per entry of WH, spent on a chain of
 // five __syncthreads (KL's row sums, the W half-step, the weight planes,
@@ -753,8 +761,11 @@ extern "C" int beta_nmf_warp_f32(const float* x, const float* w0,
 //
 // beta_nmf_cluster_f32: the entry for frames whose fit exceeds one
 // block's shared memory (a subject's concatenated cycles, a whole
-// capture), replacing `beta_mu_iterations_pallas` (beta_pallas.py:231)
-// and `kl_mu_iterations_pallas` (beta_pallas.py:292) there.  One fit is
+// capture), and for frames within it that the warp entry does not take
+// unless the batch keeps the block entry (a run-time beta on 16 fits of
+// 200 x 8, KL's 2,000 x 8 at any batch), replacing
+// `beta_mu_iterations_pallas` (beta_pallas.py:231) and
+// `kl_mu_iterations_pallas` (beta_pallas.py:292) there.  One fit is
 // spread over P blocks of the whole card on K1's grid design
 // (nmf_common.cuh: the grid entries): a lone 124,460 x 8 fit over all
 // 132 SMs, 943 rows a block resident in shared memory (k + l floats a

@@ -1,8 +1,9 @@
 // Batched Frobenius multiplicative-update NMF: a warp-per-fit entry for
-// the time-normalised frames of the main paths, a block-per-fit entry
-// for larger frames, and the cluster entry, one fit spread over many
-// blocks of the card, for frames over one block's shared memory (at the
-// end of this file).
+// the time-normalised frames of the main paths, the cluster (grid)
+// entry, one fit spread over many blocks of the card (at the end of this
+// file), for every larger frame, and a block-per-fit entry for batches
+// of frames within one block's shared memory at rank 9-16 that fill the
+// card with waves of fits (models/kernels/mu_cuda.py: route).
 //
 // Replaces the TPU kernels `mu_iterations_pallas` and `fit_mu_pallas`
 // (muscle_synergies_tpu/models/kernels/mu_pallas.py: _mu_kernel,
@@ -26,8 +27,15 @@
 // denominator becomes EPSILON.
 //
 // Block entry (mu_nmf_f32, any frame whose X, W and H fit one block's
-// shared memory): one block of 128 threads per fit with X, W and H in
-// shared memory (about 13 KB at N=200, L=8, K=4).  What bounds it: about
+// shared memory; the route gives it only batches at rank 9-16 that would
+// take the grid entry 4 or more waves of one block a SM): one block of
+// 128 threads per fit with X, W and H in shared memory (about 13 KB at
+// N=200, L=8, K=4).  Against the grid entry (H100 80GB HBM3, 700 W, us an
+// iteration, scripts/torch_cluster_timing.py): one fit of 2,400 x 8 at
+// rank 4 23.1 against 5.7 on 10 blocks, 51 fits 22.2 against 8.6 on 2
+// blocks each, 1,024 fits 178.5 against 85.8 on one block each (two a
+// SM), 1,024 x 225 x 8 16.3 against 15.9; at rank 9, whose grid kernel
+// holds one block a SM, 1,024 x 200 x 8 63.1 against 85.8.  What bounds it: about
 // 38 KFLOP per fit and iteration on CUDA cores, spent on a chain of four
 // __syncthreads (H H^T, the W half-step, W^T W and W^T X as 48 warp
 // reductions over 4 warps, the H half-step on 8 of 128 threads) and,
@@ -427,12 +435,16 @@ extern "C" int mu_nmf_warp_f32(const float* x, const float* w0,
 
 // --------------------------- cluster entry ---------------------------
 //
-// mu_nmf_cluster_f32: the entry for frames whose fit exceeds one block's
-// shared memory (a subject's concatenated cycles, a whole capture),
-// replacing `fit_mu_pallas` / `mu_iterations_pallas` there.  One fit is
-// spread over P blocks of the whole card (nmf_common.cuh: the grid
-// entries): a lone 124,460 x 8 fit over all 132 SMs, 943 rows a block
-// resident in shared memory.  An iteration follows the block entry's
+// mu_nmf_cluster_f32: the entry for frames past the warp entry, from
+// 225 rows (a time-normalised frame resampled longer, a subject's
+// concatenated cycles) to a whole capture, replacing `fit_mu_pallas` /
+// `mu_iterations_pallas` there; above one block's shared memory at any
+// batch, within it at ranks 1-8 at any batch and at ranks 9-16 below the
+// block entry's batches.  One fit is spread over P blocks of the whole
+// card (nmf_common.cuh: the grid entries), at most SMs / batch: a lone
+// 124,460 x 8 fit over all 132 SMs, 943 rows a block resident in shared
+// memory; a bootstrap's 51 fits of 2,400 x 8 on 2 blocks each; more fits
+// than SMs one block each, in waves, without the cooperative launch.  An iteration follows the block entry's
 // order: H H^T in every block; the block's rows of W updated against it
 // (row-local: the row's X H^T and W H H^T); the block's share of W^T W
 // and W^T X summed in registers; the fit's one barrier in device memory;
@@ -605,8 +617,29 @@ __global__ void __launch_bounds__(NMF_GRID_THREADS) mu_cluster_kernel(
   nmf_grid_store(g, wf, h + fit * p.k * p.l);
 }
 
+// nmf_grid_run with the plan made for `plan_batch` fits (at least
+// `batch`): a batch cut from a larger one (a checkpointed bootstrap's
+// chunk) runs each fit on the larger batch's blocks, so in its order of
+// sums, and gives its bits.
+template <typename... Params, typename... Args>
+static int mu_grid_run(void (*kernel)(NmfGridPlan, Params...), int batch, int plan_batch,
+                       int n, int l, int k, long long ws_floats, int* plan_out,
+                       cudaStream_t stream, Args... args) {
+  int sms = 0;
+  int e = nmf_grid_sms(&sms);
+  if (e != 0) return e;
+  NmfGridPlan plan;
+  e = nmf_grid_rule(plan_batch, n, l, k, sms, &plan);
+  if (e == 0) e = nmf_grid_settle(kernel, batch, sms, plan, plan_out);
+  if (e != 0) return e;
+  return nmf_grid_launch(kernel, batch, plan, nmf_grid_workspace_floats(plan, batch),
+                         ws_floats, stream, args...);
+}
+
 // The cluster entry: mu_nmf_f32's arguments and results, for frames over
-// one block's shared memory (models/kernels/mu_cuda.py: route), and
+// one block's shared memory and for small batches of smaller frames
+// (models/kernels/mu_cuda.py: route), `plan_batch`, the batch the plan is
+// made for (at least `batch`; mu_cuda.fit_mu_cuda's plan_batch), and
 // `ws`, a zeroed workspace of `ws_floats` floats (at least
 // nmf_grid_workspace_floats; mu_cuda.grid_workspace_floats).  Writes the
 // plan it took to `plan_out` (NMF_GRID_PLAN_INTS host ints), launches
@@ -618,19 +651,19 @@ extern "C" int mu_nmf_cluster_f32(const float* x, const float* w0,
                                   int batch, int n, int l, int k, int iters,
                                   float tol, int check_every, int inner_iter,
                                   float l1_w, float l2_w, float l1_h,
-                                  float l2_h, int with_stop, float* ws,
-                                  long long ws_floats, int* plan_out,
+                                  float l2_h, int with_stop, int plan_batch,
+                                  float* ws, long long ws_floats, int* plan_out,
                                   void* stream) {
-  if (batch < 1 || n < 1 || l < 1 || k < 1 || k > NMF_KMAX || iters < 0 ||
-      inner_iter < 1 || (with_stop && check_every < 1)) {
+  if (batch < 1 || plan_batch < batch || n < 1 || l < 1 || k < 1 || k > NMF_KMAX ||
+      iters < 0 || inner_iter < 1 || (with_stop && check_every < 1)) {
     return (int)cudaErrorInvalidValue;
   }
   const NmfPenalty pen = {l1_w, l2_w, l1_h, l2_h};
   const cudaStream_t s = (cudaStream_t)stream;
-#define MU_CLUSTER_RUN(KM, ST)                                                   \
-  nmf_grid_run(mu_cluster_kernel<KM, ST>, batch, n, l, k, ws_floats, plan_out, s, \
-               x, w0, h0, w, h, n_iter, prev_err, converged, ws, batch, iters,   \
-               tol, check_every, inner_iter, pen)
+#define MU_CLUSTER_RUN(KM, ST)                                                          \
+  mu_grid_run(mu_cluster_kernel<KM, ST>, batch, plan_batch, n, l, k, ws_floats, plan_out, \
+              s, x, w0, h0, w, h, n_iter, prev_err, converged, ws, batch, iters, tol,    \
+              check_every, inner_iter, pen)
 #define MU_CLUSTER_CALL(KM) \
   (with_stop ? MU_CLUSTER_RUN(KM, true) : MU_CLUSTER_RUN(KM, false))
   return NMF_CLUSTER_DISPATCH(k, MU_CLUSTER_CALL);

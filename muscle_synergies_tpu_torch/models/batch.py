@@ -142,15 +142,21 @@ def fit_mu_batch(
     l2_reg_w: float = 0.0,
     l1_reg_h: float = 0.0,
     l2_reg_h: float = 0.0,
+    *,
+    plan_batch: Optional[int] = None,
 ) -> MUState:
     """MU-NMF over a ``(B, N, L)`` batch with per-problem convergence.
 
-    ``block_b`` is ignored (a Mosaic tile).
+    ``block_b`` is ignored (a Mosaic tile).  ``plan_batch``: on the card,
+    the larger batch these fits were cut from, whose kernel plan they
+    take (:func:`~.kernels.mu_cuda.fit_mu_cuda`); the plain fit has no
+    plan.
     """
-    fit = mu_cuda.fit_mu_cuda if resolve_impl(impl, xs) == "cuda" else fit_mu
-    return fit(xs, w0, h0, max_iter=max_iter, tol=tol, check_every=check_every,
-               inner_iter=inner_iter, l1_reg_w=l1_reg_w, l2_reg_w=l2_reg_w,
-               l1_reg_h=l1_reg_h, l2_reg_h=l2_reg_h)
+    kw = dict(max_iter=max_iter, tol=tol, check_every=check_every, inner_iter=inner_iter,
+              l1_reg_w=l1_reg_w, l2_reg_w=l2_reg_w, l1_reg_h=l1_reg_h, l2_reg_h=l2_reg_h)
+    if resolve_impl(impl, xs) == "cuda":
+        return mu_cuda.fit_mu_cuda(xs, w0, h0, plan_batch=plan_batch, **kw)
+    return fit_mu(xs, w0, h0, **kw)
 
 
 def cd_iterations_batch(xs, w, h, n_iters: int, impl: str = "auto",

@@ -10,21 +10,25 @@ the cluster entry, whose one kernel a kind serves both), and the kernel is
 specialised for KL (beta = 1) and Itakura-Saito (beta = 0), with every
 other beta taken at run time.
 
-The source has three entries, picked by :func:`route`: the warp entry
-(one warp per fit, X and W rows in registers) for KL frames within the
-warp limits of :mod:`.mu_cuda` and for Itakura-Saito frames within
-``IS_WARP_LMAX`` columns at rank ``IS_WARP_KMAX`` (the main paths' 200
-x 8 at ranks 1-4); the block entry (one block per fit, X, W, H and the
-weight planes in shared memory; KL stores one plane, the other kinds
-two) for the rest within one block's shared memory, a run-time beta
-included (its warp entry was slower than the block entry); the cluster
-entry (one fit spread over many blocks of the card on K1's grid design,
-each block a range of rows, the weights kept in registers and the two
+The source has three entries, picked by :func:`route` from the frame's
+shape, beta and the batch: the warp entry (one warp per fit, X and W
+rows in registers) for KL frames within the warp limits of
+:mod:`.mu_cuda` and for Itakura-Saito frames within ``IS_WARP_LMAX``
+columns at rank ``IS_WARP_KMAX`` (the main paths' 200 x 8 at ranks
+1-4); the cluster (grid) entry (one fit spread over many blocks of the
+card on K1's grid design, at most ``SMs // batch`` blocks a fit, each
+block a range of rows, the weights kept in registers and the two
 partial (k, L) planes summed in block order after a barrier in device
-memory) for a frame over one block, such as a subject's concatenated
-cycles or a whole capture; and a refusal before any launch for a frame
-whose small per-block state alone would fill a block
-(:func:`cluster_smem_bytes`).  ``warp_launches``, ``launches`` and
+memory) for every other frame, from a run-time beta on 200 x 8 to a
+whole capture; the block entry (one block of 128 threads per fit, X, W,
+H and the weight planes in shared memory; KL stores one plane, the other
+kinds two) only for batches of frames within one block that would keep
+the grid entry's SMs busy for ``mu_cuda.BLOCK_MIN_WAVES`` waves or more
+of its one block a SM, and whose blocks share an SM that many at a time
+(:func:`~.mu_cuda.block_keeps`: 1,024 fits of 200 x 8 at beta 1.5, say;
+a run-time beta's warp entry was slower than the block entry); and a
+refusal before any launch for a frame whose small per-block state alone
+would fill a block (:func:`cluster_smem_bytes`).  ``warp_launches``, ``launches`` and
 ``cluster_launches`` count the three entries' launches.
 :func:`grid_plan` mirrors the cluster entry's plan (blocks a fit, rows a
 block, resident or streamed); each launch checks the plan the kernel
@@ -54,6 +58,8 @@ from .mu_cuda import (
     CLUSTER_MIN_TILE,
     GRID_THREADS,
     GridPlan,
+    block_keeps,
+    card_sms,
     check_layout,
     check_plan,
     cluster_call,
@@ -138,17 +144,21 @@ def grid_workspace_floats(plan: GridPlan, batch: int, l: int, k: int) -> int:
     return _cdiv(batch, 4) * 4 + 2 * _cdiv(blocks, 4) * 4 + 2 * blocks * _cdiv(grid_nq(l, k), 4) * 4
 
 
-def route(n: int, l: int, k: int, beta: float = 1.0) -> str:
-    """K4's entry for fits of ``(n, l)`` frames at rank ``k`` and
-    ``beta``: ``"warp"``, ``"block"`` or, for a fit over one block's
-    shared memory, ``"cluster"``; raises ``ValueError`` (naming
-    ``impl='torch'``) when even a cluster block cannot hold the fit's
-    small state and a tile of rows."""
+def route(n: int, l: int, k: int, beta: float = 1.0, *, batch: int | None = None,
+          sms: int | None = None) -> str:
+    """K4's entry for ``batch`` fits of ``(n, l)`` frames at rank ``k``
+    and ``beta`` on a card of ``sms`` SMs: ``"warp"``, ``"cluster"`` or
+    ``"block"`` (see the module's note); left out, the batch is taken as
+    one that keeps the block entry wherever a fit fits a block.  Raises
+    ``ValueError`` (naming ``impl='torch'``) when even a cluster block
+    cannot hold the fit's small state and a tile of rows."""
     kl = beta == 1.0
     is_ = beta == 0.0 and l <= IS_WARP_LMAX and k <= IS_WARP_KMAX
+    block_bytes = smem_bytes(n, l, k, kl=kl)
+    block = None if batch is None else block_keeps(batch, sms, block_bytes)
     return entry_for("beta_nmf", n, l, k, warp=warp_fits(n, l, k) and (kl or is_),
-                     block_bytes=smem_bytes(n, l, k, kl=kl),
-                     cluster_bytes=cluster_smem_bytes(l, k, kl=kl))
+                     block_bytes=block_bytes, cluster_bytes=cluster_smem_bytes(l, k, kl=kl),
+                     block=block)
 
 
 def _lib(entry: str):
@@ -172,7 +182,7 @@ def _launch(xs, w0, h0, beta, iters, tol, check_every, with_stop,
     xs, w0, h0 = xs.contiguous(), w0.contiguous(), h0.contiguous()
     b, n, l = xs.shape
     k = w0.shape[-1]
-    entry = route(n, l, k, float(beta))
+    entry = route(n, l, k, float(beta), batch=b, sms=card_sms(xs))
     w, h = torch.empty_like(w0), torch.empty_like(h0)
     n_iter = torch.zeros(b, dtype=torch.int32, device=xs.device)
     prev_err = torch.zeros(b, dtype=torch.float32, device=xs.device)

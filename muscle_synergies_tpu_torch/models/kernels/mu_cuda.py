@@ -6,16 +6,19 @@ source serves both: the stopping rule is a template switch, compiled
 out for the fixed-iteration entry point.
 
 The source has three entries, picked by :func:`route` from the frame's
-shape: the warp entry (one warp per fit, X and W rows in registers) for
-frames of at most ``WARP_NMAX`` x ``WARP_LMAX`` at rank ``WARP_KMAX``,
-which covers every time-normalised 200 x 8 frame of the main paths at
-ranks 1-8; the block entry (one block per fit, the fit in shared
-memory) above that; the cluster entry (one fit spread over many blocks
-of the card, each block owning a range of rows, the partial Grams
-summed in block order after a barrier in device memory) for a frame
-over one block's shared memory, such as a subject's concatenated cycles
-or a whole capture; and a refusal before any launch for a frame whose H
-and Grams alone would fill a block (:func:`cluster_smem_bytes`).
+shape and the batch: the warp entry (one warp per fit, X and W rows in
+registers) for frames of at most ``WARP_NMAX`` x ``WARP_LMAX`` at rank
+``WARP_KMAX``, which covers every time-normalised 200 x 8 frame of the
+main paths at ranks 1-8; the cluster (grid) entry (one fit spread over
+many blocks of the card, each block owning a range of rows, the partial
+Grams summed in block order after a barrier in device memory) for every
+larger frame, from 225 rows to a whole capture, at most ``SMs //
+batch`` blocks a fit; the block entry (one block of 128 threads per
+fit, the fit in shared memory) only for batches of frames within one
+block's shared memory at rank over ``BLOCK_KMIN - 1`` that would keep
+the grid entry's SMs busy for ``BLOCK_MIN_WAVES`` waves or more
+(:func:`block_keeps`); and a refusal before any launch for a frame
+whose H and Grams alone would fill a block (:func:`cluster_smem_bytes`).
 ``warp_launches``, ``launches`` and ``cluster_launches`` count the three
 entries' launches.  The warp limits are those of every warp entry (K1,
 K2 and K4; ``csrc/nmf_common.cuh``).
@@ -49,6 +52,7 @@ __all__ = [
     "fit_mu_cuda",
     "mu_iterations_plain",
     "fit_mu_plain",
+    "block_keeps",
     "cluster_launches",
     "grid_plan",
     "launches",
@@ -60,11 +64,38 @@ launches = 0  # block-entry launches since the last reset
 warp_launches = 0  # warp-entry launches since the last reset
 cluster_launches = 0  # cluster-entry launches since the last reset
 last_plan = None  # the plan of the last cluster-entry launch (a GridPlan)
+# blocks a SM the card holds for each kernel's last cluster-entry launch, by
+# kernel name (the plan's last int, reported by the kernel)
+blocks_per_sm = {}
 KMAX = 16  # csrc/nmf_common.cuh NMF_KMAX
 # csrc/nmf_common.cuh: NMF_WARP_NMAX, NMF_WARP_LMAX, NMF_WARP_KMAX
 WARP_NMAX, WARP_LMAX, WARP_KMAX = 224, 16, 8
 SMEM_LIMIT = 227 * 1024  # bytes of shared memory one block may use on sm_90
+SM_SMEM = 228 * 1024  # bytes of shared memory one SM holds on sm_90, 1 KB a block reserved
 CLUSTER_MIN_TILE = 128  # csrc/nmf_common.cuh NMF_GRID_MIN_TILE
+
+# Which batches of frames within one block's shared memory keep the block
+# entry (:func:`block_keeps`; K1 and K4).  The grid entry at one block a
+# fit runs a batch in waves of one block a SM where its kernel's
+# registers allow one (K4: 184-255 registers a thread; K1 at rank over 8,
+# KMAX 16: 193-246), two where they allow two (K1 at ranks 1-8: 118-128);
+# the block entry's 128-thread blocks of a small frame share an SM 4-8 at
+# a time.  Times an iteration (scripts/torch_cluster_timing.py, crossover
+# runs on an H100 80GB HBM3 at 700 W, block entry -> grid entry): K4 at
+# 200 x 8, beta 1.5, 132 fits 21.94 -> 8.44 us, 264 fits 23.52 -> 16.42,
+# 528 fits 29.02 -> 32.29, 792 fits 38.18 -> 47.59, 1,024 fits 49.72 ->
+# 63.81 (beta -0.5 52.40 -> 68.73; IS at rank 6 46.14 -> 52.54, 528 fits
+# 24.60 -> 26.86); KL on 1,024 x 300 x 8 31.18 -> 40.39, but 600 x 8 at
+# beta 1.5 (77 KB a block, two a SM) 203.83 -> 169.30 and KL on 1,024 x
+# 2,000 x 8 450.54 -> 130.55.  K1 at rank 9 on 1,024 x 200 x 8 63.11 ->
+# 85.82; at ranks 1-8 the grid entry no slower at any batch measured (1 to
+# 1,024 fits of 2,400 x 8 22.2-178.5 -> 5.7-85.8, 1,024 x 225 x 8 16.31 ->
+# 15.87, 1,024 x 225 x 16 at rank 8 62.70 -> 40.05, 1,024 x 200 x 17
+# 20.55 -> 20.70).  So the block entry keeps a batch where the grid entry
+# would run BLOCK_MIN_WAVES waves or more of one block a SM and the block
+# entry holds that many fits on each SM.
+BLOCK_MIN_WAVES = 4
+BLOCK_KMIN = 9  # K1's least rank that keeps the block entry (its grid KMAX 16)
 
 
 def smem_bytes(n: int, l: int, k: int) -> int:
@@ -161,13 +192,18 @@ def grid_workspace_floats(plan: GridPlan, batch: int, l: int, k: int) -> int:
     return _cdiv(batch, 4) * 4 + _cdiv(blocks, 4) * 4 + 2 * blocks * pstride
 
 
+def card_sms(xs) -> int:
+    """The SM count of the card ``xs`` lies on."""
+    return torch.cuda.get_device_properties(xs.device).multi_processor_count
+
+
 def cluster_call(xs, plan_for, floats_for):
     """The grid entries' last arguments for a batch on ``xs``'s card: the
     zeroed workspace, its size, the plan's output ints; and what
     :func:`check_plan` needs.  ``plan_for(sms)`` is the plan the kernel
     must report (its Python mirror), ``floats_for(plan)`` the workspace's
     floats."""
-    sms = torch.cuda.get_device_properties(xs.device).multi_processor_count
+    sms = card_sms(xs)
     plan = plan_for(sms)
     floats = floats_for(plan)
     ws = torch.zeros(floats, dtype=torch.float32, device=xs.device)
@@ -183,6 +219,7 @@ def check_plan(name: str, held) -> GridPlan:
     if got != plan or out[5] != sms:
         raise RuntimeError(f"{name}: the kernel planned {got} on {out[5]} SMs, "
                            f"the mirror {plan} on {sms}")
+    blocks_per_sm[name] = out[6]
     return plan
 
 
@@ -207,21 +244,42 @@ def warp_fits(n: int, l: int, k: int) -> bool:
     return n <= WARP_NMAX and l <= WARP_LMAX and k <= WARP_KMAX
 
 
-def route(n: int, l: int, k: int) -> str:
-    """K1's entry for fits of ``(n, l)`` frames at rank ``k``: ``"warp"``,
-    ``"block"`` or, for a fit over one block's shared memory,
-    ``"cluster"``; raises ``ValueError`` (naming ``impl='torch'``) when
-    even a cluster block cannot hold H, the Grams and two tiles of rows."""
-    return entry_for("mu_nmf", n, l, k)
+def block_keeps(batch: int, sms: int | None, block_bytes: int) -> bool:
+    """Whether ``batch`` fits of ``block_bytes`` of shared memory each (a
+    frame within one block) run on the block entry rather than on a grid
+    entry of one block a SM: the grid entry would take
+    ``BLOCK_MIN_WAVES`` waves or more of ``sms`` blocks, and
+    ``BLOCK_MIN_WAVES`` of the block entry's fits share one SM's shared
+    memory."""
+    if sms is None:
+        raise ValueError("a batch's route needs the card's SM count (sms=)")
+    return (_cdiv(batch, sms) >= BLOCK_MIN_WAVES
+            and BLOCK_MIN_WAVES * (block_bytes + 1024) <= SM_SMEM)
+
+
+def route(n: int, l: int, k: int, *, batch: int | None = None,
+          sms: int | None = None) -> str:
+    """K1's entry for ``batch`` fits of ``(n, l)`` frames at rank ``k`` on
+    a card of ``sms`` SMs: ``"warp"``, ``"cluster"`` or ``"block"`` (see
+    the module's note); left out, the batch is taken as one that keeps the
+    block entry wherever a fit fits a block.  Raises ``ValueError``
+    (naming ``impl='torch'``) when even a cluster block cannot hold H,
+    the Grams and two tiles of rows."""
+    block = None
+    if batch is not None:
+        block = block_keeps(batch, sms, smem_bytes(n, l, k)) and k >= BLOCK_KMIN
+    return entry_for("mu_nmf", n, l, k, block=block)
 
 
 def entry_for(name: str, n: int, l: int, k: int, warp=None, block_bytes=None,
-              cluster_bytes=None) -> str:
+              cluster_bytes=None, block=None) -> str:
     """The rule of :func:`route`, shared by K1, K2 and K4 (``name`` heads
     the error): the warp entry where ``warp``, else the block entry
-    where one fit's ``block_bytes`` fit a block, else the cluster entry
-    where a cluster block's least ``cluster_bytes`` do.  Left out, they
-    are K1's and K2's (:func:`warp_fits`, :func:`smem_bytes`,
+    where one fit's ``block_bytes`` fit a block and ``block`` (the
+    batch's rule; None, the block entry wherever a fit fits, as K2
+    routes) or the cluster entry cannot take the frame, else the cluster
+    entry where a cluster block's least ``cluster_bytes`` fit.  Left out,
+    the sizes are K1's and K2's (:func:`warp_fits`, :func:`smem_bytes`,
     :func:`cluster_smem_bytes`)."""
     if not 1 <= k <= KMAX:
         raise ValueError(f"{name}: rank {k} outside the kernel's 1..{KMAX}")
@@ -230,7 +288,7 @@ def entry_for(name: str, n: int, l: int, k: int, warp=None, block_bytes=None,
         cluster_bytes = cluster_smem_bytes(l, k)
     if warp:
         return "warp"
-    if block_bytes <= SMEM_LIMIT:
+    if block_bytes <= SMEM_LIMIT and (block is not False or cluster_bytes > SMEM_LIMIT):
         return "block"
     if cluster_bytes <= SMEM_LIMIT:
         return "cluster"
@@ -252,28 +310,34 @@ def _lib(entry: str):
     fn.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
         + [ctypes.c_int] * 2 + [ctypes.c_float] * 4 + [ctypes.c_int]
-        + (CLUSTER_ARGTYPES if entry == "cluster" else []) + [ctypes.c_void_p]
+        # the cluster entry: the plan's batch, then the workspace
+        + ([ctypes.c_int] + CLUSTER_ARGTYPES if entry == "cluster" else [])
+        + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(xs, w0, h0, iters, tol, check_every, inner_iter, with_stop,
-            regs=(0.0, 0.0, 0.0, 0.0)):
+            regs=(0.0, 0.0, 0.0, 0.0), plan_batch=None):
     global launches, warp_launches, cluster_launches, last_plan
     check_layout("mu_nmf", xs, w0, h0)
     xs, w0, h0 = xs.contiguous(), w0.contiguous(), h0.contiguous()
     b, n, l = xs.shape
     k = w0.shape[-1]
-    entry = route(n, l, k)
+    pb = b if plan_batch is None else int(plan_batch)
+    if pb < b:
+        raise ValueError(f"mu_nmf: plan_batch {pb} under the batch's {b} fits")
+    entry = route(n, l, k, batch=pb, sms=card_sms(xs))
     w, h = torch.empty_like(w0), torch.empty_like(h0)
     n_iter = torch.zeros(b, dtype=torch.int32, device=xs.device)
     prev_err = torch.zeros(b, dtype=torch.float32, device=xs.device)
     converged = torch.zeros(b, dtype=torch.int32, device=xs.device)
     extra, held = ((), None)
     if entry == "cluster":
-        extra, held = cluster_call(xs, lambda sms: grid_plan(b, n, l, k, sms),
+        extra, held = cluster_call(xs, lambda sms: grid_plan(pb, n, l, k, sms),
                                    lambda plan: grid_workspace_floats(plan, b, l, k))
+        extra = (pb, *extra)
     err = _lib(entry)(
         xs.data_ptr(), w0.data_ptr(), h0.data_ptr(), w.data_ptr(),
         h.data_ptr(), n_iter.data_ptr(), prev_err.data_ptr(),
@@ -303,12 +367,17 @@ def mu_iterations_cuda(xs, w, h, n_iters: int, inner_iter: int = 1):
 def fit_mu_cuda(
     xs, w0, h0, max_iter: int = 200, tol: float = 1e-4, check_every: int = 10,
     inner_iter: int = 1, l1_reg_w: float = 0.0, l2_reg_w: float = 0.0,
-    l1_reg_h: float = 0.0, l2_reg_h: float = 0.0,
+    l1_reg_h: float = 0.0, l2_reg_h: float = 0.0, *, plan_batch: int | None = None,
 ) -> MUState:
-    """MU-NMF of every fit to sklearn's stop, converged fits frozen (K1a)."""
+    """MU-NMF of every fit to sklearn's stop, converged fits frozen (K1a).
+
+    ``plan_batch`` (at least the batch): the batch whose route and grid
+    plan the fits take, so that fits cut from a larger batch (a
+    checkpointed bootstrap's chunks) keep that batch's order of sums and
+    give its bits; the batch itself by default."""
     return MUState(*_launch(xs, w0, h0, max_iter, tol, check_every,
                             inner_iter, True,
-                            (l1_reg_w, l2_reg_w, l1_reg_h, l2_reg_h)))
+                            (l1_reg_w, l2_reg_w, l1_reg_h, l2_reg_h), plan_batch))
 
 
 def mu_iterations_plain(xs, w, h, n_iters: int, inner_iter: int = 1):

@@ -21,8 +21,11 @@ The resample draw is made once, up front, with the one-shot call's
 the one-shot function (its ``_resample_plan``), so the chunks fit
 exactly the resamples the one-shot call fits.  Each fit in a batch
 stops on its own, so a chunk's fits are the one-shot call's fits: on
-the card, where K1 and K5 give every fit its own warp or block, and in
-float64 on the CPU, to rounding.  The CV masks depend only on
+the card, where K5 gives every fit its own block and K1 its own warp or
+the one-shot batch's blocks (a chunk's K1 launch is planned for the
+one-shot call's batch: its grid entry splits a fit's rows over as many
+blocks as the batch leaves it, which sets the order of the fit's sums),
+and in float64 on the CPU, to rounding.  The CV masks depend only on
 ``(seed, n_repeats, holdout_fraction)``, so they are the same in every
 per-candidate call; but a candidate's masked fits share their batched
 products with fewer fits than in the one-shot grid, and in float32 on
@@ -160,7 +163,8 @@ def bootstrap_synergies_checkpointed(
 
     def run(rows, lo):
         return bootstrap_synergies(x_np, n_components, seed=seed,
-                                   _resample_plan=(rows, lo), **kwargs)
+                                   _resample_plan=(rows, lo), _plan_batch=n_boot + 1,
+                                   **kwargs)
 
     sims, live = _resumed(ckpt, idx, chunk_size, run, ["sims"])
     return BootstrapResult(reference_components=live.reference_components,

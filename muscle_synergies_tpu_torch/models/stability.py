@@ -187,6 +187,8 @@ def bootstrap_synergies(
     device="cuda",
     dtype: Optional[torch.dtype] = None,
     impl: str = "auto",
+    *,
+    _plan_batch: Optional[int] = None,
 ) -> BootstrapResult:
     """Bootstrap the time axis and measure component stability.
 
@@ -200,6 +202,9 @@ def bootstrap_synergies(
         _resample_plan: ``(indices, row0)``, precomputed resample rows
             (resume plumbing); the init is the same for every row, so
             ``row0`` is not needed.
+        _plan_batch: the one-shot call's batch, whose K1 plan a chunk's
+            fits take on the card (resume plumbing: the chunks then give
+            the one-shot call's bits).
         mesh: optional ``(data, time)`` mesh: the batch through
             :func:`~..parallel.sharded_fit_mu` (no kernel); a sample count
             that does not divide the time axis warns and fits locally.
@@ -222,7 +227,8 @@ def bootstrap_synergies(
         mesh, "bootstrap_synergies", n, 1,
         lambda *g: sharded_fit_mu(*g, max_iter=max_iter, tol=tol), xs, w0, h0)
     if states is None:
-        states = fit_mu_batch(xs, w0, h0, max_iter=max_iter, tol=tol, impl=impl)
+        states = fit_mu_batch(xs, w0, h0, max_iter=max_iter, tol=tol, impl=impl,
+                              plan_batch=_plan_batch)
     hs = to_numpy(states.h).astype(float)
     h_ref = hs[0]
     sims = np.stack([_match_components(h_ref, hs[1 + b]) for b in range(n_boot)])

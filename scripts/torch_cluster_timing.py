@@ -17,16 +17,38 @@ of ``chip_smoke.py``'s phase 22: 124,460 x 8 and 20,000 x 8 at rank 4,
 one fit alone and 4 at once, and 124,460 x 8 at rank 8 alone; K4 runs
 124,460 x 8 fits at rank 4 for KL, IS and beta 1.5, and K5 at K = 4, D
 = 10, each alone and 4 at once, then K4 on a lone 124,460 x 16 fit at
-rank 12 (its KMAX-16 kernels) for the same three betas.  To compare two
-trees, run them alternately (A, B, B, A) on one card, one command after
-another::
+rank 12 (its KMAX-16 kernels) for the same three betas.
+
+The block-range cases (``--cases block``) are frames within one block's
+shared memory, where the block entries of K1 and K4 and their grid
+entries both run: K1 on 2,400 x 8 at rank 4 in batches of 1 to 1,024
+(the bootstrap's 51 fits among them), 16 x 2,000 x 8, and 225 x 8 and
+4,000 x 8 in batches of 4 and 1,024, and 1,024 fits beside the warp limits (200 x
+8 at rank 9, 200 x 17, 225 x 16 at rank 8), 200 x 8 at rank 9 in batches
+of 264 and 528, and 768 fits of 200 x 16 at rank 12; K4 for KL, IS and beta 1.5
+on 2,000 x 8 in batches of 4, 16, 132 and 1,024, on 1,024 fits of 200 x
+8 for beta 1.5 and -0.5 and for IS at rank 6, and about the crossover:
+200 x 8 at beta 1.5 in batches of 132 to 2,048 and IS at rank 6 in
+batches of 528 and 792, KL on 300 x 8 and beta 1.5 on 600 x 8 in batches
+of 528 and 1,024.  ``--entries`` picks how each
+runs: ``routed`` (the tree's own route; the line names the entry it
+took), ``block`` or ``cluster`` (that entry, forced, where it takes the
+frame); a grid launch's line carries its plan and the blocks a SM the
+card held (``null`` where the tree does not report them).  To compare
+two trees, run them alternately (A, B, B, A) on one card, one command
+after another.  ``--cases e2e`` times the user's call on a subject's
+2,400 x 8 matrix instead: ``find_synergies``' array core over ranks 1-4
+in one batched launch, with MU and with the KL loss (wall time with the
+init, the best of 3, beside the launches of each entry)::
 
     python3 scripts/torch_cluster_timing.py [--root DIR] [--build-only]
+        [--cases all|capture|block] [--entries routed,block,cluster]
 
 Without a CUDA card it exits with code 2 and runs nothing.
 """
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -41,6 +63,23 @@ CASES = [(1, 124_460, 8, 4), (4, 124_460, 8, 4), (1, 20_000, 8, 4), (4, 20_000, 
          (1, 124_460, 8, 8)]
 BETAS = (1.0, 0.0, 1.5)
 WIDE_BETA_CASE = (1, 124_460, 16, 12)  # K4's KMAX-16 kernels
+# the block-range cases: (batch, n, l, k) for K1, (batch, n, l, k, beta) for K4
+# (the last rows: frames beside the warp limits and batches about the
+# crossover of K4's two entries)
+MU_BLOCK_CASES = ([(b, 2_400, 8, 4) for b in (1, 4, 16, 51, 66, 132, 264, 1_024)]
+                  + [(16, 2_000, 8, 4)]
+                  + [(b, n, 8, 4) for n in (225, 4_000) for b in (4, 1_024)]
+                  + [(1_024, 200, 8, 9), (1_024, 200, 17, 4), (1_024, 225, 16, 8)]
+                  + [(264, 200, 8, 9), (528, 200, 8, 9), (768, 200, 16, 12)])
+BETA_BLOCK_CASES = ([(b, 2_000, 8, 4, beta) for beta in BETAS
+                     for b in (4, 16, 132, 1_024)]
+                    + [(1_024, 200, 8, 4, 1.5), (1_024, 200, 8, 4, -0.5),
+                       (1_024, 200, 8, 6, 0.0)]
+                    + [(b, 200, 8, 4, 1.5) for b in (132, 264, 528, 792, 2_048)]
+                    + [(b, 200, 8, 6, 0.0) for b in (528, 792)]
+                    + [(b, 300, 8, 4, 1.0) for b in (528, 1_024)]
+                    + [(b, 600, 8, 4, 1.5) for b in (528, 1_024)])
+COUNTERS = {"warp": "warp_launches", "block": "launches", "cluster": "cluster_launches"}
 ITERS = 200
 SOURCES = ("mu_nmf", "cd_nmf", "beta_nmf", "cnmf", "sosfiltfilt")
 
@@ -67,11 +106,85 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
+def takes_block(mod, n, l, k, beta=None) -> bool:
+    """Whether the block entry of K1 (``beta`` None) or K4 holds one fit."""
+    if beta is None:
+        return mod.smem_bytes(n, l, k) <= 227 * 1024
+    return mod.smem_bytes(n, l, k, kl=beta == 1.0) <= 227 * 1024
+
+
+def block_cases(mu_cuda, beta_cuda, run, positive, normal, entries) -> None:
+    """The block-range cases of K1 and K4 on each of ``entries``."""
+    for b, n, l, k in MU_BLOCK_CASES:
+        x, w, h = positive(b, n, l), normal(b, n, k), normal(b, k, l)
+        for entry in entries:
+            if entry != "block" or takes_block(mu_cuda, n, l, k):
+                run("mu_nmf", mu_cuda, mu_cuda.mu_iterations_cuda,
+                    mu_cuda.mu_iterations_plain, (x, w, h), f"{b}x{n}x{l}", k, entry,
+                    None)
+        del x, w, h
+    for b, n, l, k, beta in BETA_BLOCK_CASES:
+        x, w, h = positive(b, n, l) + 0.05, normal(b, n, k), normal(b, k, l)
+
+        def kern(x_, w_, h_, it, beta=beta):
+            return beta_cuda.beta_iterations_cuda(x_, w_, h_, it, beta)
+
+        def plain(x_, w_, h_, it, beta=beta):
+            return beta_cuda.beta_iterations_plain(x_, w_, h_, it, beta)
+
+        for entry in entries:
+            if entry != "block" or takes_block(beta_cuda, n, l, k, beta):
+                run("beta_nmf", beta_cuda, kern, plain, (x, w, h), f"{b}x{n}x{l}", k,
+                    entry, None, beta=beta)
+        del x, w, h
+
+
+def subject_sweeps(torch, root, smi) -> None:
+    """``find_synergies``' array core on a seeded 2,400 x 8 subject matrix
+    (4 smooth activations mixing into 8 muscles, with noise), ranks 1-4
+    in one batched sweep, MU and KL: wall time and each entry's launches."""
+    import time
+
+    from muscle_synergies_tpu_torch.models import select
+    from muscle_synergies_tpu_torch.models.kernels import beta_cuda, mu_cuda
+
+    rng = np.random.default_rng(11)
+    t = np.arange(2_400) / 200.0
+    acts = np.abs(np.sin(np.pi * (t[:, None] * (1 + 0.1 * np.arange(4)) + rng.random(4))))
+    x = (acts @ rng.random((4, 8)) + 0.02 * rng.random((2_400, 8))).astype(np.float32)
+    for label, mod, kw in (("mu", mu_cuda, dict(solver="mu")),
+                           ("kl", beta_cuda, dict(solver="mu",
+                                                  beta_loss="kullback-leibler"))):
+        def call():
+            return select._find_synergies_arrays(x, 1, 4, sweep="batched", **kw)
+
+        call()
+        before = {e: getattr(mod, c, 0) for e, c in COUNTERS.items()}
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = {e: getattr(mod, c, 0) - before[e] for e, c in COUNTERS.items()}
+        print(json.dumps({"root": root, "e2e": f"find_synergies {label} 2400x8, ranks 1-4",
+                          "wall_ms": min(times) * 1e3, "launches_3_calls": launches,
+                          "card": smi}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=ROOT, help="directory holding the package")
     ap.add_argument("--build-only", action="store_true", help="build, report, stop")
+    ap.add_argument("--cases", default="all", choices=("all", "capture", "block", "e2e"),
+                    help="the capture-length cases, the block-range cases, both, or "
+                         "find_synergies on a subject's matrix")
+    ap.add_argument("--entries", default="routed",
+                    help="comma list of routed, block, cluster (block-range cases)")
     args = ap.parse_args()
+    entries = args.entries.split(",")
+    assert set(entries) <= {"routed", "block", "cluster"}, entries
     import torch
 
     if not torch.cuda.is_available():
@@ -118,24 +231,49 @@ def main() -> int:
             times.append(events[0].elapsed_time(events[1]))
         return min(times)
 
-    def run(name, mod, kern, plain, inputs, shape, k, **extra):
-        """50 iterations against float64, their digest, 200 timed."""
-        before = mod.cluster_launches
-        ak, bk = kern(*inputs, 50)
-        assert mod.cluster_launches == before + 1, f"{name} took another entry"
-        plan = getattr(mod, "last_plan", None)
+    @contextlib.contextmanager
+    def forced(mod, entry):
+        """``mod``'s launches take ``entry`` whatever its route says."""
+        if entry == "routed":
+            yield
+            return
+        saved = mod.route
+        mod.route = lambda *a, **kw: entry
+        try:
+            yield
+        finally:
+            mod.route = saved
+
+    def run(name, mod, kern, plain, inputs, shape, k, entry="routed", expect="cluster",
+            **extra):
+        """50 iterations against float64, their digest, 200 timed, on
+        ``entry`` (``"routed"``: whichever the route picks, which must be
+        ``expect`` unless that is None)."""
+        before = {e: getattr(mod, c, 0) for e, c in COUNTERS.items()}
+        with forced(mod, entry):
+            ak, bk = kern(*inputs, 50)
+        took = [e for e, c in COUNTERS.items() if getattr(mod, c, 0) == before[e] + 1]
+        assert len(took) == 1 and entry in ("routed", took[0]), f"{name} took {took}"
+        assert expect in (None, took[0]), f"{name} took {took[0]}, not {expect}"
+        plan = getattr(mod, "last_plan", None) if took[0] == "cluster" else None
+        per_sm = getattr(mu_cuda, "blocks_per_sm", {}).get(name.replace("_cluster", ""))
         ap_, bp = plain(*(t.double() for t in inputs), 50)
         err = max(float(((a.double() - c).abs().amax() / c.abs().amax()).item())
                   for a, c in ((ak, ap_), (bk, bp)))
         assert err <= 1e-3, f"{name} disagrees with float64 at {shape} k={k}: {err}"
         digest = hashlib.sha256(ak.cpu().numpy().tobytes()
                                 + bk.cpu().numpy().tobytes()).hexdigest()[:16]
-        ms = best_ms(lambda: kern(*inputs, ITERS))
+        with forced(mod, entry):
+            ms = best_ms(lambda: kern(*inputs, ITERS))
         line = {"root": args.root, "kernel": name, "shape": shape, "k": k, **extra,
                 "us_per_iteration": ms / ITERS * 1e3, "rel_err_50": err,
                 "digest_50": digest, "card": smi}
+        if expect is None:
+            line["entry"] = took[0]
+            line["asked"] = entry
         if plan is not None:
             line["plan"] = plan._asdict()
+            line["blocks_per_sm"] = per_sm
         print(json.dumps(line), flush=True)
 
     def positive(*shape):
@@ -145,6 +283,13 @@ def main() -> int:
         a = np.abs(rng.standard_normal(shape)).astype(np.float32)
         return torch.from_numpy(a).to(dev)
 
+    if args.cases == "e2e":
+        subject_sweeps(torch, args.root, smi)
+        return 0
+    if args.cases in ("all", "block"):
+        block_cases(mu_cuda, beta_cuda, run, positive, normal, entries)
+    if args.cases == "block":
+        return 0
     for b, n, l, k in CASES:
         x, w, h = positive(b, n, l), normal(b, n, k), normal(b, k, l)
         run("mu_nmf_cluster", mu_cuda, mu_cuda.mu_iterations_cuda,

@@ -255,6 +255,26 @@ def test_beta_kernel_routes_around_the_warp_limits(n, l, k, beta, entry):
     assert beta_cuda.route(n, l, k, beta) == entry
 
 
+SMS = 132  # an H100 SXM's SMs
+
+
+@pytest.mark.parametrize("n, l, k, beta, batch, entry", [
+    (200, 8, 4, 1.5, 16, "cluster"), (200, 8, 4, 1.5, 264, "cluster"),
+    (200, 8, 4, 1.5, 396, "cluster"), (200, 8, 4, 1.5, 397, "block"),
+    (200, 8, 4, 1.5, 1024, "block"), (200, 8, 4, -0.5, 16, "cluster"),
+    (200, 8, 4, -0.5, 1024, "block"), (200, 8, 6, 0.0, 132, "cluster"),
+    (200, 8, 6, 0.0, 528, "block"), (300, 8, 4, 1.0, 1024, "block"),
+    (300, 8, 4, 1.0, 4, "cluster"), (600, 8, 4, 1.5, 1024, "cluster"),
+    (2000, 8, 4, 1.0, 4, "cluster"), (2000, 8, 4, 1.0, 1024, "cluster"),
+    (200, 8, 4, 1.0, 1024, "warp"), (2000, 8, 4, 1.5, 1024, "cluster"),
+])
+def test_beta_kernel_routes_block_range_frames_by_batch(n, l, k, beta, batch, entry):
+    """Past the warp limits and within one block, a batch takes K4's grid
+    entry unless it would take 4 or more waves of the card's SMs there
+    (one block a SM) and 4 of its fits share one SM on the block entry."""
+    assert beta_cuda.route(n, l, k, beta, batch=batch, sms=SMS) == entry
+
+
 def test_beta_kernel_route_refuses_over_one_block():
     """Over one block's shared memory a fit takes K4's cluster entry; only
     a frame whose small state fills a cluster block is refused (the whole

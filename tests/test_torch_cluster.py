@@ -109,6 +109,22 @@ def test_route_takes_the_entry_of_the_frame(module, shape, entry):
         assert module.route(*shape) == entry
 
 
+@pytest.mark.parametrize("batch", [1, 4, 51, 1024])
+@pytest.mark.parametrize("shape, entry", ROUTES,
+                         ids=[f"{s[0]}x{s[1]}k{s[2]}" for s, _ in ROUTES])
+def test_k1_routes_a_batch_of_block_range_frames_to_its_grid_entry(shape, entry, batch):
+    """Given the batch, K1 sends every frame of the table that K2 keeps on
+    its block entry to its grid entry (ranks 1-8: its grid kernel holds
+    two blocks a SM and was no slower at any batch measured); the rest
+    route as without one."""
+    if entry is None:
+        with pytest.raises(ValueError, match="impl='torch'"):
+            mu_cuda.route(*shape, batch=batch, sms=SMS)
+        return
+    want = "cluster" if entry == "block" else entry
+    assert mu_cuda.route(*shape, batch=batch, sms=SMS) == want
+
+
 def test_the_block_limit_sits_where_smem_bytes_puts_it():
     for l, k in ((8, 4), (16, 8)):
         n = _n_max_block(l, k)
@@ -165,6 +181,14 @@ def _old_cluster_smem_bytes(l, k):
     (51, 6000, (2, 3000, True)),  # a bootstrap's 51 fits
     (140, 6000, (1, 6000, False)),  # more fits than SMs: one block a fit
     (1, 4150, (17, 245, True)),
+    # block-range frames: the bootstrap of a 2,400 x 8 subject (51 fits),
+    # smaller batches of it, more fits than SMs, and a 225-row frame
+    (51, 2400, (2, 1200, True)),
+    (16, 2400, (8, 300, True)),
+    (1, 2400, (10, 240, True)),
+    (1024, 2400, (1, 2400, True)),
+    (4, 4000, (16, 250, True)),
+    (1, 225, (1, 225, True)),
 ], ids=lambda v: str(v) if not isinstance(v, tuple) else "-")
 def test_grid_plan_spreads_a_fit_over_the_card(b, n, plan):
     got = mu_cuda.grid_plan(b, n, 8, 4, SMS)
@@ -336,6 +360,34 @@ def test_split_mirrors_stop_each_fit_on_its_own(solver):
     assert (st.w[0, :, 2:] == 0).all() and (h[0, 2:] == 0).all()
     for i, k in enumerate((2, 4)):
         _check(st.n_iter[i], st.w[i, :, :k], h[i, :k], _jax_fit(solver, k, "stop"), "stop")
+
+
+# the block-range plans: a 2,400 x 8 subject, 5 fits on a card of 10 SMs
+# (the emulated card's plan, 2 ranges of 1,200 rows; the bootstrap's 51
+# fits on 132 SMs take the same), 16 fits (8 ranges); a 225 x 8 frame (1)
+BLOCK_RANGE_PLANS = {"2400-p2": (5, 2400, 10), "2400-p8": (16, 2400, SMS),
+                     "225-p1": (4, 225, SMS)}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fit_rows(n, mode):
+    w0, h0 = _start(4)
+    st = jmu.fit_mu(jnp.asarray(X[:n]), jnp.asarray(w0[:n]), jnp.asarray(h0),
+                    **MODES[mode])
+    return int(st.n_iter), np.asarray(st.w), np.asarray(st.h)
+
+
+@pytest.mark.parametrize("mode", ["fixed", "stop"])
+@pytest.mark.parametrize("case", list(BLOCK_RANGE_PLANS))
+def test_mu_split_mirror_at_block_range_plans_matches_jax(case, mode):
+    b, n, sms = BLOCK_RANGE_PLANS[case]
+    plan = mu_cuda.grid_plan(b, n, L, 4, sms)
+    assert plan.blocks == int(case.split("-p")[1]) and plan.resident
+    assert plan == mu_cuda.grid_plan(51, n, L, 4, SMS) or case != "2400-p2"
+    w0, h0 = _start(4)
+    st = fit_mu_cluster_plain(*map(torch.as_tensor, (X[:n], w0[:n], h0)), plan.blocks,
+                              **MODES[mode])
+    _check(st.n_iter, st.w, st.h, _jax_fit_rows(n, mode), mode)
 
 
 # ---- the per-capture model on a frame the card fits on a cluster ------

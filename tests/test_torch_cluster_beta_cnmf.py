@@ -133,6 +133,28 @@ def test_beta_route_takes_the_entry_of_the_frame(shape, entry):
         assert beta_cuda.route(*shape) == entry
 
 
+# (frame, batch, entry): past the warp entry and within one block, a
+# batch takes the grid entry unless it fills the card with 4 waves or
+# more of fits that share an SM 4 at a time on the block entry
+BETA_BATCH_ROUTES = [
+    ((200, 8, 4, 1.5), 16, "cluster"), ((200, 8, 4, 1.5), 1024, "block"),
+    ((200, 8, 4, -0.5), 51, "cluster"), ((200, 8, 4, -0.5), 1024, "block"),
+    ((200, 8, 6, 0.0), 264, "cluster"), ((200, 8, 6, 0.0), 1024, "block"),
+    ((2000, 8, 4, 1.0), 16, "cluster"), ((2000, 8, 4, 1.0), 1024, "cluster"),
+    ((_n_max_block(8, 4, True), 8, 4, 1.0), 1024, "cluster"),
+    ((200, 8, 4, 1.0), 1024, "warp"), ((200, 8, 4, 0.0), 1, "warp"),
+    ((6000, 8, 4, 1.5), 1024, "cluster"),
+]
+
+
+@pytest.mark.parametrize("shape, batch, entry", BETA_BATCH_ROUTES, ids=[
+    f"{s[0]}x{s[1]}k{s[2]}b{s[3]}n{b}" for s, b, _ in BETA_BATCH_ROUTES])
+def test_beta_route_takes_the_entry_of_the_batch(shape, batch, entry):
+    assert beta_cuda.route(*shape, batch=batch, sms=SMS) == entry
+    # a frame over one block takes the cluster entry whatever the batch
+    assert beta_cuda.route(20_000, *shape[1:], batch=batch, sms=SMS) == "cluster"
+
+
 def test_the_beta_limits_sit_where_the_shared_memory_puts_them():
     # the block entry: about 2,516 x 8 for KL at rank 4, 1,808 x 8 for the rest
     assert 2500 < _n_max_block(8, 4, True) < 2530
@@ -383,6 +405,31 @@ def test_beta_split_mirror_matches_jax(beta, mode, ranges):
     if mode == "fixed":
         assert int(st.n_iter) == 60 and not bool(st.converged)
     _check((st.n_iter, st.w, st.h), _jax_beta(beta, mode), mode)
+
+
+# the block-range frames that a small batch sends to K4's grid entry: 200
+# x 8, one block a fit (P = 1), for beta 1.5 and -0.5 and IS at rank 6
+BETA_BLOCK_RANGE = [(1.5, 4), (-0.5, 4), (0.0, 6)]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_beta_rows(beta, k, mode, n=200):
+    w0, h0 = _beta_start(k)
+    st = jbeta.fit_mu_beta(jnp.asarray(X[:n]), jnp.asarray(w0[:n]), jnp.asarray(h0),
+                           beta=beta, **BETA_MODES[mode])
+    return int(st.n_iter), np.asarray(st.w), np.asarray(st.h)
+
+
+@pytest.mark.parametrize("mode", ["fixed", "stop"])
+@pytest.mark.parametrize("beta, k", BETA_BLOCK_RANGE, ids=["b1.5", "b-0.5", "is-k6"])
+def test_beta_split_mirror_at_block_range_plans_matches_jax(beta, k, mode):
+    plan = beta_cuda.grid_plan(16, 200, L, k, SMS, beta == 1.0)
+    assert (plan.blocks, plan.rows, plan.resident) == (1, 200, True)
+    assert beta_cuda.route(200, L, k, beta, batch=16, sms=SMS) == "cluster"
+    w0, h0 = _beta_start(k)
+    st = fit_beta_cluster_plain(*map(torch.as_tensor, (X[:200], w0[:200], h0)),
+                                plan.blocks, beta, **BETA_MODES[mode])
+    _check((st.n_iter, st.w, st.h), _jax_beta_rows(beta, k, mode), mode)
 
 
 CNMF_MODES = {

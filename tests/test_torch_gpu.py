@@ -58,6 +58,10 @@ def _rel(a, b):
     return float((a.double() - b.double()).abs().max() / b.double().abs().max())
 
 
+def _sms(cuda):
+    return torch.cuda.get_device_properties(cuda).multi_processor_count
+
+
 @pytest.mark.parametrize("padtype", ["odd", "even", "constant", None])
 @pytest.mark.parametrize(
     "design",
@@ -574,15 +578,16 @@ def test_mu_warp_entry_matches_plain_float64(cuda, n, k, l):
 @pytest.mark.parametrize("n", [1, 31, 33, 200, mu_cuda.WARP_NMAX])
 def test_beta_warp_entry_matches_plain_float64(cuda, n, k, l):
     """K4's warp entry against float64 for each kind it takes (KL at
-    every shape; IS at L <= 8, rank <= 4, the block entry above; a
-    run-time beta always on the block entry), with the stop off, and with
-    the penalties."""
+    every shape; IS at L <= 8, rank <= 4; a run-time beta never: its 16
+    fits, like IS's above those limits, take the grid entry), with the
+    stop off, and with the penalties."""
     x, w, h = _problem(cuda, b=16, n=n, l=l, k=k, seed=n + 10 * k + 100 * l)
     x = x + 0.05  # strictly positive, as beta <= 0 needs
     for beta in (1.0, 0.0, 1.5):
         warp = beta == 1.0 or (beta == 0.0 and l <= 8 and k <= 4)
-        assert beta_cuda.route(n, l, k, beta) == ("warp" if warp else "block")
-        before = (beta_cuda.warp_launches, beta_cuda.launches)
+        assert beta_cuda.route(n, l, k, beta, batch=16, sms=_sms(cuda)) == (
+            "warp" if warp else "cluster")
+        before = (beta_cuda.warp_launches, beta_cuda.cluster_launches)
         wk, hk = beta_cuda.beta_iterations_cuda(x, w, h, 20, beta)
         (wp, hp), bar = _warp_bar(beta_cuda.beta_iterations_plain, x, w, h, 20,
                                   beta=beta)
@@ -592,12 +597,12 @@ def test_beta_warp_entry_matches_plain_float64(cuda, n, k, l):
                                       max_iter=20, tol=-1.0, **REGS)
         assert _rel(sk.w, sp.w) < 1e-3 and _rel(sk.h, sp.h) < 1e-3, beta
         after = (before[0] + 2, before[1]) if warp else (before[0], before[1] + 2)
-        assert (beta_cuda.warp_launches, beta_cuda.launches) == after
+        assert (beta_cuda.warp_launches, beta_cuda.cluster_launches) == after
 
 
-# both entries, each side of the warp limit, and the block entry at the
-# 2,000 x 8 frame of the per-capture API (KL only: the other kinds' two
-# weight planes exceed one block there)
+# both entries of a small batch, each side of the warp limit: the warp
+# entry, and the grid entry above it up to the 2,000 x 8 frame of the
+# per-capture API
 @pytest.mark.parametrize("n, k", [(33, 1), (200, 4), (200, 8), (mu_cuda.WARP_NMAX, 5),
                                   (mu_cuda.WARP_NMAX + 1, 4), (2000, 4)])
 def test_mu_and_beta_entries_stop_where_float64_stops(cuda, n, k):
@@ -614,8 +619,9 @@ def test_mu_and_beta_entries_stop_where_float64_stops(cuda, n, k):
                       lambda x_, w_, h_, b=beta: mu_update_beta(x_, w_, h_, b)))
     for mod, kern, plain, kw, gap_bar, err_bar, step in cases:
         warp = n <= mu_cuda.WARP_NMAX and (kw.get("beta", 1.0) == 1.0 or k <= 4)
-        assert mod.route(n, 8, k, **kw) == ("warp" if warp else "block")
-        counter = "warp_launches" if warp else "launches"
+        assert mod.route(n, 8, k, *kw.values(), batch=x.shape[0], sms=_sms(cuda)) == (
+            "warp" if warp else "cluster")
+        counter = "warp_launches" if warp else "cluster_launches"
         before = getattr(mod, counter)
         sk = kern(x, w, h, max_iter=200, tol=1e-4, **kw)
         assert getattr(mod, counter) == before + 1
@@ -651,15 +657,48 @@ def test_warp_entries_compute_the_block_entries_fits_bit_for_bit(cuda, monkeypat
 
 def test_negative_beta_takes_the_block_entry(cuda):
     """For beta < 0 a padded entry's weight overflows, so the route keeps
-    every frame on the block entry."""
-    x, w, h = _problem(cuda, b=16)
+    every frame off the warp entry: a batch that fills the card with
+    waves of fits takes the block entry (a small one the grid entry)."""
+    x, w, h = _problem(cuda, b=1024)
     x = x + 0.05
-    assert beta_cuda.route(200, 8, 4, -0.5) == "block"
+    assert beta_cuda.route(200, 8, 4, -0.5, batch=1024, sms=_sms(cuda)) == "block"
+    assert beta_cuda.route(200, 8, 4, -0.5, batch=16, sms=_sms(cuda)) == "cluster"
     before = (beta_cuda.warp_launches, beta_cuda.launches)
     wk, hk = beta_cuda.beta_iterations_cuda(x, w, h, 20, -0.5)
     wp, hp = beta_cuda.beta_iterations_plain(x.double(), w.double(), h.double(), 20, -0.5)
     assert _rel(wk, wp) < 1e-3 and _rel(hk, hp) < 1e-3
     assert (beta_cuda.warp_launches, beta_cuda.launches) == (before[0], before[1] + 1)
+
+
+# (module, fixed iterations, plain, frame (n, l, k), keywords): frames past
+# the warp entry and within one block
+BLOCK_RANGE = {
+    "mu rank 12 x 16": (mu_cuda, mu_cuda.mu_iterations_cuda,
+                        mu_cuda.mu_iterations_plain, (200, 16, 12), {}),
+    "beta 1.5": (beta_cuda, beta_cuda.beta_iterations_cuda,
+                 beta_cuda.beta_iterations_plain, (200, 8, 4), dict(beta=1.5)),
+    "is rank 6": (beta_cuda, beta_cuda.beta_iterations_cuda,
+                  beta_cuda.beta_iterations_plain, (200, 8, 6), dict(beta=0.0)),
+}
+
+
+@pytest.mark.parametrize("kind", list(BLOCK_RANGE))
+def test_block_range_batches_take_the_entry_their_route_names(cuda, kind):
+    """A batch of 16 fits takes the grid entry, one of 1,024 (waves of
+    fits on every SM) the block entry: K1 at rank 12, where its grid
+    kernel holds one block a SM, and K4 for a run-time beta and for IS
+    past the warp entry's rank; each held to float64."""
+    mod, kern, plain, (n, l, k), kw = BLOCK_RANGE[kind]
+    for b, entry, counter in ((16, "cluster", "cluster_launches"),
+                              (1024, "block", "launches")):
+        assert mod.route(n, l, k, *kw.values(), batch=b, sms=_sms(cuda)) == entry
+        x, w, h = _problem(cuda, b=b, n=n, l=l, k=k, seed=b + k)
+        x = x + 0.05
+        before = getattr(mod, counter)
+        wk, hk = kern(x, w, h, 20, *kw.values())
+        assert getattr(mod, counter) == before + 1, (kind, b)
+        wp, hp = plain(x.double(), w.double(), h.double(), 20, *kw.values())
+        assert _rel(wk, wp) < 1e-3 and _rel(hk, hp) < 1e-3, (kind, b)
 
 
 def test_written_capture_runs_the_main_path_on_the_card(cuda, tmp_path):
@@ -784,17 +823,19 @@ def _hold_bootstrap_to_float64(got, want, ref_field):
     assert cos.min() >= 0.999, cos
 
 
-@pytest.mark.parametrize("n_rows, entry", [(200, "warp_launches"), (2400, "launches")])
+@pytest.mark.parametrize("n_rows, entry", [(200, "warp_launches"),
+                                           (2400, "cluster_launches")])
 def test_bootstrap_synergies_is_one_k1_launch(cuda, n_rows, entry):
     """The reference fit and the resamples in one launch of K1: its warp
-    entry for a 200 x 8 trial, its block entry for a 2,400 x 8 subject."""
+    entry for a 200 x 8 trial, its grid entry for a 2,400 x 8 subject
+    (21 fits on 6 blocks each)."""
     from muscle_synergies_tpu_torch.models import stability
 
     x = _subject_matrix(n_rows)
-    mu_cuda.warp_launches = mu_cuda.launches = 0
+    mu_cuda.warp_launches = mu_cuda.launches = mu_cuda.cluster_launches = 0
     got = stability.bootstrap_synergies(x, 4, n_boot=20)
     assert getattr(mu_cuda, entry) == 1
-    assert mu_cuda.warp_launches + mu_cuda.launches == 1
+    assert mu_cuda.warp_launches + mu_cuda.launches + mu_cuda.cluster_launches == 1
     want = stability.bootstrap_synergies(x, 4, n_boot=20, device="cpu",
                                          dtype=torch.float64)
     _hold_bootstrap_to_float64(got, want, "reference_components")
@@ -1129,10 +1170,13 @@ def test_checkpointed_bootstraps_count_their_launches(cuda, tmp_path):
     for drop, launches in (((), 4), ((), 1), (("chunk_00005_00010",), 1)):
         for key in drop:
             os.remove(tmp_path / "k1" / f"{key}.npz")
-        mu_cuda.warp_launches = mu_cuda.launches = 0
+        mu_cuda.warp_launches = mu_cuda.launches = mu_cuda.cluster_launches = 0
         got = resume.bootstrap_synergies_checkpointed(x, 4, tmp_path / "k1", n_boot=20,
                                                       chunk_size=5)
-        assert mu_cuda.launches == launches and mu_cuda.warp_launches == 0
+        # each chunk on the grid entry, planned as the one-shot call's 21 fits
+        assert mu_cuda.cluster_launches == launches
+        assert mu_cuda.warp_launches == mu_cuda.launches == 0
+        assert mu_cuda.last_plan == mu_cuda.grid_plan(21, 2400, 8, 4, _sms(cuda))
         assert np.abs(got.similarities - want.similarities).max() <= 1e-6
         ref = got.reference_components - want.reference_components
         assert np.abs(ref).max() <= 1e-6

@@ -10,7 +10,11 @@ of a few SMs, so that one fit spans several blocks:
 
 - the plan each entry reports is its Python mirror's
   (``mu_cuda.grid_plan``, ``beta_cuda.grid_plan``, ``cnmf_cuda.grid_plan``),
-  resident and streamed, and with more fits than SMs;
+  resident and streamed, with more fits than SMs, on the block-range
+  frames a small batch sends to the grid entries of K1 and K4 (225 x 8
+  on one block, 5 fits of 2,400 x 8 on 10 SMs at two blocks each, 200 x 8
+  at beta 1.5 and -0.5 and for IS at rank 6), and for K1 planned for a
+  larger batch than it runs (a checkpointed bootstrap's chunk);
 - a few fixed iterations are within 1e-5 relative of the plain version
   in float64 (KL, Itakura-Saito, beta = 1.5 and -0.5; K5 with halos from
   the next block, from two and three blocks away, and none at D = 1);
@@ -117,7 +121,10 @@ BETA_CASES = [(2, 1500, 8, 4, 1.0, 8, 5, False), (2, 1500, 8, 4, 0.0, 8, 5, Fals
               (1, 1500, 8, 4, 1.5, 4, 4, False), (1, 1500, 8, 4, -0.5, 4, 4, False),
               (1, 1000, 12, 12, 1.0, 4, 3, False), (1, 20_000, 8, 4, 0.0, 1, 2, False),
               (3, 1200, 8, 4, 1.0, 2, 3, False), (2, 1500, 8, 4, 1.0, 4, 40, True),
-              (1, 800, 16, 8, 1.5, 4, 20, True)]
+              (1, 800, 16, 8, 1.5, 4, 20, True),
+              # block-range frames, one block a fit
+              (2, 200, 8, 4, 1.5, 4, 4, False), (2, 200, 8, 4, -0.5, 4, 4, False),
+              (2, 200, 8, 6, 0.0, 4, 4, False), (1, 200, 8, 4, 1.5, 2, 30, True)]
 
 
 @pytest.mark.parametrize("case", BETA_CASES, ids=[
@@ -184,21 +191,28 @@ def test_emulated_cnmf_grid_entry_matches_plain_float64(libs, monkeypatch, case)
         assert _rel(c, cp) < 1e-5 and _rel(s, sp) < 1e-5, (_rel(c, cp), _rel(s, sp))
 
 
-@pytest.mark.parametrize("b, n, sms", [(1, 2000, 4), (1, 40_000, 4), (6, 1000, 4)],
-                         ids=["resident", "streamed", "more-fits-than-SMs"])
-def test_emulated_mu_grid_entry_matches_plain_float64(libs, monkeypatch, b, n, sms):
+# (batch, rows, SMs, the plan's batch, blocks a fit)
+MU_CASES = {"resident": (1, 2000, 4, 1, 4), "streamed": (1, 40_000, 4, 1, 4),
+            "more-fits-than-SMs": (6, 1000, 4, 6, 1), "225-rows": (1, 225, 4, 1, 1),
+            "5x2400-on-10": (5, 2400, 10, 5, 2), "2-planned-as-5": (2, 2400, 10, 5, 2)}
+
+
+@pytest.mark.parametrize("case", list(MU_CASES))
+def test_emulated_mu_grid_entry_matches_plain_float64(libs, monkeypatch, case):
     """K1's grid entry, whose helpers K4 and K5 share."""
+    b, n, sms, plan_b, blocks = MU_CASES[case]
     fn = _entry(libs, monkeypatch, mu_cuda, "mu_nmf", sms)
     l, k, iters = 8, 4, 4
     x, w0, h0 = _factors(np.random.default_rng(n), (b, n, l), (b, n, k), (b, k, l))
     w, h = np.zeros_like(w0), np.zeros_like(h0)
     n_iter, converged = np.zeros(b, np.int32), np.zeros(b, np.int32)
     prev_err = np.zeros(b, np.float32)
-    plan = mu_cuda.grid_plan(b, n, l, k, sms)
+    plan = mu_cuda.grid_plan(plan_b, n, l, k, sms)
+    assert plan.blocks == blocks
     ws, out, extra = _workspace(plan, mu_cuda.grid_workspace_floats(plan, b, l, k))
     err = fn(_ptr(x), _ptr(w0), _ptr(h0), _ptr(w), _ptr(h), _ptr(n_iter), _ptr(prev_err),
-             _ptr(converged), b, n, l, k, iters, 0.0, 1, 1, 0.0, 0.0, 0.0, 0.0, 0, *extra,
-             None)
+             _ptr(converged), b, n, l, k, iters, 0.0, 1, 1, 0.0, 0.0, 0.0, 0.0, 0, plan_b,
+             *extra, None)
     assert err == 0 and _reported(out) == plan, (err, _reported(out), plan)
     wp, hp = mu_cuda.mu_iterations_plain(
         *(torch.from_numpy(a).double() for a in (x, w0, h0)), iters)

@@ -278,6 +278,35 @@ def test_mu_kernel_routes_around_the_warp_limits(n, l, k, entry):
     assert mu_cuda.route(n, l, k) == entry
 
 
+SMS = 132  # an H100 SXM's SMs
+
+
+@pytest.mark.parametrize("n, l, k, batch, entry", [
+    (225, 8, 4, 1, "cluster"), (225, 8, 4, 1024, "cluster"),
+    (2000, 8, 4, 16, "cluster"), (2400, 8, 4, 51, "cluster"),
+    (2400, 8, 4, 1024, "cluster"), (4000, 8, 4, 4, "cluster"),
+    (200, 17, 4, 1024, "cluster"), (224, 16, 8, 4, "warp"), (200, 8, 9, 16, "cluster"),
+    (200, 8, 9, 396, "cluster"), (200, 8, 9, 397, "block"), (200, 16, 12, 768, "block"),
+    (20_000, 8, 4, 1024, "cluster"),
+])
+def test_mu_kernel_routes_block_range_frames_by_batch(n, l, k, batch, entry):
+    """Past the warp limits and within one block, a batch takes K1's grid
+    entry, except at rank 9-16 (its grid kernel holds one block a SM)
+    where the grid entry would take 4 or more waves of the card's SMs;
+    K2's route takes no batch and keeps its block entry."""
+    assert mu_cuda.route(n, l, k, batch=batch, sms=SMS) == entry
+    assert cd_cuda.route(n, l, k) == mu_cuda.route(n, l, k)
+
+
+def test_mu_kernel_route_needs_the_sms_for_a_batch():
+    with pytest.raises(ValueError, match="sms"):
+        mu_cuda.route(2000, 8, 4, batch=16)
+    # the rule: 4 waves of fits, 4 fits' shared memory on one SM
+    assert mu_cuda.block_keeps(397, SMS, 26_000)
+    assert not mu_cuda.block_keeps(396, SMS, 26_000)
+    assert not mu_cuda.block_keeps(1024, SMS, 60_000)
+
+
 def test_mu_kernel_route_refuses_over_one_block():
     # a fit over one block's shared memory takes the cluster entry; one
     # whose H and Grams alone fill a cluster block is refused
