@@ -9,42 +9,49 @@ It builds the nine hand-written CUDA kernels from the five sources in
 ``muscle_synergies_tpu_torch/csrc/`` (one ``nvcc`` per source, all
 started together; K3 and K6 share ``sosfiltfilt.cu``; K1, K2 and K4
 each have a warp entry, one warp per fit, for frames of at most 224 x
-16 at rank 8, and a block entry, one block per fit, above that (K1's
-and K4's only for batches that fill the card with 4 waves or more of
-fits: K1 at rank 9-16, K4 past its warp entry); K1, K2, K4 and K5 also
+16 at rank 8, and a block entry, one block per fit, above that, only
+for batches that fill the card with 4 waves or more of fits (K1 at rank
+9-16, K2 at rank 9-10, K4 past its warp entry); K1, K2, K4 and K5 also
 a cluster (grid) entry, each spreading one fit over many blocks of the
-card, for frames over one block's shared memory and, K1 and K4, for
+card, for frames over one block's shared memory and, K1, K2 and K4, for
 every other frame past the warp entry) and then, failing on the first
 assertion that does not hold:
 
 1. prints the card and its power limit, and the build time;
 2. K3 ``sosfiltfilt``: 64 trials x 124,460 samples x 8 channels through
    the kernel against ``scipy.signal.sosfiltfilt`` in float64 (all 64)
-   and the plain version in float64 on the card (4 of them);
-   bar: max abs error <= 5e-4 * max|y|; then timed at 64 and at 256
-   trials (the 64 four times over);
+   and the plain version in float64 on the card (4 trials x 20,000
+   samples: it takes one Python step per sample; that run is also the
+   plain time); bar: max abs error <= 5e-4 * max|y|; then timed at 64
+   and at 256 trials (the 64 four times over);
 3. K1/K2 fixed iterations (stop compiled out): 50 MU / CD iterations at
    1024 x 200 x 8, rank 4 (K1's and K2's warp entries), at 16 x 2,000
-   x 8 (K2's block entry, K1's grid entry, its plan and blocks a SM
-   logged) and at 1024 x 200 x 16, rank 12 (K1's block entry), each
-   route asserted, kernel in float32 against the plain version in
+   x 8 (K1's and K2's grid entries, each plan and blocks a SM logged)
+   and at 1024 x 200 x 16, rank 12 (K1's block entry), each route
+   asserted by batch, kernel in float32 against the plain version in
    float64; bar: max relative factor error <= 1e-3;
 4. K1/K2 fits against a plain float64 fit on 128 of the 200 x 8
-   problems (the warp entries), the 16 problems of 2,000 x 8 (K2's block
-   entry, K1's grid entry) and, K1, the 1024 of 200 x 16 (its block
-   entry) at tol 1e-4, each launch on the entry named: the median
-   stopping gap must be 0, and the factor error at the kernel's own
-   stopping iteration <= 1e-3;
+   problems (the warp entries), the 16 problems of 2,000 x 8 (the grid
+   entries) and, K1, the 1024 of 200 x 16 (its block entry) at tol
+   1e-4, each launch on the entry named: the median stopping gap must
+   be 0, and the factor error at the kernel's own stopping iteration
+   <= 1e-3;
 5. the main path, ``analyze_dataset`` under the default
    ``PipelineConfig`` on 256 synthetic float32 trials of 124,460 x 8 at
    2000 Hz (ranks 1-4, 1,024 fits), once with ``solver="cd"`` and once
    with ``solver="mu"``: every kernel's launch counter must rise, every
    VAF be finite and <= 1, the mean VAF rise from rank 1 to 4, and a
-   16-trial subset match ``impl="torch"`` to VAF 1e-3; then MU on 64
+   16-trial subset match ``impl="torch"`` to VAF 1e-3 (CD at
+   ``max_iter=2,000`` on both sides); then MU on 64
    trials of 16 channels (two trials side by side), ranks 1-12 at
    ``max_iter=2,000``: one K3 launch and one of K1's block entry (768
    fits of 200 x 16 at rank 12), the VAF rising with rank and 4 trials
-   matching ``impl="torch"`` to VAF 1e-3;
+   matching ``impl="torch"`` to VAF 1e-3; and CD on the same trials,
+   ranks 1-10: one launch of K2's block entry (640 fits of 200 x 16 at
+   rank 10), the same checks, then that launch's inputs through the
+   block entry against float64: 50 fixed iterations (bar 1e-3) and a fit
+   at tol 1e-4 (median stopping gap 0, factor error at the kernel's stop
+   <= 1e-3);
 6. K4 fixed iterations: 50 beta-MU iterations at 1024 x 200 x 8, rank
    4, on strictly positive X, for beta = 1 (KL) and 0 (Itakura-Saito) on
    the warp entry and 1.5 (the generic kind) on the block entry; 50 KL
@@ -71,7 +78,8 @@ assertion that does not hold:
 10. the time-varying main path: ``analyze_dataset_time_varying(
     n_synergies=4, n_lags=10, n_inits=4)`` on the same 256 trials
     (1,024 fits): the K3 and K5 counters must rise, every VAF be finite
-    and <= 1, and a 16-trial subset match ``impl="torch"`` to VAF 1e-3;
+    and <= 1, and a 16-trial subset match ``impl="torch"`` to VAF 1e-3
+    at ``max_iter=2,000`` on both sides;
 11. K6 ``sosfilt`` (the causal cascade from given states): 64 trials x
     124,460 x 8 through the kernel from ``zi = sosfilt_zi * x[0]`` per
     column, against ``scipy.signal.sosfilt`` in float64 (all 64) and
@@ -102,8 +110,9 @@ assertion that does not hold:
     entry, one launch; ``transform``, plain), ``rank_sweep_batch`` over
     ranks 1-8 on it (one launch of the warp entry); the same trial
     resampled to 2,000 x 8 through ``NMFModel`` with the CD, MU and KL
-    solvers (one launch each of K2's block entry and K1's and K4's grid
-    entries, each within 1e-3 of float64 in reconstruction error); on a 20,000 x 8
+    solvers (one launch each of the grid entries of K2, which its route
+    names for a batch of one, K1 and K4, each within 1e-3 of float64 in
+    reconstruction error); on a 20,000 x 8
     frame, over one block's shared memory, ``fit_transform`` in exactly
     one launch of K2's cluster entry and no other, and with
     ``impl="torch"`` the plain fit on the card (no counter moves), the
@@ -164,8 +173,8 @@ assertion that does not hold:
     200 x 8 trial in one launch of its warp entry; a 5,000 x 8 matrix in
     one launch of K1's cluster entry, and of K5's for
     ``bootstrap_time_varying_synergies(x, 4, 10, n_boot=2)``;
-    ``bootstrap_time_varying_synergies(x, 4, 10)`` in exactly one K5
-    launch; each held against the same call in float64 on the host
+    ``bootstrap_time_varying_synergies(x, 4, 10, n_boot=20)`` in exactly
+    one K5 launch; each held against the same call in float64 on the host
     (similarities within 2e-3, reference components' cosines >= 0.999);
     ``cv_rank_selection`` over ranks 1-8 and
     ``cv_time_varying_rank_selection`` over 2-5 (plain torch, no launch:
@@ -598,7 +607,7 @@ class Smoke:
         return out, counts
 
     # ---- 2. K3 ----
-    def filter_phase(self, n_trials: int = 64):
+    def filter_phase(self, n_trials: int = 64, plain_n: int = 20_000):
         from scipy import signal as sps
 
         from muscle_synergies_tpu_torch.ops import filter_cuda, filters
@@ -619,20 +628,20 @@ class Smoke:
         scale = float(np.abs(ref).max())
         err_scipy = float(np.abs(y.cpu().numpy() - ref).max()) / scale
         del ref
-        x64 = x[:4].double()
-        t0 = time.perf_counter()
-        y_plain64 = filter_cuda.sosfiltfilt_plain(sos, x64, padlen, "odd")
-        torch.cuda.synchronize()
-        log(f"filter: plain float64 on the card, 4 trials, {time.perf_counter() - t0:.2f} s")
-        err_plain = float((y[:4].double() - y_plain64).abs().max())
-        log(f"filter: kernel vs scipy {err_scipy:.3e} x max|y|, vs plain f64 "
-            f"{err_plain / scale:.3e} x max|y| (bar 5e-4)")
+        # the plain version takes one Python step per sample: 4 x 20,000,
+        # in float64 (the kernel's arithmetic), as reference and plain time
+        xs4 = x[:4, :plain_n]
+        y4 = filter_cuda.sosfiltfilt_cuda(sos, xs4, padlen, "odd")
+        x64, plain = xs4.double(), []
+        plain_ms = cuda_ms(lambda: plain.append(
+            filter_cuda.sosfiltfilt_plain(sos, x64, padlen, "odd")), reps=1, warmup=0)
+        err_plain = float((y4.double() - plain.pop()).abs().max())
+        log(f"filter: kernel vs scipy {err_scipy:.3e} x max|y|, vs plain f64 at "
+            f"4x{plain_n}x{N_CHANNELS} {err_plain / scale:.3e} x max|y| (bar 5e-4)")
         assert err_scipy <= 5e-4 and err_plain <= 5e-4 * scale, "filter disagrees"
         ms = cuda_ms(lambda: filter_cuda.sosfiltfilt_cuda(sos, x, padlen, "odd"))
-        plain_ms = cuda_ms(lambda: filter_cuda.sosfiltfilt_plain(sos, x, padlen, "odd"),
-                           reps=1, warmup=0)
-        log(f"filter: {n_trials}x{x.shape[1]}x{N_CHANNELS} f32 kernel {ms:.3f} ms, "
-            f"plain f32 {plain_ms:.1f} ms")
+        log(f"filter: {n_trials}x{x.shape[1]}x{N_CHANNELS} f32 kernel {ms:.3f} ms; "
+            f"plain f64 at 4x{plain_n}x{N_CHANNELS} {plain_ms:.1f} ms")
 
         # each sample of each column: two passes (forward, backward) over the
         # padded signal, per second-order section 5 float64 multiply-adds
@@ -648,7 +657,9 @@ class Smoke:
         del x4
         self.record("sosfiltfilt", "muscle_synergies_tpu/ops/filter_pallas.py:508",
                     (err_plain, err_plain / scale, 5e-4), ms, plain_ms, *work(x),
-                    kind="f64", ms_256_trials=ms4, bound_ms_256_trials=bound4,
+                    kind="f64", plain_dtype="float64",
+                    plain_at=f"4x{plain_n}x{N_CHANNELS}", rel_err_vs_scipy=err_scipy,
+                    ms_256_trials=ms4, bound_ms_256_trials=bound4,
                     chunk=filter_cuda.CHUNK)
 
     # ---- 3./4. K1 and K2 (every entry of the block range) ----
@@ -666,13 +677,12 @@ class Smoke:
                 np.abs(rng.standard_normal((b_, k_, l_))))]
 
         main, big, wide = problem(b, n), problem(big_b, big_n), problem(b, n, wide_l, wide_k)
-        # the warp entries take the main paths' frames; above them K2 its
-        # block entry, K1 its grid entry for a small batch and its block
-        # entry only for a batch of fits past rank 8 that fills the card
+        # the warp entries take the main paths' frames; above them K1 and K2
+        # their grid entries for a small batch, K1 its block entry only for
+        # a batch of fits past rank 8 that fills the card
         for mod in (cd_cuda, mu_cuda):
             assert mod.route(n, l, k) == "warp"
-        assert cd_cuda.route(big_n, l, k) == "block"
-        assert mu_cuda.route(big_n, l, k, batch=big_b, sms=sms) == "cluster"
+            assert mod.route(big_n, l, k, batch=big_b, sms=sms) == "cluster"
         assert mu_cuda.route(n, wide_l, wide_k, batch=b, sms=sms) == "block"
         cd_replaces = "muscle_synergies_tpu/models/kernels/cd_pallas.py:168"
         mu_replaces = "muscle_synergies_tpu/models/kernels/mu_pallas.py:269"
@@ -685,8 +695,8 @@ class Smoke:
                                mu_replaces, big, (mu_cuda, "cluster_launches")),
             "cd_nmf_warp": (cd_cuda.cd_iterations_cuda, cd_cuda.cd_iterations_plain,
                             cd_replaces, main, (cd_cuda, "warp_launches")),
-            "cd_nmf": (cd_cuda.cd_iterations_cuda, cd_cuda.cd_iterations_plain,
-                       cd_replaces, big, (cd_cuda, "launches")),
+            "cd_nmf_cluster": (cd_cuda.cd_iterations_cuda, cd_cuda.cd_iterations_plain,
+                               cd_replaces, big, (cd_cuda, "cluster_launches")),
         }
         for kname, (kern, plain, replaces, data, (mod, attr)) in fixed.items():
             xs, w0, h0 = data
@@ -704,8 +714,8 @@ class Smoke:
             assert err <= 1e-3, f"{kname} fixed iterations disagree"
             if kname.endswith("_cluster"):
                 # the grid entry's record is the capture-length one (phase 22)
-                log(f"{kname}: plan {mu_cuda.last_plan}, "
-                    f"{mu_cuda.blocks_per_sm['mu_nmf']} blocks a SM  [{self.smi}]")
+                log(f"{kname}: plan {mod.last_plan}, "
+                    f"{mu_cuda.blocks_per_sm[kname[:6]]} blocks a SM  [{self.smi}]")
                 self.small_grid[kname] = dict(ms=ms, plain_ms=plain_ms, err=err,
                                               shape=f"{bb}x{nn}x{ll}, k={kk}")
                 continue
@@ -723,7 +733,8 @@ class Smoke:
             "mu_nmf_cluster": (mu_cuda.fit_mu_cuda, mu_cuda.fit_mu_plain, mu_update, big),
             "cd_nmf_warp": (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain, self._cd_step,
                             [a[:fb] for a in main]),
-            "cd_nmf": (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain, self._cd_step, big),
+            "cd_nmf_cluster": (cd_cuda.fit_cd_cuda, cd_cuda.fit_cd_plain, self._cd_step,
+                               big),
         }
         counter = {"warp": "warp_launches", "": "launches", "cluster": "cluster_launches"}
         for kname, (kern, plain, step, (fx, fw, fh)) in fits.items():
@@ -914,9 +925,16 @@ class Smoke:
         log(f"main: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         for solver, res in results.items():
             self.check_rank_sweep(solver, res)
-            self.subset_matches(solver, res.vaf_overall[:, :SUBSET], lambda: analyze_dataset(
-                emg[:SUBSET], FS, ranks=(1, 2, 3, 4), config=config, solver=solver,
-                device="cuda", dtype=torch.float32, impl="torch").vaf_overall)
+        kw = dict(ranks=(1, 2, 3, 4), config=config, device="cuda", dtype=torch.float32)
+        self.subset_matches("mu", results["mu"].vaf_overall[:, :SUBSET], lambda: analyze_dataset(
+            emg[:SUBSET], FS, solver="mu", impl="torch", **kw).vaf_overall)
+        # CD's rank-1 fits run all 100,000 iterations, which the plain CD
+        # loop takes minutes over: both sides at 2,000
+        capped = dict(kw, solver="cd", max_iter=2000)
+        self.subset_matches(
+            "cd (max_iter 2,000 on both sides)",
+            analyze_dataset(emg[:SUBSET], FS, **capped).vaf_overall,
+            lambda: analyze_dataset(emg[:SUBSET], FS, impl="torch", **capped).vaf_overall)
 
         # 16 channels (two trials side by side), ranks 1-12: 768 fits of 200
         # x 16 at rank 12, past the warp entry, enough to fill the card
@@ -933,7 +951,74 @@ class Smoke:
         assert (np.diff(means) > 0).all(), "mean VAF does not rise with rank"
         self.subset_matches("mu 16 channels", vaf[:, :4], lambda: analyze_dataset(
             emg16[:4], FS, impl="torch", **kw).vaf_overall)
+        self.cd_block_main(emg16)
         del emg16
+
+    def cd_block_main(self, emg16, top: int = 10, iters: int = 50):
+        """CD on the 64 trials of 16 channels, ranks 1-``top``: 640 fits of
+        200 x 16 at rank 10, a batch of 5 waves of the card's SMs at a rank
+        where K2 keeps its block entry (``cd_cuda.route``); the sweep's
+        checks, then the launch held to float64 on the sweep's own inputs
+        (fixed iterations, and a fit's stop and factors) and timed."""
+        from muscle_synergies_tpu_torch import PipelineConfig, analyze_dataset, preprocess_trials
+        from muscle_synergies_tpu_torch.models import batch as mb
+        from muscle_synergies_tpu_torch.models.kernels import cd_cuda
+
+        torch = self.torch
+        sms = torch.cuda.get_device_properties(self.dev).multi_processor_count
+        b, n, l = emg16.shape[0] * top, 200, emg16.shape[2]
+        assert cd_cuda.route(n, l, top, batch=b, sms=sms) == "block"
+        assert cd_cuda.route(n, l, top + 2, batch=b, sms=sms) == "cluster"
+        kw = dict(ranks=tuple(range(1, top + 1)), solver="cd", max_iter=2000)
+        res, counts = self.main_path(f"analyze_dataset 16 channels, ranks 1-{top}, solver=cd",
+                                     lambda: analyze_dataset(emg16, FS, **kw))
+        assert counts["sosfiltfilt"] > 0 and counts["cd_nmf"] == 1, counts
+        vaf = res.vaf_overall
+        assert vaf.shape == (top, emg16.shape[0]) and np.isfinite(vaf).all()
+        assert (vaf <= 1).all()
+        means = vaf.mean(axis=1)
+        log(f"main cd 16 channels: mean VAF by rank {np.round(means, 6).tolist()}")
+        assert (np.diff(means) > 0).all(), "mean VAF does not rise with rank"
+        self.subset_matches("cd 16 channels", vaf[:, :4], lambda: analyze_dataset(
+            emg16[:4], FS, impl="torch", **kw).vaf_overall)
+
+        # the launch's inputs: the preprocessed trials and the NNDSVDA init
+        # of every (rank, trial) pair, zero-padded to the top rank
+        xs = preprocess_trials(emg16, FS, PipelineConfig())
+        ws, hs = [], []
+        for kk in kw["ranks"]:
+            w, h = mb.init_batch(xs, kk)
+            ws.append(torch.nn.functional.pad(w, (0, top - kk)))
+            hs.append(torch.nn.functional.pad(h, (0, 0, 0, top - kk)))
+        gx, gw, gh = xs.repeat(top, 1, 1), torch.cat(ws), torch.cat(hs)
+        args64 = (gx.double(), gw.double(), gh.double())
+        before = cd_cuda.launches
+        wk, hk = cd_cuda.cd_iterations_cuda(gx, gw, gh, iters)
+        assert cd_cuda.launches == before + 1, "cd_nmf took another entry"
+        wp, hp = cd_cuda.cd_iterations_plain(*args64, iters)
+        err = max(rel_err(wk, wp), rel_err(hk, hp))
+        ms = cuda_ms(lambda: cd_cuda.cd_iterations_cuda(gx, gw, gh, iters))
+        plain_ms = cuda_ms(lambda: cd_cuda.cd_iterations_plain(gx, gw, gh, iters), reps=3)
+        log(f"cd_nmf: {iters} iterations at {b}x{n}x{l} k={top} (the sweep's inputs): rel "
+            f"err {err:.3e} (bar 1e-3); kernel {ms:.3f} ms, plain f32 {plain_ms:.3f} ms")
+        assert err <= 1e-3, "cd_nmf fixed iterations disagree"
+        before = cd_cuda.launches
+        sk = cd_cuda.fit_cd_cuda(gx, gw, gh, max_iter=200, tol=1e-4)
+        assert cd_cuda.launches == before + 1, "cd_nmf fit took another entry"
+        sp = cd_cuda.fit_cd_plain(*args64, max_iter=200, tol=1e-4)
+        gap = (sk.n_iter - sp.n_iter).cpu().numpy()
+        wr, hr = plain_snapshot(self._cd_step, *args64, sk.n_iter)
+        fit_err = max(rel_err(sk.w, wr), rel_err(sk.ht.transpose(-1, -2), hr))
+        log(f"cd_nmf: fit of {b}x{n}x{l} k={top} at tol 1e-4: stopping gap median "
+            f"{np.median(gap):g} (min {gap.min()}, max {gap.max()}); factor err at the "
+            f"kernel's stop {fit_err:.3e} (bar 1e-3)")
+        assert np.median(gap) == 0, "cd_nmf fit stops elsewhere than float64"
+        assert fit_err <= 1e-3, "cd_nmf fit disagrees"
+        self.record("cd_nmf", "muscle_synergies_tpu/models/kernels/cd_pallas.py:168",
+                    (abs_err([(wk, wp), (hk, hp)]), err, 1e-3), ms, plain_ms,
+                    b * iters * nmf_flops("cd_nmf", n, l, top),
+                    4 * b * (n * l + 2 * (n * top + top * l)), shape=f"{b}x{n}x{l}, k={top}",
+                    also_replaces="muscle_synergies_tpu/models/kernels/cd_pallas.py:248")
 
     def check_rank_sweep(self, label, res):
         vaf = res.vaf_overall
@@ -995,9 +1080,14 @@ class Smoke:
         log(f"main time-varying: mean VAF {float(res.vaf_overall.mean()):.6f}, "
             f"n_iter median {float(np.median(res.n_iter)):g} (max {res.n_iter.max()}), "
             f"converged {float(res.converged.mean()):g}")
-        self.subset_matches("time-varying", res.vaf_overall[:SUBSET],
-                            lambda: analyze_dataset_time_varying(
-                                emg[:SUBSET], FS, impl="torch", **kw).vaf_overall)
+        # the plain loop runs each of its up to ~30,000 iterations as a
+        # Python step: both sides at 2,000
+        capped = dict(kw, max_iter=2000)
+        self.subset_matches(
+            "time-varying (max_iter 2,000 on both sides)",
+            analyze_dataset_time_varying(emg[:SUBSET], FS, **capped).vaf_overall,
+            lambda: analyze_dataset_time_varying(emg[:SUBSET], FS, impl="torch",
+                                                 **capped).vaf_overall)
 
     # ---- 11. K6 ----
     def causal_filter_phase(self, n_trials: int = 64, plain_n: int = 20_000,
@@ -1209,10 +1299,15 @@ class Smoke:
         assert (np.diff(vafs) > -1e-6).all(), "VAF falls with rank"
 
         # a frame over the warp entries' rows (the envelope resampled to
-        # 2,000 samples, not 200) takes K2's block entry and, one fit, the
-        # grid entries of K1 and K4
+        # 2,000 samples, not 200), one fit: the entry K2's route names for a
+        # batch of one (its grid entry), and the grid entries of K1 and K4
+        from muscle_synergies_tpu_torch.models.kernels import cd_cuda
+
         frame2k = preprocess_trials(emg[:1], FS, PipelineConfig(reduce_to=2000))[0]
-        for kname, kw in (("cd_nmf", {}), ("mu_nmf_cluster", dict(solver="mu")),
+        sms = torch.cuda.get_device_properties(self.dev).multi_processor_count
+        cd_entry = cd_cuda.route(*frame2k.shape, 4, batch=1, sms=sms)
+        assert cd_entry == "cluster", cd_entry
+        for kname, kw in (("cd_nmf_cluster", {}), ("mu_nmf_cluster", dict(solver="mu")),
                           ("beta_nmf_cluster",
                            dict(solver="mu", beta_loss="kullback-leibler"))):
 
@@ -1994,9 +2089,10 @@ class Smoke:
         assert counts["cnmf_cluster"] == 1 and sum(counts.values()) == 1, counts
         assert np.isfinite(got.similarities).all()
 
-        label = "bootstrap_time_varying_synergies 2400x8"
+        # 20 resamples: the float64 host run of the default 50 took 40-60 s
+        label = "bootstrap_time_varying_synergies 2400x8 (20 resamples)"
         got, want, counts = against_host(label, lambda v, **kw: (
-            stability.bootstrap_time_varying_synergies(v, 4, 10, **kw)), subject)
+            stability.bootstrap_time_varying_synergies(v, 4, 10, n_boot=20, **kw)), subject)
         assert counts["cnmf"] == 1 and sum(counts.values()) == 1, counts
         same_similarities(label, got, want)
         same_components(label, got.reference_synergies, want.reference_synergies)

@@ -1,8 +1,9 @@
 // Batched HALS / coordinate-descent NMF: a warp-per-fit entry for the
-// time-normalised frames of the main paths, a block-per-fit entry for
-// larger frames, and the cluster entry, one fit spread over many blocks
-// of the card, for frames over one block's shared memory (at the end of
-// this file).
+// time-normalised frames of the main paths, the cluster (grid) entry, one
+// fit spread over many blocks of the card (at the end of this file), for
+// every larger frame, and a block-per-fit entry for batches of frames
+// within one block's shared memory at rank 9-10 that fill the card with
+// waves of fits (models/kernels/cd_cuda.py: route).
 //
 // Replaces the TPU kernels `cd_iterations_pallas` and `fit_cd_pallas`
 // (muscle_synergies_tpu/models/kernels/cd_pallas.py: _cd_kernel,
@@ -26,8 +27,15 @@
 // their float32 results differ by rounding.
 //
 // Block entry (cd_nmf_f32, any frame whose X, W and H fit one block's
-// shared memory): one block of 128 threads per fit, everything in
-// shared memory.  What bounds it: a fit is ~36 KFLOP an iteration at
+// shared memory; the route gives it only batches at rank 9-10 that would
+// take the grid entry 4 or more waves of one block a SM): one block of
+// 128 threads per fit, everything in shared memory.  Against the grid
+// entry (H100 80GB HBM3, 700 W, us an iteration,
+// scripts/torch_cluster_timing.py): one fit of 2,400 x 8 at rank 4 23.7
+// against 5.8 on 10 blocks, 1,024 fits 179.9 against 88.2 on one block
+// each (two a SM); at rank 9-16, whose grid kernel holds one block a SM,
+// 1,024 x 200 x 16 at rank 9 100.4 against 108.6, at rank 12 131.9
+// against 115.8.  What bounds it: a fit is ~36 KFLOP an iteration at
 // 200 x 8, rank 4, and the block spends its iteration on a chain of
 // seven __syncthreads (H H^T, the W pass, W^T W and W^T X as 48 warp
 // reductions over 4 warps, the H pass on 8 of 128 threads, a 3-barrier
@@ -370,11 +378,13 @@ extern "C" int cd_nmf_warp_f32(const float* x, const float* w0,
 
 // --------------------------- cluster entry ---------------------------
 //
-// cd_nmf_cluster_f32: the entry for frames whose fit exceeds one block's
-// shared memory (a whole capture's envelope for find_synergies or
-// `analyze --reduce-to 0`, full-length dataset grids), replacing
-// `fit_cd_pallas` / `cd_iterations_pallas` there.  One fit is spread over
-// P blocks of the whole card (nmf_common.cuh: the grid entries), as K1's
+// cd_nmf_cluster_f32: the entry for frames past the warp entry, from 225
+// rows (a subject's concatenated cycles, a trial resampled longer) to a
+// whole capture's envelope for find_synergies or `analyze --reduce-to
+// 0`, replacing `fit_cd_pallas` / `cd_iterations_pallas` there; above one
+// block's shared memory at any batch, within it at every batch but the
+// block entry's.  One fit is spread over P blocks of the whole card
+// (nmf_common.cuh: the grid entries), at most SMs / batch, as K1's
 // cluster entry (mu_nmf.cu).  An iteration follows the block entry's
 // order: H H^T in every block; sklearn's cyclic component loop on the
 // block's rows of W (row-local given H H^T and the row's X H^T), each
@@ -519,7 +529,8 @@ __global__ void __launch_bounds__(NMF_GRID_THREADS) cd_cluster_kernel(
 }
 
 // The cluster entry: cd_nmf_f32's arguments and results, for frames over
-// one block's shared memory (models/kernels/cd_cuda.py: route), and
+// one block's shared memory and for small batches of smaller frames
+// (models/kernels/cd_cuda.py: route), and
 // `ws`, a zeroed workspace of `ws_floats` floats (at least
 // nmf_grid_workspace_floats).  Writes the plan it took to `plan_out`
 // (NMF_GRID_PLAN_INTS host ints), launches once on `stream` and returns

@@ -6,18 +6,36 @@ source serves both: the stopping rule is a template switch, compiled
 out for the fixed-iteration entry point.
 
 The source has three entries, picked by :func:`route` (K1's rule,
-:func:`~.mu_cuda.route`) from the frame's shape: the warp entry (one
-warp per fit, X and W rows in registers) for frames of at most
-``WARP_NMAX`` x ``WARP_LMAX`` at rank ``WARP_KMAX``, which covers every
-time-normalised 200 x 8 frame of the main paths at ranks 1-8; the block
-entry (one block per fit, the fit in shared memory) above that; the
-cluster entry (one fit spread over many blocks of the card, the partial
-Grams and W-pass violations summed in block order after a barrier in
-device memory, K1's plan, :func:`~.mu_cuda.grid_plan`) for a frame over
-one block's shared memory, such as a whole capture's envelope; and a
-refusal before any launch beyond.  ``warp_launches``, ``launches`` and
-``cluster_launches`` count the three entries' launches; ``last_plan``
-is the last cluster launch's plan.
+:func:`~.mu_cuda.route`) from the frame's shape and the batch: the warp
+entry (one warp per fit, X and W rows in registers) for frames of at
+most ``WARP_NMAX`` x ``WARP_LMAX`` at rank ``WARP_KMAX``, which covers
+every time-normalised 200 x 8 frame of the main paths at ranks 1-8; the
+cluster (grid) entry (one fit spread over many blocks of the card, the
+partial Grams and W-pass violations summed in block order after a
+barrier in device memory, K1's plan, :func:`~.mu_cuda.grid_plan`) for
+every larger frame, from 225 rows to a whole capture's envelope, at
+most ``SMs // batch`` blocks a fit; the block entry (one block of 128
+threads per fit, the fit in shared memory) only for batches of frames
+within one block's shared memory at rank ``mu_cuda.BLOCK_KMIN`` to
+``BLOCK_KMAX`` that would keep the grid entry's SMs busy for
+``mu_cuda.BLOCK_MIN_WAVES`` waves or more (:func:`~.mu_cuda.block_keeps`);
+and a refusal before any launch beyond.
+
+The rule's numbers (scripts/torch_cluster_timing.py, crossover runs on
+an H100 80GB HBM3 at 700 W, us an iteration, block entry -> grid entry):
+at ranks 1-8, where the grid kernel (KMAX 4 or 8, 118-128 registers)
+holds two blocks a SM, the grid entry is no slower at any batch (1 to
+1,024 fits of 2,400 x 8 23.7-179.9 -> 5.8-88.2, 16 x 2,000 x 8 20.77 ->
+5.52, 1,024 x 225 x 8 17.24 -> 15.75, 1,024 x 200 x 17 22.70 -> 22.38);
+at ranks 9-16 its KMAX-16 kernel (166-169 registers) holds one, and the
+block entry is ahead from 4 waves at ranks 9-10 (1,024 x 200 x 8 at rank
+9 69.08 -> 90.07, 1,024 x 200 x 16 at rank 9 100.42 -> 108.57, 1,024 x
+200 x 10 at rank 10 83.74 -> 95.08) but behind at ranks 12-16 (768 x 200
+x 16 at rank 12 98.01 -> 87.53, 1,024 x 200 x 16 at rank 16 179.89 ->
+145.30), its H pass and Grams growing with k (k + l).
+
+``warp_launches``, ``launches`` and ``cluster_launches`` count the three
+entries' launches; ``last_plan`` is the last cluster launch's plan.
 
 :func:`cd_iterations_cuda` and :func:`fit_cd_cuda` take contiguous CUDA
 float32 tensors in the JAX layouts, X ``(B, N, L)``, W ``(B, N, k)``,
@@ -43,6 +61,7 @@ from .mu_cuda import (  # noqa: F401 (the warp limits, shared with K1 and K4)
     WARP_KMAX,
     WARP_LMAX,
     WARP_NMAX,
+    card_sms,
     check_layout,
     check_plan,
     cluster_call,
@@ -66,13 +85,23 @@ launches = 0  # block-entry launches since the last reset
 warp_launches = 0  # warp-entry launches since the last reset
 cluster_launches = 0  # cluster-entry launches since the last reset
 last_plan = None  # the plan of the last cluster-entry launch (mu_cuda.GridPlan)
+# K2's highest rank that keeps the block entry for mu_cuda.block_keeps's
+# batches (from mu_cuda.BLOCK_KMIN, where the grid kernel's KMAX is 16)
+BLOCK_KMAX = 10
 
 
-def route(n: int, l: int, k: int) -> str:
-    """K2's entry for fits of ``(n, l)`` frames at rank ``k``: ``"warp"``,
-    ``"block"`` or ``"cluster"``, by K1's rule; raises ``ValueError``
+def route(n: int, l: int, k: int, *, batch: int | None = None,
+          sms: int | None = None) -> str:
+    """K2's entry for ``batch`` fits of ``(n, l)`` frames at rank ``k`` on
+    a card of ``sms`` SMs: ``"warp"``, ``"cluster"`` or ``"block"`` (see
+    the module's note); left out, the batch is taken as one that keeps the
+    block entry wherever a fit fits a block.  Raises ``ValueError``
     (naming ``impl='torch'``) beyond the cluster entry's limit."""
-    return mu_cuda.entry_for("cd_nmf", n, l, k)
+    block = None
+    if batch is not None:
+        block = (mu_cuda.block_keeps(batch, sms, mu_cuda.smem_bytes(n, l, k))
+                 and mu_cuda.BLOCK_KMIN <= k <= BLOCK_KMAX)
+    return mu_cuda.entry_for("cd_nmf", n, l, k, block=block)
 
 
 def _lib(entry: str):
@@ -94,7 +123,7 @@ def _launch(xs, w0, h0, iters, tol, with_stop, regs=(0.0, 0.0, 0.0, 0.0)):
     xs, w0, h0 = xs.contiguous(), w0.contiguous(), h0.contiguous()
     b, n, l = xs.shape
     k = w0.shape[-1]
-    entry = route(n, l, k)
+    entry = route(n, l, k, batch=b, sms=card_sms(xs))
     w, h = torch.empty_like(w0), torch.empty_like(h0)
     n_iter = torch.zeros(b, dtype=torch.int32, device=xs.device)
     viol_init = torch.zeros(b, dtype=torch.float32, device=xs.device)

@@ -95,7 +95,7 @@ CLUSTER_MIN_TILE = 128  # csrc/nmf_common.cuh NMF_GRID_MIN_TILE
 # would run BLOCK_MIN_WAVES waves or more of one block a SM and the block
 # entry holds that many fits on each SM.
 BLOCK_MIN_WAVES = 4
-BLOCK_KMIN = 9  # K1's least rank that keeps the block entry (its grid KMAX 16)
+BLOCK_KMIN = 9  # K1's and K2's least rank that keeps the block entry (grid KMAX 16)
 
 
 def smem_bytes(n: int, l: int, k: int) -> int:
@@ -276,8 +276,8 @@ def entry_for(name: str, n: int, l: int, k: int, warp=None, block_bytes=None,
     """The rule of :func:`route`, shared by K1, K2 and K4 (``name`` heads
     the error): the warp entry where ``warp``, else the block entry
     where one fit's ``block_bytes`` fit a block and ``block`` (the
-    batch's rule; None, the block entry wherever a fit fits, as K2
-    routes) or the cluster entry cannot take the frame, else the cluster
+    batch's rule; None, the block entry wherever a fit fits) or the
+    cluster entry cannot take the frame, else the cluster
     entry where a cluster block's least ``cluster_bytes`` fit.  Left out,
     the sizes are K1's and K2's (:func:`warp_fits`, :func:`smem_bytes`,
     :func:`cluster_smem_bytes`)."""

@@ -19,7 +19,10 @@ kernels run only on the card; here
   fits with the stop on to the same iteration count and factors to
   1e-8, with and without sklearn's L1/L2 penalties and, for MU,
   ``inner_iter=2``; and at the splits the plan picks on the card (132
-  ranges for a lone fit, 33 for 4 at once, 4 ranges streamed in tiles).
+  ranges for a lone fit, 33 for 4 at once, 4 ranges streamed in tiles),
+  and for the block-range frames a small batch sends to the grid
+  entries (10 ranges for a lone 2,400 x 8 subject, 2 for 5 fits on 10
+  SMs, 1 for 225 x 8).
   Summing the Grams range by range changes only the order of float64
   additions (~1e-16 an iteration);
 - ``NMFModel`` of the port (CPU, float64) is held to the JAX package's
@@ -370,10 +373,13 @@ BLOCK_RANGE_PLANS = {"2400-p2": (5, 2400, 10), "2400-p8": (16, 2400, SMS),
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_fit_rows(n, mode):
+def _jax_fit_rows(n, mode, solver="mu"):
     w0, h0 = _start(4)
-    st = jmu.fit_mu(jnp.asarray(X[:n]), jnp.asarray(w0[:n]), jnp.asarray(h0),
-                    **MODES[mode])
+    args = (jnp.asarray(X[:n]), jnp.asarray(w0[:n]), jnp.asarray(h0))
+    if solver == "cd":
+        st = jhals.fit_cd(*args, **MODES[mode])
+        return int(st.n_iter), np.asarray(st.w), np.asarray(st.ht).T
+    st = jmu.fit_mu(*args, **MODES[mode])
     return int(st.n_iter), np.asarray(st.w), np.asarray(st.h)
 
 
@@ -388,6 +394,26 @@ def test_mu_split_mirror_at_block_range_plans_matches_jax(case, mode):
     st = fit_mu_cluster_plain(*map(torch.as_tensor, (X[:n], w0[:n], h0)), plan.blocks,
                               **MODES[mode])
     _check(st.n_iter, st.w, st.h, _jax_fit_rows(n, mode), mode)
+
+
+# K2's block-range plans, which a small batch now takes: a lone 2,400 x 8
+# subject over 10 ranges of 240 rows, 5 fits on a card of 10 SMs (2
+# ranges of 1,200 rows each), and a 225 x 8 frame on one range
+CD_BLOCK_RANGE_PLANS = {"2400-p10": (1, 2400, SMS), "2400-p2": (5, 2400, 10),
+                        "225-p1": (1, 225, SMS)}
+
+
+@pytest.mark.parametrize("mode", ["fixed", "stop"])
+@pytest.mark.parametrize("case", list(CD_BLOCK_RANGE_PLANS))
+def test_cd_split_mirror_at_block_range_plans_matches_jax(case, mode):
+    b, n, sms = CD_BLOCK_RANGE_PLANS[case]
+    assert cd_cuda.route(n, L, 4, batch=b, sms=sms) == "cluster"
+    plan = mu_cuda.grid_plan(b, n, L, 4, sms)
+    assert plan.blocks == int(case.split("-p")[1]) and plan.resident
+    w0, h0 = _start(4)
+    st = fit_cd_cluster_plain(*map(torch.as_tensor, (X[:n], w0[:n], h0)), plan.blocks,
+                              **MODES[mode])
+    _check(st.n_iter, st.w, st.ht.T, _jax_fit_rows(n, mode, "cd"), mode)
 
 
 # ---- the per-capture model on a frame the card fits on a cluster ------

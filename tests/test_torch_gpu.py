@@ -291,17 +291,16 @@ def test_padded_rank_components_stay_zero(cuda):
     h[:, 2:] = 0
     st = mu_cuda.fit_mu_cuda(x, w, h, max_iter=100)
     assert (st.w[..., 2:] == 0).all() and (st.h[:, 2:] == 0).all()
-    # K2's warp entry at 200 x 8, its block entry at 300 x 8, with and
-    # without penalties
-    xb, wb, hb = _problem(cuda, b=8, n=300)
-    wb[..., 2:] = 0
-    hb[:, 2:] = 0
-    for args, entry in (((x, w, h), "warp"), ((xb, wb, hb), "block")):
-        assert cd_cuda.route(*args[0].shape[1:], 4) == entry
-        for regs in ({}, REGS):
-            st = cd_cuda.fit_cd_cuda(*args, max_iter=100, **regs)
-            assert (st.w[..., 2:] == 0).all() and (st.ht[..., 2:] == 0).all()
-            assert (st.w[..., :2] > 0).any()
+    # K2's warp entry at 200 x 8, with and without penalties; at 8 x 300 x
+    # 8 its grid entry (two blocks a fit), in a process of its own under
+    # the 120 s guard
+    assert cd_cuda.route(200, 8, 4, batch=32, sms=_sms(cuda)) == "warp"
+    for regs in ({}, REGS):
+        st = cd_cuda.fit_cd_cuda(x, w, h, max_iter=100, **regs)
+        assert (st.w[..., 2:] == 0).all() and (st.ht[..., 2:] == 0).all()
+        assert (st.w[..., :2] > 0).any()
+    _child(_CD_ENTRY_CASE.format(root=_root(), case=(8, 300, 8, 4, 0, "cluster",
+                                                     {"padded": 2}), regs=REGS))
     for beta in (1.0, 0.0, 0.5, 1.5, 3.0):
         st = beta_cuda.fit_beta_cuda(x + 0.01, w, h, beta=beta, max_iter=100)
         assert (st.w[..., 2:] == 0).all() and (st.h[:, 2:] == 0).all()
@@ -341,22 +340,24 @@ def test_cd_warp_entry_matches_plain_float64(cuda, n, k, l):
 @pytest.mark.parametrize("n, k", [(33, 1), (200, 4), (200, 8), (cd_cuda.WARP_NMAX, 5),
                                   (cd_cuda.WARP_NMAX + 1, 4), (2000, 4)])
 def test_cd_entries_stop_where_float64_stops(cuda, n, k):
-    """Both K2 entries, each side of the warp limit: the median stopping
-    gap against a float64 fit is 0."""
-    entry = "warp" if n <= cd_cuda.WARP_NMAX else "block"
-    assert cd_cuda.route(n, 8, k) == entry
-    x, w, h = _problem(cuda, b=64 if n < 1000 else 16, n=n, k=k, seed=n + k)
-    counter = "warp_launches" if entry == "warp" else "launches"
-    before = getattr(cd_cuda, counter)
+    """K2's entries each side of the warp limit, a small batch on each
+    (the grid entry above it, as its route names, in a process of its own
+    under the 120 s guard): the median stopping gap against a float64 fit
+    is 0, and past the warp entry 50 fixed iterations are within 1e-3."""
+    b = 64 if n < 1000 else 16
+    if n > cd_cuda.WARP_NMAX:
+        _child(_CD_ENTRY_CASE.format(root=_root(), case=(b, n, 8, k, n + k, "cluster",
+                                                         {"stop": 200, "fixed": 50}),
+                                     regs=REGS))
+        return
+    assert cd_cuda.route(n, 8, k, batch=b, sms=_sms(cuda)) == "warp"
+    x, w, h = _problem(cuda, b=b, n=n, k=k, seed=n + k)
+    before = cd_cuda.warp_launches
     sk = cd_cuda.fit_cd_cuda(x, w, h, max_iter=200, tol=1e-4)
     sp = cd_cuda.fit_cd_plain(x.double(), w.double(), h.double(), max_iter=200, tol=1e-4)
-    assert getattr(cd_cuda, counter) == before + 1
+    assert cd_cuda.warp_launches == before + 1
     gap = (sk.n_iter - sp.n_iter).cpu().numpy()
     assert np.median(gap) == 0
-    if entry == "block":
-        wk, hk = cd_cuda.cd_iterations_cuda(x, w, h, 50)
-        wp, hp = cd_cuda.cd_iterations_plain(x.double(), w.double(), h.double(), 50)
-        assert _rel(wk, wp) < 1e-3 and _rel(hk, hp) < 1e-3
 
 
 # one beta per kernel kind (KL, IS, generic) and per damping branch
@@ -679,6 +680,8 @@ BLOCK_RANGE = {
                  beta_cuda.beta_iterations_plain, (200, 8, 4), dict(beta=1.5)),
     "is rank 6": (beta_cuda, beta_cuda.beta_iterations_cuda,
                   beta_cuda.beta_iterations_plain, (200, 8, 6), dict(beta=0.0)),
+    "cd rank 10 x 16": (cd_cuda, cd_cuda.cd_iterations_cuda,
+                        cd_cuda.cd_iterations_plain, (200, 16, 10), {}),
 }
 
 
@@ -686,11 +689,19 @@ BLOCK_RANGE = {
 def test_block_range_batches_take_the_entry_their_route_names(cuda, kind):
     """A batch of 16 fits takes the grid entry, one of 1,024 (waves of
     fits on every SM) the block entry: K1 at rank 12, where its grid
-    kernel holds one block a SM, and K4 for a run-time beta and for IS
-    past the warp entry's rank; each held to float64."""
+    kernel holds one block a SM, K4 for a run-time beta and for IS past
+    the warp entry's rank, and K2 at rank 10 (its block entry kept at
+    ranks 9-10), each held to float64; K2's launches in a process of
+    their own under the 120 s guard, with sklearn's penalties:
+    unpenalized CD from a random start near k = L strays in float32 (see
+    ``test_cd_warp_entry_matches_plain_float64``)."""
     mod, kern, plain, (n, l, k), kw = BLOCK_RANGE[kind]
     for b, entry, counter in ((16, "cluster", "cluster_launches"),
                               (1024, "block", "launches")):
+        if mod is cd_cuda:
+            _child(_CD_ENTRY_CASE.format(root=_root(), case=(b, n, l, k, b + k, entry,
+                                                             {"penalized": 20}), regs=REGS))
+            continue
         assert mod.route(n, l, k, *kw.values(), batch=b, sms=_sms(cuda)) == entry
         x, w, h = _problem(cuda, b=b, n=n, l=l, k=k, seed=b + k)
         x = x + 0.05
@@ -1009,6 +1020,56 @@ BETA_CLUSTER_CASES = [(2, 6000, 8, 4, False), (1, 124_460, 8, 4, False),
                       (4, 124_460, 8, 4, False), (2, 3000, 16, 12, False),
                       (5, 124_460, 8, 4, True), (33, 21_001, 9, 3, True),
                       (140, 3000, 8, 4, False)]
+
+
+# K2 on the entry its route names for a batch (``case``: batch, rows,
+# channels, rank, seed, entry, checks), from the inputs of ``_problem``:
+# ``fixed`` iterations within 1e-3 of float64, as many ``penalized`` ones
+# (sklearn's penalties, the stop off) within 1e-3, a fit to ``stop``
+# (max_iter) at tol 1e-4 with a median stopping gap of 0, and components
+# from ``padded`` on zeroed that stay exactly 0, with and without penalties
+_CD_ENTRY_CASE = _CHILD_HELPERS + """
+from muscle_synergies_tpu_torch.models.kernels import cd_cuda
+b, n, l, k, seed, entry, checks = {case!r}
+regs = {regs!r}
+g = torch.Generator().manual_seed(seed)
+x = torch.rand(b, n, l, generator=g).to(dev)
+w = torch.randn(b, n, k, generator=g).abs().to(dev)
+h = torch.randn(b, k, l, generator=g).abs().to(dev)
+assert cd_cuda.route(n, l, k, batch=b, sms=sms) == entry
+counter = {{"block": "launches", "cluster": "cluster_launches"}}[entry]
+def launched(fn, *args, **kw):
+    before = getattr(cd_cuda, counter)
+    out = fn(*args, **kw)
+    assert getattr(cd_cuda, counter) == before + 1, "cd_nmf took another entry"
+    return out
+args64 = (x.double(), w.double(), h.double())
+if "fixed" in checks:
+    wk, hk = launched(cd_cuda.cd_iterations_cuda, x, w, h, checks["fixed"])
+    wp, hp = cd_cuda.cd_iterations_plain(*args64, checks["fixed"])
+    assert rel(wk, wp) < 1e-3 and rel(hk, hp) < 1e-3, (rel(wk, wp), rel(hk, hp))
+if "penalized" in checks:
+    sk = launched(cd_cuda.fit_cd_cuda, x, w, h, max_iter=checks["penalized"], tol=-1.0,
+                  **regs)
+    sp = cd_cuda.fit_cd_plain(*args64, max_iter=checks["penalized"], tol=-1.0, **regs)
+    assert rel(sk.w, sp.w) < 1e-3 and rel(sk.ht, sp.ht) < 1e-3, (rel(sk.w, sp.w),
+                                                                  rel(sk.ht, sp.ht))
+if "stop" in checks:
+    sk = launched(cd_cuda.fit_cd_cuda, x, w, h, max_iter=checks["stop"], tol=1e-4)
+    sp = cd_cuda.fit_cd_plain(*args64, max_iter=checks["stop"], tol=1e-4)
+    gap = (sk.n_iter - sp.n_iter).cpu().numpy()
+    assert np.median(gap) == 0, gap
+if "padded" in checks:
+    z = checks["padded"]
+    w[..., z:] = 0
+    h[:, z:] = 0
+    for r in ({{}}, regs):
+        st = launched(cd_cuda.fit_cd_cuda, x, w, h, max_iter=100, **r)
+        assert (st.w[..., z:] == 0).all() and (st.ht[..., z:] == 0).all()
+        assert (st.w[..., :z] > 0).any()
+torch.cuda.synchronize()
+print("finished", cd_cuda.last_plan)
+"""
 
 
 def _child(code):

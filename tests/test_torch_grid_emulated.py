@@ -1,4 +1,4 @@
-"""PyTorch port: the grid (cluster) entries of K1, K4 and K5 run on the CPU.
+"""PyTorch port: the grid (cluster) entries of K1, K2, K4 and K5 run on the CPU.
 
 The cluster entries spread one fit over many blocks of the card and
 meet at barriers in device memory; their CUDA sources have no CPU mode.
@@ -14,12 +14,14 @@ of a few SMs, so that one fit spans several blocks:
   frames a small batch sends to the grid entries of K1 and K4 (225 x 8
   on one block, 5 fits of 2,400 x 8 on 10 SMs at two blocks each, 200 x 8
   at beta 1.5 and -0.5 and for IS at rank 6), and for K1 planned for a
-  larger batch than it runs (a checkpointed bootstrap's chunk);
+  larger batch than it runs (a checkpointed bootstrap's chunk); K2's on
+  the same frames as K1's (a resident 2,000-row fit, 225 x 8, 5 x 2,400
+  x 8 on 10 SMs, more fits than SMs);
 - a few fixed iterations are within 1e-5 relative of the plain version
   in float64 (KL, Itakura-Saito, beta = 1.5 and -0.5; K5 with halos from
   the next block, from two and three blocks away, and none at D = 1);
 - fits with the stop on stop within 10 iterations of the plain float64
-  fit (the card's bar).
+  fit (the card's bar; K2, a Frobenius fit, at a median gap of 0).
 
 What this cannot show: speed, registers, and what nvcc refuses (a
 ``__host__`` function called from device code compiles here);
@@ -44,12 +46,13 @@ from muscle_synergies_tpu_torch import _build  # noqa: E402
 from muscle_synergies_tpu_torch.models.beta import _gamma  # noqa: E402
 from muscle_synergies_tpu_torch.models.kernels import (  # noqa: E402
     beta_cuda,
+    cd_cuda,
     cnmf_cuda,
     mu_cuda,
 )
 
 EMU = Path(__file__).resolve().parent / "support" / "cuda_emu"
-SOURCES = ("mu_nmf", "beta_nmf", "cnmf")
+SOURCES = ("mu_nmf", "cd_nmf", "beta_nmf", "cnmf")
 SUBS = [  # what g++ cannot read, as the stand-in runs it
     (re.compile(r"<<<[^>]*>>>"), ""),
     (re.compile(r"extern __shared__ (__align__\(16\) )?float smem\[\];"),
@@ -63,7 +66,7 @@ SUBS = [  # what g++ cannot read, as the stand-in runs it
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    """The three sources built against the stand-in runtime, loaded."""
+    """The four sources built against the stand-in runtime, loaded."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the CUDA sources against the stand-in runtime")
     out = tmp_path_factory.mktemp("cuda_emu")
@@ -217,3 +220,37 @@ def test_emulated_mu_grid_entry_matches_plain_float64(libs, monkeypatch, case):
     wp, hp = mu_cuda.mu_iterations_plain(
         *(torch.from_numpy(a).double() for a in (x, w0, h0)), iters)
     assert _rel(w, wp) < 1e-5 and _rel(h, hp) < 1e-5, (_rel(w, wp), _rel(h, hp))
+
+
+# (batch, rows, SMs, blocks a fit): K2's grid entry on K1's frames
+CD_CASES = {"resident": (1, 2000, 4, 4), "225-rows": (1, 225, 4, 1),
+            "5x2400-on-10": (5, 2400, 10, 2), "more-fits-than-SMs": (6, 1000, 4, 1)}
+
+
+@pytest.mark.parametrize("case", list(CD_CASES))
+def test_emulated_cd_grid_entry_matches_plain_float64(libs, monkeypatch, case):
+    """K2's grid entry, which a small batch of block-range frames takes:
+    4 fixed iterations, then a fit with the stop on (median gap 0)."""
+    b, n, sms, blocks = CD_CASES[case]
+    fn = _entry(libs, monkeypatch, cd_cuda, "cd_nmf", sms)
+    l, k = 8, 4
+    x, w0, h0 = _factors(np.random.default_rng(n + 1), (b, n, l), (b, n, k), (b, k, l))
+    xd, wd, hd = (torch.from_numpy(a).double() for a in (x, w0, h0))
+    plan = mu_cuda.grid_plan(b, n, l, k, sms)
+    assert plan.blocks == blocks
+    for iters, with_stop in ((4, False), (80, True)):
+        w, h = np.zeros_like(w0), np.zeros_like(h0)
+        n_iter, converged = np.zeros(b, np.int32), np.zeros(b, np.int32)
+        viol_init = np.zeros(b, np.float32)
+        ws, out, extra = _workspace(plan, mu_cuda.grid_workspace_floats(plan, b, l, k))
+        err = fn(_ptr(x), _ptr(w0), _ptr(h0), _ptr(w), _ptr(h), _ptr(n_iter),
+                 _ptr(viol_init), _ptr(converged), b, n, l, k, iters, 3e-3,
+                 0.0, 0.0, 0.0, 0.0, int(with_stop), *extra, None)
+        assert err == 0 and _reported(out) == plan, (err, _reported(out), plan)
+        if with_stop:
+            st = cd_cuda.fit_cd_plain(xd, wd, hd, max_iter=iters, tol=3e-3)
+            gap = n_iter - st.n_iter.numpy()
+            assert np.median(gap) == 0 and st.converged.all(), (n_iter, st.n_iter)
+        else:
+            wp, hp = cd_cuda.cd_iterations_plain(xd, wd, hd, iters)
+            assert _rel(w, wp) < 1e-5 and _rel(h, hp) < 1e-5, (_rel(w, wp), _rel(h, hp))

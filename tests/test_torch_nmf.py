@@ -298,6 +298,48 @@ def test_mu_kernel_routes_block_range_frames_by_batch(n, l, k, batch, entry):
     assert cd_cuda.route(n, l, k) == mu_cuda.route(n, l, k)
 
 
+# K2's route by batch on 132 SMs: (frame, rank) -> the entry at batches
+# 1, 4 and 16, and at 528 and 4,096 (4 waves or more of the grid entry's
+# one block a SM).  Past the warp limits a batch takes the grid entry,
+# but at ranks 9-10 in a batch of 4 waves or more of frames whose
+# block-entry fits share an SM 4 at a time (2,400 x 8 does not: 135 KB)
+K2_BATCH_ROUTES = {
+    ((225, 8), 4): ("cluster", "cluster"), ((225, 8), 8): ("cluster", "cluster"),
+    ((225, 8), 9): ("cluster", "block"), ((225, 8), 10): ("cluster", "block"),
+    ((225, 8), 11): ("cluster", "cluster"), ((225, 8), 12): ("cluster", "cluster"),
+    ((2400, 8), 4): ("cluster", "cluster"), ((2400, 8), 8): ("cluster", "cluster"),
+    ((2400, 8), 9): ("cluster", "cluster"), ((2400, 8), 12): ("cluster", "cluster"),
+    ((200, 16), 4): ("warp", "warp"), ((200, 16), 8): ("warp", "warp"),
+    ((200, 16), 9): ("cluster", "block"), ((200, 16), 10): ("cluster", "block"),
+    ((200, 16), 11): ("cluster", "cluster"), ((200, 16), 12): ("cluster", "cluster"),
+}
+
+
+@pytest.mark.parametrize("batch", [1, 4, 16, 528, 4096])
+@pytest.mark.parametrize("frame, k", list(K2_BATCH_ROUTES),
+                         ids=[f"{n}x{l}k{k}" for (n, l), k in K2_BATCH_ROUTES])
+def test_cd_kernel_routes_block_range_frames_by_batch(frame, k, batch):
+    """Given the batch and the card's SMs, K2 takes its grid entry for the
+    frames past its warp limits, and keeps its block entry only where K1's
+    rule (``mu_cuda.block_keeps``) and its ranks (``mu_cuda.BLOCK_KMIN`` to
+    ``cd_cuda.BLOCK_KMAX``) say; left out, the batch gives the answers of
+    a route without one: the block entry for every frame within one
+    block."""
+    n, l = frame
+    small, large = K2_BATCH_ROUTES[frame, k]
+    assert cd_cuda.route(n, l, k, batch=batch, sms=SMS) == (small if batch < 397 else large)
+    assert cd_cuda.route(n, l, k) == ("warp" if small == "warp" else "block")
+
+
+def test_cd_kernel_route_needs_the_sms_for_a_batch():
+    with pytest.raises(ValueError, match="sms"):
+        cd_cuda.route(2400, 8, 4, batch=1)
+    # a subject's 2,400 x 8 at rank 4 in a batch of 1 or 4 spans several SMs
+    for batch in (1, 4):
+        assert cd_cuda.route(2400, 8, 4, batch=batch, sms=SMS) == "cluster"
+    assert cd_cuda.route(20_000, 8, 4, batch=4096, sms=SMS) == "cluster"
+
+
 def test_mu_kernel_route_needs_the_sms_for_a_batch():
     with pytest.raises(ValueError, match="sms"):
         mu_cuda.route(2000, 8, 4, batch=16)
