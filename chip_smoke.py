@@ -42,7 +42,12 @@ assertion that does not hold:
    with ``solver="mu"``: every kernel's launch counter must rise, every
    VAF be finite and <= 1, the mean VAF rise from rank 1 to 4, and a
    16-trial subset match ``impl="torch"`` to VAF 1e-3 (CD at
-   ``max_iter=2,000`` on both sides); then MU on 64
+   ``max_iter=2,000`` on both sides); on that subset's CD inputs (ranks
+   1-4 padded to 4, one launch of K2's warp entry) the rank-1 fits hold
+   the same bits as the same fits launched at k = 1 (50 fixed
+   iterations, and fits), and the longest rank-1 fit alone is timed at
+   the path's stop beside the parent design's 5.14 us an iteration
+   (PERF.md); then MU on 64
    trials of 16 channels (two trials side by side), ranks 1-12 at
    ``max_iter=2,000``: one K3 launch and one of K1's block entry (768
    fits of 200 x 16 at rank 12), the VAF rising with rank and 4 trials
@@ -935,6 +940,7 @@ class Smoke:
             "cd (max_iter 2,000 on both sides)",
             analyze_dataset(emg[:SUBSET], FS, **capped).vaf_overall,
             lambda: analyze_dataset(emg[:SUBSET], FS, impl="torch", **capped).vaf_overall)
+        self.cd_warp_own_rank(emg[:SUBSET])
 
         # 16 channels (two trials side by side), ranks 1-12: 768 fits of 200
         # x 16 at rank 12, past the warp entry, enough to fill the card
@@ -953,6 +959,66 @@ class Smoke:
             emg16[:4], FS, impl="torch", **kw).vaf_overall)
         self.cd_block_main(emg16)
         del emg16
+
+    def cd_warp_own_rank(self, emg, iters: int = 50):
+        """K2's warp entry over each fit's own rank, on the CD path's
+        inputs (``emg``'s trials preprocessed, the NNDSVDA init of ranks
+        1-4 zero-padded to 4, one launch): the rank-1 fits of the sweep
+        hold the same bits as the same fits launched alone at k = 1
+        (``iters`` fixed iterations, and fits at max_iter 2,000), their
+        padding 0; then the longest rank-1 fit alone at the path's stop
+        (tol 1e-6, max_iter 100,000), the latency that sets the CD path's
+        tail, beside the parent design's (every loop over KMAX = 4: 5.14 us
+        an iteration on this card, PERF.md, PR 8; the A/B script
+        ``scripts/torch_ab_parent_kernels.py`` times both in one call)."""
+        from muscle_synergies_tpu_torch import PipelineConfig, preprocess_trials
+        from muscle_synergies_tpu_torch.models import batch as mb
+        from muscle_synergies_tpu_torch.models.kernels import cd_cuda
+
+        torch = self.torch
+        config = PipelineConfig()
+        xs = preprocess_trials(emg, FS, config)
+        b = xs.shape[0]
+        ws, hs = [], []
+        for kk in (1, 2, 3, 4):
+            w, h = mb.init_batch(xs, kk)
+            ws.append(torch.nn.functional.pad(w, (0, 4 - kk)))
+            hs.append(torch.nn.functional.pad(h, (0, 0, 0, 4 - kk)))
+        gx, gw, gh = xs.repeat(4, 1, 1), torch.cat(ws), torch.cat(hs)
+        alone = (gx[:b], gw[:b, :, :1].contiguous(), gh[:b, :1].contiguous())
+        before = cd_cuda.warp_launches
+        swept = cd_cuda.cd_iterations_cuda(gx, gw, gh, iters)
+        own = cd_cuda.cd_iterations_cuda(*alone, iters)
+        same = (torch.equal(swept[0][:b, :, :1], own[0]) and torch.equal(swept[1][:b, :1], own[1])
+                and not swept[0][:b, :, 1:].any() and not swept[1][:b, 1:].any())
+        sk = cd_cuda.fit_cd_cuda(gx, gw, gh, max_iter=2000, tol=config.tol)
+        so = cd_cuda.fit_cd_cuda(*alone, max_iter=2000, tol=config.tol)
+        same = same and all(torch.equal(a[:b], c) for a, c in (
+            (sk.w[..., :1], so.w), (sk.ht[..., :1], so.ht), (sk.n_iter, so.n_iter),
+            (sk.violation_init, so.violation_init)))
+        assert cd_cuda.warp_launches == before + 4, "a K2 check took another entry"
+        log(f"cd_nmf_warp: the rank-1 fits of a KMAX-4 sweep launch ({b} trials x ranks 1-4, "
+            f"the CD path's inputs) against the same fits launched at k = 1: bit for bit "
+            f"{same} ({iters} fixed iterations, and fits of {int(so.n_iter.min())}-"
+            f"{int(so.n_iter.max())} iterations)")
+        assert same, "a padded fit differs from the same fit at its own rank"
+        idx = sk.n_iter[:b].argmax().view(1)
+        fit = lambda: cd_cuda.fit_cd_cuda(gx[idx], gw[idx], gh[idx],  # noqa: E731
+                                          max_iter=config.max_iter, tol=config.tol)
+        fit()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lone = fit()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n_iter = int(lone.n_iter[0])
+        us = ms / n_iter * 1e3
+        log(f"stage cd_nmf_warp lone rank-1 fit (200 x 8 padded to 4, the CD path's longest "
+            f"kind): {n_iter} iterations in {ms:.2f} ms, {us:.3f} us an iteration; parent "
+            f"design 5.14 us (PERF.md, PR 8)  [{self.smi}]")
+        self.kernels["cd_nmf_warp"].update(lone_rank1_us_per_iteration=us,
+                                           lone_rank1_iterations=n_iter,
+                                           padded_equals_own_rank=same)
 
     def cd_block_main(self, emg16, top: int = 10, iters: int = 50):
         """CD on the 64 trials of 16 channels, ranks 1-``top``: 640 fits of

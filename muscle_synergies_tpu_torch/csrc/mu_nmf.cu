@@ -283,7 +283,7 @@ __device__ __forceinline__ void mu_warp_step(
   }
 
   // ---- H: W^T X and W^T W are fixed while W is ----
-  nmf_warp_wtw_wtx<KMAX, LMAX, true>(sl, xr, wr, lane);
+  nmf_warp_wtw_wtx(sl, xr, wr);
   __syncwarp();
   if (lane < LMAX) {
     float hc[KMAX], cc[KMAX];

@@ -200,10 +200,11 @@ __device__ inline void nmf_xht_row(const NmfBlock& b, int n, float* xr) {
 // One warp per fit, NMF_WARP_FITS fits a block, no __syncthreads on the
 // iteration path.  Lane i owns rows i, i + 32, ... (NMF_WARP_ROWS of
 // them) with their X and W in registers; the fit's small matrices sit in
-// a per-warp shared slab read as broadcasts.  Every loop runs over the
-// padded extents (KMAX components, LMAX columns, all the lane's rows),
-// whose exact zeros change no sum, so nothing branches on the fit's own
-// N, L or k inside an iteration.  The limits are mirrored by
+// a per-warp shared slab read as broadcasts.  K1's and K4's loops run
+// over the padded extents (KMAX components, LMAX columns, all the lane's
+// rows), whose exact zeros change no sum, so nothing branches on the
+// fit's own N, L or k inside an iteration; K2's run over each fit's own
+// rank (cd_nmf.cu).  The limits are mirrored by
 // models/kernels/mu_cuda.py: WARP_NMAX, WARP_LMAX, WARP_KMAX.
 
 #define NMF_WARP_FITS 4   // fits (warps) per block
@@ -228,8 +229,8 @@ __device__ __forceinline__ void nmf_warp_halve(float (&a)[32], int lane) {
   if constexpr (O > 1) nmf_warp_halve<O / 2>(a, lane);
 }
 
-// One fit's small matrices (K2's and K1's warp entries), row strides
-// KMAX and LMAX, zero-padded.
+// One fit's small matrices (K1's warp entry), row strides KMAX and LMAX,
+// zero-padded.
 template <int KMAX, int LMAX>
 struct __align__(16) NmfWarpSlab {
   float h[KMAX * LMAX];    // H
@@ -279,17 +280,16 @@ __device__ __forceinline__ void nmf_warp_allsum(float (&a)[NV]) {
   }
 }
 
-// slab.wtw <- W^T W and slab.wtx <- W^T X: each lane's partial sums over
-// its rows, then per group of 32 entries either a reduce-scatter (K2: 31
-// shuffles, one sum per lane) or, with BLOCK_ORDER (K1), butterflies
+// slab.wtw <- W^T W and slab.wtx <- W^T X (K1's warp entry): each lane's
+// partial sums over its rows, then per group of 32 entries butterflies
 // that add the partial sums in the block entry's order (160 shuffles),
 // so that the warp entry computes the block entry's iterates bit for
 // bit.  A lane's rows i, i + 32, ... are the rows a lane of the block
 // entry's reduction walks, in the same order.
-template <int KMAX, int LMAX, bool BLOCK_ORDER = false>
+template <int KMAX, int LMAX>
 __device__ __forceinline__ void nmf_warp_wtw_wtx(
     NmfWarpSlab<KMAX, LMAX>& sl, const float (&xr)[NMF_WARP_ROWS][LMAX],
-    const float (&wr)[NMF_WARP_ROWS][KMAX], int lane) {
+    const float (&wr)[NMF_WARP_ROWS][KMAX]) {
   constexpr int NWW = KMAX * KMAX;
   constexpr int NV = NWW + KMAX * LMAX;
 #pragma unroll
@@ -309,24 +309,14 @@ __device__ __forceinline__ void nmf_warp_wtw_wtx(
       }
       a[v] = s;
     }
-    if constexpr (BLOCK_ORDER) {
-      nmf_warp_allsum(a);
+    nmf_warp_allsum(a);
 #pragma unroll
-      for (int v = 0; v < 32; ++v) {
-        const int q = 32 * g + v;
-        if (q < NWW) {
-          sl.wtw[q] = a[v];
-        } else if (q < NV) {
-          sl.wtx[q - NWW] = a[v];
-        }
-      }
-    } else {
-      nmf_warp_halve<16>(a, lane);
-      const int q = 32 * g + lane;
+    for (int v = 0; v < 32; ++v) {
+      const int q = 32 * g + v;
       if (q < NWW) {
-        sl.wtw[q] = a[0];
+        sl.wtw[q] = a[v];
       } else if (q < NV) {
-        sl.wtx[q - NWW] = a[0];
+        sl.wtx[q - NWW] = a[v];
       }
     }
   }

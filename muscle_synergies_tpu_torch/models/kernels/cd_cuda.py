@@ -19,7 +19,10 @@ threads per fit, the fit in shared memory) only for batches of frames
 within one block's shared memory at rank ``mu_cuda.BLOCK_KMIN`` to
 ``BLOCK_KMAX`` that would keep the grid entry's SMs busy for
 ``mu_cuda.BLOCK_MIN_WAVES`` waves or more (:func:`~.mu_cuda.block_keeps`);
-and a refusal before any launch beyond.
+and a refusal before any launch beyond.  The warp and grid entries run
+each fit over its own rank, which the kernel finds at load (the last
+component whose column of W0 or row of H0 holds a nonzero, plus one): a
+rank sweep's zero padding costs them nothing and changes no bit.
 
 The rule's numbers (scripts/torch_cluster_timing.py, crossover runs on
 an H100 80GB HBM3 at 700 W, us an iteration, block entry -> grid entry):

@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import subprocess
 import sys
@@ -109,17 +110,19 @@ class Swap:
         self.mods = {"cd_nmf": cd_cuda, "cnmf": cnmf_cuda, "mu_nmf": mu_cuda,
                      "beta_nmf": beta_cuda}
         self.current = {name: mod._lib for name, mod in self.mods.items()}
-        self.parent = {}
-        for name, mod in self.mods.items():
-            like = mod._lib() if name == "cnmf" else mod._lib("block")
-            self.parent[name] = self._picker(parent_libs[name], name, like)
+        self.parent = {name: self._picker(parent_libs[name], name, self.current[name])
+                       for name in self.mods}
 
     @staticmethod
-    def _picker(lib, name, like):
+    def _picker(lib, name, current):
+        """The earlier library's entry with the current one's C interface
+        (its block entry where it has no such entry)."""
         def pick(entry: str = "block"):
-            fn = getattr(lib, f"{name}_warp_f32", None) if entry == "warp" else None
+            symbol = {"warp": f"{name}_warp_f32", "cluster": f"{name}_cluster_f32"}
+            fn = getattr(lib, symbol.get(entry, f"{name}_f32"), None)
             if fn is None:
-                fn = getattr(lib, f"{name}_f32")
+                fn, entry = getattr(lib, f"{name}_f32"), "block"
+            like = current(entry)
             fn.argtypes, fn.restype = like.argtypes, like.restype
             return fn
         return pick
@@ -396,6 +399,13 @@ def main(argv) -> int:
     def tensor(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
 
+    def digest(*ts):
+        """sha256 of the tensors' bytes: equal digests, equal bits."""
+        return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()[:16]
+
+    def fixed(fn):
+        return cuda_ms(fn, reps=20, warmup=3), {"digest": digest(*fn())}
+
     if "filters" in parts:
         filter_part(dev, smi, results, turns, state)
     if "nmf" not in parts:
@@ -406,11 +416,11 @@ def main(argv) -> int:
                                       np.abs(rng.standard_normal((1024, 200, 4))),
                                       np.abs(rng.standard_normal((1024, 4, 8)))))
     turns("cd 50 iterations 1024x200x8 k=4",
-          lambda: (cuda_ms(lambda: cd_cuda.cd_iterations_cuda(xs, w0, h0, 50)), ""))
+          lambda: fixed(lambda: cd_cuda.cd_iterations_cuda(xs, w0, h0, 50)))
     turns("mu 50 iterations 1024x200x8 k=4",
-          lambda: (cuda_ms(lambda: mu_cuda.mu_iterations_cuda(xs, w0, h0, 50)), ""))
-    turns("kl 50 iterations 1024x200x8 k=4", lambda: (cuda_ms(
-        lambda: beta_cuda.beta_iterations_cuda(xs, w0, h0, 50, 1.0)), ""))
+          lambda: fixed(lambda: mu_cuda.mu_iterations_cuda(xs, w0, h0, 50)))
+    turns("kl 50 iterations 1024x200x8 k=4",
+          lambda: fixed(lambda: beta_cuda.beta_iterations_cuda(xs, w0, h0, 50, 1.0)))
     xc = rng.random((1024, 200, 8))
     c0, s0 = init_cnmf(xc, 4, 10, seed=5)
     xc, c0, s0 = tensor(xc), tensor(c0), tensor(s0)
@@ -444,14 +454,16 @@ def main(argv) -> int:
         ms, st = timed(lambda: fit(*g))
         n_iter = st.n_iter.view(4, -1).cpu()
         return ms, {"iterations": int(n_iter.sum()),
-                    "median_by_rank": n_iter.float().median(dim=1).values.tolist()}
+                    "median_by_rank": n_iter.float().median(dim=1).values.tolist(),
+                    "digest": digest(*st[:2])}
 
     def lone(fit, i):
         """The fit ``i`` alone on the card: one fit's iteration latency."""
         idx = torch.tensor([i], device=dev)
         ms, st = timed(lambda: fit(idx))
         iters = int(st.n_iter[0])
-        return ms, {"iterations": iters, "us_per_iteration": ms / iters * 1e3}
+        return ms, {"iterations": iters, "us_per_iteration": ms / iters * 1e3,
+                    "digest": digest(*st[:2])}
 
     fits = {
         "CD": lambda x, w, h: mb.fit_cd_batch(x, w, h, **stop),

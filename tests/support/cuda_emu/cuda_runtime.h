@@ -1,12 +1,14 @@
 // A CPU stand-in for the CUDA runtime, for functional checks of the grid
-// entries (tests/test_torch_grid_emulated.py): every block of a launch runs
-// at once, a std::thread per CUDA thread; __syncthreads is a barrier a
-// block, __syncwarp a barrier a warp, and the shuffles go through a
-// per-warp exchange.  The sources are compiled with g++ after three
-// substitutions (extern __shared__ arrays, the PTX acquire load and
-// release store), and the dynamic shared memory is filled with NaN, so a
-// read before a write shows in the results.  It says nothing about speed,
-// registers or what nvcc accepts.
+// and warp entries (tests/test_torch_grid_emulated.py,
+// tests/test_torch_warp_emulated.py): every block of a launch runs at
+// once, a std::thread per CUDA thread; __syncthreads is a barrier a block,
+// __syncwarp a barrier a warp, and the shuffles go through a per-warp
+// exchange, double-buffered so that each takes one barrier.  The sources
+// are compiled with g++ after a few substitutions (tests/support/
+// cuda_emu/build.py: kernel<<<...>>>(...) launches, extern and static
+// __shared__ arrays, the PTX acquire load and release store), and the
+// shared memory is filled with NaN, so a read before a write shows in the
+// results.  It says nothing about speed, registers or what nvcc accepts.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -70,34 +72,47 @@ struct cudaLaunchConfig_t {
 inline int emu_sms = 4;  // the SM count the stand-in card reports
 struct EmuBlock {
   std::vector<double> smem;
+  std::vector<double> statics;  // the kernel's static __shared__ arrays
   std::unique_ptr<std::barrier<>> bar;
   std::vector<std::unique_ptr<std::barrier<>>> wbar;
-  std::vector<double> xchg;
+  std::vector<double> xchg;  // two buffers of a value a thread
 };
 inline thread_local EmuBlock* emu_block = nullptr;
+inline thread_local size_t emu_statics_used = 0;  // bytes of statics handed out
+inline thread_local int emu_parity = 0;           // the exchange buffer of the next shuffle
 extern "C" void emu_set_sms(int s) { emu_sms = s; }
 
 inline float* emu_smem() { return reinterpret_cast<float*>(emu_block->smem.data()); }
+// A static __shared__ array of type A: every thread of a block takes its
+// kernel's declarations in the same order, so each gets the same object.
+template <class A>
+A& emu_static() {
+  const size_t at = emu_statics_used;
+  emu_statics_used += (sizeof(A) + 15) & ~(size_t)15;
+  return *reinterpret_cast<A*>(reinterpret_cast<char*>(emu_block->statics.data()) + at);
+}
 inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) {
   emu_block->wbar[threadIdx.x / 32]->arrive_and_wait();
 }
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+// A shuffle writes one buffer and reads it after the warp's barrier; the
+// next shuffle uses the other, which every lane finished reading before it
+// reached that barrier.
 template <class T>
 T emu_shfl(T v, int src) {
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  emu_block->xchg[w * 32 + lane] = (double)v;
+  double* buf = emu_block->xchg.data() + (size_t)emu_parity * blockDim.x;
+  emu_parity ^= 1;
+  buf[w * 32 + lane] = (double)v;
   __syncwarp();
-  const T r = (T)emu_block->xchg[w * 32 + src];
-  __syncwarp();
-  return r;
+  return (T)buf[w * 32 + src];
 }
-inline float __shfl_xor_sync(unsigned, float v, int off) {
+template <class T>
+T __shfl_xor_sync(unsigned, T v, int off) {
   return emu_shfl(v, (threadIdx.x % 32) ^ off);
 }
-inline double __shfl_xor_sync(unsigned, double v, int off) {
-  return emu_shfl(v, (threadIdx.x % 32) ^ off);
-}
+inline int __clz(int v) { return v == 0 ? 32 : __builtin_clz((unsigned)v); }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
@@ -111,6 +126,8 @@ void __stcg(T* p, T v) {
   *p = v;
 }
 inline float fmaxf(float a, float b) { return a > b ? a : b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline float sqrtf(float a) { return std::sqrt(a); }
 inline float powf(float a, float b) { return std::pow(a, b); }
 template <class K>
@@ -141,7 +158,8 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*k)(P...), A
     b.smem.assign(cfg->dynamicSmemBytes / 8 + 8, std::nan(""));
     b.bar = std::make_unique<std::barrier<>>(nt);
     for (unsigned w = 0; w < nt / 32; ++w) b.wbar.push_back(std::make_unique<std::barrier<>>(32));
-    b.xchg.assign(nt, 0.0);
+    b.statics.assign(64 * 1024 / 8, std::nan(""));
+    b.xchg.assign(2 * nt, 0.0);
   }
   std::vector<std::thread> threads;
   for (unsigned bi = 0; bi < nb; ++bi) {
@@ -150,10 +168,27 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*k)(P...), A
         blockIdx = dim3(bi);
         threadIdx = dim3(ti);
         emu_block = &blocks[bi];
+        emu_statics_used = 0;
+        emu_parity = 0;
         k(args...);
       });
     }
   }
   for (auto& t : threads) t.join();
   return 0;
+}
+
+// kernel<<<grid, block, smem, stream>>>(args...) as the substitution
+// writes it: emu_launch(kernel, grid, block, smem, stream)(args...).
+template <class... P>
+auto emu_launch(void (*k)(P...), dim3 grid, dim3 block, size_t smem = 0,
+                cudaStream_t stream = nullptr) {
+  return [=](auto... args) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = block;
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchKernelEx(&cfg, k, (P)args...);
+  };
 }

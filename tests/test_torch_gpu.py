@@ -360,6 +360,59 @@ def test_cd_entries_stop_where_float64_stops(cuda, n, k):
     assert np.median(gap) == 0
 
 
+def _padded_sweep(cuda, n, l, ranks, top, trials=8, seed=3):
+    """A rank sweep's launch as ``rank_sweep_batch`` stacks it: ``trials``
+    frames at each rank, the factors zero-padded to ``top``."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(trials, n, l, generator=g)
+    ws, hs = [], []
+    for k in ranks:
+        w = torch.zeros(trials, n, top)
+        h = torch.zeros(trials, top, l)
+        w[..., :k] = torch.randn(trials, n, k, generator=g).abs()
+        h[:, :k] = torch.randn(trials, k, l, generator=g).abs()
+        ws.append(w)
+        hs.append(h)
+    return [t.to(cuda) for t in (x.repeat(len(ranks), 1, 1), torch.cat(ws), torch.cat(hs))]
+
+
+@pytest.mark.parametrize("n, l, ranks, top, k", [
+    (200, 8, (1, 2, 3, 4), 4, 1), (cd_cuda.WARP_NMAX, 16, (5, 6, 7, 8), 8, 5),
+    (200, 8, (1, 8), 8, 1), (33, 5, (1, 2, 3), 3, 2)])
+def test_cd_warp_padded_fit_equals_its_own_rank(cuda, n, l, ranks, top, k):
+    """K2's warp entry runs each fit over its own rank: a fit padded to a
+    sweep's top rank holds the same bits as the same fit launched alone at
+    its rank (fixed iterations, and a fit with the stop on: iterations
+    and violation too, with and without the penalties), its padding 0."""
+    x, w, h = _padded_sweep(cuda, n, l, ranks, top)
+    per = len(x) // len(ranks)
+    at = slice(ranks.index(k) * per, (ranks.index(k) + 1) * per)
+    alone = (x[at], w[at, :, :k].contiguous(), h[at, :k].contiguous())
+    before = cd_cuda.warp_launches
+    swept = cd_cuda.cd_iterations_cuda(x, w, h, 30)
+    own = cd_cuda.cd_iterations_cuda(*alone, 30)
+    assert torch.equal(swept[0][at, :, :k], own[0]) and torch.equal(swept[1][at, :k], own[1])
+    assert not swept[0][at, :, k:].any() and not swept[1][at, k:].any()
+    for regs in ({}, REGS):
+        sk = cd_cuda.fit_cd_cuda(x, w, h, max_iter=300, tol=1e-4, **regs)
+        so = cd_cuda.fit_cd_cuda(*alone, max_iter=300, tol=1e-4, **regs)
+        for a, b in ((sk.w[at, :, :k], so.w), (sk.ht[at, :, :k], so.ht),
+                     (sk.n_iter[at], so.n_iter), (sk.violation_init[at], so.violation_init)):
+            assert torch.equal(a, b)
+        assert not sk.w[at, :, k:].any() and not sk.ht[at, :, k:].any()
+    assert cd_cuda.warp_launches == before + 6
+
+
+def test_cd_grid_padded_fit_equals_its_own_rank(cuda):
+    """K2's grid entry runs each fit over its own rank: in a batched sweep
+    of a 2,400 x 8 subject (ranks 1-4 padded to 4, one launch, 10 blocks
+    a fit) and of a 4,000 x 16 frame (ranks 1-8 padded to 8, 16 blocks a
+    fit), ranks 1, the middle one and the top one hold the same bits as
+    the same fit launched alone at its rank, which takes the same blocks
+    and rows; in a process of its own under the 120 s guard."""
+    _child(_CD_PADDED_GRID_CASE.format(root=_root()))
+
+
 # one beta per kernel kind (KL, IS, generic) and per damping branch
 @pytest.mark.parametrize("beta", [1.0, 0.0, 0.5, 1.5, 3.0])
 def test_beta_fixed_iterations_match_plain_float64(cuda, beta):
@@ -1028,6 +1081,34 @@ BETA_CLUSTER_CASES = [(2, 6000, 8, 4, False), (1, 124_460, 8, 4, False),
 # (sklearn's penalties, the stop off) within 1e-3, a fit to ``stop``
 # (max_iter) at tol 1e-4 with a median stopping gap of 0, and components
 # from ``padded`` on zeroed that stay exactly 0, with and without penalties
+_CD_PADDED_GRID_CASE = _CHILD_HELPERS + """
+from muscle_synergies_tpu_torch.models.kernels import cd_cuda, mu_cuda
+for n, l, top, fixed in ((2400, 8, 4, 30), (4000, 16, 8, 20)):
+    g = torch.Generator().manual_seed(n)
+    x = torch.rand(1, n, l, generator=g).repeat(top, 1, 1).to(dev)
+    w = torch.zeros(top, n, top)
+    h = torch.zeros(top, top, l)
+    for k in range(1, top + 1):
+        w[k - 1, :, :k] = torch.randn(n, k, generator=g).abs()
+        h[k - 1, :k] = torch.randn(k, l, generator=g).abs()
+    w, h = w.to(dev), h.to(dev)
+    assert cd_cuda.route(n, l, top, batch=top, sms=sms) == "cluster"
+    swept = cd_cuda.cd_iterations_cuda(x, w, h, fixed)
+    plan = cd_cuda.last_plan
+    st = cd_cuda.fit_cd_cuda(x, w, h, max_iter=200, tol=1e-4)
+    for k in (1, top // 2, top):
+        alone = (x[k - 1:k], w[k - 1:k, :, :k].contiguous(), h[k - 1:k, :k].contiguous())
+        own = cd_cuda.cd_iterations_cuda(*alone, fixed)
+        assert cd_cuda.last_plan[:4] == plan[:4], (cd_cuda.last_plan, plan)
+        assert torch.equal(swept[0][k - 1:k, :, :k], own[0]), (n, k)
+        assert torch.equal(swept[1][k - 1:k, :k], own[1]), (n, k)
+        assert not swept[0][k - 1, :, k:].any() and not swept[1][k - 1, k:].any()
+        so = cd_cuda.fit_cd_cuda(*alone, max_iter=200, tol=1e-4)
+        assert torch.equal(st.w[k - 1:k, :, :k], so.w) and torch.equal(st.ht[k - 1:k, :, :k], so.ht)
+        assert int(st.n_iter[k - 1]) == int(so.n_iter[0]), (n, k)
+torch.cuda.synchronize()
+print("finished", plan)
+"""
 _CD_ENTRY_CASE = _CHILD_HELPERS + """
 from muscle_synergies_tpu_torch.models.kernels import cd_cuda
 b, n, l, k, seed, entry, checks = {case!r}

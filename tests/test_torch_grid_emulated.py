@@ -54,9 +54,10 @@ from muscle_synergies_tpu_torch.models.kernels import (  # noqa: E402
 EMU = Path(__file__).resolve().parent / "support" / "cuda_emu"
 SOURCES = ("mu_nmf", "cd_nmf", "beta_nmf", "cnmf")
 SUBS = [  # what g++ cannot read, as the stand-in runs it
-    (re.compile(r"<<<[^>]*>>>"), ""),
+    (re.compile(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)\s*<<<([^>]*)>>>\("), r"emu_launch(\1, \2)("),
     (re.compile(r"extern __shared__ (__align__\(16\) )?float smem\[\];"),
      "float* smem = emu_smem();"),
+    (re.compile(r"__shared__ ([\w:<>, ]+?) (\w+)\[(\w+)\];"), r"auto& \2 = emu_static<\1[\3]>();"),
     (re.compile(r'asm volatile\("ld\.acquire.*$', re.M),
      "v = __atomic_load_n(p, __ATOMIC_ACQUIRE); std::this_thread::yield();"),
     (re.compile(r'asm volatile\("st\.release.*$', re.M),
@@ -64,13 +65,13 @@ SUBS = [  # what g++ cannot read, as the stand-in runs it
 ]
 
 
-@pytest.fixture(scope="module")
-def libs(tmp_path_factory):
-    """The four sources built against the stand-in runtime, loaded."""
+def build_emulated(out: Path, names) -> dict:
+    """The kernel sources ``names`` built against the stand-in runtime in
+    ``out`` (one g++ each, all started together), loaded; skips the test
+    where g++ is missing."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the CUDA sources against the stand-in runtime")
-    out = tmp_path_factory.mktemp("cuda_emu")
-    for src in list(_build.CSRC.glob("*.cuh")) + [_build.CSRC / f"{n}.cu" for n in SOURCES]:
+    for src in list(_build.CSRC.glob("*.cuh")) + [_build.CSRC / f"{n}.cu" for n in names]:
         text = src.read_text()
         for pat, rep in SUBS:
             text = pat.sub(rep, text)
@@ -78,11 +79,17 @@ def libs(tmp_path_factory):
     procs = {n: subprocess.Popen(
         ["g++", "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", "-I", str(EMU), "-I",
          str(out), "-x", "c++", str(out / f"{n}.cu"), "-o", str(out / f"lib{n}.so")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for n in SOURCES}
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for n in names}
     for n, p in procs.items():
         log, _ = p.communicate(timeout=600)
         assert p.returncode == 0, log[-3000:]
-    return {n: ctypes.CDLL(str(out / f"lib{n}.so")) for n in SOURCES}
+    return {n: ctypes.CDLL(str(out / f"lib{n}.so")) for n in names}
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    """The four sources built against the stand-in runtime, loaded."""
+    return build_emulated(tmp_path_factory.mktemp("cuda_emu"), SOURCES)
 
 
 def _entry(libs, monkeypatch, mod, name, sms):
@@ -254,3 +261,67 @@ def test_emulated_cd_grid_entry_matches_plain_float64(libs, monkeypatch, case):
         else:
             wp, hp = cd_cuda.cd_iterations_plain(xd, wd, hd, iters)
             assert _rel(w, wp) < 1e-5 and _rel(h, hp) < 1e-5, (_rel(w, wp), _rel(h, hp))
+
+
+def test_emulated_cd_grid_padded_fit_equals_its_own_rank(libs, monkeypatch):
+    """K2's grid entry holds each fit at its own rank: in a batched sweep
+    of a 2,400 x 8 subject (ranks 1-4 zero-padded to 4, one launch, 10
+    blocks a fit on a stand-in card of 40 SMs) the rank-1 fit computes
+    the same bits as the same fit launched alone at k = 1, which takes
+    the same blocks and rows: 2 fixed iterations, then a fit with the stop
+    on (the same iterations and violation too); the padding stays 0."""
+    fn = _entry(libs, monkeypatch, cd_cuda, "cd_nmf", 40)
+    n, l, top = 2400, 8, 4
+    rng = np.random.default_rng(24)
+    x = np.repeat(np.abs(rng.standard_normal((1, n, l))).astype(np.float32) + 0.05, top, 0)
+    w0, h0 = np.zeros((top, n, top), np.float32), np.zeros((top, top, l), np.float32)
+    for k in range(1, top + 1):
+        w0[k - 1, :, :k], h0[k - 1, :k] = _factors(rng, (n, k), (k, l))
+
+    def launch(xs, ws, hs, iters, with_stop):
+        b, k = len(xs), ws.shape[-1]
+        w, h = np.full_like(ws, np.nan), np.full_like(hs, np.nan)
+        n_iter, converged = np.zeros(b, np.int32), np.zeros(b, np.int32)
+        viol_init = np.zeros(b, np.float32)
+        plan = mu_cuda.grid_plan(b, n, l, k, 40)
+        _, out, extra = _workspace(plan, mu_cuda.grid_workspace_floats(plan, b, l, k))
+        err = fn(_ptr(xs), _ptr(ws), _ptr(hs), _ptr(w), _ptr(h), _ptr(n_iter),
+                 _ptr(viol_init), _ptr(converged), b, n, l, k, iters, 1e-3,
+                 0.0, 0.0, 0.0, 0.0, int(with_stop), *extra, None)
+        assert err == 0 and _reported(out) == plan, (err, _reported(out), plan)
+        return plan, w, h, n_iter, viol_init
+
+    alone = (np.ascontiguousarray(x[:1]), np.ascontiguousarray(w0[:1, :, :1]),
+             np.ascontiguousarray(h0[:1, :1]))
+    for iters, with_stop in ((2, False), (12, True)):
+        plan, w, h, n_iter, viol_init = launch(x, w0, h0, iters, with_stop)
+        plan1, w1, h1, n_iter1, viol_init1 = launch(*alone, iters, with_stop)
+        assert plan1[:4] == plan[:4] and plan.blocks == 10, (plan, plan1)  # smem aside
+        assert np.array_equal(w[:1, :, :1], w1) and np.array_equal(h[:1, :1], h1)
+        assert (w[0, :, 1:] == 0).all() and (h[0, 1:] == 0).all()
+        if with_stop:
+            assert n_iter[0] == n_iter1[0] > 1 and viol_init[0] == viol_init1[0]
+
+
+def test_emulated_cd_grid_rank_counts_rows_of_every_block(libs, monkeypatch):
+    """The fit's rank is the same in every block of a fit: a component
+    alive only in W0's rows of the fit's last block (its H0 row 0) is
+    counted by every block, on 2 blocks a fit; 4 fixed iterations within
+    1e-5 relative of float64, the component alive after them."""
+    fn = _entry(libs, monkeypatch, cd_cuda, "cd_nmf", 4)
+    b, n, l, k = 2, 1000, 8, 4
+    x, w0, h0 = _factors(np.random.default_rng(31), (b, n, l), (b, n, k), (b, k, l))
+    w0[:, : n // 2, 3] = 0
+    h0[:, 3] = 0
+    plan = mu_cuda.grid_plan(b, n, l, k, 4)
+    assert plan.blocks == 2 and plan.rows == n // 2, plan
+    w, h = np.zeros_like(w0), np.zeros_like(h0)
+    n_iter, converged = np.zeros(b, np.int32), np.zeros(b, np.int32)
+    viol_init = np.zeros(b, np.float32)
+    _, out, extra = _workspace(plan, mu_cuda.grid_workspace_floats(plan, b, l, k))
+    err = fn(_ptr(x), _ptr(w0), _ptr(h0), _ptr(w), _ptr(h), _ptr(n_iter), _ptr(viol_init),
+             _ptr(converged), b, n, l, k, 4, 0.0, 0.0, 0.0, 0.0, 0.0, 0, *extra, None)
+    assert err == 0 and _reported(out) == plan, (err, _reported(out), plan)
+    wp, hp = cd_cuda.cd_iterations_plain(*(torch.from_numpy(a).double() for a in (x, w0, h0)), 4)
+    assert _rel(w, wp) < 1e-5 and _rel(h, hp) < 1e-5, (_rel(w, wp), _rel(h, hp))
+    assert (h[:, 3] > 0).any()
