@@ -322,6 +322,8 @@ card it exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -437,6 +439,27 @@ def abs_err(pairs) -> float:
     return max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
 
 
+def digest(*ts) -> str:
+    """sha256 of the tensors' bytes: equal digests, equal bits."""
+    return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def cnmf_entry(entry: str):
+    """K5's one-block fits forced onto ``entry`` (``"block"`` or
+    ``"wide"``), each call in one launch; frames past one block keep the
+    cluster entry."""
+    from muscle_synergies_tpu_torch.models.kernels import cnmf_cuda
+
+    route, plan = cnmf_cuda.route, cnmf_cuda.launch_plan
+    cnmf_cuda.route = lambda *a, **kw: "cluster" if route(*a) == "cluster" else entry
+    cnmf_cuda.launch_plan = lambda *a: (entry, None)
+    try:
+        yield
+    finally:
+        cnmf_cuda.route, cnmf_cuda.launch_plan = route, plan
+
+
 def plain_snapshot(step, xs, w, h, counts):
     """Run ``step`` on each problem exactly ``counts[b]`` times."""
     w, h = w.clone(), h.clone()
@@ -527,6 +550,7 @@ class Smoke:
                          "beta_nmf_warp": (beta_cuda, "warp_launches"),
                          "beta_nmf_cluster": (beta_cuda, "cluster_launches"),
                          "cnmf": (cnmf_cuda, "launches"),
+                         "cnmf_wide": (cnmf_cuda, "wide_launches"),
                          "cnmf_cluster": (cnmf_cuda, "cluster_launches")}
         self.launches = {name: 0 for name in self.counters}
         self.phase5, self.phase18 = {}, {}  # results phase 21 is held against
@@ -889,12 +913,47 @@ class Smoke:
                     b * iters * nmf_flops("cnmf", t, l, k, d),
                     4 * b * (t * l + 2 * (t * k + k * d * l)))
 
+        # the wide entry: 128 fits, each with an SM to itself, against
+        # float64 and against the block entry bit for bit
         fx, fc, fs = xs[:fb], c0[:fb], s0[:fb]
         fx64, fc64, fs64 = x64[:fb], c64[:fb], s64[:fb]
         t0 = time.perf_counter()
+        before = cnmf_cuda.wide_launches
+        ck, sk = cnmf_cuda.cnmf_iterations_cuda(fx, fc, fs, iters)
+        assert cnmf_cuda.wide_launches == before + 1, "cnmf: 128 fits took another entry"
+        cp, sp = cnmf_cuda.cnmf_iterations_plain(fx64, fc64, fs64, iters)
+        err = max(rel_err(ck, cp), rel_err(sk, sp))
+        with cnmf_entry("block"):
+            cn, sn = cnmf_cuda.cnmf_iterations_cuda(fx, fc, fs, iters)
+        same = torch.equal(ck, cn) and torch.equal(sk, sn)
+        ms = cuda_ms(lambda: cnmf_cuda.cnmf_iterations_cuda(fx, fc, fs, iters))
+        with cnmf_entry("block"):
+            block_ms = cuda_ms(lambda: cnmf_cuda.cnmf_iterations_cuda(fx, fc, fs, iters))
+        plain_ms = cuda_ms(lambda: cnmf_cuda.cnmf_iterations_plain(fx, fc, fs, iters), reps=3)
+        log(f"cnmf_wide: {iters} iterations at {fb}x{t}x{l} K={k} D={d}: rel err {err:.3e} "
+            f"(bar 1e-3); the block entry's bits: {same}; wide {ms:.3f} ms, block entry "
+            f"{block_ms:.3f} ms, plain f32 {plain_ms:.3f} ms")
+        self.stage("K5 wide fixed", time.perf_counter() - t0)
+        assert err <= 1e-3, "cnmf_wide fixed iterations disagree"
+        assert same, "cnmf_wide differs from the block entry"
+        self.record("cnmf_wide", "muscle_synergies_tpu/models/kernels/cnmf_pallas.py:147",
+                    (abs_err([(ck, cp), (sk, sp)]), err, 1e-3), ms, plain_ms,
+                    fb * iters * nmf_flops("cnmf", t, l, k, d),
+                    4 * fb * (t * l + 2 * (t * k + k * d * l)), source="cnmf",
+                    shape=f"{fb}x{t}x{l}, K={k}, D={d}")
+
+        t0 = time.perf_counter()
+        before = cnmf_cuda.wide_launches
         st = cnmf_cuda.fit_cnmf_cuda(fx, fc, fs, max_iter=1000, tol=1e-4)
         torch.cuda.synchronize()
         fit_ms = (time.perf_counter() - t0) * 1e3
+        assert cnmf_cuda.wide_launches == before + 1, "cnmf: 128 fits took another entry"
+        with cnmf_entry("block"):
+            sn = cnmf_cuda.fit_cnmf_cuda(fx, fc, fs, max_iter=1000, tol=1e-4)
+        same = all(torch.equal(a, b) for a, b in zip(st, sn))
+        log(f"cnmf_wide: fit of {fb} at tol 1e-4, the block entry's bits (C, S, n_iter, "
+            f"previous error, converged): {same}; digest {digest(*st)}")
+        assert same, "cnmf_wide's fit differs from the block entry's"
         sp = cnmf_cuda.fit_cnmf_plain(fx64, fc64, fs64, max_iter=1000, tol=1e-4)
         gap = (st.n_iter - sp.n_iter).cpu().numpy()
         cr, sr = plain_snapshot(cnmf_update, fx64, fc64, fs64, st.n_iter)
@@ -1136,8 +1195,10 @@ class Smoke:
         kw = dict(n_synergies=4, n_lags=10, n_inits=4)
         res, counts = self.main_path("analyze_dataset_time_varying",
                                      lambda: analyze_dataset_time_varying(emg, FS, **kw))
+        # 1,024 fits: block-entry chunks, the tail in one wide launch
         assert counts["sosfiltfilt"] > 0 and counts["cnmf"] > 0, \
             "a kernel of the time-varying path never ran"
+        assert counts["cnmf_wide"] == 1, counts
         b = emg.shape[0]
         assert res.c.shape == (b, 200, 4) and res.s.shape == (b, 4, 10, N_CHANNELS)
         assert res.restart_errors.shape == (b, 4)
@@ -2040,7 +2101,7 @@ class Smoke:
             return model, model.fit_transform(frame)
 
         (model, c), counts = self.main_path("CNMFModel 200x8 fit_transform", cnmf_fit)
-        assert counts["cnmf"] == 1 and sum(counts.values()) == 1, counts
+        assert counts["cnmf_wide"] == 1 and sum(counts.values()) == 1, counts
         assert c.shape == (200, 4) and np.isfinite(c).all() and (c >= 0).all()
         assert model.synergies_.shape == (4, 10, N_CHANNELS)
         ref = CNMFModel(4, 10, n_inits=4, device="cpu", dtype=torch.float64)
@@ -2159,7 +2220,7 @@ class Smoke:
         label = "bootstrap_time_varying_synergies 2400x8 (20 resamples)"
         got, want, counts = against_host(label, lambda v, **kw: (
             stability.bootstrap_time_varying_synergies(v, 4, 10, n_boot=20, **kw)), subject)
-        assert counts["cnmf"] == 1 and sum(counts.values()) == 1, counts
+        assert counts["cnmf_wide"] == 1 and sum(counts.values()) == 1, counts
         same_similarities(label, got, want)
         same_components(label, got.reference_synergies, want.reference_synergies)
         self.bootstrap_launches(subject)
@@ -2341,7 +2402,7 @@ print(json.dumps(out))
             "bootstrap_time_varying_synergies_checkpointed from empty",
             lambda: resume.bootstrap_time_varying_synergies_checkpointed(
                 subject, 4, 10, os.path.join(work, "tv"), n_boot=20, chunk_size=10))
-        assert counts["cnmf"] == 2 and sum(counts.values()) == 2, counts
+        assert counts["cnmf_wide"] == 2 and sum(counts.values()) == 2, counts
         same_as_one_shot("bootstrap_time_varying_synergies_checkpointed", got, want,
                          "reference_synergies")
 
@@ -2635,13 +2696,23 @@ print(json.dumps(out))
                             lambda: [torch.from_numpy(a).to(dev) for a in init_cnmf(
                                 np.repeat(xs.cpu().numpy(), 4, axis=0), 4, 10)])
         gx = xs.repeat_interleave(4, dim=0)
-        st = self.timed("fit cnmf (kernel, 1024 fits)",
-                        lambda: fit_cnmf_batch(gx, c0, s0, max_iter=config.max_iter,
-                                               tol=config.tol))
+        def fit():
+            return fit_cnmf_batch(gx, c0, s0, max_iter=config.max_iter, tol=config.tol)
+
+        st = self.timed("fit cnmf (kernel, 1024 fits: block-entry chunks, the tail on "
+                        "the wide entry)", fit)
+        with cnmf_entry("block"):
+            sb = self.timed("fit cnmf (the block entry alone, 1024 fits in one launch)", fit)
+        same = all(torch.equal(a, b) for a, b in zip(st, sb))
+        log(f"fit cnmf: digest {digest(*st)}, the block entry alone {digest(*sb)}, same "
+            f"bits {same}; {int(st.n_iter.sum())} iterations, max {int(st.n_iter.max())}")
+        assert same, "cnmf: the chunked fit differs from one block-entry launch"
         fit_bound("cnmf", st.n_iter, n, l, 4,
                   4 * gx.shape[0] * (n * l + 2 * (n * 4 + 4 * 10 * l)), d=10)
-        self.lone_fit("cnmf", st.n_iter, lambda i: fit_cnmf_batch(
-            gx[i], c0[i], s0[i], max_iter=config.max_iter, tol=config.tol))
+        for entry in ("wide", "block"):
+            with cnmf_entry(entry):
+                self.lone_fit(f"cnmf ({entry} entry)", st.n_iter, lambda i: fit_cnmf_batch(
+                    gx[i], c0[i], s0[i], max_iter=config.max_iter, tol=config.tol))
 
         def tv_finish():
             errs = st.previous_error.view(-1, 4)

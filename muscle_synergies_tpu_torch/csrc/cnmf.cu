@@ -1,7 +1,9 @@
 // Batched convolutive NMF (time-varying synergies), one thread block
-// per fit, register-tiled, and the cluster entry, one fit spread over
-// many blocks of the card, for frames over one block's shared memory (at
-// the end of this file).
+// per fit, register-tiled: the block entry (128 threads a fit) and the
+// wide entry (the same fit on CNMF_WIDE_THREADS threads, for fits with an
+// SM to themselves); and the cluster entry, one fit spread over many
+// blocks of the card, for frames over one block's shared memory (at the
+// end of this file).
 //
 // Replaces the TPU kernel `cnmf_iterations_pallas`
 // (muscle_synergies_tpu/models/kernels/cnmf_pallas.py: _cnmf_step) and
@@ -48,7 +50,9 @@
 // every `check_every` iterations, off the per-iteration path; like the
 // JAX driver there is no tail chunk, so the count moves in steps of
 // `check_every` and may pass max_iter, and the improvement is divided
-// by max(err0, EPSILON).  A converged block simply ends.
+// by max(err0, EPSILON).  A converged block simply ends.  A launch may
+// stop a fit after `cap` iterations and a later one resume it (on either
+// one-block entry) from its count, last error and scale, kept in float64.
 //
 // What bounds it now: six passes of K*D*L*T float32 multiply-adds per
 // iteration (about 770 KFLOP per fit at T=200, L=8, K=4, D=10) on CUDA
@@ -63,6 +67,14 @@
 #define EPSILON 1.1920929e-07f
 #define CNMF_LT 8  // L-tile: accumulators a thread keeps per row
 #define CNMF_KT 4  // synergies a thread updates at once in the C update
+
+// Phase marks of an iteration, empty here; scripts/torch_cnmf_profile.py
+// defines them in a marked copy of this file (clock64() on thread 0).
+#ifndef CNMF_MARK
+#define CNMF_MARK(i)
+#define CNMF_MARK_START()
+#define CNMF_MARK_FLUSH()
+#endif
 
 struct CnmfBlock {
   int t, l, k, d;
@@ -301,6 +313,7 @@ __device__ void cnmf_update_s(const CnmfBlock& b) {
       }
     }
     __syncthreads();
+    CNMF_MARK(2);
     if (g == 0) {
       for (int gg = 1; gg < g_count; ++gg) {
         const float* in = b.part + (gg - 1) * p_count + p;
@@ -360,10 +373,15 @@ __device__ void cnmf_update_c(const CnmfBlock& b) {
 
 // One multiplicative update of S then C (cnmf_update's order).
 __device__ inline void cnmf_step(const CnmfBlock& b) {
+  CNMF_MARK(0);
   cnmf_reconstruct(b);
+  CNMF_MARK(1);
   cnmf_update_s(b);
+  CNMF_MARK(3);
   cnmf_reconstruct(b);
+  CNMF_MARK(4);
   cnmf_update_c(b);
+  CNMF_MARK(5);
 }
 
 // ||X - Xh||_F of the block's fit, reconstructed and summed in float64,
@@ -386,64 +404,431 @@ __device__ double cnmf_error(const CnmfBlock& b) {
   return sqrt(nmf_block_sum_d(b.red, part));
 }
 
-template <bool WITH_STOP>
-__global__ void __launch_bounds__(NMF_THREADS, 8) cnmf_kernel(
-    const float* __restrict__ x, const float* __restrict__ c0,
-    const float* __restrict__ s0, float* __restrict__ c,
-    float* __restrict__ s, int* __restrict__ n_iter_out,
-    float* __restrict__ prev_err_out, int* __restrict__ converged_out,
-    int t, int l, int k, int d, int iters, double tol, int check_every) {
+// ---------------------------- wide entry -----------------------------
+//
+// cnmf_wide_f32: the same fit as the block entry on CNMF_WIDE_THREADS
+// threads, for a fit that has an SM (or half of one) to itself: the path's
+// tail, CNMFModel's restarts, the bootstraps.  The block entry's 128
+// threads are one warp a scheduler, each a long serial chain (a lone
+// 200 x 8 fit at K = 4, D = 10: 17.3 us an iteration against ~2 us of
+// issue); here the same passes are spread over four times the threads,
+// and every float is the block entry's: each sum keeps its order, its
+// terms and its fused multiply-adds whichever thread computes it.
+//   - reconstruction: one thread an L-tile of a row (8 columns), each
+//     Xh[t, l] summed over d, then k;
+//   - S sums: (pair, time slice, column slice) items, the slices exactly
+//     cnmf_groups(k, d) at 128 threads with their bounds g*T/G, a tile's
+//     columns split in two where the items then fill the block (4 columns
+//     an item: fewer cost more instructions than the threads they add
+//     hide, cnmf profile runs); slices 1..G-1 leave their sums in `part`,
+//     in the block entry's layout, and slice 0 adds them in order and
+//     updates S;
+//   - C update: one thread two synergies of a row, summed over d, L-tile,
+//     column;
+//   - the error: each entry's float64 difference computed by any thread
+//     into the dead Xh (rebuilt at the next step), then added as the
+//     block entry's 128 threads add them (q strided by 128) and reduced
+//     by its 4-warp tree.
+// The rows of the S sums and the lags of the C update are unrolled so
+// that their loads issue together.  Same shared layout (CnmfBlock), same
+// five barriers an iteration.
+
+// Threads a fit (512 ran faster than 256 and 1,024 in the cnmf profile
+// runs).  A multiple of the block entry's 128: threads 0..127 hold the
+// error's partials, and the S items of several time slices (at most 128)
+// take one round of the block.
+#define CNMF_WIDE_THREADS 512
+static_assert(CNMF_WIDE_THREADS % NMF_THREADS == 0 && CNMF_WIDE_THREADS <= 1024,
+              "the wide entry's threads: a multiple of NMF_THREADS, at most 1,024");
+// blocks a SM the registers allow: at most 64 registers a thread
+#define CNMF_WIDE_MIN_BLOCKS (1024 / CNMF_WIDE_THREADS)
+#define CNMF_WIDE_KT 2  // synergies of a row a thread updates in the C update
+
+// Xh of every row, one thread an L-tile of a row.
+__device__ void cnmf_wide_reconstruct(const CnmfBlock& b) {
+  const int tiles = b.lp / CNMF_LT;
+  for (int q = threadIdx.x; q < b.t * tiles; q += blockDim.x) {
+    const int t = q / tiles, j = q - t * tiles;
+    const int dmax = min(b.d - 1, t);
+    float acc[CNMF_LT];
+#pragma unroll
+    for (int i = 0; i < CNMF_LT; ++i) acc[i] = 0.0f;
+    for (int d = 0; d <= dmax; ++d) {
+      const float* crow = b.ct + t - d;
+#pragma unroll 4
+      for (int k = 0; k < b.k; ++k) {
+        const float cv = crow[k * b.t];
+        float sv[CNMF_LT];
+        cnmf_s_tile(b, k, d, j, sv);
+#pragma unroll
+        for (int i = 0; i < CNMF_LT; ++i) acc[i] += cv * sv[i];
+      }
+    }
+    *(float4*)(b.xh + cnmf_chunk(b, t, 2 * j)) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    *(float4*)(b.xh + cnmf_chunk(b, t, 2 * j + 1)) =
+        make_float4(acc[4], acc[5], acc[6], acc[7]);
+  }
+  __syncthreads();
+}
+
+// CW (4 or 8) floats of row t of X or Xh from column `col`, a multiple of CW.
+template <int CW>
+__device__ inline void cnmf_wide_cols(const CnmfBlock& b, const float* a, int t, int col,
+                                      float* v) {
+  if constexpr (CW == 8) {
+    cnmf_row_tile(b, a, t, col / 8, v);
+  } else {
+    const float4 u = *(const float4*)(a + cnmf_chunk(b, t, col >> 2));
+    v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+  }
+}
+
+// S <- S * (sum_t C[t-d, k] X[t, l]) / (sum_t C[t-d, k] Xh[t, l]) on items
+// of CW columns of a tile.  With more than one time slice the items are
+// at most the block's threads (the slices times the pairs are at most 128
+// and CW is chosen for it), one a thread.
+template <int CW>
+__device__ void cnmf_wide_update_s_cols(const CnmfBlock& b) {
+  const int p_count = b.k * b.d, g_count = b.groups;
+  const int slices = CNMF_LT / CW;
+  const int items = g_count * p_count * slices;
+  const int stride = (g_count - 1) * p_count;
+  for (int j = 0; j < b.lp / CNMF_LT; ++j) {
+    for (int q = threadIdx.x; q < (g_count == 1 ? items : (int)blockDim.x);
+         q += blockDim.x) {
+      const int cs = q % slices, r = q / slices;
+      const int p = r % p_count, g = r / p_count;
+      const int col = CNMF_LT * j + CW * cs;
+      float num[CW], den[CW];
+#pragma unroll
+      for (int i = 0; i < CW; ++i) num[i] = den[i] = 0.0f;
+      if (q < items) {
+        const int k = p / b.d, d = p - k * b.d;
+        const float* crow = b.ct + k * b.t - d;
+        const int t1 = (g + 1) * b.t / g_count;
+        // a row before the lag adds an exact 0 (the sums are >= +0), so
+        // the rows need no branch and the unrolled rows' loads go together
+#pragma unroll 4
+        for (int t = g * b.t / g_count; t < t1; ++t) {
+          const float cv = t >= d ? crow[t] : 0.0f;
+          float xv[CW], hv[CW];
+          cnmf_wide_cols<CW>(b, b.x, t, col, xv);
+          cnmf_wide_cols<CW>(b, b.xh, t, col, hv);
+#pragma unroll
+          for (int i = 0; i < CW; ++i) {
+            num[i] += cv * xv[i];
+            den[i] += cv * hv[i];
+          }
+        }
+        if (g > 0) {
+          float* out = b.part + (g - 1) * p_count + p;
+#pragma unroll
+          for (int i = 0; i < CW; ++i) {
+            out[(CW * cs + i) * stride] = num[i];
+            out[(CNMF_LT + CW * cs + i) * stride] = den[i];
+          }
+        }
+      }
+      if (g_count > 1) {
+        __syncthreads();
+        CNMF_MARK(2);
+        if (q >= items || g > 0) continue;
+        for (int gg = 1; gg < g_count; ++gg) {
+          const float* in = b.part + (gg - 1) * p_count + p;
+#pragma unroll
+          for (int i = 0; i < CW; ++i) {
+            num[i] += in[(CW * cs + i) * stride];
+            den[i] += in[(CNMF_LT + CW * cs + i) * stride];
+          }
+        }
+      }
+      float* sp = b.s + p * b.lp + col;
+#pragma unroll
+      for (int i = 0; i < CW; ++i) {
+        if (col + i < b.l) {
+          const float dn = den[i] == 0.0f ? EPSILON : den[i];
+          sp[i] = sp[i] * (num[i] / dn);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Half a tile an S item where the items then fill the block, else a whole
+// tile (with one time slice, over as many rounds of the block as it takes).
+__device__ void cnmf_wide_update_s(const CnmfBlock& b) {
+  if (b.groups * b.k * b.d * 2 <= (int)blockDim.x) {
+    cnmf_wide_update_s_cols<4>(b);
+  } else {
+    cnmf_wide_update_s_cols<8>(b);
+  }
+}
+
+// C <- C * (sum_d sum_l X[t+d, l] S[k, d, l]) / (the same with Xh), one
+// thread CNMF_WIDE_KT synergies of a row, zero past the end of the trial.
+__device__ void cnmf_wide_update_c(const CnmfBlock& b) {
+  const int tiles = b.lp / CNMF_LT;
+  const int nk = (b.k + CNMF_WIDE_KT - 1) / CNMF_WIDE_KT;
+  for (int q = threadIdx.x; q < b.t * nk; q += blockDim.x) {
+    const int t = q / nk, k0 = (q - t * nk) * CNMF_WIDE_KT;
+    const int d_end = min(b.d, b.t - t);
+    float num[CNMF_WIDE_KT], den[CNMF_WIDE_KT];
+#pragma unroll
+    for (int r = 0; r < CNMF_WIDE_KT; ++r) num[r] = den[r] = 0.0f;
+#pragma unroll 2
+    for (int d = 0; d < d_end; ++d) {
+      for (int j = 0; j < tiles; ++j) {
+        float xv[CNMF_LT], hv[CNMF_LT];
+        cnmf_row_tile(b, b.x, t + d, j, xv);
+        cnmf_row_tile(b, b.xh, t + d, j, hv);
+#pragma unroll
+        for (int r = 0; r < CNMF_WIDE_KT; ++r) {
+          if (k0 + r < b.k) {
+            float sv[CNMF_LT];
+            cnmf_s_tile(b, k0 + r, d, j, sv);
+#pragma unroll
+            for (int i = 0; i < CNMF_LT; ++i) {
+              num[r] += xv[i] * sv[i];
+              den[r] += hv[i] * sv[i];
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < CNMF_WIDE_KT; ++r) {
+      if (k0 + r < b.k) {
+        const float dn = den[r] == 0.0f ? EPSILON : den[r];
+        float* cp = b.ct + (k0 + r) * b.t + t;
+        *cp = *cp * (num[r] / dn);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+__device__ inline void cnmf_wide_step(const CnmfBlock& b) {
+  CNMF_MARK(0);
+  cnmf_wide_reconstruct(b);
+  CNMF_MARK(1);
+  cnmf_wide_update_s(b);
+  CNMF_MARK(3);
+  cnmf_wide_reconstruct(b);
+  CNMF_MARK(4);
+  cnmf_wide_update_c(b);
+  CNMF_MARK(5);
+}
+
+// nmf_block_sum_d of `v` as a block of NMF_THREADS threads holds it
+// (threads 0..127 hold the values; the others take part in the barriers).
+__device__ inline double cnmf_wide_sum_d(double* red, double v) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (warp < NMF_THREADS / 32) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v += __shfl_xor_sync(0xffffffffu, v, off);
+    }
+    if (lane == 0) red[warp] = v;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < NMF_THREADS / 32 ? red[lane] : 0.0;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v += __shfl_xor_sync(0xffffffffu, v, off);
+    }
+    if (lane == 0) red[32] = v;
+  }
+  __syncthreads();
+  const double total = red[32];
+  __syncthreads();
+  return total;
+}
+
+// cnmf_error's value, bit for bit: every entry's difference in float64
+// into Xh's space (as many doubles as it holds at a time), then the
+// squares added by thread v < 128 over q = v, v + 128, ... in order.
+__device__ double cnmf_wide_error(const CnmfBlock& b) {
+  double* diff = (double*)b.xh;
+  const int n = b.t * b.l;
+  const int room = b.t * b.lp / 2;
+  double part = 0.0;
+  for (int q0 = 0; q0 < n; q0 += room) {
+    const int q1 = min(n, q0 + room);
+    for (int q = q0 + threadIdx.x; q < q1; q += blockDim.x) {
+      const int t = q / b.l;
+      const int m = q - t * b.l;
+      double acc = 0.0;
+      for (int d = 0; d < b.d && d <= t; ++d) {
+#pragma unroll 4
+        for (int k = 0; k < b.k; ++k) {
+          acc += (double)b.ct[k * b.t + t - d] * (double)b.s[(k * b.d + d) * b.lp + m];
+        }
+      }
+      diff[q - q0] = (double)b.x[cnmf_xidx(b, t, m)] - acc;
+    }
+    __syncthreads();
+    if (threadIdx.x < NMF_THREADS) {
+      const int v = threadIdx.x;
+      for (int q = q0 + (v - q0 % NMF_THREADS + NMF_THREADS) % NMF_THREADS; q < q1;
+           q += NMF_THREADS) {
+        const double e = diff[q - q0];
+        part += e * e;
+      }
+    }
+    __syncthreads();
+  }
+  return sqrt(cnmf_wide_sum_d(b.red, part));
+}
+
+// ------------------- the two one-block entries' fit -------------------
+//
+// Both entries run fits from a list (or fits 0..B-1 when there is none),
+// each reading and writing its C and S in the caller's arrays in place,
+// and resume a fit's stop where a launch before left it: per fit, its
+// count, its error at the last check and the scale in float64, and
+// whether it converged.  A fit with a count of 0 starts: its error from
+// C0 and S0 sets both.  A launch runs at most `cap` iterations of a fit
+// (a multiple of check_every), so a fit resumed makes the checks an
+// uninterrupted one makes, at the same iterations, with the same bits.
+template <bool WIDE, bool WITH_STOP>
+__device__ inline void cnmf_fit(const float* __restrict__ x, float* c, float* s,
+                                const int* __restrict__ fits, int* n_iter_io,
+                                double* prev_err_io, double* scale_io, int* converged_io,
+                                int t, int l, int k, int d, int max_iter, int cap,
+                                double tol, int check_every) {
   extern __shared__ __align__(16) float smem[];
   const CnmfBlock b = cnmf_block(smem, t, l, k, d);
-  const size_t fit = blockIdx.x;
-  cnmf_load(b, x + fit * t * l, c0 + fit * t * k, s0 + fit * k * d * l);
+  const size_t fit = fits == nullptr ? blockIdx.x : (size_t)fits[blockIdx.x];
+  float* cf = c + fit * t * k;
+  float* sf = s + fit * k * d * l;
+  cnmf_load(b, x + fit * t * l, cf, sf);
+  CNMF_MARK_START();
   if (WITH_STOP) {
-    const double err0 = cnmf_error(b);
-    const double scale = fmax(err0, (double)EPSILON);
-    double prev_err = err0;
-    int n_iter = 0;
-    bool converged = false;
-    while (n_iter < iters && !converged) {
-      for (int i = 0; i < check_every; ++i) cnmf_step(b);
+    int n_iter = n_iter_io[fit];
+    bool converged = converged_io[fit] != 0;
+    double prev_err, scale;
+    if (n_iter == 0) {
+      prev_err = WIDE ? cnmf_wide_error(b) : cnmf_error(b);
+      scale = fmax(prev_err, (double)EPSILON);
+    } else {
+      prev_err = prev_err_io[fit];
+      scale = scale_io[fit];
+    }
+    for (int done = 0; n_iter < max_iter && !converged && done < cap;
+         done += check_every) {
+      for (int i = 0; i < check_every; ++i) {
+        if (WIDE) {
+          cnmf_wide_step(b);
+        } else {
+          cnmf_step(b);
+        }
+      }
       n_iter += check_every;
-      const double err = cnmf_error(b);
+      CNMF_MARK(0);
+      const double err = WIDE ? cnmf_wide_error(b) : cnmf_error(b);
+      CNMF_MARK(6);
       converged = (prev_err - err) / scale < tol;
       prev_err = err;
     }
     if (threadIdx.x == 0) {
-      n_iter_out[fit] = n_iter;
-      prev_err_out[fit] = (float)prev_err;
-      converged_out[fit] = converged ? 1 : 0;
+      n_iter_io[fit] = n_iter;
+      prev_err_io[fit] = prev_err;
+      scale_io[fit] = scale;
+      converged_io[fit] = converged ? 1 : 0;
     }
   } else {
-    for (int i = 0; i < iters; ++i) cnmf_step(b);
+    for (int i = 0; i < max_iter; ++i) {
+      if (WIDE) {
+        cnmf_wide_step(b);
+      } else {
+        cnmf_step(b);
+      }
+    }
   }
-  cnmf_store(b, c + fit * t * k, s + fit * k * d * l);
+  CNMF_MARK_FLUSH();
+  cnmf_store(b, cf, sf);
 }
 
-// x (B, T, L), c0/c (B, T, K), s0/s (B, K, D, L) float32; n_iter,
-// prev_err, converged (B,) written only when with_stop.  `iters` is
-// max_iter with the stop and the fixed iteration count without it.
-// Launches on `stream` and returns cudaGetLastError().
-extern "C" int cnmf_f32(const float* x, const float* c0, const float* s0,
-                        float* c, float* s, int* n_iter, float* prev_err,
-                        int* converged, int batch, int t, int l, int k, int d,
-                        int iters, double tol, int check_every, int with_stop,
-                        void* stream) {
-  if (batch < 1 || t < 1 || l < 1 || k < 1 || d < 1 || d > t || iters < 0 ||
-      (with_stop && check_every < 1)) {
+#define CNMF_FIT_PARAMS                                                         \
+  const float* __restrict__ x, float* c, float* s, const int* __restrict__ fits, \
+      int* n_iter, double* prev_err, double* scale, int* converged, int t, int l, \
+      int k, int d, int max_iter, int cap, double tol, int check_every
+#define CNMF_FIT_ARGS \
+  x, c, s, fits, n_iter, prev_err, scale, converged, t, l, k, d, max_iter, cap, tol, check_every
+
+template <bool WITH_STOP>
+__global__ void __launch_bounds__(NMF_THREADS, 8) cnmf_kernel(CNMF_FIT_PARAMS) {
+  cnmf_fit<false, WITH_STOP>(CNMF_FIT_ARGS);
+}
+
+template <bool WITH_STOP>
+__global__ void __launch_bounds__(CNMF_WIDE_THREADS, CNMF_WIDE_MIN_BLOCKS)
+    cnmf_wide_kernel(CNMF_FIT_PARAMS) {
+  cnmf_fit<true, WITH_STOP>(CNMF_FIT_ARGS);
+}
+
+template <class Kernel, class... Args>
+inline int cnmf_wide_launch(Kernel kernel, int blocks, size_t smem, cudaStream_t stream,
+                            Args... args) {
+  if (smem > NMF_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<blocks, CNMF_WIDE_THREADS, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// The one-block entries.  x (B, T, L), c (B, T, K), s (B, K, D, L)
+// float32, C and S updated in place; `fits` (n_fits ints on the device,
+// each in 0..B-1) the fits to run, or null for fits 0..n_fits-1; n_iter,
+// prev_err (float64), scale (float64) and converged (B,) read and
+// written only with the stop.  With the stop a fit runs to max_iter or
+// convergence, at most `cap` iterations in this launch (a multiple of
+// check_every); without it, max_iter iterations.  Launch on `stream`;
+// return cudaGetLastError().
+static int cnmf_check(int n_fits, int t, int l, int k, int d, int max_iter, int cap,
+                      int check_every, int with_stop) {
+  return n_fits < 1 || t < 1 || l < 1 || k < 1 || d < 1 || d > t || max_iter < 0 ||
+         (with_stop && (check_every < 1 || cap < check_every || cap % check_every != 0));
+}
+
+extern "C" int cnmf_f32(const float* x, float* c, float* s, const int* fits, int n_fits,
+                        int* n_iter, double* prev_err, double* scale, int* converged,
+                        int t, int l, int k, int d, int max_iter, int cap, double tol,
+                        int check_every, int with_stop, void* stream) {
+  if (cnmf_check(n_fits, t, l, k, d, max_iter, cap, check_every, with_stop)) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = cnmf_smem_floats(t, l, k, d) * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
   if (with_stop) {
-    return nmf_launch(cnmf_kernel<true>, batch, smem, st, x, c0, s0, c, s,
-                      n_iter, prev_err, converged, t, l, k, d, iters, tol,
-                      check_every);
+    return nmf_launch(cnmf_kernel<true>, n_fits, smem, st, CNMF_FIT_ARGS);
   }
-  return nmf_launch(cnmf_kernel<false>, batch, smem, st, x, c0, s0, c, s,
-                    n_iter, prev_err, converged, t, l, k, d, iters, tol,
-                    check_every);
+  return nmf_launch(cnmf_kernel<false>, n_fits, smem, st, CNMF_FIT_ARGS);
+}
+
+// The wide entry's threads a fit, which the wrapper checks against its own.
+extern "C" int cnmf_wide_threads(void) { return CNMF_WIDE_THREADS; }
+
+extern "C" int cnmf_wide_f32(const float* x, float* c, float* s, const int* fits,
+                             int n_fits, int* n_iter, double* prev_err, double* scale,
+                             int* converged, int t, int l, int k, int d, int max_iter,
+                             int cap, double tol, int check_every, int with_stop,
+                             void* stream) {
+  if (cnmf_check(n_fits, t, l, k, d, max_iter, cap, check_every, with_stop)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = cnmf_smem_floats(t, l, k, d) * sizeof(float);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (with_stop) {
+    return cnmf_wide_launch(cnmf_wide_kernel<true>, n_fits, smem, st, CNMF_FIT_ARGS);
+  }
+  return cnmf_wide_launch(cnmf_wide_kernel<false>, n_fits, smem, st, CNMF_FIT_ARGS);
 }
 
 // --------------------------- cluster entry ---------------------------

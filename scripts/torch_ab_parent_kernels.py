@@ -10,13 +10,19 @@ Put the earlier sources in a git-ignored directory and pass it::
     for f in cd_nmf.cu cnmf.cu mu_nmf.cu beta_nmf.cu nmf_common.cuh sosfiltfilt.cu; do
         git show <commit>:muscle_synergies_tpu_torch/csrc/$f > build/parent/$f
     done
-    python3 scripts/torch_ab_parent_kernels.py build/parent [--part all|nmf|filters]
+    python3 scripts/torch_ab_parent_kernels.py build/parent [--part all|nmf|filters|cnmf]
 
 The script builds the earlier sources with the port's own ``nvcc`` flags
 into the same directory (printing ``ptxas`` registers and spills), and
-swaps them in for the current ones behind the port's wrappers.  The NMF
-kernels' C interfaces are the same (where the earlier source has no warp
-entry of a kernel, its block entry runs in the warp entry's place).  The
+swaps them in for the current ones behind the port's wrappers.  K1's,
+K2's and K4's C interfaces are the same (where the earlier source has no
+warp entry of a kernel, its block entry runs in the warp entry's place).
+K5's block entry before its resumable stop (``cnmf_f32`` with C0 and S0
+apart from C and S, the last error in float32) is bound by the script
+(``ParentCnmf``): every one-block fit one launch of that entry, as the
+earlier wrapper ran it; where the earlier source already has the wide
+entry, its interface is the current one and its library runs behind the
+current wrapper (chunks, tail and all).  The
 earlier ``sosfiltfilt.cu`` is the one-thread-per-column version, whose
 K3 reads a time-major copy made by ``fold_extend`` and takes no
 per-trial lengths: the script binds its C interface itself.  Then, in
@@ -44,7 +50,15 @@ the order earlier, current, current, earlier, on the same inputs:
   fit (4 restarts of every trial), with each fit's iteration count and
   its median by rank; and, for every path but the RMS one, its longest
   fit alone, the latency that sets the path's tail; the whole CD,
-  RMS-CD, MU, causal-MU, KL and time-varying paths.
+  RMS-CD, MU, causal-MU, KL and time-varying paths;
+- ``--part cnmf``: K5 alone, each with a digest of its factors' bits and
+  iterations: 20 fixed iterations at 1024 and 128 x 200 x 8 (K = 4,
+  D = 10), the time-varying path's fit (1,024 fits of the main path's
+  trials), its longest fit alone, the bootstrap's 51 fits of a 2,400 x 8
+  subject (max_iter 300, tol 1e-5), the whole time-varying path; then,
+  current only, the longest fit on the block entry alone, and the path's
+  fit at chunk lengths (``cnmf_cuda.CHUNK_ITERS``) of 250-2,000, in two
+  rounds.
 
 It prints each number beside the card's name and power limit, then one
 JSON line with all of them.  Without a CUDA card it exits with code 2.
@@ -70,6 +84,7 @@ from chip_smoke import FS, N_SAMPLES, RAGGED_MIN, cuda_ms, synthetic_emg  # noqa
 
 MAIN_TRIALS = 256
 NMF_KERNELS = ("cd_nmf", "cnmf", "mu_nmf", "beta_nmf")
+CNMF_CHUNKS = (250, 500, 1000, 2000)  # K5's chunk lengths swept
 CHUNKS = (256, 512, 1024, 2048, 4096)  # K3/K6 chunk lengths swept
 
 
@@ -107,8 +122,9 @@ class Swap:
             mu_cuda,
         )
 
-        self.mods = {"cd_nmf": cd_cuda, "cnmf": cnmf_cuda, "mu_nmf": mu_cuda,
-                     "beta_nmf": beta_cuda}
+        self.mods = {"cd_nmf": cd_cuda, "mu_nmf": mu_cuda, "beta_nmf": beta_cuda}
+        if hasattr(parent_libs["cnmf"], "cnmf_wide_f32"):
+            self.mods["cnmf"] = cnmf_cuda
         self.current = {name: mod._lib for name, mod in self.mods.items()}
         self.parent = {name: self._picker(parent_libs[name], name, self.current[name])
                        for name in self.mods}
@@ -131,6 +147,139 @@ class Swap:
         libs = self.parent if which == "earlier" else self.current
         for name, mod in self.mods.items():
             mod._lib = libs[name]
+
+
+class ParentCnmf:
+    """K5's block entry before its resumable stop behind the current
+    wrapper: ``cnmf_f32(x, c0, s0, c, s, n_iter, prev_err, converged,
+    batch, t, l, k, d, iters, tol, check_every, with_stop, stream)``, one
+    launch a call for every one-block fit (the cluster entry, whose
+    interface is unchanged, stays the current one's).  Launches count in
+    ``cnmf_cuda.launches``."""
+
+    def __init__(self, lib):
+        from muscle_synergies_tpu_torch.models.kernels import cnmf_cuda
+
+        self.mod, self.current = cnmf_cuda, cnmf_cuda._launch
+        self.fn = lib.cnmf_f32
+        self.fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_double]
+                            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        self.fn.restype = ctypes.c_int
+
+    def use(self, which: str) -> None:
+        self.mod._launch = self.launch if which == "earlier" else self.current
+
+    def launch(self, xs, c0, s0, iters, tol, check_every, with_stop):
+        import torch
+
+        mod = self.mod
+        if mod.check_shapes("cnmf", xs, c0, s0) == "cluster":
+            return self.current(xs, c0, s0, iters, tol, check_every, with_stop)
+        xs, c0, s0 = xs.contiguous(), c0.contiguous(), s0.contiguous()
+        b, t, l = xs.shape
+        k, d = s0.shape[1], s0.shape[2]
+        c, s = torch.empty_like(c0), torch.empty_like(s0)
+        n_iter, converged = (torch.zeros(b, dtype=torch.int32, device=xs.device)
+                             for _ in range(2))
+        prev_err = torch.zeros(b, dtype=torch.float32, device=xs.device)
+        err = self.fn(xs.data_ptr(), c0.data_ptr(), s0.data_ptr(), c.data_ptr(), s.data_ptr(),
+                      n_iter.data_ptr(), prev_err.data_ptr(), converged.data_ptr(), b, t, l,
+                      k, d, int(iters), float(tol), int(check_every), int(with_stop),
+                      torch.cuda.current_stream(xs.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"earlier cnmf failed: CUDA error {err}")
+        mod.launches += 1
+        return c, s, n_iter, prev_err, converged.bool()
+
+
+def cnmf_part(dev, smi, results, turns, tensor, digest, timed, use):
+    """K5 in turns (see the module's note), then the current side's
+    block-entry lone fit and chunk-length sweep."""
+    import torch
+
+    from chip_smoke import cnmf_entry
+    from muscle_synergies_tpu_torch import (
+        PipelineConfig,
+        analyze_dataset_time_varying,
+        preprocess_trials,
+    )
+    from muscle_synergies_tpu_torch.models import stability
+    from muscle_synergies_tpu_torch.models.cnmf import fit_cnmf_batch, init_cnmf
+    from muscle_synergies_tpu_torch.models.kernels import cnmf_cuda
+
+    rng = np.random.default_rng(0)
+    xc = rng.random((1024, 200, 8))
+    c0, s0 = init_cnmf(xc, 4, 10, seed=5)
+    xc, c0, s0 = tensor(xc), tensor(c0), tensor(s0)
+
+    def fixed(b):
+        def run():
+            out = cnmf_cuda.cnmf_iterations_cuda(xc[:b], c0[:b], s0[:b], 20)
+            return cuda_ms(lambda: cnmf_cuda.cnmf_iterations_cuda(xc[:b], c0[:b], s0[:b], 20),
+                           reps=20, warmup=3), {"digest": digest(*out)}
+        return run
+
+    for b in (1024, 128):
+        turns(f"cnmf 20 iterations {b}x200x8 K=4 D=10", fixed(b))
+
+    emg = synthetic_emg(MAIN_TRIALS, seed=2)
+    config = PipelineConfig()
+    stop = dict(max_iter=config.max_iter, tol=config.tol)
+    zero_phase = preprocess_trials(emg, FS, config)
+    gx = zero_phase.repeat_interleave(4, dim=0)
+    tc, ts = (tensor(a) for a in init_cnmf(np.repeat(zero_phase.cpu().numpy(), 4, axis=0),
+                                           4, 10))
+
+    def path_fit():
+        cnmf_cuda.launches = cnmf_cuda.wide_launches = 0
+        ms, st = timed(lambda: fit_cnmf_batch(gx, tc, ts, **stop))
+        n_iter = st.n_iter.cpu()
+        return ms, {"iterations": int(n_iter.sum()), "median": float(n_iter.float().median()),
+                    "max": int(n_iter.max()), "digest": digest(*st),
+                    "launches": [cnmf_cuda.launches, getattr(cnmf_cuda, "wide_launches", 0)]}
+
+    def lone(i):
+        def run():
+            idx = torch.tensor([i], device=dev)
+            ms, st = timed(lambda: fit_cnmf_batch(gx[idx], tc[idx], ts[idx], **stop))
+            iters = int(st.n_iter[0])
+            return ms, {"iterations": iters, "us_per_iteration": ms / iters * 1e3,
+                        "digest": digest(*st)}
+        return run
+
+    turns("time-varying path fit (1,024 fits)", path_fit)
+    longest = int(fit_cnmf_batch(gx, tc, ts, **stop).n_iter.argmax())
+    turns("time-varying path, its longest fit alone", lone(longest))
+
+    subject = zero_phase[:12].reshape(-1, 8)
+    host = subject.cpu().double().numpy()
+    blocks = stability._block_bootstrap_indices(2400, 40, 50, np.random.default_rng(0))
+    bx = torch.cat([subject[None], subject[torch.as_tensor(blocks, device=dev)]])
+    bc, bs = (tensor(np.concatenate([a[None], b]))
+              for a, b in zip(init_cnmf(host, 4, 10), init_cnmf(host[blocks], 4, 10)))
+
+    def boot():
+        ms, st = timed(lambda: fit_cnmf_batch(bx, bc, bs, max_iter=300, tol=1e-5))
+        return ms, {"iterations": int(st.n_iter.sum()), "digest": digest(*st)}
+
+    turns("bootstrap's 51 fits of 2,400x8", boot)
+    turns("time-varying path, whole", lambda: (timed(lambda: analyze_dataset_time_varying(
+        emg, FS, n_synergies=4, n_lags=10, n_inits=4))[0], ""))
+
+    use("current")
+    with cnmf_entry("block"):
+        ms, extra = lone(longest)()
+    print(f"time-varying path, its longest fit alone on the block entry [current]: "
+          f"{ms:.3f} ms {extra}  [{smi}]", flush=True)
+    results["longest fit alone, block entry, current"] = dict(ms=ms, **extra)
+    saved = cnmf_cuda.CHUNK_ITERS
+    for chunk in CNMF_CHUNKS + CNMF_CHUNKS[::-1]:
+        cnmf_cuda.CHUNK_ITERS = chunk
+        ms, extra = path_fit()
+        print(f"chunk {chunk}: time-varying path fit {ms:.3f} ms {extra}  [{smi}]",
+              flush=True)
+        results.setdefault(f"cnmf chunk {chunk}", []).append(ms)
+    cnmf_cuda.CHUNK_ITERS = saved
 
 
 class ParentFilters:
@@ -337,7 +486,7 @@ def main(argv) -> int:
     parser = argparse.ArgumentParser(description="A/B of the CUDA kernels against "
                                      "earlier sources, in turns")
     parser.add_argument("parent", type=Path, help="directory of the earlier sources")
-    parser.add_argument("--part", choices=("all", "nmf", "filters"), default="all")
+    parser.add_argument("--part", choices=("all", "nmf", "filters", "cnmf"), default="all")
     parser.add_argument("--filters-abi", choices=("columns", "chunked"), default="columns",
                         help="C interface of the earlier sosfiltfilt.cu: the "
                         "one-thread-per-column one, or the current chunked one")
@@ -365,11 +514,14 @@ def main(argv) -> int:
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
     names = (NMF_KERNELS if "nmf" in parts else ()) + (
-        ("sosfiltfilt",) if "filters" in parts else ())
+        ("sosfiltfilt",) if "filters" in parts else ()) + (
+        ("cnmf",) if "cnmf" in parts else ())
     libs = build_parent(args.parent.resolve(), names)
     swaps = []
     if "nmf" in parts:
         swaps.append(Swap(libs))
+    if "cnmf" in names and not hasattr(libs["cnmf"], "cnmf_wide_f32"):
+        swaps.append(ParentCnmf(libs["cnmf"]))
     if "filters" in parts:
         swaps.append(ParentFilters(libs["sosfiltfilt"], args.filters_abi))
     rng = np.random.default_rng(0)
@@ -408,6 +560,16 @@ def main(argv) -> int:
 
     if "filters" in parts:
         filter_part(dev, smi, results, turns, state)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    if "cnmf" in parts:
+        cnmf_part(dev, smi, results, turns, tensor, digest, timed, use)
     if "nmf" not in parts:
         print(json.dumps(results), flush=True)
         return 0
@@ -442,13 +604,6 @@ def main(argv) -> int:
             ws.append(torch.nn.functional.pad(w, (0, 4 - k)))
             hs.append(torch.nn.functional.pad(h, (0, 0, 0, 4 - k)))
         return frames.repeat(4, 1, 1), torch.cat(ws), torch.cat(hs)
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3, out
 
     def grid_fit(fit, g):
         ms, st = timed(lambda: fit(*g))

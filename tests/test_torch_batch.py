@@ -148,18 +148,22 @@ def test_device_prefetch_raises_the_producer_error():
     assert [float(next(gen)[0]) for _ in range(3)] == [0.0, 1.0, 2.0]
     with pytest.raises(RuntimeError, match="producer failed at 3"):
         next(gen)
+    gen.close()
 
 
 def test_an_early_break_releases_the_producer():
-    before = threading.active_count()
+    # the threads this call starts, not the process's count: producers of
+    # earlier tests may end while this one waits
+    before = set(threading.enumerate())
     source = _Counting(1000)
     for i, _ in enumerate(tbatch.device_prefetch(source, buffer_size=2, device="cpu")):
         if i == 2:
             break
+    started = [t for t in threading.enumerate() if t not in before]
     deadline = time.time() + 5
-    while threading.active_count() > before and time.time() < deadline:
+    while any(t.is_alive() for t in started) and time.time() < deadline:
         time.sleep(0.05)
-    assert threading.active_count() == before
+    assert not any(t.is_alive() for t in started), started
     assert source.pulled < 10
 
 

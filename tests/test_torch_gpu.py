@@ -532,13 +532,85 @@ def test_cnmf_fits_stop_where_float64_stops(cuda):
     assert (st.n_iter == 100).all()  # no tail chunk: the count overshoots
 
 
+def _force_cnmf(monkeypatch, entry):
+    """K5's one-block fits on ``entry`` alone, one launch a call."""
+    monkeypatch.setattr(cnmf_cuda, "route", lambda *a, **kw: entry)
+    monkeypatch.setattr(cnmf_cuda, "launch_plan", lambda *a: (entry, None))
+
+
+def _cnmf_bootstrap_batch(cuda, b):
+    """``b`` fits of a 2,400 x 8 subject, as the convolutive bootstrap
+    builds them (the full matrix and its block resamples)."""
+    from muscle_synergies_tpu_torch.models import stability
+
+    host = _subject_matrix(2400)
+    x = torch.as_tensor(host, dtype=torch.float32, device=cuda)
+    blocks = stability._block_bootstrap_indices(2400, 40, b - 1, np.random.default_rng(0))
+    cx = torch.cat([x[None], x[torch.as_tensor(blocks, device=cuda)]])
+    c0, s0 = (torch.as_tensor(np.concatenate([a[None], bb]), dtype=torch.float32,
+                              device=cuda)
+              for a, bb in zip(cnmf.init_cnmf(host, 4, 10), cnmf.init_cnmf(host[blocks], 4, 10)))
+    return cx, c0, s0
+
+
+@pytest.mark.parametrize("shape", ["200x8", "2400x8"])
+def test_cnmf_wide_entry_equals_the_block_entry_bit_for_bit(cuda, monkeypatch, shape):
+    """K5's wide entry computes the block entry's bits (C, S, iterations,
+    the last error, converged), on the time-varying path's frames (128
+    fits of 200 x 8) and on a bootstrap's batch of a 2,400 x 8 subject,
+    fixed iterations and fits with the stop."""
+    if shape == "200x8":
+        x, c, s = _cnmf_problem(cuda, b=128)
+        stop = dict(max_iter=2000, tol=1e-5)
+    else:
+        x, c, s = _cnmf_bootstrap_batch(cuda, 11)
+        stop = dict(max_iter=300, tol=1e-5)
+    assert cnmf_cuda.route(*x.shape[1:], 4, 10, batch=len(x), sms=132) == "wide"
+    out = {}
+    for entry in ("block", "wide"):
+        _force_cnmf(monkeypatch, entry)
+        out[entry] = (cnmf_cuda.cnmf_iterations_cuda(x, c, s, 20),
+                      cnmf_cuda.fit_cnmf_cuda(x, c, s, **stop))
+    for a, b in zip(out["block"], out["wide"]):
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert out["wide"][1].n_iter.max() > 10
+
+
+@pytest.mark.parametrize("shape", ["200x8", "2400x8"])
+def test_cnmf_chunked_driver_equals_one_launch(cuda, monkeypatch, shape):
+    """The driver of a batch larger than a wide wave (block-entry chunks,
+    the running fits read after each, the tail on the wide entry; here
+    on a stand-in SM count of 4 and chunks of 40 iterations) computes one
+    block-entry launch's fit bit for bit.  A bootstrap's 2,400 x 8 batch
+    takes the wide entry in one launch at any size (shared memory leaves
+    the block entry one fit an SM, as the wide entry), with those bits."""
+    if shape == "200x8":
+        x, c, s = _cnmf_problem(cuda, b=64)
+        stop = dict(max_iter=2000, tol=1e-5)
+    else:  # fits that stop between 160 and 200 iterations in float64
+        x, c, s = _cnmf_bootstrap_batch(cuda, 16)
+        stop = dict(max_iter=300, tol=3e-3)
+    monkeypatch.setattr(cnmf_cuda, "card_sms", lambda xs: 4)
+    monkeypatch.setattr(cnmf_cuda, "CHUNK_ITERS", 40)
+    cnmf_cuda.launches = cnmf_cuda.wide_launches = 0
+    got = cnmf_cuda.fit_cnmf_cuda(x, c, s, **stop)
+    if shape == "200x8":
+        assert cnmf_cuda.launches >= 2 and cnmf_cuda.wide_launches <= 1
+    else:
+        assert (cnmf_cuda.launches, cnmf_cuda.wide_launches) == (0, 1)
+    _force_cnmf(monkeypatch, "block")
+    want = cnmf_cuda.fit_cnmf_cuda(x, c, s, **stop)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    assert len(set(got.n_iter.tolist())) > 1
+
+
 def test_main_path_runs_through_every_kernel(cuda):
     rng = np.random.default_rng(3)
     trials = np.abs(rng.standard_normal((6, 4000, 8))).astype(np.float32)
     mods = (filter_cuda, cd_cuda, mu_cuda, beta_cuda, cnmf_cuda)
     for mod in mods:
         mod.launches = 0
-    filter_cuda.sosfilt_launches = 0
+    filter_cuda.sosfilt_launches = cnmf_cuda.wide_launches = 0
     for mod in (cd_cuda, mu_cuda, beta_cuda):
         mod.warp_launches = 0
     results = {}
@@ -551,8 +623,9 @@ def test_main_path_runs_through_every_kernel(cuda):
     tv = analyze_dataset_time_varying(trials, 2000.0, n_synergies=2, n_lags=5,
                                       n_inits=2, max_iter=500)
     # the 200 x 8 fits take the warp entries of K2, K1 and K4, never a
-    # block entry
-    assert tuple(m.launches for m in mods) == (4, 0, 0, 0, 1)
+    # block entry; K5's 12 fits its wide entry
+    assert tuple(m.launches for m in mods) == (4, 0, 0, 0, 0)
+    assert cnmf_cuda.wide_launches == 1
     assert cd_cuda.warp_launches == mu_cuda.warp_launches == beta_cuda.warp_launches == 1
     assert filter_cuda.sosfilt_launches == 0  # the default envelope is zero-phase
     for (solver, loss), res in results.items():
@@ -814,10 +887,10 @@ def test_cnmf_model_fits_through_one_k5_launch(cuda):
 
     x = preprocess_trials(np.abs(np.random.default_rng(5).standard_normal((1, 6000, 8))),
                           2000.0)[0]
-    cnmf_cuda.launches = 0
+    cnmf_cuda.launches = cnmf_cuda.wide_launches = 0
     model = CNMFModel(4, 10, n_inits=4)
     c = model.fit_transform(x)
-    assert cnmf_cuda.launches == 1 and c.shape == (200, 4)
+    assert (cnmf_cuda.launches, cnmf_cuda.wide_launches) == (0, 1) and c.shape == (200, 4)
     assert model.synergies_.shape == (4, 10, 8) and np.isfinite(c).all()
     ref = CNMFModel(4, 10, n_inits=4, device="cpu", dtype=torch.float64)
     c_ref = ref.fit_transform(x.cpu().double())
@@ -826,19 +899,19 @@ def test_cnmf_model_fits_through_one_k5_launch(cuda):
             for cc, m in ((c, model), (c_ref, ref))]
     assert abs(vafs[0] - vafs[1]) <= 1e-3, vafs
     assert model.transform(x[None].repeat(3, 1, 1)).shape == (3, 200, 4)
-    assert cnmf_cuda.launches == 1
+    assert (cnmf_cuda.launches, cnmf_cuda.wide_launches) == (0, 1)
     # over one block's shared memory (2,822 x 8 at K = 4, D = 10): one
     # launch of K5's cluster entry
     cnmf_cuda.cluster_launches = 0
     long = torch.rand(3000, 8, device=cuda)
     fitted = CNMFModel(4, 10, n_inits=2, max_iter=100).fit(long)
-    assert (cnmf_cuda.launches, cnmf_cuda.cluster_launches) == (1, 1)
+    assert (cnmf_cuda.wide_launches, cnmf_cuda.cluster_launches) == (1, 1)
     assert np.isfinite(fitted.synergies_).all()
 
 
 def test_frozen_factors_refuse_the_kernel_route(cuda):
     x, c, s = _cnmf_problem(cuda, b=4)
-    cnmf_cuda.launches = 0
+    cnmf_cuda.launches = cnmf_cuda.wide_launches = 0
     for frozen in (dict(update_c=False), dict(update_s=False)):
         with pytest.raises(ValueError, match="impl='torch'"):
             cnmf.fit_cnmf_batch(x, c, s, max_iter=20, **frozen)
@@ -847,7 +920,7 @@ def test_frozen_factors_refuse_the_kernel_route(cuda):
         assert torch.equal(frozen_out, given)
     with pytest.raises(ValueError, match="impl='torch'"):
         cnmf.cnmf_iterations_batch(x, c, s, 2, update_c=False)
-    assert cnmf_cuda.launches == 0
+    assert cnmf_cuda.launches == cnmf_cuda.wide_launches == 0
 
 
 @pytest.mark.parametrize("precision, bar", [(None, 1e-4), ("high", 5e-2)])
@@ -909,9 +982,9 @@ def test_bootstrap_time_varying_is_one_k5_launch(cuda):
     from muscle_synergies_tpu_torch.models import stability
 
     x = _subject_matrix(2400)
-    cnmf_cuda.launches = 0
+    cnmf_cuda.launches = cnmf_cuda.wide_launches = 0
     got = stability.bootstrap_time_varying_synergies(x, 4, 10, n_boot=10)
-    assert cnmf_cuda.launches == 1
+    assert (cnmf_cuda.launches, cnmf_cuda.wide_launches) == (0, 1)
     want = stability.bootstrap_time_varying_synergies(x, 4, 10, n_boot=10, device="cpu",
                                                       dtype=torch.float64)
     _hold_bootstrap_to_float64(got, want, "reference_synergies")
@@ -926,14 +999,14 @@ def test_bootstraps_refuse_frames_over_one_block(cuda):
 
     x = _subject_matrix(5000)
     mu_cuda.warp_launches = mu_cuda.launches = mu_cuda.cluster_launches = 0
-    cnmf_cuda.launches = cnmf_cuda.cluster_launches = 0
+    cnmf_cuda.launches = cnmf_cuda.wide_launches = cnmf_cuda.cluster_launches = 0
     got = stability.bootstrap_synergies(x, 4, n_boot=10)
     assert (mu_cuda.warp_launches, mu_cuda.launches, mu_cuda.cluster_launches) == (0, 0, 1)
     want = stability.bootstrap_synergies(x, 4, n_boot=10, device="cpu",
                                          dtype=torch.float64)
     _hold_bootstrap_to_float64(got, want, "reference_components")
     got = stability.bootstrap_time_varying_synergies(x, 4, 10, n_boot=4)
-    assert (cnmf_cuda.launches, cnmf_cuda.cluster_launches) == (0, 1)
+    assert (cnmf_cuda.launches, cnmf_cuda.wide_launches, cnmf_cuda.cluster_launches) == (0, 0, 1)
     want = stability.bootstrap_time_varying_synergies(x, 4, 10, n_boot=4, device="cpu",
                                                       dtype=torch.float64)
     _hold_bootstrap_to_float64(got, want, "reference_synergies")
@@ -1323,10 +1396,10 @@ def test_checkpointed_bootstraps_count_their_launches(cuda, tmp_path):
         ref = got.reference_components - want.reference_components
         assert np.abs(ref).max() <= 1e-6
     want = stability.bootstrap_time_varying_synergies(x, 4, 10, n_boot=10)
-    cnmf_cuda.launches = 0
+    cnmf_cuda.launches = cnmf_cuda.wide_launches = 0
     got = resume.bootstrap_time_varying_synergies_checkpointed(
         x, 4, 10, tmp_path / "k5", n_boot=10, chunk_size=5)
-    assert cnmf_cuda.launches == 2
+    assert (cnmf_cuda.launches, cnmf_cuda.wide_launches) == (0, 2)
     assert np.abs(got.similarities - want.similarities).max() <= 1e-6
 
 
